@@ -1,0 +1,21 @@
+"""Device selection shared by every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device"]
+
+
+def resolve_device(device=None):
+    """``device`` argument -> ``torch.device``.
+
+    ``None`` means ``cuda``: the port is built for the GPU and never
+    drops to the CPU on its own. Asking for ``cuda`` where CUDA is
+    absent raises; pass ``device="cpu"`` to run the plain PyTorch
+    versions of the kernels on the CPU (the tests do)."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA device requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU")
+    return dev
