@@ -1,9 +1,15 @@
-"""GPT family — the serving forward functions.
+"""GPT family — the graph model and the serving forward functions.
 
-Counterpart of the pure serving functions of ``hetu_tpu/models/gpt.py``
-(the graph model ``GPTLMHeadModel`` comes with the training slice):
-a GPT-2-shaped pre-LN decoder — learned position embeddings, tanh-gelu
-MLP, LayerNorm before each sublayer and at the output, untied LM head.
+Counterpart of ``hetu_tpu/models/gpt.py``: a GPT-2-shaped pre-LN
+decoder — learned position embeddings, tanh-gelu MLP, LayerNorm before
+each sublayer and at the output, untied LM head — as the graph model
+:class:`GPTLMHeadModel` (training through ``Executor.run``; causal
+flash attention, i.e. kernels K2–K4 at S >= 512) and as the pure
+serving functions below. The graph model's parameter names are
+:func:`gpt_param_names`, so a training checkpoint feeds the serving
+path unchanged. The composed attention path
+(``use_flash_attention=False``) and the sequence-parallel ones wait
+for ``batch_matmul_op`` / ``softmax_op`` and the parallel modes.
 
 Parameters are a plain dict built by :func:`gpt_serving_params` from
 the reference's checkpoint names (:func:`gpt_param_names`), so a
@@ -25,12 +31,18 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..ops import (array_reshape_op, broadcastto_op, flash_attention_op,
+                   softmaxcrossentropy_sparse_op, split_op, squeeze_op,
+                   transpose_op)
 from ..ops.attention import (paged_decode_attention,
                              paged_prefill_attention, prefill_attention)
+from ..ops.variable import Variable
+from .bert import BertLayerNorm as LayerNorm
+from .bert import Dropout, Embedding, Linear, _act
 
-__all__ = ["GPTConfig", "gpt_param_names", "gpt_serving_params",
-           "serving_params_from_numpy", "random_gpt_checkpoint",
-           "gpt_paged_prefill", "gpt_paged_step",
+__all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_param_names",
+           "gpt_serving_params", "serving_params_from_numpy",
+           "random_gpt_checkpoint", "gpt_paged_prefill", "gpt_paged_step",
            "gpt_paged_suffix_prefill"]
 
 
@@ -38,7 +50,8 @@ class GPTConfig:
     def __init__(self, vocab_size, hidden_size=768, num_hidden_layers=12,
                  num_attention_heads=12, intermediate_size=None,
                  hidden_act="gelu", hidden_dropout_prob=0.1,
-                 max_position_embeddings=1024, initializer_range=0.02):
+                 max_position_embeddings=1024, initializer_range=0.02,
+                 use_flash_attention=False, sequence_parallel=None):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_hidden_layers = num_hidden_layers
@@ -48,6 +61,10 @@ class GPTConfig:
         self.hidden_dropout_prob = hidden_dropout_prob
         self.max_position_embeddings = max_position_embeddings
         self.initializer_range = initializer_range
+        self.use_flash_attention = use_flash_attention
+        if sequence_parallel is True:
+            sequence_parallel = "ring"
+        self.sequence_parallel = sequence_parallel or None
 
 
 def gpt_param_names(config):
@@ -264,3 +281,129 @@ def gpt_paged_suffix_prefill(params, pools, ids, starts, slot_idx,
         x = x + _serve_mlp(_serve_ln(x, blk["ln2"]), blk, act)
     x = _serve_ln(x, params["ln_f"])
     return x @ params["lm_head"], pools
+
+
+# ---------------------------------------------------------------------------
+# the graph model (reference hetu_tpu/models/gpt.py:347-489)
+# ---------------------------------------------------------------------------
+
+class CausalSelfAttention:
+    """Multi-head causal attention on the flash path: the causal mask is
+    a kernel flag, no [S, S] tensor exists."""
+
+    def __init__(self, config, name="attn"):
+        if config.hidden_size % config.num_attention_heads:
+            raise ValueError(
+                f"hidden size {config.hidden_size} not a multiple of "
+                f"num heads {config.num_attention_heads}")
+        if config.sequence_parallel:
+            raise NotImplementedError(
+                "sequence-parallel attention (ring, Ulysses) is not "
+                "ported yet")
+        if not config.use_flash_attention:
+            raise NotImplementedError(
+                "the composed attention path (batch_matmul_op + "
+                "softmax_op) is not ported yet: use "
+                "use_flash_attention=True")
+        self.num_heads = config.num_attention_heads
+        self.head_size = config.hidden_size // config.num_attention_heads
+        self.hidden_size = config.hidden_size
+        self.seq_len = config.max_position_embeddings
+        self.name = name
+        self.qkv = Linear(config.hidden_size, 3 * config.hidden_size,
+                          name=name + "_qkv")
+        self.proj = Linear(config.hidden_size, config.hidden_size,
+                           name=name + "_proj")
+        self.dropout = Dropout(config.hidden_dropout_prob)
+
+    def _split_heads(self, x, seq_len, which):
+        # [B*S, 3H] -> [B, S, 3, nh, hs] -> take q/k/v -> [B, nh, S, hs]
+        x = array_reshape_op(
+            x, [-1, seq_len, 3, self.num_heads, self.head_size])
+        x = transpose_op(x, [2, 0, 3, 1, 4])
+        piece = split_op(x, [0], [which], [3])
+        return squeeze_op(piece, axes=[0])
+
+    def __call__(self, hidden_states, seq_len=None):
+        seq_len = seq_len or self.seq_len
+        qkv = self.qkv(hidden_states, [-1, 3 * self.hidden_size])
+        q, k, v = (self._split_heads(qkv, seq_len, i) for i in range(3))
+        ctx = flash_attention_op(q, k, v,
+                                 sm_scale=1.0 / float(np.sqrt(self.head_size)),
+                                 causal=True)
+        ctx = transpose_op(ctx, [0, 2, 1, 3])
+        ctx = array_reshape_op(ctx, [-1, seq_len, self.hidden_size])
+        out = self.proj(ctx, [-1, seq_len, self.hidden_size])
+        return self.dropout(out)
+
+
+class GPTBlock:
+    """Pre-LN decoder block: x += attn(ln1 x); x += mlp(ln2 x)."""
+
+    def __init__(self, config, name="block"):
+        self.ln1 = LayerNorm(config.hidden_size, name=name + "_ln1")
+        self.attn = CausalSelfAttention(config, name=name + "_attn")
+        self.ln2 = LayerNorm(config.hidden_size, name=name + "_ln2")
+        self.fc = Linear(config.hidden_size, config.intermediate_size,
+                         activation=_act(config.hidden_act),
+                         name=name + "_mlp_fc")
+        self.proj = Linear(config.intermediate_size, config.hidden_size,
+                           name=name + "_mlp_proj")
+        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.hidden_size = config.hidden_size
+
+    def __call__(self, x, seq_len):
+        shape3 = [-1, seq_len, self.hidden_size]
+        x = x + self.attn(self.ln1(x), seq_len)
+        h = self.fc(self.ln2(x), shape3)
+        h = self.proj(h, shape3)
+        return x + self.dropout(h)
+
+
+class GPTModel:
+    """Token + position embeddings, N causal blocks, final LayerNorm."""
+
+    def __init__(self, config):
+        self.config = config
+        self.seq_len = config.max_position_embeddings
+        self.wte = Embedding(config.vocab_size, config.hidden_size,
+                             "gpt_wte")
+        self.wpe = Embedding(config.max_position_embeddings,
+                             config.hidden_size, "gpt_wpe")
+        self.dropout = Dropout(config.hidden_dropout_prob)
+        self.blocks = [GPTBlock(config, name=f"gpt_h{i}")
+                       for i in range(config.num_hidden_layers)]
+        self.ln_f = LayerNorm(config.hidden_size, name="gpt_ln_f")
+
+    def __call__(self, input_ids, seq_len=None):
+        seq_len = seq_len or self.seq_len
+        position_ids = Variable(
+            "gpt_position_ids", value=np.arange(seq_len).reshape(1, -1),
+            trainable=False, dtype=np.int32)
+        x = self.wte(input_ids)
+        x = x + broadcastto_op(self.wpe(position_ids), x)
+        x = self.dropout(x)
+        for block in self.blocks:
+            x = block(x, seq_len)
+        return self.ln_f(x)
+
+
+class GPTLMHeadModel:
+    """GPTModel + untied LM head; returns (logits, per-position loss)
+    when labels are given (labels pre-shifted by the caller, -1 where
+    ignored)."""
+
+    def __init__(self, config):
+        self.config = config
+        self.transformer = GPTModel(config)
+        self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                              bias=False, name="gpt_lm_head")
+
+    def __call__(self, input_ids, labels=None, seq_len=None):
+        seq_len = seq_len or self.config.max_position_embeddings
+        hidden = self.transformer(input_ids, seq_len)
+        logits = self.lm_head(
+            hidden, [-1, seq_len, self.config.vocab_size])
+        if labels is None:
+            return logits
+        return logits, softmaxcrossentropy_sparse_op(logits, labels)

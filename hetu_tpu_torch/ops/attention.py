@@ -1,9 +1,12 @@
-"""Attention functions of the serving path.
+"""Attention: the fused graph op and the serving functions.
 
-Counterpart of the pure functions in ``hetu_tpu/ops/attention.py``
-(``attention_reference`` and the serving helpers); the graph ops
-(``FlashAttentionOp`` and the sequence-parallel variants) come with the
-training slice. Layouts match the reference: ``[B, H, S, D]`` for dense
+Counterpart of ``hetu_tpu/ops/attention.py``: ``attention_reference``,
+the serving helpers, and the graph op :class:`FlashAttentionOp` with
+its gradient op, routed as in the reference (training at S >=
+:data:`FUSED_BWD_MIN_SEQ` runs kernel K2 forward and K3 + K4 backward,
+otherwise K1 forward and the composed vjp backward). The
+sequence-parallel variants (ring, Ulysses) wait for the parallel
+modes. Layouts match the reference: ``[B, H, S, D]`` for dense
 attention, ``[num_blocks, block_size, H, D]`` (or flat
 ``[num_blocks * block_size, H, D]``) for the paged pools.
 
@@ -14,10 +17,19 @@ from __future__ import annotations
 
 import torch
 
-from .flash_attention import flash_attention
+from ..graph.node import Op
+from .flash_attention import (flash_attention, flash_attention_bwd,
+                              flash_attention_with_lse)
 
 __all__ = ["attention_reference", "decode_attention", "prefill_attention",
-           "paged_decode_attention", "paged_prefill_attention"]
+           "paged_decode_attention", "paged_prefill_attention",
+           "flash_attention_op", "FlashAttentionOp", "FUSED_BWD_MIN_SEQ"]
+
+# sequence length from which training takes the fused kernels (K2
+# forward, K3 + K4 backward) instead of K1 and the composed vjp; the
+# reference's value, picked on the TPU. PERF.md holds this card's
+# crossover measurement.
+FUSED_BWD_MIN_SEQ = 512
 
 
 def attention_reference(q, k, v, mask, sm_scale):
@@ -88,10 +100,103 @@ def prefill_attention(q, k, v, sm_scale, causal=True):
     if q.is_cuda:
         return flash_attention(q, k, v, None, sm_scale=sm_scale,
                                causal=causal)
-    mask = None
-    if causal:
-        s = q.shape[-2]
-        mask = torch.where(
-            torch.ones(s, s, dtype=torch.bool, device=q.device).tril(),
-            0.0, -1e9)[None, None]
+    mask = _causal_mask(q.shape[-2], q.device) if causal else None
     return attention_reference(q, k, v, mask, sm_scale)
+
+
+def _causal_mask(s, device):
+    """The composed paths' additive causal mask, [1, 1, S, S], -1e9."""
+    return torch.where(torch.ones(s, s, dtype=torch.bool,
+                                  device=device).tril(), 0.0, -1e9)[None, None]
+
+
+class FlashAttentionOp(Op):
+    """Fused attention over [B, H, S, D] q/k/v with an additive mask of
+    shape [B, 1, 1, S] (or None); ``causal`` is a kernel flag."""
+
+    def __init__(self, q, k, v, mask=None, sm_scale=1.0, causal=False,
+                 ctx=None):
+        inputs = [q, k, v] + ([mask] if mask is not None else [])
+        super().__init__(FlashAttentionOp, inputs, ctx)
+        self.has_mask = mask is not None
+        self.sm_scale = sm_scale
+        self.causal = causal
+
+    def compute(self, input_vals, ectx):
+        q, k, v = input_vals[:3]
+        mask = input_vals[3] if self.has_mask else None
+        # the logsumexp residual is stashed for the fused backward only
+        # when something will consume it: training at a length where
+        # the fused path engages
+        if ectx.training and q.shape[-2] >= FUSED_BWD_MIN_SEQ:
+            o, lse = flash_attention_with_lse(
+                q, k, v, mask, sm_scale=self.sm_scale, causal=self.causal)
+            if o is not None:
+                ectx.cache[("flash_res", self.id)] = (o, lse)
+                return o
+        return flash_attention(q, k, v, mask, sm_scale=self.sm_scale,
+                               causal=self.causal)
+
+    def gradient(self, output_grad):
+        grads = [_FlashAttentionGradOp(self, output_grad, i,
+                                       ctx=self.raw_ctx) for i in range(3)]
+        if self.has_mask:
+            grads.append(None)
+        return grads
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class _FlashAttentionGradOp(Op):
+    """dq / dk / dv, one op per operand so the graph stays an adjoint DAG.
+    The first of the three to run computes all three — by K3 + K4 from
+    the forward's stashed residual, or by the composed vjp — and each
+    takes its own; the step's cache drops the residual and the grads as
+    soon as they are consumed."""
+
+    def __init__(self, forward_op, output_grad, which, ctx=None):
+        super().__init__(_FlashAttentionGradOp,
+                         list(forward_op.inputs) + [output_grad], ctx)
+        self.forward_op = forward_op
+        self.which = which
+
+    def compute(self, input_vals, ectx):
+        fwd = self.forward_op
+        q, k, v = input_vals[:3]
+        mask = input_vals[3] if fwd.has_mask else None
+        dy = input_vals[4 if fwd.has_mask else 3]
+        key = ("flashattn_vjp", fwd.id)
+        if key not in ectx.cache:
+            res = ectx.cache.pop(("flash_res", fwd.id), None)
+            if res is not None and q.shape[-2] >= FUSED_BWD_MIN_SEQ:
+                o, lse = res
+                grads = flash_attention_bwd(q, k, v, mask, o, lse, dy,
+                                            sm_scale=fwd.sm_scale,
+                                            causal=fwd.causal)
+            else:
+                def f(q_, k_, v_):
+                    m = mask
+                    if fwd.causal:
+                        cm = _causal_mask(q_.shape[-2], q_.device)
+                        m = cm if m is None else m + cm
+                    return attention_reference(q_, k_, v_, m, fwd.sm_scale)
+                _, vjp = torch.func.vjp(f, q, k, v)
+                grads = vjp(dy)
+            ectx.cache[key] = list(grads)
+        grads = ectx.cache[key]
+        out, grads[self.which] = grads[self.which], None
+        if all(g is None for g in grads):
+            del ectx.cache[key]
+        return out
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[self.which]
+
+
+def flash_attention_op(q, k, v, mask=None, sm_scale=1.0, causal=False,
+                       ctx=None):
+    return FlashAttentionOp(q, k, v, mask, sm_scale, causal, ctx=ctx)

@@ -1,10 +1,15 @@
-// Flash-attention forward (K1) for Hopper, sm_90a.
+// Flash-attention forward (K1, and K2 with its logsumexp output) for
+// Hopper, sm_90a.
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel` in
-// hetu_tpu/ops/pallas_attention.py (launched by `_flash_attention_jit`
-// with need_lse=False): out = softmax(q k^T * sm_scale + mask) v over
-// [B*H, S, D], online softmax over K/V tiles, the [S, S] score matrix
-// never written to device memory.
+// hetu_tpu/ops/pallas_attention.py, launched by `_flash_attention_jit`
+// with need_lse=False (K1) and need_lse=True (K2): out = softmax(q k^T *
+// sm_scale + mask) v over [B*H, S, D], online softmax over K/V tiles,
+// the [S, S] score matrix never written to device memory. With `lse`
+// set (K2) the kernel also writes each row's logsumexp m + log(l) as
+// plain f32 [B*H, S] -- the residual the fused backward (flash_bwd.cu)
+// recomputes p from; the TPU kernel's 128-lane broadcast of it is a
+// TPU layout artifact and is not reproduced.
 //
 // Design. One thread block of 256 threads per (batch*head, 64-row
 // q-tile); the TPU's sequential grid axis over K blocks becomes a loop
@@ -68,8 +73,8 @@ template <typename T, int DPT>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
-                 T* __restrict__ o, int heads, int s, int d, int nqt,
-                 float sm_scale, int causal) {
+                 T* __restrict__ o, float* __restrict__ lse, int heads,
+                 int s, int d, int nqt, float sm_scale, int causal) {
   extern __shared__ float smem[];
   constexpr int QP = BQ + 1;    // padded pitches of the transposed tiles
   constexpr int KP = BK + 1;
@@ -199,13 +204,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (col < d)
         o[base + (size_t)r * d + col] = from_f32<T>(acc[i][jd] / l_i[i]);
     }
+    if (lse && tx == 0) lse[(size_t)bh * s + r] = m_i[i] + logf(l_i[i]);
   }
 }
 
 template <typename T, int DPT>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* mask, void* o, int bh, int heads, int s,
-                   int d, float sm_scale, int causal, cudaStream_t stream) {
+                   const float* mask, void* o, float* lse, int bh,
+                   int heads, int s, int d, float sm_scale, int causal,
+                   cudaStream_t stream) {
   const int nqt = (s + BQ - 1) / BQ;
   const size_t smem =
       sizeof(float) * ((size_t)d * (BQ + 1) + (size_t)d * (BK + 1) +
@@ -217,46 +224,47 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_kernel<T, DPT><<<(unsigned)((long long)bh * nqt), THREADS, smem,
                              stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), heads, s, d, nqt,
-      sm_scale, causal);
+      static_cast<const T*>(v), mask, static_cast<T*>(o), lse, heads, s, d,
+      nqt, sm_scale, causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_d(const void* q, const void* k, const void* v,
-                       const float* mask, void* o, int bh, int heads, int s,
-                       int d, float sm_scale, int causal,
+                       const float* mask, void* o, float* lse, int bh,
+                       int heads, int s, int d, float sm_scale, int causal,
                        cudaStream_t stream) {
   if (d <= 64)
-    return launch<T, 4>(q, k, v, mask, o, bh, heads, s, d, sm_scale, causal,
-                        stream);
+    return launch<T, 4>(q, k, v, mask, o, lse, bh, heads, s, d, sm_scale,
+                        causal, stream);
   if (d <= 128)
-    return launch<T, 8>(q, k, v, mask, o, bh, heads, s, d, sm_scale, causal,
-                        stream);
-  return launch<T, 16>(q, k, v, mask, o, bh, heads, s, d, sm_scale, causal,
-                       stream);
+    return launch<T, 8>(q, k, v, mask, o, lse, bh, heads, s, d, sm_scale,
+                        causal, stream);
+  return launch<T, 16>(q, k, v, mask, o, lse, bh, heads, s, d, sm_scale,
+                       causal, stream);
 }
 
 }  // namespace
 
 // q, k, v, o: contiguous [bh, s, d] of dtype (0 = float32, 1 = bfloat16);
-// mask: NULL or contiguous float32 [bh / heads, s]. Launches on `stream`
-// and returns cudaGetLastError() (0 on success); never synchronises.
+// mask: NULL or contiguous float32 [bh / heads, s]; lse: NULL (K1) or
+// contiguous float32 [bh, s] (K2). Launches on `stream` and returns
+// cudaGetLastError() (0 on success); never synchronises.
 extern "C" int hetu_flash_fwd(const void* q, const void* k, const void* v,
-                              const float* mask, void* o, int bh, int heads,
-                              int s, int d, float sm_scale, int causal,
-                              int dtype, void* stream) {
+                              const float* mask, void* o, float* lse, int bh,
+                              int heads, int s, int d, float sm_scale,
+                              int causal, int dtype, void* stream) {
   if (bh <= 0 || heads <= 0 || bh % heads || s <= 0 || d <= 0 ||
       d % 8 || d > MAX_D ||
       (long long)bh * ((s + BQ - 1) / BQ) > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_d<float>(q, k, v, mask, o, bh, heads, s, d,
+    return (int)dispatch_d<float>(q, k, v, mask, o, lse, bh, heads, s, d,
                                   sm_scale, causal, st);
   if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(q, k, v, mask, o, bh, heads, s, d,
-                                          sm_scale, causal, st);
+    return (int)dispatch_d<__nv_bfloat16>(q, k, v, mask, o, lse, bh, heads,
+                                          s, d, sm_scale, causal, st);
   return (int)cudaErrorInvalidValue;
 }
 

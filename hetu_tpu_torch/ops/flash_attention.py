@@ -1,19 +1,31 @@
-"""Flash-attention forward: the hand-written CUDA kernel K1 and its
-plain PyTorch version.
+"""Flash attention: the hand-written CUDA kernels K1–K4 and their plain
+PyTorch versions.
 
-Counterpart of ``hetu_tpu/ops/pallas_attention.py`` (forward without
-the logsumexp residual). :func:`flash_attention` computes
-``softmax(q k^T * sm_scale + mask) v`` over ``[B, H, S, D]``:
+Counterpart of ``hetu_tpu/ops/pallas_attention.py``. Over ``[B, H, S,
+D]`` q/k/v:
 
-* on CUDA tensors it launches ``csrc/flash_fwd.cu`` (built on first
-  use by :mod:`._build`) or raises — there is no fallback from the
-  kernel;
-* on CPU tensors it runs :func:`flash_attention_plain`, the same
-  blocked online-softmax loop written in PyTorch over the reference's
-  own tiles (``_block_sizes``);
-* shapes the reference kernel does not take (``_supported``: S < 8,
-  D % 8, S not divisible by the tiles) take the composed
-  ``attention_reference`` on every device, as the reference does.
+* :func:`flash_attention` (K1) computes ``softmax(q k^T * sm_scale +
+  mask) v``;
+* :func:`flash_attention_with_lse` (K2) also returns the per-row
+  logsumexp ``lse = m + log(l)`` as f32 ``[B, H, S]`` — the residual of
+  the fused backward (the same kernel as K1, ``csrc/flash_fwd.cu``,
+  with its lse output set);
+* :func:`flash_attention_bwd` (K3 + K4) recomputes the score tiles from
+  ``lse`` and returns ``(dq, dk, dv)``: K3 (``csrc/flash_bwd.cu``
+  ``flash_bwd_dkv_kernel``) per K/V tile, K4 (``flash_bwd_dq_kernel``)
+  per Q tile, so dQ needs no atomics and the split stays deterministic.
+
+Each entry point
+
+* on CUDA tensors launches its kernel (built on first use by
+  :mod:`._build`) or raises — there is no fallback from the kernel;
+* on CPU tensors runs its ``*_plain`` version: the same blocked loops
+  written in PyTorch over the reference's own tiles (``_block_sizes``),
+  rounding where the reference rounds;
+* on shapes the reference kernel does not take (``_supported``: S < 8,
+  D % 8, S not divisible by the tiles): K1 takes the composed
+  ``attention_reference`` and K2 returns ``(None, None)`` on every
+  device, as the reference does.
 
 ``mask`` is an additive padding mask broadcastable to ``[B, 1, 1, S]``;
 causality is the ``causal`` flag, masked with :data:`NEG_INF`.
@@ -26,13 +38,21 @@ import torch
 
 from . import _build
 
-__all__ = ["flash_attention", "flash_attention_plain", "NEG_INF"]
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_with_lse", "flash_attention_with_lse_plain",
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "flash_attention_bwd_dkv", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dq_plain",
+           "NEG_INF", "K1", "K2", "K3", "K4"]
 
 # the reference kernel's masked-score value (pallas_attention.py:44);
 # the composed paths use -1e9 instead
 NEG_INF = -1e30
 
-_KERNEL = "flash_fwd"
+# launch-count keys of the four kernels (``_build.launch_counts``)
+K1, K2, K3, K4 = "flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"
+
+_FWD_LIB, _BWD_LIB = "flash_fwd", "flash_bwd"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
 
@@ -58,8 +78,42 @@ def _mask_rows(mask, b, h, s):
         .contiguous()
 
 
+def _causal_keep(q0, nq, k0, nk, device):
+    q_pos = q0 + torch.arange(nq, device=device)
+    k_pos = k0 + torch.arange(nk, device=device)
+    return q_pos[:, None] >= k_pos[None, :]
+
+
+def _scores(qb, kb, rows, k0, bk, sm_scale, causal, q0):
+    """One [BH, bq, bk] f32 score tile as the reference kernel builds it:
+    q k^T * scale, + the mask row, NEG_INF above the diagonal."""
+    sc = torch.matmul(qb, kb.transpose(1, 2)) * sm_scale
+    if rows is not None:
+        sc = sc + rows[:, None, k0:k0 + bk]
+    if causal:
+        sc = torch.where(_causal_keep(q0, qb.shape[1], k0, bk, qb.device),
+                         sc, NEG_INF)
+    return sc
+
+
+def _plain_inputs(q, k, v, mask, what):
+    b, h, s, d = q.shape
+    bq, bk = _block_sizes(s, d)
+    if not _supported(s, d, bq, bk):
+        raise ValueError(f"{what}: unsupported shape S={s}, D={d}")
+    f32 = [x.reshape(b * h, s, d).to(torch.float32) for x in (q, k, v)]
+    rows = None
+    if mask is not None:
+        rows = _mask_rows(mask, b, h, s).repeat_interleave(h, dim=0)
+    return (b, h, s, d, bq, bk, *f32, rows)
+
+
+# ---------------------------------------------------------------------------
+# forward: K1 (output) and K2 (output + logsumexp)
+# ---------------------------------------------------------------------------
+
 def flash_attention(q, k, v, mask=None, sm_scale=1.0, causal=False):
-    """softmax(q k^T * sm_scale + mask) v over [B, H, S, D] q/k/v."""
+    """softmax(q k^T * sm_scale + mask) v over [B, H, S, D] q/k/v (K1)."""
     from .attention import attention_reference
     b, h, s, d = q.shape
     if not _supported(s, d, *_block_sizes(s, d)):
@@ -72,30 +126,45 @@ def flash_attention(q, k, v, mask=None, sm_scale=1.0, causal=False):
         return attention_reference(q, k, v, m, sm_scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, mask, sm_scale, causal)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for device "
-                           f"{q.device}")
-    return _flash_attention_cuda(q, k, v, mask, sm_scale, causal)
+    _require_cuda(q, "flash_attention")
+    return _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse=False)
+
+
+def flash_attention_with_lse(q, k, v, mask=None, sm_scale=1.0,
+                             causal=False):
+    """(output, logsumexp f32 [B, H, S]) — the pair the fused backward
+    needs (K2). Returns (None, None) on shapes the kernel does not
+    support; callers then take the composed path for both directions."""
+    b, h, s, d = q.shape
+    if not _supported(s, d, *_block_sizes(s, d)):
+        return None, None
+    if q.device.type == "cpu":
+        return flash_attention_with_lse_plain(q, k, v, mask, sm_scale,
+                                              causal)
+    _require_cuda(q, "flash_attention_with_lse")
+    return _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse=True)
 
 
 def flash_attention_plain(q, k, v, mask=None, sm_scale=1.0, causal=False):
-    """The kernel's arithmetic in plain PyTorch: per q-tile, stream the
-    K/V tiles with a running max, sum and f32 accumulator, stopping at
-    the diagonal under ``causal``. Dots take the input values with f32
-    accumulation and ``p`` is rounded to ``v``'s dtype before ``p v``,
-    as in the reference kernel. Takes supported shapes only."""
-    b, h, s, d = q.shape
-    bq, bk = _block_sizes(s, d)
-    if not _supported(s, d, bq, bk):
-        raise ValueError(f"flash_attention_plain: unsupported shape "
-                         f"S={s}, D={d}")
-    qr = q.reshape(b * h, s, d).to(torch.float32)
-    kr = k.reshape(b * h, s, d).to(torch.float32)
-    vr = v.reshape(b * h, s, d).to(torch.float32)
-    rows = None
-    if mask is not None:
-        rows = _mask_rows(mask, b, h, s).repeat_interleave(h, dim=0)
+    """K1's arithmetic in plain PyTorch (the output of
+    :func:`flash_attention_with_lse_plain`). Takes supported shapes
+    only."""
+    return flash_attention_with_lse_plain(q, k, v, mask, sm_scale,
+                                          causal)[0]
+
+
+def flash_attention_with_lse_plain(q, k, v, mask=None, sm_scale=1.0,
+                                   causal=False):
+    """The forward kernel's arithmetic in plain PyTorch: per q-tile,
+    stream the K/V tiles with a running max, sum and f32 accumulator,
+    stopping at the diagonal under ``causal``. Dots take the input
+    values with f32 accumulation and ``p`` is rounded to ``v``'s dtype
+    before ``p v``, as in the reference kernel; ``lse = m + log(l)``
+    per row, f32. Takes supported shapes only."""
+    b, h, s, d, bq, bk, qr, kr, vr, rows = _plain_inputs(
+        q, k, v, mask, "flash_attention_plain")
     out = torch.empty(b * h, s, d, dtype=q.dtype, device=q.device)
+    lse = torch.empty(b * h, s, dtype=torch.float32, device=q.device)
     for qi in range(s // bq):
         qb = qr[:, qi * bq:(qi + 1) * bq]
         num_kb = s // bk
@@ -105,57 +174,240 @@ def flash_attention_plain(q, k, v, mask=None, sm_scale=1.0, causal=False):
         l = torch.zeros((b * h, bq, 1), device=q.device)
         acc = torch.zeros((b * h, bq, d), device=q.device)
         for i in range(num_kb):
-            kb = kr[:, i * bk:(i + 1) * bk]
-            vb = vr[:, i * bk:(i + 1) * bk]
-            sc = torch.matmul(qb, kb.transpose(1, 2)) * sm_scale
-            if rows is not None:
-                sc = sc + rows[:, None, i * bk:(i + 1) * bk]
-            if causal:
-                q_pos = qi * bq + torch.arange(bq, device=q.device)
-                k_pos = i * bk + torch.arange(bk, device=q.device)
-                sc = torch.where(q_pos[:, None] >= k_pos[None, :], sc,
-                                 NEG_INF)
+            sc = _scores(qb, kr[:, i * bk:(i + 1) * bk], rows, i * bk, bk,
+                         sm_scale, causal, qi * bq)
             m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
             p = torch.exp(sc - m_new)
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(dim=-1, keepdim=True)
             acc = acc * alpha + torch.matmul(
-                p.to(v.dtype).to(torch.float32), vb)
+                p.to(v.dtype).to(torch.float32), vr[:, i * bk:(i + 1) * bk])
             m = m_new
         out[:, qi * bq:(qi + 1) * bq] = (acc / l).to(q.dtype)
-    return out.reshape(b, h, s, d)
+        lse[:, qi * bq:(qi + 1) * bq] = (m + torch.log(l))[..., 0]
+    return out.reshape(b, h, s, d), lse.reshape(b, h, s)
 
 
-def _flash_attention_cuda(q, k, v, mask, sm_scale, causal):
-    b, h, s, d = q.shape
-    if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype \
-            or v.dtype != q.dtype:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16 q/k/v of "
-                        f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"flash_fwd needs q, k, v of one shape, got "
-                         f"{tuple(q.shape)}/{tuple(k.shape)}/"
-                         f"{tuple(v.shape)}")
-    if d > _MAX_D:
-        raise ValueError(f"flash_fwd takes head dim <= {_MAX_D}, got {d}")
-    if not (k.device == q.device == v.device):
-        raise ValueError("flash_fwd: q, k, v on different devices")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    rows = None
-    if mask is not None:
-        rows = _mask_rows(mask.to(q.device), b, h, s)
-    out = torch.empty_like(q)
-    lib = _build.load(_KERNEL)
-    fn = lib.hetu_flash_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
+# ---------------------------------------------------------------------------
+# fused backward: K3 (dK, dV) + K4 (dQ)
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                        causal=False):
+    """(dq, dk, dv) via the recompute-form kernels K3 and K4. ``lse`` is
+    the forward's logsumexp (:func:`flash_attention_with_lse`), ``o``
+    its output, ``do`` the output's adjoint."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
+                                         sm_scale, causal)
+    _require_cuda(q, "flash_attention_bwd")
+    prep = _bwd_prepare(q, k, v, mask, o, lse, do)
+    dk, dv = _launch_dkv(prep, sm_scale, causal)
+    return _launch_dq(prep, sm_scale, causal), dk, dv
+
+
+def flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                            causal=False):
+    """(dk, dv) alone: kernel K3 (its plain version on the CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, mask, o, lse, do,
+                                             sm_scale, causal)
+    _require_cuda(q, "flash_attention_bwd_dkv")
+    return _launch_dkv(_bwd_prepare(q, k, v, mask, o, lse, do), sm_scale,
+                       causal)
+
+
+def flash_attention_bwd_dq(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                           causal=False):
+    """dq alone: kernel K4 (its plain version on the CPU)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, mask, o, lse, do,
+                                            sm_scale, causal)
+    _require_cuda(q, "flash_attention_bwd_dq")
+    return _launch_dq(_bwd_prepare(q, k, v, mask, o, lse, do), sm_scale,
+                      causal)
+
+
+def _delta(o, do):
+    """D = rowsum(dO * O) in f32 (pallas_attention.py:463-467, an XLA
+    reduce outside the kernels there; a torch reduction here)."""
+    return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
+
+
+def flash_attention_bwd_plain(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                              causal=False):
+    """K3 and K4's arithmetic in plain PyTorch: (dq, dk, dv)."""
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, mask, o, lse, do,
+                                           sm_scale, causal)
+    return (flash_attention_bwd_dq_plain(q, k, v, mask, o, lse, do,
+                                         sm_scale, causal), dk, dv)
+
+
+class _PlainBwd:
+    """What K3's and K4's plain versions share: f32 views over the
+    reference's tiles, the mask rows, lse and D, and the per-tile
+    recompute of p and dS."""
+
+    def __init__(self, q, k, v, mask, o, lse, do, sm_scale, causal):
+        (self.b, self.h, self.s, self.d, self.bq, self.bk, self.qr,
+         self.kr, self.vr, self.rows) = _plain_inputs(
+            q, k, v, mask, "flash_attention_bwd_plain")
+        bh = self.b * self.h
+        self.dor = do.reshape(bh, self.s, self.d).to(torch.float32)
+        self.lser = lse.reshape(bh, self.s).to(torch.float32)
+        self.ddr = _delta(o, do).reshape(bh, self.s)
+        self.sm_scale, self.causal = sm_scale, causal
+
+    def tile(self, qi, kj):
+        """(p, dS) of one (q-tile, k-tile) pair, both f32 and unrounded."""
+        bq, bk = self.bq, self.bk
+        qs, ks = slice(qi * bq, (qi + 1) * bq), slice(kj * bk, (kj + 1) * bk)
+        sc = _scores(self.qr[:, qs], self.kr[:, ks], self.rows, kj * bk, bk,
+                     self.sm_scale, self.causal, qi * bq)
+        p = torch.exp(sc - self.lser[:, qs, None])
+        dp = torch.matmul(self.dor[:, qs], self.vr[:, ks].transpose(1, 2))
+        return p, p * (dp - self.ddr[:, qs, None]) * self.sm_scale
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                                  causal=False):
+    """K3's arithmetic in plain PyTorch over the reference's tiles: per
+    K/V tile, ``dV += p^T dO`` (p rounded to dO's dtype) and ``dK +=
+    dS^T Q`` (dS rounded to q's dtype), the q loop starting at the
+    diagonal under ``causal``. Takes supported shapes only."""
+    t = _PlainBwd(q, k, v, mask, o, lse, do, sm_scale, causal)
+    bq, bk = t.bq, t.bk
+    dk = torch.empty(t.b * t.h, t.s, t.d, dtype=k.dtype, device=q.device)
+    dv = torch.empty(t.b * t.h, t.s, t.d, dtype=v.dtype, device=q.device)
+    for kj in range(t.s // bk):
+        dk_acc = torch.zeros(t.b * t.h, bk, t.d, device=q.device)
+        dv_acc = torch.zeros(t.b * t.h, bk, t.d, device=q.device)
+        for qi in range((kj * bk) // bq if causal else 0, t.s // bq):
+            qs = slice(qi * bq, (qi + 1) * bq)
+            p, ds = t.tile(qi, kj)
+            dv_acc += torch.matmul(
+                p.to(do.dtype).to(torch.float32).transpose(1, 2), t.dor[:, qs])
+            dk_acc += torch.matmul(
+                ds.to(q.dtype).to(torch.float32).transpose(1, 2), t.qr[:, qs])
+        dk[:, kj * bk:(kj + 1) * bk] = dk_acc.to(k.dtype)
+        dv[:, kj * bk:(kj + 1) * bk] = dv_acc.to(v.dtype)
+    return dk.reshape(q.shape), dv.reshape(q.shape)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, mask, o, lse, do, sm_scale=1.0,
+                                 causal=False):
+    """K4's arithmetic in plain PyTorch over the reference's tiles: per Q
+    tile, ``dQ += dS K`` (dS rounded to k's dtype), the k loop stopping
+    at the diagonal under ``causal``. Takes supported shapes only."""
+    t = _PlainBwd(q, k, v, mask, o, lse, do, sm_scale, causal)
+    bq, bk = t.bq, t.bk
+    dq = torch.empty(t.b * t.h, t.s, t.d, dtype=q.dtype, device=q.device)
+    for qi in range(t.s // bq):
+        num_kb = t.s // bk
+        if causal:
+            num_kb = min(num_kb, -(-(qi + 1) * bq // bk))
+        dq_acc = torch.zeros(t.b * t.h, bq, t.d, device=q.device)
+        for kj in range(num_kb):
+            _, ds = t.tile(qi, kj)
+            dq_acc += torch.matmul(ds.to(k.dtype).to(torch.float32),
+                                   t.kr[:, kj * bk:(kj + 1) * bk])
+        dq[:, qi * bq:(qi + 1) * bq] = dq_acc.to(q.dtype)
+    return dq.reshape(q.shape)
+
+
+# ---------------------------------------------------------------------------
+# CUDA launchers
+# ---------------------------------------------------------------------------
+
+def _require_cuda(q, what):
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {q.device}")
+
+
+def _check_qkv(name, *ts):
+    q = ts[0]
+    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype for t in ts):
+        raise TypeError(f"{name} takes float32 or bfloat16 tensors of one "
+                        f"dtype, got {[str(t.dtype) for t in ts]}")
+    if any(t.shape != q.shape for t in ts):
+        raise ValueError(f"{name} needs tensors of one shape, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+    if q.shape[-1] > _MAX_D or q.shape[-1] % 8:
+        raise ValueError(f"{name} takes a head dim that is a multiple of 8 "
+                         f"and <= {_MAX_D}, got {q.shape[-1]}")
+    if any(t.device != q.device for t in ts):
+        raise ValueError(f"{name}: tensors on different devices")
+    return [t.contiguous() for t in ts]
+
+
+def _fn(lib, symbol, nptr):
+    """``lib.symbol`` with argtypes: ``nptr`` pointers, then (bh, heads,
+    s, d), scale, causal, dtype, stream."""
+    fn = getattr(lib, symbol)
+    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    return fn
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
+    b, h, s, d = q.shape
+    q, k, v = _check_qkv("flash_fwd", q, k, v)
+    rows = None if mask is None else _mask_rows(mask.to(q.device), b, h, s)
+    out = torch.empty_like(q)
+    lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
+        if want_lse else None
+    lib = _build.load(_FWD_LIB)
+    fn = _fn(lib, "hetu_flash_fwd", 6)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                rows.data_ptr() if rows is not None else None,
-                out.data_ptr(), b * h, h, s, d, float(sm_scale),
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rows),
+                out.data_ptr(), _ptr(lse), b * h, h, s, d, float(sm_scale),
                 int(bool(causal)), _DTYPE_CODES[q.dtype],
                 torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, _KERNEL, rc)
-    _build.launch_counts[_KERNEL] += 1
-    return out
+    _build.check(lib, _FWD_LIB, rc)
+    _build.launch_counts[K2 if want_lse else K1] += 1
+    return (out, lse) if want_lse else out
+
+
+def _bwd_prepare(q, k, v, mask, o, lse, do):
+    """Checked, contiguous inputs of K3 / K4, with D and the mask rows."""
+    b, h, s, d = q.shape
+    q, k, v, o, do = _check_qkv("flash_bwd", q, k, v, o, do)
+    if tuple(lse.shape) != (b, h, s):
+        raise ValueError(f"flash_bwd: lse must be [B, H, S] = {(b, h, s)}, "
+                         f"got {tuple(lse.shape)}")
+    lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
+    rows = None if mask is None else _mask_rows(mask.to(q.device), b, h, s)
+    return dict(q=q, k=k, v=v, do=do, lse=lse,
+                delta=_delta(o, do).contiguous(), rows=rows)
+
+
+def _launch_bwd(prep, symbol, key, outs, sm_scale, causal):
+    q = prep["q"]
+    b, h, s, d = q.shape
+    lib = _build.load(_BWD_LIB)
+    fn = _fn(lib, symbol, 7 + len(outs))
+    with torch.cuda.device(q.device):
+        rc = fn(*(_ptr(prep[n]) for n in ("q", "k", "v", "do", "lse",
+                                          "delta", "rows")),
+                *(t.data_ptr() for t in outs), b * h, h, s, d,
+                float(sm_scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
+                torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, _BWD_LIB, rc)
+    _build.launch_counts[key] += 1
+
+
+def _launch_dkv(prep, sm_scale, causal):
+    dk, dv = torch.empty_like(prep["k"]), torch.empty_like(prep["v"])
+    _launch_bwd(prep, "hetu_flash_bwd_dkv", K3, (dk, dv), sm_scale, causal)
+    return dk, dv
+
+
+def _launch_dq(prep, sm_scale, causal):
+    dq = torch.empty_like(prep["q"])
+    _launch_bwd(prep, "hetu_flash_bwd_dq", K4, (dq,), sm_scale, causal)
+    return dq
