@@ -15,23 +15,29 @@ object per line (``--out`` also writes them to FILE):
 * ``device``  the card (name and power limit from nvidia-smi), torch and
   CUDA versions;
 * ``build``   seconds spent compiling each kernel source, and ptxas's
-  summary;
+  registers and spills for every kernel instantiation;
 * ``kernel_shapes`` per kernel, one row per checked shape: error
-  against the plain version, median times of the kernel, of the plain
-  version and of the one PyTorch call computing the same function, and
-  the least time the card could take (``bound_ms``);
+  against the plain version (for K3/K4 also row by row, and the route),
+  median times of the kernel, of the plain version and of the one
+  PyTorch call computing the same function, the least time the card
+  could take (``bound_ms``), and for K3/K4 the wrapper's host time;
+* ``check_faults`` the gradient check against faults planted in the
+  kernels' output at the training shape: each must fail it;
 * ``serve``   per pass: tokens/s, TTFT p50, decode step ms, kernel
   launches, and the token-parity check against the plain attention;
 * ``train``   tokens/s, step ms p50, the loss of every step, kernel
-  launches, peak memory, the device idle share and time by kernel
+  launches (K3 and K4 also by route: all on the tensor-core ``tc``
+  route), peak memory, the device idle share and time by kernel
   category of one profiled step, and the step-1 parity check against
   the plain K2–K4;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward;
 * ``kernels`` per kernel (K1 flash forward, K2 forward with logsumexp,
-  K3 backward dK/dV, K4 backward dQ): launches on its main path, the
-  largest error against the plain version by dtype over every checked
-  shape, and ``kernel_shapes``' row at the main path's shape;
+  K3 backward dK/dV, K4 backward dQ, and the K3+K4 pair as one
+  ``flash_attention_bwd`` against PyTorch's flash backward): launches
+  on its main path, the largest error against the plain version by
+  dtype over every checked shape, and ``kernel_shapes``' row at the
+  main path's shape;
 
 then the card line as ``nvidia-smi`` prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -43,6 +49,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,6 +57,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+CSRC = "hetu_tpu_torch/ops/csrc/"      # the kernel sources, in the repo
 
 # NVIDIA H100 SXM data sheet, dense: f32 on the CUDA cores, bf16 on the
 # tensor cores; HBM3 bandwidth
@@ -79,6 +87,17 @@ GRAD_PARITY_TOL = 2e-2
 # product summed over S
 FWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# and each gradient row (one key of dk / dv, one q of dq) against its own
+# size: |got - want| <= tol * (|want| + floor) in the 2-norm over the head
+# dim, floor = BWD_ROW_FLOOR * the largest |want| row of the tensor (a row
+# whose exact value is 0, as dq's first under causal, is held to the
+# tensor's scale). In bf16 a correct kernel differs from the plain
+# version by at most about one flipped rounding of p or dS and one of the
+# output, ~1e-2 of a row's size in the worst case. BWD_TOL alone lets a
+# fault confined to the late causal rows pass: their gradients are ~1e-2
+# of the early rows'; check_catches_faults plants such faults
+BWD_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_ROW_FLOOR = 1e-3
 CROSSOVER_SEQ = (128, 256, 512, 1024, 2048)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
@@ -104,6 +123,21 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
+def host_ms(torch, fn, reps=20):
+    """Median host time of one call made on an idle device (synchronised
+    first, not after): what the wrapper costs the host, launches included
+    but not the kernels' run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
+
+
 def median_ms(torch, fn, reps=10, warmup=2):
     for _ in range(warmup):
         fn()
@@ -122,9 +156,21 @@ def median_ms(torch, fn, reps=10, warmup=2):
 
 # per kernel: (flops per b*h*s*s*d, [b,h,s,d] tensors moved, f32 [b,h,s]
 # vectors moved): K1 reads q, k, v and writes o; K2 also writes lse; K3
-# reads q, k, v, dO, lse, D and writes dk, dv; K4 the same reads, dq out
+# reads q, k, v, dO, lse, D and writes dk, dv; K4 reads q, k, v, dO, O,
+# lse and writes dq and D (on the tc route it computes D); the pair
+# (one flash_attention_bwd) reads q, k, v, O, dO, lse, writes dq, dk, dv
 FLASH_WORK = {"K1": (4, 4, 0), "K2": (4, 4, 1), "K3": (8, 6, 2),
-              "K4": (6, 5, 2)}
+              "K4": (6, 6, 2), "pair": (14, 8, 1)}
+# the K3/K4 checks: (dtypes, batches, seqs, head dim); every row with mask
+# on/off and causal on/off. D=64 is the training path's; D=128 and the
+# ragged S=520 hold the other tensor-core instantiations and the TMA edge;
+# bf16 at D=96 the simt route's bf16 instantiation
+TRAIN_KERNEL_SHAPES = (
+    (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64),
+    (("bfloat16",), (1,), (512, 1024), 128),
+    (("bfloat16",), (1,), (520,), 64),
+    (("bfloat16",), (1,), (512, 1024), 96),
+)
 
 
 def flash_bound(b, h, s, d, dtype_name, causal, masked, kind="K1"):
@@ -220,6 +266,27 @@ def _err(got, want):
     return float((got.float() - want.float()).abs().max())
 
 
+def _row_rel_err(got, want):
+    """The largest |got - want| of a row over (|want| + floor) of that row
+    (2-norms over the last axis; see BWD_ROW_TOL)."""
+    want = want.float()
+    size = want.norm(dim=-1)
+    diff = (got.float() - want).norm(dim=-1)
+    return float((diff / (size + BWD_ROW_FLOOR * size.max()
+                          + 1e-30)).max())
+
+
+def _grad_check(pairs, dname):
+    """(ok, max_abs_err, row_rel_err) of (got, want) gradient pairs: each
+    within BWD_TOL elementwise and BWD_ROW_TOL row by row."""
+    tol = BWD_TOL[dname]
+    abs_err = max(_err(*pr) for pr in pairs)
+    row_err = max(_row_rel_err(*pr) for pr in pairs)
+    ok = all(a.float().allclose(w.float(), atol=tol, rtol=tol)
+             for a, w in pairs) and row_err <= BWD_ROW_TOL[dname]
+    return ok, abs_err, row_err
+
+
 def _sdpa_flash(torch, q, k, v, scale, causal):
     """PyTorch's own flash-attention forward (bf16 only, no mask): output,
     logsumexp and what its backward needs. Timing yardstick only."""
@@ -228,96 +295,162 @@ def _sdpa_flash(torch, q, k, v, scale, causal):
 
 
 def check_flash_train_kernels(torch, seed):
-    """K2, K3 and K4 against their plain versions at every checked shape:
-    B in (1, 8), H=12, D=64, S in (128, 512, 1024), mask on/off, causal
-    on/off, f32 and bf16. The padding mask leaves every row an unmasked
-    key (a fully masked row has p = exp(s - lse) = 1 under the
+    """K2, K3, K4 and the K3+K4 pair (one flash_attention_bwd) against
+    their plain versions at every shape of TRAIN_KERNEL_SHAPES, H=12,
+    mask on/off, causal on/off. The padding mask leaves every row an
+    unmasked key (a fully masked row has p = exp(s - lse) = 1 under the
     reference's formula, which nothing pins). K3 and K4 run from the
-    kernel's own o and lse, so each is held apart from K2's roundings.
+    kernel's own o and lse, so each is held apart from K2's roundings;
+    their rows name the route they took. K3's and K4's times are their
+    launches alone, from prepared inputs (K3 reading the D that K4
+    wrote, as on the path); the pair's is one whole flash_attention_bwd.
     Returns {kernel: [row per shape]}."""
     from hetu_tpu_torch.ops import flash_attention as fa
-    h, d = 12, 64
-    rows = {"K2": [], "K3": [], "K4": []}
+    h = 12
+    rows = {"K2": [], "K3": [], "K4": [], "pair": []}
     failures = []
-    for dtype in (torch.float32, torch.bfloat16):
+    shapes = [(getattr(torch, dname), b, s, d)
+              for dnames, batches, seqs, d in TRAIN_KERNEL_SHAPES
+              for dname in dnames for b in batches for s in seqs]
+    for dtype, b, s, d in shapes:
         dname = str(dtype).split(".")[-1]
-        for b in (1, TRAIN_BATCH):
-            for s in (128, 512, 1024):
-                g = torch.Generator(device="cuda").manual_seed(seed + s + b)
-                q, k, v, do = (torch.randn(b, h, s, d, generator=g,
-                                           device="cuda").to(dtype)
-                               for _ in range(4))
-                for masked in (False, True):
-                    mask = None
-                    if masked:
-                        mask = torch.zeros(b, 1, 1, s, device="cuda")
-                        mask[0, ..., s // 2:] = -1e9
-                        mask[-1, ..., 3 * s // 4:] = -1e9
-                    for causal in (False, True):
-                        args = (q, k, v, mask)
-                        scale = d ** -0.5
-                        o, lse = fa.flash_attention_with_lse(
-                            *args, scale, causal)
-                        bwd = (*args, o, lse, do, scale, causal)
-                        dk, dv = fa.flash_attention_bwd_dkv(*bwd)
-                        dq = fa.flash_attention_bwd_dq(*bwd)
-                        ro, rlse = fa.flash_attention_with_lse_plain(
-                            *args, scale, causal)
-                        rdk, rdv = fa.flash_attention_bwd_dkv_plain(*bwd)
-                        rdq = fa.flash_attention_bwd_dq_plain(*bwd)
-                        torch.cuda.synchronize()
-                        lib = {"K2": None, "K3": None, "K4": None}
-                        if dtype == torch.bfloat16 and not masked:
-                            res = _sdpa_flash(torch, q, k, v, scale, causal)
-                            lib["K2"] = median_ms(torch, lambda: _sdpa_flash(
-                                torch, q, k, v, scale, causal))
-                            # one call computes dq, dk and dv: K3's row
-                            # carries it
-                            lib["K3"] = median_ms(
-                                torch, lambda: torch.ops.aten.
-                                _scaled_dot_product_flash_attention_backward(
-                                    do, q, k, v, res[0], res[1], res[2],
-                                    res[3], res[4], res[5], 0.0, causal,
-                                    res[6], res[7], scale=scale))
-                        checks = {
-                            "K2": ((o, ro), (lse, rlse), FWD_TOL[dname],
-                                   lambda: fa.flash_attention_with_lse(
-                                       *args, scale, causal),
-                                   lambda: fa.flash_attention_with_lse_plain(
-                                       *args, scale, causal)),
-                            "K3": ((dk, rdk), (dv, rdv), BWD_TOL[dname],
-                                   lambda: fa.flash_attention_bwd_dkv(*bwd),
-                                   lambda: fa.flash_attention_bwd_dkv_plain(
-                                       *bwd)),
-                            "K4": ((dq, rdq), (dq, rdq), BWD_TOL[dname],
-                                   lambda: fa.flash_attention_bwd_dq(*bwd),
-                                   lambda: fa.flash_attention_bwd_dq_plain(
-                                       *bwd)),
-                        }
-                        for kind, (p1, p2, tol, kern, plain) in \
-                                checks.items():
-                            ok = all(bool(torch.allclose(
-                                a.float(), w.float(), atol=tol, rtol=tol))
-                                for a, w in (p1, p2))
-                            bound, by = flash_bound(b, h, s, d, dname,
-                                                    causal, masked, kind)
-                            row = {"b": b, "h": h, "s": s, "d": d,
-                                   "dtype": dname, "causal": causal,
-                                   "mask": masked,
-                                   "max_abs_err": max(_err(*p1), _err(*p2)),
-                                   "tol": tol, "ok": ok,
-                                   "ms": median_ms(torch, kern),
-                                   "plain_ms": median_ms(torch, plain,
-                                                         reps=3, warmup=1),
-                                   "library_ms": lib[kind],
-                                   "bound_ms": bound, "bound_by": by}
-                            rows[kind].append(row)
-                            if not ok:
-                                failures.append((kind, row))
+        g = torch.Generator(device="cuda").manual_seed(seed + s + b)
+        q, k, v, do = (torch.randn(b, h, s, d, generator=g,
+                                   device="cuda").to(dtype)
+                       for _ in range(4))
+        for masked in (False, True):
+            mask = None
+            if masked:
+                mask = torch.zeros(b, 1, 1, s, device="cuda")
+                mask[0, ..., s // 2:] = -1e9
+                mask[-1, ..., 3 * s // 4:] = -1e9
+            for causal in (False, True):
+                args = (q, k, v, mask)
+                scale = d ** -0.5
+                o, lse = fa.flash_attention_with_lse(*args, scale, causal)
+                bwd = (*args, o, lse, do, scale, causal)
+                dk, dv = fa.flash_attention_bwd_dkv(*bwd)
+                dq = fa.flash_attention_bwd_dq(*bwd)
+                pdq, pdk, pdv = fa.flash_attention_bwd(*bwd)
+                prep = fa._bwd_prepare(*bwd[:7])
+                fa._launch_dq(prep, scale, causal)  # tc: writes K3's D
+                ro, rlse = fa.flash_attention_with_lse_plain(*args, scale,
+                                                             causal)
+                rdk, rdv = fa.flash_attention_bwd_dkv_plain(*bwd)
+                rdq = fa.flash_attention_bwd_dq_plain(*bwd)
+                torch.cuda.synchronize()
+                lib = dict.fromkeys(rows)
+                if dtype == torch.bfloat16 and not masked:
+                    res = _sdpa_flash(torch, q, k, v, scale, causal)
+                    lib["K2"] = median_ms(torch, lambda: _sdpa_flash(
+                        torch, q, k, v, scale, causal))
+                    # one call computes dq, dk and dv: K3's row and the
+                    # pair's carry it
+                    lib["K3"] = lib["pair"] = median_ms(
+                        torch, lambda: torch.ops.aten.
+                        _scaled_dot_product_flash_attention_backward(
+                            do, q, k, v, res[0], res[1], res[2], res[3],
+                            res[4], res[5], 0.0, causal, res[6], res[7],
+                            scale=scale))
+                # kind: ((got, want) pairs, kernel call, plain call)
+                checks = {
+                    "K2": ([(o, ro), (lse, rlse)],
+                           lambda: fa.flash_attention_with_lse(
+                               *args, scale, causal),
+                           lambda: fa.flash_attention_with_lse_plain(
+                               *args, scale, causal)),
+                    "K3": ([(dk, rdk), (dv, rdv)],
+                           lambda: fa._launch_dkv(prep, scale, causal),
+                           lambda: fa.flash_attention_bwd_dkv_plain(*bwd)),
+                    "K4": ([(dq, rdq)],
+                           lambda: fa._launch_dq(prep, scale, causal),
+                           lambda: fa.flash_attention_bwd_dq_plain(*bwd)),
+                    "pair": ([(pdq, rdq), (pdk, rdk), (pdv, rdv)],
+                             lambda: fa.flash_attention_bwd(*bwd),
+                             lambda: fa.flash_attention_bwd_plain(*bwd)),
+                }
+                for kind, (pairs, kern, plain) in checks.items():
+                    bound, by = flash_bound(b, h, s, d, dname, causal,
+                                            masked, kind)
+                    row = {"b": b, "h": h, "s": s, "d": d, "dtype": dname,
+                           "causal": causal, "mask": masked}
+                    if kind == "K2":
+                        tol = FWD_TOL[dname]
+                        row.update(max_abs_err=max(_err(*pr)
+                                                   for pr in pairs),
+                                   tol=tol, ok=all(
+                                       a.float().allclose(w.float(),
+                                                          atol=tol, rtol=tol)
+                                       for a, w in pairs))
+                    else:
+                        ok, err, row_err = _grad_check(pairs, dname)
+                        row.update(max_abs_err=err, tol=BWD_TOL[dname],
+                                   row_rel_err=row_err,
+                                   row_tol=BWD_ROW_TOL[dname], ok=ok,
+                                   route=fa._bwd_route(dtype, d),
+                                   host_ms=host_ms(torch, kern))
+                    row.update(ms=median_ms(torch, kern),
+                               plain_ms=median_ms(torch, plain, reps=3,
+                                                  warmup=1),
+                               library_ms=lib[kind], bound_ms=bound,
+                               bound_by=by)
+                    rows[kind].append(row)
+                    if not row["ok"]:
+                        failures.append((kind, row))
     if failures:
         raise AssertionError(f"K2-K4 disagree with their plain versions at "
                              f"{len(failures)} case(s): {failures}")
     return rows
+
+
+def check_catches_faults(torch, seed):
+    """The gradient check (_grad_check) against faults planted in the
+    kernels' output at the training shape (B=8 H=12 S=1024 D=64 bf16
+    causal): the last key tile of dk and dv zeroed, the last q tile of dq
+    zeroed, and dk from K3 given D = 0. The kernels' own output must pass
+    and every fault must fail; each row also says whether BWD_TOL alone
+    would have caught it."""
+    from hetu_tpu_torch.ops import flash_attention as fa
+    b, h, s, d, dname = TRAIN_BATCH, 12, 1024, 64, "bfloat16"
+    g = torch.Generator(device="cuda").manual_seed(seed + s + b)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_with_lse(q, k, v, None, scale, True)
+    bwd = (q, k, v, None, o, lse, do, scale, True)
+    dq, dk, dv = fa.flash_attention_bwd(*bwd)
+    rdk, rdv = fa.flash_attention_bwd_dkv_plain(*bwd)
+    rdq = fa.flash_attention_bwd_dq_plain(*bwd)
+    prep = fa._bwd_prepare(*bwd[:7])
+    prep["delta"] = torch.zeros_like(prep["delta"])
+    dk_no_d, _ = fa._launch_dkv(prep, scale, True)
+
+    def last_tile_zeroed(t):
+        t = t.clone()
+        t[..., -64:, :] = 0
+        return t
+    cases = {
+        "kernels": [(dq, rdq), (dk, rdk), (dv, rdv)],
+        "last key tile of dk and dv zeroed": [(last_tile_zeroed(dk), rdk),
+                                              (last_tile_zeroed(dv), rdv)],
+        "last q tile of dq zeroed": [(last_tile_zeroed(dq), rdq)],
+        "K3 given D = 0": [(dk_no_d, rdk)],
+    }
+    torch.cuda.synchronize()
+    out = {}
+    for name, pairs in cases.items():
+        ok, err, row_err = _grad_check(pairs, dname)
+        out[name] = {"passes": ok, "max_abs_err": err,
+                     "row_rel_err": row_err,
+                     "passes_bwd_tol_alone": all(
+                         a.float().allclose(w.float(), atol=BWD_TOL[dname],
+                                            rtol=BWD_TOL[dname])
+                         for a, w in pairs)}
+    if not out["kernels"]["passes"] or any(
+            r["passes"] for name, r in out.items() if name != "kernels"):
+        raise AssertionError(f"the gradient check does not tell the "
+                             f"kernels from planted faults: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -395,8 +528,10 @@ def train(torch, seed, card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and falling: "
                              f"{losses}")
+    # every K3 / K4 launch of the path on the tensor-core route
     want = {fa.K1: 0, fa.K2: layers * steps, fa.K3: layers * steps,
-            fa.K4: layers * steps}
+            fa.K4: layers * steps, f"{fa.K3}.tc": layers * steps,
+            f"{fa.K4}.tc": layers * steps}
     got = {key: launches.get(key, 0) for key in want}
     if got != want:
         raise AssertionError(f"train launches {got}, want {want}")
@@ -461,8 +596,8 @@ def profile_train_step(torch, exe, feeds):
             "device_busy_ms": busy if dev else None,
             "device_idle_share": 1.0 - busy / wall_ms if dev else None,
             "flash_fwd_kernel_ms": kernel_ms("flash_fwd_kernel"),
-            "flash_bwd_dkv_kernel_ms": kernel_ms("flash_bwd_dkv_kernel"),
-            "flash_bwd_dq_kernel_ms": kernel_ms("flash_bwd_dq_kernel"),
+            "flash_bwd_dkv_kernel_ms": kernel_ms("flash_bwd_dkv"),
+            "flash_bwd_dq_kernel_ms": kernel_ms("flash_bwd_dq"),
             "by_category": {c: {"ms": ms, "count": n}
                             for c, (ms, n) in sorted(
                                 by_category.items(), key=lambda x: -x[1][0])},
@@ -708,10 +843,33 @@ def profile_pass(torch, eng, prompts):
                             for e in top]}
 
 
+def ptxas_report(log_text):
+    """Registers and spills of every kernel instantiation in one
+    ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
+    [{"kernel": name, "registers": N, "spill_stores": B,
+    "spill_loads": B}]."""
+    out, cur = [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ln)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def _kernel_row(name, source, replaces, launches, rows, rep_key,
                 library):
-    rep = next(r for r in rows if (r["b"], r["s"], r["dtype"], r["causal"],
-                                   r["mask"]) == rep_key)
+    rep = next(r for r in rows if (r["b"], r["s"], r["d"], r["dtype"],
+                                   r["causal"], r["mask"]) == rep_key)
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "shape": {k: rep[k] for k in ("b", "h", "s", "d", "dtype",
@@ -720,9 +878,23 @@ def _kernel_row(name, source, replaces, launches, rows, rep_key,
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
             "library": library, "checked_shapes": len(rows),
-            "max_abs_err_all": {dt: max(r["max_abs_err"] for r in rows
-                                        if r["dtype"] == dt)
-                                for dt in ("float32", "bfloat16")}}
+            "max_abs_err_all": _by_case(rows, "max_abs_err"),
+            **({"bwd_route": rep["route"], "host_ms": rep["host_ms"],
+                "row_rel_err": rep["row_rel_err"],
+                "row_rel_err_all": _by_case(rows, "row_rel_err"),
+                "sources": {"tc": CSRC + "flash_bwd_tc.cu",
+                            "simt": CSRC + "flash_bwd.cu"}}
+               if "route" in rep else {})}
+
+
+def _by_case(rows, key):
+    """The largest ``key`` over rows, by dtype (and route where the rows
+    have one: "bfloat16/tc")."""
+    out = {}
+    for r in rows:
+        case = "/".join(filter(None, (r["dtype"], r.get("route"))))
+        out[case] = max(out.get(case, 0.0), r[key])
+    return out
 
 
 def main(argv=None):
@@ -757,12 +929,9 @@ def main(argv=None):
         raise AssertionError("TF32 matmuls are on: the serving path "
                              "keeps float32 products in float32")
 
-    sources = ["flash_fwd", "flash_bwd"]
+    sources = ["flash_fwd", "flash_bwd", "flash_bwd_tc"]
     seconds = _build.build(sources)
-    ptxas = [ln.strip() for name in sources
-             for f in sorted(_build.BUILD_DIR.glob(f"lib{name}_*.log"))
-             for ln in f.read_text().splitlines()
-             if "registers" in ln or "spill" in ln]
+    ptxas = {name: ptxas_report(_build.build_log(name)) for name in sources}
     build = {"seconds": seconds, "ptxas": ptxas}
     log(f"build {build}")
 
@@ -777,39 +946,48 @@ def main(argv=None):
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
-    log(f"kernels checked ({time.perf_counter() - t:.1f} s)")
+    faults = check_catches_faults(torch, args.seed)
+    log(f"kernels checked ({time.perf_counter() - t:.1f} s) {faults}")
 
     t = time.perf_counter()
     cross = crossover(torch, args.seed)
     log(f"crossover ({time.perf_counter() - t:.1f} s) {cross}")
 
-    csrc = "hetu_tpu_torch/ops/csrc/"
     pallas = "hetu_tpu/ops/pallas_attention.py:"
     # K1: the serving path's longest prefill, one 1024-token bucket; K2-K4:
     # the training path's shape
-    k1_rep = (1, 1024, "float32", True, False)
-    train_rep = (TRAIN_BATCH, 1024, "bfloat16", True, False)
+    k1_rep = (1, 1024, 64, "float32", True, False)
+    train_rep = (TRAIN_BATCH, 1024, 64, "bfloat16", True, False)
     sdpa = "torch.ops.aten._scaled_dot_product_flash_attention"
     kernels = {"kernels": [
-        _kernel_row("flash_fwd", csrc + "flash_fwd.cu", pallas + "346",
+        _kernel_row("flash_fwd", CSRC + "flash_fwd.cu", pallas + "346",
                     serve_launches.get(fa.K1, 0), k1_rows, k1_rep,
                     "torch.nn.functional.scaled_dot_product_attention"),
-        _kernel_row("flash_fwd_lse", csrc + "flash_fwd.cu", pallas + "333",
+        _kernel_row("flash_fwd_lse", CSRC + "flash_fwd.cu", pallas + "333",
                     train_launches.get(fa.K2, 0), train_rows["K2"],
                     train_rep, sdpa + " (bf16 without mask only)"),
-        _kernel_row("flash_bwd_dkv", csrc + "flash_bwd.cu", pallas + "514",
-                    train_launches.get(fa.K3, 0), train_rows["K3"],
-                    train_rep, sdpa + "_backward (computes dq, dk and dv: "
-                    "K3 and K4 together; bf16 without mask only)"),
-        _kernel_row("flash_bwd_dq", csrc + "flash_bwd.cu", pallas + "526",
-                    train_launches.get(fa.K4, 0), train_rows["K4"],
-                    train_rep, "none alone: see flash_bwd_dkv"),
+        _kernel_row("flash_bwd_dkv", CSRC + "flash_bwd_tc.cu",
+                    pallas + "514", train_launches.get(fa.K3, 0),
+                    train_rows["K3"], train_rep, sdpa + "_backward "
+                    "(computes dq, dk and dv: K3 and K4 together; bf16 "
+                    "without mask only)"),
+        _kernel_row("flash_bwd_dq", CSRC + "flash_bwd_tc.cu",
+                    pallas + "526", train_launches.get(fa.K4, 0),
+                    train_rows["K4"], train_rep,
+                    "none alone: see flash_bwd_dkv"),
+        # K3 + K4 as the path calls them: one flash_attention_bwd, the
+        # counterpart of the reference's entry that launches both
+        _kernel_row("flash_bwd_pair", CSRC + "flash_bwd_tc.cu",
+                    pallas + "539", min(train_launches.get(fa.K3, 0),
+                                        train_launches.get(fa.K4, 0)),
+                    train_rows["pair"], train_rep,
+                    sdpa + "_backward (bf16 without mask only)"),
     ]}
     shapes = {"kernel_shapes": {"flash_fwd": k1_rows, **{
         row["name"]: train_rows[key] for key, row in
-        zip(("K2", "K3", "K4"), kernels["kernels"][1:])}}}
+        zip(("K2", "K3", "K4", "pair"), kernels["kernels"][1:])}}}
     lines = [{"device": device}, {"build": build}, shapes,
-             {"serve": serve_line}, {"train": train_line},
+             {"check_faults": faults}, {"serve": serve_line}, {"train": train_line},
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

@@ -24,8 +24,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "load", "launch_counts", "reset_launch_counts",
-           "check", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["build", "build_log", "load", "launch_counts",
+           "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -99,6 +99,14 @@ def build(names):
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return seconds
+
+
+def build_log(name):
+    """nvcc's output for the current build of ``name`` (ptxas's
+    registers, shared memory and spills per kernel); "" if the library
+    was not compiled in this build directory."""
+    log = _lib_path(name)[1].with_suffix(".log")
+    return log.read_text() if log.exists() else ""
 
 
 def load(name):

@@ -11,9 +11,13 @@ D]`` q/k/v:
   the fused backward (the same kernel as K1, ``csrc/flash_fwd.cu``,
   with its lse output set);
 * :func:`flash_attention_bwd` (K3 + K4) recomputes the score tiles from
-  ``lse`` and returns ``(dq, dk, dv)``: K3 (``csrc/flash_bwd.cu``
-  ``flash_bwd_dkv_kernel``) per K/V tile, K4 (``flash_bwd_dq_kernel``)
-  per Q tile, so dQ needs no atomics and the split stays deterministic.
+  ``lse`` and returns ``(dq, dk, dv)``: K3 per K/V tile, K4 per Q tile,
+  so dQ needs no atomics and the split stays deterministic. Two
+  sources implement them, and :func:`_bwd_route` alone picks one per
+  call from the dtype and head dim: ``"tc"`` (``csrc/flash_bwd_tc.cu``:
+  bf16 products on the tensor cores with ``wgmma``, tiles staged by
+  TMA) for bf16 at D in (64, 128), ``"simt"`` (``csrc/flash_bwd.cu``,
+  f32 on the CUDA cores) for the rest.
 
 Each entry point
 
@@ -33,8 +37,10 @@ causality is the ``causal`` flag, masked with :data:`NEG_INF`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -49,12 +55,16 @@ __all__ = ["flash_attention", "flash_attention_plain",
 # the composed paths use -1e9 instead
 NEG_INF = -1e30
 
-# launch-count keys of the four kernels (``_build.launch_counts``)
+# launch-count keys of the four kernels (``_build.launch_counts``); a
+# K3 / K4 launch also counts under ``f"{K3}.{route}"`` (see _bwd_route)
 K1, K2, K3, K4 = "flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"
 
-_FWD_LIB, _BWD_LIB = "flash_fwd", "flash_bwd"
+_FWD_LIB = "flash_fwd"
+_BWD_LIBS = {"simt": "flash_bwd", "tc": "flash_bwd_tc"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
+# head dims the tensor-core backward is instantiated for
+_TC_HEAD_DIMS = (64, 128)
 
 
 def _block_sizes(seq_len, head_dim):
@@ -201,9 +211,10 @@ def flash_attention_bwd(q, k, v, mask, o, lse, do, sm_scale=1.0,
         return flash_attention_bwd_plain(q, k, v, mask, o, lse, do,
                                          sm_scale, causal)
     _require_cuda(q, "flash_attention_bwd")
+    # K4 first: on the tc route it writes the D that K3 reads
     prep = _bwd_prepare(q, k, v, mask, o, lse, do)
-    dk, dv = _launch_dkv(prep, sm_scale, causal)
-    return _launch_dq(prep, sm_scale, causal), dk, dv
+    dq = _launch_dq(prep, sm_scale, causal)
+    return (dq, *_launch_dkv(prep, sm_scale, causal))
 
 
 def flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, sm_scale=1.0,
@@ -213,8 +224,10 @@ def flash_attention_bwd_dkv(q, k, v, mask, o, lse, do, sm_scale=1.0,
         return flash_attention_bwd_dkv_plain(q, k, v, mask, o, lse, do,
                                              sm_scale, causal)
     _require_cuda(q, "flash_attention_bwd_dkv")
-    return _launch_dkv(_bwd_prepare(q, k, v, mask, o, lse, do), sm_scale,
-                       causal)
+    prep = _bwd_prepare(q, k, v, mask, o, lse, do)
+    if prep["route"] == "tc":       # no K4 before it to write D
+        prep["delta"] = _pad_ld(_delta(prep["o"], prep["do"]), prep["ld"])
+    return _launch_dkv(prep, sm_scale, causal)
 
 
 def flash_attention_bwd_dq(q, k, v, mask, o, lse, do, sm_scale=1.0,
@@ -230,7 +243,8 @@ def flash_attention_bwd_dq(q, k, v, mask, o, lse, do, sm_scale=1.0,
 
 def _delta(o, do):
     """D = rowsum(dO * O) in f32 (pallas_attention.py:463-467, an XLA
-    reduce outside the kernels there; a torch reduction here)."""
+    reduce outside the kernels there; here a torch reduction on the simt
+    route and for K3 launched alone, computed by K4 on the tc route)."""
     return (do.to(torch.float32) * o.to(torch.float32)).sum(dim=-1)
 
 
@@ -340,14 +354,23 @@ def _check_qkv(name, *ts):
     return [t.contiguous() for t in ts]
 
 
-def _fn(lib, symbol, nptr):
-    """``lib.symbol`` with argtypes: ``nptr`` pointers, then (bh, heads,
-    s, d), scale, causal, dtype, stream."""
+# what follows the pointer arguments of each C entry point
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAIL = {  # (bh, heads, s, d), scale, causal, dtype, stream
+    "simt": (_I, _I, _I, _I, _F, _I, _I, _P),
+    # (bh, heads, s, d, ld), scale, causal, stream
+    "tc": (_I, _I, _I, _I, _I, _F, _I, _P)}
+
+
+@functools.cache
+def _fn(lib_name, symbol, nptr, tail="simt"):
+    """(library, ``symbol`` of it) with argtypes bound once per loaded
+    library: ``nptr`` pointers, then ``_TAIL[tail]``."""
+    lib = _build.load(lib_name)
     fn = getattr(lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * nptr + [ctypes.c_int] * 4 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [_P] * nptr + list(_TAIL[tail])
     fn.restype = ctypes.c_int
-    return fn
+    return lib, fn
 
 
 def _ptr(t):
@@ -361,8 +384,7 @@ def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
         if want_lse else None
-    lib = _build.load(_FWD_LIB)
-    fn = _fn(lib, "hetu_flash_fwd", 6)
+    lib, fn = _fn(_FWD_LIB, "hetu_flash_fwd", 6)
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rows),
                 out.data_ptr(), _ptr(lse), b * h, h, s, d, float(sm_scale),
@@ -373,8 +395,28 @@ def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
     return (out, lse) if want_lse else out
 
 
+def _bwd_route(dtype, d):
+    """The source K3 and K4 launch from, decided before the launch and
+    nowhere else: ``"tc"`` (``flash_bwd_tc.cu``, wgmma + TMA) for bf16
+    at a head dim in :data:`_TC_HEAD_DIMS`, ``"simt"``
+    (``flash_bwd.cu``) for every other dtype and head dim."""
+    return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS \
+        else "simt"
+
+
+def _pad_ld(t, ld):
+    """[B, H, S] f32 -> [B, H, ld], zeros in [S, ld)."""
+    return t if t.shape[-1] == ld else F.pad(t, (0, ld - t.shape[-1]))
+
+
 def _bwd_prepare(q, k, v, mask, o, lse, do):
-    """Checked, contiguous inputs of K3 / K4, with D and the mask rows."""
+    """Checked, contiguous inputs of K3 / K4, with D, the mask rows and
+    the route. The simt route takes D from :func:`_delta`. On the tc
+    route ``delta`` is a buffer that K4 fills (K3 launched alone has it
+    filled by its caller), and TMA reads q, k, v, dO, lse and D: their
+    bases must be 16-byte aligned and the lse / D rows a multiple of 4
+    floats long (``ld``), so a misaligned tensor is copied and lse is
+    padded where S % 4."""
     b, h, s, d = q.shape
     q, k, v, o, do = _check_qkv("flash_bwd", q, k, v, o, do)
     if tuple(lse.shape) != (b, h, s):
@@ -382,32 +424,60 @@ def _bwd_prepare(q, k, v, mask, o, lse, do):
                          f"got {tuple(lse.shape)}")
     lse = lse.to(device=q.device, dtype=torch.float32).contiguous()
     rows = None if mask is None else _mask_rows(mask.to(q.device), b, h, s)
-    return dict(q=q, k=k, v=v, do=do, lse=lse,
-                delta=_delta(o, do).contiguous(), rows=rows)
+    route = _bwd_route(q.dtype, d)
+    if route == "simt":
+        return dict(q=q, k=k, v=v, o=o, do=do, lse=lse, rows=rows,
+                    delta=_delta(o, do).contiguous(), route=route, ld=s)
+    q, k, v, o, do, lse = (t if t.data_ptr() % 16 == 0 else t.clone()
+                           for t in (q, k, v, o, do, lse))
+    ld = -(-s // 4) * 4
+    return dict(q=q, k=k, v=v, o=o, do=do, lse=_pad_ld(lse, ld), rows=rows,
+                delta=torch.empty(b, h, ld, dtype=torch.float32,
+                                  device=q.device),
+                route=route, ld=ld)
 
 
-def _launch_bwd(prep, symbol, key, outs, sm_scale, causal):
-    q = prep["q"]
+# pointer arguments of each C entry point, from the prepared inputs,
+# before the outputs; K4 on the tc route writes D as its last output
+_BWD_PTRS = {"simt": ("q", "k", "v", "do", "lse", "delta", "rows"),
+             "tc_dkv": ("q", "k", "v", "do", "lse", "delta", "rows"),
+             "tc_dq": ("q", "k", "v", "do", "o", "lse", "rows")}
+
+
+def _launch_bwd(prep, kernel, key, outs, sm_scale, causal):
+    """Launch K3 (``kernel="dkv"``) or K4 (``"dq"``) on ``prep``'s
+    route; count it under ``key`` and ``f"{key}.{route}"``."""
+    q, route = prep["q"], prep["route"]
     b, h, s, d = q.shape
-    lib = _build.load(_BWD_LIB)
-    fn = _fn(lib, symbol, 7 + len(outs))
+    lib_name = _BWD_LIBS[route]
+    if route == "tc" and kernel == "dq":
+        outs = (*outs, prep["delta"])
+    names = _BWD_PTRS["simt" if route == "simt" else f"tc_{kernel}"]
+    ptrs = [_ptr(prep[n]) for n in names] + [t.data_ptr() for t in outs]
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tc":
+        lib, fn = _fn(lib_name, f"hetu_flash_bwd_tc_{kernel}", len(ptrs),
+                      "tc")
+        args = (b * h, h, s, d, prep["ld"], float(sm_scale),
+                int(bool(causal)), stream)
+    else:
+        lib, fn = _fn(lib_name, f"hetu_flash_bwd_{kernel}", len(ptrs))
+        args = (b * h, h, s, d, float(sm_scale), int(bool(causal)),
+                _DTYPE_CODES[q.dtype], stream)
     with torch.cuda.device(q.device):
-        rc = fn(*(_ptr(prep[n]) for n in ("q", "k", "v", "do", "lse",
-                                          "delta", "rows")),
-                *(t.data_ptr() for t in outs), b * h, h, s, d,
-                float(sm_scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, _BWD_LIB, rc)
+        rc = fn(*ptrs, *args)
+    _build.check(lib, lib_name, rc)
     _build.launch_counts[key] += 1
+    _build.launch_counts[f"{key}.{route}"] += 1
 
 
 def _launch_dkv(prep, sm_scale, causal):
     dk, dv = torch.empty_like(prep["k"]), torch.empty_like(prep["v"])
-    _launch_bwd(prep, "hetu_flash_bwd_dkv", K3, (dk, dv), sm_scale, causal)
+    _launch_bwd(prep, "dkv", K3, (dk, dv), sm_scale, causal)
     return dk, dv
 
 
 def _launch_dq(prep, sm_scale, causal):
     dq = torch.empty_like(prep["q"])
-    _launch_bwd(prep, "hetu_flash_bwd_dq", K4, (dq,), sm_scale, causal)
+    _launch_bwd(prep, "dq", K4, (dq,), sm_scale, causal)
     return dq

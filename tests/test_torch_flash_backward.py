@@ -137,3 +137,39 @@ def test_op_below_threshold_takes_k1_and_the_composed_vjp(monkeypatch,
                                                           training):
     monkeypatch.setattr(tattn, "flash_attention_bwd", None)  # never called
     assert not _op_pass(True, True, s=64, training=training)
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.bfloat16, 96, "simt"),
+    *[(torch.float32, d, "simt") for d in (8, 16, 64, 96, 128, 256)]])
+def test_bwd_route_is_tc_for_bf16_at_64_and_128_only(dtype, d, route):
+    assert fa._bwd_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("s", [16, 13])
+def test_tc_prepare_pads_lse_and_d_to_whole_tma_rows(s):
+    # the tc route reads lse and D through TMA: rows of ld = S rounded up
+    # to 4 floats, zeros past S; K4 fills the D buffer, K3 alone gets D
+    # padded the same way
+    rng = np.random.RandomState(s)
+    q, k, v, o, do = (torch.from_numpy(rng.randn(2, 3, s, 64)
+                                       .astype(np.float32)).bfloat16()
+                      for _ in range(5))
+    lse = torch.from_numpy(rng.randn(2, 3, s).astype(np.float32))
+    ld = -(-s // 4) * 4
+    prep = fa._bwd_prepare(q, k, v, None, o, lse, do)
+    assert (prep["route"], prep["ld"]) == ("tc", ld)
+    assert prep["lse"].shape == prep["delta"].shape == (2, 3, ld)
+    torch.testing.assert_close(prep["lse"][..., :s], lse)
+    assert not prep["lse"][..., s:].any()
+    delta = fa._pad_ld(fa._delta(o, do), ld)
+    assert delta.shape == (2, 3, ld) and not delta[..., s:].any()
+    torch.testing.assert_close(delta[..., :s], fa._delta(o, do))
+    assert all(prep[n].data_ptr() % 16 == 0
+               for n in ("q", "k", "v", "o", "do", "lse", "delta"))
+    simt = fa._bwd_prepare(q.float(), k.float(), v.float(), None,
+                           o.float(), lse, do.float())
+    assert (simt["route"], simt["ld"]) == ("simt", s)
+    torch.testing.assert_close(simt["delta"], fa._delta(o, do))

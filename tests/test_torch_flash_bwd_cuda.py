@@ -1,5 +1,6 @@
-"""Kernels K2 (flash_fwd.cu with lse), K3 and K4 (flash_bwd.cu) against
-their plain PyTorch versions on the card. Marked ``cuda``: they skip
+"""Kernels K2 (flash_fwd.cu with lse), K3 and K4 (flash_bwd_tc.cu for
+bf16 at D in (64, 128), flash_bwd.cu otherwise) against their plain
+PyTorch versions on the card. Marked ``cuda``: they skip
 without a GPU. Import neither JAX nor hetu_tpu, so they run on a
 machine without JAX:
 
@@ -9,8 +10,10 @@ machine without JAX:
 Tolerance (atol = rtol): float32 1e-4 for o, lse, dq, dk, dv (the
 kernel and the plain version sum in different orders); bfloat16 2e-2
 for o (one rounding of p and of the output) and 5e-2 for the gradients
-(p and dS each rounded to bf16 before a product, sums over S). The
-padding mask leaves every row some unmasked key: a fully masked row
+(p and dS each rounded to bf16 before a product, sums over S); each
+gradient row also within 1e-4 / 2e-2 of its own 2-norm plus 1e-3 of the
+tensor's largest row, so late causal rows, ~1e-2 the size of the early
+ones, are held to their own size. The padding mask leaves every row some unmasked key: a fully masked row
 has p = exp(s - lse) = 1 for every key under the reference's formula
 (s and lse both round to -1e9), which the tests do not pin.
 """
@@ -22,6 +25,8 @@ from hetu_tpu_torch.ops import flash_attention as fa
 
 FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+BWD_ROW_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+BWD_ROW_FLOOR = 1e-3
 
 
 @pytest.fixture
@@ -47,6 +52,14 @@ def _close(got, want, tol):
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
 
 
+def _close_grad(got, want, dtype):
+    _close(got, want, BWD_TOL[dtype])
+    size = want.float().norm(dim=-1)
+    diff = (got.float() - want.float()).norm(dim=-1)
+    worst = float((diff / (size + BWD_ROW_FLOOR * size.max() + 1e-30)).max())
+    assert worst <= BWD_ROW_TOL[dtype], worst
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [False, True])
@@ -63,7 +76,8 @@ def test_flash_lse_and_bwd_kernels_match_plain(cuda, b, h, s, d, dtype,
     o, lse = fa.flash_attention_with_lse(q, k, v, mask, scale, causal)
     grads = fa.flash_attention_bwd(q, k, v, mask, o, lse, do, scale, causal)
     torch.cuda.synchronize()
-    for key in (fa.K2, fa.K3, fa.K4):
+    route = fa._bwd_route(dtype, d)
+    for key in (fa.K2, fa.K3, fa.K4, f"{fa.K3}.{route}", f"{fa.K4}.{route}"):
         assert _build.launch_counts[key] == before.get(key, 0) + 1, key
     assert _build.launch_counts[fa.K1] == before.get(fa.K1, 0)
     ro, rlse = fa.flash_attention_with_lse_plain(q, k, v, mask, scale,
@@ -77,7 +91,37 @@ def test_flash_lse_and_bwd_kernels_match_plain(cuda, b, h, s, d, dtype,
                                         causal)
     for g, w in zip(grads, want):
         assert g.dtype == dtype and g.shape == q.shape
-        _close(g, w, BWD_TOL[dtype])
+        _close_grad(g, w, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,d,masked,causal", [
+    (2, 4, 1024, 64, False, True), (1, 4, 520, 128, True, False),
+    (2, 3, 520, 64, True, True)])
+def test_tc_route_k3_k4_match_plain(cuda, b, h, s, d, masked, causal):
+    # bf16 at D in (64, 128): wgmma + TMA (flash_bwd_tc.cu), K4 computing
+    # the D that K3 reads; S = 520 leaves a ragged last tile of each head
+    dtype = torch.bfloat16
+    q, k, v, do, mask = _inputs(b, h, s, d, dtype, masked, seed=s + d + 1,
+                                device=cuda)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_with_lse(q, k, v, mask, scale, causal)
+    bwd = (q, k, v, mask, o, lse, do, scale, causal)
+    before = dict(_build.launch_counts)
+    grads = fa.flash_attention_bwd(*bwd)
+    torch.cuda.synchronize()
+    for key, n in ((fa.K3, 1), (fa.K4, 1), (f"{fa.K3}.tc", 1),
+                   (f"{fa.K4}.tc", 1), (f"{fa.K3}.simt", 0),
+                   (f"{fa.K4}.simt", 0)):
+        assert _build.launch_counts[key] == before.get(key, 0) + n, key
+    want = fa.flash_attention_bwd_plain(*bwd)
+    for g, w in zip(grads, want):
+        assert g.dtype == dtype and g.shape == q.shape
+        _close_grad(g, w, dtype)
+    # each kernel alone: K3 with D from the torch reduction, K4 with its own
+    alone = (fa.flash_attention_bwd_dq(*bwd), *fa.flash_attention_bwd_dkv(*bwd))
+    for g, w in zip(alone, want):
+        _close_grad(g, w, dtype)
 
 
 @pytest.mark.cuda
