@@ -17,16 +17,18 @@ object per line (``--out`` also writes them to FILE):
 * ``build``   seconds spent compiling each kernel source, and ptxas's
   registers and spills for every kernel instantiation;
 * ``kernel_shapes`` per kernel, one row per checked shape: error
-  against the plain version (for K3/K4 also row by row, and the route),
-  median times of the kernel, of the plain version and of the one
-  PyTorch call computing the same function, the least time the card
-  could take (``bound_ms``), and for K3/K4 the wrapper's host time;
-* ``check_faults`` the gradient check against faults planted in the
-  kernels' output at the training shape: each must fail it;
+  against the plain version (for K3/K4 also row by row), the route the
+  kernel took (``tc`` or ``simt``), median times of the kernel, of the
+  plain version and of the one PyTorch call computing the same
+  function, the least time the card could take (``bound_ms``), and the
+  wrapper's host time;
+* ``check_faults`` the forward and gradient checks against faults
+  planted in the kernels' output at the training shape: each must fail
+  its check;
 * ``serve``   per pass: tokens/s, TTFT p50, decode step ms, kernel
   launches, and the token-parity check against the plain attention;
 * ``train``   tokens/s, step ms p50, the loss of every step, kernel
-  launches (K3 and K4 also by route: all on the tensor-core ``tc``
+  launches (K2, K3 and K4 also by route: all on the tensor-core ``tc``
   route), peak memory, the device idle share and time by kernel
   category of one profiled step, and the step-1 parity check against
   the plain K2–K4;
@@ -36,8 +38,10 @@ object per line (``--out`` also writes them to FILE):
   K3 backward dK/dV, K4 backward dQ, and the K3+K4 pair as one
   ``flash_attention_bwd`` against PyTorch's flash backward): launches
   on its main path, the largest error against the plain version by
-  dtype over every checked shape, and ``kernel_shapes``' row at the
-  main path's shape;
+  dtype and route over every checked shape, and ``kernel_shapes``' row
+  at the main path's shape with the kernel's and the PyTorch call's
+  device time per call from torch.profiler (``device_ms``,
+  ``library_device_ms``);
 
 then the card line as ``nvidia-smi`` prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -99,9 +103,14 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BWD_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_ROW_FLOOR = 1e-3
 CROSSOVER_SEQ = (128, 256, 512, 1024, 2048)
+# the main-path shape of each kernel, (b, s, d, dtype, causal, mask) at
+# H=12: K1 the serving path's longest prefill, one 1024-token bucket;
+# K2-K4 the training step's
+K1_REP = (1, 1024, 64, "float32", True, False)
+TRAIN_REP = (TRAIN_BATCH, 1024, 64, "bfloat16", True, False)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
-    ("flash attention (K1-K4)", ("flash_fwd_kernel", "flash_bwd_")),
+    ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reduction", ("reduce_kernel",)),
@@ -161,10 +170,22 @@ def median_ms(torch, fn, reps=10, warmup=2):
 # (one flash_attention_bwd) reads q, k, v, O, dO, lse, writes dq, dk, dv
 FLASH_WORK = {"K1": (4, 4, 0), "K2": (4, 4, 1), "K3": (8, 6, 2),
               "K4": (6, 6, 2), "pair": (14, 8, 1)}
-# the K3/K4 checks: (dtypes, batches, seqs, head dim); every row with mask
+# the K1 checks: (dtypes, batches, seqs, head dim); every row with mask
+# on/off and causal on/off, the mask hiding every key of the last batch
+# element's rows where B > 1. D=64 is both main paths' (f32 serving on
+# the simt route, bf16 on tc); bf16 D=128 and the ragged S=520 hold the
+# other tensor-core instantiation and the TMA edge; bf16 D=96 the simt
+# route's bf16
+FWD_KERNEL_SHAPES = (
+    (("float32", "bfloat16"), (1, 4), (8, 128, 512, 1024), 64),
+    (("bfloat16",), (4,), (512, 1024), 128),
+    (("bfloat16",), (4,), (520,), 64),
+    (("bfloat16",), (4,), (512, 1024), 96),
+)
+# the K2-K4 checks: (dtypes, batches, seqs, head dim); every row with mask
 # on/off and causal on/off. D=64 is the training path's; D=128 and the
 # ragged S=520 hold the other tensor-core instantiations and the TMA edge;
-# bf16 at D=96 the simt route's bf16 instantiation
+# bf16 at D=96 the simt route's bf16 instantiations
 TRAIN_KERNEL_SHAPES = (
     (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64),
     (("bfloat16",), (1,), (512, 1024), 128),
@@ -188,74 +209,100 @@ def flash_bound(b, h, s, d, dtype_name, causal, masked, kind="K1"):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
+def device_ms(torch, fn, n=20):
+    """Device time of one call: the self time of every CUDA kernel and
+    copy the call launches, summed, from torch.profiler over n calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / n
+
+
+def _device_times(torch, kern, library):
+    """The main-path row's device times: the kernel call's and the
+    library call's (None where there is none)."""
+    return {"device_ms": device_ms(torch, kern),
+            "library_device_ms": None if library is None
+            else device_ms(torch, library)}
+
+
 # ---------------------------------------------------------------------------
 # kernels: K1 against its plain version at every listed shape
 # ---------------------------------------------------------------------------
 
 def check_flash_fwd(torch, seed):
+    """K1 against its plain version at every shape of FWD_KERNEL_SHAPES,
+    H=12, mask on/off, causal on/off; each row names the route the
+    kernel took and the wrapper's host time; the row at K1_REP also its
+    device times (_device_times)."""
     import torch.nn.functional as F
-    from hetu_tpu_torch.ops.flash_attention import (
-        NEG_INF, flash_attention, flash_attention_plain)
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    h, d = 12, 64
+    from hetu_tpu_torch.ops import flash_attention as fa
+    h = 12
     rows, failures = [], []
-    for dtype in (torch.float32, torch.bfloat16):
+    shapes = [(getattr(torch, dname), b, s, d)
+              for dnames, batches, seqs, d in FWD_KERNEL_SHAPES
+              for dname in dnames for b in batches for s in seqs]
+    for dtype, b, s, d in shapes:
         dname = str(dtype).split(".")[-1]
-        for b in (1, 4):
-            for s in (8, 128, 512, 1024):
-                g = torch.Generator(device="cuda").manual_seed(seed + s + b)
-                q, k, v = (torch.randn(b, h, s, d, generator=g,
-                                       device="cuda").to(dtype)
-                           for _ in range(3))
-                for masked in (False, True):
-                    mask = None
-                    if masked:
-                        mask = torch.zeros(b, 1, 1, s, device="cuda")
-                        mask[0, ..., s // 2:] = -1e9
-                        if b > 1:
-                            mask[-1] = -1e9     # a fully masked row
-                    for causal in (False, True):
-                        scale = d ** -0.5
-                        out = flash_attention(q, k, v, mask, scale, causal)
-                        ref = flash_attention_plain(q, k, v, mask, scale,
-                                                    causal)
-                        torch.cuda.synchronize()
-                        diff = (out.float() - ref.float()).abs()
-                        err = float(diff.max())
-                        rel = float((diff / ref.float().abs()
-                                     .clamp_min(1.0)).max())
-                        ok = bool(torch.allclose(out.float(), ref.float(),
-                                                 atol=tol[dtype],
-                                                 rtol=tol[dtype]))
-                        lib_mask = mask
-                        if causal:
-                            cm = torch.full((s, s), NEG_INF,
-                                            device="cuda").triu(1)
-                            lib_mask = cm if mask is None else mask + cm
-                        if lib_mask is not None:
-                            lib_mask = lib_mask.to(dtype)
+        g = torch.Generator(device="cuda").manual_seed(seed + s + b)
+        q, k, v = (torch.randn(b, h, s, d, generator=g,
+                               device="cuda").to(dtype) for _ in range(3))
+        for masked in (False, True):
+            mask = None
+            if masked:
+                mask = torch.zeros(b, 1, 1, s, device="cuda")
+                mask[0, ..., s // 2:] = -1e9
+                if b > 1:
+                    mask[-1] = -1e9     # a fully masked row
+            for causal in (False, True):
+                scale = d ** -0.5
+                out = fa.flash_attention(q, k, v, mask, scale, causal)
+                ref = fa.flash_attention_plain(q, k, v, mask, scale, causal)
+                torch.cuda.synchronize()
+                diff = (out.float() - ref.float()).abs()
+                tol = FWD_TOL[dname]
+                ok = bool(torch.allclose(out.float(), ref.float(), atol=tol,
+                                         rtol=tol))
+                lib_mask = mask
+                if causal:
+                    cm = torch.full((s, s), fa.NEG_INF, device="cuda").triu(1)
+                    lib_mask = cm if mask is None else mask + cm
+                if lib_mask is not None:
+                    lib_mask = lib_mask.to(dtype)
 
-                        def library():
-                            return F.scaled_dot_product_attention(
-                                q, k, v, attn_mask=lib_mask, scale=scale)
-                        bound, by = flash_bound(b, h, s, d, dname, causal,
-                                                masked)
-                        row = {"b": b, "h": h, "s": s, "d": d,
-                               "dtype": dname, "causal": causal,
-                               "mask": masked, "max_abs_err": err,
-                               "max_rel_err": rel, "tol": tol[dtype],
-                               "ok": ok,
-                               "ms": median_ms(torch, lambda: flash_attention(
-                                   q, k, v, mask, scale, causal)),
-                               "plain_ms": median_ms(
-                                   torch, lambda: flash_attention_plain(
-                                       q, k, v, mask, scale, causal),
-                                   reps=3, warmup=1),
-                               "library_ms": median_ms(torch, library),
-                               "bound_ms": bound, "bound_by": by}
-                        rows.append(row)
-                        if not ok:
-                            failures.append(row)
+                def kern():
+                    return fa.flash_attention(q, k, v, mask, scale, causal)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=lib_mask, scale=scale)
+                bound, by = flash_bound(b, h, s, d, dname, causal, masked)
+                row = {"b": b, "h": h, "s": s, "d": d, "dtype": dname,
+                       "causal": causal, "mask": masked,
+                       "route": fa._fwd_route(dtype, d),
+                       "max_abs_err": float(diff.max()),
+                       "max_rel_err": float((diff / ref.float().abs()
+                                             .clamp_min(1.0)).max()),
+                       "tol": tol, "ok": ok,
+                       "ms": median_ms(torch, kern),
+                       "host_ms": host_ms(torch, kern),
+                       "plain_ms": median_ms(
+                           torch, lambda: fa.flash_attention_plain(
+                               q, k, v, mask, scale, causal),
+                           reps=3, warmup=1),
+                       "library_ms": median_ms(torch, library),
+                       "bound_ms": bound, "bound_by": by}
+                if (b, s, d, dname, causal, masked) == K1_REP:
+                    row.update(_device_times(torch, kern, library))
+                rows.append(row)
+                if not ok:
+                    failures.append(row)
     if failures:
         raise AssertionError(f"flash_fwd disagrees with its plain version "
                              f"at {len(failures)} shape(s): {failures}")
@@ -274,6 +321,14 @@ def _row_rel_err(got, want):
     diff = (got.float() - want).norm(dim=-1)
     return float((diff / (size + BWD_ROW_FLOOR * size.max()
                           + 1e-30)).max())
+
+
+def _fwd_check(pairs, dname):
+    """(ok, max_abs_err) of (got, want) forward pairs (o, lse): each
+    within FWD_TOL elementwise."""
+    tol = FWD_TOL[dname]
+    return (all(a.float().allclose(w.float(), atol=tol, rtol=tol)
+                for a, w in pairs), max(_err(*pr) for pr in pairs))
 
 
 def _grad_check(pairs, dname):
@@ -304,6 +359,7 @@ def check_flash_train_kernels(torch, seed):
     their rows name the route they took. K3's and K4's times are their
     launches alone, from prepared inputs (K3 reading the D that K4
     wrote, as on the path); the pair's is one whole flash_attention_bwd.
+    The row at TRAIN_REP also carries device times (_device_times).
     Returns {kernel: [row per shape]}."""
     from hetu_tpu_torch.ops import flash_attention as fa
     h = 12
@@ -342,16 +398,15 @@ def check_flash_train_kernels(torch, seed):
                 lib = dict.fromkeys(rows)
                 if dtype == torch.bfloat16 and not masked:
                     res = _sdpa_flash(torch, q, k, v, scale, causal)
-                    lib["K2"] = median_ms(torch, lambda: _sdpa_flash(
-                        torch, q, k, v, scale, causal))
+                    lib["K2"] = lambda: _sdpa_flash(torch, q, k, v, scale,
+                                                    causal)
                     # one call computes dq, dk and dv: K3's row and the
                     # pair's carry it
-                    lib["K3"] = lib["pair"] = median_ms(
-                        torch, lambda: torch.ops.aten.
+                    lib["K3"] = lib["pair"] = lambda: torch.ops.aten.\
                         _scaled_dot_product_flash_attention_backward(
                             do, q, k, v, res[0], res[1], res[2], res[3],
                             res[4], res[5], 0.0, causal, res[6], res[7],
-                            scale=scale))
+                            scale=scale)
                 # kind: ((got, want) pairs, kernel call, plain call)
                 checks = {
                     "K2": ([(o, ro), (lse, rlse)],
@@ -375,25 +430,24 @@ def check_flash_train_kernels(torch, seed):
                     row = {"b": b, "h": h, "s": s, "d": d, "dtype": dname,
                            "causal": causal, "mask": masked}
                     if kind == "K2":
-                        tol = FWD_TOL[dname]
-                        row.update(max_abs_err=max(_err(*pr)
-                                                   for pr in pairs),
-                                   tol=tol, ok=all(
-                                       a.float().allclose(w.float(),
-                                                          atol=tol, rtol=tol)
-                                       for a, w in pairs))
+                        ok, err = _fwd_check(pairs, dname)
+                        row.update(max_abs_err=err, tol=FWD_TOL[dname],
+                                   ok=ok, route=fa._fwd_route(dtype, d))
                     else:
                         ok, err, row_err = _grad_check(pairs, dname)
                         row.update(max_abs_err=err, tol=BWD_TOL[dname],
                                    row_rel_err=row_err,
                                    row_tol=BWD_ROW_TOL[dname], ok=ok,
-                                   route=fa._bwd_route(dtype, d),
-                                   host_ms=host_ms(torch, kern))
+                                   route=fa._bwd_route(dtype, d))
                     row.update(ms=median_ms(torch, kern),
+                               host_ms=host_ms(torch, kern),
                                plain_ms=median_ms(torch, plain, reps=3,
                                                   warmup=1),
-                               library_ms=lib[kind], bound_ms=bound,
-                               bound_by=by)
+                               library_ms=None if lib[kind] is None
+                               else median_ms(torch, lib[kind]),
+                               bound_ms=bound, bound_by=by)
+                    if (b, s, d, dname, causal, masked) == TRAIN_REP:
+                        row.update(_device_times(torch, kern, lib[kind]))
                     rows[kind].append(row)
                     if not row["ok"]:
                         failures.append((kind, row))
@@ -404,12 +458,15 @@ def check_flash_train_kernels(torch, seed):
 
 
 def check_catches_faults(torch, seed):
-    """The gradient check (_grad_check) against faults planted in the
-    kernels' output at the training shape (B=8 H=12 S=1024 D=64 bf16
-    causal): the last key tile of dk and dv zeroed, the last q tile of dq
-    zeroed, and dk from K3 given D = 0. The kernels' own output must pass
-    and every fault must fail; each row also says whether BWD_TOL alone
-    would have caught it."""
+    """The forward check (_fwd_check) and the gradient check
+    (_grad_check) against faults planted in the kernels' output at the
+    training shape (B=8 H=12 S=1024 D=64 bf16 causal): forward, the last
+    q tile of O zeroed and lse shifted by log 2 on the last 64 rows of
+    each head; backward, the last key tile of dk and dv zeroed, the last
+    q tile of dq zeroed, and dk from K3 given D = 0. The kernels' own
+    output must pass both checks and every fault must fail its check;
+    each gradient row also says whether BWD_TOL alone would have caught
+    it."""
     from hetu_tpu_torch.ops import flash_attention as fa
     b, h, s, d, dname = TRAIN_BATCH, 12, 1024, 64, "bfloat16"
     g = torch.Generator(device="cuda").manual_seed(seed + s + b)
@@ -417,6 +474,7 @@ def check_catches_faults(torch, seed):
                    .to(torch.bfloat16) for _ in range(4))
     scale = d ** -0.5
     o, lse = fa.flash_attention_with_lse(q, k, v, None, scale, True)
+    ro, rlse = fa.flash_attention_with_lse_plain(q, k, v, None, scale, True)
     bwd = (q, k, v, None, o, lse, do, scale, True)
     dq, dk, dv = fa.flash_attention_bwd(*bwd)
     rdk, rdv = fa.flash_attention_bwd_dkv_plain(*bwd)
@@ -429,6 +487,13 @@ def check_catches_faults(torch, seed):
         t = t.clone()
         t[..., -64:, :] = 0
         return t
+    lse_shifted = lse.clone()
+    lse_shifted[..., -64:] += float(np.log(2.0))
+    fwd_cases = {
+        "forward kernels": [(o, ro), (lse, rlse)],
+        "last q tile of O zeroed": [(last_tile_zeroed(o), ro)],
+        "lse shifted by log 2 on its last rows": [(lse_shifted, rlse)],
+    }
     cases = {
         "kernels": [(dq, rdq), (dk, rdk), (dv, rdv)],
         "last key tile of dk and dv zeroed": [(last_tile_zeroed(dk), rdk),
@@ -438,6 +503,9 @@ def check_catches_faults(torch, seed):
     }
     torch.cuda.synchronize()
     out = {}
+    for name, pairs in fwd_cases.items():
+        ok, err = _fwd_check(pairs, dname)
+        out[name] = {"passes": ok, "max_abs_err": err}
     for name, pairs in cases.items():
         ok, err, row_err = _grad_check(pairs, dname)
         out[name] = {"passes": ok, "max_abs_err": err,
@@ -446,10 +514,11 @@ def check_catches_faults(torch, seed):
                          a.float().allclose(w.float(), atol=BWD_TOL[dname],
                                             rtol=BWD_TOL[dname])
                          for a, w in pairs)}
-    if not out["kernels"]["passes"] or any(
-            r["passes"] for name, r in out.items() if name != "kernels"):
-        raise AssertionError(f"the gradient check does not tell the "
-                             f"kernels from planted faults: {out}")
+    own = ("kernels", "forward kernels")
+    if not all(out[name]["passes"] for name in own) or any(
+            r["passes"] for name, r in out.items() if name not in own):
+        raise AssertionError(f"the forward or gradient check does not "
+                             f"tell the kernels from planted faults: {out}")
     return out
 
 
@@ -528,10 +597,11 @@ def train(torch, seed, card):
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"training loss not finite and falling: "
                              f"{losses}")
-    # every K3 / K4 launch of the path on the tensor-core route
-    want = {fa.K1: 0, fa.K2: layers * steps, fa.K3: layers * steps,
-            fa.K4: layers * steps, f"{fa.K3}.tc": layers * steps,
-            f"{fa.K4}.tc": layers * steps}
+    # every K2 / K3 / K4 launch of the path on the tensor-core route
+    n = layers * steps
+    want = {fa.K1: 0, fa.K2: n, fa.K3: n, fa.K4: n, f"{fa.K2}.tc": n,
+            f"{fa.K3}.tc": n, f"{fa.K4}.tc": n, f"{fa.K2}.simt": 0,
+            f"{fa.K3}.simt": 0, f"{fa.K4}.simt": 0}
     got = {key: launches.get(key, 0) for key in want}
     if got != want:
         raise AssertionError(f"train launches {got}, want {want}")
@@ -595,7 +665,7 @@ def profile_train_step(torch, exe, feeds):
     return {"wall_ms": wall_ms,
             "device_busy_ms": busy if dev else None,
             "device_idle_share": 1.0 - busy / wall_ms if dev else None,
-            "flash_fwd_kernel_ms": kernel_ms("flash_fwd_kernel"),
+            "flash_fwd_kernel_ms": kernel_ms("flash_fwd"),
             "flash_bwd_dkv_kernel_ms": kernel_ms("flash_bwd_dkv"),
             "flash_bwd_dq_kernel_ms": kernel_ms("flash_bwd_dq"),
             "by_category": {c: {"ms": ms, "count": n}
@@ -767,6 +837,11 @@ def serve(torch, seed, card):
     if launches.get("flash_fwd", 0) <= 0 or passes[0]["k1_launches"] <= 0:
         raise AssertionError(f"main path never launched flash_fwd: "
                              f"{launches}")
+    # the f32 serving path: every K1 launch on the CUDA-core route
+    if launches.get(f"{fa.K1}.simt", 0) != launches[fa.K1] or \
+            launches.get(f"{fa.K1}.tc", 0):
+        raise AssertionError(f"serve K1 launches off the simt route: "
+                             f"{launches}")
 
     # token parity of request 0: the same engine with the plain blocked
     # attention swapped in for the kernel, up to the first position
@@ -837,7 +912,7 @@ def profile_pass(torch, eng, prompts):
             "device_busy_ms": busy if dev else None,
             "device_idle_share": 1.0 - busy / wall_ms if dev else None,
             "flash_fwd_ms": sum(e.self_device_time_total for e in dev
-                                if "flash_fwd_kernel" in e.key) / 1e3,
+                                if "flash_fwd" in e.key) / 1e3,
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
                             for e in top]}
@@ -866,25 +941,34 @@ def ptxas_report(log_text):
     return out
 
 
-def _kernel_row(name, source, replaces, launches, rows, rep_key,
-                library):
+# the two sources of each kernel family, by route
+SOURCES = {"fwd": {"tc": CSRC + "flash_fwd_tc.cu",
+                   "simt": CSRC + "flash_fwd.cu"},
+           "bwd": {"tc": CSRC + "flash_bwd_tc.cu",
+                   "simt": CSRC + "flash_bwd.cu"}}
+
+
+def _kernel_row(name, family, replaces, launches, rows, rep_key, library):
+    """One kernel of the ``kernels`` line: its row at the main path's
+    shape (``rep_key``), whose route names the ``source``."""
     rep = next(r for r in rows if (r["b"], r["s"], r["d"], r["dtype"],
                                    r["causal"], r["mask"]) == rep_key)
-    return {"name": name, "route": "cuda", "source": source,
+    return {"name": name, "route": "cuda",
+            "source": SOURCES[family][rep["route"]],
             "replaces": replaces, "launches": launches,
             "shape": {k: rep[k] for k in ("b", "h", "s", "d", "dtype",
                                           "causal", "mask")},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
             "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": rep["library_ms"],
-            "library": library, "checked_shapes": len(rows),
+            "library": library, "device_ms": rep["device_ms"],
+            "library_device_ms": rep["library_device_ms"],
+            "host_ms": rep["host_ms"], "kernel_route": rep["route"],
+            "sources": SOURCES[family], "checked_shapes": len(rows),
             "max_abs_err_all": _by_case(rows, "max_abs_err"),
-            **({"bwd_route": rep["route"], "host_ms": rep["host_ms"],
-                "row_rel_err": rep["row_rel_err"],
-                "row_rel_err_all": _by_case(rows, "row_rel_err"),
-                "sources": {"tc": CSRC + "flash_bwd_tc.cu",
-                            "simt": CSRC + "flash_bwd.cu"}}
-               if "route" in rep else {})}
+            **({"row_rel_err": rep["row_rel_err"],
+                "row_rel_err_all": _by_case(rows, "row_rel_err")}
+               if "row_rel_err" in rep else {})}
 
 
 def _by_case(rows, key):
@@ -929,7 +1013,7 @@ def main(argv=None):
         raise AssertionError("TF32 matmuls are on: the serving path "
                              "keeps float32 products in float32")
 
-    sources = ["flash_fwd", "flash_bwd", "flash_bwd_tc"]
+    sources = ["flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc"]
     seconds = _build.build(sources)
     ptxas = {name: ptxas_report(_build.build_log(name)) for name in sources}
     build = {"seconds": seconds, "ptxas": ptxas}
@@ -954,33 +1038,27 @@ def main(argv=None):
     log(f"crossover ({time.perf_counter() - t:.1f} s) {cross}")
 
     pallas = "hetu_tpu/ops/pallas_attention.py:"
-    # K1: the serving path's longest prefill, one 1024-token bucket; K2-K4:
-    # the training path's shape
-    k1_rep = (1, 1024, 64, "float32", True, False)
-    train_rep = (TRAIN_BATCH, 1024, 64, "bfloat16", True, False)
     sdpa = "torch.ops.aten._scaled_dot_product_flash_attention"
     kernels = {"kernels": [
-        _kernel_row("flash_fwd", CSRC + "flash_fwd.cu", pallas + "346",
-                    serve_launches.get(fa.K1, 0), k1_rows, k1_rep,
+        _kernel_row("flash_fwd", "fwd", pallas + "346",
+                    serve_launches.get(fa.K1, 0), k1_rows, K1_REP,
                     "torch.nn.functional.scaled_dot_product_attention"),
-        _kernel_row("flash_fwd_lse", CSRC + "flash_fwd.cu", pallas + "333",
+        _kernel_row("flash_fwd_lse", "fwd", pallas + "333",
                     train_launches.get(fa.K2, 0), train_rows["K2"],
-                    train_rep, sdpa + " (bf16 without mask only)"),
-        _kernel_row("flash_bwd_dkv", CSRC + "flash_bwd_tc.cu",
-                    pallas + "514", train_launches.get(fa.K3, 0),
-                    train_rows["K3"], train_rep, sdpa + "_backward "
-                    "(computes dq, dk and dv: K3 and K4 together; bf16 "
-                    "without mask only)"),
-        _kernel_row("flash_bwd_dq", CSRC + "flash_bwd_tc.cu",
-                    pallas + "526", train_launches.get(fa.K4, 0),
-                    train_rows["K4"], train_rep,
-                    "none alone: see flash_bwd_dkv"),
+                    TRAIN_REP, sdpa + " (bf16 without mask only)"),
+        _kernel_row("flash_bwd_dkv", "bwd", pallas + "514",
+                    train_launches.get(fa.K3, 0), train_rows["K3"],
+                    TRAIN_REP, sdpa + "_backward (computes dq, dk and dv: "
+                    "K3 and K4 together; bf16 without mask only)"),
+        _kernel_row("flash_bwd_dq", "bwd", pallas + "526",
+                    train_launches.get(fa.K4, 0), train_rows["K4"],
+                    TRAIN_REP, "none alone: see flash_bwd_dkv"),
         # K3 + K4 as the path calls them: one flash_attention_bwd, the
         # counterpart of the reference's entry that launches both
-        _kernel_row("flash_bwd_pair", CSRC + "flash_bwd_tc.cu",
-                    pallas + "539", min(train_launches.get(fa.K3, 0),
-                                        train_launches.get(fa.K4, 0)),
-                    train_rows["pair"], train_rep,
+        _kernel_row("flash_bwd_pair", "bwd", pallas + "539",
+                    min(train_launches.get(fa.K3, 0),
+                        train_launches.get(fa.K4, 0)),
+                    train_rows["pair"], TRAIN_REP,
                     sdpa + "_backward (bf16 without mask only)"),
     ]}
     shapes = {"kernel_shapes": {"flash_fwd": k1_rows, **{

@@ -4,8 +4,9 @@ Each kernel is one ``csrc/<name>.cu`` with a plain C interface. On
 first use it is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library under ``hetu_tpu_torch/_build/`` (listed in ``.gitignore``)
 and loaded with ``ctypes`` — no PyTorch headers, no ``ninja``, so a
-build takes seconds. The library name carries a hash of the source,
-so an edited kernel never loads a stale build.
+build takes seconds. The library name carries a hash of the source
+and of every header (``csrc/*.cuh``) it may include, so an edited
+kernel or header never loads a stale build.
 
 :data:`launch_counts` is the per-process launch counter: every wrapper
 adds one to its kernel's entry right after a successful launch, and
@@ -62,8 +63,11 @@ def _nvcc():
 
 def _lib_path(name):
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
+    return src, BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
 def build(names):

@@ -8,8 +8,12 @@ D]`` q/k/v:
   mask) v``;
 * :func:`flash_attention_with_lse` (K2) also returns the per-row
   logsumexp ``lse = m + log(l)`` as f32 ``[B, H, S]`` — the residual of
-  the fused backward (the same kernel as K1, ``csrc/flash_fwd.cu``,
-  with its lse output set);
+  the fused backward (the same kernels as K1, with their lse output
+  set). Two sources implement K1 and K2, and :func:`_fwd_route` alone
+  picks one per call: ``"tc"`` (``csrc/flash_fwd_tc.cu``: bf16 products
+  on the tensor cores with ``wgmma``, K/V staged by TMA) for bf16 at D
+  in (64, 128), ``"simt"`` (``csrc/flash_fwd.cu``, exact f32 on the
+  CUDA cores, K/V staged by ``cp.async``) for the rest;
 * :func:`flash_attention_bwd` (K3 + K4) recomputes the score tiles from
   ``lse`` and returns ``(dq, dk, dv)``: K3 per K/V tile, K4 per Q tile,
   so dQ needs no atomics and the split stays deterministic. Two
@@ -55,15 +59,16 @@ __all__ = ["flash_attention", "flash_attention_plain",
 # the composed paths use -1e9 instead
 NEG_INF = -1e30
 
-# launch-count keys of the four kernels (``_build.launch_counts``); a
-# K3 / K4 launch also counts under ``f"{K3}.{route}"`` (see _bwd_route)
+# launch-count keys of the four kernels (``_build.launch_counts``); each
+# launch also counts under ``f"{key}.{route}"`` (see _fwd_route,
+# _bwd_route)
 K1, K2, K3, K4 = "flash_fwd", "flash_fwd_lse", "flash_bwd_dkv", "flash_bwd_dq"
 
-_FWD_LIB = "flash_fwd"
+_FWD_LIBS = {"simt": "flash_fwd", "tc": "flash_fwd_tc"}
 _BWD_LIBS = {"simt": "flash_bwd", "tc": "flash_bwd_tc"}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_D = 256
-# head dims the tensor-core backward is instantiated for
+# head dims the tensor-core kernels are instantiated for
 _TC_HEAD_DIMS = (64, 128)
 
 
@@ -359,7 +364,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = {  # (bh, heads, s, d), scale, causal, dtype, stream
     "simt": (_I, _I, _I, _I, _F, _I, _I, _P),
     # (bh, heads, s, d, ld), scale, causal, stream
-    "tc": (_I, _I, _I, _I, _I, _F, _I, _P)}
+    "tc": (_I, _I, _I, _I, _I, _F, _I, _P),
+    # (bh, heads, s, d), scale, causal, stream
+    "fwd_tc": (_I, _I, _I, _I, _F, _I, _P)}
 
 
 @functools.cache
@@ -377,21 +384,48 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _aligned16(*ts):
+    """Each tensor with a 16-byte aligned base (a copy where it is not):
+    TMA and 16-byte ``cp.async`` read nothing else."""
+    return [t if t.data_ptr() % 16 == 0 else t.clone() for t in ts]
+
+
+def _fwd_route(dtype, d):
+    """The source K1 and K2 launch from, decided before the launch and
+    nowhere else: ``"tc"`` (``flash_fwd_tc.cu``, wgmma + TMA) for bf16
+    at a head dim in :data:`_TC_HEAD_DIMS`, ``"simt"``
+    (``flash_fwd.cu``) for every other dtype and head dim."""
+    return "tc" if dtype == torch.bfloat16 and d in _TC_HEAD_DIMS \
+        else "simt"
+
+
 def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
+    """Launch K1 (``want_lse=False``) or K2 on the route of q's dtype and
+    head dim; count it under its key and ``f"{key}.{route}"``."""
     b, h, s, d = q.shape
-    q, k, v = _check_qkv("flash_fwd", q, k, v)
+    q, k, v = _aligned16(*_check_qkv("flash_fwd", q, k, v))
     rows = None if mask is None else _mask_rows(mask.to(q.device), b, h, s)
     out = torch.empty_like(q)
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device) \
         if want_lse else None
-    lib, fn = _fn(_FWD_LIB, "hetu_flash_fwd", 6)
+    route = _fwd_route(q.dtype, d)
+    lib_name = _FWD_LIBS[route]
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rows),
+            out.data_ptr(), _ptr(lse))
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == "tc":
+        lib, fn = _fn(lib_name, "hetu_flash_fwd_tc", 6, "fwd_tc")
+        args = (b * h, h, s, d, float(sm_scale), int(bool(causal)), stream)
+    else:
+        lib, fn = _fn(lib_name, "hetu_flash_fwd", 6)
+        args = (b * h, h, s, d, float(sm_scale), int(bool(causal)),
+                _DTYPE_CODES[q.dtype], stream)
     with torch.cuda.device(q.device):
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(rows),
-                out.data_ptr(), _ptr(lse), b * h, h, s, d, float(sm_scale),
-                int(bool(causal)), _DTYPE_CODES[q.dtype],
-                torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, _FWD_LIB, rc)
-    _build.launch_counts[K2 if want_lse else K1] += 1
+        rc = fn(*ptrs, *args)
+    _build.check(lib, lib_name, rc)
+    key = K2 if want_lse else K1
+    _build.launch_counts[key] += 1
+    _build.launch_counts[f"{key}.{route}"] += 1
     return (out, lse) if want_lse else out
 
 
@@ -428,8 +462,7 @@ def _bwd_prepare(q, k, v, mask, o, lse, do):
     if route == "simt":
         return dict(q=q, k=k, v=v, o=o, do=do, lse=lse, rows=rows,
                     delta=_delta(o, do).contiguous(), route=route, ld=s)
-    q, k, v, o, do, lse = (t if t.data_ptr() % 16 == 0 else t.clone()
-                           for t in (q, k, v, o, do, lse))
+    q, k, v, o, do, lse = _aligned16(q, k, v, o, do, lse)
     ld = -(-s // 4) * 4
     return dict(q=q, k=k, v=v, o=o, do=do, lse=_pad_ld(lse, ld), rows=rows,
                 delta=torch.empty(b, h, ld, dtype=torch.float32,

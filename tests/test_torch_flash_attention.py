@@ -51,17 +51,26 @@ def test_neg_inf_pinned_to_the_reference_kernel():
     assert fa.NEG_INF == pk.NEG_INF == -1e30
 
 
-@pytest.mark.parametrize("s,mask_kind,causal", [
-    (64, None, False),
-    (64, None, True),
-    (64, "pad", False),
-    (64, "pad", True),
-    (64, "full_row", False),
-    (64, "full_row", True),
-    (512, "pad", True),     # 2 q-tiles x 1 k-tile: the causal skip
+def _interpret_case(s, mask_kind, causal, d=16):
+    name = f"{s}-{mask_kind}-{causal}" + (f"-d{d}" if d != 16 else "")
+    return pytest.param(s, mask_kind, causal, d, id=name)
+
+
+@pytest.mark.parametrize("s,mask_kind,causal,d", [
+    _interpret_case(64, None, False),
+    _interpret_case(64, None, True),
+    _interpret_case(64, "pad", False),
+    _interpret_case(64, "pad", True),
+    _interpret_case(64, "full_row", False),
+    _interpret_case(64, "full_row", True),
+    # 2 q-tiles x 1 k-tile: the causal skip
+    _interpret_case(512, "pad", True),
+    # the tensor-core forward's wider instantiation (bf16 at D=128 on
+    # the card is held to this plain version)
+    _interpret_case(128, "pad", True, d=128),
 ])
-def test_flash_plain_matches_pallas_interpret(s, mask_kind, causal):
-    q, k, v = _qkv(s=s, seed=s + bool(causal))
+def test_flash_plain_matches_pallas_interpret(s, mask_kind, causal, d):
+    q, k, v = _qkv(s=s, d=d, seed=s + bool(causal))
     mask = None if mask_kind is None else \
         _mask(2, s, valid=s * 3 // 4, full_row=mask_kind == "full_row")
     want = pk.flash_attention(
@@ -79,6 +88,15 @@ def test_flash_plain_matches_pallas_interpret(s, mask_kind, causal):
                          -1e9)[None, None]
         m = cm if m is None else m + cm
     _close(got, tattn.attention_reference(*t, m, 0.25))
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 8, "simt"), (torch.bfloat16, 256, "simt"),
+    (torch.bfloat16, 96, "simt"),
+    *[(torch.float32, d, "simt") for d in (8, 16, 64, 96, 128, 256)]])
+def test_fwd_route_is_tc_for_bf16_at_64_and_128_only(dtype, d, route):
+    assert fa._fwd_route(dtype, d) == route
 
 
 def test_flash_attention_on_cpu_runs_the_plain_version():

@@ -1,6 +1,7 @@
-"""Kernel K1 (hetu_tpu_torch/ops/csrc/flash_fwd.cu) against its plain
-PyTorch version on the card. Marked ``cuda``: it skips without a GPU.
-Imports neither JAX nor hetu_tpu, so it runs on a machine without JAX:
+"""Kernels K1 and K2 (hetu_tpu_torch/ops/csrc/flash_fwd_tc.cu for bf16 at
+D in (64, 128), flash_fwd.cu otherwise) against their plain PyTorch
+versions on the card. Marked ``cuda``: it skips without a GPU. Imports
+neither JAX nor hetu_tpu, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_flash_cuda.py
@@ -13,6 +14,7 @@ import pytest
 import torch
 
 from hetu_tpu_torch.ops import _build
+from hetu_tpu_torch.ops import flash_attention as fa
 from hetu_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_plain)
 
@@ -50,14 +52,45 @@ def test_flash_fwd_kernel_matches_plain(cuda, b, h, s, d, dtype, causal,
                                         masked):
     q, k, v, mask = _inputs(b, h, s, d, dtype, masked, seed=s + d,
                             device=cuda)
-    before = _build.launch_counts["flash_fwd"]
+    before = dict(_build.launch_counts)
     out = flash_attention(q, k, v, mask, sm_scale=d ** -0.5, causal=causal)
     torch.cuda.synchronize()
-    assert _build.launch_counts["flash_fwd"] == before + 1
+    route = fa._fwd_route(dtype, d)
+    for key in (fa.K1, f"{fa.K1}.{route}"):
+        assert _build.launch_counts[key] == before.get(key, 0) + 1, key
     ref = flash_attention_plain(q, k, v, mask, d ** -0.5, causal)
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,s,d,masked,causal", [
+    (2, 4, 1024, 64, False, True), (1, 4, 520, 128, True, False),
+    (4, 12, 128, 64, True, True)])
+def test_tc_route_k1_k2_match_plain(cuda, b, h, s, d, masked, causal):
+    # bf16 at D in (64, 128): wgmma + TMA (flash_fwd_tc.cu). S = 520
+    # leaves a ragged last tile of each head; with b = 4 the mask of the
+    # last batch element hides every key of its rows
+    dtype = torch.bfloat16
+    q, k, v, mask = _inputs(b, h, s, d, dtype, masked, seed=s + d + 1,
+                            device=cuda)
+    scale = d ** -0.5
+    before = dict(_build.launch_counts)
+    out = flash_attention(q, k, v, mask, scale, causal)
+    o, lse = fa.flash_attention_with_lse(q, k, v, mask, scale, causal)
+    torch.cuda.synchronize()
+    for key, n in ((fa.K1, 1), (f"{fa.K1}.tc", 1), (f"{fa.K1}.simt", 0),
+                   (fa.K2, 1), (f"{fa.K2}.tc", 1), (f"{fa.K2}.simt", 0)):
+        assert _build.launch_counts[key] == before.get(key, 0) + n, key
+    ro, rlse = fa.flash_attention_with_lse_plain(q, k, v, mask, scale,
+                                                 causal)
+    assert out.dtype == o.dtype == dtype and out.shape == q.shape
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, s)
+    tol = TOL[dtype]
+    for got, want in ((out, ro), (o, ro), (lse, rlse)):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
 
 
 @pytest.mark.cuda
