@@ -5,12 +5,13 @@
 
 Run from a checkout of the repository on a machine with one NVIDIA GPU
 and the CUDA toolkit. It builds every hand-written kernel from the
-sources in the checkout, drives the port's two main paths — GPT-2-small
+sources in the checkout, drives the port's four main paths — GPT-2-small
 (full width, random weights from a seed) served through
-``ContinuousBatchingEngine``, and the same model trained with Adam in
-bf16 through ``Executor.run`` (B=8, S=1024) — checks every kernel
-against its plain PyTorch version on the card, and prints one JSON
-object per line (``--out`` also writes them to FILE):
+``ContinuousBatchingEngine``; the same model trained with Adam in bf16
+through ``Executor.run`` (B=8, S=1024); BERT-base MLM + NSP pre-training
+(B=64, S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8) —
+checks every kernel against its plain PyTorch version on the card, and
+prints one JSON object per line (``--out`` also writes them to FILE):
 
 * ``device``  the card (name and power limit from nvidia-smi), torch and
   CUDA versions;
@@ -32,16 +33,23 @@ object per line (``--out`` also writes them to FILE):
   route), peak memory, the device idle share and time by kernel
   category of one profiled step, and the step-1 parity check against
   the plain K2–K4;
+* ``bert``, ``bert_long`` the same for the two BERT passes, with MFU
+  against the bf16 dense peak and the host time of one step by op type
+  (the composed attention backward's and dropout's among them); BERT-base
+  launches K1 12 times a step, all on ``tc``, and no K2–K4; BERT-small at
+  S=2048 launches K2, K3 and K4 4 times a step each, all on ``tc``, and
+  no K1; step-1 parity against the plain kernels;
 * ``crossover`` per sequence length, the fused training attention
-  (K2 + K3 + K4) against K1 + the composed autograd backward;
+  (K2 + K3 + K4) against K1 + the composed autograd backward, and one
+  row at BERT-base's shape (masked, non-causal);
 * ``kernels`` per kernel (K1 flash forward, K2 forward with logsumexp,
   K3 backward dK/dV, K4 backward dQ, and the K3+K4 pair as one
   ``flash_attention_bwd`` against PyTorch's flash backward): launches
-  on its main path, the largest error against the plain version by
-  dtype and route over every checked shape, and ``kernel_shapes``' row
-  at the main path's shape with the kernel's and the PyTorch call's
-  device time per call from torch.profiler (``device_ms``,
-  ``library_device_ms``);
+  on its main paths (by path and route), the largest error against the
+  plain version by dtype and route over every checked shape, and
+  ``kernel_shapes``' row at each main path's shape with the kernel's and
+  the PyTorch call's device time per call from torch.profiler
+  (``device_ms``, ``library_device_ms``);
 
 then the card line as ``nvidia-smi`` prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -103,11 +111,40 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 BWD_ROW_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 BWD_ROW_FLOOR = 1e-3
 CROSSOVER_SEQ = (128, 256, 512, 1024, 2048)
-# the main-path shape of each kernel, (b, s, d, dtype, causal, mask) at
-# H=12: K1 the serving path's longest prefill, one 1024-token bucket;
-# K2-K4 the training step's
-K1_REP = (1, 1024, 64, "float32", True, False)
-TRAIN_REP = (TRAIN_BATCH, 1024, 64, "bfloat16", True, False)
+
+# the BERT pre-training passes: BERT-base, the graph of bench.py:1150-1168
+# (B=64, S=128), and BERT-small at S=2048, the graph of
+# bench.py:2390-2406 (B=8); bf16 with f32 masters, Adam lr 1e-4, the
+# default dropout 0.1, one fixed batch whose rows are padded past a
+# length drawn from ``lengths``
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=128)
+BERT_SMALL_2048 = dict(vocab_size=30522, hidden_size=512,
+                       num_hidden_layers=4, num_attention_heads=8,
+                       intermediate_size=2048, max_position_embeddings=2048)
+BERT_PASSES = {
+    "bert": dict(model="bert-base", widths=BERT_BASE, batch=64,
+                 lengths=(64, 128), warmup=2, steps=6),
+    "bert_long": dict(model="bert-small-2048", widths=BERT_SMALL_2048,
+                      batch=8, lengths=(1024, 2048), warmup=2, steps=6),
+}
+BERT_FEEDS = ("input_ids", "token_type_ids", "attention_mask",
+              "masked_lm_labels", "next_sentence_label")
+
+# the main-path shape of each kernel: K1 the serving path's longest
+# prefill (one 1024-token bucket) and the BERT-base step's; K2-K4 the
+# GPT training step's and the BERT-small S=2048 step's. ``mask``: None,
+# "half" (fixed keys masked, see check_flash_fwd) or "padding" (BERT's
+# rows, padding_mask)
+K1_REP = dict(b=1, h=12, s=1024, d=64, dtype="float32", causal=True,
+              mask=None)
+BERT_K1_REP = dict(b=64, h=12, s=128, d=64, dtype="bfloat16", causal=False,
+                   mask="padding")
+TRAIN_REP = dict(b=TRAIN_BATCH, h=12, s=1024, d=64, dtype="bfloat16",
+                 causal=True, mask=None)
+BERT_LONG_REP = dict(b=8, h=8, s=2048, d=64, dtype="bfloat16", causal=False,
+                     mask="padding")
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
@@ -116,6 +153,7 @@ PROFILE_CATEGORIES = (
     ("reduction", ("reduce_kernel",)),
     ("index / scatter / gather", ("index", "scatter", "gather", "unique",
                                   "sort", "radix")),
+    ("random (dropout masks)", ("distribution", "philox")),
     ("elementwise", ("elementwise", "copy")),
 )
 
@@ -170,28 +208,50 @@ def median_ms(torch, fn, reps=10, warmup=2):
 # (one flash_attention_bwd) reads q, k, v, O, dO, lse, writes dq, dk, dv
 FLASH_WORK = {"K1": (4, 4, 0), "K2": (4, 4, 1), "K3": (8, 6, 2),
               "K4": (6, 6, 2), "pair": (14, 8, 1)}
-# the K1 checks: (dtypes, batches, seqs, head dim); every row with mask
-# on/off and causal on/off, the mask hiding every key of the last batch
-# element's rows where B > 1. D=64 is both main paths' (f32 serving on
-# the simt route, bf16 on tc); bf16 D=128 and the ragged S=520 hold the
-# other tensor-core instantiation and the TMA edge; bf16 D=96 the simt
-# route's bf16
+# the K1 checks: (dtypes, batches, seqs, head dim, heads, masks); every
+# row with each of its masks and causal on/off. The "half" mask hides the
+# second half of the first batch element's keys and every key of the
+# last one's rows where B > 1. D=64 is the main paths' (f32 serving on
+# the simt route, bf16 BERT-base on tc, B=64 with BERT's padding); bf16
+# D=128 and the ragged S=520 hold the other tensor-core instantiation
+# and the TMA edge; bf16 D=96 the simt route's bf16
 FWD_KERNEL_SHAPES = (
-    (("float32", "bfloat16"), (1, 4), (8, 128, 512, 1024), 64),
-    (("bfloat16",), (4,), (512, 1024), 128),
-    (("bfloat16",), (4,), (520,), 64),
-    (("bfloat16",), (4,), (512, 1024), 96),
+    (("float32", "bfloat16"), (1, 4), (8, 128, 512, 1024), 64, 12,
+     (None, "half")),
+    (("bfloat16",), (64,), (128,), 64, 12, (None, "half", "padding")),
+    (("bfloat16",), (4,), (512, 1024), 128, 12, (None, "half")),
+    (("bfloat16",), (4,), (520,), 64, 12, (None, "half")),
+    (("bfloat16",), (4,), (512, 1024), 96, 12, (None, "half")),
 )
-# the K2-K4 checks: (dtypes, batches, seqs, head dim); every row with mask
-# on/off and causal on/off. D=64 is the training path's; D=128 and the
-# ragged S=520 hold the other tensor-core instantiations and the TMA edge;
-# bf16 at D=96 the simt route's bf16 instantiations
+# the K2-K4 checks: (dtypes, batches, seqs, head dim, heads, masks); every
+# row with each of its masks and causal on/off; the "half" mask hides the
+# second half of the first element's keys and the last quarter of the
+# last one's. D=64 is the training paths' (GPT-2 at H=12 S=1024, BERT-small
+# at H=8 S=2048 with BERT's padding); D=128 and the ragged S=520 hold the
+# other tensor-core instantiations and the TMA edge; bf16 at D=96 the
+# simt route's bf16 instantiations
 TRAIN_KERNEL_SHAPES = (
-    (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64),
-    (("bfloat16",), (1,), (512, 1024), 128),
-    (("bfloat16",), (1,), (520,), 64),
-    (("bfloat16",), (1,), (512, 1024), 96),
+    (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64, 12,
+     (None, "half")),
+    (("bfloat16",), (8,), (2048,), 64, 8, (None, "half", "padding")),
+    (("bfloat16",), (1,), (512, 1024), 128, 12, (None, "half")),
+    (("bfloat16",), (1,), (520,), 64, 12, (None, "half")),
+    (("bfloat16",), (1,), (512, 1024), 96, 12, (None, "half")),
 )
+
+
+def padding_mask(torch, b, s, dtype, g):
+    """BERT's additive padding mask, [B, 1, 1, S] in ``dtype``, as its
+    graph builds it: (m - 1) * 10000 with m = 1 on each element's first L
+    keys, L drawn from [S/2, S] (in bf16 a padded key carries -9984)."""
+    lengths = torch.randint(s // 2, s + 1, (b, 1), generator=g,
+                            device="cuda")
+    keep = (torch.arange(s, device="cuda")[None] < lengths).to(dtype)
+    return ((keep - 1) * 10000).view(b, 1, 1, s)
+
+
+def _is(row, rep):
+    return all(row[k] == v for k, v in rep.items())
 
 
 def flash_bound(b, h, s, d, dtype_name, causal, masked, kind="K1"):
@@ -238,28 +298,30 @@ def _device_times(torch, kern, library):
 
 def check_flash_fwd(torch, seed):
     """K1 against its plain version at every shape of FWD_KERNEL_SHAPES,
-    H=12, mask on/off, causal on/off; each row names the route the
-    kernel took and the wrapper's host time; the row at K1_REP also its
-    device times (_device_times)."""
+    with each of its masks and causal on/off; each row names the route
+    the kernel took and the wrapper's host time; the rows at K1_REP and
+    BERT_K1_REP also their device times (_device_times). The PyTorch call
+    is SDPA with the same additive mask (and the causal one)."""
     import torch.nn.functional as F
     from hetu_tpu_torch.ops import flash_attention as fa
-    h = 12
     rows, failures = [], []
-    shapes = [(getattr(torch, dname), b, s, d)
-              for dnames, batches, seqs, d in FWD_KERNEL_SHAPES
+    shapes = [(getattr(torch, dname), b, s, d, h, masks)
+              for dnames, batches, seqs, d, h, masks in FWD_KERNEL_SHAPES
               for dname in dnames for b in batches for s in seqs]
-    for dtype, b, s, d in shapes:
+    for dtype, b, s, d, h, masks in shapes:
         dname = str(dtype).split(".")[-1]
         g = torch.Generator(device="cuda").manual_seed(seed + s + b)
         q, k, v = (torch.randn(b, h, s, d, generator=g,
                                device="cuda").to(dtype) for _ in range(3))
-        for masked in (False, True):
+        for masked in masks:
             mask = None
-            if masked:
+            if masked == "half":
                 mask = torch.zeros(b, 1, 1, s, device="cuda")
                 mask[0, ..., s // 2:] = -1e9
                 if b > 1:
                     mask[-1] = -1e9     # a fully masked row
+            elif masked == "padding":
+                mask = padding_mask(torch, b, s, dtype, g)
             for causal in (False, True):
                 scale = d ** -0.5
                 out = fa.flash_attention(q, k, v, mask, scale, causal)
@@ -298,7 +360,7 @@ def check_flash_fwd(torch, seed):
                            reps=3, warmup=1),
                        "library_ms": median_ms(torch, library),
                        "bound_ms": bound, "bound_by": by}
-                if (b, s, d, dname, causal, masked) == K1_REP:
+                if _is(row, K1_REP) or _is(row, BERT_K1_REP):
                     row.update(_device_times(torch, kern, library))
                 rows.append(row)
                 if not ok:
@@ -351,35 +413,36 @@ def _sdpa_flash(torch, q, k, v, scale, causal):
 
 def check_flash_train_kernels(torch, seed):
     """K2, K3, K4 and the K3+K4 pair (one flash_attention_bwd) against
-    their plain versions at every shape of TRAIN_KERNEL_SHAPES, H=12,
-    mask on/off, causal on/off. The padding mask leaves every row an
-    unmasked key (a fully masked row has p = exp(s - lse) = 1 under the
+    their plain versions at every shape of TRAIN_KERNEL_SHAPES, with each
+    of its masks and causal on/off. The masks leave every row an unmasked
+    key (a fully masked row has p = exp(s - lse) = 1 under the
     reference's formula, which nothing pins). K3 and K4 run from the
     kernel's own o and lse, so each is held apart from K2's roundings;
     their rows name the route they took. K3's and K4's times are their
     launches alone, from prepared inputs (K3 reading the D that K4
     wrote, as on the path); the pair's is one whole flash_attention_bwd.
-    The row at TRAIN_REP also carries device times (_device_times).
-    Returns {kernel: [row per shape]}."""
+    The rows at TRAIN_REP and BERT_LONG_REP also carry device times
+    (_device_times). Returns {kernel: [row per shape]}."""
     from hetu_tpu_torch.ops import flash_attention as fa
-    h = 12
     rows = {"K2": [], "K3": [], "K4": [], "pair": []}
     failures = []
-    shapes = [(getattr(torch, dname), b, s, d)
-              for dnames, batches, seqs, d in TRAIN_KERNEL_SHAPES
+    shapes = [(getattr(torch, dname), b, s, d, h, masks)
+              for dnames, batches, seqs, d, h, masks in TRAIN_KERNEL_SHAPES
               for dname in dnames for b in batches for s in seqs]
-    for dtype, b, s, d in shapes:
+    for dtype, b, s, d, h, masks in shapes:
         dname = str(dtype).split(".")[-1]
         g = torch.Generator(device="cuda").manual_seed(seed + s + b)
         q, k, v, do = (torch.randn(b, h, s, d, generator=g,
                                    device="cuda").to(dtype)
                        for _ in range(4))
-        for masked in (False, True):
+        for masked in masks:
             mask = None
-            if masked:
+            if masked == "half":
                 mask = torch.zeros(b, 1, 1, s, device="cuda")
                 mask[0, ..., s // 2:] = -1e9
                 mask[-1, ..., 3 * s // 4:] = -1e9
+            elif masked == "padding":
+                mask = padding_mask(torch, b, s, dtype, g)
             for causal in (False, True):
                 args = (q, k, v, mask)
                 scale = d ** -0.5
@@ -446,7 +509,7 @@ def check_flash_train_kernels(torch, seed):
                                library_ms=None if lib[kind] is None
                                else median_ms(torch, lib[kind]),
                                bound_ms=bound, bound_by=by)
-                    if (b, s, d, dname, causal, masked) == TRAIN_REP:
+                    if _is(row, TRAIN_REP) or _is(row, BERT_LONG_REP):
                         row.update(_device_times(torch, kern, lib[kind]))
                     rows[kind].append(row)
                     if not row["ok"]:
@@ -531,16 +594,92 @@ def _bf16_ulp(x):
     return 2.0 ** (int(np.floor(np.log2(abs(x)))) - 7)
 
 
-def train(torch, seed, card):
-    """GPT-2-small causal LM, the graph of bench.py:1103-1118, trained
-    with Adam in bf16 through Executor.run on one fixed batch. First a
-    parity step with the plain K2-K4 swapped in (before the main path
-    window), then the main path: warm-up and timed steps with the
-    kernels; then one profiled step."""
+def train_pass(torch, nodes, feeds, plain, steps):
+    """What every training phase runs: first one step of an executor
+    over ``nodes`` (the loss, the gradients to compare, the optimizer)
+    with the plain kernel versions of ``plain`` ({name in
+    ``ops.attention``: function}) swapped in, before the main path; then
+    the main path, ``steps`` steps of a new executor of the same graph
+    with the kernels, the launch counts set to 0 just before and read
+    just after. The same graph and step 0 give both executors the same
+    weights and dropout masks. Returns (executor, run)."""
     import hetu_tpu_torch as ht
-    from hetu_tpu_torch import models as M
     from hetu_tpu_torch.ops import _build
     from hetu_tpu_torch.ops import attention as attn
+    kernels = {key: getattr(attn, key) for key in plain}
+    for key, fn in plain.items():
+        setattr(attn, key, fn)
+    try:
+        exe = ht.Executor(nodes, dtype=torch.bfloat16)
+        out = exe.run(feed_dict=feeds)
+        plain_loss = float(out[0].asnumpy())
+        plain_grads = [o.tensor.float().clone() for o in out[1:-1]]
+    finally:
+        for key, fn in kernels.items():
+            setattr(attn, key, fn)
+    del exe, out
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    exe = ht.Executor(nodes, dtype=torch.bfloat16)
+    setup_s = time.perf_counter() - t0
+    losses, step_ms = [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(feed_dict=feeds)
+        losses.append(float(out[0].asnumpy()))      # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            kernel_grads = [o.tensor.float().clone() for o in out[1:-1]]
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)           # main path ends
+    return exe, {"setup_s": setup_s, "losses": losses, "step_ms": step_ms,
+                 "launches": launches,
+                 "peak": torch.cuda.max_memory_allocated(),
+                 "plain_loss": plain_loss, "plain_grads": plain_grads,
+                 "kernel_grads": kernel_grads}
+
+
+def check_pass(name, run, want, grads):
+    """A training phase's checks: every loss finite and the last below
+    the first; the launch counts ``want``; step-1 parity with the plain
+    kernels — the loss within one bf16 ulp, each of ``grads`` ({part:
+    (kernel's, plain's)}) within GRAD_PARITY_TOL of its largest element.
+    Returns (launches, parity)."""
+    losses = run["losses"]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} loss not finite and falling: {losses}")
+    got = {key: run["launches"].get(key, 0) for key in want}
+    if got != want:
+        raise AssertionError(f"{name} launches {got}, want {want}")
+    grad_err = {part: float((kg - pg).abs().max() / pg.abs().max())
+                for part, (kg, pg) in grads.items()}
+    parity = {"loss_kernels": losses[0], "loss_plain": run["plain_loss"],
+              "loss_tol": _bf16_ulp(run["plain_loss"]),
+              "grad_rel_err": grad_err, "grad_tol": GRAD_PARITY_TOL}
+    if abs(losses[0] - run["plain_loss"]) > parity["loss_tol"] or \
+            max(grad_err.values()) > GRAD_PARITY_TOL:
+        raise AssertionError(f"{name} step-1 parity with the plain kernels "
+                             f"failed: {parity}")
+    return got, parity
+
+
+def _route_counts(on, off, n):
+    """Launch counts of a path whose kernels ``on`` launch n times each,
+    all on the tc route, and whose kernels ``off`` never launch."""
+    return {**{k: n for k in on}, **{f"{k}.tc": n for k in on},
+            **{f"{k}.simt": 0 for k in on}, **{k: 0 for k in off}}
+
+
+def train(torch, seed, card):
+    """GPT-2-small causal LM, the graph of bench.py:1103-1118, trained
+    with Adam in bf16 through Executor.run on one fixed batch
+    (train_pass: a parity step with the plain K2-K4 swapped in, then
+    warm-up and timed steps with the kernels); then one profiled step."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
     from hetu_tpu_torch.ops import flash_attention as fa
 
     cfg = M.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
@@ -563,75 +702,33 @@ def train(torch, seed, card):
     feeds = {ids: torch.as_tensor(x, device="cuda"),
              labels: torch.as_tensor(y, device="cuda")}
 
-    kernels = (attn.flash_attention_with_lse, attn.flash_attention_bwd)
-    attn.flash_attention_with_lse = fa.flash_attention_with_lse_plain
-    attn.flash_attention_bwd = fa.flash_attention_bwd_plain
-    try:
-        exe = ht.Executor(nodes, dtype=torch.bfloat16)
-        out = exe.run(feed_dict=feeds)
-        plain_loss = float(out[0].asnumpy())
-        plain_grad = out[1].tensor.float().clone()
-    finally:
-        attn.flash_attention_with_lse, attn.flash_attention_bwd = kernels
-    del exe, out
-    torch.cuda.empty_cache()
-
-    torch.cuda.reset_peak_memory_stats()
-    _build.reset_launch_counts()                    # main path starts
-    t0 = time.perf_counter()
-    exe = ht.Executor(nodes, dtype=torch.bfloat16)
-    setup_s = time.perf_counter() - t0
-    losses, step_ms = [], []
-    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
-        t0 = time.perf_counter()
-        out = exe.run(feed_dict=feeds)
-        losses.append(float(out[0].asnumpy()))      # waits for the step
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        if i == 0:
-            kernel_grad = out[1].tensor.float().clone()
-    torch.cuda.synchronize()
-    launches = dict(_build.launch_counts)           # main path ends
-    peak = torch.cuda.max_memory_allocated()
     steps = TRAIN_WARMUP + TRAIN_STEPS
-    layers = cfg.num_hidden_layers
-    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"training loss not finite and falling: "
-                             f"{losses}")
-    # every K2 / K3 / K4 launch of the path on the tensor-core route
-    n = layers * steps
-    want = {fa.K1: 0, fa.K2: n, fa.K3: n, fa.K4: n, f"{fa.K2}.tc": n,
-            f"{fa.K3}.tc": n, f"{fa.K4}.tc": n, f"{fa.K2}.simt": 0,
-            f"{fa.K3}.simt": 0, f"{fa.K4}.simt": 0}
-    got = {key: launches.get(key, 0) for key in want}
-    if got != want:
-        raise AssertionError(f"train launches {got}, want {want}")
+    exe, run = train_pass(
+        torch, nodes, feeds,
+        {"flash_attention_with_lse": fa.flash_attention_with_lse_plain,
+         "flash_attention_bwd": fa.flash_attention_bwd_plain}, steps)
     hidden = cfg.hidden_size
-    grad_err = {
-        part: float((kernel_grad[:, i * hidden:(i + 1) * hidden]
-                     - plain_grad[:, i * hidden:(i + 1) * hidden]).abs().max()
-                    / plain_grad[:, i * hidden:(i + 1) * hidden].abs().max())
-        for i, part in enumerate("qkv")}
-    loss_tol = _bf16_ulp(plain_loss)
-    parity = {"loss_kernels": losses[0], "loss_plain": plain_loss,
-              "loss_tol": loss_tol, "grad_rel_err": grad_err,
-              "grad_tol": GRAD_PARITY_TOL}
-    if abs(losses[0] - plain_loss) > loss_tol or \
-            max(grad_err.values()) > GRAD_PARITY_TOL:
-        raise AssertionError(f"step-1 parity with the plain K2-K4 failed: "
-                             f"{parity}")
-    timed = step_ms[TRAIN_WARMUP:]
+    (kernel_grad,), (plain_grad,) = run["kernel_grads"], run["plain_grads"]
+    got, parity = check_pass(
+        "train", run,
+        _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                      cfg.num_hidden_layers * steps),
+        {part: (kernel_grad[:, i * hidden:(i + 1) * hidden],
+                plain_grad[:, i * hidden:(i + 1) * hidden])
+         for i, part in enumerate("qkv")})
+    timed = run["step_ms"][TRAIN_WARMUP:]
     tokens = TRAIN_BATCH * seq
     profile = profile_train_step(torch, exe, feeds)
     return {"card": card, "model": "gpt2-small", **GPT2_SMALL,
             "batch": TRAIN_BATCH, "seq": seq, "dtype": "bfloat16",
             "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
-            "executor_setup_s": setup_s,
+            "executor_setup_s": run["setup_s"],
             "warmup_steps": TRAIN_WARMUP, "timed_steps": TRAIN_STEPS,
             "tokens_per_s": tokens * len(timed) / (sum(timed) / 1e3),
-            "step_ms_p50": float(np.median(timed)), "step_ms": step_ms,
-            "losses": losses, "launches": got,
-            "peak_memory_bytes": int(peak), "parity": parity,
-            "profile": profile}, launches
+            "step_ms_p50": float(np.median(timed)),
+            "step_ms": run["step_ms"], "losses": run["losses"],
+            "launches": got, "peak_memory_bytes": int(run["peak"]),
+            "parity": parity, "profile": profile}, run["launches"]
 
 
 def profile_train_step(torch, exe, feeds):
@@ -676,38 +773,195 @@ def profile_train_step(torch, exe, feeds):
                             for e in top]}
 
 
+def bert_train_flops(batch, seq, hidden, layers, heads, intermediate,
+                     vocab):
+    """Analytic FLOPs of one BERT MLM training step (bench.py:54: the
+    backward counts 2x the forward). Per token forward: QKVO projections
+    8h^2, scores and context 4sh, FFN 4hi, the MLM head over every
+    position 2hV; embeddings, LayerNorm and softmax are O(h) and left
+    out, so the MFU it gives is conservative."""
+    per_token = layers * (8 * hidden * hidden + 4 * seq * hidden
+                          + 4 * hidden * intermediate) + 2 * hidden * vocab
+    return 3.0 * per_token * batch * seq
+
+
+def bert_feed_values(feed_nodes, batch, seq, vocab, lengths, seed):
+    """The feeds of bench.py's BERT passes (``_feed_values``,
+    __graft_entry__.py:47-57: random ids, token types, MLM labels and NSP
+    labels), except that each row keeps a length drawn uniformly from
+    ``lengths`` in its attention mask and its MLM labels are -1 on the
+    padding, so the padding mask masks."""
+    rng = np.random.RandomState(seed)
+    input_ids, token_type_ids, attention_mask, mlm_labels, nsp_label = \
+        feed_nodes
+    values = {
+        input_ids: rng.randint(0, vocab, (batch, seq)),
+        token_type_ids: rng.randint(0, 2, (batch, seq)),
+        attention_mask: np.ones((batch, seq), np.float32),
+        mlm_labels: rng.randint(0, vocab, (batch, seq)),
+        nsp_label: rng.randint(0, 2, (batch,)),
+    }
+    keep = np.arange(seq)[None] < rng.randint(lengths[0], lengths[1] + 1,
+                                              (batch, 1))
+    values[attention_mask] = keep.astype(np.float32)
+    values[mlm_labels][~keep] = -1
+    return values
+
+
+def bert_train(torch, seed, card, name):
+    """One BERT pass of BERT_PASSES: BertForPreTraining (MLM + NSP, flash
+    attention under the padding mask, dropout 0.1) trained with Adam in
+    bf16 through Executor.run on one fixed batch (train_pass: a parity
+    step with the plain kernels swapped in — K1 below FUSED_BWD_MIN_SEQ,
+    K2-K4 from it on — then warm-up and timed steps with the kernels);
+    then one profiled step and one with each op's host time taken."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import attention as attn
+    from hetu_tpu_torch.ops import flash_attention as fa
+
+    spec = BERT_PASSES[name]
+    widths = spec["widths"]
+    cfg = M.BertConfig(**widths, use_flash_attention=True)
+    batch, seq = spec["batch"], widths["max_position_embeddings"]
+    feed_nodes = [ht.Variable(n, trainable=False) for n in BERT_FEEDS]
+    _, _, mlm_loss, nsp_loss = M.BertForPreTraining(cfg)(*feed_nodes)
+    loss = ht.reduce_mean_op(mlm_loss, [0, 1]) + \
+        ht.reduce_mean_op(nsp_loss, [0])
+    opt = ht.optim.AdamOptimizer(learning_rate=TRAIN_LR)
+    train_op = opt.minimize(loss)
+    # the layer-0 query / key / value weights' gradients: dq, dk, dv of
+    # layer 0 mapped back through the projections
+    qkv = [next(i for i, p in enumerate(opt.params)
+                if p.name == f"layer0_attn_{w}_weights")
+           for w in ("query", "key", "value")]
+    nodes = [loss] + [train_op.inputs[i] for i in qkv] + [train_op]
+    feeds = {node: torch.as_tensor(v, device="cuda") for node, v in
+             bert_feed_values(feed_nodes, batch, seq, widths["vocab_size"],
+                              spec["lengths"], seed).items()}
+
+    steps = spec["warmup"] + spec["steps"]
+    fused = seq >= attn.FUSED_BWD_MIN_SEQ
+    plain = ({"flash_attention_with_lse": fa.flash_attention_with_lse_plain,
+              "flash_attention_bwd": fa.flash_attention_bwd_plain}
+             if fused else {"flash_attention": fa.flash_attention_plain})
+    exe, run = train_pass(torch, nodes, feeds, plain, steps)
+    on, off = ((fa.K2, fa.K3, fa.K4), (fa.K1,)) if fused \
+        else ((fa.K1,), (fa.K2, fa.K3, fa.K4))
+    got, parity = check_pass(
+        name, run, _route_counts(on, off, cfg.num_hidden_layers * steps),
+        dict(zip("qkv", zip(run["kernel_grads"], run["plain_grads"]))))
+    timed = run["step_ms"][spec["warmup"]:]
+    p50 = float(np.median(timed))
+    flops = bert_train_flops(batch, seq, widths["hidden_size"],
+                             widths["num_hidden_layers"],
+                             widths["num_attention_heads"],
+                             widths["intermediate_size"],
+                             widths["vocab_size"])
+    return {"card": card, "model": spec["model"], **widths,
+            "batch": batch, "seq": seq, "padded_lengths": spec["lengths"],
+            "dtype": "bfloat16", "dropout": cfg.hidden_dropout_prob,
+            "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
+            "executor_setup_s": run["setup_s"],
+            "warmup_steps": spec["warmup"], "timed_steps": spec["steps"],
+            "tokens_per_s": batch * seq * len(timed) / (sum(timed) / 1e3),
+            "step_ms_p50": p50, "step_ms": run["step_ms"],
+            "flops_per_step": flops,
+            "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["bfloat16"],
+            "losses": run["losses"], "launches": got,
+            "peak_memory_bytes": int(run["peak"]),
+            "parity": {"plain": sorted(plain), **parity},
+            "profile": profile_train_step(torch, exe, feeds),
+            "host": host_ms_by_op(torch, exe, feeds)}, run["launches"]
+
+
+def host_ms_by_op(torch, exe, feeds):
+    """One more step with every op's ``compute`` timed on the host clock,
+    summed by op type: the host's time in each op, launches included, not
+    the device's (an op that waits for the device, as the optimizer's
+    ``torch.unique`` does, also counts the device work queued before
+    it). Also the host time of making one per-op generator on the card,
+    which every dropout op and its gradient op pay."""
+    from hetu_tpu_torch.graph.node import ExecContext
+    sub = exe.subexecutors["default"]
+    totals = {}
+
+    def timed(node, fn):
+        def run(input_vals, ectx):
+            t0 = time.perf_counter()
+            try:
+                return fn(input_vals, ectx)
+            finally:
+                ms, n = totals.get(node.op_type, (0.0, 0))
+                totals[node.op_type] = (
+                    ms + (time.perf_counter() - t0) * 1e3, n + 1)
+        return run
+
+    for node in sub.topo_order:
+        node.compute = timed(node, node.compute)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exe.run(feed_dict=feeds)[0].asnumpy()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for node in sub.topo_order:
+            del node.compute
+    ectx = ExecContext(device=torch.device("cuda"))
+    op = sub.topo_order[-1]
+    t0 = time.perf_counter()
+    for _ in range(100):
+        ectx.generator_for(op)
+    gen_us = (time.perf_counter() - t0) * 1e4
+    by_type = sorted(totals.items(), key=lambda x: -x[1][0])
+    return {"wall_ms": wall_ms,
+            "ops_ms": sum(ms for ms, _ in totals.values()),
+            "generator_us": gen_us,
+            "by_op_type": {t: {"ms": ms, "count": n}
+                           for t, (ms, n) in by_type}}
+
+
 def crossover(torch, seed):
-    """Per sequence length (B*H = 96, D=64, bf16, causal): one training
-    attention forward + backward through the fused kernels (K2, then K3
-    + K4) against K1 + the composed autograd backward — the two routes
-    FlashAttentionOp / its gradient op choose between at
+    """Per sequence length (B*H = 96, D=64, bf16, causal), and at
+    BERT-base's shape (B=64 H=12 S=128, non-causal, BERT's padding mask):
+    one training attention forward + backward through the fused kernels
+    (K2, then K3 + K4) against K1 + the composed autograd backward — the
+    two routes FlashAttentionOp / its gradient op choose between at
     FUSED_BWD_MIN_SEQ."""
     from hetu_tpu_torch.ops import attention as attn
     from hetu_tpu_torch.ops import flash_attention as fa
-    b, h, d = TRAIN_BATCH, 12, 64
+    d = 64
     scale = d ** -0.5
+    cases = [(TRAIN_BATCH, 12, s, True, None) for s in CROSSOVER_SEQ]
+    cases.append((BERT_K1_REP["b"], BERT_K1_REP["h"], BERT_K1_REP["s"],
+                  False, "padding"))
     out = []
-    for s in CROSSOVER_SEQ:
+    for b, h, s, causal, masked in cases:
         g = torch.Generator(device="cuda").manual_seed(seed + s)
         q, k, v, do = (torch.randn(b, h, s, d, generator=g, device="cuda")
                        .to(torch.bfloat16) for _ in range(4))
+        mask = padding_mask(torch, b, s, torch.bfloat16, g) if masked \
+            else None
 
         def fused():
-            o, lse = fa.flash_attention_with_lse(q, k, v, None, scale, True)
-            return fa.flash_attention_bwd(q, k, v, None, o, lse, do, scale,
-                                          True)
+            o, lse = fa.flash_attention_with_lse(q, k, v, mask, scale,
+                                                 causal)
+            return fa.flash_attention_bwd(q, k, v, mask, o, lse, do, scale,
+                                          causal)
 
         def composed():
-            fa.flash_attention(q, k, v, None, scale, True)
-            mask = attn._causal_mask(s, q.device)
+            fa.flash_attention(q, k, v, mask, scale, causal)
+            m = mask
+            if causal:
+                m = attn._causal_mask(s, q.device)
             _, vjp = torch.func.vjp(
                 lambda q_, k_, v_: attn.attention_reference(
-                    q_, k_, v_, mask, scale), q, k, v)
+                    q_, k_, v_, m, scale), q, k, v)
             return vjp(do)
 
         out.append({"s": s, "b": b, "h": h, "d": d, "dtype": "bfloat16",
-                    "causal": True, "fused_ms": median_ms(torch, fused,
-                                                          reps=5),
+                    "causal": causal, "mask": masked,
+                    "fused_ms": median_ms(torch, fused, reps=5),
                     "composed_ms": median_ms(torch, composed, reps=5)})
         del q, k, v, do
         torch.cuda.empty_cache()
@@ -948,14 +1202,30 @@ SOURCES = {"fwd": {"tc": CSRC + "flash_fwd_tc.cu",
                    "simt": CSRC + "flash_bwd.cu"}}
 
 
-def _kernel_row(name, family, replaces, launches, rows, rep_key, library):
-    """One kernel of the ``kernels`` line: its row at the main path's
-    shape (``rep_key``), whose route names the ``source``."""
-    rep = next(r for r in rows if (r["b"], r["s"], r["d"], r["dtype"],
-                                   r["causal"], r["mask"]) == rep_key)
+def _kernel_row(name, family, replaces, keys, paths, rows, library):
+    """One kernel of the ``kernels`` line. ``paths`` is [(main path,
+    its launch counts, its shape in ``rows``)]: ``launches`` sums the
+    launch-count ``keys`` over the paths (``launches_by_path`` by route
+    too), and the first path's row gives the top-level numbers and
+    ``source`` (by its route); ``main_path_rows`` holds every path's."""
+    reps = [next(r for r in rows if _is(r, rep)) for _, _, rep in paths]
+    by_path = {path: {k: counts.get(k, 0) for k in
+                      (*keys, *(f"{k}.{route}" for k in keys
+                                for route in ("tc", "simt")))}
+               for path, counts, _ in paths}
+    rep = reps[0]
+    main_rows = [
+        {"path": path, "source": SOURCES[family][r["route"]],
+         **{k: r[k] for k in ("b", "h", "s", "d", "dtype", "causal", "mask",
+                              "route", "max_abs_err", "ms", "device_ms",
+                              "host_ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms", "library_device_ms")}}
+        for (path, _, _), r in zip(paths, reps)]
     return {"name": name, "route": "cuda",
             "source": SOURCES[family][rep["route"]],
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces,
+            "launches": sum(min(c[k] for k in keys) for c in by_path.values()),
+            "launches_by_path": by_path,
             "shape": {k: rep[k] for k in ("b", "h", "s", "d", "dtype",
                                           "causal", "mask")},
             "max_abs_err": rep["max_abs_err"], "ms": rep["ms"],
@@ -964,7 +1234,8 @@ def _kernel_row(name, family, replaces, launches, rows, rep_key, library):
             "library": library, "device_ms": rep["device_ms"],
             "library_device_ms": rep["library_device_ms"],
             "host_ms": rep["host_ms"], "kernel_route": rep["route"],
-            "sources": SOURCES[family], "checked_shapes": len(rows),
+            "sources": SOURCES[family], "main_path_rows": main_rows,
+            "checked_shapes": len(rows),
             "max_abs_err_all": _by_case(rows, "max_abs_err"),
             **({"row_rel_err": rep["row_rel_err"],
                 "row_rel_err_all": _by_case(rows, "row_rel_err")}
@@ -1027,6 +1298,14 @@ def main(argv=None):
     train_line, train_launches = train(torch, args.seed, card)
     log(f"train ({time.perf_counter() - t:.1f} s) {train_line}")
 
+    bert_lines, bert_launches = {}, {}
+    for name in BERT_PASSES:
+        t = time.perf_counter()
+        bert_lines[name], bert_launches[name] = bert_train(
+            torch, args.seed, card, name)
+        log(f"{name} ({time.perf_counter() - t:.1f} s) {bert_lines[name]}")
+        torch.cuda.empty_cache()
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
@@ -1039,33 +1318,38 @@ def main(argv=None):
 
     pallas = "hetu_tpu/ops/pallas_attention.py:"
     sdpa = "torch.ops.aten._scaled_dot_product_flash_attention"
+    fwd_paths = [("serve", serve_launches, K1_REP),
+                 ("bert", bert_launches["bert"], BERT_K1_REP)]
+    train_paths = [("train", train_launches, TRAIN_REP),
+                   ("bert_long", bert_launches["bert_long"], BERT_LONG_REP)]
     kernels = {"kernels": [
-        _kernel_row("flash_fwd", "fwd", pallas + "346",
-                    serve_launches.get(fa.K1, 0), k1_rows, K1_REP,
-                    "torch.nn.functional.scaled_dot_product_attention"),
-        _kernel_row("flash_fwd_lse", "fwd", pallas + "333",
-                    train_launches.get(fa.K2, 0), train_rows["K2"],
-                    TRAIN_REP, sdpa + " (bf16 without mask only)"),
-        _kernel_row("flash_bwd_dkv", "bwd", pallas + "514",
-                    train_launches.get(fa.K3, 0), train_rows["K3"],
-                    TRAIN_REP, sdpa + "_backward (computes dq, dk and dv: "
-                    "K3 and K4 together; bf16 without mask only)"),
-        _kernel_row("flash_bwd_dq", "bwd", pallas + "526",
-                    train_launches.get(fa.K4, 0), train_rows["K4"],
-                    TRAIN_REP, "none alone: see flash_bwd_dkv"),
+        _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
+                    fwd_paths, k1_rows,
+                    "torch.nn.functional.scaled_dot_product_attention "
+                    "(with the same additive mask)"),
+        _kernel_row("flash_fwd_lse", "fwd", pallas + "333", (fa.K2,),
+                    train_paths, train_rows["K2"],
+                    sdpa + " (bf16 without mask only)"),
+        _kernel_row("flash_bwd_dkv", "bwd", pallas + "514", (fa.K3,),
+                    train_paths, train_rows["K3"],
+                    sdpa + "_backward (computes dq, dk and dv: K3 and K4 "
+                    "together; bf16 without mask only)"),
+        _kernel_row("flash_bwd_dq", "bwd", pallas + "526", (fa.K4,),
+                    train_paths, train_rows["K4"],
+                    "none alone: see flash_bwd_dkv"),
         # K3 + K4 as the path calls them: one flash_attention_bwd, the
         # counterpart of the reference's entry that launches both
         _kernel_row("flash_bwd_pair", "bwd", pallas + "539",
-                    min(train_launches.get(fa.K3, 0),
-                        train_launches.get(fa.K4, 0)),
-                    train_rows["pair"], TRAIN_REP,
+                    (fa.K3, fa.K4), train_paths, train_rows["pair"],
                     sdpa + "_backward (bf16 without mask only)"),
     ]}
     shapes = {"kernel_shapes": {"flash_fwd": k1_rows, **{
         row["name"]: train_rows[key] for key, row in
         zip(("K2", "K3", "K4", "pair"), kernels["kernels"][1:])}}}
     lines = [{"device": device}, {"build": build}, shapes,
-             {"check_faults": faults}, {"serve": serve_line}, {"train": train_line},
+             {"check_faults": faults}, {"serve": serve_line},
+             {"train": train_line}, *({name: line} for name, line in
+                                      bert_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

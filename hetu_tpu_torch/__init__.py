@@ -8,7 +8,8 @@ What runs today:
 
 * training through the define-then-run graph API — ``ht.Variable``,
   the ``*_op`` builders, ``ht.optim``, ``ht.Executor`` — for the GPT
-  causal LM (:mod:`.models`), with the flash-attention forward (K1, K2)
+  causal LM and the BERT family (MLM + NSP pre-training and its other
+  heads; :mod:`.models`), with the flash-attention forward (K1, K2)
   and fused backward (K3, K4) as hand-written sm_90a kernels
   (``ops/csrc/``);
 * GPT-2-shaped paged-KV serving through

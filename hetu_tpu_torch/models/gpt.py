@@ -7,9 +7,10 @@ each sublayer and at the output, untied LM head — as the graph model
 flash attention, i.e. kernels K2–K4 at S >= 512) and as the pure
 serving functions below. The graph model's parameter names are
 :func:`gpt_param_names`, so a training checkpoint feeds the serving
-path unchanged. The composed attention path
-(``use_flash_attention=False``) and the sequence-parallel ones wait
-for ``batch_matmul_op`` / ``softmax_op`` and the parallel modes.
+path unchanged. ``use_flash_attention=False`` takes the composed
+attention (``batch_matmul_op`` + ``softmax_op`` under a broadcast
+causal-mask constant); the sequence-parallel paths wait for the
+parallel modes.
 
 Parameters are a plain dict built by :func:`gpt_serving_params` from
 the reference's checkpoint names (:func:`gpt_param_names`), so a
@@ -31,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
-from ..ops import (array_reshape_op, broadcastto_op, flash_attention_op,
+from ..ops import (array_reshape_op, batch_matmul_op, broadcastto_op,
+                   flash_attention_op, softmax_op,
                    softmaxcrossentropy_sparse_op, split_op, squeeze_op,
                    transpose_op)
 from ..ops.attention import (paged_decode_attention,
@@ -288,8 +290,11 @@ def gpt_paged_suffix_prefill(params, pools, ids, starts, slot_idx,
 # ---------------------------------------------------------------------------
 
 class CausalSelfAttention:
-    """Multi-head causal attention on the flash path: the causal mask is
-    a kernel flag, no [S, S] tensor exists."""
+    """Multi-head causal attention. On the flash path the causal mask is
+    a kernel flag and no [S, S] tensor exists; the composed path
+    (``use_flash_attention=False``) adds a broadcast [1, 1, S, S]
+    causal-mask constant, as the encoder's composed path adds its
+    padding mask."""
 
     def __init__(self, config, name="attn"):
         if config.hidden_size % config.num_attention_heads:
@@ -299,12 +304,8 @@ class CausalSelfAttention:
         if config.sequence_parallel:
             raise NotImplementedError(
                 "sequence-parallel attention (ring, Ulysses) is not "
-                "ported yet")
-        if not config.use_flash_attention:
-            raise NotImplementedError(
-                "the composed attention path (batch_matmul_op + "
-                "softmax_op) is not ported yet: use "
-                "use_flash_attention=True")
+                "ported yet: see ROADMAP.md")
+        self.use_flash = config.use_flash_attention
         self.num_heads = config.num_attention_heads
         self.head_size = config.hidden_size // config.num_attention_heads
         self.hidden_size = config.hidden_size
@@ -328,9 +329,18 @@ class CausalSelfAttention:
         seq_len = seq_len or self.seq_len
         qkv = self.qkv(hidden_states, [-1, 3 * self.hidden_size])
         q, k, v = (self._split_heads(qkv, seq_len, i) for i in range(3))
-        ctx = flash_attention_op(q, k, v,
-                                 sm_scale=1.0 / float(np.sqrt(self.head_size)),
-                                 causal=True)
+        scale = 1.0 / float(np.sqrt(self.head_size))
+        if self.use_flash:
+            ctx = flash_attention_op(q, k, v, sm_scale=scale, causal=True)
+        else:
+            cmask = Variable(
+                self.name + "_causal_mask",
+                value=np.where(np.tril(np.ones((seq_len, seq_len), bool)),
+                               0.0, -1e9)[None, None].astype(np.float32),
+                trainable=False)
+            scores = batch_matmul_op(q, k * scale, trans_B=True)
+            scores = scores + broadcastto_op(cmask, scores)
+            ctx = batch_matmul_op(softmax_op(scores), v)
         ctx = transpose_op(ctx, [0, 2, 1, 3])
         ctx = array_reshape_op(ctx, [-1, seq_len, self.hidden_size])
         out = self.proj(ctx, [-1, seq_len, self.hidden_size])

@@ -1,7 +1,13 @@
 """Activation ops (counterpart of ``hetu_tpu/ops/activations.py``;
-reference: gpu_ops/{Relu,Tanh}.py). gelu is the tanh approximation, as
-in the JAX package (``jax.nn.gelu(approximate=True)``). Softmax, dropout
-and the rest come with the BERT slice."""
+reference: gpu_ops/{Relu,Tanh,Softmax,Dropout}.py). gelu is the tanh
+approximation, as in the JAX package (``jax.nn.gelu(approximate=True)``).
+
+Dropout draws its mask from the step's per-op generator
+(``ExecContext.generator_for``), and its gradient op draws it again
+from the forward op's generator, so both apply one mask without keeping
+it between the two. The numbers differ from ``jax.random``'s: tests
+check dropout by its properties, and the parity twins run without it.
+Leaky relu, sigmoid and sign come later."""
 from __future__ import annotations
 
 import torch
@@ -11,7 +17,9 @@ from ..graph.node import Op
 from .basic import addbyconst_op, mul_op, opposite_op
 
 __all__ = ["relu_op", "relu_gradient_op", "tanh_op", "gelu_op",
-           "gelu_gradient_op"]
+           "gelu_gradient_op", "softmax_func", "softmax_op",
+           "softmax_gradient_op", "dropout_op", "dropout_gradient_op",
+           "dropout2d_op", "dropout2d_gradient_op"]
 
 
 class ReluOp(Op):
@@ -96,6 +104,112 @@ class GeluGradientOp(Op):
         return input_shapes[0]
 
 
+class SoftmaxOp(Op):
+    """softmax over the last axis."""
+
+    def __init__(self, node_A, ctx=None):
+        super().__init__(SoftmaxOp, [node_A], ctx)
+
+    def compute(self, input_vals, ectx):
+        return torch.softmax(input_vals[0], dim=-1)
+
+    def gradient(self, output_grad):
+        return [softmax_gradient_op(self, output_grad, ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class SoftmaxGradientOp(Op):
+    """dx = y * (dy - sum(dy * y, -1, keepdims)) from the forward's output
+    y (node_A) and the adjoint dy (node_B)."""
+
+    def __init__(self, forward_node, grad_node, ctx=None):
+        super().__init__(SoftmaxGradientOp, [forward_node, grad_node], ctx)
+
+    def compute(self, input_vals, ectx):
+        y, dy = input_vals
+        return y * (dy - (dy * y).sum(dim=-1, keepdim=True))
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+def _dropout_mask(ectx, op, keep_prob, shape, dtype, per_channel=False):
+    """The mask of dropout ``op`` in this step: keep with probability
+    ``keep_prob``, kept entries scaled by ``1 / keep_prob``; one decision
+    per (N, C) plane for dropout2d. The same (seed, step, op) gives the
+    same mask."""
+    mask_shape = tuple(shape)
+    if per_channel:
+        mask_shape = mask_shape[:2] + (1,) * (len(mask_shape) - 2)
+    keep = torch.rand(mask_shape, generator=ectx.generator_for(op),
+                      device=ectx.device) < keep_prob
+    return keep.to(dtype) / keep_prob
+
+
+class DropoutOp(Op):
+    """x * mask in training, x in eval."""
+
+    per_channel = False
+
+    def __init__(self, node_in, keep_prob, ctx=None):
+        super().__init__(type(self), [node_in], ctx)
+        self.keep_prob = keep_prob
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        if not ectx.training:
+            return x
+        return x * _dropout_mask(ectx, self, self.keep_prob, x.shape,
+                                 x.dtype, self.per_channel)
+
+    def gradient(self, output_grad):
+        grad_op = Dropout2dGradientOp if self.per_channel \
+            else DropoutGradientOp
+        return [grad_op(output_grad, self.keep_prob, self, ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class Dropout2dOp(DropoutOp):
+    """Dropout of whole (N, C) planes."""
+
+    per_channel = True
+
+
+class DropoutGradientOp(Op):
+    """The adjoint times the forward op's mask, drawn again from the
+    forward op's generator (identity in eval)."""
+
+    def __init__(self, node_in, keep_prob, forward_node, ctx=None):
+        super().__init__(type(self), [node_in], ctx)
+        self.keep_prob = keep_prob
+        self.forward_node = forward_node
+
+    def compute(self, input_vals, ectx):
+        grad = input_vals[0]
+        if not ectx.training:
+            return grad
+        return grad * _dropout_mask(ectx, self.forward_node, self.keep_prob,
+                                    grad.shape, grad.dtype,
+                                    self.forward_node.per_channel)
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class Dropout2dGradientOp(DropoutGradientOp):
+    pass
+
+
 def relu_op(node, ctx=None):
     return ReluOp(node, ctx=ctx)
 
@@ -114,3 +228,31 @@ def gelu_op(node, ctx=None):
 
 def gelu_gradient_op(node_A, node_B, ctx=None):
     return GeluGradientOp(node_A, node_B, ctx=ctx)
+
+
+def softmax_func(node):
+    return softmax_op(node)
+
+
+def softmax_op(node, ctx=None):
+    return SoftmaxOp(node, ctx=ctx)
+
+
+def softmax_gradient_op(forward_node, grad_node, ctx=None):
+    return SoftmaxGradientOp(forward_node, grad_node, ctx=ctx)
+
+
+def dropout_op(node_in, keep_prob, ctx=None):
+    return DropoutOp(node_in, keep_prob, ctx=ctx)
+
+
+def dropout_gradient_op(node_in, keep_prob, forward_node, ctx=None):
+    return DropoutGradientOp(node_in, keep_prob, forward_node, ctx=ctx)
+
+
+def dropout2d_op(node_in, keep_prob, ctx=None):
+    return Dropout2dOp(node_in, keep_prob, ctx=ctx)
+
+
+def dropout2d_gradient_op(node_in, keep_prob, forward_node, ctx=None):
+    return Dropout2dGradientOp(node_in, keep_prob, forward_node, ctx=ctx)

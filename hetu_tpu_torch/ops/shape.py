@@ -1,9 +1,9 @@
 """Shape-manipulation and reduction ops.
 
 Counterpart of ``hetu_tpu/ops/shape.py`` (reference parity:
-gpu_ops/{Reshape,Broadcast,Split,Transpose,ReduceSum,ReduceMean,
-OnesLike,ZerosLike}.py), the part the GPT training graph and its
-gradients reach. Views stand in for copies where torch allows it
+gpu_ops/{Reshape,Broadcast,Split,Slice,Transpose,ReduceSum,ReduceMean,
+OnesLike,ZerosLike}.py), the part the GPT and BERT training graphs and
+their gradients reach. Views stand in for copies where torch allows it
 (``expand``, ``permute``, slicing); consumers that need contiguous
 memory make it.
 
@@ -21,7 +21,8 @@ from ..graph.node import Op
 
 __all__ = [
     "array_reshape_op", "array_reshape_gradient_op", "broadcastto_op",
-    "unbroadcast_op", "split_op", "split_gradient_op", "transpose_op",
+    "unbroadcast_op", "split_op", "split_gradient_op", "slice_op",
+    "slice_gradient_op", "transpose_op",
     "reduce_sum_op", "reduce_mean_op", "broadcast_shape_grad_source_op",
     "squeeze_op", "oneslike_op", "zeroslike_op",
 ]
@@ -184,6 +185,61 @@ class SplitGradientOp(Op):
         for ax, spl in zip(self.axes, self.splits):
             out[ax] *= spl
         return tuple(out)
+
+
+class SliceOp(Op):
+    """``size`` elements from ``begin`` along each leading dim (-1: to
+    the end); dims past ``len(size)`` pass through whole."""
+
+    def __init__(self, node_A, begin_pos, output_shape, ctx=None):
+        super().__init__(SliceOp, [node_A], ctx)
+        self.begin_pos = tuple(begin_pos)
+        self.output_shape = tuple(output_shape)
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        sizes = [x.shape[i] - self.begin_pos[i] if s == -1 else s
+                 for i, s in enumerate(self.output_shape)]
+        return x[tuple(slice(b, b + s)
+                       for b, s in zip(self.begin_pos, sizes))]
+
+    def gradient(self, output_grad):
+        return [slice_gradient_op(output_grad, self.begin_pos,
+                                  self.output_shape, self, ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        in_shape = input_shapes[0]
+        out = [in_shape[i] - self.begin_pos[i] if s == -1 else s
+               for i, s in enumerate(self.output_shape)]
+        # begin/size may cover only the leading dims (partial indexing,
+        # as compute's tuple of slices): trailing dims pass through
+        out.extend(in_shape[len(self.output_shape):])
+        return tuple(out)
+
+
+class SliceGradientOp(Op):
+    """Adjoint of a slice: the grad placed at ``begin`` in zeros of the
+    forward input's shape."""
+
+    def __init__(self, node_A, begin_pos, output_shape=None,
+                 forward_node=None, ctx=None):
+        super().__init__(SliceGradientOp, [node_A], ctx)
+        self.begin_pos = tuple(begin_pos)
+        self.forward_node = forward_node
+
+    def compute(self, input_vals, ectx):
+        grad = input_vals[0]
+        out = grad.new_zeros(self.full_shape)
+        out[tuple(slice(b, b + s)
+                  for b, s in zip(self.begin_pos, grad.shape))] = grad
+        return out
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        self.full_shape = tuple(self.forward_node.inputs[0].inferred_shape)
+        return self.full_shape
 
 
 class TransposeOp(Op):
@@ -370,6 +426,15 @@ def split_op(node, axes, indices, splits, ctx=None):
 
 def split_gradient_op(node, axes, indices, splits, ctx=None):
     return SplitGradientOp(node, axes, indices, splits, ctx=ctx)
+
+
+def slice_op(node, begin, size, ctx=None):
+    return SliceOp(node, begin, size, ctx=ctx)
+
+
+def slice_gradient_op(node, begin, size=None, forward_node=None, ctx=None):
+    return SliceGradientOp(node, begin, size, forward_node=forward_node,
+                           ctx=ctx)
 
 
 def transpose_op(node_A, perm=None, ctx=None):

@@ -125,6 +125,35 @@ def test_tc_route_k3_k4_match_plain(cuda, b, h, s, d, masked, causal):
 
 
 @pytest.mark.cuda
+def test_tc_route_k2_k4_at_the_bert_s2048_shape(cuda):
+    # BERT-small at S=2048: bf16 B=8 H=8 D=64, non-causal, each row
+    # padded past a length drawn from [S/2, S] with BERT's bf16 mask
+    # ((m - 1) * 10000: -9984): 32 q and 32 k tiles a head
+    b, h, s, d, dtype = 8, 8, 2048, 64, torch.bfloat16
+    q, k, v, do, _ = _inputs(b, h, s, d, dtype, False, seed=11,
+                             device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    lengths = torch.randint(s // 2, s + 1, (b, 1), generator=g, device=cuda)
+    keep = (torch.arange(s, device=cuda)[None] < lengths).to(dtype)
+    mask = ((keep - 1) * 10000).view(b, 1, 1, s)
+    scale = d ** -0.5
+    before = dict(_build.launch_counts)
+    o, lse = fa.flash_attention_with_lse(q, k, v, mask, scale, False)
+    bwd = (q, k, v, mask, o, lse, do, scale, False)
+    grads = fa.flash_attention_bwd(*bwd)
+    torch.cuda.synchronize()
+    for key in (fa.K2, fa.K3, fa.K4):
+        assert _build.launch_counts[f"{key}.tc"] == \
+            before.get(f"{key}.tc", 0) + 1, key
+    ro, rlse = fa.flash_attention_with_lse_plain(q, k, v, mask, scale, False)
+    _close(o, ro, FWD_TOL[dtype])
+    _close(lse, rlse, FWD_TOL[dtype])
+    for g_, w in zip(grads, fa.flash_attention_bwd_plain(*bwd)):
+        assert g_.dtype == dtype and g_.shape == q.shape
+        _close_grad(g_, w, dtype)
+
+
+@pytest.mark.cuda
 def test_flash_bwd_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 16, 64, device=cuda, dtype=torch.float16)
     lse = torch.zeros(1, 1, 16, device=cuda)

@@ -93,6 +93,36 @@ def test_tc_route_k1_k2_match_plain(cuda, b, h, s, d, masked, causal):
                                    rtol=tol)
 
 
+def _padding_mask(b, s, dtype, g, device):
+    # BERT's mask as its bf16 graph builds it: (m - 1) * 10000, each row
+    # keeping a length drawn from [S/2, S] (a padded key carries -9984)
+    lengths = torch.randint(s // 2, s + 1, (b, 1), generator=g,
+                            device=device)
+    keep = (torch.arange(s, device=device)[None] < lengths).to(dtype)
+    return ((keep - 1) * 10000).view(b, 1, 1, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [False, True])
+def test_tc_route_k1_at_the_bert_base_shape(cuda, causal):
+    # BERT-base's attention: bf16 B=64 H=12 S=128 D=64 under the padding
+    # mask, 768 (batch, head) rows over 64 mask rows
+    b, h, s, d, dtype = 64, 12, 128, 64, torch.bfloat16
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device=cuda).to(dtype)
+               for _ in range(3))
+    mask = _padding_mask(b, s, dtype, g, cuda)
+    before = dict(_build.launch_counts)
+    out = flash_attention(q, k, v, mask, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    for key, n in ((fa.K1, 1), (f"{fa.K1}.tc", 1), (f"{fa.K1}.simt", 0)):
+        assert _build.launch_counts[key] == before.get(key, 0) + n, key
+    ref = flash_attention_plain(q, k, v, mask, d ** -0.5, causal)
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), ref.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_flash_fwd_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 16, 64, device=cuda, dtype=torch.float16)

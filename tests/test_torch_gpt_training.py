@@ -6,7 +6,8 @@ bench.py:1103-1118) and trained with Adam. On the port side
 ``FUSED_BWD_MIN_SEQ`` is patched to 0, so its attention runs the plain
 versions of kernels K2 (forward with logsumexp), K3 and K4 (fused
 backward); the JAX side runs its composed attention, as it does off
-TPU. Ids come from the first 40 rows of the vocabulary only, so most of
+TPU. ``test_composed_attention_path_matches`` builds both with
+``use_flash_attention=False`` instead. Ids come from the first 40 rows of the vocabulary only, so most of
 ``gpt_wte`` is never touched and lazy Adam must leave it alone.
 
 Tolerances: initial parameters bit-identical (numpy draws seeded by
@@ -47,10 +48,11 @@ def _batch(seed=0):
     return x, y
 
 
-def _graph(ht, models, with_grads=False):
+def _graph(ht, models, with_grads=False, flash=True):
     ids = ht.Variable("input_ids", trainable=False)
     labels = ht.Variable("labels", trainable=False)
-    _, loss = models.GPTLMHeadModel(models.GPTConfig(**CFG))(ids, labels)
+    cfg = models.GPTConfig(**{**CFG, "use_flash_attention": flash})
+    _, loss = models.GPTLMHeadModel(cfg)(ids, labels)
     lm = ht.reduce_mean_op(loss, [0, 1])
     opt = ht.optim.AdamOptimizer(learning_rate=LR)
     train = opt.minimize(lm)
@@ -58,13 +60,13 @@ def _graph(ht, models, with_grads=False):
     return ids, labels, nodes, opt
 
 
-def _jax_exe(with_grads=False):
-    ids, labels, nodes, opt = _graph(jht, JM, with_grads)
+def _jax_exe(with_grads=False, flash=True):
+    ids, labels, nodes, opt = _graph(jht, JM, with_grads, flash)
     return jht.Executor(nodes), ids, labels, opt
 
 
-def _port_exe(with_grads=False):
-    ids, labels, nodes, opt = _graph(tht, TM, with_grads)
+def _port_exe(with_grads=False, flash=True):
+    ids, labels, nodes, opt = _graph(tht, TM, with_grads, flash)
     return tht.Executor(nodes, ctx=tht.cpu(0)), ids, labels, opt
 
 
@@ -122,6 +124,34 @@ def test_adam_steps_match_and_leave_unseen_embedding_rows():
     np.testing.assert_array_equal(tp["gpt_wte"][SEEN:],
                                   init["gpt_wte"][SEEN:])
     assert not np.array_equal(tp["gpt_wte"][:SEEN], init["gpt_wte"][:SEEN])
+
+
+@pytest.mark.parametrize("check", ["fwd_bwd", "adam_steps"])
+def test_composed_attention_path_matches(check):
+    """use_flash_attention=False in both packages: batch_matmul_op +
+    softmax_op under a broadcast [1, 1, S, S] causal-mask constant. The
+    step's loss and gradients, or the loss of 3 Adam steps and the
+    parameters after them, at the tolerances above."""
+    jexe, jids, jlab, jopt = _jax_exe(with_grads=check == "fwd_bwd",
+                                      flash=False)
+    texe, tids, tlab, topt = _port_exe(with_grads=check == "fwd_bwd",
+                                       flash=False)
+    steps = 1 if check == "fwd_bwd" else 3
+    for step in range(steps):
+        x, y = _batch(seed=step)
+        jout = jexe.run(feed_dict={jids: x, jlab: y})
+        tout = texe.run(feed_dict={tids: x, tlab: y})
+        np.testing.assert_allclose(float(tout[0].asnumpy()),
+                                   float(jout[0].asnumpy()), rtol=1e-5)
+    if check == "fwd_bwd":
+        for p, jg, tg in zip(topt.params, jout[1:-1], tout[1:-1]):
+            np.testing.assert_allclose(_dense(tg), _dense(jg), rtol=2e-4,
+                                       atol=2e-4, err_msg=p.name)
+        return
+    jp, tp = _params(jexe), _params(texe)
+    for name in jp:
+        np.testing.assert_allclose(tp[name], jp[name], rtol=0, atol=1e-5,
+                                   err_msg=name)
 
 
 def test_hetu_tpu_checkpoint_loads_into_the_port(tmp_path):
