@@ -5,13 +5,16 @@
 
 Run from a checkout of the repository on a machine with one NVIDIA GPU
 and the CUDA toolkit. It builds every hand-written kernel from the
-sources in the checkout, drives the port's four main paths — GPT-2-small
+sources in the checkout, drives the port's five main paths — GPT-2-small
 (full width, random weights from a seed) served through
-``ContinuousBatchingEngine``; the same model trained with Adam in bf16
-through ``Executor.run`` (B=8, S=1024); BERT-base MLM + NSP pre-training
-(B=64, S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8) —
-checks every kernel against its plain PyTorch version on the card, and
-prints one JSON object per line (``--out`` also writes them to FILE):
+``ContinuousBatchingEngine``; the same model served through the
+request-level plane (HTTP frontend, ``ReplicaRouter`` over two
+``MicroBatcher``s, ``GPTDecoder`` over an ``InferenceSession`` restored
+from a checkpoint); the same model trained with Adam in bf16 through
+``Executor.run`` (B=8, S=1024); BERT-base MLM + NSP pre-training (B=64,
+S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8) — checks
+every kernel against its plain PyTorch version on the card, and prints
+one JSON object per line (``--out`` also writes them to FILE):
 
 * ``device``  the card (name and power limit from nvidia-smi), torch and
   CUDA versions;
@@ -28,6 +31,16 @@ prints one JSON object per line (``--out`` also writes them to FILE):
   its check;
 * ``serve``   per pass: tokens/s, TTFT p50, decode step ms, kernel
   launches, and the token-parity check against the plain attention;
+* ``serve_dense`` the request-level plane under 16 closed-loop HTTP
+  clients: requests/s, tokens/s, client latency p50/p95, mean batch
+  occupancy, requests per replica, prefill and decode-step ms, the
+  no-cache recompute tokens/s through ``InferenceSession.predict``, K1's
+  launches on its two paths there (the decoder's prefill, the session's
+  graph forward; all on ``simt``), one profiled tick, peak memory, and
+  the parity checks (HTTP against a direct ``generate``: one request
+  served alone, and eight of the timed replies against one batch of 8;
+  the cached chain against the no-cache one; the decoder, and the
+  session over inputs that fill its 1024 bucket, with the plain K1);
 * ``train``   tokens/s, step ms p50, the loss of every step, kernel
   launches (K2, K3 and K4 also by route: all on the tensor-core ``tc``
   route), peak memory, the device idle share and time by kernel
@@ -48,8 +61,9 @@ prints one JSON object per line (``--out`` also writes them to FILE):
   on its main paths (by path and route), the largest error against the
   plain version by dtype and route over every checked shape, and
   ``kernel_shapes``' row at each main path's shape with the kernel's and
-  the PyTorch call's device time per call from torch.profiler
-  (``device_ms``, ``library_device_ms``);
+  the PyTorch call's device time per call (``device_ms``,
+  ``library_device_ms``: calls queued back to back behind a spin kernel,
+  timed by CUDA events);
 
 then the card line as ``nvidia-smi`` prints it, and last
 ``{"ok": true, "device": {...}}``. Any failed phase raises: the script
@@ -59,6 +73,7 @@ CUDA device, or when ``hetu_tpu_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import http.client
 import json
 import os
 import re
@@ -83,6 +98,24 @@ NUM_REQUESTS = 16
 MAX_NEW = 32
 NUM_BLOCKS = 512            # 512 x 16 positions: 8 concurrent 800-token seqs
 MARGIN_TOL = 1e-3           # top-2 logit gap below which argmax may flip
+
+# the request-level plane (serve_dense): bench.py's bench_serving
+# (:1191-1302) and the baseline of bench_serving_continuous
+# (:1504-1529) at GPT-2-small's widths in f32. Clients edge-pad each
+# prompt (16-256 tokens) to the fleet prompt bucket; a tick pads its
+# batch to the next power of two and generates its longest request's
+# gen for every row
+DENSE_PROMPT_BUCKET = 256
+DENSE_SEQ_BUCKET = 1024             # the session's sequence bucket
+DENSE_CLIENTS, DENSE_PER_CLIENT = 16, 4
+DENSE_MAX_BATCH, DENSE_MAX_WAIT_MS = 8, 5
+DENSE_DECODE_STEPS = 20             # timed decode_step calls (:1245-1252)
+DENSE_NO_CACHE_STEPS = 4            # no-cache recompute steps (:1233-1242)
+# sess.predict's logits, K1 against its plain version (f32, B=8 S=1024):
+# the two attentions differ by ~1e-6 of an output (K1's f32 checks),
+# which 12 layers, the LayerNorms and the 768-wide LM head carry to
+# the logits (measured in the serve_dense line's parity)
+DENSE_LOGIT_TOL = 1e-4
 
 # the training pass: bench.py:1103-1118 (B=8, S=1024, bf16, Adam 1e-4)
 TRAIN_BATCH = 8
@@ -145,6 +178,13 @@ TRAIN_REP = dict(b=TRAIN_BATCH, h=12, s=1024, d=64, dtype="bfloat16",
                  causal=True, mask=None)
 BERT_LONG_REP = dict(b=8, h=8, s=2048, d=64, dtype="bfloat16", causal=False,
                      mask="padding")
+# K1 on the request-level plane: the decoder's prefill of a full tick
+# (B=8 in the 256 prompt bucket) and the session's graph forward of 8
+# rows in its 1024 bucket
+K1_PREFILL_REP = dict(b=DENSE_MAX_BATCH, h=12, s=DENSE_PROMPT_BUCKET, d=64,
+                      dtype="float32", causal=True, mask=None)
+K1_SESSION_REP = dict(K1_PREFILL_REP, s=DENSE_SEQ_BUCKET)
+K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
@@ -156,6 +196,13 @@ PROFILE_CATEGORIES = (
     ("random (dropout masks)", ("distribution", "philox")),
     ("elementwise", ("elementwise", "copy")),
 )
+# device_ms: the spin kernel's first length, in clock cycles (~10 ms at
+# the H100's boost clock), and the launch-count keys each timed call of
+# K1-K4 and the pair adds one to
+DEVICE_SPIN_CYCLES = 20_000_000
+DEVICE_LAUNCHES = {"K1": ("flash_fwd",), "K2": ("flash_fwd_lse",),
+                   "K3": ("flash_bwd_dkv",), "K4": ("flash_bwd_dq",),
+                   "pair": ("flash_bwd_dkv", "flash_bwd_dq")}
 
 
 def log(msg):
@@ -212,12 +259,15 @@ FLASH_WORK = {"K1": (4, 4, 0), "K2": (4, 4, 1), "K3": (8, 6, 2),
 # row with each of its masks and causal on/off. The "half" mask hides the
 # second half of the first batch element's keys and every key of the
 # last one's rows where B > 1. D=64 is the main paths' (f32 serving on
-# the simt route, bf16 BERT-base on tc, B=64 with BERT's padding); bf16
-# D=128 and the ragged S=520 hold the other tensor-core instantiation
-# and the TMA edge; bf16 D=96 the simt route's bf16
+# the simt route, B=8 at S=256 and 1024 on the request-level plane,
+# bf16 BERT-base on tc, B=64 with BERT's padding); bf16 D=128 and the
+# ragged S=520 hold the other tensor-core instantiation and the TMA
+# edge; bf16 D=96 the simt route's bf16
 FWD_KERNEL_SHAPES = (
     (("float32", "bfloat16"), (1, 4), (8, 128, 512, 1024), 64, 12,
      (None, "half")),
+    (("float32",), (DENSE_MAX_BATCH,), (DENSE_PROMPT_BUCKET, DENSE_SEQ_BUCKET),
+     64, 12, (None,)),
     (("bfloat16",), (64,), (128,), 64, 12, (None, "half", "padding")),
     (("bfloat16",), (4,), (512, 1024), 128, 12, (None, "half")),
     (("bfloat16",), (4,), (520,), 64, 12, (None, "half")),
@@ -269,27 +319,51 @@ def flash_bound(b, h, s, d, dtype_name, causal, masked, kind="K1"):
         "operations" if t_ops >= t_bytes else "bytes"
 
 
-def device_ms(torch, fn, n=20):
-    """Device time of one call: the self time of every CUDA kernel and
-    copy the call launches, summed, from torch.profiler over n calls."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def device_ms(torch, fn, label, launches=(), n=20):
+    """Device time of one call: n calls queued behind a spin kernel
+    (``torch.cuda._sleep``), so that they run back to back with no host
+    time between them, timed by two CUDA events around them, over n.
+    The spin grows until the host has queued every call before the
+    device reaches the first event. ``launches``: the launch-count keys
+    (``_build.launch_counts``) the call adds one to; it raises unless
+    each rose by exactly n, or the time is not positive. (torch.profiler
+    lost kernel records in these short windows: see PERF.md.)"""
+    from hetu_tpu_torch.ops import _build
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    cycles = DEVICE_SPIN_CYCLES
+    for _ in range(4):
+        before = {k: _build.launch_counts[k] for k in launches}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
         for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / n
+        end.record()
+        queued = not start.query()
+        end.synchronize()
+        if queued:
+            break
+        cycles *= 4
+    else:
+        raise AssertionError(f"device_ms {label}: the device reached the "
+                             f"calls before the host had queued them")
+    got = {k: _build.launch_counts[k] - before[k] for k in launches}
+    ms = start.elapsed_time(end) / n
+    if ms <= 0 or any(c != n for c in got.values()):
+        raise AssertionError(f"device_ms {label}: {ms} ms, launches {got} "
+                             f"over {n} calls")
+    return ms
 
 
-def _device_times(torch, kern, library):
-    """The main-path row's device times: the kernel call's and the
-    library call's (None where there is none)."""
-    return {"device_ms": device_ms(torch, kern),
+def _device_times(torch, kern, library, launches, label):
+    """The main-path row's device times: the kernel call's (``launches``:
+    the launch-count keys it adds one to a call) and the library call's
+    (None where there is none)."""
+    return {"device_ms": device_ms(torch, kern, label, launches),
             "library_device_ms": None if library is None
-            else device_ms(torch, library)}
+            else device_ms(torch, library, label + " library")}
 
 
 # ---------------------------------------------------------------------------
@@ -299,9 +373,10 @@ def _device_times(torch, kern, library):
 def check_flash_fwd(torch, seed):
     """K1 against its plain version at every shape of FWD_KERNEL_SHAPES,
     with each of its masks and causal on/off; each row names the route
-    the kernel took and the wrapper's host time; the rows at K1_REP and
-    BERT_K1_REP also their device times (_device_times). The PyTorch call
-    is SDPA with the same additive mask (and the causal one)."""
+    the kernel took and the wrapper's host time; the rows at the main
+    paths' shapes (K1_REPS) also their device times (_device_times). The
+    PyTorch call is SDPA with the same additive mask (and the causal
+    one)."""
     import torch.nn.functional as F
     from hetu_tpu_torch.ops import flash_attention as fa
     rows, failures = [], []
@@ -360,8 +435,10 @@ def check_flash_fwd(torch, seed):
                            reps=3, warmup=1),
                        "library_ms": median_ms(torch, library),
                        "bound_ms": bound, "bound_by": by}
-                if _is(row, K1_REP) or _is(row, BERT_K1_REP):
-                    row.update(_device_times(torch, kern, library))
+                if any(_is(row, rep) for rep in K1_REPS):
+                    row.update(_device_times(
+                        torch, kern, library, DEVICE_LAUNCHES["K1"],
+                        f"K1 {dname} B={b} H={h} S={s} mask={masked}"))
                 rows.append(row)
                 if not ok:
                     failures.append(row)
@@ -411,6 +488,15 @@ def _sdpa_flash(torch, q, k, v, scale, causal):
         q, k, v, 0.0, causal, False, scale=scale)
 
 
+def _sdpa_efficient(torch, q, k, v, bias, scale, causal):
+    """PyTorch's memory-efficient attention forward (the only PyTorch
+    call that takes an additive mask and returns the logsumexp), with
+    ``bias`` [B, H, S, S]: output, logsumexp and the Philox state its
+    backward takes. Timing yardstick only."""
+    return torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, bias, True, 0.0, causal, scale=scale)
+
+
 def check_flash_train_kernels(torch, seed):
     """K2, K3, K4 and the K3+K4 pair (one flash_attention_bwd) against
     their plain versions at every shape of TRAIN_KERNEL_SHAPES, with each
@@ -421,8 +507,12 @@ def check_flash_train_kernels(torch, seed):
     their rows name the route they took. K3's and K4's times are their
     launches alone, from prepared inputs (K3 reading the D that K4
     wrote, as on the path); the pair's is one whole flash_attention_bwd.
-    The rows at TRAIN_REP and BERT_LONG_REP also carry device times
-    (_device_times). Returns {kernel: [row per shape]}."""
+    The PyTorch calls: flash attention (bf16 without a mask) and, under
+    BERT's padding mask, memory-efficient attention with the mask
+    expanded to a [B, H, S, S] bias; each backward computes dq, dk and
+    dv, so K3's row and the pair's carry it. The rows at TRAIN_REP and
+    BERT_LONG_REP also carry device times (_device_times). Returns
+    {kernel: [row per shape]}."""
     from hetu_tpu_torch.ops import flash_attention as fa
     rows = {"K2": [], "K3": [], "K4": [], "pair": []}
     failures = []
@@ -470,6 +560,17 @@ def check_flash_train_kernels(torch, seed):
                             do, q, k, v, res[0], res[1], res[2], res[3],
                             res[4], res[5], 0.0, causal, res[6], res[7],
                             scale=scale)
+                elif masked == "padding":
+                    bias = mask.expand(b, h, s, s)
+                    eff = _sdpa_efficient(torch, q, k, v, bias, scale,
+                                          causal)
+                    lib["K2"] = lambda: _sdpa_efficient(torch, q, k, v,
+                                                        bias, scale, causal)
+                    lib["K3"] = lib["pair"] = lambda: torch.ops.aten.\
+                        _scaled_dot_product_efficient_attention_backward(
+                            do, q, k, v, bias, eff[0], eff[1], eff[2],
+                            eff[3], 0.0, (True, True, True, False), causal,
+                            scale=scale)
                 # kind: ((got, want) pairs, kernel call, plain call)
                 checks = {
                     "K2": ([(o, ro), (lse, rlse)],
@@ -510,7 +611,9 @@ def check_flash_train_kernels(torch, seed):
                                else median_ms(torch, lib[kind]),
                                bound_ms=bound, bound_by=by)
                     if _is(row, TRAIN_REP) or _is(row, BERT_LONG_REP):
-                        row.update(_device_times(torch, kern, lib[kind]))
+                        row.update(_device_times(
+                            torch, kern, lib[kind], DEVICE_LAUNCHES[kind],
+                            f"{kind} B={b} H={h} S={s} mask={masked}"))
                     rows[kind].append(row)
                     if not row["ok"]:
                         failures.append((kind, row))
@@ -732,16 +835,22 @@ def train(torch, seed, card):
 
 
 def profile_train_step(torch, exe, feeds):
-    """One more training step under torch.profiler: device busy time over
-    the CUDA kernels and copies, the idle share of the step's wall time
-    (the profiler's own host overhead included), and the kernels that
-    took the most device time."""
+    """One more training step under torch.profiler (profile_window)."""
+    return profile_window(
+        torch, lambda: exe.run(feed_dict=feeds)[0].asnumpy())
+
+
+def profile_window(torch, fn):
+    """``fn()`` once under torch.profiler: device busy time over the CUDA
+    kernels and copies, the idle share of the window's wall time (the
+    profiler's own host overhead included), device time by kernel
+    category (PROFILE_CATEGORIES) and the kernels that took the most."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        exe.run(feed_dict=feeds)[0].asnumpy()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev = [e for e in prof.key_averages()
@@ -1012,6 +1121,18 @@ def drive(engine, prompts, max_new):
                   "steps": len(step_ms), "decode_steps": len(decode_ms)}
 
 
+def _margin_checked(rows):
+    """(tokens, positions checked, smallest margin) of teacher-forced
+    logit rows: the argmax of each, and how many lead positions have a
+    top-2 gap of at least MARGIN_TOL (argmax may flip past the first
+    that does not)."""
+    top2 = np.sort(rows, axis=-1)[:, -2:]
+    margins = top2[:, 1] - top2[:, 0]
+    low = margins < MARGIN_TOL
+    checked = int(np.argmax(low)) if low.any() else len(rows)
+    return rows.argmax(axis=-1), checked, float(margins.min())
+
+
 def teacher_forced_logits(torch, cfg, params, tokens):
     """Logits of one causal prefill over ``tokens`` (K1 path), padded
     to the next power of two with the last token like the engine."""
@@ -1102,9 +1223,8 @@ def serve(torch, seed, card):
     # whose top-2 logit gap is under MARGIN_TOL
     logits = teacher_forced_logits(
         torch, cfg, params, np.concatenate([prompts[0], outs[0][:-1]]))
-    rows = logits[len(prompts[0]) - 1:]
-    top2 = np.sort(rows, axis=-1)[:, -2:]
-    margins = top2[:, 1] - top2[:, 0]
+    tf_tokens, checked, min_margin = _margin_checked(
+        logits[len(prompts[0]) - 1:])
     kernel_fa = attn.flash_attention
 
     def plain_fa(q, k, v_, mask=None, sm_scale=1.0, causal=False):
@@ -1120,9 +1240,6 @@ def serve(torch, seed, card):
         eng3.close()
     finally:
         attn.flash_attention = kernel_fa
-    checked = int(np.argmax(margins < MARGIN_TOL)) \
-        if (margins < MARGIN_TOL).any() else MAX_NEW
-    tf_tokens = rows.argmax(axis=-1)
     if not (np.array_equal(outs[0][:checked], plain_out[0][:checked])
             and np.array_equal(outs[0][:checked], tf_tokens[:checked])):
         raise AssertionError(
@@ -1130,46 +1247,354 @@ def serve(torch, seed, card):
             f"{checked} positions: kernel {outs[0].tolist()}, plain "
             f"{plain_out[0].tolist()}, teacher-forced "
             f"{tf_tokens.tolist()}")
-    profile = profile_pass(torch, engine(), prompts)
+    eng4 = engine()
+    profile = profile_window(torch, lambda: drive(eng4, prompts, MAX_NEW))
+    eng4.close()
     return {"card": card, "model": "gpt2-small", **GPT2_SMALL,
             "dtype": "float32", "seed": seed,
             "tf32_matmul": bool(torch.backends.cuda.matmul.allow_tf32),
             "max_new_tokens": MAX_NEW, "num_blocks": NUM_BLOCKS,
             "passes": passes, "launches": launches,
             "parity": {"positions_checked": checked,
-                       "min_margin": float(margins.min()),
+                       "min_margin": min_margin,
                        "margin_tol": MARGIN_TOL,
                        "tokens_equal_plain": bool(np.array_equal(
                            outs[0], plain_out[0]))},
             "profile": profile}, launches
 
 
-def profile_pass(torch, eng, prompts):
-    """Pass 1 again under torch.profiler: device busy time summed over
-    the CUDA kernels and copies, the idle share of the pass's wall time
-    (the profiler's own host overhead included), and the kernels that
-    took the most device time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+# ---------------------------------------------------------------------------
+# serve_dense: the request-level serving plane
+# ---------------------------------------------------------------------------
+
+def _tensors(tree):
+    """The tensors of a nested dict / list / tuple of parameters."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
+
+
+def _post(port, ids, gen, rid):
+    """One ``POST /v1/predict`` to the server on 127.0.0.1 (http.client:
+    no proxy of the environment is consulted). Returns the reply's JSON
+    body; raises on any status but 200 or a request id not echoed."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", "/v1/predict", body=json.dumps(
+            {"inputs": {"ids": ids, "gen": [[gen]] * len(ids)}}),
+            headers={"Content-Type": "application/json",
+                     "x-request-id": rid})
+        resp = conn.getresponse()
+        body = json.loads(resp.read())
+    finally:
+        conn.close()
+    if resp.status != 200 or body.get("request_id") != rid or \
+            resp.getheader("X-Request-Id") != rid:
+        raise AssertionError(f"POST /v1/predict {rid}: {resp.status} "
+                             f"{body}")
+    return body
+
+
+def _http_clients(port, prompts, gen):
+    """DENSE_CLIENTS closed-loop client threads, each POSTing
+    DENSE_PER_CLIENT of ``prompts`` in turn. Returns ({request index:
+    tokens}, client latencies in ms)."""
+    import threading
+    out, latency, errors = {}, [], []
+
+    def client(k):
+        try:
+            for i in range(k * DENSE_PER_CLIENT, (k + 1) * DENSE_PER_CLIENT):
+                t0 = time.perf_counter()
+                body = _post(port, prompts[i:i + 1].tolist(), gen,
+                             f"dense-{i}")
+                latency.append((time.perf_counter() - t0) * 1e3)
+                out[i] = np.asarray(body["outputs"][0])
+        except Exception as e:                      # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(DENSE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out, latency
+
+
+def _k1_counts(launches):
+    """K1's launches in a run's counts, in total and by route, and K2-K4's
+    (which the serving paths never launch)."""
+    from hetu_tpu_torch.ops import flash_attention as fa
+    return {key: launches.get(key, 0) for key in (
+        fa.K1, f"{fa.K1}.simt", f"{fa.K1}.tc", fa.K2, fa.K3, fa.K4)}
+
+
+def _check_k1_path(name, launches, n):
+    """A serving path's launches: K1 ``n`` times, all on ``simt``, and no
+    K2-K4."""
+    from hetu_tpu_torch.ops import flash_attention as fa
+    want = {fa.K1: n, f"{fa.K1}.simt": n, f"{fa.K1}.tc": 0, fa.K2: 0,
+            fa.K3: 0, fa.K4: 0}
+    got = _k1_counts(launches)
+    if n <= 0 or got != want:
+        raise AssertionError(f"serve_dense {name} launches {got}, want "
+                             f"{want}")
+    return got
+
+
+def serve_dense(torch, seed, card):
+    """GPT-2-small (f32) through the request-level plane: an
+    InferenceSession restored from an Executor.save checkpoint; two
+    GPTDecoders built from_session (sharing its tensors) behind two
+    MicroBatchers, a ReplicaRouter and the HTTP frontend; 16 closed-loop
+    clients x 4 requests after an untimed warm pass over every batch
+    bucket. K1 runs on two main paths, each counted from 0: the decoders'
+    prefill under the HTTP traffic (B in {1, 2, 4, 8}, S=256) and the
+    session's graph forward under the no-cache recompute (B=8, S=1024).
+    Then the parity checks, the prefill and decode-step times, and one
+    profiled tick. Returns (line, {path: launch counts})."""
+    import tempfile
+
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import attention as attn
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.serving import (GPTDecoder, InferenceSession,
+                                        MicroBatcher, ReplicaRouter,
+                                        ServingHTTPServer, next_bucket)
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg = M.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
+                      use_flash_attention=True)
+    ids = ht.Variable("input_ids", trainable=False)
+    logits = M.GPTLMHeadModel(cfg)(ids)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as ckpt:
+        ht.Executor([logits], seed=seed).save(ckpt)
+        # another seed: only the checkpoint gives the session its weights
+        sess = InferenceSession([logits], checkpoint=ckpt, seed=seed + 1,
+                                seq_buckets=(DENSE_SEQ_BUCKET,))
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    shared = {t.data_ptr() for t in sess.params_by_name().values()}
+    decs = [GPTDecoder.from_session(sess, cfg,
+                                    prompt_buckets=(DENSE_PROMPT_BUCKET,))
+            for _ in range(2)]
+    for dec in decs:
+        # every decoder parameter is one of the session's tensors (the
+        # session also holds the graph's position ids)
+        if not all(t.data_ptr() in shared for t in _tensors(dec.params)):
+            raise AssertionError("GPTDecoder.from_session does not share "
+                                 "the session's tensors")
+    dec = decs[0]
+
+    rng = np.random.default_rng(seed)
+    n_req = DENSE_CLIENTS * DENSE_PER_CLIENT
+    pb = DENSE_PROMPT_BUCKET
+    prompts = np.stack([
+        np.pad(rng.integers(0, cfg.vocab_size, int(n)), (0, pb - int(n)),
+               mode="edge")
+        for n in rng.integers(16, pb + 1, n_req)])  # the client's padding
+    x8 = prompts[:DENSE_MAX_BATCH]
+
+    def tick_fn(d):
+        def tick(feeds):
+            x, gen = feeds["ids"], int(np.max(feeds["gen"]))
+            n = len(x)
+            b = next_bucket(n)
+            if b > n:
+                x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
+            return d.generate(x, gen)[:n]
+        return tick
+
+    # the untimed warm pass, on this thread before any server thread
+    # launches: every batch bucket on both decoders
+    for d in decs:
+        b = 1
+        while b <= DENSE_MAX_BATCH:
+            d.generate(prompts[:b], 2)
+            b *= 2
+    torch.cuda.synchronize()
+
+    batchers = [MicroBatcher(tick_fn(d), max_batch_size=DENSE_MAX_BATCH,
+                             max_wait_ms=DENSE_MAX_WAIT_MS,
+                             name=f"replica{i}") for i, d in enumerate(decs)]
+    router = ReplicaRouter(batchers)
+    srv = ServingHTTPServer(router, host="127.0.0.1")
+    try:
+        port = srv.start()
+        _build.reset_launch_counts()                # prefill path starts
         t0 = time.perf_counter()
-        drive(eng, prompts, MAX_NEW)
+        got, latency = _http_clients(port, prompts, MAX_NEW)
+        wall = time.perf_counter() - t0
+        prefill_counts = dict(_build.launch_counts)  # prefill path ends
+        stats = router.stats()["replicas"]
+        # one request alone (a tick of one): its tokens against a direct
+        # generate of the same prompt
+        lone = np.asarray(_post(port, prompts[:1].tolist(), MAX_NEW,
+                                "dense-alone")["outputs"][0])
+    finally:
+        srv.stop()
+        for mb in batchers:
+            mb.close()
+    ticks = sum(r["replica"]["ticks"] for r in stats)
+    rows = sum(r["replica"]["rows"] for r in stats)
+    routed = [r["routed"] for r in stats]
+    for i in range(n_req):
+        tok = got[i]
+        if tok.shape != (1, MAX_NEW) or tok.min() < 0 or \
+                tok.max() >= cfg.vocab_size:
+            raise AssertionError(f"serve_dense request {i}: bad tokens {tok}")
+    if rows != n_req or sum(routed) != n_req or min(routed) <= 0:
+        raise AssertionError(f"serve_dense routed {routed}, {rows} rows in "
+                             f"{ticks} ticks for {n_req} requests")
+    prefill_launches = _check_k1_path("prefill", prefill_counts,
+                                      cfg.num_hidden_layers * ticks)
+    direct = dec.generate(prompts[:1], MAX_NEW)
+    if not np.array_equal(lone, direct):
+        raise AssertionError(f"serve_dense: HTTP tokens {lone.tolist()} "
+                             f"!= direct generate {direct.tolist()}")
+    # eight of the timed requests, spread over the clients, generated
+    # again in one batch of 8: each HTTP reply (served in a tick with
+    # other rows and padding) equals its row, and each row the argmax of
+    # one teacher-forced session forward over it, up to the row's first
+    # top-2 logit gap under MARGIN_TOL
+    picked = np.linspace(0, n_req - 1, DENSE_MAX_BATCH).astype(int)
+    batch = dec.generate(prompts[picked], MAX_NEW)
+    batch_tf = sess.predict({ids: np.concatenate(
+        [prompts[picked], batch[:, :-1]], axis=1)})[0][:, pb - 1:]
+    batch_checked = []
+    for row, i in enumerate(picked):
+        tf_row, n_ok, _ = _margin_checked(batch_tf[row])
+        if not (np.array_equal(got[i][0, :n_ok], batch[row, :n_ok])
+                and np.array_equal(batch[row, :n_ok], tf_row[:n_ok])):
+            raise AssertionError(
+                f"serve_dense request {i}: HTTP tokens {got[i].tolist()}, "
+                f"batch-of-8 generate {batch[row].tolist()}, teacher-"
+                f"forced {tf_row.tolist()} (first {n_ok} checked)")
+        batch_checked.append(n_ok)
+    del batch_tf
+
+    # the decode step at B=8 (bench.py:1245-1252) and the prefill of a
+    # full tick
+    prefill_ms = median_ms(torch, lambda: dec.prefill(x8))
+    _, kv = dec.prefill(x8)
+    tok = torch.as_tensor(x8[:, -1], device=dec.device)
+    step_ms = []
+    for t in range(DENSE_DECODE_STEPS):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    eng.close()
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in dev) / 1e3
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall_ms,
-            "device_busy_ms": busy if dev else None,
-            "device_idle_share": 1.0 - busy / wall_ms if dev else None,
-            "flash_fwd_ms": sum(e.self_device_time_total for e in dev
-                                if "flash_fwd" in e.key) / 1e3,
-            "top_kernels": [{"name": e.key[:90], "count": e.count,
-                             "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+        ts = time.perf_counter()
+        last, kv = dec.decode_step(kv, tok, pb + t)
+        tok = last.argmax(-1)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    del kv, last
+
+    # the no-cache recompute through the session (bench.py:1233-1242):
+    # K1's second path
+    sess.predict({ids: x8})                         # untimed warm call
+    _build.reset_launch_counts()                    # session path starts
+    cur = x8
+    t0 = time.perf_counter()
+    for _ in range(DENSE_NO_CACHE_STEPS):
+        full = sess.predict({ids: cur})[0]
+        cur = np.concatenate([cur, full[:, -1].argmax(-1)[:, None]], axis=1)
+        del full                        # [8, S, V] f32 on the host
+    no_cache_s = time.perf_counter() - t0
+    session_counts = dict(_build.launch_counts)     # session path ends
+    session_launches = _check_k1_path(
+        "session", session_counts,
+        cfg.num_hidden_layers * DENSE_NO_CACHE_STEPS)
+
+    # the cached chain against the no-cache one: one teacher-forced
+    # forward over the prompt and the generated tokens gives every
+    # step's no-cache logits (the chains share their inputs up to the
+    # first disagreement)
+    chain = np.concatenate([prompts[0], lone[0, :-1]])[None]
+    tf_tokens, checked, min_margin = _margin_checked(
+        sess.predict({ids: chain})[0][0, pb - 1:])
+    # K1 swapped for its plain version: the decoder's tokens, and the
+    # session's logits at B=8 over inputs that fill the 1024 bucket, so
+    # every query row of K1 reaches the compared logits
+    x_full = rng.integers(0, cfg.vocab_size, (DENSE_MAX_BATCH,
+                                               DENSE_SEQ_BUCKET))
+    logits_k1 = sess.predict({ids: x_full})[0]
+    kernel_fa = attn.flash_attention
+    attn.flash_attention = fa.flash_attention_plain
+    try:
+        plain_tokens = dec.generate(prompts[:1], MAX_NEW)
+        logits_plain = sess.predict({ids: x_full})[0]
+    finally:
+        attn.flash_attention = kernel_fa
+    logit_err = float(np.abs(logits_k1 - logits_plain).max())
+    logits_ok = bool(np.allclose(logits_k1, logits_plain,
+                                 atol=DENSE_LOGIT_TOL, rtol=DENSE_LOGIT_TOL))
+    logit_scale = float(np.abs(logits_plain).max())
+    del logits_k1, logits_plain
+    parity = {"http_equals_direct_generate": True,
+              "http_equals_batch_generate": True,
+              "batch_requests": picked.tolist(),
+              "batch_positions_checked": batch_checked,
+              "positions_checked": checked, "min_margin": min_margin,
+              "margin_tol": MARGIN_TOL,
+              "cached_equals_no_cache": bool(np.array_equal(
+                  lone[0, :checked], tf_tokens[:checked])),
+              "plain_k1_decoder_equal": bool(np.array_equal(
+                  lone[0, :checked], plain_tokens[0, :checked])),
+              "plain_k1_decoder_all_equal": bool(np.array_equal(
+                  lone, plain_tokens)),
+              "session_logits_max_abs_err": logit_err,
+              "session_logits_max_abs": logit_scale,
+              "session_logits_tol": DENSE_LOGIT_TOL,
+              "session_logits_ok": logits_ok}
+    if not (parity["cached_equals_no_cache"]
+            and parity["plain_k1_decoder_equal"] and logits_ok):
+        raise AssertionError(f"serve_dense parity failed: {parity}; "
+                             f"cached {lone.tolist()}, no-cache "
+                             f"{tf_tokens.tolist()}, plain K1 "
+                             f"{plain_tokens.tolist()}")
+
+    tick = tick_fn(dec)
+    profile = profile_window(torch, lambda: tick(
+        {"ids": x8, "gen": np.full((len(x8), 1), MAX_NEW)}))
+    peak = torch.cuda.max_memory_allocated()
+    sess.close()
+    del sess, decs, dec
+    torch.cuda.empty_cache()
+    tokens = n_req * MAX_NEW
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "dtype": "float32", "seed": seed,
+            "stack": "HTTP -> ReplicaRouter -> 2 x MicroBatcher -> "
+                     "GPTDecoder.from_session(InferenceSession)",
+            "setup_s": setup_s, "clients": DENSE_CLIENTS,
+            "requests_per_client": DENSE_PER_CLIENT,
+            "prompt_tokens": [16, pb], "prompt_bucket": pb,
+            "seq_bucket": DENSE_SEQ_BUCKET, "max_new_tokens": MAX_NEW,
+            "max_batch_size": DENSE_MAX_BATCH,
+            "max_wait_ms": DENSE_MAX_WAIT_MS,
+            "requests": n_req, "wall_s": wall,
+            "requests_per_s": n_req / wall, "tokens_per_s": tokens / wall,
+            "latency_ms_p50": float(np.percentile(latency, 50)),
+            "latency_ms_p95": float(np.percentile(latency, 95)),
+            "ticks": ticks, "rows": rows,
+            "mean_batch_occupancy": rows / (ticks * DENSE_MAX_BATCH),
+            "routed_per_replica": routed,
+            "prefill_ms_b8_p256": prefill_ms,
+            "decode_step_ms_p50": float(np.median(step_ms)),
+            "decode_step_ms": step_ms,
+            "no_cache_tokens_per_s":
+                DENSE_NO_CACHE_STEPS * len(x8) / no_cache_s,
+            "k1_launches": {"prefill": prefill_launches,
+                            "session": session_launches},
+            "parity": parity, "profile_tick_b8": profile,
+            "peak_memory_bytes": int(peak)}
+    return line, {"prefill": prefill_counts, "session": session_counts}
 
 
 def ptxas_report(log_text):
@@ -1293,6 +1718,12 @@ def main(argv=None):
     t = time.perf_counter()
     serve_line, serve_launches = serve(torch, args.seed, card)
     log(f"serve ({time.perf_counter() - t:.1f} s) {serve_line}")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    dense_line, dense_launches = serve_dense(torch, args.seed, card)
+    log(f"serve_dense ({time.perf_counter() - t:.1f} s) {dense_line}")
+    torch.cuda.empty_cache()
 
     t = time.perf_counter()
     train_line, train_launches = train(torch, args.seed, card)
@@ -1318,7 +1749,14 @@ def main(argv=None):
 
     pallas = "hetu_tpu/ops/pallas_attention.py:"
     sdpa = "torch.ops.aten._scaled_dot_product_flash_attention"
+    eff = ("; with BERT's padding mask (bert_long) "
+           "torch.ops.aten._scaled_dot_product_efficient_attention")
+    bias = " (memory-efficient attention, the mask as a [B, H, S, S] bias)"
     fwd_paths = [("serve", serve_launches, K1_REP),
+                 ("serve_dense.prefill", dense_launches["prefill"],
+                  K1_PREFILL_REP),
+                 ("serve_dense.session", dense_launches["session"],
+                  K1_SESSION_REP),
                  ("bert", bert_launches["bert"], BERT_K1_REP)]
     train_paths = [("train", train_launches, TRAIN_REP),
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP)]
@@ -1329,11 +1767,12 @@ def main(argv=None):
                     "(with the same additive mask)"),
         _kernel_row("flash_fwd_lse", "fwd", pallas + "333", (fa.K2,),
                     train_paths, train_rows["K2"],
-                    sdpa + " (bf16 without mask only)"),
+                    sdpa + " (bf16 without mask)" + eff + bias),
         _kernel_row("flash_bwd_dkv", "bwd", pallas + "514", (fa.K3,),
                     train_paths, train_rows["K3"],
                     sdpa + "_backward (computes dq, dk and dv: K3 and K4 "
-                    "together; bf16 without mask only)"),
+                    "together; bf16 without mask)" + eff + "_backward"
+                    + bias),
         _kernel_row("flash_bwd_dq", "bwd", pallas + "526", (fa.K4,),
                     train_paths, train_rows["K4"],
                     "none alone: see flash_bwd_dkv"),
@@ -1341,15 +1780,16 @@ def main(argv=None):
         # counterpart of the reference's entry that launches both
         _kernel_row("flash_bwd_pair", "bwd", pallas + "539",
                     (fa.K3, fa.K4), train_paths, train_rows["pair"],
-                    sdpa + "_backward (bf16 without mask only)"),
+                    sdpa + "_backward (bf16 without mask)" + eff
+                    + "_backward" + bias),
     ]}
     shapes = {"kernel_shapes": {"flash_fwd": k1_rows, **{
         row["name"]: train_rows[key] for key, row in
         zip(("K2", "K3", "K4", "pair"), kernels["kernels"][1:])}}}
     lines = [{"device": device}, {"build": build}, shapes,
              {"check_faults": faults}, {"serve": serve_line},
-             {"train": train_line}, *({name: line} for name, line in
-                                      bert_lines.items()),
+             {"serve_dense": dense_line}, {"train": train_line},
+             *({name: line} for name, line in bert_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

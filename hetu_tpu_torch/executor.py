@@ -122,6 +122,10 @@ class SubExecutor:
             value = value.tensor
         if not isinstance(value, torch.Tensor):
             value = torch.from_numpy(np.ascontiguousarray(value))
+        # float64 feeds (numpy's default, JSON bodies) compute in f32, as
+        # the reference's JAX canonicalizes them with 64-bit mode off
+        if value.dtype == torch.float64:
+            value = value.to(torch.float32)
         value = value.to(self.config.device)
         dtype = self.config.dtype
         if dtype is not None and value.is_floating_point():

@@ -3,9 +3,10 @@ serving forward."""
 from .bert import (BertConfig, BertForMaskedLM, BertForNextSentencePrediction,
                    BertForPreTraining, BertForSequenceClassification,
                    BertLayerNorm, BertModel, Dropout, Embedding, Linear)
-from .gpt import (GPTConfig, GPTLMHeadModel, GPTModel, gpt_param_names,
+from .gpt import (GPTConfig, GPTLMHeadModel, GPTModel, gpt_cached_step,
                   gpt_paged_prefill, gpt_paged_step, gpt_paged_suffix_prefill,
-                  gpt_serving_params, random_gpt_checkpoint,
+                  gpt_param_names, gpt_prefill, gpt_serving_params,
+                  init_kv_cache, random_gpt_checkpoint,
                   serving_params_from_numpy)
 
 __all__ = ["BertConfig", "BertModel", "BertForPreTraining",
@@ -13,5 +14,6 @@ __all__ = ["BertConfig", "BertModel", "BertForPreTraining",
            "BertForSequenceClassification", "GPTConfig", "GPTModel",
            "GPTLMHeadModel", "gpt_param_names", "gpt_serving_params",
            "serving_params_from_numpy", "random_gpt_checkpoint",
+           "init_kv_cache", "gpt_prefill", "gpt_cached_step",
            "gpt_paged_prefill", "gpt_paged_step", "gpt_paged_suffix_prefill",
            "Embedding", "BertLayerNorm", "Dropout", "Linear"]

@@ -14,14 +14,18 @@ parallel modes.
 
 Parameters are a plain dict built by :func:`gpt_serving_params` from
 the reference's checkpoint names (:func:`gpt_param_names`), so a
-``hetu_tpu`` checkpoint (one ``<name>.npy`` per parameter) or any
-``name -> array`` lookup carries over unchanged. Linear weights keep the
-reference's ``[in, out]`` layout.
+``hetu_tpu`` checkpoint (one ``<name>.npy`` per parameter), a live
+session's tensors or any ``name -> array`` lookup carries over
+unchanged. Linear weights keep the reference's ``[in, out]`` layout.
 
-The paged functions update the per-layer K/V pools IN PLACE (the
-reference donates them to ``jax.jit`` instead) and return
-``(logits, pools)`` with the same pool list, so call sites read the
-same in both packages.
+Two cached decode paths share the layer math: the dense one
+(:func:`init_kv_cache`, :func:`gpt_prefill`, :func:`gpt_cached_step`:
+one ``[B, H, S_max, D]`` K/V pair per layer, for ``GPTDecoder``) and the
+block-paged one (``gpt_paged_*``, for ``ContinuousBatchingEngine``).
+Both update their K/V buffers IN PLACE (the reference donates them to
+``jax.jit`` instead) and return ``(logits, buffers)`` with the same
+buffer list, so call sites read the same in both packages; the
+caller's buffers are consumed.
 """
 from __future__ import annotations
 
@@ -36,7 +40,7 @@ from ..ops import (array_reshape_op, batch_matmul_op, broadcastto_op,
                    flash_attention_op, softmax_op,
                    softmaxcrossentropy_sparse_op, split_op, squeeze_op,
                    transpose_op)
-from ..ops.attention import (paged_decode_attention,
+from ..ops.attention import (decode_attention, paged_decode_attention,
                              paged_prefill_attention, prefill_attention)
 from ..ops.variable import Variable
 from .bert import BertLayerNorm as LayerNorm
@@ -44,7 +48,8 @@ from .bert import Dropout, Embedding, Linear, _act
 
 __all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_param_names",
            "gpt_serving_params", "serving_params_from_numpy",
-           "random_gpt_checkpoint", "gpt_paged_prefill", "gpt_paged_step",
+           "random_gpt_checkpoint", "init_kv_cache", "gpt_prefill",
+           "gpt_cached_step", "gpt_paged_prefill", "gpt_paged_step",
            "gpt_paged_suffix_prefill"]
 
 
@@ -93,12 +98,17 @@ def gpt_serving_params(config, lookup, device=None):
     """Serving parameter dict on ``device`` (``cuda`` by default), f32.
     ``lookup(name)`` returns one checkpoint array (a dict's
     ``__getitem__``, an ``np.load`` closure over a checkpoint dir,
-    ...)."""
+    ...) or a tensor (``InferenceSession.params_by_name``): a tensor
+    already f32 on ``device`` is used as it is, so the serving path
+    shares its storage, and any other is cast or moved on the device
+    side, never through the host."""
     dev = resolve_device(device)
 
     def get(name):
-        return torch.as_tensor(np.asarray(lookup(name), np.float32),
-                               device=dev)
+        value = lookup(name)
+        if isinstance(value, torch.Tensor):
+            return value.to(device=dev, dtype=torch.float32)
+        return torch.as_tensor(np.asarray(value, np.float32), device=dev)
 
     names = gpt_param_names(config)
     out = {"wte": get(names["wte"]), "wpe": get(names["wpe"]),
@@ -184,6 +194,73 @@ def _serve_act(name):
 def _serve_mlp(x, blk, act):
     h = act(x @ blk["fc"][0] + blk["fc"][1])
     return h @ blk["mlp_proj"][0] + blk["mlp_proj"][1]
+
+
+def init_kv_cache(config, batch, max_len=None, device=None):
+    """Zeroed K/V buffers on ``device`` (``cuda`` by default), one
+    ``[B, H, S_max, D]`` f32 pair per layer; the decode functions write
+    their rows in place."""
+    dev = resolve_device(device)
+    nh = config.num_attention_heads
+    shape = (int(batch), nh, int(max_len or config.max_position_embeddings),
+             config.hidden_size // nh)
+    return [{"k": torch.zeros(shape, device=dev),
+             "v": torch.zeros(shape, device=dev)}
+            for _ in range(config.num_hidden_layers)]
+
+
+@torch.inference_mode()
+def gpt_prefill(params, kv, ids, num_heads, hidden_act="gelu"):
+    """Prompt phase: causal forward over ``ids [B, S0]`` that writes rows
+    ``0..S0-1`` of every layer's K/V buffers in place. Attention is
+    :func:`prefill_attention` — kernel K1 on CUDA. Returns
+    ``(logits [B, S0, V], kv)``."""
+    act = _serve_act(hidden_act)
+    b, s0 = ids.shape
+    hidden = params["wte"].shape[1]
+    hs = hidden // num_heads
+    x = params["wte"][ids] + params["wpe"][:s0][None]
+    for blk, layer in zip(params["blocks"], kv):
+        h = _serve_ln(x, blk["ln1"])
+        qkv = h @ blk["qkv"][0] + blk["qkv"][1]            # [B, S0, 3H]
+        q, k, v = (qkv[..., i * hidden:(i + 1) * hidden]
+                   .reshape(b, s0, num_heads, hs).transpose(1, 2)
+                   for i in range(3))
+        layer["k"][:, :, :s0] = k
+        layer["v"][:, :, :s0] = v
+        ctx = prefill_attention(q, k, v, sm_scale=1.0 / math.sqrt(hs),
+                                causal=True)
+        ctx = ctx.transpose(1, 2).reshape(b, s0, hidden)
+        x = x + (ctx @ blk["proj"][0] + blk["proj"][1])
+        x = x + _serve_mlp(_serve_ln(x, blk["ln2"]), blk, act)
+    x = _serve_ln(x, params["ln_f"])
+    return x @ params["lm_head"], kv
+
+
+@torch.inference_mode()
+def gpt_cached_step(params, kv, tokens, pos, num_heads, hidden_act="gelu"):
+    """Cached single-token forward: ``tokens [B]`` at position ``pos`` (an
+    int or a 0-d tensor). Writes row ``pos`` of every layer's K/V buffers
+    in place and attends over rows ``0..pos`` through
+    :func:`decode_attention`. Returns ``(logits [B, V], kv)``."""
+    act = _serve_act(hidden_act)
+    hidden = params["wte"].shape[1]
+    hs = hidden // num_heads
+    b = tokens.shape[0]
+    x = params["wte"][tokens] + params["wpe"][pos]          # [B, H]
+    for blk, layer in zip(params["blocks"], kv):
+        h = _serve_ln(x, blk["ln1"])
+        qkv = h @ blk["qkv"][0] + blk["qkv"][1]             # [B, 3H]
+        q, k, v = (qkv[:, i * hidden:(i + 1) * hidden]
+                   .reshape(b, num_heads, hs) for i in range(3))
+        layer["k"][:, :, pos] = k
+        layer["v"][:, :, pos] = v
+        ctx = decode_attention(q, layer["k"], layer["v"], pos,
+                               sm_scale=1.0 / math.sqrt(hs))
+        x = x + (ctx.reshape(b, hidden) @ blk["proj"][0] + blk["proj"][1])
+        x = x + _serve_mlp(_serve_ln(x, blk["ln2"]), blk, act)
+    x = _serve_ln(x, params["ln_f"])
+    return x @ params["lm_head"], kv
 
 
 def _pool_scatter(pool, slots, rows):

@@ -9,9 +9,10 @@ and of every header (``csrc/*.cuh``) it may include, so an edited
 kernel or header never loads a stale build.
 
 :data:`launch_counts` is the per-process launch counter: every wrapper
-adds one to its kernel's entry right after a successful launch, and
-nowhere else, so a run can show that its main path went through the
-kernels.
+adds one to its kernel's entry through :func:`count_launch` right after
+a successful launch, and nowhere else, so a run can show that its main
+path went through the kernels. The count stays exact when several
+threads launch (a server's batcher threads).
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "build_log", "load", "launch_counts",
+__all__ = ["build", "build_log", "load", "launch_counts", "count_launch",
            "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
@@ -38,11 +39,22 @@ NVCC_FLAGS = ["-O3", "-std=c++17",
 launch_counts = collections.Counter()
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs = {}
 
 
+def count_launch(key, route):
+    """One launch of kernel ``key`` on ``route``: counted under ``key``
+    and ``f"{key}.{route}"``. A ``+=`` on the counter is a read and a
+    write, so two threads could lose one without the lock."""
+    with _count_lock:
+        launch_counts[key] += 1
+        launch_counts[f"{key}.{route}"] += 1
+
+
 def reset_launch_counts():
-    launch_counts.clear()
+    with _count_lock:
+        launch_counts.clear()
 
 
 def _nvcc():

@@ -423,9 +423,7 @@ def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
     with torch.cuda.device(q.device):
         rc = fn(*ptrs, *args)
     _build.check(lib, lib_name, rc)
-    key = K2 if want_lse else K1
-    _build.launch_counts[key] += 1
-    _build.launch_counts[f"{key}.{route}"] += 1
+    _build.count_launch(K2 if want_lse else K1, route)
     return (out, lse) if want_lse else out
 
 
@@ -500,8 +498,7 @@ def _launch_bwd(prep, kernel, key, outs, sm_scale, causal):
     with torch.cuda.device(q.device):
         rc = fn(*ptrs, *args)
     _build.check(lib, lib_name, rc)
-    _build.launch_counts[key] += 1
-    _build.launch_counts[f"{key}.{route}"] += 1
+    _build.count_launch(key, route)
 
 
 def _launch_dkv(prep, sm_scale, causal):

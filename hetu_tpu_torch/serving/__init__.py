@@ -1,31 +1,43 @@
-"""Online inference on the GPU: the continuous-batching plane.
+"""Online inference on the GPU: the serving plane.
 
-Counterpart of ``hetu_tpu/serving``. Ported so far:
+Counterpart of ``hetu_tpu/serving``. Ported:
 
-* :class:`~hetu_tpu_torch.serving.kvcache.PagedKVCache` — block-paged
-  pooled K/V on the device, refcounted free-list allocator,
-  :class:`~hetu_tpu_torch.serving.kvcache.PrefixCache` with
-  copy-on-write block sharing;
-* :class:`~hetu_tpu_torch.serving.scheduler.ContinuousBatchingEngine` —
-  iteration-level join/leave scheduling over the paged cache, bucketed
-  dispatch shapes, KV-block admission control, prefix caching and
-  chunked prefill;
-* :class:`~hetu_tpu_torch.serving.router.SLOWindow`,
-  :func:`~hetu_tpu_torch.serving.session.next_bucket` and
-  :mod:`~hetu_tpu_torch.serving.lifecycle`.
+* :class:`~hetu_tpu_torch.serving.session.InferenceSession` — frozen
+  eval graphs restored from an ``Executor.save`` checkpoint, with
+  batch/sequence shape bucketing;
+* :class:`~hetu_tpu_torch.serving.decode.GPTDecoder` — dense-KV
+  autoregressive decode (prefill on kernel K1, cached single-token
+  steps), greedy or sampled;
+* :class:`~hetu_tpu_torch.serving.batcher.MicroBatcher` — request-level
+  dynamic micro-batching;
+* :class:`~hetu_tpu_torch.serving.router.ReplicaRouter` and
+  :class:`~hetu_tpu_torch.serving.router.SLOWindow` — least-inflight
+  routing over replicas under an SLO probe;
+* :class:`~hetu_tpu_torch.serving.http.ServingHTTPServer` — the stdlib
+  JSON frontend;
+* :class:`~hetu_tpu_torch.serving.kvcache.PagedKVCache` and
+  :class:`~hetu_tpu_torch.serving.kvcache.PrefixCache`, and
+  :class:`~hetu_tpu_torch.serving.scheduler.ContinuousBatchingEngine` —
+  iteration-level batching over the block-paged cache;
+* :mod:`~hetu_tpu_torch.serving.lifecycle` — request ids and in-flight
+  tables.
 
-``InferenceSession``, ``MicroBatcher``, ``GPTDecoder``, the HTTP
-frontend, ``ReplicaRouter`` and PS-backed embeddings are not ported
-yet.
+PS-backed embeddings (``serving/embedding.py``) are not ported yet:
+they wait for the PS port (ROADMAP.md item 10).
 """
-from .session import next_bucket
+from .batcher import MicroBatcher
+from .decode import GPTDecoder
+from .http import ServingHTTPServer
 from .kvcache import (BlockAllocator, KVCacheExhausted, PagedKVCache,
                       PrefixCache)
 from .lifecycle import RequestTimeline, mint_request_id
-from .router import SLOWindow
+from .router import ReplicaRouter, RouterOverloaded, SLOWindow
 from .scheduler import ContinuousBatchingEngine, EngineOverloaded
+from .session import InferenceSession, next_bucket
 
-__all__ = ["next_bucket", "BlockAllocator", "KVCacheExhausted",
-           "PagedKVCache", "PrefixCache",
-           "ContinuousBatchingEngine", "EngineOverloaded", "SLOWindow",
+__all__ = ["InferenceSession", "next_bucket", "GPTDecoder",
+           "MicroBatcher", "ServingHTTPServer", "ReplicaRouter",
+           "RouterOverloaded", "SLOWindow", "BlockAllocator",
+           "KVCacheExhausted", "PagedKVCache", "PrefixCache",
+           "ContinuousBatchingEngine", "EngineOverloaded",
            "RequestTimeline", "mint_request_id"]

@@ -265,6 +265,15 @@ class ContinuousBatchingEngine:
 
     # ------------------------------------------------------------------
     @classmethod
+    def from_session(cls, session, config, **kw):
+        """From a live :class:`~hetu_tpu_torch.serving.InferenceSession`
+        over the same model: shares the session's device-resident
+        parameter tensors (on the session's device unless ``device``
+        says otherwise)."""
+        kw.setdefault("device", session.device)
+        return cls(config, session.params_by_name().__getitem__, **kw)
+
+    @classmethod
     def from_checkpoint(cls, config, path, **kw):
         """From an ``Executor.save`` checkpoint directory."""
         def lookup(name):

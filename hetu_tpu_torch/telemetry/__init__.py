@@ -1,9 +1,10 @@
-"""Telemetry surface the serving engine calls — disabled only.
+"""Telemetry surface the serving plane calls — disabled only.
 
 Counterpart of ``hetu_tpu/telemetry/__init__.py``. Only the disabled
 facade is ported so far: every recording method is a no-op and
-``enabled`` is False, so the engine's guarded instrumentation sites
-cost one attribute check. Asking for ENABLED telemetry raises
+``enabled`` is False, so the serving modules' guarded instrumentation
+sites cost one attribute check, and the few they call unguarded
+(``flight_complete``) do nothing. Asking for ENABLED telemetry raises
 ``NotImplementedError`` instead of silently recording nothing.
 """
 from __future__ import annotations
@@ -56,6 +57,10 @@ class Telemetry:
         pass
 
     def set_gauge(self, name, value):
+        pass
+
+    @staticmethod
+    def flight_complete(rec):
         pass
 
     def flight_record(self, group, kind, peer=None, tag=None, nbytes=0):

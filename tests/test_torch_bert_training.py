@@ -70,23 +70,23 @@ def _config(models, case, **kw):
                              use_flash_attention=case != "composed")
 
 
-def _feeds(nodes, seed=0):
+def _feeds(nodes, seed=0, b=B, s=S, vocab=CFG["vocab_size"]):
     """The graph's feeds: random ids and labels, each row padded past a
     length drawn from [S/2, S], MLM labels -1 on the padding."""
     rng = np.random.RandomState(seed)
-    lengths = rng.randint(S // 2, S + 1, B)
-    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.float32)
-    mlm = rng.randint(0, CFG["vocab_size"], (B, S))
+    lengths = rng.randint(s // 2, s + 1, b)
+    mask = (np.arange(s)[None] < lengths[:, None]).astype(np.float32)
+    mlm = rng.randint(0, vocab, (b, s))
     mlm[mask == 0] = -1
-    values = (rng.randint(0, CFG["vocab_size"], (B, S)),
-              rng.randint(0, 2, (B, S)), mask, mlm, rng.randint(0, 2, (B,)))
+    values = (rng.randint(0, vocab, (b, s)),
+              rng.randint(0, 2, (b, s)), mask, mlm, rng.randint(0, 2, (b,)))
     return dict(zip(nodes, values))
 
 
-def _graph(ht, models, case, with_grads=False):
+def _graph(ht, models, case, with_grads=False, **widths):
     feeds = [ht.Variable(n, trainable=False) for n in FEEDS]
     _, _, mlm_loss, nsp_loss = models.BertForPreTraining(
-        _config(models, case))(*feeds)
+        _config(models, case, **widths))(*feeds)
     loss = ht.reduce_mean_op(mlm_loss, [0, 1]) + \
         ht.reduce_mean_op(nsp_loss, [0])
     opt = ht.optim.AdamOptimizer(learning_rate=LR)
@@ -296,3 +296,38 @@ def test_dropout_trains_deterministically_per_seed():
 def test_sequence_parallel_is_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TM.BertForPreTraining(_config(TM, "flash", sequence_parallel=True))
+
+
+# BERT-base's widths (bench.py:1150-1168), with a third, unused token-type
+# row (see the module docstring)
+BERT_BASE = dict(vocab_size=30522, hidden_size=768, num_attention_heads=12,
+                 intermediate_size=3072, type_vocab_size=3)
+
+
+@pytest.mark.parametrize("layers,b,s", [
+    (2, 2, 64), pytest.param(12, 8, 128, marks=pytest.mark.slow)])
+def test_bert_base_width_loss_curve_matches(layers, b, s):
+    """BERT-base's widths, fp32, dropout 0: 4 Adam steps at lr 1e-4 on
+    one fixed batch (as the card's ``bert`` pass runs it), the flash path
+    (plain K1 + the composed vjp, as BERT-base on the card); 2 layers at
+    B=2 S=64, and all 12 at B=8 S=128 (slow). The four losses agree
+    within rtol 1e-5, as the tiny twins' do: the two frameworks sum the
+    30522-way softmax and the matmuls in other orders (measured 5e-7 at
+    2 layers, 6e-6 at 12 across the jump of steps 2-3, which both
+    packages make there), while the loss moves by ~1e-1 a step or more,
+    so a jump the port alone made would show far above that."""
+    widths = dict(BERT_BASE, num_hidden_layers=layers,
+                  max_position_embeddings=s)
+    losses = []
+    for ht, models, ctx in ((jht, JM, {}), (tht, TM, dict(ctx=tht.cpu(0)))):
+        feeds, nodes, _ = _graph(ht, models, "flash", **widths)
+        exe = ht.Executor(nodes, **ctx)
+        batch = _feeds(feeds, b=b, s=s, vocab=widths["vocab_size"])
+        losses.append([float(exe.run(feed_dict=batch)[0].asnumpy())
+                       for _ in range(4)])
+        del exe
+    jax_losses, port_losses = losses
+    print(f"layers={layers} B={b} S={s} hetu_tpu {jax_losses} "
+          f"port {port_losses}")
+    assert np.all(np.isfinite(port_losses))
+    np.testing.assert_allclose(port_losses, jax_losses, rtol=1e-5)

@@ -1,7 +1,11 @@
 """hetu_tpu_torch.ops._build on the CPU: the library path of a kernel
 source carries a hash of the source and of every header beside it, so
-an edited header never loads a stale build. No nvcc is needed: only the
-path is computed."""
+an edited header never loads a stale build, and the launch counts stay
+exact when several threads launch. No nvcc is needed: only the path is
+computed, and the counter is driven directly."""
+import sys
+import threading
+
 from hetu_tpu_torch.ops import _build
 
 
@@ -37,3 +41,25 @@ def test_editing_a_source_changes_only_its_library_path(tmp_path,
     (csrc / "b.cu").write_text("int b2;\n")
     assert _build._lib_path("a")[1] == a
     assert _build._lib_path("b")[1] != b
+
+
+def test_launch_counts_stay_exact_under_threads(monkeypatch):
+    """16 threads count 2000 launches each with the interpreter switching
+    threads as often as it can: a lost read-modify-write would show."""
+    monkeypatch.setattr(_build, "launch_counts", type(_build.launch_counts)())
+    threads = [threading.Thread(
+        target=lambda: [_build.count_launch("k", "simt")
+                        for _ in range(2000)]) for _ in range(16)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert _build.launch_counts == {"k": 32000, "k.simt": 32000}
+    _build.reset_launch_counts()
+    assert not _build.launch_counts

@@ -124,6 +124,23 @@ def test_tc_route_k1_at_the_bert_base_shape(cuda, causal):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("s", [256, 1024])
+def test_simt_route_k1_at_the_dense_serving_shapes(cuda, s):
+    # the request-level serving plane's f32 attention, causal, unmasked:
+    # GPTDecoder's prefill of a batch of 8 prompts in the 256 bucket, and
+    # InferenceSession's graph forward of 8 rows in the 1024 bucket
+    b, h, d, dtype = 8, 12, 64, torch.float32
+    q, k, v, _ = _inputs(b, h, s, d, dtype, False, seed=s, device=cuda)
+    before = dict(_build.launch_counts)
+    out = flash_attention(q, k, v, None, d ** -0.5, True)
+    torch.cuda.synchronize()
+    for key, n in ((fa.K1, 1), (f"{fa.K1}.simt", 1), (f"{fa.K1}.tc", 0)):
+        assert _build.launch_counts[key] == before.get(key, 0) + n, key
+    ref = flash_attention_plain(q, k, v, None, d ** -0.5, True)
+    torch.testing.assert_close(out, ref, atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
 def test_flash_fwd_rejects_what_it_does_not_take(cuda):
     q = torch.zeros(1, 1, 16, 64, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):

@@ -11,9 +11,12 @@ import torch
 
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch import telemetry
-from hetu_tpu_torch.models.gpt import (GPTConfig, gpt_serving_params,
+import hetu_tpu_torch as ht
+from hetu_tpu_torch.models.gpt import (GPTConfig, GPTLMHeadModel,
+                                       gpt_serving_params, init_kv_cache,
                                        random_gpt_checkpoint)
-from hetu_tpu_torch.serving import ContinuousBatchingEngine, PagedKVCache
+from hetu_tpu_torch.serving import (ContinuousBatchingEngine, GPTDecoder,
+                                    InferenceSession, PagedKVCache)
 
 ROOT = Path(__file__).resolve().parent.parent
 CFG = dict(vocab_size=32, hidden_size=16, num_hidden_layers=1,
@@ -28,7 +31,10 @@ def test_imports_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch, chip_smoke\n"
         "import hetu_tpu_torch.ops.attention, hetu_tpu_torch.ops._build\n"
         "import hetu_tpu_torch.models, hetu_tpu_torch.serving\n"
-        "import hetu_tpu_torch.telemetry\n"
+        "import hetu_tpu_torch.telemetry, hetu_tpu_torch.models.gpt\n"
+        "import hetu_tpu_torch.serving.session, hetu_tpu_torch.serving.decode\n"
+        "import hetu_tpu_torch.serving.batcher, hetu_tpu_torch.serving.router\n"
+        "import hetu_tpu_torch.serving.http, hetu_tpu_torch.serving.scheduler\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n")
@@ -42,7 +48,8 @@ def _cuda_absent(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "params", "cache",
-                                   "engine"])
+                                   "engine", "kv_cache", "session",
+                                   "decoder"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
     _cuda_absent(monkeypatch)
     cfg = GPTConfig(**CFG)
@@ -53,6 +60,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
         "cache": lambda: PagedKVCache(cfg, num_blocks=4),
         "engine": lambda: ContinuousBatchingEngine(
             cfg, ckpt.__getitem__, num_blocks=4, start=False),
+        "kv_cache": lambda: init_kv_cache(cfg, 1),
+        "session": lambda: InferenceSession(
+            [GPTLMHeadModel(cfg)(ht.Variable("ids", trainable=False))]),
+        "decoder": lambda: GPTDecoder(cfg, ckpt.__getitem__),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
