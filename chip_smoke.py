@@ -5,16 +5,19 @@
 
 Run from a checkout of the repository on a machine with one NVIDIA GPU
 and the CUDA toolkit. It builds every hand-written kernel from the
-sources in the checkout, drives the port's five main paths — GPT-2-small
+sources in the checkout, drives the port's main paths — GPT-2-small
 (full width, random weights from a seed) served through
 ``ContinuousBatchingEngine``; the same model served through the
 request-level plane (HTTP frontend, ``ReplicaRouter`` over two
 ``MicroBatcher``s, ``GPTDecoder`` over an ``InferenceSession`` restored
 from a checkpoint); the same model trained with Adam in bf16 through
 ``Executor.run`` (B=8, S=1024); BERT-base MLM + NSP pre-training (B=64,
-S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8) — checks
-every kernel against its plain PyTorch version on the card, and prints
-one JSON object per line (``--out`` also writes them to FILE):
+S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8); the CNN
+zoo's VGG-16 (full width) and ResNet-18 trained in f32 from dataloader
+ops (B=128); ``digits_cnn`` trained to accuracy on the checked-in digits
+through the port's ``examples/cnn_main.py`` — checks every kernel
+against its plain PyTorch version on the card, and prints one JSON
+object per line (``--out`` also writes them to FILE):
 
 * ``device``  the card (name and power limit from nvidia-smi), torch and
   CUDA versions;
@@ -52,6 +55,16 @@ one JSON object per line (``--out`` also writes them to FILE):
   launches K1 12 times a step, all on ``tc``, and no K2–K4; BERT-small at
   S=2048 launches K2, K3 and K4 4 times a step each, all on ``tc``, and
   no K1; step-1 parity against the plain kernels;
+* ``cnn_vgg16``, ``cnn_resnet18`` images/s, step ms p50, the loss of
+  every step, MFU against the f32 peak, peak memory, the device idle
+  share and device time by kernel category and by op type (and op
+  category: conv, batch norm, gemm, pool, elementwise) of one profiled
+  step, the host time of one step by op type, the launches of K1-K4
+  (none: this path has no Pallas kernel), and the step-1 parity of the
+  card against the CPU on one B=8 batch;
+* ``cnn_digits`` held-out accuracy (at least the JAX package's 0.96),
+  the epoch time and steps/s of ``cnn_main.run()``, K1-K4 launches
+  (none);
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -165,6 +178,56 @@ BERT_PASSES = {
 BERT_FEEDS = ("input_ids", "token_type_ids", "attention_mask",
               "masked_lm_labels", "next_sentence_label")
 
+# the CNN passes: the reference's CIFAR VGG-16 with batch norm (channels
+# 64-512, FC 512-4096-4096-10) and pre-activation ResNet-18 (widths
+# 16/32/64), hetu_tpu/models/cnn.py, trained at B=128 on 3x32x32 in f32
+# with MomentumOptimizer (examples/cnn/main.py --opt momentum) on batches
+# of ht.data.cifar10() (its seeded synthetic images where CIFAR_10 is
+# absent) through dataloader ops; 2 warm-up then 20 timed steps, each
+# ending in the loss's readback. ResNet-18 takes main.py's default rate
+# 0.1. VGG-16 takes 0.01: from the zoo's stddev-0.1 weights it diverges
+# at 0.1 in both packages (tests/test_torch_cnn_models.py
+# ::test_vgg16_diverges_at_lr_0_1_like_the_reference)
+CNN_BATCH = 128
+CNN_WARMUP, CNN_STEPS = 2, 20
+CNN_PASSES = {
+    "cnn_vgg16": dict(model="vgg16", lr=0.01,
+                      grads=("vgg_conv1_1_weight", "vgg_conv1_1_scale")),
+    "cnn_resnet18": dict(model="resnet18", lr=0.1,
+                         grads=("resnet_init_conv_weight",
+                                "resnet_init_bn_scale")),
+}
+# step-1 parity, the pass's graph in f32 on the card (cuDNN's TF32 off)
+# against the same graph on the CPU in float64 (same weights, one B=8
+# batch): the loss within CNN_LOSS_TOL relative, the first convolution's
+# weight gradient and the first batch norm's scale gradient within
+# CNN_GRAD_TOL of their largest element. The reference is the CPU in
+# float64, not in f32: at VGG-16's initial weights a relu in the FC
+# layers sits at a pre-activation within f32 rounding of 0 for this
+# batch, so which side an f32 run lands on is decided by its summation
+# order, and the CPU's f32 run lands on the other side from exact
+# arithmetic — its first-layer gradients are ~1e-2 of their largest
+# element from float64's (both packages' CPU f32 runs; the loss and
+# ResNet-18 agree to ~1e-6). The CPU's f32 run is reported beside.
+CNN_PARITY_BATCH = 8
+CNN_LOSS_TOL = 1e-4
+CNN_GRAD_TOL = 1e-3
+# device time of the profiled step by op type, summed into these
+# categories (the first prefix that matches; else "elementwise / other")
+CNN_OP_CATEGORIES = (
+    ("conv", ("Conv2d",)), ("batch norm", ("BatchNormalization",)),
+    ("gemm", ("MatMul",)), ("pool", ("MaxPool2d", "AvgPool2d")),
+    ("optimizer", ("Optimizer",)), ("loss", ("SoftmaxCrossEntropy",)),
+)
+# the digits pass: cnn_main.run() as tests/test_accuracy.py:65-76 runs
+# the reference's examples/cnn/main.py, on the checked-in real digits;
+# the JAX package's own bar
+CNN_DIGITS_ARGS = ("--model", "digits_cnn", "--dataset", "DIGITS",
+                   "--validate", "--num-epochs", "25", "--learning-rate",
+                   "0.002", "--opt", "adam", "--batch-size", "64",
+                   "--timing")
+CNN_DIGITS_MIN_ACC = 0.96
+
 # the main-path shape of each kernel: K1 the serving path's longest
 # prefill (one 1024-token bucket) and the BERT-base step's; K2-K4 the
 # GPT training step's and the BERT-small S=2048 step's. ``mask``: None,
@@ -188,6 +251,9 @@ K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
+    ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "convolve",
+                             "winograd", "cudnn", "fft2d")),
+    ("pooling", ("pool",)),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "nvjet")),
     ("softmax / logsumexp", ("softmax", "logsumexp")),
     ("reduction", ("reduce_kernel",)),
@@ -196,6 +262,8 @@ PROFILE_CATEGORIES = (
     ("random (dropout masks)", ("distribution", "philox")),
     ("elementwise", ("elementwise", "copy")),
 )
+# the name prefix of profile_window's per-op ranges
+OP_RANGE = "op::"
 # device_ms: the spin kernel's first length, in clock cycles (~10 ms at
 # the H100's boost clock), and the launch-count keys each timed call of
 # K1-K4 and the pair adds one to
@@ -840,21 +908,45 @@ def profile_train_step(torch, exe, feeds):
         torch, lambda: exe.run(feed_dict=feeds)[0].asnumpy())
 
 
-def profile_window(torch, fn):
+def profile_window(torch, fn, nodes=()):
     """``fn()`` once under torch.profiler: device busy time over the CUDA
     kernels and copies, the idle share of the window's wall time (the
     profiler's own host overhead included), device time by kernel
-    category (PROFILE_CATEGORIES) and the kernels that took the most."""
+    category (PROFILE_CATEGORIES) and the kernels that took the most.
+    With graph ``nodes``, each one's ``compute`` runs inside a profiler
+    range named by its op type (which slows the host: take the idle
+    share from a window without them), and ``device_ms_by_op_type``
+    holds the device time of the kernels each op type launched, from
+    the ranges' host-side events; their device-side copies are left out
+    of the busy time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = [e for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def annotated(node, fn):
+        def run(input_vals, ectx):
+            with record_function(OP_RANGE + node.op_type):
+                return fn(input_vals, ectx)
+        return run
+
+    for node in nodes:
+        node.compute = annotated(node, node.compute)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for node in nodes:
+            del node.compute
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and not e.key.startswith(OP_RANGE)]
+    by_op_type = {e.key[len(OP_RANGE):]: {"ms": e.device_time_total / 1e3,
+                                          "count": e.count}
+                  for e in events if e.key.startswith(OP_RANGE)
+                  and e.device_type == DeviceType.CPU}
     busy = sum(e.self_device_time_total for e in dev) / 1e3
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:10]
 
@@ -879,7 +971,10 @@ def profile_window(torch, fn):
                                 by_category.items(), key=lambda x: -x[1][0])},
             "top_kernels": [{"name": e.key[:90], "count": e.count,
                              "ms": e.self_device_time_total / 1e3}
-                            for e in top]}
+                            for e in top],
+            **({"device_ms_by_op_type": dict(sorted(
+                by_op_type.items(), key=lambda x: -x[1]["ms"]))}
+               if nodes else {})}
 
 
 def bert_train_flops(batch, seq, hidden, layers, heads, intermediate,
@@ -984,15 +1079,16 @@ def bert_train(torch, seed, card, name):
             "host": host_ms_by_op(torch, exe, feeds)}, run["launches"]
 
 
-def host_ms_by_op(torch, exe, feeds):
-    """One more step with every op's ``compute`` timed on the host clock,
-    summed by op type: the host's time in each op, launches included, not
-    the device's (an op that waits for the device, as the optimizer's
-    ``torch.unique`` does, also counts the device work queued before
-    it). Also the host time of making one per-op generator on the card,
-    which every dropout op and its gradient op pay."""
+def host_ms_by_op(torch, exe, feeds, name="default"):
+    """One more step of subgraph ``name`` with every op's ``compute``
+    timed on the host clock, summed by op type: the host's time in each
+    op, launches included, not the device's (an op that waits for the
+    device, as the optimizer's ``torch.unique`` does, also counts the
+    device work queued before it). Also the host time of making one
+    per-op generator on the card, which every dropout op and its
+    gradient op pay."""
     from hetu_tpu_torch.graph.node import ExecContext
-    sub = exe.subexecutors["default"]
+    sub = exe.subexecutors[name]
     totals = {}
 
     def timed(node, fn):
@@ -1011,7 +1107,7 @@ def host_ms_by_op(torch, exe, feeds):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        exe.run(feed_dict=feeds)[0].asnumpy()
+        exe.run(name, feed_dict=feeds)[0].asnumpy()
         wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         for node in sub.topo_order:
@@ -1028,6 +1124,197 @@ def host_ms_by_op(torch, exe, feeds):
             "generator_us": gen_us,
             "by_op_type": {t: {"ms": ms, "count": n}
                            for t, (ms, n) in by_type}}
+
+
+# ---------------------------------------------------------------------------
+# the CNN zoo: VGG-16 and ResNet-18 through dataloaders, digits to accuracy
+# ---------------------------------------------------------------------------
+
+def cnn_forward_flops(loss):
+    """FLOPs of one forward pass: 2 x the multiply-adds of every
+    convolution and matmul, from the shapes the executor inferred (the
+    elementwise, norm and pool work is O(activations) and left out)."""
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops.conv import Conv2dOp
+    from hetu_tpu_torch.ops.linalg import MatMulOp
+    flops = 0
+    for node in find_topo_sort([loss]):
+        if isinstance(node, Conv2dOp):
+            _, c, kh, kw = node.inputs[1].inferred_shape
+            flops += 2 * int(np.prod(node.inferred_shape)) * c * kh * kw
+        elif isinstance(node, MatMulOp):
+            a = node.inputs[0].inferred_shape
+            k = a[0] if node.matmul_attr_trans_A else a[1]
+            flops += 2 * int(np.prod(node.inferred_shape)) * k
+    return flops
+
+
+def _cnn_graph(ht, model, lr, x, y_, grads):
+    """``model`` over (x, y_) with MomentumOptimizer(lr): (loss, the
+    gradient nodes of the parameters named ``grads``, the train op)."""
+    loss, _ = getattr(ht.models, model)(x, y_)
+    opt = ht.optim.MomentumOptimizer(lr)
+    train_op = opt.minimize(loss)
+    picked = [next(g for p, g in zip(opt.params, train_op.inputs)
+                   if p.name == name) for name in grads]
+    return loss, picked, train_op
+
+
+def cnn_parity(torch, spec, x, y):
+    """One step of the pass's graph from the same weights and batch on
+    the card in f32, on the CPU in float64 and on the CPU in f32: the
+    card's loss and the two gradients of ``spec["grads"]`` held to
+    CNN_LOSS_TOL and CNN_GRAD_TOL against float64's; the CPU's f32 run
+    against float64 and the card against it reported beside."""
+    import hetu_tpu_torch as ht
+    out = {}
+    for run, device, dtype in (("cuda", "cuda", None),
+                               ("cpu_f64", "cpu", torch.float64),
+                               ("cpu", "cpu", None)):
+        px = ht.Variable("x", trainable=False)
+        py = ht.Variable("y_", trainable=False)
+        loss, grads, train_op = _cnn_graph(ht, spec["model"], spec["lr"],
+                                           px, py, spec["grads"])
+        exe = ht.Executor([loss, *grads, train_op], device=device,
+                          dtype=dtype)
+        vals = exe.run(feed_dict={px: x, py: y})[:-1]
+        out[run] = [np.asarray(v.asnumpy(), np.float64) for v in vals]
+
+    def errs(got, want):
+        (gl, *gg), (wl, *wg) = out[got], out[want]
+        return {"loss_rel_err": float(abs(gl - wl) / abs(wl)),
+                "grad_rel_err": {name: float(np.abs(g - w).max()
+                                             / np.abs(w).max())
+                                 for name, g, w in zip(spec["grads"], gg,
+                                                       wg)}}
+    parity = {"batch": int(x.shape[0]), "reference": "cpu float64",
+              "loss_cuda": float(out["cuda"][0]),
+              "loss_cpu_f64": float(out["cpu_f64"][0]),
+              **errs("cuda", "cpu_f64"), "loss_tol": CNN_LOSS_TOL,
+              "grad_tol": CNN_GRAD_TOL,
+              "cpu_f32_vs_f64": errs("cpu", "cpu_f64"),
+              "cuda_vs_cpu_f32": errs("cuda", "cpu")}
+    if parity["loss_rel_err"] > CNN_LOSS_TOL or \
+            max(parity["grad_rel_err"].values()) > CNN_GRAD_TOL:
+        raise AssertionError(f"{spec['model']} step-1 parity, card against "
+                             f"the CPU in float64, failed: {parity}")
+    return parity
+
+
+def _k1_k4_launches(launches):
+    from hetu_tpu_torch.ops import flash_attention as fa
+    return {k: launches.get(k, 0) for k in (fa.K1, fa.K2, fa.K3, fa.K4)}
+
+
+def _cnn_category(op_type):
+    return next((c for c, prefixes in CNN_OP_CATEGORIES
+                 if op_type.startswith(prefixes)), "elementwise / other")
+
+
+def cnn_train(torch, name, card, cifar):
+    """One pass of CNN_PASSES: the main path — a train subgraph fed by
+    dataloader ops over ``cifar`` (the arrays of ht.data.cifar10()),
+    CNN_WARMUP + CNN_STEPS steps at B=128 with the launch counts set to
+    0 just before and read just after (no flash kernel may launch) —
+    then one profiled step (idle share, device time by kernel category),
+    one profiled with a range per op (device time by op type and op
+    category), one with each op's host time taken, and the step-1
+    parity of the card against the CPU (B=8, cnn_parity)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    spec = CNN_PASSES[name]
+    tx, ty = cifar[0], cifar[1]
+    x = ht.dataloader_op([ht.Dataloader(tx, CNN_BATCH, "train")])
+    y_ = ht.dataloader_op([ht.Dataloader(ty, CNN_BATCH, "train")])
+    loss, _, train_op = _cnn_graph(ht, spec["model"], spec["lr"], x, y_, ())
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    exe = ht.Executor({"train": [loss, train_op]})
+    setup_s = time.perf_counter() - t0
+    losses, step_ms = [], []
+    for _ in range(CNN_WARMUP + CNN_STEPS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run("train")[0].asnumpy()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{name} loss not finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched flash kernels: {launches}")
+
+    timed = step_ms[CNN_WARMUP:]
+    p50 = float(np.median(timed))
+    flops = 3 * cnn_forward_flops(loss)             # backward = 2 forwards
+
+    def step():
+        return exe.run("train")[0].asnumpy()
+    profile = profile_window(torch, step)
+    by_op_type = profile_window(
+        torch, step, exe.subexecutors["train"].topo_order)[
+            "device_ms_by_op_type"]
+    by_cat = {}
+    for op_type, v in by_op_type.items():
+        cat = _cnn_category(op_type)
+        by_cat[cat] = by_cat.get(cat, 0.0) + v["ms"]
+    profile["device_ms_by_op_type"] = by_op_type
+    profile["device_ms_by_op_category"] = dict(
+        sorted(by_cat.items(), key=lambda x: -x[1]))
+    host = host_ms_by_op(torch, exe, None, "train")
+    n_params = sum(int(v.numel()) for v in exe.params.values())
+    n_state = len(exe.state)
+    del exe
+    torch.cuda.empty_cache()
+    # after the timed steps: the CPU's threads, busy with its
+    # convolutions, would compete with the host walk of steps after them
+    parity = cnn_parity(torch, spec, tx[:CNN_PARITY_BATCH],
+                        ty[:CNN_PARITY_BATCH])
+    return {"card": card, "model": spec["model"], "params": n_params,
+            "stateful_ops": n_state, "batch": CNN_BATCH,
+            "image": list(tx.shape[1:]), "dtype": "float32",
+            "optimizer": "Momentum", "lr": spec["lr"],
+            "data": "ht.data.cifar10() through dataloader ops",
+            "executor_setup_s": setup_s, "warmup_steps": CNN_WARMUP,
+            "timed_steps": CNN_STEPS,
+            "images_per_s": CNN_BATCH * len(timed) / (sum(timed) / 1e3),
+            "step_ms_p50": p50, "step_ms": step_ms,
+            "flops_per_step": flops,
+            "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["float32"],
+            "losses": losses, "launches": launches,
+            "peak_memory_bytes": int(peak), "parity": parity,
+            "profile": profile, "host": host}
+
+
+def cnn_digits(torch, card):
+    """The port's cnn_main.run() with CNN_DIGITS_ARGS on the card: held
+    to CNN_DIGITS_MIN_ACC held-out accuracy, no flash kernel launched."""
+    from hetu_tpu_torch import data
+    from hetu_tpu_torch.examples import cnn_main
+    from hetu_tpu_torch.ops import _build
+    args = cnn_main.parse_args(list(CNN_DIGITS_ARGS))
+    batches = len(data.digits()[0][0]) // args.batch_size
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    results = cnn_main.run(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    if not results["val_acc"] >= CNN_DIGITS_MIN_ACC:
+        raise AssertionError(f"cnn_digits val_acc {results['val_acc']} < "
+                             f"{CNN_DIGITS_MIN_ACC}: {results}")
+    if any(launches.values()):
+        raise AssertionError(f"cnn_digits launched flash kernels: "
+                             f"{launches}")
+    return {"card": card, "args": " ".join(CNN_DIGITS_ARGS),
+            "val_acc": results["val_acc"], "min_val_acc": CNN_DIGITS_MIN_ACC,
+            "train_acc": results["train_acc"],
+            "train_loss": results["train_loss"],
+            "epoch_time_s": results["epoch_time"],
+            "steps_per_epoch": batches,
+            "steps_per_s": batches / results["epoch_time"],
+            "wall_s": wall_s, "launches": launches}
 
 
 def crossover(torch, seed):
@@ -1737,6 +2024,20 @@ def main(argv=None):
         log(f"{name} ({time.perf_counter() - t:.1f} s) {bert_lines[name]}")
         torch.cuda.empty_cache()
 
+    from hetu_tpu_torch import data
+    cifar = data.cifar10()
+    cnn_lines = {}
+    for name in CNN_PASSES:
+        t = time.perf_counter()
+        cnn_lines[name] = cnn_train(torch, name, card, cifar)
+        log(f"{name} ({time.perf_counter() - t:.1f} s) {cnn_lines[name]}")
+        torch.cuda.empty_cache()
+    del cifar
+    t = time.perf_counter()
+    cnn_lines["cnn_digits"] = cnn_digits(torch, card)
+    log(f"cnn_digits ({time.perf_counter() - t:.1f} s) "
+        f"{cnn_lines['cnn_digits']}")
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
@@ -1790,6 +2091,7 @@ def main(argv=None):
              {"check_faults": faults}, {"serve": serve_line},
              {"serve_dense": dense_line}, {"train": train_line},
              *({name: line} for name, line in bert_lines.items()),
+             *({name: line} for name, line in cnn_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

@@ -32,6 +32,9 @@ class ExecContext:
       dtype and their f32 masters; ``new_params`` — updates written by
       the optimizer;
     * ``opt_state`` / ``new_opt_state`` — optimizer slots;
+    * ``state`` / ``new_state`` — op state keyed by op (batch norm's
+      running statistics), read with ``get_state`` and written with
+      ``put_state``; the executor keeps what a training step writes;
     * ``cache`` — values shared between a forward op and its gradient
       ops inside the step (the flash residuals and grads).
     """
@@ -49,7 +52,15 @@ class ExecContext:
         self.opt_state = None
         self.new_opt_state = None
         self.lr = None
+        self.state = {}
+        self.new_state = {}
         self.cache = {}
+
+    def get_state(self, op, default=None):
+        return self.state.get(op, default)
+
+    def put_state(self, op, value):
+        self.new_state[op] = value
 
     def generator_for(self, op):
         seed = ((self.seed * 1_000_003 + self.step) * 1_000_003 + op.id) \
@@ -58,7 +69,14 @@ class ExecContext:
 
 
 class Op:
-    """A node in the dataflow graph (reference Node.py:9)."""
+    """A node in the dataflow graph (reference Node.py:9).
+
+    An op that keeps state between steps sets ``stateful = True`` and
+    defines ``state_shapes(input_shapes)``: ``{key: shape}`` of its f32
+    state, which the executor creates (0, or 1 for a key naming a
+    variance) once the shapes are known."""
+
+    stateful = False
 
     def __init__(self, op_type, inputs, ctx=None):
         global G_NODE_ID

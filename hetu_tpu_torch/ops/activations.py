@@ -1,5 +1,5 @@
 """Activation ops (counterpart of ``hetu_tpu/ops/activations.py``;
-reference: gpu_ops/{Relu,Tanh,Softmax,Dropout}.py). gelu is the tanh
+reference: gpu_ops/{Relu,Sigmoid,Tanh,Softmax,Dropout}.py). gelu is the tanh
 approximation, as in the JAX package (``jax.nn.gelu(approximate=True)``).
 
 Dropout draws its mask from the step's per-op generator
@@ -7,7 +7,7 @@ Dropout draws its mask from the step's per-op generator
 from the forward op's generator, so both apply one mask without keeping
 it between the two. The numbers differ from ``jax.random``'s: tests
 check dropout by its properties, and the parity twins run without it.
-Leaky relu, sigmoid and sign come later."""
+Leaky relu and sign come later."""
 from __future__ import annotations
 
 import torch
@@ -16,8 +16,8 @@ import torch.nn.functional as F
 from ..graph.node import Op
 from .basic import addbyconst_op, mul_op, opposite_op
 
-__all__ = ["relu_op", "relu_gradient_op", "tanh_op", "gelu_op",
-           "gelu_gradient_op", "softmax_func", "softmax_op",
+__all__ = ["relu_op", "relu_gradient_op", "sigmoid_op", "tanh_op",
+           "gelu_op", "gelu_gradient_op", "softmax_func", "softmax_op",
            "softmax_gradient_op", "dropout_op", "dropout_gradient_op",
            "dropout2d_op", "dropout2d_gradient_op"]
 
@@ -49,6 +49,23 @@ class ReluGradientOp(Op):
 
     def gradient(self, output_grad):
         raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class SigmoidOp(Op):
+    def __init__(self, node_A, ctx=None):
+        super().__init__(SigmoidOp, [node_A], ctx)
+
+    def compute(self, input_vals, ectx):
+        return torch.sigmoid(input_vals[0])
+
+    def gradient(self, output_grad):
+        # y' = y (1 - y), on the graph as in the reference
+        one_minus = addbyconst_op(opposite_op(self), 1.0)
+        return [mul_op(output_grad, mul_op(self, one_minus),
+                       ctx=self.raw_ctx)]
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
@@ -216,6 +233,10 @@ def relu_op(node, ctx=None):
 
 def relu_gradient_op(node_A, node_B, ctx=None):
     return ReluGradientOp(node_A, node_B, ctx=ctx)
+
+
+def sigmoid_op(node, ctx=None):
+    return SigmoidOp(node, ctx=ctx)
 
 
 def tanh_op(node, ctx=None):

@@ -1,18 +1,60 @@
-"""Softmax cross-entropy against integer labels (counterpart of
-``hetu_tpu/ops/losses.py`` ``SoftmaxCrossEntropySparseOp``; reference:
-gpu_ops/SoftmaxCrossEntropySparse.py). Labels equal to
+"""Softmax cross-entropy (counterpart of ``hetu_tpu/ops/losses.py``;
+reference: gpu_ops/{SoftmaxCrossEntropy,SoftmaxCrossEntropySparse}.py).
+
+The dense loss takes one-hot or soft labels shaped like the logits and
+returns the per-row loss; its gradient is ``(softmax - labels) *
+grad``. The sparse loss takes integer labels: labels equal to
 ``ignored_index`` contribute 0 loss and 0 gradient; other labels are
 clipped into the class range, as the reference's gather clips. The
 losses run in the logits' dtype (bf16 under a bf16 executor), as in the
-reference. The dense softmax and BCE losses come with later slices."""
+reference. BCE and ``crossentropy_op`` come with later slices."""
 from __future__ import annotations
 
 import torch
 
 from ..graph.node import Op
 
-__all__ = ["softmaxcrossentropy_sparse_op",
+__all__ = ["softmaxcrossentropy_op", "softmaxcrossentropy_gradient_op",
+           "softmaxcrossentropy_sparse_op",
            "softmaxcrossentropy_sparse_gradient_op"]
+
+
+class SoftmaxCrossEntropyOp(Op):
+    """Per-row CE of logits (node_A) against one-hot or soft labels
+    (node_B); the output has the batch dims."""
+
+    def __init__(self, node_A, node_B, ctx=None):
+        super().__init__(SoftmaxCrossEntropyOp, [node_A, node_B], ctx)
+
+    def compute(self, input_vals, ectx):
+        logits, labels = input_vals
+        logz = torch.logsumexp(logits, dim=-1, keepdim=True)
+        return -(labels * (logits - logz)).sum(dim=-1)
+
+    def gradient(self, output_grad):
+        return [softmaxcrossentropy_gradient_op(
+            self.inputs[0], self.inputs[1], output_grad,
+            ctx=self.raw_ctx), None]
+
+    def infer_shape(self, input_shapes):
+        shape = tuple(input_shapes[0][:-1])
+        return shape if shape else (1,)
+
+
+class SoftmaxCrossEntropyGradientOp(Op):
+    def __init__(self, node_A, node_B, grad_node, ctx=None):
+        super().__init__(SoftmaxCrossEntropyGradientOp,
+                         [node_A, node_B, grad_node], ctx)
+
+    def compute(self, input_vals, ectx):
+        logits, labels, grad = input_vals
+        return (torch.softmax(logits, dim=-1) - labels) * grad.unsqueeze(-1)
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
 
 
 def _clipped(labels, nclass):
@@ -66,6 +108,15 @@ class SoftmaxCrossEntropySparseGradientOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+
+def softmaxcrossentropy_op(node_A, node_B, use_cudnn=True, ctx=None):
+    """``use_cudnn`` is the reference's argument and selects nothing."""
+    return SoftmaxCrossEntropyOp(node_A, node_B, ctx=ctx)
+
+
+def softmaxcrossentropy_gradient_op(node_A, node_B, grad_node, ctx=None):
+    return SoftmaxCrossEntropyGradientOp(node_A, node_B, grad_node, ctx=ctx)
 
 
 def softmaxcrossentropy_sparse_op(node_A, node_B, ignored_index=-1,

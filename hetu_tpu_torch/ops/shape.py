@@ -1,11 +1,17 @@
 """Shape-manipulation and reduction ops.
 
 Counterpart of ``hetu_tpu/ops/shape.py`` (reference parity:
-gpu_ops/{Reshape,Broadcast,Split,Slice,Transpose,ReduceSum,ReduceMean,
-OnesLike,ZerosLike}.py), the part the GPT and BERT training graphs and
-their gradients reach. Views stand in for copies where torch allows it
-(``expand``, ``permute``, slicing); consumers that need contiguous
-memory make it.
+gpu_ops/{Reshape,Broadcast,Concat,Concatenate,Split,Slice,Transpose,Pad,
+ReduceSum,ReduceMean,OnesLike,ZerosLike}.py), the part the GPT, BERT and
+CNN training graphs and their gradients reach. Views stand in for
+copies where torch allows it (``expand``, ``permute``, slicing);
+consumers that need contiguous memory make it.
+
+``pad_op`` pads any axis in the reference's three modes. Its REFLECT and
+SYMMETRIC modes gather along each padded axis through an index built
+with numpy's rules (``torch.nn.functional.pad`` reflects only the last
+dims and has no symmetric mode), and their gradient scatter-adds back
+through the same index.
 
 Several gradient ops read the forward input's ``inferred_shape``, which
 the executor's shape pass (``SubExecutor._infer_shapes``) sets on every
@@ -22,9 +28,10 @@ from ..graph.node import Op
 __all__ = [
     "array_reshape_op", "array_reshape_gradient_op", "broadcastto_op",
     "unbroadcast_op", "split_op", "split_gradient_op", "slice_op",
-    "slice_gradient_op", "transpose_op",
-    "reduce_sum_op", "reduce_mean_op", "broadcast_shape_grad_source_op",
-    "squeeze_op", "oneslike_op", "zeroslike_op",
+    "slice_gradient_op", "transpose_op", "concat_op", "concat_gradient_op",
+    "concatenate_op", "pad_op", "pad_gradient_op", "reduce_sum_op",
+    "reduce_mean_op", "broadcast_shape_grad_source_op", "squeeze_op",
+    "oneslike_op", "zeroslike_op",
 ]
 
 
@@ -265,6 +272,178 @@ class TransposeOp(Op):
         return tuple(shape[p] for p in self._perm(len(shape)))
 
 
+class ConcatOp(Op):
+    def __init__(self, node_A, node_B, axis=0, ctx=None):
+        super().__init__(ConcatOp, [node_A, node_B], ctx)
+        self.axis = axis
+
+    def compute(self, input_vals, ectx):
+        return torch.cat(input_vals, dim=self.axis)
+
+    def gradient(self, output_grad):
+        return [concat_gradient_op(output_grad, self.inputs[0], self.axis, 0,
+                                   ctx=self.raw_ctx),
+                concat_gradient_op(output_grad, self.inputs[1], self.axis, 1,
+                                   ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        out = list(input_shapes[0])
+        out[self.axis] += input_shapes[1][self.axis]
+        return tuple(out)
+
+
+class ConcatGradientOp(Op):
+    """The ``idx``-th (0 or 1) part of a two-way concat's adjoint, as
+    wide as ``input_node`` along ``axis``."""
+
+    def __init__(self, grad_node, input_node, axis, idx, ctx=None):
+        super().__init__(ConcatGradientOp, [grad_node, input_node], ctx)
+        self.axis = axis
+        self.idx = idx
+
+    def compute(self, input_vals, ectx):
+        grad, ref = input_vals
+        size = ref.shape[self.axis]
+        start = 0 if self.idx == 0 else grad.shape[self.axis] - size
+        return grad.narrow(self.axis, start, size)
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[1]
+
+
+class ConcatenateOp(Op):
+    """N-ary concat."""
+
+    def __init__(self, nodes, axis=0, ctx=None):
+        super().__init__(ConcatenateOp, list(nodes), ctx)
+        self.axis = axis
+
+    def compute(self, input_vals, ectx):
+        return torch.cat(input_vals, dim=self.axis)
+
+    def gradient(self, output_grad):
+        return [ConcatenateGradientOp(output_grad, self, i, self.axis,
+                                      ctx=self.raw_ctx)
+                for i in range(len(self.inputs))]
+
+    def infer_shape(self, input_shapes):
+        out = list(input_shapes[0])
+        out[self.axis] = sum(s[self.axis] for s in input_shapes)
+        return tuple(out)
+
+
+class ConcatenateGradientOp(Op):
+    """The ``idx``-th input's part of an N-ary concat's adjoint."""
+
+    def __init__(self, grad_node, forward_node, idx, axis, ctx=None):
+        super().__init__(ConcatenateGradientOp, [grad_node], ctx)
+        self.forward_node = forward_node
+        self.idx = idx
+        self.axis = axis
+
+    def compute(self, input_vals, ectx):
+        sizes = [inp.inferred_shape[self.axis]
+                 for inp in self.forward_node.inputs]
+        return input_vals[0].narrow(self.axis, sum(sizes[:self.idx]),
+                                    sizes[self.idx])
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return tuple(self.forward_node.inputs[self.idx].inferred_shape)
+
+
+_PAD_MODES = ("CONSTANT", "REFLECT", "SYMMETRIC")
+
+
+def _pad_index(n, lo, hi, mode, device):
+    """For one axis of length ``n`` padded by (lo, hi): the input index
+    of every output position, numpy's ``reflect`` (edge not repeated) or
+    ``symmetric`` (edge repeated) rule, repeated past the edges as numpy
+    repeats it for pads wider than the axis."""
+    pos = np.arange(-lo, n + hi)
+    if mode == "REFLECT":
+        period = max(2 * (n - 1), 1)
+        pos = np.abs(pos) % period
+        pos = np.where(pos >= n, period - pos, pos)
+    else:
+        pos = np.mod(pos, 2 * n)
+        pos = np.where(pos >= n, 2 * n - 1 - pos, pos)
+    return torch.as_tensor(pos, dtype=torch.long, device=device)
+
+
+class PadOp(Op):
+    """Pad with ``paddings`` = [(before, after)] per axis (reference
+    Pad.py): CONSTANT fills ``constant_values``; REFLECT and SYMMETRIC
+    mirror the axis without and with its edge element."""
+
+    def __init__(self, node_A, paddings, mode="CONSTANT", constant_values=0,
+                 ctx=None):
+        super().__init__(PadOp, [node_A], ctx)
+        self.paddings = [tuple(p) for p in paddings]
+        self.mode = mode.upper()
+        if self.mode not in _PAD_MODES:
+            raise ValueError(f"pad_op: mode {mode!r} is not one of "
+                             f"{_PAD_MODES}")
+        self.constant_values = constant_values
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        if self.mode == "CONSTANT":
+            flat = [p for lo_hi in reversed(self.paddings) for p in lo_hi]
+            return torch.nn.functional.pad(x, flat,
+                                           value=self.constant_values)
+        for axis, (lo, hi) in enumerate(self.paddings):
+            if lo or hi:
+                x = x.index_select(axis, _pad_index(
+                    x.shape[axis], lo, hi, self.mode, x.device))
+        return x
+
+    def gradient(self, output_grad):
+        return [pad_gradient_op(output_grad, self.paddings, self.mode,
+                                ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return tuple(s + lo + hi
+                     for s, (lo, hi) in zip(input_shapes[0], self.paddings))
+
+
+class PadGradientOp(Op):
+    """Adjoint of a pad: CONSTANT crops; REFLECT and SYMMETRIC add each
+    padded position's adjoint into the element it mirrors."""
+
+    def __init__(self, node_A, paddings, mode="CONSTANT", ctx=None):
+        super().__init__(PadGradientOp, [node_A], ctx)
+        self.paddings = [tuple(p) for p in paddings]
+        self.mode = mode.upper()
+
+    def compute(self, input_vals, ectx):
+        grad = input_vals[0]
+        if self.mode == "CONSTANT":
+            return grad[tuple(slice(lo, grad.shape[i] - hi)
+                              for i, (lo, hi) in enumerate(self.paddings))]
+        for axis, (lo, hi) in enumerate(self.paddings):
+            if lo or hi:
+                n = grad.shape[axis] - lo - hi
+                shape = list(grad.shape)
+                shape[axis] = n
+                grad = grad.new_zeros(shape).index_add_(
+                    axis, _pad_index(n, lo, hi, self.mode, grad.device),
+                    grad)
+        return grad
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return tuple(s - lo - hi
+                     for s, (lo, hi) in zip(input_shapes[0], self.paddings))
+
+
 class _ReduceOp(Op):
     """Shared body of reduce_sum / reduce_mean (reference
     ReduceSum.py / ReduceMean.py)."""
@@ -439,6 +618,27 @@ def slice_gradient_op(node, begin, size=None, forward_node=None, ctx=None):
 
 def transpose_op(node_A, perm=None, ctx=None):
     return TransposeOp(node_A, perm=perm, ctx=ctx)
+
+
+def concat_op(node_A, node_B, axis=0, ctx=None):
+    return ConcatOp(node_A, node_B, axis=axis, ctx=ctx)
+
+
+def concat_gradient_op(grad_node, input_node, axis, idx, ctx=None):
+    return ConcatGradientOp(grad_node, input_node, axis, idx, ctx=ctx)
+
+
+def concatenate_op(nodes, axis=0, ctx=None):
+    return ConcatenateOp(nodes, axis=axis, ctx=ctx)
+
+
+def pad_op(node_A, paddings, mode="CONSTANT", constant_values=0, ctx=None):
+    return PadOp(node_A, paddings, mode=mode,
+                 constant_values=constant_values, ctx=ctx)
+
+
+def pad_gradient_op(node_A, paddings, mode="CONSTANT", ctx=None):
+    return PadGradientOp(node_A, paddings, mode=mode, ctx=ctx)
 
 
 def reduce_sum_op(node, axes, keepdims=False, ctx=None):

@@ -1,17 +1,19 @@
 """Optimizers.
 
 Counterpart of ``hetu_tpu/optimizer.py`` (reference parity:
-python/hetu/optimizer.py): SGD and Adam (with amsgrad), the
+python/hetu/optimizer.py): SGD, Momentum (with Nesterov), AdaGrad and
+Adam (with amsgrad), the
 ``l2reg`` / ``loss_scale`` handling every update path shares, and
 ``OptimizerOp``, which applies the optimizer to its gradient inputs
 inside a step. Sparse (IndexedSlices) gradients update only the rows
 they name: SGD scatter-adds them, Adam is lazy — ``m``, ``v`` and the
-parameter move only on the deduplicated rows.
+parameter move only on the deduplicated rows; Momentum makes them
+dense, as the reference does.
 
 ``update`` is functional, as in the reference: it returns new tensors
-and the executor swaps them in after the step. Momentum, AdaGrad,
-AdamW, the health ``sentinel_stats`` and the PS / allreduce hooks are
-still to port.
+and the executor swaps them in after the step. AdaGrad on sparse
+gradients (its caller, the PS path, is not ported), AdamW, the health
+``sentinel_stats`` and the PS / allreduce hooks are still to port.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from .lr_scheduler import FixedScheduler
 from .ndarray import IndexedSlices
 from .ops.variable import PlaceholderOp
 
-__all__ = ["Optimizer", "OptimizerOp", "SGDOptimizer", "AdamOptimizer"]
+__all__ = ["Optimizer", "OptimizerOp", "SGDOptimizer", "MomentumOptimizer",
+           "AdaGradOptimizer", "AdamOptimizer"]
 
 
 class Optimizer:
@@ -122,6 +125,58 @@ class SGDOptimizer(Optimizer):
             return param.index_add(0, grad.get_flat_indices(),
                                    grad.get_dense_rows(), alpha=-lr), slots
         return param - lr * grad, slots
+
+
+class MomentumOptimizer(Optimizer):
+    """Hetu's momentum, not torch's: ``v = m * v - lr * g``, then
+    ``p + v``, or ``p + m * v - lr * g`` with Nesterov (reference
+    optimizer.py:170-191)."""
+
+    name = "Momentum"
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, nesterov=False,
+                 l2reg=0, loss_scale=None):
+        super().__init__(learning_rate, l2reg, loss_scale)
+        self.momentum = momentum
+        self.nesterov = nesterov
+
+    def init_state(self, param_vals):
+        return {node.id: {"velocity": torch.zeros_like(v)}
+                for node, v in param_vals.items()}
+
+    def update_one(self, param, grad, slots, lr, step):
+        if isinstance(grad, IndexedSlices):
+            grad = grad.to_dense()
+        v = self.momentum * slots["velocity"] - lr * grad
+        if self.nesterov:
+            return param + self.momentum * v - lr * grad, {"velocity": v}
+        return param + v, {"velocity": v}
+
+
+class AdaGradOptimizer(Optimizer):
+    """``accum += g * g``; ``p -= lr * g / (sqrt(accum) + eps)``, the
+    accumulator starting at ``initial_accumulator_value``."""
+
+    name = "AdaGrad"
+
+    def __init__(self, learning_rate=0.01, initial_accumulator_value=0.0,
+                 eps=1e-7, l2reg=0, loss_scale=None):
+        super().__init__(learning_rate, l2reg, loss_scale)
+        self.initial_accumulator_value = initial_accumulator_value
+        self.eps = eps
+
+    def init_state(self, param_vals):
+        return {node.id: {"accum": torch.full_like(
+            v, self.initial_accumulator_value)}
+            for node, v in param_vals.items()}
+
+    def update_one(self, param, grad, slots, lr, step):
+        if isinstance(grad, IndexedSlices):
+            raise NotImplementedError(
+                "AdaGrad on a sparse gradient comes with the PS path")
+        accum = slots["accum"] + grad * grad
+        return (param - lr * grad / (torch.sqrt(accum) + self.eps),
+                {"accum": accum})
 
 
 class AdamOptimizer(Optimizer):

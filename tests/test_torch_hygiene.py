@@ -12,6 +12,7 @@ import torch
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch import telemetry
 import hetu_tpu_torch as ht
+from hetu_tpu_torch.examples import cnn_main
 from hetu_tpu_torch.models.gpt import (GPTConfig, GPTLMHeadModel,
                                        gpt_serving_params, init_kv_cache,
                                        random_gpt_checkpoint)
@@ -35,6 +36,10 @@ def test_imports_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch.serving.session, hetu_tpu_torch.serving.decode\n"
         "import hetu_tpu_torch.serving.batcher, hetu_tpu_torch.serving.router\n"
         "import hetu_tpu_torch.serving.http, hetu_tpu_torch.serving.scheduler\n"
+        "import hetu_tpu_torch.data, hetu_tpu_torch.dataloader\n"
+        "import hetu_tpu_torch.metrics, hetu_tpu_torch.models.cnn\n"
+        "import hetu_tpu_torch.ops.conv\n"
+        "import hetu_tpu_torch.examples.cnn_main\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n")
@@ -47,9 +52,19 @@ def _cuda_absent(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
+def _cnn_executor():
+    """The CNN slice's executor: a models.cnn graph fed by dataloader
+    ops over ht.data's digits (data and metrics are host numpy)."""
+    (tx, ty), _, _ = ht.data.digits()
+    x = ht.dataloader_op([ht.Dataloader(tx, 16, "train")])
+    y_ = ht.dataloader_op([ht.Dataloader(ty, 16, "train")])
+    loss, _ = ht.models.digits_cnn(x, y_)
+    return ht.Executor({"train": [loss]})
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "params", "cache",
                                    "engine", "kv_cache", "session",
-                                   "decoder"])
+                                   "decoder", "cnn_executor", "cnn_main"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
     _cuda_absent(monkeypatch)
     cfg = GPTConfig(**CFG)
@@ -64,6 +79,10 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
         "session": lambda: InferenceSession(
             [GPTLMHeadModel(cfg)(ht.Variable("ids", trainable=False))]),
         "decoder": lambda: GPTDecoder(cfg, ckpt.__getitem__),
+        "cnn_executor": _cnn_executor,
+        "cnn_main": lambda: cnn_main.run(cnn_main.parse_args(
+            ["--model", "logreg", "--dataset", "DIGITS",
+             "--num-epochs", "1"])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
