@@ -15,7 +15,11 @@ from a checkpoint); the same model trained with Adam in bf16 through
 S=128, padded rows, dropout 0.1); BERT-small at S=2048 (B=8); the CNN
 zoo's VGG-16 (full width) and ResNet-18 trained in f32 from dataloader
 ops (B=128); ``digits_cnn`` trained to accuracy on the checked-in digits
-through the port's ``examples/cnn_main.py`` — checks every kernel
+through the port's ``examples/cnn_main.py``; the CTR models and NCF
+trained on bench.py's traffic with their tables on the card, NCF to
+retrieval accuracy through ``examples/rec_main.py``; the seq2seq
+Transformer-base trained in f32, and to the reversal bar through
+``examples/transformer_main.py`` — checks every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -65,6 +69,25 @@ object per line (``--out`` also writes them to FILE):
 * ``cnn_digits`` held-out accuracy (at least the JAX package's 0.96),
   the epoch time and steps/s of ``cnn_main.run()``, K1-K4 launches
   (none);
+* ``ctr`` per model (WDL, DeepFM, DCN, DC on a 1,000,000 x 128 table on
+  the card, bench.py's zipf(1.3) id traffic, B=128, SGD, steps through
+  ``Executor.run_batches``): samples/s, step ms p50, the losses, the
+  table's bytes and the peak memory of the steps (held below 1.5 x the
+  table plus the dense work: SGD updates the table in place), K1-K4
+  launches (none), the step-1 parity of the card against the CPU from
+  the same initial values, and for WDL one profiled step (idle share,
+  device time by kernel category and op type, host time by op type);
+* ``ncf`` the same for NeuMF at ML-25M's cardinalities (B=1024);
+* ``ncf_hr`` HR@10 and NDCG@10 of ``rec_main.worker`` (at least the
+  JAX package's 0.5 and 0.25) and its steps/s;
+* ``transformer`` Transformer-base (vocab 32000, 6 + 6 blocks, d_model
+  512, B=32, lengths 100, dropout 0.3) trained with Adam in f32 on the
+  reversal task: target tokens/s, step ms p50, MFU against the f32
+  peak, the losses, peak memory, one profiled step, K1-K4 launches
+  (none: attention is composed, as in the reference), and the step-1
+  parity at dropout 0 (B=4) of the card against the CPU;
+* ``transformer_reverse`` ``transformer_main.main()``'s reversal-task
+  loss (below the JAX package's 5.0) and its tokens/s;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -86,6 +109,7 @@ CUDA device, or when ``hetu_tpu_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import http.client
 import json
 import os
@@ -227,6 +251,70 @@ CNN_DIGITS_ARGS = ("--model", "digits_cnn", "--dataset", "DIGITS",
                    "0.002", "--opt", "adam", "--batch-size", "64",
                    "--timing")
 CNN_DIGITS_MIN_ACC = 0.96
+
+# the sparse passes: bench.py's CTR traffic (bench_wdl_ps, :422-446) and
+# NCF traffic (bench_ncf, :967-987) with every table on the card (no
+# PS): 26 slots of int32 ids drawn zipf(1.3) mod 1,000,000 over a cycle
+# of 100 batches, one fixed batch of 13 dense features and labels, B=128,
+# SGD at each builder's default rate; NCF at ML-25M's cardinalities,
+# uniform int32 user ids and zipf(1.3) item ids, B=1024. Steps go through
+# Executor.run_batches in blocks of SPARSE_BLOCK: one warm-up block, then
+# SPARSE_TIMED_BLOCKS timed ones, each ending in the last loss's readback
+CTR_ROWS = 1_000_000
+CTR_BATCH = 128
+NCF_BATCH = 1024
+SPARSE_CYCLE = 100
+SPARSE_BLOCK = 100
+SPARSE_TIMED_BLOCKS = 3
+# pass: (builder, the dense weight whose step-1 gradient the parity holds)
+SPARSE_PASSES = {"wdl_criteo": ("wdl_criteo", "W1"),
+                 "deepfm_criteo": ("deepfm_criteo", "W1"),
+                 "dcn_criteo": ("dcn_criteo", "W1"),
+                 "dc_criteo": ("dc_criteo", "dc_res1_w1"),
+                 "ncf": ("neural_mf", "ncf_W1")}
+# step-1 parity, card against the port's CPU path built from the card
+# run's initial values, on the traffic's first batch: the loss within
+# SPARSE_LOSS_TOL relative; the dense weight's gradient and each table's
+# step-1 update (its rows after the step less before) within
+# SPARSE_GRAD_TOL of their largest element. Repeated ids make the card's
+# index_add_ sum in another order than the CPU's (atomics)
+SPARSE_LOSS_TOL = 1e-5
+SPARSE_GRAD_TOL = 1e-4
+# the pass's peak memory during its steps stays below
+# SPARSE_TABLE_FACTOR x the tables' bytes plus the dense work (every
+# intermediate value of a step alive at once and the other parameters
+# three times: value, gradient, new value). An SGD update that copied the
+# table would hold it twice
+SPARSE_TABLE_FACTOR = 1.5
+# the NCF retrieval pass: rec_main.worker as tests/test_accuracy.py:162-172
+# runs the reference's examples/rec/run_hetu.py, on the synthetic set;
+# the JAX package's own bars
+NCF_HR_ARGS = ("--val", "--nepoch", "18", "--learning-rate", "8.0",
+               "--batch-size", "1024")
+NCF_MIN_HR, NCF_MIN_NDCG = 0.5, 0.25
+# the Transformer pass: TransformerConfig's defaults (vocab 32000,
+# d_model 512, d_ff 2048, 6 + 6 blocks, 8 heads, lengths 100, B=32,
+# dropout 0.3, label smoothing 0.1) in f32 with Adam at transformer_main's
+# 1e-3, on the reversal task's batches (a new batch every step)
+TRANSFORMER_WARMUP, TRANSFORMER_STEPS = 2, 8
+TRANSFORMER_LR = 1e-3
+# step-1 parity at dropout 0 and B=4, the card against the port's CPU
+# path in f32 (the same initial values: both draw them from numpy): the
+# loss within TRANSFORMER_LOSS_TOL relative, the layer-0 self-attention
+# query weight's and the token table's gradients within
+# TRANSFORMER_GRAD_TOL of their largest element; float64 on the CPU is
+# reported beside
+TRANSFORMER_PARITY_BATCH = 4
+TRANSFORMER_LOSS_TOL = 1e-4
+TRANSFORMER_GRAD_TOL = 1e-3
+TRANSFORMER_PARITY_GRADS = ("enc0_self_q_w", "tok_embed")
+# transformer_main.main as tests/test_accuracy.py:148-159 runs the
+# reference's example; the JAX package's own bar
+TRANSFORMER_REVERSE_ARGS = ("--nepoch", "2", "--num-blocks", "2",
+                            "--d-model", "128", "--d-ff", "256",
+                            "--maxlen", "12", "--nsamples", "6400",
+                            "--dropout", "0.0", "--timing")
+TRANSFORMER_MAX_LOSS = 5.0
 
 # the main-path shape of each kernel: K1 the serving path's longest
 # prefill (one 1024-token bucket) and the BERT-base step's; K2-K4 the
@@ -1317,6 +1405,450 @@ def cnn_digits(torch, card):
             "wall_s": wall_s, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the sparse passes (CTR, NCF) and the seq2seq Transformer
+# ---------------------------------------------------------------------------
+
+def sparse_graph(ht, builder, dense_param):
+    """The pass's graph over three feed placeholders: (feed nodes, loss,
+    the gradient node of ``dense_param``, train op, and per table its
+    name, the adjoint of its lookup's output and the index of the id feed
+    it is looked up with)."""
+    from hetu_tpu_torch.models.ncf import ML25M_ITEMS, ML25M_USERS
+    from hetu_tpu_torch.ops.embedding import EmbeddingLookUpGradient
+    if builder == "neural_mf":
+        nodes = [ht.Variable(n, trainable=False)
+                 for n in ("user_input", "item_input", "y_")]
+        loss, _, train_op = ht.models.neural_mf(*nodes, ML25M_USERS,
+                                                ML25M_ITEMS)
+    else:
+        nodes = [ht.Variable(n, trainable=False)
+                 for n in ("dense_input", "sparse_input", "y_")]
+        loss, _, _, train_op = getattr(ht.models, builder)(
+            *nodes, feature_dimension=CTR_ROWS)
+    pairs = list(zip(train_op.optimizer.params, train_op.inputs))
+    grad = next(g for p, g in pairs if p.name == dense_param)
+    lookups = [(p.name, g.inputs[0], nodes.index(g.inputs[1]))
+               for p, g in pairs if isinstance(g, EmbeddingLookUpGradient)]
+    return nodes, loss, grad, train_op, lookups
+
+
+def sparse_traffic(builder, seed):
+    """SPARSE_CYCLE batches of the pass's feeds, as bench.py draws them
+    (the same order of draws from one RandomState)."""
+    from hetu_tpu_torch.models.ncf import ML25M_ITEMS, ML25M_USERS
+    rng = np.random.RandomState(seed)
+    if builder == "neural_mf":
+        users = rng.randint(0, ML25M_USERS, (SPARSE_CYCLE, NCF_BATCH)
+                            ).astype(np.int32)
+        items = ((rng.zipf(1.3, size=(SPARSE_CYCLE, NCF_BATCH)) - 1)
+                 % ML25M_ITEMS).astype(np.int32)
+        y_in = rng.randint(0, 2, (NCF_BATCH, 1)).astype("f")
+        return [(users[i], items[i], y_in) for i in range(SPARSE_CYCLE)]
+    ids = ((rng.zipf(1.3, size=(SPARSE_CYCLE, CTR_BATCH, 26)) - 1)
+           % CTR_ROWS).astype(np.int32)
+    dense_in = rng.randn(CTR_BATCH, 13).astype("f")
+    y_in = rng.randint(0, 2, (CTR_BATCH, 1)).astype("f")
+    return [(dense_in, ids[i], y_in) for i in range(SPARSE_CYCLE)]
+
+
+def _dense_work_bytes(exe, tables):
+    """Every intermediate value of a step alive at once (the shapes the
+    executor inferred; a lookup's gradient holds its rows, not the
+    table), plus the parameters that are not tables three times."""
+    from hetu_tpu_torch.ops.embedding import EmbeddingLookUpGradient
+    from hetu_tpu_torch.ops.variable import PlaceholderOp
+    sub = exe.subexecutors["train"]
+    total = 0
+    for node in sub.topo_order:
+        if isinstance(node, PlaceholderOp):
+            continue
+        shape = node.inferred_shape
+        if isinstance(node, EmbeddingLookUpGradient):
+            shape = tuple(node.inputs[0].inferred_shape)
+        total += 4 * int(np.prod(shape))
+    params = sum(t.numel() * t.element_size() for sid, t in
+                 exe.params.items() if sid not in tables)
+    return total + 3 * params
+
+
+def _table_ids(exe):
+    return {sid for sid, node in exe._param_nodes.items() if node.is_embed}
+
+
+def _step1(exe, subgraph, nodes, lookups, batch, initial):
+    """Step 1 of ``subgraph`` (fetching [loss, dense gradient, the lookups'
+    adjoints, train op]) on ``batch``: the loss, the dense gradient, and
+    per table over the rows the batch touches: its gradient (the
+    adjoint's rows summed per id, in float64 on the host), its rows after
+    the step and its update (after less ``initial``)."""
+    out = exe.run(subgraph, feed_dict=dict(zip(nodes, batch)))
+    by_name = {node.name: sid for sid, node in exe._param_nodes.items()}
+    step = {"loss": float(out[0].asnumpy()), "grad": out[1].asnumpy(),
+            "tables": {}}
+    for (tname, _, feed), adjoint in zip(lookups, out[2:]):
+        ids, inverse = np.unique(np.asarray(batch[feed]).reshape(-1),
+                                 return_inverse=True)
+        rows = adjoint.asnumpy().reshape(inverse.size, -1)
+        summed = np.zeros((ids.size, rows.shape[1]))
+        np.add.at(summed, inverse, rows)
+        after = exe.params[by_name[tname]][ids].cpu().numpy()
+        step["tables"][tname] = {"grad": summed, "rows": after,
+                                 "update": after - initial[tname][ids]}
+    return step
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def sparse_parity(torch, name, card_step, initial, batch):
+    """Step 1 on the port's CPU path from the card run's initial values
+    (``initial``: name -> array, copied before the card's step 1) on
+    ``batch``, against ``card_step`` (_step1 on the card). Held: the
+    loss, the dense gradient, and per table its summed gradient rows and
+    its touched rows after the step. Reported: the update the step
+    applied to those rows. SGD adds each id's rows into the table one at
+    a time (on the card with atomics, in no fixed order): an addend of
+    ~4e-7 into a value of ~1e-2 rounds by up to ~1e-3 of itself, so the
+    applied update differs by order, not by the gradient."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops.variable import PlaceholderOp
+    builder, dense_param = SPARSE_PASSES[name]
+    nodes, loss, grad, train_op, lookups = sparse_graph(ht, builder,
+                                                        dense_param)
+    for node in find_topo_sort([train_op]):
+        if isinstance(node, PlaceholderOp) and node.name in initial:
+            node.initializer = None
+            node.tensor_value = initial[node.name].copy()
+    exe = ht.Executor([loss, grad, *(a for _, a, _ in lookups), train_op],
+                      device="cpu")
+    cpu = _step1(exe, "default", nodes, lookups, batch, initial)
+    tables = {tname: {"grad_rel_err": _rel(card["grad"], cpu_t["grad"]),
+                      "rows_rel_err": _rel(card["rows"], cpu_t["rows"]),
+                      "update_rel_err": _rel(card["update"],
+                                             cpu_t["update"]),
+                      "touched_rows": int(cpu_t["rows"].shape[0])}
+              for (tname, card), cpu_t in zip(
+                  card_step["tables"].items(), cpu["tables"].values())}
+    parity = {"batch": int(batch[1].shape[0]), "reference": "cpu float32",
+              "loss_cuda": card_step["loss"], "loss_cpu": cpu["loss"],
+              "loss_rel_err": abs(card_step["loss"] - cpu["loss"])
+              / abs(cpu["loss"]),
+              "grad": dense_param,
+              "grad_rel_err": _rel(card_step["grad"], cpu["grad"]),
+              "tables": tables,
+              "loss_tol": SPARSE_LOSS_TOL, "grad_tol": SPARSE_GRAD_TOL}
+    held = [parity["grad_rel_err"]] + [
+        t[k] for t in tables.values() for k in ("grad_rel_err",
+                                                "rows_rel_err")]
+    if parity["loss_rel_err"] > SPARSE_LOSS_TOL or max(held) \
+            > SPARSE_GRAD_TOL:
+        raise AssertionError(f"{name} step-1 parity, card against the "
+                             f"CPU, failed: {parity}")
+    return parity
+
+
+def sparse_pass(torch, name, card, seed):
+    """One pass of SPARSE_PASSES on the card: step 1 on the traffic's
+    first batch with its initial values kept for the parity, then the
+    main path — one warm-up and SPARSE_TIMED_BLOCKS timed blocks of
+    SPARSE_BLOCK steps through Executor.run_batches, the launch counts set
+    to 0 just before and read just after (no flash kernel may launch) and
+    the peak memory held to the in-place bound; for wdl_criteo one
+    profiled step (idle share, device time by kernel category and by op
+    type) and one with each op's host time; last the CPU twin's step 1
+    (sparse_parity)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    builder, dense_param = SPARSE_PASSES[name]
+    traffic = sparse_traffic(builder, seed)
+    nodes, loss, grad, train_op, lookups = sparse_graph(ht, builder,
+                                                        dense_param)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    # one set of parameters: "step1" also fetches what the parity holds;
+    # the main path runs "train", which keeps only the losses
+    exe = ht.Executor({"step1": [loss, grad, *(a for _, a, _ in lookups),
+                                 train_op],
+                       "train": [loss, train_op]})
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    tables = _table_ids(exe)
+    table_bytes = sum(exe.params[sid].numel() * exe.params[sid]
+                      .element_size() for sid in tables)
+    # copies: the table's update is in place
+    initial = {exe._param_nodes[sid].name: t.to("cpu", copy=True).numpy()
+               for sid, t in exe.params.items()}
+    card_step = _step1(exe, "step1", nodes, lookups, traffic[0], initial)
+
+    def block(i0):
+        return [dict(zip(nodes, traffic[(i0 + j) % SPARSE_CYCLE]))
+                for j in range(SPARSE_BLOCK)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, block_ms = [], []
+    for b in range(1 + SPARSE_TIMED_BLOCKS):
+        t0 = time.perf_counter()
+        outs = exe.run_batches(block(1 + b * SPARSE_BLOCK), name="train")
+        outs[-1][0].asnumpy()
+        block_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.extend(float(o[0].asnumpy()) for o in outs)
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    peak = torch.cuda.max_memory_allocated() - base
+    dense_bytes = _dense_work_bytes(exe, tables)
+    bound = SPARSE_TABLE_FACTOR * table_bytes + dense_bytes
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"{name} losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{name} launched flash kernels: {launches}")
+    if not peak < bound:
+        raise AssertionError(f"{name} peak memory {peak} B >= {bound} B: "
+                             f"the table is copied in a step")
+    timed = block_ms[1:]
+    step_ms = [ms / SPARSE_BLOCK for ms in timed]
+    batch = int(traffic[0][1].shape[0])
+    line = {"card": card, "model": builder, "batch": batch,
+            "table_rows": {exe._param_nodes[sid].name: int(
+                exe.params[sid].shape[0]) for sid in tables},
+            "table_bytes": int(table_bytes), "dtype": "float32",
+            "optimizer": "SGD", "lr": float(train_op.optimizer.learning_rate),
+            "executor_setup_s": setup_s, "block_steps": SPARSE_BLOCK,
+            "warmup_blocks": 1, "timed_blocks": SPARSE_TIMED_BLOCKS,
+            "samples_per_s": batch * SPARSE_BLOCK * len(timed)
+            / (sum(timed) / 1e3),
+            "step_ms_p50": float(np.median(step_ms)), "step_ms": step_ms,
+            "losses_first_last": [losses[0], losses[-1]],
+            "loss_mean_by_block": [float(np.mean(losses[i:i + SPARSE_BLOCK]))
+                                   for i in range(0, len(losses),
+                                                  SPARSE_BLOCK)],
+            "launches": launches, "peak_memory_bytes": int(peak),
+            "memory_bound_bytes": int(bound),
+            "dense_work_bytes": int(dense_bytes)}
+    if name == "wdl_criteo":
+        feeds = dict(zip(nodes, traffic[0]))
+
+        def step():
+            return exe.run("train", feed_dict=feeds)[0].asnumpy()
+        profile = profile_window(torch, step)
+        profile["device_ms_by_op_type"] = profile_window(
+            torch, step, exe.subexecutors["train"].topo_order)[
+                "device_ms_by_op_type"]
+        line["profile"] = profile
+        line["host"] = host_ms_by_op(torch, exe, feeds, "train")
+    del exe
+    torch.cuda.empty_cache()
+    line["parity"] = sparse_parity(torch, name, card_step, initial,
+                                   traffic[0])
+    return line
+
+
+def ncf_hr(torch, card):
+    """The port's rec_main.worker with NCF_HR_ARGS on the card: held to
+    the JAX package's HR@10 and NDCG@10 bars, no flash kernel launched."""
+    from hetu_tpu_torch.examples import rec_main
+    from hetu_tpu_torch.ops import _build
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    results = rec_main.worker(rec_main.parse_args(list(NCF_HR_ARGS)))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    if not (results["hr"] >= NCF_MIN_HR and results["ndcg"] >= NCF_MIN_NDCG):
+        raise AssertionError(f"ncf_hr below the bars HR@10 >= {NCF_MIN_HR}, "
+                             f"NDCG@10 >= {NCF_MIN_NDCG}: {results}")
+    if any(launches.values()):
+        raise AssertionError(f"ncf_hr launched flash kernels: {launches}")
+    return {"card": card, "args": " ".join(NCF_HR_ARGS),
+            "hr": results["hr"], "ndcg": results["ndcg"],
+            "min_hr": NCF_MIN_HR, "min_ndcg": NCF_MIN_NDCG,
+            "train_loss": results["loss"],
+            "steps_per_epoch": results["steps_per_epoch"],
+            "steps_per_s": results["steps_per_epoch"]
+            / results["train_time"],
+            "wall_s": wall_s, "launches": launches}
+
+
+def transformer_train_flops(cfg):
+    """Analytic FLOPs of one Transformer training step (the backward
+    counts 2x the forward). Forward, per source token and encoder layer:
+    QKVO 8d^2, scores and context 4 T1 d, FFN 4 d d_ff; per target token
+    and decoder layer: self-attention 8d^2 + 4 T2 d (the full score
+    matrix, as the graph computes it under the causal mask), the cross
+    attention's Q and O 4d^2 and scores and context 4 T1 d, FFN 4 d d_ff,
+    and per source token and decoder layer the cross K and V 4d^2; the
+    tied output projection 2 d V per target token. Embeddings, layer
+    norm, softmax and the loss are O(d) or O(V) a token and left out."""
+    d, f, n, v = cfg.d_model, cfg.d_ff, cfg.num_blocks, cfg.vocab_size
+    t1, t2 = cfg.maxlen1, cfg.maxlen2 - 1
+    enc = n * t1 * (8 * d * d + 4 * t1 * d + 4 * d * f)
+    dec = n * (t2 * (12 * d * d + 4 * t2 * d + 4 * t1 * d + 4 * d * f)
+               + t1 * 4 * d * d)
+    return 3.0 * cfg.batch_size * (enc + dec + t2 * 2 * d * v)
+
+
+def reversal_batch(cfg, rng):
+    """One batch of the reversal task (transformer_main's synthetic
+    data): source ids in [2, vocab), the target the source reversed,
+    the decoder input the target after a BOS (1)."""
+    src = rng.randint(2, cfg.vocab_size, (cfg.batch_size, cfg.maxlen1))
+    tgt = src[:, ::-1][:, :cfg.maxlen2 - 1].copy()
+    dec = np.concatenate([np.ones((cfg.batch_size, 1), np.int64),
+                          tgt[:, :-1]], 1)
+    return src, dec, tgt
+
+
+def _transformer_graph(ht, cfg, grads=()):
+    model = ht.models.Transformer(cfg)
+    nodes = [ht.Variable(n, trainable=False)
+             for n in ("src_ids", "dec_ids", "tgt_ids")]
+    loss = model(*nodes)
+    train_op = ht.optim.AdamOptimizer(TRANSFORMER_LR).minimize(loss)
+    picked = [next(g for p, g in zip(train_op.optimizer.params,
+                                     train_op.inputs) if p.name == name)
+              for name in grads]
+    return nodes, loss, picked, train_op
+
+
+def transformer_parity(torch, seed):
+    """Step 1 at dropout 0 and B=TRANSFORMER_PARITY_BATCH: the card
+    against the CPU in f32 (held), and both against the CPU in float64
+    (reported)."""
+    import hetu_tpu_torch as ht
+    cfg = dataclasses.replace(ht.models.TransformerConfig(),
+                              dropout_rate=0.0,
+                              batch_size=TRANSFORMER_PARITY_BATCH)
+    batch = reversal_batch(cfg, np.random.RandomState(seed + 1))
+    out = {}
+    for run, device, dtype in (("cuda", "cuda", None), ("cpu", "cpu", None),
+                               ("cpu_f64", "cpu", torch.float64)):
+        nodes, loss, grads, train_op = _transformer_graph(
+            ht, cfg, TRANSFORMER_PARITY_GRADS)
+        exe = ht.Executor([loss, *grads, train_op], device=device,
+                          dtype=dtype)
+        vals = exe.run(feed_dict=dict(zip(nodes, batch)))[:-1]
+        out[run] = [np.asarray(v.asnumpy(), np.float64) for v in vals]
+        del exe
+    torch.cuda.empty_cache()
+
+    def errs(got, want):
+        (gl, *gg), (wl, *wg) = out[got], out[want]
+        return {"loss_rel_err": float(abs(gl - wl) / abs(wl)),
+                "grad_rel_err": {name: float(np.abs(g - w).max()
+                                             / np.abs(w).max())
+                                 for name, g, w in zip(
+                                     TRANSFORMER_PARITY_GRADS, gg, wg)}}
+    parity = {"batch": TRANSFORMER_PARITY_BATCH, "dropout": 0.0,
+              "reference": "cpu float32", "loss_cuda": float(out["cuda"][0]),
+              "loss_cpu": float(out["cpu"][0]), **errs("cuda", "cpu"),
+              "loss_tol": TRANSFORMER_LOSS_TOL,
+              "grad_tol": TRANSFORMER_GRAD_TOL,
+              "cuda_vs_cpu_f64": errs("cuda", "cpu_f64"),
+              "cpu_f32_vs_f64": errs("cpu", "cpu_f64")}
+    if parity["loss_rel_err"] > TRANSFORMER_LOSS_TOL or \
+            max(parity["grad_rel_err"].values()) > TRANSFORMER_GRAD_TOL:
+        raise AssertionError(f"transformer step-1 parity, card against the "
+                             f"CPU, failed: {parity}")
+    return parity
+
+
+def transformer_train(torch, card, seed):
+    """The Transformer pass: TRANSFORMER_WARMUP + TRANSFORMER_STEPS Adam
+    steps of Transformer-base in f32 on reversal batches, each ending in
+    the loss's readback, the launch counts set to 0 just before and read
+    just after (no flash kernel may launch: attention is composed from
+    batch_matmul and softmax, as in the reference); one profiled step
+    (idle share, device time by kernel category and by op type), one
+    with each op's host time, and the step-1 parity
+    (transformer_parity)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    cfg = ht.models.TransformerConfig()
+    rng = np.random.RandomState(seed)
+    batches = [reversal_batch(cfg, rng)
+               for _ in range(TRANSFORMER_WARMUP + TRANSFORMER_STEPS + 3)]
+    nodes, loss, _, train_op = _transformer_graph(ht, cfg)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    exe = ht.Executor([loss, train_op])
+    setup_s = time.perf_counter() - t0
+    losses, step_ms = [], []
+    for batch in batches[:TRANSFORMER_WARMUP + TRANSFORMER_STEPS]:
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(
+            feed_dict=dict(zip(nodes, batch)))[0].asnumpy()))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    peak = torch.cuda.max_memory_allocated() - base
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"transformer losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"transformer launched flash kernels: "
+                             f"{launches}")
+    timed = step_ms[TRANSFORMER_WARMUP:]
+    p50 = float(np.median(timed))
+    flops = transformer_train_flops(cfg)
+    feeds = iter(batches[TRANSFORMER_WARMUP + TRANSFORMER_STEPS:])
+
+    def step():
+        return exe.run(feed_dict=dict(zip(nodes, next(feeds))))[0].asnumpy()
+    profile = profile_window(torch, step)
+    profile["device_ms_by_op_type"] = profile_window(
+        torch, step, exe.subexecutors["default"].topo_order)[
+            "device_ms_by_op_type"]
+    host = host_ms_by_op(torch, exe, dict(zip(nodes, next(feeds))))
+    n_params = sum(int(v.numel()) for v in exe.params.values())
+    del exe
+    torch.cuda.empty_cache()
+    targets = cfg.batch_size * (cfg.maxlen2 - 1)
+    return {"card": card, "config": dataclasses.asdict(cfg),
+            "params": n_params, "dtype": "float32", "optimizer": "Adam",
+            "lr": TRANSFORMER_LR, "executor_setup_s": setup_s,
+            "warmup_steps": TRANSFORMER_WARMUP,
+            "timed_steps": TRANSFORMER_STEPS,
+            "tokens_per_s": targets * len(timed) / (sum(timed) / 1e3),
+            "step_ms_p50": p50, "step_ms": step_ms,
+            "flops_per_step": flops,
+            "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["float32"],
+            "losses": losses, "launches": launches,
+            "peak_memory_bytes": int(peak),
+            "parity": transformer_parity(torch, seed),
+            "profile": profile, "host": host}
+
+
+def transformer_reverse(torch, card):
+    """The port's transformer_main.main with TRANSFORMER_REVERSE_ARGS on
+    the card: the reversal task's loss below the JAX package's bar, no
+    flash kernel launched."""
+    from hetu_tpu_torch.examples import transformer_main
+    from hetu_tpu_torch.ops import _build
+    args = transformer_main.parse_args(list(TRANSFORMER_REVERSE_ARGS))
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    results = transformer_main.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    if not results["loss"] < TRANSFORMER_MAX_LOSS:
+        raise AssertionError(f"transformer_reverse loss {results['loss']} "
+                             f">= {TRANSFORMER_MAX_LOSS}: {results}")
+    if any(launches.values()):
+        raise AssertionError(f"transformer_reverse launched flash kernels: "
+                             f"{launches}")
+    return {"card": card, "args": " ".join(TRANSFORMER_REVERSE_ARGS),
+            "loss": results["loss"], "max_loss": TRANSFORMER_MAX_LOSS,
+            "tokens_per_s": results["tokens_per_sec"],
+            "epoch_time_s": results["epoch_time"],
+            "steps_per_s": results["steps_per_epoch"]
+            / results["epoch_time"],
+            "wall_s": wall_s, "launches": launches}
+
+
 def crossover(torch, seed):
     """Per sequence length (B*H = 96, D=64, bf16, causal), and at
     BERT-base's shape (B=64 H=12 S=128, non-causal, BERT's padding mask):
@@ -2038,6 +2570,25 @@ def main(argv=None):
     log(f"cnn_digits ({time.perf_counter() - t:.1f} s) "
         f"{cnn_lines['cnn_digits']}")
 
+    sparse_lines = {}
+    for name in SPARSE_PASSES:
+        t = time.perf_counter()
+        sparse_lines[name] = sparse_pass(torch, name, card, args.seed)
+        log(f"{name} ({time.perf_counter() - t:.1f} s) "
+            f"{sparse_lines[name]}")
+    ncf_line = sparse_lines.pop("ncf")
+    t = time.perf_counter()
+    ncf_hr_line = ncf_hr(torch, card)
+    log(f"ncf_hr ({time.perf_counter() - t:.1f} s) {ncf_hr_line}")
+    t = time.perf_counter()
+    transformer_line = transformer_train(torch, card, args.seed)
+    log(f"transformer ({time.perf_counter() - t:.1f} s) {transformer_line}")
+    t = time.perf_counter()
+    reverse_line = transformer_reverse(torch, card)
+    log(f"transformer_reverse ({time.perf_counter() - t:.1f} s) "
+        f"{reverse_line}")
+    torch.cuda.empty_cache()
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
@@ -2092,6 +2643,9 @@ def main(argv=None):
              {"serve_dense": dense_line}, {"train": train_line},
              *({name: line} for name, line in bert_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
+             {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},
+             {"transformer": transformer_line},
+             {"transformer_reverse": reverse_line},
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

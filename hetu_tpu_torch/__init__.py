@@ -16,6 +16,10 @@ What runs today:
   from ``ht.dataloader_op`` batches through train and validate
   subgraphs of one executor (``ht.data``, ``ht.metrics``,
   ``examples/cnn_main.py``);
+* the CTR models (WDL, DeepFM, DCN, DC), NCF and the seq2seq
+  Transformer, trained through ``Executor.run`` / ``run_batches`` with
+  their embedding tables on the device (``examples/ctr_main.py``,
+  ``rec_main.py``, ``transformer_main.py``);
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.

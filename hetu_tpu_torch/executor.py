@@ -3,8 +3,8 @@
 Counterpart of ``hetu_tpu/executor.py``, its single-device path:
 ``HetuConfig`` (seed, device, mixed-precision ``dtype``),
 ``SubExecutor`` (one eval subgraph) and ``Executor`` (parameter,
-op-state and optimizer-slot materialization, ``run``, dataloaders and
-``get_batch_num``, ``save`` / ``load``).
+op-state and optimizer-slot materialization, ``run``, ``run_batches``,
+dataloaders and ``get_batch_num``, ``save`` / ``load``).
 
 Where the reference traces the topological order once per feed-shape
 signature into one XLA program, this executor walks it eagerly every
@@ -27,7 +27,7 @@ training steps, read by the others, which run their ops in inference
 mode (no optimizer in the subgraph). Dataloader ops give each run of a
 subgraph the next batch of the dataloader of its name.
 
-The PS and Hybrid modes, the dp/tp/pp meshes, ``run_batches``,
+The PS and Hybrid modes, the dp/tp/pp meshes, ``run_batches_stream``,
 telemetry and the preflight analysis are still to port; ``HetuConfig``
 refuses their options.
 """
@@ -319,6 +319,18 @@ class Executor:
             name = "default"
         return self.subexecutors[name].run(self, feed_dict,
                                            convert_to_numpy_ret_vals)
+
+    def run_batches(self, feed_dicts, name="default",
+                    convert_to_numpy_ret_vals=False):
+        """One step per feed dict, as that many ``run`` calls: a list of
+        per-step output lists. An empty feed dict takes the subgraph's
+        dataloaders' next batch. The reference compiles the block into
+        one ``lax.scan`` dispatch; the port's walk is eager and has no
+        such block, so this is a loop of steps, the same math as
+        sequential ``run`` calls."""
+        return [self.run(name, feed_dict=feeds,
+                         convert_to_numpy_ret_vals=convert_to_numpy_ret_vals)
+                for feeds in feed_dicts]
 
     def get_batch_num(self, name="default"):
         """Batches in an epoch of subgraph ``name``: the fewest any of

@@ -134,10 +134,14 @@ class Op:
         return opposite_op(self)
 
     def __truediv__(self, other):
-        from ..ops.basic import mul_byconst_op
+        from ..ops.basic import div_op, mul_byconst_op
         if isinstance(other, Op):
-            raise NotImplementedError("div_op is not ported yet")
+            return div_op(self, other)
         return mul_byconst_op(self, 1.0 / other)
+
+    def __rtruediv__(self, other):
+        from ..ops.basic import div_const_op
+        return div_const_op(other, self)
 
     __radd__ = __add__
     __rmul__ = __mul__

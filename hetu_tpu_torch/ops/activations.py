@@ -1,13 +1,13 @@
 """Activation ops (counterpart of ``hetu_tpu/ops/activations.py``;
-reference: gpu_ops/{Relu,Sigmoid,Tanh,Softmax,Dropout}.py). gelu is the tanh
-approximation, as in the JAX package (``jax.nn.gelu(approximate=True)``).
+reference: gpu_ops/{Relu,LeakyRelu,Sigmoid,Tanh,Sign,Softmax,Dropout}.py),
+whole. gelu is the tanh approximation, as in the JAX package
+(``jax.nn.gelu(approximate=True)``).
 
 Dropout draws its mask from the step's per-op generator
 (``ExecContext.generator_for``), and its gradient op draws it again
 from the forward op's generator, so both apply one mask without keeping
 it between the two. The numbers differ from ``jax.random``'s: tests
-check dropout by its properties, and the parity twins run without it.
-Leaky relu and sign come later."""
+check dropout by its properties, and the parity twins run without it."""
 from __future__ import annotations
 
 import torch
@@ -16,8 +16,9 @@ import torch.nn.functional as F
 from ..graph.node import Op
 from .basic import addbyconst_op, mul_op, opposite_op
 
-__all__ = ["relu_op", "relu_gradient_op", "sigmoid_op", "tanh_op",
-           "gelu_op", "gelu_gradient_op", "softmax_func", "softmax_op",
+__all__ = ["relu_op", "relu_gradient_op", "leaky_relu_op",
+           "leaky_relu_gradient_op", "sigmoid_op", "tanh_op", "gelu_op",
+           "gelu_gradient_op", "sign_op", "softmax_func", "softmax_op",
            "softmax_gradient_op", "dropout_op", "dropout_gradient_op",
            "dropout2d_op", "dropout2d_gradient_op"]
 
@@ -49,6 +50,56 @@ class ReluGradientOp(Op):
 
     def gradient(self, output_grad):
         raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class LeakyReluOp(Op):
+    def __init__(self, node_A, alpha, ctx=None):
+        super().__init__(LeakyReluOp, [node_A], ctx)
+        self.alpha = alpha
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        return torch.where(x > 0, x, self.alpha * x)
+
+    def gradient(self, output_grad):
+        return [leaky_relu_gradient_op(self.inputs[0], output_grad,
+                                       self.alpha, ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class LeakyReluGradientOp(Op):
+    """grad where x > 0, else alpha * grad (node_A = forward input,
+    node_B = adjoint)."""
+
+    def __init__(self, node_A, node_B, alpha, ctx=None):
+        super().__init__(LeakyReluGradientOp, [node_A, node_B], ctx)
+        self.alpha = alpha
+
+    def compute(self, input_vals, ectx):
+        x, grad = input_vals
+        return torch.where(x > 0, grad, self.alpha * grad)
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class SignOp(Op):
+    def __init__(self, node_A, ctx=None):
+        super().__init__(SignOp, [node_A], ctx)
+
+    def compute(self, input_vals, ectx):
+        return torch.sign(input_vals[0])
+
+    def gradient(self, output_grad):
+        return [None]
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
@@ -233,6 +284,18 @@ def relu_op(node, ctx=None):
 
 def relu_gradient_op(node_A, node_B, ctx=None):
     return ReluGradientOp(node_A, node_B, ctx=ctx)
+
+
+def leaky_relu_op(node, alpha=0.01, ctx=None):
+    return LeakyReluOp(node, alpha, ctx=ctx)
+
+
+def leaky_relu_gradient_op(node_A, node_B, alpha=0.01, ctx=None):
+    return LeakyReluGradientOp(node_A, node_B, alpha, ctx=ctx)
+
+
+def sign_op(node, ctx=None):
+    return SignOp(node, ctx=ctx)
 
 
 def sigmoid_op(node, ctx=None):

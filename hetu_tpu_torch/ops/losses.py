@@ -7,7 +7,11 @@ grad``. The sparse loss takes integer labels: labels equal to
 ``ignored_index`` contribute 0 loss and 0 gradient; other labels are
 clipped into the class range, as the reference's gather clips. The
 losses run in the logits' dtype (bf16 under a bf16 executor), as in the
-reference. BCE and ``crossentropy_op`` come with later slices."""
+reference.
+
+Binary cross-entropy and ``crossentropy_op`` take probabilities, which
+both directions clip to ``[_PROB_EPS, 1 - _PROB_EPS]`` (CE: from below
+only) before any log or division, as the reference does."""
 from __future__ import annotations
 
 import torch
@@ -16,7 +20,10 @@ from ..graph.node import Op
 
 __all__ = ["softmaxcrossentropy_op", "softmaxcrossentropy_gradient_op",
            "softmaxcrossentropy_sparse_op",
-           "softmaxcrossentropy_sparse_gradient_op"]
+           "softmaxcrossentropy_sparse_gradient_op", "binarycrossentropy_op",
+           "binarycrossentropy_gradient_op", "crossentropy_op"]
+
+_PROB_EPS = 1e-12
 
 
 class SoftmaxCrossEntropyOp(Op):
@@ -110,6 +117,71 @@ class SoftmaxCrossEntropySparseGradientOp(Op):
         return input_shapes[0]
 
 
+class BinaryCrossEntropyOp(Op):
+    """Elementwise BCE of predictions (node_A, already in (0, 1)) against
+    labels (node_B) (reference BinaryCrossEntropy.py)."""
+
+    def __init__(self, node_A, node_B, ctx=None):
+        super().__init__(BinaryCrossEntropyOp, [node_A, node_B], ctx)
+
+    def compute(self, input_vals, ectx):
+        pred, label = input_vals
+        pred = torch.clamp(pred, _PROB_EPS, 1 - _PROB_EPS)
+        return -(label * torch.log(pred) + (1 - label) * torch.log(1 - pred))
+
+    def gradient(self, output_grad):
+        return [binarycrossentropy_gradient_op(
+            self.inputs[0], self.inputs[1], output_grad, ctx=self.raw_ctx),
+            None]
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class BinaryCrossEntropyGradientOp(Op):
+    def __init__(self, node_A, node_B, node_C, ctx=None):
+        super().__init__(BinaryCrossEntropyGradientOp,
+                         [node_A, node_B, node_C], ctx)
+
+    def compute(self, input_vals, ectx):
+        pred, label, grad = input_vals
+        pred = torch.clamp(pred, _PROB_EPS, 1 - _PROB_EPS)
+        return grad * (pred - label) / (pred * (1 - pred))
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
+class CrossEntropyOp(Op):
+    """``-sum(labels * log(probs))`` over the last axis, the
+    probabilities already normalized. Its gradient broadcasts the
+    adjoint to the probabilities' shape right-aligned, as the
+    reference's does."""
+
+    def __init__(self, node_A, node_B, ctx=None):
+        super().__init__(CrossEntropyOp, [node_A, node_B], ctx)
+
+    def compute(self, input_vals, ectx):
+        probs, labels = input_vals
+        return -(labels * torch.log(torch.clamp(probs, min=_PROB_EPS))).sum(
+            dim=-1)
+
+    def gradient(self, output_grad):
+        from .basic import clip_op, div_op, mul_op, opposite_op
+        from .shape import broadcastto_op
+        d = opposite_op(div_op(self.inputs[1],
+                               clip_op(self.inputs[0], _PROB_EPS, None)))
+        g = broadcastto_op(output_grad, self.inputs[0])
+        return [mul_op(d, g, ctx=self.raw_ctx), None]
+
+    def infer_shape(self, input_shapes):
+        shape = tuple(input_shapes[0][:-1])
+        return shape if shape else (1,)
+
+
 def softmaxcrossentropy_op(node_A, node_B, use_cudnn=True, ctx=None):
     """``use_cudnn`` is the reference's argument and selects nothing."""
     return SoftmaxCrossEntropyOp(node_A, node_B, ctx=ctx)
@@ -129,3 +201,15 @@ def softmaxcrossentropy_sparse_gradient_op(node_A, node_B, node_C,
                                            ignored_index=-1, ctx=None):
     return SoftmaxCrossEntropySparseGradientOp(
         node_A, node_B, node_C, ignored_index=ignored_index, ctx=ctx)
+
+
+def binarycrossentropy_op(node_A, node_B, ctx=None):
+    return BinaryCrossEntropyOp(node_A, node_B, ctx=ctx)
+
+
+def binarycrossentropy_gradient_op(node_A, node_B, node_C, ctx=None):
+    return BinaryCrossEntropyGradientOp(node_A, node_B, node_C, ctx=ctx)
+
+
+def crossentropy_op(node_A, node_B, ctx=None):
+    return CrossEntropyOp(node_A, node_B, ctx=ctx)

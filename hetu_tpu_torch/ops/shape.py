@@ -1,11 +1,11 @@
 """Shape-manipulation and reduction ops.
 
 Counterpart of ``hetu_tpu/ops/shape.py`` (reference parity:
-gpu_ops/{Reshape,Broadcast,Concat,Concatenate,Split,Slice,Transpose,Pad,
-ReduceSum,ReduceMean,OnesLike,ZerosLike}.py), the part the GPT, BERT and
-CNN training graphs and their gradients reach. Views stand in for
-copies where torch allows it (``expand``, ``permute``, slicing);
-consumers that need contiguous memory make it.
+gpu_ops/{Reshape,Broadcast,BroadcastShape,Concat,Concatenate,Split,Slice,
+Transpose,Pad,ReduceSum,ReduceMean,ReduceSumAxisZero,OnesLike,
+ZerosLike}.py), whole. Views stand in for copies where torch allows it
+(``expand``, ``permute``, slicing); consumers that need contiguous
+memory make it.
 
 ``pad_op`` pads any axis in the reference's three modes. Its REFLECT and
 SYMMETRIC modes gather along each padded axis through an index built
@@ -31,7 +31,8 @@ __all__ = [
     "slice_gradient_op", "transpose_op", "concat_op", "concat_gradient_op",
     "concatenate_op", "pad_op", "pad_gradient_op", "reduce_sum_op",
     "reduce_mean_op", "broadcast_shape_grad_source_op", "squeeze_op",
-    "oneslike_op", "zeroslike_op",
+    "oneslike_op", "zeroslike_op", "broadcast_shape_op", "flatten_op",
+    "unsqueeze_op", "reducesumaxiszero_op",
 ]
 
 
@@ -99,16 +100,43 @@ class BroadcastToOp(Op):
         return input_shapes[1]
 
 
-class UnbroadcastOp(Op):
-    """Adjoint of a broadcast: sum the grad back to the target node's
-    shape (extra leading dims and stretched size-1 dims)."""
+class BroadcastShapeOp(Op):
+    """Broadcast to an explicit shape, inserting new axes at ``add_axes``
+    first (reference BroadcastShape.py)."""
 
-    def __init__(self, grad_node, target_node, ctx=None):
-        super().__init__(UnbroadcastOp, [grad_node], ctx)
-        self.target_node = target_node
+    def __init__(self, node_A, shape, add_axes=(), ctx=None):
+        super().__init__(BroadcastShapeOp, [node_A], ctx)
+        self.shape = tuple(shape)
+        self.add_axes = tuple(add_axes)
 
     def compute(self, input_vals, ectx):
         x = input_vals[0]
+        for ax in sorted(self.add_axes):
+            x = x.unsqueeze(ax)
+        return x.expand(self.shape)
+
+    def gradient(self, output_grad):
+        return [unbroadcast_op(output_grad, self.inputs[0],
+                               sum_axes=self.add_axes, ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return self.shape
+
+
+class UnbroadcastOp(Op):
+    """Adjoint of a broadcast: sum the grad back to the target node's
+    shape — first the ``sum_axes`` (the axes a ``broadcast_shape_op``
+    inserted), then extra leading dims and stretched size-1 dims."""
+
+    def __init__(self, grad_node, target_node, sum_axes=(), ctx=None):
+        super().__init__(UnbroadcastOp, [grad_node], ctx)
+        self.target_node = target_node
+        self.sum_axes = tuple(sum_axes)
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        if self.sum_axes:
+            x = x.sum(dim=self.sum_axes)
         target = self.target_shape
         lead = x.dim() - len(target)
         if lead > 0:
@@ -530,6 +558,43 @@ class BroadcastShapeGradSourceOp(Op):
         return self.target_shape
 
 
+class ReduceSumAxisZeroOp(Op):
+    def __init__(self, node_A, ctx=None):
+        super().__init__(ReduceSumAxisZeroOp, [node_A], ctx)
+
+    def compute(self, input_vals, ectx):
+        return input_vals[0].sum(dim=0)
+
+    def gradient(self, output_grad):
+        return [broadcastto_op(output_grad, self.inputs[0],
+                               ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        shape = tuple(input_shapes[0][1:])
+        return shape if shape else (1,)
+
+
+class FlattenOp(Op):
+    """ONNX Flatten: always the 2-D ``(prod(dims[:axis]),
+    prod(dims[axis:]))``."""
+
+    def __init__(self, node_A, axis=1, ctx=None):
+        super().__init__(FlattenOp, [node_A], ctx)
+        self.axis = int(axis)
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        return x.reshape(int(np.prod(x.shape[:self.axis])), -1)
+
+    def gradient(self, output_grad):
+        return [array_reshape_gradient_op(output_grad, self,
+                                          ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        s = input_shapes[0]
+        return (int(np.prod(s[:self.axis])), int(np.prod(s[self.axis:])))
+
+
 class SqueezeOp(Op):
     """Drop size-1 dims — the given ``axes``, or all when None."""
 
@@ -542,6 +607,31 @@ class SqueezeOp(Op):
             return tuple(d for d in in_shape if d != 1)
         axes = {a % len(in_shape) for a in self.axes}
         return tuple(d for i, d in enumerate(in_shape) if i not in axes)
+
+    def compute(self, input_vals, ectx):
+        x = input_vals[0]
+        return x.reshape(self._out_shape(tuple(x.shape)))
+
+    def gradient(self, output_grad):
+        return [array_reshape_gradient_op(output_grad, self,
+                                          ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return self._out_shape(tuple(input_shapes[0]))
+
+
+class UnsqueezeOp(Op):
+    """Insert size-1 dims at ``axes`` (positions in the output shape)."""
+
+    def __init__(self, node_A, axes, ctx=None):
+        super().__init__(UnsqueezeOp, [node_A], ctx)
+        self.axes = tuple(int(a) for a in axes)
+
+    def _out_shape(self, in_shape):
+        ndim = len(in_shape) + len(self.axes)
+        axes = {a % ndim for a in self.axes}
+        it = iter(in_shape)
+        return tuple(1 if i in axes else next(it) for i in range(ndim))
 
     def compute(self, input_vals, ectx):
         x = input_vals[0]
@@ -595,8 +685,12 @@ def broadcastto_op(node_A, node_B, ctx=None):
     return BroadcastToOp(node_A, node_B, ctx=ctx)
 
 
-def unbroadcast_op(grad_node, target_node, ctx=None):
-    return UnbroadcastOp(grad_node, target_node, ctx=ctx)
+def broadcast_shape_op(node_A, shape, add_axes=(), ctx=None):
+    return BroadcastShapeOp(node_A, shape, add_axes=add_axes, ctx=ctx)
+
+
+def unbroadcast_op(grad_node, target_node, sum_axes=(), ctx=None):
+    return UnbroadcastOp(grad_node, target_node, sum_axes=sum_axes, ctx=ctx)
 
 
 def split_op(node, axes, indices, splits, ctx=None):
@@ -665,3 +759,15 @@ def oneslike_op(node, ctx=None):
 
 def zeroslike_op(node, ctx=None):
     return ZerosLikeOp(node, ctx=ctx)
+
+
+def flatten_op(node, axis=1, ctx=None):
+    return FlattenOp(node, axis=axis, ctx=ctx)
+
+
+def unsqueeze_op(node, axes, ctx=None):
+    return UnsqueezeOp(node, axes, ctx=ctx)
+
+
+def reducesumaxiszero_op(node, ctx=None):
+    return ReduceSumAxisZeroOp(node, ctx=ctx)

@@ -11,7 +11,12 @@ parameter move only on the deduplicated rows; Momentum makes them
 dense, as the reference does.
 
 ``update`` is functional, as in the reference: it returns new tensors
-and the executor swaps them in after the step. AdaGrad on sparse
+and the executor swaps them in after the step — but for SGD's sparse
+update, which scatter-adds into the table in place and returns the same
+tensor: copying a table the size of Criteo's for a few hundred rows a
+step would move the whole table through memory twice. The reference's
+compiled step donates its parameters, so its scatter-add is in place
+too. AdaGrad on sparse
 gradients (its caller, the PS path, is not ported), AdamW, the health
 ``sentinel_stats`` and the PS / allreduce hooks are still to port.
 """
@@ -122,8 +127,8 @@ class SGDOptimizer(Optimizer):
 
     def update_one(self, param, grad, slots, lr, step):
         if isinstance(grad, IndexedSlices):
-            return param.index_add(0, grad.get_flat_indices(),
-                                   grad.get_dense_rows(), alpha=-lr), slots
+            return param.index_add_(0, grad.get_flat_indices(),
+                                    grad.get_dense_rows(), alpha=-lr), slots
         return param - lr * grad, slots
 
 

@@ -12,7 +12,8 @@ import torch
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch import telemetry
 import hetu_tpu_torch as ht
-from hetu_tpu_torch.examples import cnn_main
+from hetu_tpu_torch.examples import (cnn_main, ctr_main, rec_main,
+                                     transformer_main)
 from hetu_tpu_torch.models.gpt import (GPTConfig, GPTLMHeadModel,
                                        gpt_serving_params, init_kv_cache,
                                        random_gpt_checkpoint)
@@ -40,6 +41,14 @@ def test_imports_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch.metrics, hetu_tpu_torch.models.cnn\n"
         "import hetu_tpu_torch.ops.conv\n"
         "import hetu_tpu_torch.examples.cnn_main\n"
+        "import hetu_tpu_torch.models.ctr, hetu_tpu_torch.models.ncf\n"
+        "import hetu_tpu_torch.models.transformer\n"
+        "import hetu_tpu_torch.ops.basic, hetu_tpu_torch.ops.shape\n"
+        "import hetu_tpu_torch.ops.losses, hetu_tpu_torch.ops.activations\n"
+        "import hetu_tpu_torch.examples.ctr_main\n"
+        "import hetu_tpu_torch.examples.rec_main\n"
+        "import hetu_tpu_torch.examples.movielens\n"
+        "import hetu_tpu_torch.examples.transformer_main\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n")
@@ -64,8 +73,12 @@ def _cnn_executor():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "params", "cache",
                                    "engine", "kv_cache", "session",
-                                   "decoder", "cnn_executor", "cnn_main"])
-def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
+                                   "decoder", "cnn_executor", "cnn_main",
+                                   "ctr_main", "rec_main",
+                                   "transformer_main"])
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch, tmp_path,
+                                                      entry):
+    monkeypatch.setenv("HETU_DATA_DIR", str(tmp_path))
     _cuda_absent(monkeypatch)
     cfg = GPTConfig(**CFG)
     ckpt = random_gpt_checkpoint(cfg, seed=0)
@@ -83,6 +96,15 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, entry):
         "cnn_main": lambda: cnn_main.run(cnn_main.parse_args(
             ["--model", "logreg", "--dataset", "DIGITS",
              "--num-epochs", "1"])),
+        "ctr_main": lambda: ctr_main.worker(ctr_main.parse_args(
+            ["--dim", "1000", "--nsamples", "1280", "--nepoch", "1"])),
+        "rec_main": lambda: rec_main.worker(rec_main.parse_args(
+            ["--nepoch", "1"])),
+        "transformer_main": lambda: transformer_main.main(
+            transformer_main.parse_args(
+                ["--nepoch", "1", "--num-blocks", "1", "--d-model", "16",
+                 "--d-ff", "16", "--num-heads", "2", "--vocab-size", "20",
+                 "--maxlen", "4", "--nsamples", "64"])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
