@@ -19,7 +19,9 @@ through the port's ``examples/cnn_main.py``; the CTR models and NCF
 trained on bench.py's traffic with their tables on the card, NCF to
 retrieval accuracy through ``examples/rec_main.py``; the seq2seq
 Transformer-base trained in f32, and to the reversal bar through
-``examples/transformer_main.py`` — checks every kernel
+``examples/transformer_main.py``; GCN and GraphSAGE trained full-batch
+on an OGB-arxiv-sized graph, through ``examples/gcn_main.py``, and on
+sampled subgraphs through ``examples/sampled_sage.py`` — checks every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -88,6 +90,26 @@ object per line (``--out`` also writes them to FILE):
   parity at dropout 0 (B=4) of the card against the CPU;
 * ``transformer_reverse`` ``transformer_main.main()``'s reversal-task
   loss (below the JAX package's 5.0) and its tokens/s;
+* ``gcn``, ``graphsage`` full-batch training at OGB-arxiv scale
+  (bench.py's graph: 169,343 nodes, 1,354,709 entries, features 128,
+  hidden 256, 40 classes; SGD 0.1, f32, the graph pinned on the card):
+  epoch ms p50, epochs/s, MFU (the GEMMs' 3 x forward FLOPs and 2 x nnz x
+  F for every SpMM, against the f32 peak), the losses, peak memory, the
+  host's queueing time against the device's span of an epoch (CUDA
+  events), one profiled epoch (idle share, device time by kernel
+  category and by op type and op category, the sparse one among them),
+  the host time of one epoch by op type, K1-K4 launches (none), and the
+  step-1 parity of the card against the CPU from the card's initial
+  values;
+* ``spmm`` one csrmm at [169343 x 169343] . [169343 x 256]: the
+  formulation in use (gather + scale + sorted segment-sum) against
+  cuSPARSE's CSR SpMM on the same inputs, device ms of each (and of the
+  gather alone, and of the product summed by ``index_add_``);
+* ``gcn_example`` ``gcn_main.run()`` at the reference example's graph:
+  each epoch's loss and accuracy against the JAX package's CPU run;
+* ``gnn_sampled`` ``sampled_sage.main()`` (a sampled subgraph through
+  ``GNNDataLoaderOp`` every step): the loss (below the JAX package's
+  0.5), seed nodes/s and steps/s;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -316,6 +338,68 @@ TRANSFORMER_REVERSE_ARGS = ("--nepoch", "2", "--num-blocks", "2",
                             "--dropout", "0.0", "--timing")
 TRANSFORMER_MAX_LOSS = 5.0
 
+# the GNN passes: bench.py:1030-1079's graph (gcn_arxiv_epoch_time) —
+# 169,343 nodes, 7 random out-edges a node from RandomState(0), self
+# loops, symmetric normalization (1,354,709 entries) —, 128 features,
+# hidden 256, 40 classes, the mask all ones; the builders' SGD at 0.1, in
+# f32; the feeds put on the card once; GNN_WARMUP then GNN_EPOCHS timed
+# full-graph epochs, each ending in the loss's readback
+GNN_NODES, GNN_DEGREE = 169_343, 7
+GNN_FEATURES, GNN_HIDDEN, GNN_CLASSES = 128, 256, 40
+GNN_WARMUP, GNN_EPOCHS = 3, 20
+GNN_PASSES = ("gcn", "graphsage")
+# step-1 parity, card against the port's CPU path from the card's initial
+# values: every ReLU's input within GNN_PRE_TOL of its largest element,
+# the loss within GNN_LOSS_TOL relative, every parameter's gradient
+# within GNN_GRAD_TOL of its largest element. The segment sums add a
+# row's entries in a fixed order on both; the GEMMs round apart, by
+# ~1e-6 of a ReLU input. Among GraphSAGE's 43 million second-layer ReLU
+# inputs a few lie within that of 0 (three, at |x| <= 1.5e-7, on an
+# H100), and one ReLU decided the other way moves a weight's gradient
+# by ~1e-3 of its largest element. So the CPU twin takes its ReLU
+# decisions from the card's inputs, and the line reports how many
+# differ and the largest |x| among them
+GNN_PRE_TOL = 1e-5
+GNN_LOSS_TOL = 1e-5
+GNN_GRAD_TOL = 1e-4
+# device time of the profiled epoch by op type, summed into these
+# categories (the first prefix that matches; else "elementwise / other")
+GNN_OP_CATEGORIES = (
+    ("sparse (SpMM / gather / segment)", ("Csrmm", "Csrmv")),
+    ("gemm", ("MatMul",)), ("optimizer", ("Optimizer",)),
+    ("loss", ("SoftmaxCrossEntropy",)),
+)
+# gcn_main.run at the reference example's graph and widths
+# (examples/gnn/train_hetu_gcn.py:95-106: 169,343 nodes, 128 features, 40
+# classes, hidden 256, 10 epochs) and learning rate 10: at its default
+# 0.01 the loss moves by 1e-4 in 10 epochs. No rate in {0.5, 1, 2, 5, 10,
+# 20, 50, 100, 200, 500} makes it fall by 1% in 10 epochs: it starts
+# 0.32% above chance, ln(40) = 3.68888; 10 is the lowest of them at which
+# it falls monotonically below chance (accuracy 0.0245 -> 0.0273). The
+# expected values are the JAX package's CPU run of the same example,
+# each epoch's mean loss and accuracy, printed by
+#   JAX_PLATFORMS=cpu python tests/test_torch_gnn_example.py \
+#       --learning-rate 10
+# and held to GCN_EXAMPLE_LOSS_TOL relative and GCN_EXAMPLE_ACC_TOL
+GCN_EXAMPLE_ARGS = ("--learning-rate", "10", "--timing")
+GCN_EXAMPLE_LOSSES = (
+    3.7006664276123047, 3.693124532699585, 3.690143346786499,
+    3.6896440982818604, 3.689391613006592, 3.6892056465148926,
+    3.689042806625366, 3.6888973712921143, 3.6887612342834473,
+    3.688631772994995)
+GCN_EXAMPLE_ACCS = (
+    0.024459233626426838, 0.025055656271590794, 0.025102897669227544,
+    0.02574065653732366, 0.025805613459074186, 0.02639613092953355,
+    0.02668548449005864, 0.026856734556491853, 0.027069320845857225,
+    0.02732324335815475)
+GCN_EXAMPLE_LOSS_TOL = 1e-5
+GCN_EXAMPLE_ACC_TOL = 1e-3
+# sampled_sage.main at tests/test_gnn_sampled.py:19-22's settings, held to
+# its bar
+GNN_SAMPLED_ARGS = ("--num-epoch", "4", "--nodes", "1200", "--batch-seeds",
+                    "32", "--timing")
+GNN_SAMPLED_MAX_LOSS = 0.5
+
 # the main-path shape of each kernel: K1 the serving path's longest
 # prefill (one 1024-token bucket) and the BERT-base step's; K2-K4 the
 # GPT training step's and the BERT-small S=2048 step's. ``mask``: None,
@@ -339,6 +423,7 @@ K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
+    ("sparse (SpMM / segment)", ("segment_reduce", "spmm", "csrmm")),
     ("convolution (cuDNN)", ("fprop", "dgrad", "wgrad", "convolve",
                              "winograd", "cudnn", "fft2d")),
     ("pooling", ("pool",)),
@@ -1849,6 +1934,372 @@ def transformer_reverse(torch, card):
             "wall_s": wall_s, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# the GNNs: GCN and GraphSAGE at OGB-arxiv scale, and the two examples
+# ---------------------------------------------------------------------------
+
+def gnn_graph():
+    """bench.py:1030-1079's graph and feeds: (normalized adjacency as a
+    scipy CSR, features, one-hot labels, mask), all from RandomState(0)."""
+    import scipy.sparse as sp
+    n = GNN_NODES
+    rng = np.random.RandomState(0)
+    rows = np.repeat(np.arange(n), GNN_DEGREE)
+    cols = rng.randint(0, n, n * GNN_DEGREE)
+    m = sp.coo_matrix((np.ones(n * GNN_DEGREE, np.float32), (rows, cols)),
+                      shape=(n, n)).tocsr()
+    m = m + sp.eye(n, format="csr", dtype=np.float32)
+    dinv = sp.diags(1.0 / np.sqrt(np.asarray(m.sum(1)).ravel()))
+    adj = (dinv @ m @ dinv).tocsr()
+    feat = rng.randn(n, GNN_FEATURES).astype(np.float32)
+    y = np.eye(GNN_CLASSES, dtype=np.float32)[
+        rng.randint(0, GNN_CLASSES, n)]
+    return adj, feat, y, np.ones(n, np.float32)
+
+
+def _gnn_graph(ht, builder):
+    """The pass's graph: (feed nodes, the mean loss, the train op, the
+    input of each ReLU)."""
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops.activations import ReluOp
+    nodes = [ht.Variable(name, trainable=False)
+             for name in ("feat", "y_", "mask_", "norm_adj")]
+    loss, _, train_op = getattr(ht.models, builder)(
+        *nodes, GNN_FEATURES, GNN_HIDDEN, GNN_CLASSES)
+    loss = ht.reduce_mean_op(loss, [0])
+    pre = [n.inputs[0] for n in find_topo_sort([loss])
+           if isinstance(n, ReluOp)]
+    return nodes, loss, train_op, pre
+
+
+def _gnn_feeds(ht, graph, device):
+    """The graph's feeds on ``device``: tensors and a CSRValue."""
+    import torch
+    from hetu_tpu_torch.ndarray import CSRValue
+    adj, feat, y, mask = graph
+    sp_adj = ht.ND_Sparse_Array(
+        adj.data.astype(np.float32), adj.indptr.astype(np.int32),
+        adj.indices.astype(np.int32), nrow=adj.shape[0], ncol=adj.shape[1])
+    return [torch.from_numpy(a).to(device) for a in (feat, y, mask)] + [
+        CSRValue.from_sparse_array(sp_adj, device)]
+
+
+def _gnn_step1(exe, subgraph, nodes, feeds, train_op, pre):
+    """Step 1 of ``subgraph`` (fetching [loss, every gradient, every
+    ReLU input, train op]): the loss, each parameter's gradient by name
+    and the ReLU inputs."""
+    out = exe.run(subgraph, feed_dict=dict(zip(nodes, feeds)))
+    grads = out[1:len(train_op.inputs) + 1]
+    return {"loss": float(out[0].asnumpy()),
+            "grads": {p.name: g.asnumpy() for p, g in zip(
+                train_op.optimizer.params, grads)},
+            "pre": [v.asnumpy() for v in out[len(grads) + 1:-1]]}
+
+
+def _relu_by_mask(node, mask):
+    """``node`` (a ReLU or its gradient op) computing with the ReLU
+    decisions ``mask`` in place of its own input's signs."""
+    from hetu_tpu_torch.ops.activations import ReluOp
+
+    def compute(input_vals, ectx):
+        if isinstance(node, ReluOp):
+            return input_vals[0] * mask
+        return input_vals[1] * mask
+    node.compute = compute
+
+
+def gnn_parity(torch, builder, card_step, initial, graph):
+    """Step 1 on the port's CPU path from the card's initial values
+    (``initial``: name -> array), its ReLUs deciding as the card's did,
+    against ``card_step``: each ReLU input within GNN_PRE_TOL of its
+    largest element, the loss within GNN_LOSS_TOL relative, each
+    gradient within GNN_GRAD_TOL of its largest element; the ReLU inputs
+    whose sign differs are counted."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops.activations import ReluGradientOp, ReluOp
+    from hetu_tpu_torch.ops.variable import PlaceholderOp
+    nodes, loss, train_op, pre = _gnn_graph(ht, builder)
+    masks = {node: torch.from_numpy(p > 0)
+             for node, p in zip(pre, card_step["pre"])}
+    for node in find_topo_sort([train_op]):
+        if isinstance(node, PlaceholderOp) and node.name in initial:
+            node.initializer = None
+            node.tensor_value = initial[node.name]
+        elif isinstance(node, (ReluOp, ReluGradientOp)):
+            _relu_by_mask(node, masks[node.inputs[0]])
+    exe = ht.Executor([loss, *train_op.inputs, *pre, train_op],
+                      device="cpu")
+    cpu = _gnn_step1(exe, "default", nodes, _gnn_feeds(ht, graph, "cpu"),
+                     train_op, pre)
+    flips = [(got > 0) != (want > 0)
+             for got, want in zip(card_step["pre"], cpu["pre"])]
+    parity = {"reference": "cpu float32, the card's ReLU decisions",
+              "pre_rel_err": [_rel(got, want) for got, want in zip(
+                  card_step["pre"], cpu["pre"])],
+              "relu_flips": [int(f.sum()) for f in flips],
+              "relu_flip_max_abs_input": max(
+                  (float(np.abs(want[f]).max()) for f, want in
+                   zip(flips, cpu["pre"]) if f.any()), default=0.0),
+              "loss_cuda": card_step["loss"], "loss_cpu": cpu["loss"],
+              "loss_rel_err": abs(card_step["loss"] - cpu["loss"])
+              / abs(cpu["loss"]),
+              "grad_rel_err": {name: _rel(card_step["grads"][name], g)
+                               for name, g in cpu["grads"].items()},
+              "pre_tol": GNN_PRE_TOL, "loss_tol": GNN_LOSS_TOL,
+              "grad_tol": GNN_GRAD_TOL}
+    if max(parity["pre_rel_err"]) > GNN_PRE_TOL \
+            or parity["loss_rel_err"] > GNN_LOSS_TOL \
+            or max(parity["grad_rel_err"].values()) > GNN_GRAD_TOL:
+        raise AssertionError(f"{builder} step-1 parity, card against the "
+                             f"CPU, failed: {parity}")
+    return parity
+
+
+def _gnn_flops(sub, loss, nnz):
+    """(GEMM FLOPs: 3 x the forward's matmuls, SpMM FLOPs: 2 x entries x
+    columns of every csrmm the step runs, forward and backward)."""
+    from hetu_tpu_torch.ops.sparse import CsrmmOp
+    spmm = sum(2 * nnz * node.inferred_shape[1] for node in sub.topo_order
+               if isinstance(node, CsrmmOp))
+    return 3 * cnn_forward_flops(loss), spmm
+
+
+def event_epochs(torch, run, n=5):
+    """Medians over ``n`` calls of ``run`` (a step that returns its
+    outputs, read back after): the host time to queue the step
+    (``queue_ms``), the device's time from the step's first queued work
+    to its last (``device_span_ms``, two CUDA events) and the wall time
+    to the readback (``wall_ms``). Where the host queues the step in a
+    fraction of the span, the device runs it without waiting on the
+    host."""
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = run()
+        t1 = time.perf_counter()
+        end.record()
+        out[0].asnumpy()
+        rows.append(((t1 - t0) * 1e3, start.elapsed_time(end),
+                     (time.perf_counter() - t0) * 1e3))
+    queue, span, wall = (float(np.median(col)) for col in zip(*rows))
+    return {"queue_ms": queue, "device_span_ms": span, "wall_ms": wall}
+
+
+def _gnn_category(op_type):
+    return next((c for c, prefixes in GNN_OP_CATEGORIES
+                 if op_type.startswith(prefixes)), "elementwise / other")
+
+
+def gnn_pass(torch, builder, card, graph):
+    """One pass of GNN_PASSES on the card: step 1 with the card's initial
+    values kept for the parity, then the main path — GNN_WARMUP +
+    GNN_EPOCHS full-graph epochs over feeds pinned on the card, the
+    launch counts set to 0 just before and read just after (no flash
+    kernel may launch) —, five timed by CUDA events (event_epochs), one
+    profiled epoch (idle share, device time by kernel category), one with
+    a range per op (device time by op type and op category, the sparse
+    one among them), one with each op's host time, and last the CPU
+    twin's step 1 (gnn_parity)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    nodes, loss, train_op, pre = _gnn_graph(ht, builder)
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    exe = ht.Executor({"step1": [loss, *train_op.inputs, *pre, train_op],
+                       "train": [loss, train_op]})
+    feeds = _gnn_feeds(ht, graph, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    initial = {exe._param_nodes[sid].name: t.cpu().numpy()
+               for sid, t in exe.params.items()}
+    card_step = _gnn_step1(exe, "step1", nodes, feeds, train_op, pre)
+    feed_dict = dict(zip(nodes, feeds))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, epoch_ms = [], []
+    for _ in range(GNN_WARMUP + GNN_EPOCHS):
+        t0 = time.perf_counter()
+        losses.append(float(exe.run("train", feed_dict=feed_dict)[0]
+                            .asnumpy()))
+        epoch_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    peak = torch.cuda.max_memory_allocated() - base
+    if not np.all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{builder} loss not finite and falling: "
+                             f"{losses}")
+    if any(launches.values()):
+        raise AssertionError(f"{builder} launched flash kernels: "
+                             f"{launches}")
+    timed = epoch_ms[GNN_WARMUP:]
+    p50 = float(np.median(timed))
+    sub = exe.subexecutors["train"]
+    gemm_flops, spmm_flops = _gnn_flops(sub, loss, int(graph[0].nnz))
+    flops = gemm_flops + spmm_flops
+
+    def epoch():
+        return exe.run("train", feed_dict=feed_dict)[0].asnumpy()
+    events = event_epochs(torch, lambda: exe.run("train",
+                                                 feed_dict=feed_dict))
+    profile = profile_window(torch, epoch)
+    by_op_type = profile_window(torch, epoch, sub.topo_order)[
+        "device_ms_by_op_type"]
+    by_cat = {}
+    for op_type, v in by_op_type.items():
+        cat = _gnn_category(op_type)
+        by_cat[cat] = by_cat.get(cat, 0.0) + v["ms"]
+    profile["device_ms_by_op_type"] = by_op_type
+    profile["device_ms_by_op_category"] = dict(
+        sorted(by_cat.items(), key=lambda x: -x[1]))
+    host = host_ms_by_op(torch, exe, feed_dict, "train")
+    n_params = sum(int(v.numel()) for v in exe.params.values())
+    del exe, feeds, feed_dict
+    torch.cuda.empty_cache()
+    adj = graph[0]
+    return {"card": card, "model": builder, "nodes": int(adj.shape[0]),
+            "nnz": int(adj.nnz), "features": GNN_FEATURES,
+            "hidden": GNN_HIDDEN, "classes": GNN_CLASSES,
+            "params": n_params, "dtype": "float32", "optimizer": "SGD",
+            "lr": float(train_op.optimizer.learning_rate),
+            "spmm": "gather + scale + sorted segment-sum "
+                    "(torch.segment_reduce over the row pointer)",
+            "executor_setup_s": setup_s, "warmup_epochs": GNN_WARMUP,
+            "timed_epochs": GNN_EPOCHS, "epoch_ms_p50": p50,
+            "epochs_per_s": len(timed) / (sum(timed) / 1e3),
+            "epoch_ms": epoch_ms, "gemm_flops": gemm_flops,
+            "spmm_flops": spmm_flops,
+            "mfu": flops / (p50 / 1e3) / PEAK_FLOPS["float32"],
+            "losses": losses, "launches": launches,
+            "peak_memory_bytes": int(peak), "events": events,
+            "parity": gnn_parity(torch, builder, card_step, initial, graph),
+            "profile": profile, "host": host}
+
+
+def spmm_compare(torch, card, graph):
+    """csrmm at [169343 x 169343] . [169343 x 256] on the card, the
+    formulation in use (gather + scale + sorted segment-sum) against
+    cuSPARSE's CSR SpMM (``torch.sparse_csr_tensor @ dense``) on the
+    same inputs: device ms of each (device_ms), the time of a call with
+    its host part (median_ms), their largest difference, and the bound
+    (entries, row pointer and the dense operand read once, the output
+    written once; 2 x nnz x F FLOPs)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import sparse
+    adj = graph[0]
+    n, nnz, f = adj.shape[0], int(adj.nnz), GNN_HIDDEN
+    value = _gnn_feeds(ht, graph, "cuda")[3]
+    dense = torch.randn(n, f, generator=torch.Generator("cuda")
+                        .manual_seed(0), device="cuda")
+    csr = torch.sparse_csr_tensor(value.indptr, value.indices, value.data,
+                                  size=(n, n))
+
+    def in_use():
+        return sparse._csr_product(value, dense, False)
+
+    def cusparse():
+        return csr @ dense
+
+    def gather():
+        return dense.index_select(0, value.indices)
+
+    def gather_index_add():
+        rows = gather().mul_(value.data[:, None])
+        return torch.zeros_like(dense).index_add_(0, value.row_ids, rows)
+    err = float((in_use() - cusparse()).abs().max())
+    nbytes = nnz * 8 + (n + 1) * 4 + 2 * n * f * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * nnz * f / PEAK_FLOPS["float32"]
+    line = {"card": card, "shape": [n, n, f], "nnz": nnz,
+            "in_use": "gather + scale + sorted segment-sum",
+            "other": "cuSPARSE CSR SpMM (torch.sparse_csr_tensor @ dense)",
+            "device_ms": device_ms(torch, in_use, "spmm segment"),
+            "other_device_ms": device_ms(torch, cusparse, "spmm cusparse"),
+            "ms": median_ms(torch, in_use),
+            "other_ms": median_ms(torch, cusparse),
+            # the formulation's gather alone, and the same product summed
+            # by index_add_ (atomics, no fixed order) in place of the
+            # sorted segment-sum
+            "gather_device_ms": device_ms(torch, gather, "spmm gather"),
+            "index_add_device_ms": device_ms(torch, gather_index_add,
+                                             "spmm index_add"),
+            "max_abs_diff": err,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    del value, dense, csr
+    torch.cuda.empty_cache()
+    return line
+
+
+def gcn_example(torch, card):
+    """The port's gcn_main.run with GCN_EXAMPLE_ARGS on the card at the
+    reference example's graph: each epoch's loss and accuracy held to the
+    JAX package's CPU run (GCN_EXAMPLE_LOSSES, GCN_EXAMPLE_ACCS), no
+    flash kernel launched."""
+    from hetu_tpu_torch.examples import gcn_main
+    from hetu_tpu_torch.ops import _build
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    results = gcn_main.run(gcn_main.parse_args(list(GCN_EXAMPLE_ARGS)))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    loss_err = [abs(g - w) / abs(w) for g, w in zip(results["losses"],
+                                                   GCN_EXAMPLE_LOSSES)]
+    acc_err = [abs(g - w) for g, w in zip(results["accs"],
+                                          GCN_EXAMPLE_ACCS)]
+    line = {"card": card, "args": " ".join(GCN_EXAMPLE_ARGS),
+            "losses": results["losses"], "accs": results["accs"],
+            "loss_rel_err_max": max(loss_err), "acc_err_max": max(acc_err),
+            "loss_tol": GCN_EXAMPLE_LOSS_TOL, "acc_tol": GCN_EXAMPLE_ACC_TOL,
+            "epoch_ms": [t * 1e3 for t in results["epoch_times"]],
+            "wall_s": wall_s, "launches": launches}
+    if len(results["losses"]) != len(GCN_EXAMPLE_LOSSES) \
+            or max(loss_err) > GCN_EXAMPLE_LOSS_TOL \
+            or max(acc_err) > GCN_EXAMPLE_ACC_TOL:
+        raise AssertionError(f"gcn_example against the JAX package's CPU "
+                             f"run failed: {line}")
+    if any(launches.values()):
+        raise AssertionError(f"gcn_example launched flash kernels: "
+                             f"{launches}")
+    return line
+
+
+def gnn_sampled(torch, card):
+    """The port's sampled_sage.main with GNN_SAMPLED_ARGS on the card: a
+    fresh sampled subgraph fed through GNNDataLoaderOp every step, the
+    last epoch's loss below the JAX package's bar, no flash kernel
+    launched."""
+    from hetu_tpu_torch.examples import sampled_sage
+    from hetu_tpu_torch.ops import _build
+    args = sampled_sage.parse_args(list(GNN_SAMPLED_ARGS))
+    steps = args.nodes // args.batch_seeds
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    results = sampled_sage.main(args)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    if not results["loss"] < GNN_SAMPLED_MAX_LOSS:
+        raise AssertionError(f"gnn_sampled loss {results['loss']} >= "
+                             f"{GNN_SAMPLED_MAX_LOSS}: {results}")
+    if any(launches.values()):
+        raise AssertionError(f"gnn_sampled launched flash kernels: "
+                             f"{launches}")
+    last = results["epoch_times"][-1]
+    return {"card": card, "args": " ".join(GNN_SAMPLED_ARGS),
+            "loss": results["loss"], "losses": results["losses"],
+            "max_loss": GNN_SAMPLED_MAX_LOSS,
+            "seed_nodes_per_s": results["nodes_per_sec"],
+            "steps_per_epoch": steps, "steps_per_s": steps / last,
+            "epoch_s": results["epoch_times"], "wall_s": wall_s,
+            "launches": launches}
+
+
 def crossover(torch, seed):
     """Per sequence length (B*H = 96, D=64, bf16, causal), and at
     BERT-base's shape (B=64 H=12 S=128, non-causal, BERT's padding mask):
@@ -2590,6 +3041,29 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
+    graph = gnn_graph()
+    log(f"gnn graph ({time.perf_counter() - t:.1f} s): {graph[0].shape[0]} "
+        f"nodes, {graph[0].nnz} entries")
+    gnn_lines = {}
+    for name in GNN_PASSES:
+        t = time.perf_counter()
+        gnn_lines[name] = gnn_pass(torch, name, card, graph)
+        log(f"{name} ({time.perf_counter() - t:.1f} s) {gnn_lines[name]}")
+    t = time.perf_counter()
+    gnn_lines["spmm"] = spmm_compare(torch, card, graph)
+    log(f"spmm ({time.perf_counter() - t:.1f} s) {gnn_lines['spmm']}")
+    del graph
+    t = time.perf_counter()
+    gnn_lines["gcn_example"] = gcn_example(torch, card)
+    log(f"gcn_example ({time.perf_counter() - t:.1f} s) "
+        f"{gnn_lines['gcn_example']}")
+    t = time.perf_counter()
+    gnn_lines["gnn_sampled"] = gnn_sampled(torch, card)
+    log(f"gnn_sampled ({time.perf_counter() - t:.1f} s) "
+        f"{gnn_lines['gnn_sampled']}")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
     faults = check_catches_faults(torch, args.seed)
@@ -2646,6 +3120,7 @@ def main(argv=None):
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},
              {"transformer": transformer_line},
              {"transformer_reverse": reverse_line},
+             *({name: line} for name, line in gnn_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

@@ -20,6 +20,13 @@ What runs today:
   Transformer, trained through ``Executor.run`` / ``run_batches`` with
   their embedding tables on the device (``examples/ctr_main.py``,
   ``rec_main.py``, ``transformer_main.py``);
+* GCN and GraphSAGE (``models.gnn``) over CSR graph feeds
+  (``ND_Sparse_Array`` / ``CSRValue``, ``csrmm_op`` / ``csrmv_op``):
+  full-batch with the graph pinned on the device
+  (``examples/gcn_main.py``) and minibatch over sampled subgraphs fed
+  through ``GNNDataLoaderOp`` (``examples/sampled_sage.py``); the
+  step, multi-step, exponential and plateau schedules (``ht.lr``),
+  AdamW, and ``ht.stream``'s streams and events;
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.
@@ -30,16 +37,18 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 kernel's plain PyTorch version runs instead — that is what the tests
 use.
 """
-from . import data, metrics, models
+from . import data, metrics, models, stream
 from . import initializers as init
 from . import lr_scheduler as lr
 from . import optimizer as optim
 from .context import DeviceGroup, context, get_current_context
-from .dataloader import Dataloader, DataloaderOp, dataloader_op
+from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
+                         dataloader_op)
 from .device import resolve_device
 from .executor import Executor, HetuConfig, SubExecutor, gradients
 from .graph.node import Op
-from .ndarray import DLContext, IndexedSlices, NDArray, cpu, gpu
+from .ndarray import (DLContext, IndexedSlices, ND_Sparse_Array, NDArray,
+                      array, cpu, empty, gpu, sparse_array)
 from .ops import *                                        # noqa: F401,F403
 from .ops import __all__ as _ops_all
 
@@ -47,4 +56,6 @@ __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
            "cpu", "gpu", "DeviceGroup", "context", "get_current_context",
            "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
            "optim", "init", "lr", "data", "metrics", "models",
-           "Dataloader", "DataloaderOp", "dataloader_op", *_ops_all]
+           "Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp",
+           "ND_Sparse_Array", "sparse_array", "array", "empty", "stream",
+           *_ops_all]

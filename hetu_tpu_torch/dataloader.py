@@ -9,8 +9,12 @@ once per run of a subgraph and counts a subgraph's batches as the
 fewest its dataloaders give (``Executor.get_batch_num``).
 
 Arrays are cast once: integers to int32 where their values fit and to
-int64 where they do not, everything else to float32. The graph of a
-multi-graph loader (``GNNDataLoaderOp``) comes with ``models/gnn.py``.
+int64 where they do not, everything else to float32.
+
+A :class:`GNNDataLoaderOp` feeds one part of a sampled subgraph: every
+such op reads the graph that ``GNNDataLoaderOp.step`` made current, and
+``step`` also stages the next one, so a trainer samples the next
+subgraph while the current one trains. It has no batches to count.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import numpy as np
 
 from .graph.node import Op
 
-__all__ = ["Dataloader", "DataloaderOp", "dataloader_op"]
+__all__ = ["Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp"]
 
 
 class Dataloader:
@@ -115,6 +119,48 @@ class DataloaderOp(Op):
 
     def infer_shape(self, input_shapes):
         raise AssertionError("a dataloader's shape is its batch's")
+
+
+class GNNDataLoaderOp(Op):
+    """A graph leaf fed with ``handler(graph)`` of the current graph
+    (reference dataloader.py:170-217). ``graph`` and ``nxt_graph`` are
+    the class's, shared by every instance: ``step(g)`` makes the staged
+    graph current and stages ``g``. The executor reads the current graph
+    once per run, never ahead of it."""
+
+    graph = None
+    nxt_graph = None
+
+    def __init__(self, handler, ctx=None):
+        super().__init__(GNNDataLoaderOp, [], ctx)
+        self.handler = handler
+        self.name = "GNNDataloaderOp%d" % self.id
+
+    def get_batch_num(self, name):
+        return None
+
+    def get_arr(self, name):
+        return self.handler(self.graph)
+
+    def get_next_arr(self, name):
+        return self.handler(self.nxt_graph)
+
+    def get_cur_shape(self, name):
+        return tuple(self.handler(self.nxt_graph).shape)
+
+    @classmethod
+    def step(cls, graph):
+        cls.graph = cls.nxt_graph
+        cls.nxt_graph = graph
+
+    def compute(self, input_vals, ectx):
+        raise AssertionError("dataloader values are fed by the executor")
+
+    def gradient(self, output_grad):
+        return None
+
+    def infer_shape(self, input_shapes):
+        raise AssertionError("a graph loader's shape is its graph's")
 
 
 def dataloader_op(dataloaders):

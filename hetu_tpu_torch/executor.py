@@ -25,7 +25,13 @@ Op state (batch norm's running statistics) is one ``Executor.state``
 shared by every subgraph: created once shapes are known, updated by
 training steps, read by the others, which run their ops in inference
 mode (no optimizer in the subgraph). Dataloader ops give each run of a
-subgraph the next batch of the dataloader of its name.
+subgraph the next batch of the dataloader of its name; graph loader ops
+(``GNNDataLoaderOp``) the current sampled graph's part.
+
+A CSR feed (an ``ND_Sparse_Array``) becomes a ``CSRValue`` on the
+device at every run; a ``CSRValue`` already there, as a full-batch
+trainer pins its graph once, is used as it is. Its shape is (nrow,
+ncol).
 
 The PS and Hybrid modes, the dp/tp/pp meshes, ``run_batches_stream``,
 telemetry and the preflight analysis are still to port; ``HetuConfig``
@@ -43,11 +49,11 @@ import numpy as np
 import torch
 
 from .context import DeviceGroup, get_current_context
-from .dataloader import DataloaderOp
+from .dataloader import DataloaderOp, GNNDataLoaderOp
 from .device import resolve_device
 from .graph.autodiff import find_topo_sort, gradients
 from .graph.node import ExecContext
-from .ndarray import NDArray, cpu, gpu
+from .ndarray import CSRValue, ND_Sparse_Array, NDArray, cpu, gpu
 from .optimizer import OptimizerOp
 from .ops.variable import PlaceholderOp
 
@@ -132,11 +138,14 @@ class SubExecutor:
                            if isinstance(n, PlaceholderOp)
                            and n not in self.param_nodes]
         self.dataloader_ops = [n for n in self.topo_order
-                               if isinstance(n, DataloaderOp)]
+                               if isinstance(n, (DataloaderOp,
+                                                 GNNDataLoaderOp))]
         self.stateful_ops = [n for n in self.topo_order if n.stateful]
-        # batches an epoch: the fewest any of its dataloaders gives
+        # batches an epoch: the fewest any of its dataloaders gives (a
+        # graph loader has no count)
         self.batch_num = min((dl.get_batch_num(name)
-                              for dl in self.dataloader_ops), default=None)
+                              for dl in self.dataloader_ops
+                              if isinstance(dl, DataloaderOp)), default=None)
         self.step_count = 0
         self._shapes_key = None
         # the step index after which each value is dead: its last
@@ -188,6 +197,12 @@ class SubExecutor:
                     f"match the op's {shapes}")
 
     def _ingest(self, value):
+        # a CSR feed: made a CSRValue on the device each run, as the
+        # reference does; one already there (a pinned graph) as it is
+        if isinstance(value, ND_Sparse_Array):
+            return CSRValue.from_sparse_array(value, self.config.device)
+        if isinstance(value, CSRValue):
+            return value.to(self.config.device)
         if isinstance(value, NDArray):
             value = value.tensor
         if not isinstance(value, torch.Tensor):

@@ -2,14 +2,16 @@
 serving forward, the CNN/RNN zoo (``models/cnn.py``: logreg, mlp,
 cnn_3_layers, digits_cnn, lenet, alexnet, vgg16/19, resnet18/34, rnn,
 lstm), the CTR models (``models/ctr.py``: WDL, DeepFM, DCN, DC), NCF
-(``models/ncf.py``) and the seq2seq Transformer
-(``models/transformer.py``)."""
+(``models/ncf.py``), the seq2seq Transformer
+(``models/transformer.py``) and the GNNs (``models/gnn.py``: GCN,
+GraphSAGE)."""
 from .bert import (BertConfig, BertForMaskedLM, BertForNextSentencePrediction,
                    BertForPreTraining, BertForSequenceClassification,
                    BertLayerNorm, BertModel, Dropout, Embedding, Linear)
 from .cnn import (alexnet, cnn_3_layers, digits_cnn, lenet, logreg, lstm, mlp,
                   resnet18, resnet34, rnn, vgg16, vgg19)
 from .ctr import dc_criteo, dcn_criteo, deepfm_criteo, wdl_adult, wdl_criteo
+from .gnn import GCN, SageConv, gcn, gcn_layer, graphsage
 from .gpt import (GPTConfig, GPTLMHeadModel, GPTModel, gpt_cached_step,
                   gpt_paged_prefill, gpt_paged_step, gpt_paged_suffix_prefill,
                   gpt_param_names, gpt_prefill, gpt_serving_params,
@@ -29,4 +31,5 @@ __all__ = ["BertConfig", "BertModel", "BertForPreTraining",
            "logreg", "mlp", "cnn_3_layers", "digits_cnn", "lenet", "alexnet",
            "vgg16", "vgg19", "resnet18", "resnet34", "rnn", "lstm",
            "wdl_criteo", "wdl_adult", "deepfm_criteo", "dcn_criteo",
-           "dc_criteo", "neural_mf", "Transformer", "TransformerConfig"]
+           "dc_criteo", "neural_mf", "Transformer", "TransformerConfig",
+           "GCN", "SageConv", "gcn_layer", "gcn", "graphsage"]

@@ -1,5 +1,6 @@
-"""The port's ops: graph-op builders (reference-named ``*_op``) and the
-attention kernels' wrappers (``flash_attention``, ``_build``)."""
+"""The port's ops: graph-op builders (reference-named ``*_op``, the CSR
+products of ``sparse.py`` among them) and the attention kernels'
+wrappers (``flash_attention``, ``_build``)."""
 from .activations import (dropout2d_gradient_op, dropout2d_op,
                           dropout_gradient_op, dropout_op, gelu_gradient_op,
                           gelu_op, leaky_relu_gradient_op, leaky_relu_op,
@@ -43,6 +44,7 @@ from .shape import (array_reshape_gradient_op, array_reshape_op,
                     reducesumaxiszero_op, slice_gradient_op, slice_op,
                     split_gradient_op, split_op, squeeze_op, transpose_op,
                     unbroadcast_op, unsqueeze_op, zeroslike_op)
+from .sparse import csrmm_op, csrmv_op, distgcn_15d_op
 from .variable import PlaceholderOp, Variable, placeholder_op
 
 __all__ = [
@@ -83,4 +85,5 @@ __all__ = [
     "softmaxcrossentropy_sparse_gradient_op", "binarycrossentropy_op",
     "binarycrossentropy_gradient_op", "crossentropy_op",
     "flash_attention_op", "FlashAttentionOp",
+    "csrmm_op", "csrmv_op", "distgcn_15d_op",
 ]

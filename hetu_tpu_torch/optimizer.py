@@ -2,7 +2,7 @@
 
 Counterpart of ``hetu_tpu/optimizer.py`` (reference parity:
 python/hetu/optimizer.py): SGD, Momentum (with Nesterov), AdaGrad and
-Adam (with amsgrad), the
+Adam (with amsgrad), AdamW, the
 ``l2reg`` / ``loss_scale`` handling every update path shares, and
 ``OptimizerOp``, which applies the optimizer to its gradient inputs
 inside a step. Sparse (IndexedSlices) gradients update only the rows
@@ -17,7 +17,7 @@ tensor: copying a table the size of Criteo's for a few hundred rows a
 step would move the whole table through memory twice. The reference's
 compiled step donates its parameters, so its scatter-add is in place
 too. AdaGrad on sparse
-gradients (its caller, the PS path, is not ported), AdamW, the health
+gradients (its caller, the PS path, is not ported), the health
 ``sentinel_stats`` and the PS / allreduce hooks are still to port.
 """
 from __future__ import annotations
@@ -32,7 +32,7 @@ from .ndarray import IndexedSlices
 from .ops.variable import PlaceholderOp
 
 __all__ = ["Optimizer", "OptimizerOp", "SGDOptimizer", "MomentumOptimizer",
-           "AdaGradOptimizer", "AdamOptimizer"]
+           "AdaGradOptimizer", "AdamOptimizer", "AdamWOptimizer"]
 
 
 class Optimizer:
@@ -231,6 +231,28 @@ class AdamOptimizer(Optimizer):
             vhat = torch.maximum(slots["vmax"], v)
             out["vmax"] = vhat
         return param - scale * m / (torch.sqrt(vhat) + self.epsilon), out
+
+
+class AdamWOptimizer(AdamOptimizer):
+    """Adam with decoupled weight decay: after Adam's update a dense
+    parameter also loses ``lr * weight_decay`` times its value before
+    the step; a sparse (IndexedSlices) gradient's rows get no decay, as
+    in the reference (optimizer.py:283-297)."""
+
+    name = "AdamW"
+
+    def __init__(self, learning_rate=0.01, beta1=0.9, beta2=0.999,
+                 epsilon=1e-7, weight_decay=0.01, l2reg=0,
+                 loss_scale=None):
+        super().__init__(learning_rate, beta1, beta2, epsilon, l2reg,
+                         loss_scale=loss_scale)
+        self.weight_decay = weight_decay
+
+    def update_one(self, param, grad, slots, lr, step):
+        new_param, out = super().update_one(param, grad, slots, lr, step)
+        if not isinstance(grad, IndexedSlices):
+            new_param = new_param - lr * self.weight_decay * param
+        return new_param, out
 
 
 class OptimizerOp(Op):

@@ -12,8 +12,10 @@ import torch
 from hetu_tpu_torch import resolve_device
 from hetu_tpu_torch import telemetry
 import hetu_tpu_torch as ht
-from hetu_tpu_torch.examples import (cnn_main, ctr_main, rec_main,
+from hetu_tpu_torch.examples import (cnn_main, ctr_main, gcn_main,
+                                     rec_main, sampled_sage,
                                      transformer_main)
+from hetu_tpu_torch.ndarray import CSRValue
 from hetu_tpu_torch.models.gpt import (GPTConfig, GPTLMHeadModel,
                                        gpt_serving_params, init_kv_cache,
                                        random_gpt_checkpoint)
@@ -49,6 +51,10 @@ def test_imports_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch.examples.rec_main\n"
         "import hetu_tpu_torch.examples.movielens\n"
         "import hetu_tpu_torch.examples.transformer_main\n"
+        "import hetu_tpu_torch.models.gnn, hetu_tpu_torch.ops.sparse\n"
+        "import hetu_tpu_torch.stream, hetu_tpu_torch.lr_scheduler\n"
+        "import hetu_tpu_torch.examples.gcn_main\n"
+        "import hetu_tpu_torch.examples.sampled_sage\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n")
@@ -75,7 +81,8 @@ def _cnn_executor():
                                    "engine", "kv_cache", "session",
                                    "decoder", "cnn_executor", "cnn_main",
                                    "ctr_main", "rec_main",
-                                   "transformer_main"])
+                                   "transformer_main", "csr_value",
+                                   "gcn_main", "sampled_sage"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, tmp_path,
                                                       entry):
     monkeypatch.setenv("HETU_DATA_DIR", str(tmp_path))
@@ -105,6 +112,12 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, tmp_path,
                 ["--nepoch", "1", "--num-blocks", "1", "--d-model", "16",
                  "--d-ff", "16", "--num-heads", "2", "--vocab-size", "20",
                  "--maxlen", "4", "--nsamples", "64"])),
+        "csr_value": lambda: CSRValue.from_sparse_array(ht.sparse_array(
+            [1.0], ([0], [1]), (2, 2))),
+        "gcn_main": lambda: gcn_main.run(gcn_main.parse_args(
+            ["--nodes", "50", "--num-epochs", "1"])),
+        "sampled_sage": lambda: sampled_sage.main(sampled_sage.parse_args(
+            ["--nodes", "100", "--num-epoch", "1"])),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
