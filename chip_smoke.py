@@ -21,7 +21,9 @@ retrieval accuracy through ``examples/rec_main.py``; the seq2seq
 Transformer-base trained in f32, and to the reversal bar through
 ``examples/transformer_main.py``; GCN and GraphSAGE trained full-batch
 on an OGB-arxiv-sized graph, through ``examples/gcn_main.py``, and on
-sampled subgraphs through ``examples/sampled_sage.py`` — checks every kernel
+sampled subgraphs through ``examples/sampled_sage.py``; WDL at Criteo
+widths trained in the PS and Hybrid modes against the port's parameter
+server, and served from it — checks every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -110,6 +112,26 @@ object per line (``--out`` also writes them to FILE):
 * ``gnn_sampled`` ``sampled_sage.main()`` (a sampled subgraph through
   ``GNNDataLoaderOp`` every step): the loss (below the JAX package's
   0.5), seed nodes/s and steps/s;
+* ``ps_wdl`` WDL at Criteo widths (a 1,000,000 x 128 table, bench.py's
+  zipf traffic, B=128) trained in the PS mode with the device cache
+  (cache_bound 100, bf16 drains, the dense weights on the unified HET
+  path) against the port's C++ parameter server on the host, one server
+  and one worker, in run_batches blocks of 100: samples/s, step ms p50,
+  phase_breakdown() in ms a step, the cache's hits, misses, evictions,
+  pushed and pulled rows, the host's time to queue a block against the
+  device's span of it (CUDA events), peak memory, the server's RSS
+  (idle, with the table registered, after training), K1-K4 launches
+  (none), and the parity of its first 200 steps against
+  a CPU twin on a server of its own (losses, and the server's rows
+  after drain());
+* ``ps_wdl_host`` the host path (no cache; ASP and BSP): samples/s and
+  the host_pull, sync_push and prefetch phases a step;
+* ``ps_serve`` the BSP-trained WDL's eval graph served from the server
+  through ``InferenceSession(comm_mode="PS")`` with an LRU row cache:
+  requests/s, latency p50, the cache's hit rate, and its predictions
+  against the same session over a dense table on the card;
+* ``hybrid_wdl`` comm_mode="Hybrid" with the device cache: samples/s,
+  step ms, phases, cache counters;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -131,6 +153,7 @@ CUDA device, or when ``hetu_tpu_torch`` is not beside it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import http.client
 import json
@@ -2867,6 +2890,438 @@ def serve_dense(torch, seed, card):
     return line, {"prefill": prefill_counts, "session": session_counts}
 
 
+# ---------------------------------------------------------------------------
+# PS and Hybrid (bench.py:400-590, :881-935): WDL at Criteo widths on a
+# 1,000,000 x 128 table held by the port's C++ parameter server on the
+# host, one server and one worker
+# ---------------------------------------------------------------------------
+
+PS_BLOCK = 100              # run_batches block; also cache_bound, the drain
+PS_PARITY_BLOCKS = 2        # blocks held against the CPU twin
+PS_TIMED_BLOCKS = 3
+PS_HOST_WARMUP = 10         # host path: run() steps before the timed ones
+PS_HOST_BLOCK = 20          # host path: steps a block of run_batches_stream
+PS_HOST_BLOCKS = 3
+PS_SERVE_REQUESTS = 50      # predict calls of CTR_BATCH rows
+PS_SERVE_CACHE_ROWS = 100_000
+PS_SERVE_CHECKED = 5        # requests held against the dense-table session
+PS_LOSS_TOL = 1e-5          # card losses against the CPU twin's, relative
+PS_ROW_TOL = 1e-4           # server rows after drain(), of the largest
+PS_SERVE_TOL = 1e-5         # PS session against the dense one, relative
+PS_ID_BASE = 1 << 40        # node ids of the twin graphs (ps_node_ids)
+
+
+@contextlib.contextmanager
+def ps_server():
+    """A fresh server of the port on localhost and the port's client on
+    it (set as the default client); yields (client, server process).
+    The server and the client's connection are gone afterwards."""
+    from hetu_tpu_torch.ps import client as ps_client
+    from hetu_tpu_torch.ps import server as ps_srv
+    port = ps_srv.pick_free_port()
+    try:
+        proc = ps_srv.ensure_server(port=port, nworkers=1, wait_s=120)
+        client = ps_client.PSClient(hosts="127.0.0.1", ports=str(port),
+                                    rank=0, nworkers=1)
+        ps_client.set_default_client(client)
+        try:
+            yield client, proc
+        finally:
+            client.shutdown_servers()
+            ps_client.close_default_client()
+    finally:
+        ps_srv.shutdown_server()
+
+
+@contextlib.contextmanager
+def ps_node_ids(base):
+    """Graph nodes numbered from ``base``: a server draws a table seeded
+    by its tensor id (the table's node id), so two builds of one graph
+    — the card's and its CPU twin — draw the same table only when their
+    nodes are numbered alike. The counter resumes afterwards."""
+    from hetu_tpu_torch.graph import node
+    saved, node.G_NODE_ID = node.G_NODE_ID, base
+    try:
+        yield
+    finally:
+        node.G_NODE_ID = saved
+
+
+def ps_wdl_graph(ht):
+    nodes = [ht.Variable(n, trainable=False)
+             for n in ("dense_input", "sparse_input", "y_")]
+    loss, y, _, train_op = ht.models.wdl_criteo(*nodes,
+                                                feature_dimension=CTR_ROWS)
+    return nodes, loss, y, train_op
+
+
+def _ps_block(nodes, traffic, i0, n):
+    return [dict(zip(nodes, traffic[(i0 + j) % SPARSE_CYCLE]))
+            for j in range(n)]
+
+
+def _step_losses(outs):
+    return [float(o[0].asnumpy().reshape(-1)[0]) for o in outs]
+
+
+def _rss_bytes(pid):
+    with open(f"/proc/{pid}/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGESIZE")
+
+
+def _phase_ms(rt, steps):
+    """PSRuntime.phase_breakdown() in ms a step, and the cache counters."""
+    times = rt.phase_breakdown()
+    perf = times.pop("cache_perf", {})
+    return {k: v * 1e3 / steps for k, v in times.items()}, perf
+
+
+def _block_events(torch, exe, feeds):
+    """One run_batches block timed by CUDA events: the host's time to
+    queue it (``queue_ms``) against the device's span from its first
+    queued work to its last (``device_span_ms``) and the wall time to
+    the last loss's readback."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    outs = exe.run_batches(feeds)
+    t1 = time.perf_counter()
+    end.record()
+    outs[-1][0].asnumpy()
+    return {"steps": len(feeds), "queue_ms": (t1 - t0) * 1e3,
+            "device_span_ms": start.elapsed_time(end),
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def _touched_rows(exe, client):
+    """(ids, server rows) of every id the device cache holds, read after
+    a drain()."""
+    rt = next(iter(exe.ps_runtime.device_tables.values()))
+    ids = np.sort(rt.id_of[rt.id_of >= 0])
+    return ids, client.sparse_pull(rt.tid, ids, rt.width)
+
+
+def ps_wdl_run(torch, card, traffic, client, proc):
+    """``ps_wdl``: bench.py:400-500's configuration on the card —
+    comm_mode="PS", the device cache (cache_bound 100, bf16 drains), the
+    dense weights on the unified HET path — through run_batches blocks
+    of 100. The main path (launch counts set to 0 before, read after):
+    PS_PARITY_BLOCKS blocks whose losses and drained server rows the CPU
+    twin is held to, then PS_TIMED_BLOCKS timed blocks (samples/s, step
+    ms, phase_breakdown a step, cache counters), then one block timed by
+    CUDA events. Returns the line and what the twin is held to."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    rss_idle = _rss_bytes(proc.pid)             # the process, no tensor
+    t0 = time.perf_counter()
+    with ps_node_ids(PS_ID_BASE):
+        nodes, loss, _, train_op = ps_wdl_graph(ht)
+        exe = ht.Executor([loss, train_op], comm_mode="PS",
+                          cstable_policy="Device", cache_bound=PS_BLOCK,
+                          drain_compress=True)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rss_registered = _rss_bytes(proc.pid)
+    rt = exe.ps_runtime
+    dt = next(iter(rt.device_tables.values()))
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    parity_losses = []
+    for b in range(PS_PARITY_BLOCKS):
+        parity_losses += _step_losses(exe.run_batches(
+            _ps_block(nodes, traffic, b * PS_BLOCK, PS_BLOCK)))
+    rt.drain()
+    ids, rows = _touched_rows(exe, client)
+    rt.reset_phase_times()
+    block_ms, losses = [], []
+    for b in range(PS_TIMED_BLOCKS):
+        feeds = _ps_block(nodes, traffic, (PS_PARITY_BLOCKS + b)
+                          * PS_BLOCK, PS_BLOCK)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = exe.run_batches(feeds)
+        outs[-1][0].asnumpy()
+        block_ms.append((time.perf_counter() - t) * 1e3)
+        losses += _step_losses(outs)
+    phases, perf = _phase_ms(rt, PS_TIMED_BLOCKS * PS_BLOCK)
+    events = _block_events(torch, exe, _ps_block(nodes, traffic, 0,
+                                                 PS_BLOCK))
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    rt.drain()
+    if not np.all(np.isfinite(parity_losses + losses)):
+        raise AssertionError(f"ps_wdl losses not finite: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"ps_wdl launched flash kernels: {launches}")
+    if not (dt.misses and dt.pushed_rows):
+        raise AssertionError(f"ps_wdl cache never filled or drained: "
+                             f"{dt.perf}")
+    step_ms = [ms / PS_BLOCK for ms in block_ms]
+    line = {"card": card, "model": "wdl_criteo", "batch": CTR_BATCH,
+            "table_rows": CTR_ROWS, "width": int(dt.width),
+            "comm_mode": "PS", "cstable_policy": "Device",
+            "cache_bound": PS_BLOCK, "drain_compress": True,
+            "cache_capacity": int(dt.capacity), "servers": 1, "workers": 1,
+            "dense_on_het_path": len(exe.config.ps_dense_cached),
+            "executor_setup_s": setup_s, "block_steps": PS_BLOCK,
+            "timed_blocks": PS_TIMED_BLOCKS,
+            "samples_per_s": CTR_BATCH * PS_BLOCK * PS_TIMED_BLOCKS
+            / (sum(block_ms) / 1e3),
+            "step_ms_p50": float(np.median(step_ms)), "step_ms": step_ms,
+            "phase_ms_per_step": phases, "cache": perf,
+            "block_events": events,
+            "losses_first_last": [parity_losses[0], losses[-1]],
+            "peak_memory_bytes": int(peak),
+            "server_rss_bytes_idle": rss_idle,
+            "server_rss_bytes_registered": rss_registered,
+            "server_rss_bytes": _rss_bytes(proc.pid),
+            "launches": launches}
+    exe.close()
+    del exe
+    torch.cuda.empty_cache()
+    return line, {"losses": parity_losses, "ids": ids, "rows": rows}
+
+
+def ps_wdl_parity(torch, traffic, card_run):
+    """The CPU twin of ps_wdl's first PS_PARITY_BLOCKS blocks: the same
+    graph numbered alike (so its fresh server draws the same table), the
+    same configuration and feeds on the port's CPU path; after drain()
+    the server rows of every id the card's cache held. Losses held at
+    PS_LOSS_TOL relative, rows at PS_ROW_TOL of the largest (SGD adds a
+    row's gradients with atomics on the card, in no fixed order)."""
+    import hetu_tpu_torch as ht
+    t0 = time.perf_counter()
+    with ps_server() as (client, _):
+        with ps_node_ids(PS_ID_BASE):
+            nodes, loss, _, train_op = ps_wdl_graph(ht)
+            exe = ht.Executor([loss, train_op], comm_mode="PS",
+                              cstable_policy="Device", cache_bound=PS_BLOCK,
+                              drain_compress=True, device="cpu")
+        losses = []
+        for b in range(PS_PARITY_BLOCKS):
+            losses += _step_losses(exe.run_batches(
+                _ps_block(nodes, traffic, b * PS_BLOCK, PS_BLOCK)))
+        exe.ps_runtime.drain()
+        dt = next(iter(exe.ps_runtime.device_tables.values()))
+        rows = client.sparse_pull(dt.tid, card_run["ids"], dt.width)
+        exe.close()
+    want, got = np.array(losses), np.array(card_run["losses"])
+    parity = {"reference": "cpu float32, its own server",
+              "steps": len(losses), "drains": PS_PARITY_BLOCKS,
+              "loss_rel_err": float(np.max(np.abs(got - want)
+                                           / np.abs(want))),
+              "touched_rows": int(len(card_run["ids"])),
+              "row_err_of_largest": _rel(card_run["rows"], rows),
+              "loss_tol": PS_LOSS_TOL, "row_tol": PS_ROW_TOL,
+              "seconds": time.perf_counter() - t0}
+    if parity["loss_rel_err"] > PS_LOSS_TOL or \
+            parity["row_err_of_largest"] > PS_ROW_TOL:
+        raise AssertionError(f"ps_wdl parity, card against the CPU, "
+                             f"failed: {parity}")
+    return parity
+
+
+def ps_wdl_host_run(torch, card, traffic, bsp):
+    """One variant of ``ps_wdl_host`` (bench.py:515-590): no cache, every
+    step pulls its rows from the server and pushes its gradients, ASP or
+    BSP. PS_HOST_WARMUP run() steps, then the main path:
+    PS_HOST_BLOCKS blocks of PS_HOST_BLOCK steps through
+    run_batches_stream (the next steps' pull and feed transfer on the
+    ingest worker). Returns the line, the executor and its graph."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    nodes, loss, y, train_op = ps_wdl_graph(ht)
+    exe = ht.Executor({"train": [loss, train_op], "eval": [y]},
+                      comm_mode="PS", bsp=bsp)
+    for i in range(PS_HOST_WARMUP):
+        exe.run("train", feed_dict=dict(zip(nodes, traffic[i])))[0].asnumpy()
+    rt = exe.ps_runtime
+    rt.reset_phase_times()
+    exe.reset_ingest_stats()
+    steps = PS_HOST_BLOCK * PS_HOST_BLOCKS
+    _build.reset_launch_counts()                    # main path starts
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    outs = exe.run_batches_stream(
+        (_ps_block(nodes, traffic, PS_HOST_WARMUP + b * PS_HOST_BLOCK,
+                   PS_HOST_BLOCK) for b in range(PS_HOST_BLOCKS)),
+        name="train")
+    outs[-1][0].asnumpy()
+    seconds = time.perf_counter() - t
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    rt.drain()
+    losses = _step_losses(outs)
+    if not np.all(np.isfinite(losses)) or any(launches.values()):
+        raise AssertionError(f"ps_wdl_host {'bsp' if bsp else 'asp'}: "
+                             f"losses {losses}, launches {launches}")
+    phases, _ = _phase_ms(rt, steps)
+    line = {"mode": "BSP" if bsp else "ASP", "steps": steps,
+            "samples_per_s": CTR_BATCH * steps / seconds,
+            "step_ms": seconds * 1e3 / steps,
+            "host_pull_ms": phases["host_pull"],
+            "sync_push_ms": phases["sync_push"],
+            "prefetch_ms": phases["prefetch"], "repull_ms": phases["repull"],
+            "phase_ms_per_step": phases, "ingest": exe.ingest_stats(),
+            "last_block_losses_first_last": [losses[0], losses[-1]],
+            "launches": launches}
+    return line, exe, (nodes, y)
+
+
+def ps_serve_run(torch, card, traffic, exe, graph, client):
+    """``ps_serve``: the host-path-trained WDL's eval graph rewritten by
+    serve_embeddings_from_ps and served from an
+    InferenceSession(comm_mode="PS") with a row cache of
+    PS_SERVE_CACHE_ROWS rows (the dense weights are the trained ones).
+    PS_SERVE_REQUESTS predicts of CTR_BATCH rows from the traffic, timed
+    (the main path, launch counts set to 0 before and read after), then
+    the first PS_SERVE_CHECKED held against the same session over a
+    dense table on the card that holds the server's rows."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ndarray import NDArray
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import (InferenceSession,
+                                        serve_embeddings_from_ps)
+    nodes, y = graph
+    exe.ps_runtime.drain()
+    dense = {exe._param_nodes[sid].name: NDArray(t).asnumpy()
+             for sid, t in exe.params.items()}
+    table = next(op.parameter for op in exe.config.ps_nodes
+                 if op.parameter.is_embed)
+    eval_nodes = [y]
+    serve_embeddings_from_ps(eval_nodes)
+    sess = InferenceSession(eval_nodes, comm_mode="PS",
+                            embed_cache_rows=PS_SERVE_CACHE_ROWS)
+    sess.executor.load_params(dense)
+    feeds = [{nodes[0]: traffic[i][0], nodes[1]: traffic[i][1]}
+             for i in range(SPARSE_CYCLE)]
+    sess.predict(feeds[0])                          # warm-up
+    sess.ps_client.hits = sess.ps_client.misses = 0
+    _build.reset_launch_counts()                    # main path starts
+    lat, preds = [], []
+    t = time.perf_counter()
+    for i in range(PS_SERVE_REQUESTS):
+        t1 = time.perf_counter()
+        preds.append(sess.predict(feeds[1 + i % (SPARSE_CYCLE - 1)])[0])
+        lat.append((time.perf_counter() - t1) * 1e3)
+    seconds = time.perf_counter() - t
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    hit_rate = sess.ps_client.hit_rate
+    sess.close()
+    # the same session over a dense table holding the server's rows
+    rows = client.sparse_pull(table.id, np.arange(CTR_ROWS),
+                              int(table.shape[1]))
+    dnodes, _, dy, _ = ps_wdl_graph(ht)
+    dtable = next(n for n in find_topo_sort([dy]) if n.name == table.name)
+    dtable.initializer, dtable.tensor_value = None, rows
+    dense_sess = InferenceSession([dy])
+    dense_sess.executor.load_params(dense)
+    err = 0.0
+    for i in range(PS_SERVE_CHECKED):
+        want = dense_sess.predict({dnodes[0]: traffic[1 + i][0],
+                                   dnodes[1]: traffic[1 + i][1]})[0]
+        err = max(err, float(np.abs(preds[i] - want).max()
+                             / np.abs(want).max()))
+    dense_sess.close()
+    if err > PS_SERVE_TOL or any(launches.values()):
+        raise AssertionError(f"ps_serve: error {err} against the dense "
+                             f"table, launches {launches}")
+    return {"card": card, "requests": PS_SERVE_REQUESTS,
+            "rows_per_request": CTR_BATCH,
+            "requests_per_s": PS_SERVE_REQUESTS / seconds,
+            "latency_ms_p50": float(np.median(lat)),
+            "embed_cache_rows": PS_SERVE_CACHE_ROWS,
+            "lru_hit_rate": hit_rate, "launches": launches,
+            "dense_table_rel_err": err, "tol": PS_SERVE_TOL,
+            "checked_requests": PS_SERVE_CHECKED}
+
+
+def hybrid_wdl_run(torch, card, traffic):
+    """``hybrid_wdl`` (bench.py:881-935): comm_mode="Hybrid" — the dense
+    weights in the step (allreduce, the identity at one worker), the
+    table through the device cache (cache_bound 100, bf16 drains). One
+    warm-up block, then PS_TIMED_BLOCKS timed ones: the main path."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    nodes, loss, _, train_op = ps_wdl_graph(ht)
+    exe = ht.Executor([loss, train_op], comm_mode="Hybrid",
+                      cstable_policy="Device", cache_bound=PS_BLOCK,
+                      drain_compress=True)
+    rt = exe.ps_runtime
+    _build.reset_launch_counts()                    # main path starts
+    exe.run_batches(_ps_block(nodes, traffic, 0, PS_BLOCK))[-1][0].asnumpy()
+    rt.reset_phase_times()
+    block_ms, losses = [], []
+    for b in range(PS_TIMED_BLOCKS):
+        feeds = _ps_block(nodes, traffic, (1 + b) * PS_BLOCK, PS_BLOCK)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        outs = exe.run_batches(feeds)
+        outs[-1][0].asnumpy()
+        block_ms.append((time.perf_counter() - t) * 1e3)
+        losses += _step_losses(outs)
+    launches = _k1_k4_launches(_build.launch_counts)    # main path ends
+    phases, perf = _phase_ms(rt, PS_TIMED_BLOCKS * PS_BLOCK)
+    if exe.config.ps_dense_cached or not np.all(np.isfinite(losses)) \
+            or any(launches.values()):
+        raise AssertionError(f"hybrid_wdl: dense on the PS "
+                             f"{exe.config.ps_dense_cached}, losses "
+                             f"{losses[:3]}, launches {launches}")
+    exe.close()
+    step_ms = [ms / PS_BLOCK for ms in block_ms]
+    return {"card": card, "comm_mode": "Hybrid", "cstable_policy": "Device",
+            "batch": CTR_BATCH, "table_rows": CTR_ROWS,
+            "samples_per_s": CTR_BATCH * PS_BLOCK * PS_TIMED_BLOCKS
+            / (sum(block_ms) / 1e3),
+            "step_ms_p50": float(np.median(step_ms)), "step_ms": step_ms,
+            "phase_ms_per_step": phases, "cache": perf,
+            "losses_first_last": [losses[0], losses[-1]],
+            "launches": launches}
+
+
+def ps_passes(torch, card, seed):
+    """The PS and Hybrid phases on one server (ps_wdl, ps_wdl_host,
+    ps_serve, hybrid_wdl), then ps_wdl's CPU twin on a fresh server of
+    its own."""
+    traffic = sparse_traffic("wdl_criteo", seed)
+    lines = {}
+    t = time.perf_counter()
+    with ps_server() as (client, proc):
+        lines["ps_wdl"], card_run = ps_wdl_run(torch, card, traffic, client,
+                                               proc)
+        log(f"ps_wdl ({time.perf_counter() - t:.1f} s) {lines['ps_wdl']}")
+        t = time.perf_counter()
+        host = {}
+        for bsp in (False, True):
+            host["bsp" if bsp else "asp"], exe, graph = ps_wdl_host_run(
+                torch, card, traffic, bsp)
+            if not bsp:
+                exe.close()
+        lines["ps_wdl_host"] = {"card": card, **host}
+        log(f"ps_wdl_host ({time.perf_counter() - t:.1f} s) "
+            f"{lines['ps_wdl_host']}")
+        t = time.perf_counter()
+        lines["ps_serve"] = ps_serve_run(torch, card, traffic, exe, graph,
+                                         client)
+        exe.close()
+        del exe
+        torch.cuda.empty_cache()
+        log(f"ps_serve ({time.perf_counter() - t:.1f} s) "
+            f"{lines['ps_serve']}")
+        t = time.perf_counter()
+        lines["hybrid_wdl"] = hybrid_wdl_run(torch, card, traffic)
+        torch.cuda.empty_cache()
+        log(f"hybrid_wdl ({time.perf_counter() - t:.1f} s) "
+            f"{lines['hybrid_wdl']}")
+    t = time.perf_counter()
+    lines["ps_wdl"]["parity"] = ps_wdl_parity(torch, traffic, card_run)
+    log(f"ps_wdl parity ({time.perf_counter() - t:.1f} s) "
+        f"{lines['ps_wdl']['parity']}")
+    return lines
+
+
 def ptxas_report(log_text):
     """Registers and spills of every kernel instantiation in one
     ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
@@ -2980,7 +3435,15 @@ def main(argv=None):
                              "keeps float32 products in float32")
 
     sources = ["flash_fwd", "flash_fwd_tc", "flash_bwd", "flash_bwd_tc"]
-    seconds = _build.build(sources)
+    # the parameter server's library (g++) builds beside the kernels
+    from concurrent.futures import ThreadPoolExecutor
+    from hetu_tpu_torch.ps import native_lib
+    with ThreadPoolExecutor(1) as pool:
+        t = time.perf_counter()
+        ps_build = pool.submit(native_lib.build_lib)
+        seconds = _build.build(sources)
+        ps_build.result()
+        seconds["libhetu_ps"] = time.perf_counter() - t
     ptxas = {name: ptxas_report(_build.build_log(name)) for name in sources}
     build = {"seconds": seconds, "ptxas": ptxas}
     log(f"build {build}")
@@ -3063,6 +3526,8 @@ def main(argv=None):
         f"{gnn_lines['gnn_sampled']}")
     torch.cuda.empty_cache()
 
+    ps_lines = ps_passes(torch, card, args.seed)
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(torch, args.seed)
@@ -3121,6 +3586,7 @@ def main(argv=None):
              {"transformer": transformer_line},
              {"transformer_reverse": reverse_line},
              *({name: line} for name, line in gnn_lines.items()),
+             *({name: line} for name, line in ps_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

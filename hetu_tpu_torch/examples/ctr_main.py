@@ -1,15 +1,21 @@
 """CTR training entry point of the port: the counterpart of
 ``examples/ctr/run_hetu.py`` (reference parity: examples/ctr/run_hetu.py),
 with its command line, models, data and per-epoch loss/acc/AUC, on
-``hetu_tpu_torch``. The embedding table lives on the device; the PS and
-Hybrid modes (``--comm-mode PS/Hybrid``) wait for the PS port and are
-refused. It runs on the GPU unless ``--device cpu`` is given.
+``hetu_tpu_torch``. The embedding table lives on the device, or with
+``--comm-mode PS`` / ``Hybrid`` on the parameter server, read through
+the device cache (``--cache Device``, the default) or the host path
+(``--cache LRU`` / ``LFU`` / ``LFUOpt``, or ``--cache none``), under
+ASP or ``--bsp`` with staleness bound ``--bound``. Without a server
+named by ``HETU_PS_PORTS`` one is started on localhost for the run and
+stopped after it. It runs on the GPU unless ``--device cpu`` is given.
 
     python -m hetu_tpu_torch.examples.ctr_main --model wdl_criteo --timing
     python -m hetu_tpu_torch.examples.ctr_main --model dcn_criteo --all \
         --val --dim 100000 --nepoch 1
+    python -m hetu_tpu_torch.examples.ctr_main --comm-mode PS --timing
 """
 import argparse
+import contextlib
 import os
 import time
 
@@ -44,12 +50,51 @@ def load_criteo(args):
     return dense, sparse, labels
 
 
+@contextlib.contextmanager
+def local_ps(comm_mode):
+    """A parameter server for a PS or Hybrid run: the one
+    ``HETU_PS_PORTS`` names, else one started on localhost for the run
+    and stopped after it (reference run_hetu.py ``ensure_local_ps``)."""
+    if comm_mode not in ("PS", "Hybrid") or os.environ.get("HETU_PS_PORTS"):
+        yield
+        return
+    from hetu_tpu_torch.ps import client as ps_client
+    from hetu_tpu_torch.ps import server as ps_server
+    port = ps_server.pick_free_port()
+    os.environ["HETU_PS_PORTS"] = str(port)
+    os.environ["HETU_PS_HOSTS"] = "127.0.0.1"
+    try:
+        ps_server.ensure_server(port=port, nworkers=1)
+        client = ps_client.PSClient(rank=0, nworkers=1)
+        ps_client.set_default_client(client)
+        try:
+            yield
+        finally:
+            client.shutdown_servers()
+            ps_client.close_default_client()
+    finally:
+        ps_server.shutdown_server()
+        del os.environ["HETU_PS_PORTS"], os.environ["HETU_PS_HOSTS"]
+
+
+def ps_options(args):
+    """The executor options of ``--comm-mode`` / ``--cache`` / ``--bsp``
+    / ``--bound``."""
+    if args.comm_mode is None:
+        return {}
+    if args.comm_mode not in ("PS", "Hybrid"):
+        return {"comm_mode": args.comm_mode}
+    cache = None if args.cache in (None, "none") else args.cache
+    return {"comm_mode": args.comm_mode, "cstable_policy": cache,
+            "bsp": args.bsp, "cache_bound": args.bound}
+
+
 def worker(args):
-    if args.comm_mode in ("PS", "Hybrid"):
-        raise NotImplementedError(
-            f"--comm-mode {args.comm_mode}: PS mode waits for the PS port; "
-            f"the port keeps the table on the device (leave --comm-mode "
-            f"unset)")
+    with local_ps(args.comm_mode):
+        return _train(args)
+
+
+def _train(args):
     model = getattr(ctr_models, args.model)
     dense, sparse, labels = load_criteo(args)
     n_train = int(len(labels) * 0.9)
@@ -75,8 +120,8 @@ def worker(args):
     eval_nodes = {"train": [loss, y, y_, train_op]}
     if args.val:
         eval_nodes["validate"] = [loss, y, y_]
-    options = {} if args.comm_mode is None else {"comm_mode": args.comm_mode}
-    executor = ht.Executor(eval_nodes, device=args.device, **options)
+    executor = ht.Executor(eval_nodes, device=args.device,
+                           **ps_options(args))
 
     results = {}
     for ep in range(args.nepoch):
@@ -136,6 +181,7 @@ def worker(args):
                 results.update(val_auc=float(np.mean(val_auc)))
             print(msg, flush=True)
             results.update(val_loss=float(np.mean(val_loss)))
+    executor.close()
     return results
 
 
@@ -144,8 +190,7 @@ def parse_args(argv=None):
     parser.add_argument("--model", default="wdl_criteo",
                         help=f"one of {MODELS}")
     parser.add_argument("--comm-mode", default=None,
-                        help="None / AllReduce / PS / Hybrid (the port has "
-                             "none of them yet)")
+                        help="None / PS / Hybrid / AllReduce (one worker)")
     parser.add_argument("--batch-size", type=int, default=128)
     parser.add_argument("--learning-rate", type=float, default=0.01)
     parser.add_argument("--nepoch", type=int, default=3)
@@ -157,6 +202,13 @@ def parse_args(argv=None):
     parser.add_argument("--all", action="store_true",
                         help="compute loss/acc/AUC each step")
     parser.add_argument("--timing", action="store_true")
+    parser.add_argument("--bsp", action="store_true",
+                        help="synchronous PS training (barrier per step)")
+    parser.add_argument("--cache", default="Device",
+                        help="Device (device cache) / LRU / LFU / LFUOpt "
+                             "(host cache) / none (host path)")
+    parser.add_argument("--bound", type=int, default=100,
+                        help="staleness bound (drain cadence)")
     parser.add_argument("--block-steps", type=int, default=20,
                         help="steps per run_batches call in the "
                              "throughput loop")

@@ -2,11 +2,16 @@
 ``examples/rec/run_hetu.py`` (reference parity: examples/rec/run_hetu.py),
 with its command line, data and HR@10 / NDCG@10 retrieval evaluation over
 each user's 100 candidates, on ``hetu_tpu_torch``. The embedding tables
-live on the device; the PS and Hybrid modes (``--comm PS/Hybrid``) wait
-for the PS port and are refused. It runs on the GPU unless
+live on the device, or with ``--comm-mode PS`` / ``Hybrid`` on the
+parameter server (``embed_ctx=ht.cpu(0)``), through the device cache
+(``--cache Device``, the default) or the host path (``--cache LRU`` /
+``LFU`` / ``LFUOpt`` / ``none``), under ASP or ``--bsp`` with
+staleness bound ``--bound``; a server is started on localhost for the
+run unless ``HETU_PS_PORTS`` names one. It runs on the GPU unless
 ``--device cpu`` is given.
 
     python -m hetu_tpu_torch.examples.rec_main --val --timing
+    python -m hetu_tpu_torch.examples.rec_main --val --comm-mode Hybrid
 """
 import argparse
 import math
@@ -15,6 +20,7 @@ import time
 import numpy as np
 
 import hetu_tpu_torch as ht
+from hetu_tpu_torch.examples.ctr_main import local_ps
 from hetu_tpu_torch.examples.movielens import getdata
 from hetu_tpu_torch.models.ncf import neural_mf
 
@@ -31,10 +37,11 @@ def ndcg(ranklist, gt_item):
 
 
 def worker(args):
-    if args.comm in ("PS", "Hybrid"):
-        raise NotImplementedError(
-            f"--comm {args.comm}: PS mode waits for the PS port; the port "
-            f"keeps the tables on the device (leave --comm unset)")
+    with local_ps(args.comm):
+        return _train(args)
+
+
+def _train(args):
     train, test, num_users, num_items = getdata(args.dataset)
     train_users = train["user_input"]
     train_items = train["item_input"]
@@ -68,10 +75,16 @@ def worker(args):
     y_ = ht.dataloader_op([
         ht.Dataloader(train_labels, batch, "train")])
 
+    ps = args.comm in ("PS", "Hybrid")
     loss, y, train_op = neural_mf(
         user_input, item_input, y_, num_users, num_items,
-        learning_rate=args.learning_rate)
+        learning_rate=args.learning_rate,
+        embed_ctx=ht.cpu(0) if ps else None)
     options = {} if args.comm is None else {"comm_mode": args.comm}
+    if ps:
+        options.update(
+            cstable_policy=None if args.cache == "none" else args.cache,
+            bsp=args.bsp, cache_bound=args.bound)
     executor = ht.Executor({"train": [loss, train_op], "validate": [y]},
                            device=args.device, **options)
 
@@ -127,6 +140,7 @@ def worker(args):
         results.update(loss=float(np.mean(train_loss)),
                        train_time=ep_time, steps_per_epoch=nbatch)
     print(f"all time: {time.time() - start:.2f}s", flush=True)
+    executor.close()
     return results
 
 
@@ -136,9 +150,15 @@ def parse_args(argv=None):
                         help="HR@10/NDCG@10 retrieval eval per epoch")
     parser.add_argument("--all", action="store_true",
                         help="use the full train set (default 1,024,000)")
-    parser.add_argument("--comm", default=None,
-                        help="None / PS / Hybrid (the port has none of "
-                             "them yet)")
+    parser.add_argument("--comm", "--comm-mode", dest="comm", default=None,
+                        help="None / PS / Hybrid")
+    parser.add_argument("--bsp", action="store_true",
+                        help="synchronous PS training (barrier per step)")
+    parser.add_argument("--cache", default="Device",
+                        help="Device (device cache) / LRU / LFU / LFUOpt "
+                             "(host cache) / none (host path)")
+    parser.add_argument("--bound", type=int, default=100,
+                        help="staleness bound (drain cadence)")
     parser.add_argument("--dataset", default="ml-25m")
     parser.add_argument("--batch-size", type=int, default=1024)
     parser.add_argument("--learning-rate", type=float, default=0.01)

@@ -1,10 +1,12 @@
 """Executor: define-then-run sessions, run eagerly on one device.
 
-Counterpart of ``hetu_tpu/executor.py``, its single-device path:
-``HetuConfig`` (seed, device, mixed-precision ``dtype``),
-``SubExecutor`` (one eval subgraph) and ``Executor`` (parameter,
-op-state and optimizer-slot materialization, ``run``, ``run_batches``,
-dataloaders and ``get_batch_num``, ``save`` / ``load``).
+Counterpart of ``hetu_tpu/executor.py``, its single-device path and its
+PS and Hybrid modes: ``HetuConfig`` (seed, device, mixed-precision
+``dtype``, the communication mode and the PS options), ``SubExecutor``
+(one eval subgraph) and ``Executor`` (parameter, op-state and
+optimizer-slot materialization, ``run``, ``run_batches``,
+``run_batches_stream``, dataloaders and ``get_batch_num``, ``save`` /
+``load``, ``close``).
 
 Where the reference traces the topological order once per feed-shape
 signature into one XLA program, this executor walks it eagerly every
@@ -33,9 +35,21 @@ device at every run; a ``CSRValue`` already there, as a full-batch
 trainer pins its graph once, is used as it is. Its shape is (nrow,
 ncol).
 
-The PS and Hybrid modes, the dp/tp/pp meshes, ``run_batches_stream``,
-telemetry and the preflight analysis are still to port; ``HetuConfig``
-refuses their options.
+**PS and Hybrid** (``comm_mode``, or inferred from the device groups:
+a group of GPU workers and CPU servers is PS). The optimizer's graph
+pass splices a PS push op onto each PS-managed gradient
+(``OptimizerOp.backward_hook``); PS embedding tables never materialize
+on the worker, their lookups are fed rows pulled from the server; with
+``cstable_policy="Device"`` the lookups are rewritten onto a device
+cache (``_rewrite_device_cache``). A subgraph that touches the PS runs
+its steps through :class:`~hetu_tpu_torch.ps.runtime.PSRuntime`, which
+pulls before :meth:`SubExecutor.step` and pushes after it. Hybrid puts
+the dense gradients on allreduce, the identity at the one worker the
+port runs; more than one worker waits for the multi-card modes
+(ROADMAP item 11).
+
+The dp/tp/pp meshes, pipelines, telemetry and the preflight analysis
+are still to port; ``HetuConfig`` refuses their options.
 """
 from __future__ import annotations
 
@@ -44,51 +58,200 @@ import os
 import pickle
 import threading
 import warnings
+from collections import deque
 
 import numpy as np
 import torch
 
-from .context import DeviceGroup, get_current_context
+from .context import (DeviceGroup, get_current_context,
+                      get_launch_config_by_traverse_nodes)
 from .dataloader import DataloaderOp, GNNDataLoaderOp
 from .device import resolve_device
 from .graph.autodiff import find_topo_sort, gradients
 from .graph.node import ExecContext
+from .ingest import (IngestEngine, OverlapOptions, new_stats, stats_fields,
+                     to_device)
 from .ndarray import CSRValue, ND_Sparse_Array, NDArray, cpu, gpu
 from .optimizer import OptimizerOp
+from .ops.comm import (ParameterServerCommunicateOp,
+                       ParameterServerSparsePullOp)
+from .ops.embedding import EmbeddingLookUp
 from .ops.variable import PlaceholderOp
+from . import telemetry as _telemetry
 
 __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients"]
 
 
 class HetuConfig:
-    """Session configuration: the eval nodes, the seed of parameter
-    initialization and of per-op generators, the device and the compute
-    dtype.
+    """Session configuration (reference executor.py:107-356): the eval
+    nodes, the seed of parameter initialization and of per-op
+    generators, the device, the compute dtype, and the PS and Hybrid
+    options.
 
-    The device is ``device`` if given, else the first context of ``ctx``
-    (``ht.cpu(0)`` / ``ht.gpu(0)``) or of the enclosing ``ht.context``,
+    The device is ``device`` if given, else the first worker (GPU) of
+    ``ctx`` or of the enclosing ``ht.context``, else its first context,
     else ``cuda`` — which raises without a GPU
-    (:func:`~hetu_tpu_torch.device.resolve_device`)."""
+    (:func:`~hetu_tpu_torch.device.resolve_device`).
+
+    PS options, as in the reference: ``comm_mode`` ("PS", "Hybrid",
+    "AllReduce" or None to infer it from the device groups), ``bsp``
+    (a barrier after every step; else ASP), ``prefetch`` (ASP pushes on
+    a background pool), ``cstable_policy`` ("Device" for the device
+    cache, LRU / LFU / LFUOpt for the host cache), ``cache_bound``
+    (the staleness bound and drain cadence, in steps),
+    ``cache_capacity`` (device cache rows; default min(rows, 2^20)) and
+    ``drain_compress`` (bf16 drains)."""
 
     def __init__(self, eval_node_list, ctx=None, seed=0, dtype=None,
-                 device=None, **options):
+                 device=None, comm_mode=None, bsp=False, prefetch=True,
+                 cstable_policy=None, cache_bound=100, cache_capacity=None,
+                 drain_compress=False, **options):
         if options:
             raise TypeError(
                 f"HetuConfig options {sorted(options)} belong to modes the "
-                f"port does not have yet (PS/Hybrid, parallel meshes, "
-                f"pipelines, telemetry, analysis): see ROADMAP.md")
+                f"port does not have yet (parallel meshes, pipelines, "
+                f"telemetry, analysis): see ROADMAP.md")
         if dtype is not None and not (isinstance(dtype, torch.dtype)
                                       and dtype.is_floating_point):
             raise TypeError(f"dtype must be a floating torch.dtype, got "
                             f"{dtype!r}")
+        if comm_mode not in (None, "PS", "Hybrid", "AllReduce"):
+            raise ValueError(f"unknown comm_mode {comm_mode!r}; expected "
+                             f"'PS', 'Hybrid', 'AllReduce' or None")
+        if cstable_policy not in (None, "Device", "LRU", "LFU", "LFUOpt"):
+            raise ValueError(
+                f"unknown cstable_policy {cstable_policy!r}; expected "
+                f"'Device', 'LRU', 'LFU', 'LFUOpt' or None")
         self.eval_node_list = eval_node_list
         self.seed = seed
         self.dtype = dtype
-        if device is None:
-            ctx = ctx if ctx is not None else get_current_context()
-            if ctx is not None:
-                device = DeviceGroup(ctx)[0].torch_device()
+        ctx = ctx if ctx is not None else get_current_context()
+        self.context = DeviceGroup(ctx if ctx is not None else [])
+        if device is None and len(self.context):
+            first = (self.context.workers or list(self.context))[0]
+            device = first.torch_device()
         self.device = resolve_device(device)
+        self.telemetry = _telemetry.NULL
+        self.overlap = OverlapOptions()
+
+        self.comm_mode = comm_mode
+        self.bsp = bsp
+        self.prefetch = prefetch
+        self.cstable_policy = cstable_policy
+        self.cache_bound = cache_bound
+        self.cache_capacity = cache_capacity
+        self.drain_compress = drain_compress
+        launch_mpi, launch_ps, self.node_strategy, _ = \
+            get_launch_config_by_traverse_nodes(eval_node_list,
+                                                self.context)
+        if self.comm_mode is None:
+            if launch_ps and launch_mpi:
+                self.comm_mode = "Hybrid"
+            elif launch_ps:
+                self.comm_mode = "PS"
+            elif launch_mpi:
+                self.comm_mode = "AllReduce"
+        self.nrank = max(1, self.context.worker_num)
+        self.rank = 0
+        if self.nrank > 1 and self.comm_mode in ("AllReduce", "Hybrid"):
+            raise NotImplementedError(
+                f"{self.comm_mode} over {self.nrank} workers: the "
+                f"multi-card modes wait for ROADMAP item 11")
+        self.ps_nodes = []
+        self.ps_comm = None
+        # the device cache (HET path): PS embedding lookups gather from
+        # a cache parameter on the card (ps/device_cache.py); the host
+        # cache policies stay on the host path
+        self.device_cache_tables = []
+        self.ps_dense_cached = []     # [(param, optimizer)], see
+        # OptimizerOp.backward_hook's unified dense HET path
+        if self.cstable_policy == "Device" and \
+                self.comm_mode in ("PS", "Hybrid"):
+            self._rewrite_device_cache(eval_node_list)
+            self.cstable_policy = None
+        # the graph pass: splice the comm ops (reference executor.py:314)
+        for node in reversed(find_topo_sort(eval_node_list)):
+            node.backward_hook(self)
+        if self.comm_mode in ("PS", "Hybrid") or self.ps_nodes:
+            from .ps.client import get_default_client
+            self.ps_comm = get_default_client()
+
+    def _rewrite_device_cache(self, eval_node_list):
+        """Rewrite PS embedding lookups onto device-cache parameters
+        (reference executor.py:362-445). For each PS-managed table T
+        read by ``EmbeddingLookUp(T, ids)``:
+
+          * a cache parameter ``[capacity + 1, width]`` (the last row is
+            the scratch slot) replaces T in the graph and in the
+            optimizer's parameters — the worker optimizer applies the
+            local sparse update in the step;
+          * a slots placeholder replaces ``ids`` in the lookup and its
+            gradient, fed each step from the PS runtime's id -> slot
+            map;
+          * T itself lives only on the server; the runtime registers it
+            and drains the accumulated gradients to it.
+        """
+        from .initializers import ZerosInit
+        from .ops.embedding import EmbeddingLookUpGradient
+
+        topo = find_topo_sort(eval_node_list)
+        lookups_by_table = {}
+        for n in topo:
+            if not isinstance(n, EmbeddingLookUp):
+                continue
+            tbl = n.inputs[0]
+            if not (isinstance(tbl, PlaceholderOp) and tbl.trainable):
+                continue
+            strategy = self.node_strategy.get(tbl) or self.comm_mode
+            if strategy not in ("PS", "Hybrid"):
+                continue
+            lookups_by_table.setdefault(tbl, []).append(n)
+        if not lookups_by_table:
+            return
+        grads = [n for n in topo if isinstance(n, EmbeddingLookUpGradient)]
+        optimizer_ops = [n for n in topo if isinstance(n, OptimizerOp)]
+
+        for tbl, lookups in lookups_by_table.items():
+            rows, width = int(tbl.shape[0]), int(np.prod(tbl.shape[1:]))
+            capacity = min(rows, int(self.cache_capacity or (1 << 20)))
+            cache = PlaceholderOp(
+                f"{tbl.name}__dcache",
+                initializer=ZerosInit((capacity + 1, width)),
+                trainable=True)
+            cache.is_embed = True
+            cache.device_cached = True
+            cache.cache_table = tbl
+            cache.stateful = True
+            cache.state_shapes = \
+                lambda shapes, c=capacity + 1, w=width: {"acc": (c, w)}
+            slots_by_ids = {}
+            slots_of_lookup = {}
+            for lk in lookups:
+                ids = lk.inputs[1]
+                if ids not in slots_by_ids:
+                    slots_by_ids[ids] = PlaceholderOp(
+                        f"{tbl.name}__slots{len(slots_by_ids)}",
+                        trainable=False, dtype=np.int32)
+                slots_of_lookup[lk] = slots_by_ids[ids]
+            for g in grads:
+                if g.forward_node in slots_of_lookup:
+                    g.inputs = [g.inputs[0], slots_of_lookup[g.forward_node]]
+                    g.embed_shape = (capacity + 1, width)
+            for lk in lookups:
+                lk.inputs = [cache, slots_of_lookup[lk]]
+            table_opt = None
+            for opt_op in optimizer_ops:
+                params = opt_op.optimizer.params
+                for i, p in enumerate(params):
+                    if p is tbl:
+                        params[i] = cache
+                        table_opt = opt_op.optimizer
+            self.device_cache_tables.append({
+                "table": tbl, "cache": cache,
+                "slots_by_ids": dict(slots_by_ids),
+                "capacity": capacity, "width": width, "rows": rows,
+                "optimizer": table_opt,
+            })
 
 
 class _ExactF32Convs:
@@ -127,6 +290,7 @@ class SubExecutor:
         self.eval_node_list = eval_node_list
         self.config = config
         self.topo_order = find_topo_sort(eval_node_list)
+        self.topo_set = set(self.topo_order)
         self.optimizer_ops = [n for n in self.topo_order
                               if isinstance(n, OptimizerOp)]
         self.training = bool(self.optimizer_ops)
@@ -141,17 +305,50 @@ class SubExecutor:
                                if isinstance(n, (DataloaderOp,
                                                  GNNDataLoaderOp))]
         self.stateful_ops = [n for n in self.topo_order if n.stateful]
+        # the PS side (reference executor.py:519-533): push ops, pull
+        # ops, lookups of PS tables (fed rows pulled from the server)
+        # and lookups of device caches (fed slots). PS-managed params
+        # are known session-wide (config.ps_nodes), so an eval subgraph
+        # sharing a PS table also routes its lookups through the PS
+        self.ps_ops = [n for n in self.topo_order
+                       if isinstance(n, ParameterServerCommunicateOp)]
+        self.ps_pull_ops = [n for n in self.topo_order
+                            if isinstance(n, ParameterServerSparsePullOp)]
+        ps_params = {op.parameter for op in config.ps_nodes}
+        self.ps_lookups = [n for n in self.topo_order
+                           if isinstance(n, EmbeddingLookUp)
+                           and n.inputs[0] in ps_params]
+        self.cached_lookups = [n for n in self.topo_order
+                               if isinstance(n, EmbeddingLookUp)
+                               and getattr(n.inputs[0], "device_cached",
+                                           False)]
+        # PS embedding tables never materialize on the worker
+        self._ps_tables = {n for n in self.param_nodes
+                           if n in ps_params and n.is_embed}
+        self.param_nodes = [n for n in self.param_nodes
+                            if n not in self._ps_tables]
+        self.needs_ps = bool(self.ps_ops or self.ps_lookups
+                             or self.ps_pull_ops or self.cached_lookups)
+        self._host_ops = set(self.ps_ops) | self._ps_tables
         # batches an epoch: the fewest any of its dataloaders gives (a
-        # graph loader has no count)
+        # graph loader has no count), those too whose ids the device-cache
+        # rewrite took out of the graph (the PS runtime drives them; the
+        # reference counts only the ones left in it, so its validate
+        # subgraph over a device cache has no batch count)
+        detached = [ids for entry in config.device_cache_tables
+                    for ids, slots in entry["slots_by_ids"].items()
+                    if slots in self.topo_set]
         self.batch_num = min((dl.get_batch_num(name)
-                              for dl in self.dataloader_ops
+                              for dl in self.dataloader_ops + detached
                               if isinstance(dl, DataloaderOp)), default=None)
         self.step_count = 0
         self._shapes_key = None
         # the step index after which each value is dead: its last
-        # consumer's position, or never for what the caller fetches
+        # consumer's position, or never for what the caller fetches and
+        # for the gradients the PS runtime pushes after the step
         keep = set(eval_node_list) | set(self.param_nodes) \
-            | set(self.feed_nodes) | set(self.dataloader_ops)
+            | set(self.feed_nodes) | set(self.dataloader_ops) \
+            | {op.inputs[0] for op in self.ps_ops}
         last = {}
         for i, node in enumerate(self.topo_order):
             for inp in node.inputs:
@@ -196,7 +393,10 @@ class SubExecutor:
                     f"{[tuple(v.shape) for v in held.values()]} does not "
                     f"match the op's {shapes}")
 
-    def _ingest(self, value):
+    def _ingest(self, value, staged=False):
+        """A feed value on the device. ``staged`` copies a host array
+        through pinned memory on the side stream (the ingest worker's
+        path, :func:`~hetu_tpu_torch.ingest.to_device`)."""
         # a CSR feed: made a CSRValue on the device each run, as the
         # reference does; one already there (a pinned graph) as it is
         if isinstance(value, ND_Sparse_Array):
@@ -211,14 +411,33 @@ class SubExecutor:
         # the reference's JAX canonicalizes them with 64-bit mode off
         if value.dtype == torch.float64:
             value = value.to(torch.float32)
-        value = value.to(self.config.device)
+        if staged and value.device.type == "cpu":
+            value = to_device(value, self.config.device)
+        else:
+            value = value.to(self.config.device)
         dtype = self.config.dtype
         if dtype is not None and value.is_floating_point():
             value = value.to(dtype)
         return value
 
+    def _stack_feed(self, values):
+        """A block's per-step values of one feed -> ``(tensor, tiled)``:
+        the same host array every step is transferred once and read by
+        every step (``tiled``); else the values are stacked into one
+        ``[nsteps, ...]`` transfer that step k indexes."""
+        first = values[0]
+        if all(v is first for v in values):
+            return self._ingest(first, staged=True), True
+        return self._ingest(np.stack([np.asarray(v) for v in values]),
+                            staged=True), False
+
     def run(self, executor, feed_dict=None, convert_to_numpy_ret_vals=False):
-        config = self.config
+        if self.needs_ps:
+            if executor.ps_runtime is None:
+                raise RuntimeError("a PS-mode graph needs the parameter-"
+                                   "server runtime")
+            return executor.ps_runtime.run_step(
+                self, feed_dict, convert_to_numpy_ret_vals)
         feed_dict = feed_dict or {}
         missing = [n.name for n in self.feed_nodes if n not in feed_dict]
         if missing:
@@ -227,9 +446,20 @@ class SubExecutor:
                for node in self.feed_nodes}
         for dl in self.dataloader_ops:
             env[dl] = self._ingest(dl.get_arr(self.name))
-        key = tuple((tuple(v.shape), v.dtype) for v in env.values())
+        outputs, _ = self.step(executor, env)
+        return self.results(outputs, convert_to_numpy_ret_vals)
+
+    def step(self, executor, feed_map):
+        """One step over ``feed_map`` (every fed node's device value:
+        feeds, dataloader batches and, on the PS path, pulled rows and
+        cache slots). Returns the eval nodes' values (None for an
+        optimizer) and the gradients of the PS push ops, which the PS
+        runtime pushes."""
+        config = self.config
+        key = tuple((n.id, tuple(v.shape), v.dtype)
+                    for n, v in feed_map.items())
         if key != self._shapes_key:
-            self._infer_shapes(env)
+            self._infer_shapes(feed_map)
             self._ensure_state(executor)
             self._shapes_key = key
 
@@ -246,13 +476,17 @@ class SubExecutor:
         ectx.state = {n: executor.state[str(n.id)] for n in self.stateful_ops}
         for opt in self.optimizer_ops:
             ectx.lr = float(opt.optimizer.learning_rate)
+        env = dict(feed_map)
         env.update(params)
+        host_ops = self._host_ops
         with _EXACT_F32_CONVS if config.dtype in (None, torch.float32) \
                 else contextlib.nullcontext():
             for i, node in enumerate(self.topo_order):
                 if node not in env:
-                    env[node] = node.compute([env[n] for n in node.inputs],
-                                             ectx)
+                    # a PS push op or an unmaterialized PS table: the PS
+                    # runtime works on them between steps
+                    env[node] = None if node in host_ops else node.compute(
+                        [env[n] for n in node.inputs], ectx)
                 for dead in self._free_after[i]:
                     env.pop(dead, None)
 
@@ -265,15 +499,17 @@ class SubExecutor:
             for opt in self.optimizer_ops:
                 opt.optimizer.lr_sched.step()
         self.step_count += 1
-        results = []
-        for node in self.eval_node_list:
-            if isinstance(node, OptimizerOp):
-                results.append(None)
-            elif convert_to_numpy_ret_vals:
-                results.append(NDArray(env[node]).asnumpy())
-            else:
-                results.append(NDArray(env[node], _context_of(config)))
-        return results
+        outputs = [None if isinstance(node, OptimizerOp) else env[node]
+                   for node in self.eval_node_list]
+        return outputs, [env[op.inputs[0]] for op in self.ps_ops]
+
+    def results(self, outputs, convert_to_numpy_ret_vals=False):
+        """A step's values as ``run`` returns them: NDArrays, or numpy
+        with ``convert_to_numpy_ret_vals``."""
+        ctx = _context_of(self.config)
+        return [None if value is None
+                else NDArray(value).asnumpy() if convert_to_numpy_ret_vals
+                else NDArray(value, ctx) for value in outputs]
 
 
 def _context_of(config):
@@ -308,44 +544,153 @@ class Executor:
         # stateful ops in creation order: how load_state matches them
         self._stateful_ops = sorted((n for n in topo if n.stateful),
                                     key=lambda n: n.id)
+        ps_embeds = {op.parameter for op in config.ps_nodes
+                     if op.parameter.is_embed}
         for node in topo:
+            if node in ps_embeds:
+                continue        # lives on the PS server only
             if isinstance(node, PlaceholderOp) and (
                     node.tensor_value is not None
                     or node.initializer is not None):
-                value = np.ascontiguousarray(
-                    node.initial_value(seed=config.seed))
-                self.params[str(node.id)] = torch.from_numpy(value).to(
-                    config.device)
+                if getattr(node, "device_cached", False) and node.is_embed:
+                    # cache rows fill from the server on a miss: zeros
+                    # made on the device, no table-sized host transfer
+                    value = torch.zeros(node.shape, dtype=torch.float32,
+                                        device=config.device)
+                else:
+                    value = torch.from_numpy(np.ascontiguousarray(
+                        node.initial_value(seed=config.seed))).to(
+                            config.device)
+                self.params[str(node.id)] = value
                 self._param_nodes[str(node.id)] = node
         for nodes in eval_node_dict.values():
             for n in find_topo_sort(nodes):
                 if isinstance(n, OptimizerOp):
                     self.opt_state.update(n.optimizer.init_state(
                         {p: self.params[str(p.id)]
-                         for p in n.optimizer.params}))
+                         for p in n.optimizer.params
+                         if str(p.id) in self.params}))
         self.subexecutors = {name: SubExecutor(name, nodes, config)
                              for name, nodes in eval_node_dict.items()}
+        # the PS runtime: registers the PS tensors on the server now,
+        # so save() and load() work before the first step
+        self.ps_runtime = None
+        if config.ps_comm is not None:
+            from .ps.runtime import PSRuntime
+            self.ps_runtime = PSRuntime(self, config)
+        self._ingest_stats = new_stats()
 
     def run(self, name="default", eval_node_list=None, feed_dict=None,
             convert_to_numpy_ret_vals=False):
         if isinstance(name, dict) and feed_dict is None:
             feed_dict, name = name, "default"     # positional run(feeds)
+        return self._sub(name).run(self, feed_dict,
+                                   convert_to_numpy_ret_vals)
+
+    def _sub(self, name):
         if name not in self.subexecutors and "default" in self.subexecutors:
             name = "default"
-        return self.subexecutors[name].run(self, feed_dict,
-                                           convert_to_numpy_ret_vals)
+        return self.subexecutors[name]
 
     def run_batches(self, feed_dicts, name="default",
                     convert_to_numpy_ret_vals=False):
-        """One step per feed dict, as that many ``run`` calls: a list of
-        per-step output lists. An empty feed dict takes the subgraph's
-        dataloaders' next batch. The reference compiles the block into
-        one ``lax.scan`` dispatch; the port's walk is eager and has no
-        such block, so this is a loop of steps, the same math as
-        sequential ``run`` calls."""
+        """One step per feed dict: a list of per-step output lists. An
+        empty feed dict takes the subgraph's dataloaders' next batch.
+        The reference compiles the block into one ``lax.scan`` dispatch;
+        the port's walk is eager, so this is the same math as that many
+        ``run`` calls. A device-cached PS graph runs the block through
+        :meth:`PSRuntime.run_block`: slots for the whole block are
+        assigned up front, as in the reference."""
+        sub = self._sub(name)
+        if sub.needs_ps:
+            return self.ps_runtime.run_block(sub, feed_dicts,
+                                             convert_to_numpy_ret_vals)
         return [self.run(name, feed_dict=feeds,
                          convert_to_numpy_ret_vals=convert_to_numpy_ret_vals)
                 for feeds in feed_dicts]
+
+    def run_batches_stream(self, blocks, name="default",
+                           convert_to_numpy_ret_vals=False,
+                           lookahead=None):
+        """``run_batches`` over an iterable of blocks with the ingest
+        engine hiding the host (reference executor.py:1520-1580): for a
+        device-cached PS graph, the engine's worker stacks and
+        transfers the next ``lookahead`` blocks' feeds while a block
+        runs (slot assignment stays in order on the caller); host-path
+        PS and BSP graphs run per step through
+        :meth:`PSRuntime.run_stream_pipelined`, the next steps' feed
+        transfer and SparsePull on the worker. Other graphs run their
+        blocks one after another. Returns the last block's results."""
+        lookahead = self.config.overlap.lookahead if lookahead is None \
+            else lookahead
+        if lookahead < 1:
+            raise ValueError(f"lookahead must be >= 1, got {lookahead}")
+        sub = self._sub(name)
+        blocks = iter(blocks)
+        gnn = any(isinstance(dl, GNNDataLoaderOp)
+                  for dl in sub.dataloader_ops)
+        if not sub.needs_ps or gnn:
+            out = None
+            for block in blocks:
+                out = self.run_batches(block, name,
+                                       convert_to_numpy_ret_vals)
+            return out
+        rt = self.ps_runtime
+        if sub.ps_lookups or sub.ps_pull_ops or sub.ps_ops \
+                or self.config.bsp:
+            return rt.run_stream_pipelined(
+                sub, blocks, convert_to_numpy_ret_vals,
+                lookahead=lookahead, sink=self._ingest_stats)
+
+        def fetch_dl(block):
+            # dataloaders advance state: their batches are fetched in
+            # block order here; the worker only stacks and transfers
+            if not sub.dataloader_ops:
+                return None
+            return {dl: [dl.get_arr(sub.name) for _ in block]
+                    for dl in sub.dataloader_ops}
+
+        cur = next(blocks, None)
+        if cur is None:
+            return None
+        out = None
+        engine = IngestEngine(self.config.telemetry, lookahead=lookahead,
+                              sink=self._ingest_stats)
+        blocks_enum = enumerate(blocks, start=1)
+        pending = deque()
+        with engine:    # an error cancels the queued ingests
+
+            def refill():
+                while engine.depth < lookahead:
+                    i, nxt = next(blocks_enum, (None, None))
+                    if nxt is None:
+                        return
+                    pending.append(nxt)
+                    engine.submit(rt.ingest_feeds, sub, nxt,
+                                  fetch_dl(nxt), tag=i)
+
+            pre = rt.ingest_feeds(sub, cur, fetch_dl(cur))    # priming
+            refill()
+            while cur is not None:
+                out = rt.run_block(sub, cur, convert_to_numpy_ret_vals,
+                                   pre_ingested=pre)
+                if pending:
+                    cur = pending.popleft()
+                    _, pre = engine.pop()
+                    refill()
+                else:
+                    cur, pre = None, None
+        return out
+
+    def ingest_stats(self):
+        """Async-ingest accounting since the last reset: the p50 of the
+        consumer's stalls (``ingest_wait_ms``), wait and busy sums, and
+        ``overlap_fraction`` (the share of ingest host time hidden
+        behind the device)."""
+        return stats_fields(self._ingest_stats)
+
+    def reset_ingest_stats(self):
+        self._ingest_stats = new_stats()
 
     def get_batch_num(self, name="default"):
         """Batches in an epoch of subgraph ``name``: the fewest any of
@@ -393,12 +738,18 @@ class Executor:
         with open(os.path.join(file_path, file_name or "session.ckpt"),
                   "wb") as f:
             pickle.dump(sidecar, f)
+        if self.ps_runtime is not None:
+            # the server's tensors, one ps_<id>.bin each, after every
+            # pending push has landed
+            self.ps_runtime.save(file_path)
 
     def load(self, file_path, file_name=None):
         """Read what ``save`` — this package's or ``hetu_tpu``'s — wrote:
         parameters by name, optimizer slots by the sidecar's id -> name
-        map, op state as ``load_state`` matches it. A parameter without a
-        file keeps its value, with a warning."""
+        map, op state as ``load_state`` matches it, and the PS tensors
+        into the server (``ps_<id>.bin``, by tensor id: the graph must be
+        built as the saving one was). A parameter without a file keeps
+        its value, with a warning."""
         values = {}
         for node in self._param_nodes.values():
             path = os.path.join(file_path, node.name + ".npy")
@@ -411,8 +762,12 @@ class Executor:
                     f"value", stacklevel=2)
         self.load_params(values)
         ckpt = os.path.join(file_path, file_name or "session.ckpt")
-        if not os.path.exists(ckpt):
-            return
+        if os.path.exists(ckpt):
+            self._load_sidecar(ckpt)
+        if self.ps_runtime is not None:
+            self.ps_runtime.load(file_path)
+
+    def _load_sidecar(self, ckpt):
         # the sidecar is a pickle of plain dicts and numpy arrays written
         # by Executor.save of this package or of hetu_tpu
         with open(ckpt, "rb") as f:
@@ -469,3 +824,16 @@ class Executor:
                                  f"{value.shape} != {tuple(old.shape)}")
             self.params[sid] = torch.as_tensor(value, dtype=old.dtype,
                                                device=old.device)
+
+    def recordLoads(self):
+        """The PS client's load counter (reference executor.py:1724);
+        {} without a PS."""
+        if self.config.ps_comm is not None:
+            return self.config.ps_comm.get_loads()
+        return {}
+
+    def close(self):
+        """Flush in-flight PS work (ASP pushes, device-cache drains) and
+        stop the push pool."""
+        if self.ps_runtime is not None:
+            self.ps_runtime.close()

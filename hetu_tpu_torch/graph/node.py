@@ -106,6 +106,11 @@ class Op:
     def infer_shape(self, input_shapes):
         raise NotImplementedError
 
+    def backward_hook(self, config):
+        """The session's graph pass over this node, run in reverse
+        topological order before the first step (the optimizer splices
+        its PS and allreduce ops here)."""
+
     # ------------------------------------------------------------- operators
     def __add__(self, other):
         from ..ops.basic import add_op, addbyconst_op

@@ -4,8 +4,10 @@ Counterpart of ``hetu_tpu/initializers.py`` (reference parity:
 python/hetu/initializers.py). Every draw is numpy, seeded per parameter
 by ``seed + crc32(name)`` (``PlaceholderOp.initial_value``), so a graph
 built in this package and the same graph built in ``hetu_tpu`` start
-from bit-identical weights. The PS-side ``dist_spec`` and the analysis
-``interval`` wait for those ports.
+from bit-identical weights. ``dist_spec`` describes the draw to the
+parameter server, which initializes a PS table itself, so a table the
+size of Criteo's never materializes on the worker. The analysis
+``interval`` waits for the analysis port.
 """
 from __future__ import annotations
 
@@ -41,6 +43,13 @@ class BaseInit:
     def init_numpy(self, seed=0):
         raise NotImplementedError
 
+    def dist_spec(self):
+        """``(init_kind, a, b)`` for on-server initialization (reference
+        initializers.py:43-60; the server mirrors PSFHandle.h:277-342):
+        0 = constant(a), 1 = uniform(a, b), 2 = normal(mean a, std b),
+        3 = truncated normal. None when the server cannot draw it."""
+        return None
+
     def __call__(self, name, trainable=True, dtype=np.float32, ctx=None):
         from .ops.variable import placeholder_op
         return placeholder_op(name, value=None, initializer=self,
@@ -54,6 +63,9 @@ class ConstantInit(BaseInit):
 
     def init_numpy(self, seed=0):
         return np.full(self.shape, self.constant, dtype=np.float32)
+
+    def dist_spec(self):
+        return (0, float(self.constant), 0.0)
 
 
 class ZerosInit(ConstantInit):
@@ -77,6 +89,9 @@ class UniformInit(BaseInit):
         return rng.uniform(self.minval, self.maxval,
                            self.shape).astype(np.float32)
 
+    def dist_spec(self):
+        return (1, float(self.minval), float(self.maxval))
+
 
 class NormalInit(BaseInit):
     def __init__(self, shape, mean=0.0, stddev=0.05):
@@ -88,6 +103,9 @@ class NormalInit(BaseInit):
         rng = np.random.RandomState(seed)
         return rng.normal(self.mean, self.stddev,
                           self.shape).astype(np.float32)
+
+    def dist_spec(self):
+        return (2, float(self.mean), float(self.stddev))
 
 
 class TruncatedNormalInit(BaseInit):
@@ -108,6 +126,9 @@ class TruncatedNormalInit(BaseInit):
         np.clip(out, self.mean - 2 * self.stddev,
                 self.mean + 2 * self.stddev, out=out)
         return out.astype(np.float32)
+
+    def dist_spec(self):
+        return (3, float(self.mean), float(self.stddev))
 
 
 class _VarianceScaling(BaseInit):
@@ -130,6 +151,15 @@ class _VarianceScaling(BaseInit):
             return rng.normal(0.0, std, self.shape).astype(np.float32)
         limit = self.gain * np.sqrt(3.0 / denom)
         return rng.uniform(-limit, limit, self.shape).astype(np.float32)
+
+    def dist_spec(self):
+        fan_in, fan_out = _fans(self.shape)
+        denom = {"fan_in": fan_in, "fan_out": fan_out,
+                 "fan_avg": (fan_in + fan_out) / 2}[self.scale_mode]
+        if self.distribution == "normal":
+            return (2, 0.0, float(self.gain * np.sqrt(1.0 / denom)))
+        limit = float(self.gain * np.sqrt(3.0 / denom))
+        return (1, -limit, limit)
 
 
 class XavierNormalInit(_VarianceScaling):

@@ -5,14 +5,14 @@ DeepFM, Deep & Cross and Deep Crossing.
 Builders keep the reference's ``model(dense_input, sparse_input, y_) ->
 (loss, y, y_, train_op)`` convention, its Criteo dimensions as defaults
 and its parameter names, so both packages draw the same initial values.
-Every table lives on the device, as in the reference's single-device and
-AllReduce modes. Placing a table on ``ht.cpu(0)`` (``embed_ctx``) selects
-the reference's PS mode, which the port does not have yet: it raises.
+``embed_ctx`` places the tables' ops, as in the reference: with
+``ht.cpu(0)`` and an executor in ``comm_mode="PS"`` or ``"Hybrid"`` the
+tables live on the parameter server (or its device cache); without a
+PS mode they stay on the device.
 """
 from __future__ import annotations
 
 from .. import initializers as init
-from ..context import DeviceGroup
 from ..optimizer import SGDOptimizer
 from ..ops import (array_reshape_op, binarycrossentropy_op, broadcastto_op,
                    concat_op, embedding_lookup_op, matmul_op, mul_op,
@@ -25,16 +25,6 @@ __all__ = ["wdl_criteo", "wdl_adult", "deepfm_criteo", "dcn_criteo",
 CRITEO_SPARSE_SLOTS = 26
 CRITEO_DENSE_DIM = 13
 CRITEO_FEATURE_DIM = 33762577
-
-
-def check_embed_ctx(embed_ctx):
-    """Refuse a table placed on the host: that is the PS mode."""
-    if embed_ctx is not None and any(
-            c.kind == "cpu" for c in DeviceGroup(embed_ctx)):
-        raise NotImplementedError(
-            f"embed_ctx={embed_ctx!r} places the table on the host "
-            f"parameter server: PS mode waits for the PS port; leave "
-            f"embed_ctx unset to keep the table on the device")
 
 
 def _dnn(x, dims, name="W"):
@@ -56,7 +46,6 @@ def _bce_sgd(y, y_, learning_rate):
 def _embedded(sparse_input, feature_dimension, embedding_size, embed_ctx):
     """The ``snd_order_embedding`` rows of every slot, flattened to
     ``[B, 26 * embedding_size]``."""
-    check_embed_ctx(embed_ctx)
     embedding = init.random_normal([feature_dimension, embedding_size],
                                    stddev=0.01, name="snd_order_embedding",
                                    ctx=embed_ctx)
@@ -100,7 +89,6 @@ def deepfm_criteo(dense_input, sparse_input, y_,
                   learning_rate=0.01, embed_ctx=None):
     """DeepFM (reference deepfm_criteo.py): 1st-order + FM 2nd-order +
     DNN over shared embeddings."""
-    check_embed_ctx(embed_ctx)
     embedding1 = init.random_normal([feature_dimension, 1], stddev=0.01,
                                     name="fst_order_embedding",
                                     ctx=embed_ctx)

@@ -4,9 +4,9 @@ reference parity: examples/rec/hetu_ncf.py:7-47).
 NeuMF = GMF + MLP over shared user/item embedding tables: each table is
 ``[n, embed_dim + layers[0]//2]`` wide, sliced into the GMF factor (first
 ``embed_dim`` columns, elementwise product) and the MLP factor (the rest,
-concatenated through the tower). The tables live on the device; placing
-them on ``ht.cpu(0)`` (``embed_ctx``, the reference's PS and Hybrid
-placement) raises until the PS port.
+concatenated through the tower). The tables live on the device, or,
+placed on ``ht.cpu(0)`` (``embed_ctx``) under an executor in
+``comm_mode="PS"`` or ``"Hybrid"``, on the parameter server.
 """
 from __future__ import annotations
 
@@ -15,7 +15,6 @@ from ..optimizer import SGDOptimizer
 from ..ops import (binarycrossentropy_op, concat_op, embedding_lookup_op,
                    matmul_op, mul_op, reduce_mean_op, relu_op, sigmoid_op,
                    slice_op)
-from .ctr import check_embed_ctx
 
 __all__ = ["neural_mf", "ML25M_USERS", "ML25M_ITEMS"]
 
@@ -34,7 +33,6 @@ def neural_mf(user_input, item_input, y_, num_users, num_items,
     ``[B, 1]`` implicit-feedback label. ``layers`` is the MLP tower
     (``layers[0]//2`` is each side's MLP embedding width).
     """
-    check_embed_ctx(embed_ctx)
     mlp_dim = layers[0] // 2
     width = embed_dim + mlp_dim
     user_embedding = init.random_normal(

@@ -16,8 +16,9 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["DLContext", "cpu", "gpu", "NDArray", "IndexedSlices", "array",
-           "empty", "ND_Sparse_Array", "sparse_array", "CSRValue"]
+__all__ = ["DLContext", "cpu", "gpu", "rcpu", "rgpu", "is_gpu_ctx",
+           "NDArray", "IndexedSlices", "array", "empty", "ND_Sparse_Array",
+           "sparse_array", "CSRValue"]
 
 
 class DLContext:
@@ -58,6 +59,22 @@ def cpu(dev_id=0):
 
 def gpu(dev_id=0):
     return DLContext("gpu", dev_id)
+
+
+def rcpu(hostname, dev_id=0):
+    """A host CPU on ``hostname`` (reference ndarray.py:112): in a
+    session's device group, a parameter-server role."""
+    return DLContext("cpu", dev_id, hostname=hostname)
+
+
+def rgpu(hostname, dev_id=0):
+    """A GPU on ``hostname`` (reference ndarray.py:120): a worker."""
+    return DLContext("gpu", dev_id, hostname=hostname)
+
+
+def is_gpu_ctx(ctx):
+    """True if ``ctx`` is an accelerator (a worker's device)."""
+    return isinstance(ctx, DLContext) and ctx.kind == "gpu"
 
 
 class NDArray:

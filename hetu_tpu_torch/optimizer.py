@@ -6,9 +6,9 @@ Adam (with amsgrad), AdamW, the
 ``l2reg`` / ``loss_scale`` handling every update path shares, and
 ``OptimizerOp``, which applies the optimizer to its gradient inputs
 inside a step. Sparse (IndexedSlices) gradients update only the rows
-they name: SGD scatter-adds them, Adam is lazy — ``m``, ``v`` and the
-parameter move only on the deduplicated rows; Momentum makes them
-dense, as the reference does.
+they name: SGD scatter-adds them, Adam and AdaGrad are lazy — their
+slots and the parameter move only on the deduplicated rows; Momentum
+makes them dense, as the reference does.
 
 ``update`` is functional, as in the reference: it returns new tensors
 and the executor swaps them in after the step — but for SGD's sparse
@@ -16,9 +16,13 @@ update, which scatter-adds into the table in place and returns the same
 tensor: copying a table the size of Criteo's for a few hundred rows a
 step would move the whole table through memory twice. The reference's
 compiled step donates its parameters, so its scatter-add is in place
-too. AdaGrad on sparse
-gradients (its caller, the PS path, is not ported), the health
-``sentinel_stats`` and the PS / allreduce hooks are still to port.
+too.
+
+``OptimizerOp.backward_hook`` is the PS and Hybrid modes' graph pass
+(reference optimizer.py:381-432): per gradient, a PS push op, the
+device cache's pass-through, the unified dense HET path for SGD, or
+an allreduce. The health ``sentinel_stats`` wait for the telemetry
+port.
 """
 from __future__ import annotations
 
@@ -177,8 +181,15 @@ class AdaGradOptimizer(Optimizer):
 
     def update_one(self, param, grad, slots, lr, step):
         if isinstance(grad, IndexedSlices):
-            raise NotImplementedError(
-                "AdaGrad on a sparse gradient comes with the PS path")
+            # lazy: only the deduplicated rows; the reference's padded
+            # dedup can keep the table's last row's old accumulator when
+            # ids repeat (its lazy Adam's fault, ROADMAP §3) — the port
+            # updates that row as any other
+            idx, rows = grad.dedup()
+            picked = slots["accum"][idx] + rows * rows
+            upd = lr * rows / (torch.sqrt(picked) + self.eps)
+            return (param.index_add(0, idx, upd, alpha=-1),
+                    {"accum": slots["accum"].index_copy(0, idx, picked)})
         accum = slots["accum"] + grad * grad
         return (param - lr * grad / (torch.sqrt(accum) + self.eps),
                 {"accum": accum})
@@ -272,6 +283,8 @@ class OptimizerOp(Op):
         masters = ectx.master_params or ectx.params
         grad_vals, param_vals = {}, {}
         for node, gval in zip(opt.params, input_vals):
+            if gval is None:
+                continue        # PS-managed parameter: updated server-side
             pval = masters[node]
             if isinstance(gval, IndexedSlices):
                 if gval.values.dtype != pval.dtype:
@@ -282,6 +295,17 @@ class OptimizerOp(Op):
                 gval = gval.to(pval.dtype)
             grad_vals[node] = gval
             param_vals[node] = pval
+            if getattr(node, "device_cached", False):
+                # HET push accumulator: the raw gradients add up in the
+                # device state, in place; the PS runtime drains it to the
+                # server every cache_bound steps
+                acc = ectx.state[node]["acc"]
+                if isinstance(gval, IndexedSlices):
+                    acc.index_add_(0, gval.get_flat_indices(),
+                                   gval.get_dense_rows().to(acc.dtype))
+                else:
+                    acc.add_(gval.to(acc.dtype))
+                ectx.new_state[node] = {"acc": acc}
         lr = ectx.lr if ectx.lr is not None else opt.learning_rate
         new_params, new_state = opt.update(
             param_vals, grad_vals, ectx.opt_state or {}, lr, ectx.step)
@@ -294,3 +318,54 @@ class OptimizerOp(Op):
 
     def infer_shape(self, input_shapes):
         return (1,)
+
+    def backward_hook(self, config):
+        """Splice a communication op onto each gradient by the node's
+        strategy (reference optimizer.py:381-432)."""
+        from .ops.comm import (allreduceCommunicate_op,
+                               parameterServerCommunicate_op)
+        new_inputs = []
+        for grad, param in zip(self.inputs, self.optimizer.params):
+            strategy = config.node_strategy.get(param) or config.comm_mode
+            if strategy in ("PS", "Hybrid") and \
+                    (self.optimizer.loss_scale or 1) != 1:
+                # a PS-pushed gradient bypasses update()'s unscale and
+                # would apply loss_scale times too large server-side
+                raise ValueError(
+                    "loss_scale is worker-local (unscaled inside the "
+                    "optimizer update); it cannot be combined with "
+                    "PS-pushed gradients")
+            if getattr(param, "device_cached", False):
+                # device cache: the worker optimizer updates the cache
+                # rows in the step; the accumulated gradients drain to
+                # the server from the PS runtime, not through a comm op
+                comm = grad
+            elif (strategy == "PS" and not param.is_embed
+                    and config.device_cache_tables
+                    and config.prefetch and not config.bsp
+                    and isinstance(self.optimizer, SGDOptimizer)):
+                # unified HET path for a dense PS parameter under the
+                # device cache's ASP mode: updated locally every step,
+                # raw gradients summed in device state and drained to
+                # the server on the cache's cadence. SGD only: the
+                # summed gradients applied server-side commute with the
+                # worker's steps, so the server value (what save()
+                # writes) tracks the worker's; a stateful optimizer
+                # would diverge and takes the per-step comm op instead
+                param.device_cached = True
+                param.stateful = True
+                param.state_shapes = \
+                    lambda shapes, s=tuple(param.shape): {"acc": s}
+                config.ps_dense_cached.append((param, self.optimizer))
+                comm = grad
+            elif strategy == "PS" or (strategy == "Hybrid"
+                                      and param.is_embed):
+                comm = parameterServerCommunicate_op(
+                    grad, param, self.optimizer, ctx=grad.raw_ctx)
+                config.ps_nodes.append(comm)
+            elif strategy in ("AllReduce", "Hybrid"):
+                comm = allreduceCommunicate_op(grad, ctx=grad.raw_ctx)
+            else:
+                comm = grad
+            new_inputs.append(comm)
+        self.inputs = new_inputs

@@ -1,0 +1,159 @@
+"""PS server process management.
+
+Counterpart of ``hetu_tpu/ps/server.py`` (reference parity:
+python/hetu/launcher.py's server role). The server is the C++
+``hetu_ps_run_server`` loop of the port's own library, run in a
+subprocess (``python -m hetu_tpu_torch.ps.run_server PORT NWORKERS``);
+addressing is direct (``HETU_PS_HOSTS`` / ``HETU_PS_PORTS``), so no
+scheduler process is needed. The server runs on the host by design:
+the port puts nothing of it on the card.
+"""
+from __future__ import annotations
+
+import os
+import socket
+import subprocess
+import sys
+import time
+
+from .native_lib import build_lib
+
+__all__ = ["ensure_server", "shutdown_server", "pick_free_port",
+           "default_port"]
+
+_server_procs = []
+_atexit_registered = False
+
+
+def default_port():
+    return int(os.environ.get("HETU_PS_PORTS", "18590").split(",")[0])
+
+
+def _port_open(host, port):
+    try:
+        with socket.create_connection((host, port), timeout=0.2):
+            return True
+    except OSError:
+        return False
+
+
+def pick_free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def ensure_server(port=None, nworkers=None, wait_s=10.0, extra_env=None):
+    """Start a PS server subprocess on ``port`` if none is listening.
+
+    ``extra_env`` adds to the child's environment — the replication
+    hook: a primary is armed with its backup target via
+    ``HETU_PS_MY_BACKUP_HOST``/``HETU_PS_MY_BACKUP_PORT``.
+
+    Startup races are resolved by an atomic port claim: two processes
+    (two workers hitting the in-process convenience path at once) can
+    both observe the port closed and both try to spawn. The *parent*
+    claims the port by binding and listening a socket before it spawns — the kernel makes exactly one
+    claimant win (a second bind against a listening socket fails even
+    under SO_REUSEADDR; bind alone is NOT exclusive) — and hands it to
+    the child (``HETU_PS_LISTEN_FD``), whose accept loop serves it;
+    connections arriving before that queue in the listen backlog. The
+    loser's ``bind()`` fails in the parent, which simply waits for the
+    winner's port and adopts it (returns None, like the
+    port-already-open fast path)."""
+    port = port or default_port()
+    nworkers = nworkers or int(os.environ.get("HETU_PS_NWORKERS", "1"))
+    if _port_open("127.0.0.1", port):
+        return None
+    # build the library here, not in the child: a first build takes
+    # longer than the child's startup allowance
+    build_lib()
+    lsock = socket.socket()
+    lsock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    try:
+        lsock.bind(("0.0.0.0", port))
+        lsock.listen(64)
+    except OSError:
+        # lost the claim: another spawner (or a just-started server)
+        # owns the port — wait for it and adopt
+        lsock.close()
+        deadline = time.time() + wait_s
+        while time.time() < deadline:
+            if _port_open("127.0.0.1", port):
+                return None
+            time.sleep(0.05)
+        raise RuntimeError(
+            f"port {port} is claimed by another process but no PS "
+            f"server came up on it")
+    pkg_root = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    pypath = pkg_root + os.pathsep + os.environ.get("PYTHONPATH", "")
+    lsock.set_inheritable(True)
+    # readiness pipe: the parent pre-listened the port, so "port open"
+    # no longer means "child is serving" — the child writes one byte
+    # when its accept loop is about to run, and a child that dies
+    # during startup EOFs the pipe instead (without this, a crashed
+    # child would be handed back as a live server because connections
+    # queue happily in the claimed socket's backlog)
+    rfd, wfd = os.pipe()
+    try:
+        try:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "hetu_tpu_torch.ps.run_server",
+                 str(port), str(nworkers)],
+                env={**os.environ, "PYTHONPATH": pypath,
+                     "HETU_PS_LISTEN_FD": str(lsock.fileno()),
+                     "HETU_PS_READY_FD": str(wfd),
+                     **(extra_env or {})},
+                pass_fds=(lsock.fileno(), wfd),
+                # a fresh fd table otherwise: the child must not hold
+                # the parent's stdio pipes open past the parent's
+                # death (a `script | tail` would otherwise never see
+                # EOF while the server lives)
+                stdin=subprocess.DEVNULL)
+        except BaseException:
+            os.close(rfd)       # spawn failed: nothing will read it
+            raise
+    finally:
+        # the child inherited its own copies; keeping ours would hold
+        # the port (and the claim, and the pipe's EOF) for life
+        lsock.close()
+        os.close(wfd)
+    _server_procs.append(proc)
+    if not _atexit_registered:
+        # single-process convenience runs (examples' ensure_local_ps)
+        # must not leak the fleet past interpreter exit
+        import atexit
+        atexit.register(shutdown_server)
+        globals()["_atexit_registered"] = True
+    import select
+    deadline = time.time() + wait_s
+    try:
+        while time.time() < deadline:
+            readable, _, _ = select.select([rfd], [], [], 0.05)
+            if readable:
+                if os.read(rfd, 1):
+                    return proc          # child reached its serve loop
+                # EOF without the readiness byte: died during startup
+                try:
+                    rc = proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    rc = "no exit (readiness pipe closed unready)"
+                raise RuntimeError(
+                    f"PS server exited with {rc} during startup")
+    finally:
+        os.close(rfd)
+    raise RuntimeError(f"PS server did not come up on :{port}")
+
+
+def shutdown_server():
+    for proc in _server_procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=3)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+    _server_procs.clear()

@@ -20,13 +20,14 @@ Counterpart of ``hetu_tpu/serving``. Ported:
   :class:`~hetu_tpu_torch.serving.scheduler.ContinuousBatchingEngine` —
   iteration-level batching over the block-paged cache;
 * :mod:`~hetu_tpu_torch.serving.lifecycle` — request ids and in-flight
-  tables.
-
-PS-backed embeddings (``serving/embedding.py``) are not ported yet:
-they wait for the PS port (ROADMAP.md item 10).
+  tables;
+* :func:`~hetu_tpu_torch.serving.embedding.serve_embeddings_from_ps`
+  and :class:`~hetu_tpu_torch.serving.embedding.ReadOnlyPSClient` —
+  sessions that read their embedding rows from the parameter server.
 """
 from .batcher import MicroBatcher
 from .decode import GPTDecoder
+from .embedding import ReadOnlyPSClient, serve_embeddings_from_ps
 from .http import ServingHTTPServer
 from .kvcache import (BlockAllocator, KVCacheExhausted, PagedKVCache,
                       PrefixCache)
@@ -40,4 +41,5 @@ __all__ = ["InferenceSession", "next_bucket", "GPTDecoder",
            "RouterOverloaded", "SLOWindow", "BlockAllocator",
            "KVCacheExhausted", "PagedKVCache", "PrefixCache",
            "ContinuousBatchingEngine", "EngineOverloaded",
-           "RequestTimeline", "mint_request_id"]
+           "RequestTimeline", "mint_request_id", "ReadOnlyPSClient",
+           "serve_embeddings_from_ps"]

@@ -15,8 +15,11 @@ problem sizes.
 The forward runs under ``torch.inference_mode()``: no autograd graph
 is built and nothing is kept for a backward. Outputs are cut back to
 the real batch (and sequence) on the device before the one copy to the
-host. PS-backed sessions (``comm_mode``, ``ps_read_only``,
-``embed_cache_rows``) wait for the PS port (ROADMAP.md item 10).
+host. A PS-backed session (``comm_mode="PS"``, its lookups rewritten
+by :func:`~hetu_tpu_torch.serving.embedding.serve_embeddings_from_ps`)
+pulls its embedding rows from the server per request through a
+:class:`~hetu_tpu_torch.serving.embedding.ReadOnlyPSClient`, with an
+LRU row cache of ``embed_cache_rows`` rows a table.
 """
 from __future__ import annotations
 
@@ -30,13 +33,10 @@ from ..executor import Executor, HetuConfig
 from ..graph.autodiff import find_topo_sort
 from ..graph.node import Op
 from ..ndarray import NDArray
+from ..ops.comm import ParameterServerCommunicateOp
 from ..optimizer import OptimizerOp
 
 __all__ = ["InferenceSession", "next_bucket"]
-
-# the reference's PS serving options: refused until PS is ported
-_PS_OPTIONS = ("comm_mode", "ps_read_only", "embed_cache_rows")
-
 
 def next_bucket(n, buckets=None):
     """Smallest bucket >= n. ``buckets=None`` means the power-of-two
@@ -84,21 +84,22 @@ class InferenceSession:
         When set, dim ``seq_axis`` of every feed with more than
         ``seq_axis`` dims also pads up to a bucket (causal LMs: extra
         trailing positions never change real positions' outputs).
+    ps_read_only : bool
+        Wrap the session's PS client so any push raises (default True).
+    embed_cache_rows : int
+        Rows a table the read-only client keeps in its LRU cache
+        (default 0: every row is pulled).
     executor_kwargs :
         Forwarded to :class:`HetuConfig` (``ctx``, ``device``, ``seed``,
-        ``dtype``); the session runs on ``cuda`` unless they say
-        otherwise, and raises without it.
+        ``dtype``, ``comm_mode``); the session runs on ``cuda`` unless
+        they say otherwise, and raises without it.
     """
 
     def __init__(self, eval_node_list, checkpoint=None, *,
                  batch_buckets=None, seq_buckets=None, seq_axis=1,
-                 telemetry=None, **executor_kwargs):
+                 ps_read_only=True, embed_cache_rows=0, telemetry=None,
+                 **executor_kwargs):
         eval_node_list = list(eval_node_list)
-        ps = sorted(set(_PS_OPTIONS) & set(executor_kwargs))
-        if ps:
-            raise NotImplementedError(
-                f"InferenceSession options {ps}: PS-backed serving waits "
-                f"for the PS port (ROADMAP.md item 10)")
         self._check_frozen(eval_node_list)
         self.telemetry = _telemetry.resolve(telemetry)
         self.batch_buckets = (tuple(sorted(batch_buckets))
@@ -108,6 +109,13 @@ class InferenceSession:
         self.seq_axis = int(seq_axis)
         config = HetuConfig(eval_node_list=eval_node_list, **executor_kwargs)
         self.device = config.device
+        self.ps_client = None
+        if config.ps_comm is not None and ps_read_only:
+            from .embedding import ReadOnlyPSClient
+            if not isinstance(config.ps_comm, ReadOnlyPSClient):
+                config.ps_comm = ReadOnlyPSClient(
+                    config.ps_comm, cache_rows=embed_cache_rows)
+            self.ps_client = config.ps_comm
         self.executor = Executor({"default": eval_node_list},
                                  config=config)
         sub = self.executor.subexecutors["default"]
@@ -120,14 +128,17 @@ class InferenceSession:
     @staticmethod
     def _check_frozen(eval_node_list):
         """The reference's frozen-graph contract
-        (``hetu_tpu/analysis/shapes.py`` ``frozen_graph_pass``) as far as
-        the port's ops go: no optimizer in the closure. PS push and
-        dataloader ops do not exist in the port yet."""
-        errors = ["InferenceSession over a training graph: eval nodes "
-                  "reach an OptimizerOp — pass the model outputs only "
-                  "(no train_op)"
-                  for n in find_topo_sort(eval_node_list)
-                  if isinstance(n, OptimizerOp)]
+        (``hetu_tpu/analysis/shapes.py`` ``frozen_graph_pass``): no
+        optimizer and no PS push op in the closure."""
+        errors = []
+        for n in find_topo_sort(eval_node_list):
+            if isinstance(n, OptimizerOp):
+                errors.append("InferenceSession over a training graph: "
+                              "eval nodes reach an OptimizerOp — pass the "
+                              "model outputs only (no train_op)")
+            elif isinstance(n, ParameterServerCommunicateOp):
+                errors.append(f"InferenceSession over a PS push "
+                              f"({n.name}): serving never pushes")
         if errors:
             raise ValueError("\n".join(errors))
 
@@ -228,9 +239,11 @@ class InferenceSession:
 
     # ------------------------------------------------------------------
     def close(self):
-        """Drop the executor and its parameter table; ``predict`` then
-        raises. A decoder built ``from_session`` keeps the tensors it
-        shares."""
+        """Close the executor and drop it and its parameter table;
+        ``predict`` then raises. A decoder built ``from_session`` keeps
+        the tensors it shares."""
+        if self.executor is not None:
+            self.executor.close()
         self.executor = None
 
     def __enter__(self):

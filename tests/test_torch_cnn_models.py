@@ -13,7 +13,8 @@ AlexNet has dropout 0.5 hard-coded in its training graph. The two
 packages draw dropout masks from different generators (``jax.random``
 against ``torch.Generator``), so their training losses differ by design;
 AlexNet's ``validate`` subgraph (no dropout) is compared instead, and
-its training loss must fall.
+its training loss must fall over 16 steps on one batch at lr 2e-5,
+whatever dropout masks the process-wide op counter gives.
 """
 import numpy as np
 import pytest
@@ -42,6 +43,8 @@ MODELS = {
     "lstm": (MNIST, 4, 0.01, 1e-5),
 }
 STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+# AlexNet's training loss is held at a rate at which it learns
+ALEXNET_LR, ALEXNET_STEPS = 2e-5, 16
 
 
 def _batches(shape, batch, steps, seed=0):
@@ -114,10 +117,19 @@ def test_alexnet_validate_matches_and_training_loss_falls():
     texe, tl = _train(tht, TM, "alexnet", tht.optim.SGDOptimizer(1e-8), xs,
                       ys, "validate")
     np.testing.assert_allclose(tl, jl, rtol=1e-5)
-    x, y_ = _feeds(texe)
+    # training under dropout 0.5: the masks come from generators seeded
+    # by op id, a process-wide counter, so they depend on how many ops
+    # the process made before. At a rate at which AlexNet learns, one
+    # batch trained ALEXNET_STEPS times loses most of its loss whatever
+    # the masks (the mean of the last quarter was at most 0.32 of the
+    # first's over 12 counter offsets, 0 to 12345)
+    texe, x, y_ = _session(tht, TM, "alexnet",
+                           tht.optim.SGDOptimizer(ALEXNET_LR))
     train = [_scalar(texe.run("train", feed_dict={x: xs[0], y_: ys[0]})[0])
-             for _ in range(STEPS)]
-    assert np.all(np.isfinite(train)) and train[-1] < train[0], train
+             for _ in range(ALEXNET_STEPS)]
+    quarter = ALEXNET_STEPS // 4
+    assert np.all(np.isfinite(train)), train
+    assert np.mean(train[-quarter:]) < np.mean(train[:quarter]), train
 
 
 def test_vgg16_diverges_at_lr_0_1_like_the_reference():

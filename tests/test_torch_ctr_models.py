@@ -8,10 +8,13 @@ Also: SGD's sparse update writes into the table in place (the reference's
 compiled step donates the table; copying it a step would move the whole
 table through memory twice) and, with ids repeated within a batch,
 leaves the table as hetu_tpu's does within 1e-6; ``run_batches`` gives
-what the same number of ``run`` calls gives; and a table placed on the
-host (the PS mode) is refused, by the builders and by ``ctr_main``,
-whose metrics loop runs on the CPU with ``--device cpu``.
+what the same number of ``run`` calls gives; ``ctr_main``'s metrics
+loop runs on the CPU with ``--device cpu``, in PS mode too; and a table
+placed on the host trains on the parameter server as hetu_tpu's does
+(losses within 1e-5 relative, each package on its own server).
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -141,17 +144,11 @@ def test_run_batches_matches_sequential_runs(name):
         np.testing.assert_array_equal(_params(blk)[key], value)
 
 
-@pytest.mark.parametrize("name", CRITEO)
-def test_a_table_on_the_host_is_refused(name):
-    nodes = [tht.Variable(n, trainable=False) for n in ("d", "s", "y")]
-    with pytest.raises(NotImplementedError, match="PS mode"):
-        getattr(TM, name)(*nodes, feature_dimension=ROWS,
-                          embedding_size=WIDTH, embed_ctx=tht.cpu(0))
-
-
 def test_ctr_main_trains_on_the_cpu_and_refuses_ps(monkeypatch, tmp_path):
     """The metrics loop (``--all``), the block loop and validation of the
-    port's ctr_main on its synthetic Criteo stand-in."""
+    port's ctr_main on its synthetic Criteo stand-in, and its PS mode,
+    which it no longer refuses. (It starts and finalizes the port's
+    client itself, so it runs before the module's PS fixture below.)"""
     monkeypatch.setenv("HETU_DATA_DIR", str(tmp_path))
     args = ["--model", "dcn_criteo", "--dim", str(ROWS), "--nsamples",
             "2560", "--batch-size", "64", "--nepoch", "2", "--val",
@@ -161,5 +158,60 @@ def test_ctr_main_trains_on_the_cpu_and_refuses_ps(monkeypatch, tmp_path):
     assert np.isfinite(metrics["val_loss"]), metrics
     blocks = ctr_main.worker(ctr_main.parse_args(args))
     assert np.isfinite(blocks["val_loss"]), blocks
-    with pytest.raises(NotImplementedError, match="PS mode"):
-        ctr_main.worker(ctr_main.parse_args(args + ["--comm-mode", "PS"]))
+    # --comm-mode PS, which was refused, now trains: the table on a
+    # server started for the run (and stopped after it), read through the
+    # device cache with drains every 5 steps. No server is named (other
+    # tests in this process may have left theirs in the environment)
+    monkeypatch.delenv("HETU_PS_PORTS", raising=False)
+    monkeypatch.delenv("HETU_PS_HOSTS", raising=False)
+    ps = ctr_main.worker(ctr_main.parse_args(
+        args + ["--comm-mode", "PS", "--bound", "5"]))
+    assert np.isfinite(ps["val_loss"]), ps
+    assert "HETU_PS_PORTS" not in os.environ
+
+
+@pytest.fixture(scope="module")
+def ps_servers():
+    """A parameter server of each package, each package's client on its
+    own (tests/torch_ps_util.py)."""
+    from torch_ps_util import both_servers
+    with both_servers() as pair:
+        yield pair
+
+
+def _ps_losses(ht, models, name, feeds, client):
+    """``name`` built with its tables on the host (``embed_ctx``) and
+    trained in PS mode with synchronous pushes. The server draws a
+    table seeded by its tensor id, which differs between the packages,
+    so the tables are set to the name-seeded values both packages
+    draw."""
+    nodes = [ht.Variable(n, trainable=False) for n in ("d", "s", "y")]
+    loss, _, _, train_op = getattr(models, name)(
+        *nodes, feature_dimension=ROWS, embedding_size=WIDTH,
+        embed_ctx=ht.cpu(0))
+    kw = {"ctx": tht.cpu(0)} if ht is tht else {}
+    exe = ht.Executor([loss, train_op], comm_mode="PS", prefetch=False,
+                      **kw)
+    tables = [op.parameter for op in exe.config.ps_nodes
+              if op.parameter.is_embed]
+    for table in tables:
+        client.set_param(table.id, table.initial_value(seed=0))
+    losses = [float(np.asarray(exe.run(feed_dict=dict(zip(nodes, f)))[0]
+                               .asnumpy()).reshape(-1)[0]) for f in feeds]
+    exe.close()
+    return losses, tables
+
+
+@pytest.mark.parametrize("name", CRITEO)
+def test_a_table_on_the_host_is_refused(name, ps_servers):
+    """A table placed on the host (``embed_ctx=ht.cpu(0)``) is no longer
+    refused: under ``comm_mode="PS"`` it lives on the parameter server,
+    and the model trains there as it does in hetu_tpu, losses within
+    1e-5 relative."""
+    jc, tc = ps_servers
+    feeds = _criteo_feeds()
+    jl, _ = _ps_losses(jht, JM, name, feeds, jc)
+    tl, tables = _ps_losses(tht, TM, name, feeds, tc)
+    assert tables and all(t.raw_ctx[0] == tht.cpu(0) for t in tables)
+    assert np.all(np.isfinite(tl)), tl
+    np.testing.assert_allclose(tl, jl, rtol=1e-5, atol=0)

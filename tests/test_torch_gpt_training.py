@@ -222,5 +222,10 @@ def test_executor_defaults_to_cuda(monkeypatch):
     ids, labels, nodes, _ = _graph(tht, TM)
     with pytest.raises(RuntimeError, match="CUDA"):
         tht.Executor(nodes)
+    # the PS mode defaults to CUDA too (the device resolves before the
+    # parameter server is reached); options of modes still to port are
+    # refused naming ROADMAP.md
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tht.Executor(nodes, comm_mode="PS")
     with pytest.raises(TypeError, match="ROADMAP"):
-        tht.Executor(nodes, ctx=tht.cpu(0), comm_mode="PS")
+        tht.Executor(nodes, ctx=tht.cpu(0), pipeline_mode="collective")

@@ -1,8 +1,13 @@
 """hetu_tpu_torch stands alone: it imports with JAX and hetu_tpu
-blocked, its entry points default to CUDA and raise without it, and
-the telemetry stub refuses to record silently."""
+blocked — its parameter-server modules too, and its server process
+starts so —, its entry points default to CUDA and raise without it, the
+telemetry stub refuses to record silently, and its copy of the
+parameter server's C++ sources stays byte-identical to hetu_tpu's."""
+import os
+import socket
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -82,7 +87,8 @@ def _cnn_executor():
                                    "decoder", "cnn_executor", "cnn_main",
                                    "ctr_main", "rec_main",
                                    "transformer_main", "csr_value",
-                                   "gcn_main", "sampled_sage"])
+                                   "gcn_main", "sampled_sage",
+                                   "ps_executor"])
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch, tmp_path,
                                                       entry):
     monkeypatch.setenv("HETU_DATA_DIR", str(tmp_path))
@@ -118,10 +124,81 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch, tmp_path,
             ["--nodes", "50", "--num-epochs", "1"])),
         "sampled_sage": lambda: sampled_sage.main(sampled_sage.parse_args(
             ["--nodes", "100", "--num-epoch", "1"])),
+        "ps_executor": lambda: ht.Executor(
+            [ht.reduce_sum_op(ht.embedding_lookup_op(
+                ht.Variable("t", value=np.zeros((4, 2), np.float32)),
+                ht.Variable("i", trainable=False)), [0])],
+            comm_mode="PS"),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+BLOCK = ("import sys\n"
+         "for name in ('jax', 'jaxlib', 'hetu_tpu'):\n"
+         "    sys.modules[name] = None      # any import of them fails\n")
+
+
+def test_ps_modules_import_without_jax_or_hetu_tpu():
+    code = BLOCK + (
+        "import hetu_tpu_torch.ps, hetu_tpu_torch.ps.client\n"
+        "import hetu_tpu_torch.ps.server, hetu_tpu_torch.ps.run_server\n"
+        "import hetu_tpu_torch.ps.native_lib, hetu_tpu_torch.ps.runtime\n"
+        "import hetu_tpu_torch.ps.device_cache, hetu_tpu_torch.cstable\n"
+        "import hetu_tpu_torch.ingest, hetu_tpu_torch.ops.comm\n"
+        "import hetu_tpu_torch.serving.embedding\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_ps_server_process_starts_without_jax_or_hetu_tpu():
+    """``python -m hetu_tpu_torch.ps.run_server PORT 1``, run with JAX
+    and hetu_tpu blocked, serves its port."""
+    from hetu_tpu_torch.ps import native_lib, server
+    native_lib.build_lib()
+    port = server.pick_free_port()
+    code = BLOCK + (
+        "import runpy\n"
+        f"sys.argv = ['run_server', '{port}', '1']\n"
+        "runpy.run_module('hetu_tpu_torch.ps.run_server',\n"
+        "                 run_name='__main__')\n")
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT,
+                            env={**os.environ, "PYTHONPATH": str(ROOT)},
+                            stdin=subprocess.DEVNULL,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    try:
+        deadline = time.time() + 60
+        while time.time() < deadline and proc.poll() is None:
+            try:
+                socket.create_connection(("127.0.0.1", port), 0.2).close()
+                break
+            except OSError:
+                time.sleep(0.1)
+        assert proc.poll() is None, proc.communicate()[1]
+        socket.create_connection(("127.0.0.1", port), 1).close()
+    finally:
+        proc.kill()
+        proc.communicate()
+
+
+def test_ps_native_sources_are_hetu_tpus():
+    """The port builds the server library from its own copy of the C++
+    sources (its Makefile is its own): a drift from hetu_tpu's shows
+    here."""
+    mine = ROOT / "hetu_tpu_torch" / "ps" / "native"
+    ref = ROOT / "hetu_tpu" / "ps" / "native"
+    names = sorted(p.name for p in mine.iterdir()
+                   if p.suffix in (".cc", ".h"))
+    assert names == sorted(p.name for p in ref.iterdir()
+                           if p.suffix in (".cc", ".h"))
+    for name in names:
+        assert (mine / name).read_bytes() == (ref / name).read_bytes(), name
 
 
 @pytest.mark.parametrize("arg", [True, "some/dir", "env"])

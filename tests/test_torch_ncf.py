@@ -88,3 +88,21 @@ def test_movielens_copy_draws_the_reference_set():
         np.testing.assert_array_equal(got[0][key], want[0][key])
     np.testing.assert_array_equal(got[1], want[1])
     assert got[2:] == want[2:]
+
+
+@pytest.mark.parametrize("mode", ["PS", "Hybrid"])
+def test_rec_main_trains_in_the_ps_modes(monkeypatch, tmp_path, mode):
+    """``--comm-mode PS`` / ``Hybrid``: the tables on a server started for
+    the run (which draws them itself: other initial values than the
+    device run's), read through the device cache, reach the same
+    retrieval bars as the tables on the device."""
+    monkeypatch.setenv("HETU_DATA_DIR", str(tmp_path))
+    # no server named: rec_main starts its own (other tests in this
+    # process may have left theirs in the environment)
+    monkeypatch.delenv("HETU_PS_PORTS", raising=False)
+    monkeypatch.delenv("HETU_PS_HOSTS", raising=False)
+    results = rec_main.worker(rec_main.parse_args([
+        "--val", "--nepoch", "18", "--learning-rate", "8.0",
+        "--batch-size", "1024", "--device", "cpu", "--comm-mode", mode]))
+    assert results["hr"] >= 0.5, results
+    assert results["ndcg"] >= 0.25, results

@@ -83,13 +83,56 @@ def test_session_rejects_training_graph():
     assert "pass the model outputs only (no train_op)" in str(err.value)
 
 
+@pytest.fixture(scope="module")
+def ps_server():
+    """A server of the port and its client (tests/torch_ps_util.py)."""
+    from torch_ps_util import torch_server
+    with torch_server() as (client, _):
+        yield client
+
+
 @pytest.mark.parametrize("option", [dict(comm_mode="PS"),
                                     dict(ps_read_only=True),
                                     dict(embed_cache_rows=16)])
-def test_ps_serving_options_wait_for_the_ps_port(option):
-    x, out = _linear(tht)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 10"):
-        InferenceSession([out], device="cpu", **option)
+def test_ps_serving_options_wait_for_the_ps_port(option, ps_server):
+    """The PS serving options, which the session refused until the PS
+    port, now serve: an embedding table on the server, read through the
+    session's client, predicts what the same table on the device does
+    (1e-6 relative); ``ps_read_only`` (the default) wraps the client
+    read-only and ``embed_cache_rows`` sizes its row cache."""
+    from hetu_tpu_torch.serving import (ReadOnlyPSClient,
+                                        serve_embeddings_from_ps)
+    rng = np.random.RandomState(5)
+    table = rng.randn(30, 20).astype("f")
+    ids = rng.randint(0, 30, (5, 2))
+
+    def graph():
+        x, out = _linear(tht)
+        tbl = tht.Variable("serve_table", value=table)
+        rows = tht.embedding_lookup_op(tbl, x)
+        return x, tbl, tht.matmul_op(tht.reduce_sum_op(rows, [1]),
+                                     out.inputs[1])
+
+    x, _, out = graph()
+    want = InferenceSession([out], device="cpu").predict({x: ids})[0]
+    x, tbl, out = graph()
+    ps_server.init_tensor(tbl.id, table.shape, kind=1, opt="None")
+    ps_server.set_param(tbl.id, table)
+    nodes = [out]
+    serve_embeddings_from_ps(nodes)
+    kwargs = {"comm_mode": "PS", **option}
+    sess = InferenceSession(nodes, device="cpu", **kwargs)
+    np.testing.assert_allclose(sess.predict({x: ids})[0], want, rtol=1e-6)
+    client = sess.ps_client
+    assert isinstance(client, ReadOnlyPSClient)
+    assert client.cache_rows == option.get("embed_cache_rows", 0)
+    # the batch of 5 pads to its bucket of 8 by repeating the last row;
+    # the row cache pulls each id of the padded batch once, the uncached
+    # client every id
+    padded = np.concatenate([ids, np.repeat(ids[-1:], 3, axis=0)])
+    assert client.misses == (len(np.unique(padded)) if client.cache_rows
+                             else padded.size)
+    sess.close()
 
 
 def test_bucketing_bounds_the_feed_shapes():
