@@ -23,7 +23,8 @@ Transformer-base trained in f32, and to the reversal bar through
 on an OGB-arxiv-sized graph, through ``examples/gcn_main.py``, and on
 sampled subgraphs through ``examples/sampled_sage.py``; WDL at Criteo
 widths trained in the PS and Hybrid modes against the port's parameter
-server, and served from it — checks every kernel
+server, and served from it; fleets of PS servers and workers started by
+the port's launcher, every worker on the card — checks every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -132,6 +133,22 @@ object per line (``--out`` also writes them to FILE):
   against the same session over a dense table on the card;
 * ``hybrid_wdl`` comm_mode="Hybrid" with the device cache: samples/s,
   step ms, phases, cache counters;
+* ``ps_fleet`` fleets of (servers, workers) = (1, 1), (1, 2), (2, 2)
+  and (4, 4) started by ``python -m hetu_tpu_torch.launcher`` (each
+  worker ``python chip_smoke.py --fleet-worker SPEC``, a process of its
+  own on the one card, placed by ``ht.rgpu("localhost", rank)``) on
+  ``ps_wdl``'s configuration and traffic (ids from seed + rank), one
+  warm-up and 3 timed blocks of 100 a worker under ASP: the aggregate
+  samples/s (samples of all workers / the slowest worker's timed
+  window), each worker's step p50, phases, cache counters (the rows
+  refreshed from the other workers' pushes among them), peak memory and
+  K1-K4 launches (none), the card's used memory while the fleet runs,
+  each server's RSS idle, registered and after training and whether it
+  maps libtorch (it must not), the host's cores; then the BSP host-path
+  fleet (2, 2), 50 steps, against the same fleet with its workers on the
+  CPU (losses and the touched server rows, as ``ps_wdl``'s parity). A
+  fleet that does not come up, a worker that fails or a server that
+  maps libtorch fails the run;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -3322,6 +3339,409 @@ def ps_passes(torch, card, seed):
     return lines
 
 
+# ---------------------------------------------------------------------------
+# ps_fleet: fleets of PS servers and workers started by the port's launcher
+# (python -m hetu_tpu_torch.launcher), every worker on the one card
+# ---------------------------------------------------------------------------
+
+FLEETS = ((1, 1), (1, 2), (2, 2), (4, 4))   # (servers, workers), bench.py:633
+FLEET_PARITY = (2, 2)       # the BSP fleet held against its CPU twin
+FLEET_PARITY_STEPS = 50
+FLEET_TIMEOUT_S = 300       # a fleet's launcher run, start to exit
+
+
+def _listener_pids(ports):
+    """{port: pid} of the processes listening on ``ports`` on this host
+    (``/proc/net/tcp`` names each listening socket's inode; a process's
+    ``fd`` links name the sockets it holds)."""
+    inodes = {}
+    for path in ("/proc/net/tcp", "/proc/net/tcp6"):
+        try:
+            with open(path) as f:
+                lines = f.read().splitlines()[1:]
+        except OSError:
+            continue
+        for line in lines:
+            fields = line.split()
+            port = int(fields[1].rsplit(":", 1)[1], 16)
+            if fields[3] == "0A" and port in ports:      # LISTEN
+                inodes[fields[9]] = port
+    pids = {}
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                link = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if link.startswith("socket:[") and link[8:-1] in inodes:
+                pids[inodes[link[8:-1]]] = int(pid)
+    return pids
+
+
+def _server_memory(pids):
+    """{port: {"pid", "rss_bytes", "maps_libtorch"}} of the servers."""
+    out = {}
+    for port, pid in sorted(pids.items()):
+        with open(f"/proc/{pid}/maps") as f:
+            maps = f.read()
+        out[str(port)] = {"pid": pid, "rss_bytes": _rss_bytes(pid),
+                          "maps_libtorch": "libtorch" in maps}
+    return out
+
+
+def _ps_table(exe):
+    """(tensor id, width) of the PS embedding table of a WDL session."""
+    rt = exe.ps_runtime
+    if rt.device_tables:
+        dt = next(iter(rt.device_tables.values()))
+        return dt.tid, dt.width
+    table = next(op.parameter for op in exe.config.ps_nodes
+                 if op.parameter.is_embed)
+    return table.id, int(table.shape[-1])
+
+
+def fleet_worker(spec):
+    """One worker process of a ps_fleet fleet, run by the launcher as
+    ``python chip_smoke.py --fleet-worker SPEC``. ``spec["mode"]``:
+    "cache" trains WDL through the device cache (ASP, cache_bound 100,
+    bf16 drains) in run_batches blocks — one warm-up block, then a
+    barrier, then PS_TIMED_BLOCKS timed ones; "bsp" trains it on the host
+    path under BSP for FLEET_PARITY_STEPS run() steps. The worker of rank
+    r draws bench.py's traffic from seed + r and runs on
+    ``ht.rgpu("localhost", r)`` (``cuda:0`` on a one-card host) or, for
+    the CPU twin, on the CPU. Rank 0 reads the servers' RSS and maps
+    idle, registered and after training. Writes ``worker_<rank>.json``
+    (and, under "bsp", ``rows_<rank>.npz``: the server rows of every id
+    it touched, which the parity reads)."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ps.client import get_default_client
+    rank = int(os.environ["HETU_PS_RANK"])
+    cuda = spec["device"] == "cuda"
+    client = get_default_client()
+    ports = [int(p) for p in os.environ["HETU_PS_PORTS"].split(",")]
+    servers = _listener_pids(set(ports)) if rank == 0 else {}
+    if rank == 0 and len(servers) != len(ports):
+        raise AssertionError(f"servers on {ports}: found {servers}")
+    out = {"rank": rank, "device": spec["device"],
+           "nworkers": client.nworkers, "nservers": client.nservers}
+    client.barrier()
+    if rank == 0:
+        out["servers_idle"] = _server_memory(servers)
+    traffic = sparse_traffic("wdl_criteo", spec["seed"] + rank)
+    if spec["mode"] == "cache":
+        options = dict(cstable_policy="Device", cache_bound=PS_BLOCK,
+                       drain_compress=True)
+    else:
+        options = dict(bsp=True)
+    ctx = ht.rgpu("localhost", rank) if cuda else ht.cpu(0)
+    t0 = time.perf_counter()
+    with ps_node_ids(PS_ID_BASE):
+        nodes, loss, _, train_op = ps_wdl_graph(ht)
+        exe = ht.Executor([loss, train_op], ctx=ctx, comm_mode="PS",
+                          **options)
+    out["executor_device"] = str(exe.config.device)
+    out["executor_setup_s"] = time.perf_counter() - t0
+    rt = exe.ps_runtime
+    tid, width = _ps_table(exe)
+    first_ids = np.unique(traffic[0][1])
+    first_rows = client.sparse_pull(tid, first_ids, width)
+    client.barrier()                        # every shard is registered
+    if rank == 0:
+        out["servers_registered"] = _server_memory(servers)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    if spec["mode"] == "cache":
+        losses = _step_losses(exe.run_batches(
+            _ps_block(nodes, traffic, 0, PS_BLOCK)))
+        rt.reset_phase_times()
+        client.barrier()                    # the timed windows start together
+        block_ms = []
+        out["window_start"] = time.time()
+        for b in range(PS_TIMED_BLOCKS):
+            t = time.perf_counter()
+            outs = exe.run_batches(_ps_block(nodes, traffic,
+                                             (1 + b) * PS_BLOCK, PS_BLOCK))
+            outs[-1][0].asnumpy()
+            block_ms.append((time.perf_counter() - t) * 1e3)
+            losses += _step_losses(outs)
+        out["window_end"] = time.time()
+        steps = PS_BLOCK * PS_TIMED_BLOCKS
+        out["step_ms"] = [ms / PS_BLOCK for ms in block_ms]
+        out["step_ms_p50"] = float(np.median(out["step_ms"]))
+        out["first_last_block_mean_loss"] = [
+            float(np.mean(losses[:PS_BLOCK])),
+            float(np.mean(losses[-PS_BLOCK:]))]
+    else:
+        steps = spec["steps"]
+        losses = []
+        out["window_start"] = time.time()
+        for i in range(steps):
+            losses.append(float(exe.run(feed_dict=dict(zip(
+                nodes, traffic[i % SPARSE_CYCLE])))[0].asnumpy()
+                .reshape(-1)[0]))
+        out["window_end"] = time.time()
+        out["losses"] = losses
+    out["steps"] = steps
+    out["phase_ms_per_step"], out["cache"] = _phase_ms(rt, steps)
+    out["launches"] = _k1_k4_launches(_build.launch_counts)  # main path ends
+    if cuda:
+        out["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated())
+    out["losses_finite"] = bool(np.all(np.isfinite(losses)))
+    rt.drain()
+    if rt.device_tables:
+        dt = next(iter(rt.device_tables.values()))
+        out["dirty_after_drain"] = int(dt.dirty.sum())
+        out["refreshed_rows"] = int(dt.pulled_rows - dt.misses)
+    client.barrier()                        # every worker's pushes landed
+    out["first_rows_moved"] = float(np.abs(
+        client.sparse_pull(tid, first_ids, width) - first_rows).max())
+    if spec["mode"] == "bsp":
+        ids = np.unique(np.concatenate([traffic[i % SPARSE_CYCLE][1].ravel()
+                                        for i in range(steps)]))
+        np.savez(os.path.join(spec["out"], f"rows_{rank}.npz"), ids=ids,
+                 rows=client.sparse_pull(tid, ids, width))
+    if rank == 0:
+        out["servers_trained"] = _server_memory(servers)
+    client.barrier()                # no worker leaves while others read
+    exe.close()
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _card_memory_used_mib():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=30, check=True)
+    return float(out.stdout.split()[0])
+
+
+def run_fleet(seed, servers, workers, mode, device,
+              steps=FLEET_PARITY_STEPS, timeout=FLEET_TIMEOUT_S):
+    """One fleet through ``python -m hetu_tpu_torch.launcher -c <yml>``
+    with :func:`fleet_worker` as the workers' command. The launcher runs
+    in a session of its own, killed whole (servers and workers with it)
+    if it outlives ``timeout``; a launcher that exits non-zero (a fleet
+    that did not come up, a worker that failed) raises with its log's
+    tail. On the card, ``nvidia-smi``'s used memory is sampled while the
+    fleet runs. The fleet's directory (its config, log and records) is
+    removed when it is read. Returns (the workers' records by rank,
+    info)."""
+    import shutil
+    import tempfile
+    import threading
+    out_dir = tempfile.mkdtemp(prefix="ps_fleet_")
+    try:
+        cfg = os.path.join(out_dir, "cluster.yml")
+        with open(cfg, "w") as f:
+            f.write(f"nodes:\n  - host: localhost\n"
+                    f"    servers: {servers}\n"
+                    f"    workers: {workers}\n    chief: true\n")
+        spec = {"mode": mode, "device": device, "seed": seed,
+                "steps": steps, "out": out_dir}
+        cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
+               sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+               "--fleet-worker", json.dumps(spec)]
+        # the launcher keeps a leaked fleet environment from its servers
+        # and workers; HETU_PS_REPLICATE it reads itself: these fleets
+        # have no replicas
+        env = {**os.environ, "HETU_PS_REPLICATE": "0",
+               "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        used, stop = [], threading.Event()
+
+        def sample():
+            while not stop.wait(0.5):
+                used.append(_card_memory_used_mib())
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        before = _card_memory_used_mib() if device == "cuda" else None
+        if device == "cuda":
+            sampler.start()
+        log_path = os.path.join(out_dir, "fleet.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                    stderr=subprocess.STDOUT,
+                                    stdin=subprocess.DEVNULL,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=timeout)
+            except subprocess.TimeoutExpired:
+                rc = f"no exit within {timeout} s"
+            finally:
+                stop.set()
+                try:
+                    os.killpg(proc.pid, 9)      # whatever is left of it
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if device == "cuda":
+            sampler.join()
+        if rc != 0:
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"fleet ({servers} servers, {workers} "
+                                 f"workers, {mode}, {device}): launcher "
+                                 f"exit {rc}\n{tail}")
+        records = []
+        for r in range(workers):
+            with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+                records.append(json.load(f))
+            if mode == "bsp":
+                with np.load(os.path.join(out_dir, f"rows_{r}.npz")) as z:
+                    records[-1]["rows"] = (z["ids"], z["rows"])
+        info = {"launcher_wall_s": wall,
+                "card_memory_used_mib_before": before,
+                "card_memory_used_mib_max": max(used) if used else None,
+                "card_memory_samples": len(used)}
+        return records, info
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _fleet_line(card, servers, workers, records, info):
+    """The ps_fleet line of one device-cache fleet, after its checks:
+    every loss finite, the workers' mean loss over their last blocks
+    below their mean over their first blocks, no dirty row after
+    drain(), the server rows moved, rows refreshed from the other
+    workers' pushes at 2 workers or more, no server mapping libtorch,
+    every worker on the card, K1-K4 0 launches. The loss is held for the
+    fleet, not for each worker: bench.py's traffic gives each worker one
+    fixed label vector of its own, so one worker's loss can rise under
+    the others' updates while the fleet's falls (a rank at 4 workers did
+    so on the H100)."""
+    total = sum(CTR_BATCH * r["steps"] for r in records)
+    windows = [r["window_end"] - r["window_start"] for r in records]
+    span = max(r["window_end"] for r in records) \
+        - min(r["window_start"] for r in records)
+    lead = records[0]
+    rss = {port: {"idle": lead["servers_idle"][port]["rss_bytes"],
+                  "registered": lead["servers_registered"][port][
+                      "rss_bytes"],
+                  "trained": lead["servers_trained"][port]["rss_bytes"]}
+           for port in lead["servers_idle"]}
+    maps_torch = any(s[port]["maps_libtorch"]
+                     for key in ("servers_idle", "servers_registered",
+                                 "servers_trained")
+                     for s in [lead[key]] for port in s)
+    per_worker = [{k: r[k] for k in (
+        "rank", "executor_device", "step_ms_p50", "step_ms",
+        "phase_ms_per_step", "cache", "refreshed_rows",
+        "peak_memory_bytes", "executor_setup_s",
+        "first_last_block_mean_loss", "dirty_after_drain",
+        "first_rows_moved", "launches")} for r in records]
+    line = {"card": card, "servers": servers, "workers": workers,
+            "model": "wdl_criteo", "batch": CTR_BATCH,
+            "table_rows": CTR_ROWS, "cache_bound": PS_BLOCK,
+            "drain_compress": True, "mode": "ASP",
+            "timed_blocks": PS_TIMED_BLOCKS, "block_steps": PS_BLOCK,
+            "samples_per_s": total / max(windows),
+            "samples_per_s_over_span": total / span,
+            "slowest_window_s": max(windows),
+            "host_cores": len(os.sched_getaffinity(0)),
+            "server_rss_bytes": rss, "servers_map_libtorch": maps_torch,
+            **info, "per_worker": per_worker}
+    first, last = np.mean([r["first_last_block_mean_loss"]
+                           for r in records], axis=0)
+    line["fleet_mean_loss_first_last_block"] = [float(first), float(last)]
+    faults = []
+    if maps_torch:
+        faults.append("a server maps libtorch")
+    if not last < first:
+        faults.append(f"fleet mean loss {first} -> {last}")
+    for r in records:
+        if not r["losses_finite"]:
+            faults.append(f"rank {r['rank']} losses not finite")
+        if r["dirty_after_drain"] or not r["first_rows_moved"] > 0:
+            faults.append(f"rank {r['rank']} dirty "
+                          f"{r['dirty_after_drain']}, rows moved "
+                          f"{r['first_rows_moved']}")
+        if any(r["launches"].values()) or \
+                not r["executor_device"].startswith("cuda"):
+            faults.append(f"rank {r['rank']} on {r['executor_device']} "
+                          f"launched {r['launches']}")
+    if workers > 1 and not sum(r["refreshed_rows"] for r in records):
+        faults.append("no row refreshed from the other workers' pushes")
+    if faults:
+        log(f"ps_fleet ({servers}, {workers}) failed: {line}")
+        raise AssertionError(f"ps_fleet ({servers}, {workers}): {faults}")
+    return line
+
+
+def fleet_parity(seed):
+    """The BSP fleet of FLEET_PARITY on the host path, FLEET_PARITY_STEPS
+    steps with its workers on the card, against the same fleet with its
+    workers on the CPU (same seeds, tables drawn alike by the servers):
+    each rank's losses within PS_LOSS_TOL relative, the server rows of
+    every id it touched within PS_ROW_TOL of their largest element."""
+    servers, workers = FLEET_PARITY
+    devices = ("cuda", "cpu")
+    runs = []
+    for device in devices:
+        t = time.perf_counter()
+        runs.append(run_fleet(seed, servers, workers, "bsp", device))
+        runs[-1][1]["seconds"] = time.perf_counter() - t
+    out = {"servers": servers, "workers": workers, "mode": "BSP, host path",
+           "steps": FLEET_PARITY_STEPS, "reference": "the same fleet, "
+           "workers on the CPU", "loss_tol": PS_LOSS_TOL,
+           "row_tol": PS_ROW_TOL, "ranks": []}
+    for card_rec, cpu_rec in zip(runs[0][0], runs[1][0]):
+        if not (card_rec["executor_device"].startswith("cuda")
+                and cpu_rec["executor_device"] == "cpu"):
+            raise AssertionError(
+                f"ps_fleet parity: rank {card_rec['rank']} ran on "
+                f"{card_rec['executor_device']} and "
+                f"{cpu_rec['executor_device']}")
+        got, want = np.array(card_rec["losses"]), np.array(cpu_rec["losses"])
+        (ids, rows), (cids, crows) = card_rec["rows"], cpu_rec["rows"]
+        if not np.array_equal(ids, cids):
+            raise AssertionError("ps_fleet parity: the twins touched "
+                                 "different ids")
+        rank = {"rank": card_rec["rank"],
+                "loss_rel_err": float(np.max(np.abs(got - want)
+                                             / np.abs(want))),
+                "touched_rows": int(len(ids)),
+                "row_err_of_largest": _rel(rows, crows),
+                "losses_first_last": [float(got[0]), float(got[-1])],
+                "card_samples_per_s": CTR_BATCH * card_rec["steps"] / (
+                    card_rec["window_end"] - card_rec["window_start"]),
+                "launches": card_rec["launches"]}
+        out["ranks"].append(rank)
+        if rank["loss_rel_err"] > PS_LOSS_TOL or \
+                rank["row_err_of_largest"] > PS_ROW_TOL or \
+                any(rank["launches"].values()):
+            raise AssertionError(f"ps_fleet parity failed: {rank}")
+    out["seconds"] = {d: r[1]["seconds"] for d, r in zip(devices, runs)}
+    return out
+
+
+def ps_fleet_pass(card, seed):
+    """``ps_fleet``: the device-cache fleets of FLEETS, then the BSP
+    fleet's parity against its CPU twin."""
+    fleets = []
+    for servers, workers in FLEETS:
+        t = time.perf_counter()
+        records, info = run_fleet(seed, servers, workers, "cache", "cuda")
+        fleets.append(_fleet_line(card, servers, workers, records, info))
+        log(f"ps_fleet ({servers}, {workers}) "
+            f"({time.perf_counter() - t:.1f} s) {fleets[-1]}")
+    t = time.perf_counter()
+    parity = fleet_parity(seed)
+    log(f"ps_fleet parity ({time.perf_counter() - t:.1f} s) {parity}")
+    return {"card": card, "fleets": fleets, "parity": parity}
+
+
 def ptxas_report(log_text):
     """Registers and spills of every kernel instantiation in one
     ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
@@ -3409,12 +3829,17 @@ def main(argv=None):
                          "inputs")
     ap.add_argument("--out", default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--fleet-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # ps_fleet's workers
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
         log("hetu_tpu_torch is not beside chip_smoke.py: run it from a "
             "checkout of the repository")
         return 2
+    if args.fleet_worker is not None:
+        sys.path.insert(0, ROOT)
+        return fleet_worker(json.loads(args.fleet_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -3527,6 +3952,8 @@ def main(argv=None):
     torch.cuda.empty_cache()
 
     ps_lines = ps_passes(torch, card, args.seed)
+    torch.cuda.empty_cache()
+    ps_lines["ps_fleet"] = ps_fleet_pass(card, args.seed)
 
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)

@@ -27,6 +27,9 @@ What runs today:
   through ``GNNDataLoaderOp`` (``examples/sampled_sage.py``); the
   step, multi-step, exponential and plateau schedules (``ht.lr``),
   AdamW, and ``ht.stream``'s streams and events;
+* the PS and Hybrid modes against the port's C++ parameter server, and
+  fleets of PS workers and servers started by its launcher
+  (``python -m hetu_tpu_torch.launcher -c cluster.yml <command>``);
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.
@@ -37,7 +40,7 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 kernel's plain PyTorch version runs instead — that is what the tests
 use.
 """
-from . import data, metrics, models, stream
+from . import data, metrics, models, stream, telemetry
 from . import initializers as init
 from . import lr_scheduler as lr
 from . import optimizer as optim
@@ -45,17 +48,34 @@ from .context import DeviceGroup, context, get_current_context
 from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
                          dataloader_op)
 from .device import resolve_device
-from .executor import Executor, HetuConfig, SubExecutor, gradients
+from .executor import (Executor, HetuConfig, SubExecutor,
+                       get_worker_communicate, gradients, scheduler_finish,
+                       scheduler_init, server_finish, server_init,
+                       worker_finish, worker_init)
 from .graph.node import Op
 from .ndarray import (DLContext, IndexedSlices, ND_Sparse_Array, NDArray,
-                      array, cpu, empty, gpu, sparse_array)
+                      array, cpu, empty, gpu, is_gpu_ctx, is_tpu_ctx, rcpu,
+                      rgpu, rtpu, sparse_array, tpu)
 from .ops import *                                        # noqa: F401,F403
 from .ops import __all__ as _ops_all
 
 __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
-           "cpu", "gpu", "DeviceGroup", "context", "get_current_context",
+           "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu", "is_gpu_ctx",
+           "is_tpu_ctx", "DeviceGroup", "context", "get_current_context",
            "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
-           "optim", "init", "lr", "data", "metrics", "models",
+           "scheduler_init", "scheduler_finish", "server_init",
+           "server_finish", "worker_init", "worker_finish",
+           "get_worker_communicate", "optim", "init", "lr", "data",
+           "metrics", "models", "launcher", "telemetry",
            "Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp",
            "ND_Sparse_Array", "sparse_array", "array", "empty", "stream",
            *_ops_all]
+
+
+def __getattr__(name):
+    # lazy: ``python -m hetu_tpu_torch.launcher`` runs the module as
+    # __main__, and runpy warns when the package imported it first
+    if name == "launcher":
+        import importlib
+        return importlib.import_module(".launcher", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -43,10 +43,15 @@ on the worker, their lookups are fed rows pulled from the server; with
 ``cstable_policy="Device"`` the lookups are rewritten onto a device
 cache (``_rewrite_device_cache``). A subgraph that touches the PS runs
 its steps through :class:`~hetu_tpu_torch.ps.runtime.PSRuntime`, which
-pulls before :meth:`SubExecutor.step` and pushes after it. Hybrid puts
-the dense gradients on allreduce, the identity at the one worker the
-port runs; more than one worker waits for the multi-card modes
-(ROADMAP item 11).
+pulls before :meth:`SubExecutor.step` and pushes after it. The PS mode
+runs one worker per process of a launcher's fleet
+(:mod:`hetu_tpu_torch.launcher`), any number of them, against any
+number of servers. Hybrid puts the dense gradients on allreduce, the
+identity at one worker; more than one worker, in one context or across
+a fleet's processes, waits for the multi-card modes (ROADMAP item 11a).
+Under a launcher's ``spmd`` or multi-host fleet the executor joins its
+``torch.distributed`` rendezvous (:func:`maybe_init_distributed`); no
+collective uses it yet.
 
 The dp/tp/pp meshes, pipelines, telemetry and the preflight analysis
 are still to port; ``HetuConfig`` refuses their options.
@@ -79,7 +84,34 @@ from .ops.embedding import EmbeddingLookUp
 from .ops.variable import PlaceholderOp
 from . import telemetry as _telemetry
 
-__all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients"]
+__all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
+           "scheduler_init", "scheduler_finish", "worker_init",
+           "worker_finish", "server_init", "server_finish",
+           "get_worker_communicate", "maybe_init_distributed"]
+
+
+def maybe_init_distributed(device=None):
+    """Join the launcher's multi-process job (reference
+    executor.py:68-87, where ``jax.distributed`` joins it): with the
+    launcher's rendezvous set (``HETU_COORDINATOR``, and the
+    ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE`` it
+    exports beside it), ``torch.distributed.init_process_group`` over
+    TCP — gloo for a CPU ``device``, nccl for a CUDA one (None: nccl
+    where CUDA is available). Returns True when it joined now, False
+    when there is nothing to join or the group already exists."""
+    import torch.distributed as dist
+    if "HETU_COORDINATOR" not in os.environ or dist.is_initialized():
+        return False
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    env = os.environ
+    dist.init_process_group(
+        backend="nccl" if cuda else "gloo",
+        init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+        world_size=int(env["WORLD_SIZE"]), rank=int(env["RANK"]))
+    return True
 
 
 class HetuConfig:
@@ -100,12 +132,20 @@ class HetuConfig:
     cache, LRU / LFU / LFUOpt for the host cache), ``cache_bound``
     (the staleness bound and drain cadence, in steps),
     ``cache_capacity`` (device cache rows; default min(rows, 2^20)) and
-    ``drain_compress`` (bf16 drains)."""
+    ``drain_compress`` (bf16 drains).
 
-    def __init__(self, eval_node_list, ctx=None, seed=0, dtype=None,
-                 device=None, comm_mode=None, bsp=False, prefetch=True,
+    ``overlap_options`` (a dict or ``OverlapOptions``) sets the ingest
+    engine of ``run_batches_stream``. The reference's ``train_name``,
+    ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
+    ``dynamic_memory`` are accepted and, as there, change nothing."""
+
+    def __init__(self, eval_node_list, train_name="default",
+                 val_name="default", ctx=None, seed=0, dtype=None,
+                 device=None, comm_mode=None, use_sparse_pull=True,
+                 bsp=False, prefetch=True, enable_lazy=False,
                  cstable_policy=None, cache_bound=100, cache_capacity=None,
-                 drain_compress=False, **options):
+                 drain_compress=False, dynamic_memory=False,
+                 overlap_options=None, **options):
         if options:
             raise TypeError(
                 f"HetuConfig options {sorted(options)} belong to modes the "
@@ -132,7 +172,21 @@ class HetuConfig:
             device = first.torch_device()
         self.device = resolve_device(device)
         self.telemetry = _telemetry.NULL
-        self.overlap = OverlapOptions()
+        self.overlap = OverlapOptions.resolve(overlap_options)
+        if self.overlap.bucket_bytes is not None:
+            raise NotImplementedError(
+                "overlap_options bucket_bytes buckets the data-parallel "
+                "allreduce, which waits for ROADMAP item 11a")
+        # accepted as the reference accepts them: dynamic_memory and
+        # enable_lazy are no-ops there too (the allocator and the eager
+        # walk's views subsume them), use_sparse_pull and val_name are
+        # stored and never read, train_name names the autoplan model
+        self.train_name = train_name
+        self.val_name = val_name
+        self.use_sparse_pull = use_sparse_pull
+        self.enable_lazy = enable_lazy
+        self.dynamic_memory = dynamic_memory
+        maybe_init_distributed(self.device)
 
         self.comm_mode = comm_mode
         self.bsp = bsp
@@ -152,11 +206,23 @@ class HetuConfig:
             elif launch_mpi:
                 self.comm_mode = "AllReduce"
         self.nrank = max(1, self.context.worker_num)
-        self.rank = 0
+        # the process's rank in a launcher's fleet: HETU_PROC_ID in one
+        # job (spmd, several hosts), else HETU_PS_RANK (a PS worker)
+        self.rank = int(os.environ.get(
+            "HETU_PROC_ID", os.environ.get("HETU_PS_RANK", "0")))
         if self.nrank > 1 and self.comm_mode in ("AllReduce", "Hybrid"):
             raise NotImplementedError(
                 f"{self.comm_mode} over {self.nrank} workers: the "
                 f"multi-card modes wait for ROADMAP item 11")
+        if self.comm_mode == "Hybrid":
+            # each worker process of a fleet sees one worker in its own
+            # context, so nrank is 1 there: the PS client knows the fleet
+            from .ps.client import get_default_client
+            nworkers = get_default_client().nworkers
+            if nworkers > 1:
+                raise NotImplementedError(
+                    f"Hybrid over {nworkers} worker processes: the dense "
+                    f"weights' allreduce waits for ROADMAP item 11a")
         self.ps_nodes = []
         self.ps_comm = None
         # the device cache (HET path): PS embedding lookups gather from
@@ -629,7 +695,7 @@ class Executor:
         blocks = iter(blocks)
         gnn = any(isinstance(dl, GNNDataLoaderOp)
                   for dl in sub.dataloader_ops)
-        if not sub.needs_ps or gnn:
+        if not sub.needs_ps or gnn or not self.config.overlap.ingest:
             out = None
             for block in blocks:
                 out = self.run_batches(block, name,
@@ -837,3 +903,38 @@ class Executor:
         stop the push pool."""
         if self.ps_runtime is not None:
             self.ps_runtime.close()
+
+
+def scheduler_init():
+    from .ps.server import ensure_scheduler
+    ensure_scheduler()
+
+
+def scheduler_finish():
+    from .ps.server import shutdown_scheduler
+    shutdown_scheduler()
+
+
+def server_init():
+    from .ps.server import ensure_server
+    ensure_server()
+
+
+def server_finish():
+    from .ps.server import shutdown_server
+    shutdown_server()
+
+
+def worker_init():
+    from .ps.client import get_default_client
+    get_default_client()
+
+
+def worker_finish():
+    from .ps.client import close_default_client
+    close_default_client()
+
+
+def get_worker_communicate():
+    from .ps.client import get_default_client
+    return get_default_client()

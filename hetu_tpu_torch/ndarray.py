@@ -16,9 +16,9 @@ import torch
 
 from .device import resolve_device
 
-__all__ = ["DLContext", "cpu", "gpu", "rcpu", "rgpu", "is_gpu_ctx",
-           "NDArray", "IndexedSlices", "array", "empty", "ND_Sparse_Array",
-           "sparse_array", "CSRValue"]
+__all__ = ["DLContext", "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu",
+           "is_gpu_ctx", "is_tpu_ctx", "NDArray", "IndexedSlices", "array",
+           "empty", "ND_Sparse_Array", "sparse_array", "CSRValue"]
 
 
 class DLContext:
@@ -34,12 +34,29 @@ class DLContext:
         self.device_id = int(device_id)
         self.hostname = hostname
 
+    @property
+    def local(self):
+        """True on the process's own host (reference ndarray.py:62)."""
+        return self.hostname == "localhost"
+
+    def relocalize(self):
+        """Make this context the process's own host's (reference
+        ndarray.py:81)."""
+        self.hostname = "localhost"
+
     def torch_device(self):
         """The ``torch.device`` this context names; ``gpu`` without CUDA
-        raises (:func:`~hetu_tpu_torch.device.resolve_device`)."""
+        raises (:func:`~hetu_tpu_torch.device.resolve_device`). Every
+        worker process of a fleet runs on its own host's cards, so the
+        hostname does not select a card, and the device id wraps around
+        the cards there are, as the reference's ``jax_device`` does:
+        four workers placed on ``gpu:0``–``gpu:3`` of a one-card host
+        all use ``cuda:0``."""
         if self.kind == "cpu":
             return torch.device("cpu")
-        return resolve_device(f"cuda:{self.device_id}")
+        dev = resolve_device("cuda")
+        return torch.device(dev.type,
+                            self.device_id % torch.cuda.device_count())
 
     def __eq__(self, other):
         return (isinstance(other, DLContext)
@@ -50,7 +67,8 @@ class DLContext:
         return hash((self.hostname, self.kind, self.device_id))
 
     def __repr__(self):
-        return f"{self.kind}:{self.device_id}"
+        prefix = "" if self.local else self.hostname + ":"
+        return f"{prefix}{self.kind}:{self.device_id}"
 
 
 def cpu(dev_id=0):
@@ -75,6 +93,13 @@ def rgpu(hostname, dev_id=0):
 def is_gpu_ctx(ctx):
     """True if ``ctx`` is an accelerator (a worker's device)."""
     return isinstance(ctx, DLContext) and ctx.kind == "gpu"
+
+
+# the reference's names for its accelerator, the TPU: here it is the
+# GPU, so scripts written against hetu_tpu run unchanged
+tpu = gpu
+rtpu = rgpu
+is_tpu_ctx = is_gpu_ctx
 
 
 class NDArray:

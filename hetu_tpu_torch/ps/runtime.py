@@ -35,6 +35,14 @@ Which modes give the same numbers on every run at one worker: BSP,
 step on the host path; the device-cache path at one worker in any mode
 (a re-missed row whose gradients are still in flight waits for their
 push). ASP on the host path lets a pull race the previous step's push.
+Over several workers (``HETU_PS_NWORKERS``, one process each) pushes
+are scaled by 1 / nworkers; BSP on the host path is the one mode that
+gives the same numbers on every run, because each step pulls, barriers,
+pushes, barriers and then pulls the dense values back (the reference
+pulls them in the push's round trip, before its one barrier, so they
+race the other workers' pushes). The device cache over several workers
+refreshes rows whose server version ran ``cache_bound`` updates ahead
+(``SyncEmbedding``), so it depends on timing by design.
 """
 from __future__ import annotations
 
@@ -445,6 +453,15 @@ class PSRuntime:
 
         with self._phase("dispatch"):
             outputs, ps_grads = sub.step(executor, feed_map)
+        # BSP over several workers reads and writes the server in two
+        # phases a step, each closed by a barrier: every worker has
+        # pulled this step's rows before any pushes (a faster worker's
+        # push would race a slower one's pull), and every push has
+        # landed before the dense values are pulled back
+        bsp_fleet = self.config.bsp and nworkers > 1
+        if bsp_fleet:
+            client.barrier()
+        dense_pulls = []
 
         # 2. device-cache bookkeeping and the periodic drain
         stepped = set()
@@ -495,6 +512,11 @@ class PSRuntime:
                     grad = host_rows(to_host_async(g)).ravel()
                     if nworkers > 1:
                         grad = grad / nworkers
+                    if bsp_fleet:
+                        client.push(tid, grad)
+                        client.wait(tid)
+                        dense_pulls.append(param)
+                        continue
                     new_value = client.dd_pushpull(tid, grad)
                     client.wait(tid)
                     sid = str(param.id)
@@ -515,6 +537,14 @@ class PSRuntime:
         # bounded pipeline (reference ParameterServerCommunicate.py:226)
         if self.config.bsp:
             client.barrier()
+            for param in dense_pulls:
+                with self._phase("sync_push"):
+                    sid = str(param.id)
+                    value = client.pull(param.id,
+                                        (int(np.prod(param.shape)),))
+                    if sid in executor.params:
+                        executor.params[sid] = self._put(value,
+                                                         param.shape)
         elif len(self._pending_push) > 4:
             self._pending_push[0].result()
             self._drain_done()
@@ -953,9 +983,11 @@ class PSRuntime:
 
     def drain(self):
         """Block until every in-flight push (ASP sparse pushes,
-        device-cache drains, dense cycles) has reached the server. If
-        the servers were already shut down, pending updates are dropped
-        and ``updates_dropped`` is set."""
+        device-cache drains, dense cycles) has reached the server; over
+        several workers the dense HET weights then hold the server's
+        value as the last cycle read it. If the servers were already
+        shut down, pending updates are dropped and ``updates_dropped``
+        is set."""
         if getattr(self.client, "servers_down", False):
             self.updates_dropped = True
             print("[hetu-ps] drain skipped: servers already shut down",
@@ -969,6 +1001,9 @@ class PSRuntime:
         if self._dense_future is not None:
             self._dense_future.result()
             self._dense_future = None
+        # several workers: the dense HET weights take the values the
+        # cycle pulled back now, not at the next step
+        self._swap_dense_ready()
         for f in self._pending_push:
             f.result()
         self._pending_push.clear()

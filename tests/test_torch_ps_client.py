@@ -157,8 +157,9 @@ def test_ensure_server_adopts_a_listening_port(ps):
     """A second ensure_server on a port that already serves starts
     nothing."""
     live = [p.args for p in ps_server._server_procs]
-    assert live and all("hetu_tpu_torch.ps.run_server" in a for a in live)
-    port = int(live[0][3])
+    # the server entry runs by path: [python, run_server.py, PORT, N]
+    assert live and all(a[1] == ps_server.RUN_SERVER for a in live)
+    port = int(live[0][2])
     assert ps_server.ensure_server(port=port) is None
     assert len(ps_server._server_procs) == len(live)
 
@@ -166,7 +167,7 @@ def test_ensure_server_adopts_a_listening_port(ps):
 def test_default_client_reads_the_environment(ps, monkeypatch):
     """get_default_client builds one client from HETU_PS_* when none is
     set, and returns it again."""
-    port = int(ps_server._server_procs[0].args[3])
+    port = int(ps_server._server_procs[0].args[2])
     saved = ps_client._default_client
     monkeypatch.setenv("HETU_PS_PORTS", str(port))
     monkeypatch.setenv("HETU_PS_HOSTS", "127.0.0.1")
