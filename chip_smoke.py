@@ -24,7 +24,9 @@ on an OGB-arxiv-sized graph, through ``examples/gcn_main.py``, and on
 sampled subgraphs through ``examples/sampled_sage.py``; WDL at Criteo
 widths trained in the PS and Hybrid modes against the port's parameter
 server, and served from it; fleets of PS servers and workers started by
-the port's launcher, every worker on the card — checks every kernel
+the port's launcher, every worker on the card; GPT-2-small trained in
+four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
+two launcher processes — checks every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -58,6 +60,25 @@ object per line (``--out`` also writes them to FILE):
   route), peak memory, the device idle share and time by kernel
   category of one profiled step, and the step-1 parity check against
   the plain K2–K4;
+* ``pp_gpipe``, ``pp_1f1b`` the ``train`` model in four pipeline stages
+  on ``ht.gpu(0)``..``gpu(3)`` (all the one card), M=4 microbatches of 2
+  rows: tokens/s, step ms p50 beside ``train``'s, the losses, peak
+  memory, the analytic bubble, one profiled step (idle share, device
+  time by kernel category), K2/K3/K4 launches (12·M a step, all on
+  ``tc``, K1 none); the checks: step 1 against the plain K2–K4, GPipe's
+  step 1 against the single-device executor in f32 (the bf16 difference
+  reported beside, with the single-device executor's own against four
+  microbatches), 1F1B's at M=1 against it in bf16, and 1F1B's weight
+  stash (one step at M=4 against Adam applied to each microbatch's
+  gradient at the initial weights in turn; a backward reading the
+  current weights must fail it);
+* ``pp_fleet`` the same model in two worker processes started by
+  ``python -m hetu_tpu_torch.launcher`` (``spmd: true``; each
+  ``python chip_smoke.py --pp-worker SPEC``), two stages each, GPipe
+  then 1F1B, boundaries crossing the host channel in bf16: the losses of
+  the rank that owns the loss against the in-process passes', each
+  rank's step ms, channel bytes and seconds a step, peak memory and
+  launches (6·M a step each of K2/K3/K4);
 * ``bert``, ``bert_long`` the same for the two BERT passes, with MFU
   against the bf16 dense peak and the host time of one step by op type
   (the composed attention backward's and dropout's among them); BERT-base
@@ -172,6 +193,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import http.client
 import json
 import os
@@ -557,13 +579,15 @@ FWD_KERNEL_SHAPES = (
 # the K2-K4 checks: (dtypes, batches, seqs, head dim, heads, masks); every
 # row with each of its masks and causal on/off; the "half" mask hides the
 # second half of the first element's keys and the last quarter of the
-# last one's. D=64 is the training paths' (GPT-2 at H=12 S=1024, BERT-small
-# at H=8 S=2048 with BERT's padding); D=128 and the ragged S=520 hold the
+# last one's. D=64 is the training paths' (GPT-2 at H=12 S=1024, at B=2 the
+# pipeline passes' microbatch, BERT-small at H=8 S=2048 with BERT's
+# padding); D=128 and the ragged S=520 hold the
 # other tensor-core instantiations and the TMA edge; bf16 at D=96 the
 # simt route's bf16 instantiations
 TRAIN_KERNEL_SHAPES = (
     (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64, 12,
      (None, "half")),
+    (("bfloat16",), (TRAIN_BATCH // 4,), (1024,), 64, 12, (None,)),  # PP_REP
     (("bfloat16",), (8,), (2048,), 64, 8, (None, "half", "padding")),
     (("bfloat16",), (1,), (512, 1024), 128, 12, (None, "half")),
     (("bfloat16",), (1,), (520,), 64, 12, (None, "half")),
@@ -891,7 +915,8 @@ def check_flash_train_kernels(torch, seed):
                                library_ms=None if lib[kind] is None
                                else median_ms(torch, lib[kind]),
                                bound_ms=bound, bound_by=by)
-                    if _is(row, TRAIN_REP) or _is(row, BERT_LONG_REP):
+                    if any(_is(row, rep) for rep in
+                           (TRAIN_REP, BERT_LONG_REP, PP_REP)):
                         row.update(_device_times(
                             torch, kern, lib[kind], DEVICE_LAUNCHES[kind],
                             f"{kind} B={b} H={h} S={s} mask={masked}"))
@@ -1188,6 +1213,610 @@ def profile_window(torch, fn, nodes=()):
             **({"device_ms_by_op_type": dict(sorted(
                 by_op_type.items(), key=lambda x: -x[1]["ms"]))}
                if nodes else {})}
+
+
+# ---------------------------------------------------------------------------
+# pipelines: GPipe and PipeDream 1F1B over four stages of GPT-2-small
+# ---------------------------------------------------------------------------
+
+# GPT-2-small as ``train`` trains it (B=8, S=1024, bf16, Adam 1e-4, dropout
+# 0, flash attention), built by models.staged_gpt over ht.gpu(0)..gpu(3):
+# four stages of three blocks on the one card, M=4 microbatches of 2 rows
+PP_STAGES, PP_MICROBATCHES = 4, 4
+PP_MICROBATCH = TRAIN_BATCH // PP_MICROBATCHES
+PP_WARMUP, PP_STEPS = 1, 4
+PP_REP = dict(TRAIN_REP, b=PP_MICROBATCH)   # K2-K4's shape on this path
+# the weights whose step-1 state the parity holds: Adam's first moment is
+# (1 - beta1) x the step's gradient, so it is held as train holds the
+# gradients (within GRAD_PARITY_TOL of its largest element; the qkv
+# weight by its q, k and v column blocks), and the loss within one bf16
+# ulp. The updated weights are reported in units of the rate: Adam's
+# first step moves a weight by lr * g / (|g| + 3.2e-6), so a gradient
+# near 0 whose sign the two runs round apart moves it by up to 2 lr
+PP_PARITY_PARAMS = ("gpt_h0_attn_qkv_weights", "gpt_lm_head_weights")
+# GPipe against the single-device executor is held in f32: the two run
+# every GEMM at other shapes (2 rows against 8), and in bf16 that alone
+# moves the layer-0 gradients by up to 7% of their largest element (the
+# single-device executor against itself fed four microbatches: reported
+# as ``bf16_four_microbatches_vs_whole_batch``). In f32 the loss within
+# 1e-5 relative, the first moment within 1e-3 of its largest element
+PP_F32_LOSS_RTOL, PP_F32_M_TOL = 1e-5, 1e-3
+# the stash check: one 1F1B step at M=4 at this rate, against Adam applied
+# four times in turn to each microbatch's gradient at the step's initial
+# weights (all four forwards run before the first backward at M = S = 4,
+# so each backward must read those weights). 1e-2 moves each weight by
+# about half the initializer's std, so a backward that reads the updated
+# weights instead of its stash fails the check
+PP_STASH_LR = 1e-2
+# pp_fleet: two worker processes, each owning two stages; after its steps
+# (no more than the in-process passes run) each rank's PP_PARITY_PARAMS
+# (layer 0's qkv on rank 0, the LM head on rank 1) are held against the
+# in-process pass's after as many steps
+PP_FLEET_WARMUP, PP_FLEET_STEPS = 1, 4
+PP_FLEET_TIMEOUT_S = 300
+# the memory record: where a step's memory goes at M = S and at M = 2S
+# microbatches of one row (GPipe keeps every microbatch's activations
+# until its backward, 1F1B at most S microbatches' with their stashes)
+PP_MEMORY_MICROBATCHES = 2 * PP_STAGES
+
+
+def _pp_batch(seed, vocab, seq, batch=TRAIN_BATCH):
+    """train's batch: ids drawn from ``seed``, labels shifted by one."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, vocab, (batch, seq))
+    return x, np.concatenate([x[:, 1:], np.full((batch, 1), -1)], axis=1)
+
+
+def _pp_graph(ht, models, contexts, lr=TRAIN_LR, init=None):
+    """models.staged_gpt at GPT-2-small's widths; with ``init`` ({name:
+    numpy}) every drawn parameter takes its value from it instead of a
+    new draw (the same values: the draws are seeded by name). Returns
+    (ids, labels, loss, optimizer, train_op, {PP_PARITY_PARAMS name: its
+    gradient node})."""
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    cfg = models.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
+                           use_flash_attention=True)
+    ids, labels, loss, opt, train_op = models.staged_gpt(cfg, contexts, lr)
+    if init is not None:
+        for node in find_topo_sort([loss]):
+            if getattr(node, "initializer", None) is not None:
+                node.tensor_value = init[node.name]
+    grads = {p.name: g for p, g in zip(opt.params, train_op.inputs)
+             if p.name in PP_PARITY_PARAMS}
+    return ids, labels, loss, opt, train_op, grads
+
+
+def _pp_state(exe):
+    """{PP_PARITY_PARAMS name: (f32 weight, Adam's first moment)}."""
+    out = {}
+    for sid, node in exe._param_nodes.items():
+        if node.name in PP_PARITY_PARAMS:
+            out[node.name] = (exe.params[sid].float().clone(),
+                              exe.opt_state[node.id]["m"].float().clone())
+    return out
+
+
+def _pp_compare(got, want, lr, loss_rtol=None, m_tol=GRAD_PARITY_TOL):
+    """Step parity of two runs' (loss, _pp_state): the loss within one
+    bf16 ulp (``loss_rtol``: within that, relative), each first moment
+    within ``m_tol`` of its largest element (qkv by q, k, v blocks); the
+    weights' largest difference in units of ``lr``. Returns (ok,
+    record)."""
+    hidden = GPT2_SMALL["hidden_size"]
+    (loss, state), (rloss, rstate) = got, want
+    grad_err, weight_err = {}, {}
+    for name, (w, m) in state.items():
+        rw, rm = rstate[name]
+        parts = ({p: slice(i * hidden, (i + 1) * hidden)
+                  for i, p in enumerate("qkv")} if "qkv" in name
+                 else {"": slice(None)})
+        short = "qkv0." if "qkv" in name else "lm_head"
+        for part, cols in parts.items():
+            grad_err[short + part] = float((m[:, cols] - rm[:, cols]).abs()
+                                           .max() / rm[:, cols].abs().max())
+        weight_err[short.rstrip(".")] = float((w - rw).abs().max() / lr)
+    rec = {"loss": loss, "loss_ref": rloss,
+           "loss_tol": _bf16_ulp(rloss) if loss_rtol is None
+           else loss_rtol * abs(rloss),
+           "m_rel_err": grad_err, "m_tol": m_tol,
+           "weight_max_diff_in_lr": weight_err}
+    ok = abs(loss - rloss) <= rec["loss_tol"] and \
+        max(grad_err.values()) <= m_tol
+    return ok, rec
+
+
+def _pp_executor(ht, torch, models, schedule, microbatches, init,
+                 lr=TRAIN_LR, dtype="bfloat16"):
+    """A pipeline executor over the four stages and its feeds (``dtype``
+    None: f32)."""
+    ids, labels, loss, _, train_op, _ = _pp_graph(
+        ht, models, [ht.gpu(i) for i in range(PP_STAGES)], lr, init)
+    exe = ht.Executor([loss, train_op],
+                      dtype=dtype and getattr(torch, dtype),
+                      num_microbatches=microbatches, **{schedule: True})
+    return exe, ids, labels
+
+
+def _pp_step1(torch, exe, feeds):
+    out = exe.run(feed_dict=feeds)
+    return float(out[0].asnumpy()), _pp_state(exe)
+
+
+def _read_current_weights(exe):
+    """The fault of the stash check: the 1F1B backward reads the stage's
+    current weights instead of those its microbatch's forward read."""
+    sub = exe.subexecutors["default"]
+    stashed = sub._backward_env
+
+    def backward_env(st, m):
+        env, ectx = stashed(st, m)
+        env.update(sub._compute_params(exe, st))
+        return env, ectx
+    sub._backward_env = backward_env
+
+
+def pp_references(torch, seed):
+    """What the pipeline passes are held to, from the single-device
+    executor over the same graph in one stage (drawn once here; the
+    pipelines reuse the draw): its first step on the whole batch (loss,
+    _pp_state), and each microbatch's loss and PP_PARITY_PARAMS gradients
+    at the initial weights (Adam at rate 0 leaves them), and its first
+    step in f32. From those, the stash reference: Adam at PP_STASH_LR
+    applied to each microbatch's gradients in turn, at the global step 0
+    (1F1B's M updates of a step share its step count). Returns (init,
+    {"bf16": step1, "f32": step1}, stash, info: the microbatch losses,
+    and the four microbatches' mean gradient against the whole batch's,
+    both bf16 and single-device)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    vocab = GPT2_SMALL["vocab_size"]
+    seq = GPT2_SMALL["max_position_embeddings"]
+    x, y = _pp_batch(seed, vocab, seq)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in (x, y))
+    ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, [ht.gpu(0)])
+    exe = ht.Executor([loss, train_op], dtype=torch.bfloat16)
+    init = {node.name: exe.params[sid].cpu().numpy()
+            for sid, node in exe._param_nodes.items()}
+    step1 = {"bf16": _pp_step1(torch, exe, {ids: xt, labels: yt})}
+    del exe
+    ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, [ht.gpu(0)],
+                                                  init=init)
+    exe = ht.Executor([loss, train_op])
+    step1["f32"] = _pp_step1(torch, exe, {ids: xt, labels: yt})
+    del exe
+    ids, labels, loss, _, train_op, grads = _pp_graph(
+        ht, M, [ht.gpu(0)], lr=0.0, init=init)
+    names = list(grads)
+    exe = ht.Executor([loss, *grads.values(), train_op],
+                      dtype=torch.bfloat16)
+    nodes = {n.name: n for n in exe._param_nodes.values()}
+    mb = PP_MICROBATCH
+    losses, mb_grads = [], []
+    for m in range(PP_MICROBATCHES):
+        out = exe.run(feed_dict={ids: xt[m * mb:(m + 1) * mb],
+                                 labels: yt[m * mb:(m + 1) * mb]})
+        losses.append(float(out[0].asnumpy()))
+        mb_grads.append([o.tensor.float() for o in out[1:-1]])
+    del exe
+    opt = ht.optim.AdamOptimizer(learning_rate=PP_STASH_LR)
+    state = {}
+    for i, name in enumerate(names):
+        node = nodes[name]
+        w = torch.as_tensor(init[name], device="cuda")
+        slots = opt.init_state({node: w})
+        for g in mb_grads:
+            new_w, new_s = opt.update({node: w}, {node: g[i]}, slots,
+                                      PP_STASH_LR, 0)
+            w, slots = new_w[node], new_s
+        state[name] = (w, slots[node.id]["m"])
+    stash = (float(torch.tensor(losses).mean()), state)
+    # the single-device executor against itself: the whole batch's first
+    # moment (1 - beta1) g against the four microbatches' mean gradient
+    whole = step1["bf16"][1]
+    split = {name: (whole[name][0], (1 - opt.beta1) * sum(
+        g[i] for g in mb_grads) / len(mb_grads))
+        for i, name in enumerate(names)}
+    _, noise = _pp_compare((step1["bf16"][0], split), step1["bf16"], 1.0)
+    torch.cuda.synchronize()
+    return init, step1, stash, {
+        "microbatch_losses": losses,
+        "bf16_four_microbatches_vs_whole_batch": noise["m_rel_err"]}
+
+
+def pp_pass(torch, schedule, card, seed, init, refs, train_p50):
+    """``pp_gpipe`` / ``pp_1f1b``: the four-stage pipeline over M=4
+    microbatches. First its checks: step 1 with the plain K2-K4 swapped
+    in against step 1 with the kernels (as train_pass does), GPipe's step
+    1 against the single-device executor's, and for 1F1B the same at M=1
+    and the stash check at M=4 (the correct run must pass it, the run
+    whose backward reads the current weights must fail it); then the main
+    path: PP_WARMUP + PP_STEPS steps with the launch counts set to 0
+    before and read after (K2, K3, K4 12·M a step, all on ``tc``, K1
+    none), and one profiled step; then where a step's memory goes at
+    M = S and at M = 2S (_pp_memory). Returns (line, launches, the loss
+    and _pp_state on the host after the steps pp_fleet runs)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import attention as attn
+    from hetu_tpu_torch.ops import flash_attention as fa
+    vocab = GPT2_SMALL["vocab_size"]
+    seq = GPT2_SMALL["max_position_embeddings"]
+    xt, yt = (torch.as_tensor(a, device="cuda")
+              for a in _pp_batch(seed, vocab, seq))
+    step1, stash_ref = refs
+    mode = "gpipe" if schedule == "gpipe" else "pipedream"
+    checks = {}
+
+    def one_step(microbatches, lr=TRAIN_LR, fault=False, dtype="bfloat16"):
+        exe, ids, labels = _pp_executor(ht, torch, M, mode, microbatches,
+                                        init, lr, dtype)
+        if fault:
+            _read_current_weights(exe)
+        got = _pp_step1(torch, exe, {ids: xt, labels: yt})
+        del exe
+        torch.cuda.empty_cache()
+        return got
+
+    plain = {"flash_attention_with_lse": fa.flash_attention_with_lse_plain,
+             "flash_attention_bwd": fa.flash_attention_bwd_plain}
+    kernels = {key: getattr(attn, key) for key in plain}
+    for key, fn in plain.items():
+        setattr(attn, key, fn)
+    try:
+        plain_step1 = one_step(PP_MICROBATCHES)
+    finally:
+        for key, fn in kernels.items():
+            setattr(attn, key, fn)
+    if schedule == "gpipe":
+        ok, checks["vs_single_device_f32"] = _pp_compare(
+            one_step(PP_MICROBATCHES, dtype=None), step1["f32"], TRAIN_LR,
+            PP_F32_LOSS_RTOL, PP_F32_M_TOL)
+        if not ok:
+            raise AssertionError(f"pp_gpipe step 1 against the "
+                                 f"single-device executor (f32): {checks}")
+    if schedule == "1f1b":
+        ok, checks["m1_vs_single_device"] = _pp_compare(
+            one_step(1), step1["bf16"], TRAIN_LR)
+        if not ok:
+            raise AssertionError(f"pp_1f1b at M=1 against the single-device "
+                                 f"executor: {checks}")
+        ok, checks["stash"] = _pp_compare(
+            one_step(PP_MICROBATCHES, PP_STASH_LR), stash_ref, PP_STASH_LR)
+        fault_ok, checks["stash_fault_current_weights"] = _pp_compare(
+            one_step(PP_MICROBATCHES, PP_STASH_LR, fault=True), stash_ref,
+            PP_STASH_LR)
+        checks["stash"]["passes"] = ok
+        checks["stash_fault_current_weights"]["passes"] = fault_ok
+        if not ok or fault_ok:
+            raise AssertionError(f"pp_1f1b: the stash check does not tell "
+                                 f"the stash from the current weights: "
+                                 f"{checks}")
+
+    torch.cuda.synchronize()
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    exe, ids, labels = _pp_executor(ht, torch, M, mode, PP_MICROBATCHES,
+                                    init)
+    setup_s = time.perf_counter() - t0
+    feeds = {ids: xt, labels: yt}
+    losses, step_ms = [], []
+    for i in range(PP_WARMUP + PP_STEPS):
+        t0 = time.perf_counter()
+        out = exe.run(feed_dict=feeds)
+        losses.append(float(out[0].asnumpy()))      # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            kernel_step1 = (losses[0], _pp_state(exe))
+        if i == PP_FLEET_WARMUP + PP_FLEET_STEPS - 1:
+            # what pp_fleet holds its ranks to, kept off the card
+            fleet_ref = (losses[i], {name: (w.cpu(), m.cpu()) for name, (
+                w, m) in _pp_state(exe).items()})
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)           # main path ends
+    peak = torch.cuda.max_memory_allocated()
+    steps = PP_WARMUP + PP_STEPS
+    per_step = GPT2_SMALL["num_hidden_layers"] * PP_MICROBATCHES
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), per_step * steps)
+    got = {key: launches.get(key, 0) for key in want}
+    if got != want:
+        raise AssertionError(f"pp_{schedule} launches {got}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"pp_{schedule} losses not finite and falling: "
+                             f"{losses}")
+    ok, checks["plain_kernels"] = _pp_compare(kernel_step1, plain_step1,
+                                              TRAIN_LR)
+    if not ok:
+        raise AssertionError(f"pp_{schedule} step 1 against the plain "
+                             f"K2-K4: {checks}")
+    if schedule == "gpipe":
+        # reported, not held: bf16's rounding at other GEMM shapes (see
+        # PP_F32_LOSS_RTOL); the f32 check above holds the schedule
+        checks["vs_single_device_bf16"] = _pp_compare(
+            kernel_step1, step1["bf16"], TRAIN_LR)[1]
+    timed = step_ms[PP_WARMUP:]
+    sub = exe.subexecutors["default"]
+    profile = profile_window(torch, lambda: exe.run(feed_dict=feeds)[0]
+                             .asnumpy())
+    del exe
+    torch.cuda.empty_cache()
+    memory = {f"m{mb}": _pp_memory(torch, ht, M, mode, mb, init, xt, yt)
+              for mb in (PP_MICROBATCHES, PP_MEMORY_MICROBATCHES)}
+    return {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "schedule": schedule, "stages": PP_STAGES,
+            "stage_devices": sorted({str(st.device) for st in sub.stages}),
+            "blocks_per_stage": GPT2_SMALL["num_hidden_layers"] // PP_STAGES,
+            "microbatches": PP_MICROBATCHES, "microbatch": PP_MICROBATCH,
+            "batch": TRAIN_BATCH, "seq": seq, "dtype": "bfloat16",
+            "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
+            "executor_setup_s": setup_s, "warmup_steps": PP_WARMUP,
+            "timed_steps": PP_STEPS,
+            "tokens_per_s": TRAIN_BATCH * seq * len(timed)
+            / (sum(timed) / 1e3),
+            "step_ms_p50": float(np.median(timed)),
+            "train_step_ms_p50": train_p50,
+            "step_ms": step_ms, "losses": losses,
+            "analytic_bubble_fraction": sub.bubble_fraction,
+            "launches": got,
+            "launches_per_step": {k: v / steps for k, v in got.items()},
+            "peak_memory_bytes": int(peak),
+            "memory": memory, "checks": checks,
+            "profile": profile}, launches, fleet_ref
+
+
+def _pp_memory(torch, ht, M, mode, microbatches, init, xt, yt):
+    """Where a pipeline step's memory goes: a fresh executor at
+    ``microbatches``, one step, then a second with every stage's
+    forward, backward and update watched. Bytes above what the script
+    held before (``resident_bytes``): the executor's parameters and
+    slots after the first step, the most held at the end of a forward
+    (activations and stashes), and the peak inside the forwards, the
+    backwards and the updates; ``peak_bytes`` is the largest."""
+    torch.cuda.synchronize()
+    _release(torch)
+    resident = torch.cuda.memory_allocated()
+    exe, ids, labels = _pp_executor(ht, torch, M, mode, microbatches, init)
+    feeds = {ids: xt, labels: yt}
+    exe.run(feed_dict=feeds)[0].asnumpy()
+    torch.cuda.synchronize()
+    rec = {"microbatches": microbatches,
+           "microbatch": TRAIN_BATCH // microbatches,
+           "resident_bytes": int(resident),
+           "params_and_slots_bytes": int(torch.cuda.memory_allocated()
+                                         - resident),
+           "held_after_forward_bytes": 0, "peak_in_forward_bytes": 0,
+           "peak_in_backward_bytes": 0, "peak_in_update_bytes": 0}
+    sub = exe.subexecutors["default"]
+    for phase in ("forward", "backward", "apply"):
+        def watched(*args, _fn=getattr(sub, "_" + phase), _phase=phase):
+            torch.cuda.reset_peak_memory_stats()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            key = "update" if _phase == "apply" else _phase
+            rec[f"peak_in_{key}_bytes"] = max(
+                rec[f"peak_in_{key}_bytes"],
+                int(torch.cuda.max_memory_allocated() - resident))
+            if _phase == "forward":
+                rec["held_after_forward_bytes"] = max(
+                    rec["held_after_forward_bytes"],
+                    int(torch.cuda.memory_allocated() - resident))
+            return out
+        setattr(sub, "_" + phase, watched)
+    exe.run(feed_dict=feeds)[0].asnumpy()
+    rec["peak_bytes"] = max(rec[f"peak_in_{k}_bytes"]
+                            for k in ("forward", "backward", "update"))
+    del exe, sub
+    _release(torch)
+    return rec
+
+
+def _release(torch):
+    """Free the card's memory held by dropped executors: one the checks
+    patched (the watched stage calls, the faulty backward) is in a
+    reference cycle and goes only when the collector runs, so a peak
+    measured before would count its parameters and slots."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def pp_worker(spec):
+    """One worker process of ``pp_fleet``, run by the launcher as
+    ``python chip_smoke.py --pp-worker SPEC``: stages 2r and 2r + 1 on
+    ``ht.rgpu("worker<r>", i)`` (on a one-card host all on cuda:0), GPipe
+    then 1F1B, each PP_FLEET_WARMUP + PP_FLEET_STEPS steps on train's
+    batch with fresh weights (the in-process passes' draw: both are
+    seeded by name). Writes ``worker_<rank>.json``: the losses (on the
+    rank that owns the loss stage), step times, the channel's bytes and
+    seconds each step, launches and peak memory; and
+    ``state_<rank>_<mode>.pt``: the PP_PARITY_PARAMS it owns after the
+    steps (_pp_state, on the host)."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["HETU_PROC_ID"])
+    vocab = GPT2_SMALL["vocab_size"]
+    seq = GPT2_SMALL["max_position_embeddings"]
+    xt, yt = (torch.as_tensor(a, device="cuda")
+              for a in _pp_batch(spec["seed"], vocab, seq))
+    contexts = [ht.rgpu(f"worker{i // 2}", i) for i in range(PP_STAGES)]
+    out = {"rank": rank, "schedules": {}}
+    for mode in ("gpipe", "pipedream"):
+        t0 = time.perf_counter()
+        ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, contexts)
+        exe = ht.Executor([loss, train_op], dtype=torch.bfloat16,
+                          num_microbatches=PP_MICROBATCHES, **{mode: True})
+        sub = exe.subexecutors["default"]
+        rec = {"executor_setup_s": time.perf_counter() - t0,
+               "owned_stages": [st.index for st in sub.stages
+                                if st.device is not None],
+               "devices": sorted({str(st.device) for st in sub.stages
+                                  if st.device is not None}),
+               "params": len(exe.params), "losses": [], "step_ms": [],
+               "channel": []}
+        channel = ht.parallel.get_channel()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()                # main path starts
+        for _ in range(PP_FLEET_WARMUP + PP_FLEET_STEPS):
+            channel.reset_stats()
+            t0 = time.perf_counter()
+            res = exe.run(feed_dict={ids: xt, labels: yt})
+            if res[0] is not None:
+                rec["losses"].append(float(res[0].asnumpy()))
+            torch.cuda.synchronize()
+            rec["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["channel"].append(channel.stats())
+        rec["launches"] = _k1_k4_launches(_build.launch_counts)  # ends
+        rec["launches_tc"] = {k: v for k, v in _build.launch_counts.items()
+                              if k.endswith(".tc")}
+        rec["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated())
+        out["schedules"][mode] = rec
+        torch.save({name: (w.cpu(), m.cpu())
+                    for name, (w, m) in _pp_state(exe).items()},
+                   os.path.join(spec["out"], f"state_{rank}_{mode}.pt"))
+        del exe, sub
+        torch.cuda.empty_cache()
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def pp_fleet_pass(card, seed, inproc):
+    """``pp_fleet``: two worker processes started by ``python -m
+    hetu_tpu_torch.launcher`` (``spmd: true``: one job, the pipeline
+    channel's addresses exported), each running pp_worker on the one
+    card, stage boundaries crossing the host channel in bf16. Held
+    against the in-process passes (``inproc``: {schedule: (losses,
+    (loss, _pp_state) after the fleet's steps)}): the losses of the rank
+    that owns the loss stage, each within one bf16 ulp, and after the
+    last step the state of layer 0's qkv (rank 0: trained only by the
+    adjoints that crossed back from rank 1) and of the LM head (rank 1),
+    by _pp_compare. The boundaries cross as their bf16 bits, so the ops
+    are the in-process run's, but the card's atomics (the embedding
+    gradient's scatter-add) may sum in another order; how many losses
+    and tensors are bit-equal is reported. Each rank launches K2, K3 and
+    K4 6·M times a step (its six blocks), all on tc, K1 none."""
+    import shutil
+    import tempfile
+    import torch
+    from hetu_tpu_torch.ops import flash_attention as fa
+    out_dir = tempfile.mkdtemp(prefix="pp_fleet_")
+    try:
+        cfg = os.path.join(out_dir, "cluster.yml")
+        with open(cfg, "w") as f:
+            f.write("spmd: true\nnodes:\n  - host: localhost\n"
+                    "    workers: 2\n    chief: true\n")
+        spec = {"seed": seed, "out": out_dir}
+        cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
+               sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+               "--pp-worker", json.dumps(spec)]
+        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        log_path = os.path.join(out_dir, "fleet.log")
+        t0 = time.perf_counter()
+        with open(log_path, "w") as logf:
+            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                    stderr=subprocess.STDOUT,
+                                    stdin=subprocess.DEVNULL,
+                                    start_new_session=True)
+            try:
+                rc = proc.wait(timeout=PP_FLEET_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                rc = f"no exit within {PP_FLEET_TIMEOUT_S} s"
+            finally:
+                try:
+                    os.killpg(proc.pid, 9)      # whatever is left of it
+                except ProcessLookupError:
+                    pass
+                proc.wait()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            with open(log_path) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"pp_fleet: launcher exit {rc}\n{tail}")
+        records, states = [], {"gpipe": {}, "pipedream": {}}
+        for r in range(2):
+            with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+                records.append(json.load(f))
+            for mode, state in states.items():
+                state.update(torch.load(
+                    os.path.join(out_dir, f"state_{r}_{mode}.pt")))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = PP_FLEET_WARMUP + PP_FLEET_STEPS
+    per_rank = GPT2_SMALL["num_hidden_layers"] // 2 * PP_MICROBATCHES * steps
+    line = {"card": card, "model": "gpt2-small", "workers": 2,
+            "stages": PP_STAGES, "microbatches": PP_MICROBATCHES,
+            "batch": TRAIN_BATCH, "dtype": "bfloat16",
+            "boundary_dtype": "bfloat16", "steps": steps,
+            "timed_steps": PP_FLEET_STEPS, "launcher_wall_s": wall,
+            "schedules": {}}
+    faults = []
+    for mode, schedule in (("gpipe", "gpipe"), ("pipedream", "1f1b")):
+        got = records[1]["schedules"][mode]["losses"]
+        losses, final = inproc[schedule]
+        want = losses[:steps]
+        tol = [_bf16_ulp(w) for w in want]
+        sched = {"losses": got, "in_process_losses": want,
+                 "loss_tol": tol, "bit_equal_losses": sum(
+                     g == w for g, w in zip(got, want)), "ranks": []}
+        if records[0]["schedules"][mode]["losses"] or len(got) != steps \
+                or any(abs(g - w) > t for g, w, t in zip(got, want, tol)):
+            faults.append(f"{schedule} losses {got} (rank 0: "
+                          f"{records[0]['schedules'][mode]['losses']}) "
+                          f"against {want}")
+        state = states[mode]
+        if sorted(state) != sorted(PP_PARITY_PARAMS):
+            faults.append(f"{schedule}: the ranks wrote {sorted(state)}")
+        else:
+            ok, sched["state_after_steps"] = _pp_compare(
+                (got[-1] if got else float("nan"), state), final, TRAIN_LR)
+            sched["state_after_steps"]["bit_equal_tensors"] = sum(
+                torch.equal(a, b) for name in PP_PARITY_PARAMS
+                for a, b in zip(state[name], final[1][name]))
+            if not ok:
+                faults.append(f"{schedule} state after {steps} steps: "
+                              f"{sched['state_after_steps']}")
+        for rec in records:
+            r = rec["schedules"][mode]
+            timed = r["step_ms"][PP_FLEET_WARMUP:]
+            chan = r["channel"][PP_FLEET_WARMUP:]
+            sched["ranks"].append({
+                "rank": rec["rank"], "owned_stages": r["owned_stages"],
+                "devices": r["devices"], "params": r["params"],
+                "executor_setup_s": r["executor_setup_s"],
+                "step_ms": r["step_ms"],
+                "step_ms_p50": float(np.median(timed)),
+                "channel_bytes_per_step": float(np.mean(
+                    [c["sent_bytes"] + c["recv_bytes"] for c in chan])),
+                "channel_send_s_per_step": float(np.mean(
+                    [c["send_s"] for c in chan])),
+                "channel_recv_wait_s_per_step": float(np.mean(
+                    [c["recv_wait_s"] for c in chan])),
+                "channel_messages_per_step": float(np.mean(
+                    [c["sent_messages"] + c["recv_messages"]
+                     for c in chan])),
+                "launches": r["launches"],
+                "peak_memory_bytes": r["peak_memory_bytes"]})
+            want_l = {fa.K1: 0, fa.K2: per_rank, fa.K3: per_rank,
+                      fa.K4: per_rank}
+            if r["launches"] != want_l or any(
+                    r["launches_tc"].get(f"{k}.tc", 0) != per_rank
+                    for k in (fa.K2, fa.K3, fa.K4)) \
+                    or r["devices"] != ["cuda:0"]:
+                faults.append(f"{schedule} rank {rec['rank']} on "
+                              f"{r['devices']} launched {r['launches']} "
+                              f"({r['launches_tc']}), want {want_l}")
+        sched["step_ms_p50"] = max(x["step_ms_p50"] for x in sched["ranks"])
+        sched["tokens_per_s"] = TRAIN_BATCH * GPT2_SMALL[
+            "max_position_embeddings"] / (sched["step_ms_p50"] / 1e3)
+        line["schedules"][schedule] = sched
+    if faults:
+        raise AssertionError(f"pp_fleet: {faults}")
+    return line
 
 
 def bert_train_flops(batch, seq, hidden, layers, heads, intermediate,
@@ -3831,6 +4460,8 @@ def main(argv=None):
                     help="also write the JSON lines to this file")
     ap.add_argument("--fleet-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # ps_fleet's workers
+    ap.add_argument("--pp-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # pp_fleet's workers
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -3840,6 +4471,9 @@ def main(argv=None):
     if args.fleet_worker is not None:
         sys.path.insert(0, ROOT)
         return fleet_worker(json.loads(args.fleet_worker))
+    if args.pp_worker is not None:
+        sys.path.insert(0, ROOT)
+        return pp_worker(json.loads(args.pp_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -3886,6 +4520,30 @@ def main(argv=None):
     t = time.perf_counter()
     train_line, train_launches = train(torch, args.seed, card)
     log(f"train ({time.perf_counter() - t:.1f} s) {train_line}")
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    init, pp_step1, pp_stash, pp_info = pp_references(torch, args.seed)
+    log(f"pp references ({time.perf_counter() - t:.1f} s)")
+    pp_lines, pp_launches, pp_fleet_refs = {}, {}, {}
+    for schedule in ("gpipe", "1f1b"):
+        t = time.perf_counter()
+        pp_lines[f"pp_{schedule}"], pp_launches[schedule], ref = pp_pass(
+            torch, schedule, card, args.seed, init, (pp_step1, pp_stash),
+            train_line["step_ms_p50"])
+        pp_fleet_refs[schedule] = (pp_lines[f"pp_{schedule}"]["losses"], ref)
+        log(f"pp_{schedule} ({time.perf_counter() - t:.1f} s) "
+            f"{pp_lines[f'pp_{schedule}']}")
+    pp_lines["pp_1f1b"]["checks"]["stash"]["microbatch_losses"] = \
+        pp_info["microbatch_losses"]
+    pp_lines["pp_gpipe"]["checks"]["bf16_four_microbatches_vs_whole_batch"] \
+        = pp_info["bf16_four_microbatches_vs_whole_batch"]
+    del init
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pp_lines["pp_fleet"] = pp_fleet_pass(card, args.seed, pp_fleet_refs)
+    del pp_fleet_refs
+    log(f"pp_fleet ({time.perf_counter() - t:.1f} s) {pp_lines['pp_fleet']}")
 
     bert_lines, bert_launches = {}, {}
     for name in BERT_PASSES:
@@ -3977,7 +4635,9 @@ def main(argv=None):
                   K1_SESSION_REP),
                  ("bert", bert_launches["bert"], BERT_K1_REP)]
     train_paths = [("train", train_launches, TRAIN_REP),
-                   ("bert_long", bert_launches["bert_long"], BERT_LONG_REP)]
+                   ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
+                   ("pp_gpipe", pp_launches["gpipe"], PP_REP),
+                   ("pp_1f1b", pp_launches["1f1b"], PP_REP)]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -4007,6 +4667,7 @@ def main(argv=None):
     lines = [{"device": device}, {"build": build}, shapes,
              {"check_faults": faults}, {"serve": serve_line},
              {"serve_dense": dense_line}, {"train": train_line},
+             *({name: line} for name, line in pp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},

@@ -30,6 +30,10 @@ What runs today:
 * the PS and Hybrid modes against the port's C++ parameter server, and
   fleets of PS workers and servers started by its launcher
   (``python -m hetu_tpu_torch.launcher -c cluster.yml <command>``);
+* pipeline-parallel training, GPipe and PipeDream 1F1B (``gpipe=True``
+  / ``pipedream=True``), its stages placed by ``with ht.context(...)``,
+  in one process or across a launcher's worker processes
+  (:mod:`.parallel`);
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.
@@ -40,7 +44,7 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 kernel's plain PyTorch version runs instead — that is what the tests
 use.
 """
-from . import data, metrics, models, stream, telemetry
+from . import data, metrics, models, parallel, stream, telemetry
 from . import initializers as init
 from . import lr_scheduler as lr
 from . import optimizer as optim
@@ -66,7 +70,7 @@ __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
            "scheduler_init", "scheduler_finish", "server_init",
            "server_finish", "worker_init", "worker_finish",
            "get_worker_communicate", "optim", "init", "lr", "data",
-           "metrics", "models", "launcher", "telemetry",
+           "metrics", "models", "launcher", "telemetry", "parallel",
            "Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp",
            "ND_Sparse_Array", "sparse_array", "array", "empty", "stream",
            *_ops_all]

@@ -25,12 +25,17 @@ __all__ = ["DeviceGroup", "context", "get_current_context",
 class DeviceGroup:
     """An ordered set of device contexts (reference context.py:7-96).
     Accepts a context, a list of them, or a string like ``"gpu:0"`` or
-    ``"host:cpu:0"``. GPUs are workers, CPUs are servers."""
+    ``"host:cpu:0"``. GPUs are workers, CPUs are servers; a tuple of
+    contexts is one worker whose devices share a model-parallel copy
+    (a pipeline refuses it until tensor parallelism, ROADMAP item
+    11b)."""
 
     def __init__(self, ctxs):
         self._contexts = self.parse_contexts(ctxs)
-        self._workers = [c for c in self._contexts if is_gpu_ctx(c)]
-        self._servers = [c for c in self._contexts if not is_gpu_ctx(c)]
+        self._workers = [c for c in self._contexts
+                         if isinstance(c, tuple) or is_gpu_ctx(c)]
+        self._servers = [c for c in self._contexts
+                         if not (isinstance(c, tuple) or is_gpu_ctx(c))]
 
     @classmethod
     def parse_contexts(cls, ctxs):
@@ -40,7 +45,8 @@ class DeviceGroup:
             ctxs = [c for c in re.split(";|,| +", ctxs.lower()) if c]
         if not isinstance(ctxs, list):
             ctxs = [ctxs]
-        return [cls.str2ctx(c) for c in ctxs]
+        return [tuple(cls.str2ctx(cc) for cc in c) if isinstance(c, tuple)
+                else cls.str2ctx(c) for c in ctxs]
 
     @staticmethod
     def str2ctx(c):

@@ -53,8 +53,17 @@ Under a launcher's ``spmd`` or multi-host fleet the executor joins its
 ``torch.distributed`` rendezvous (:func:`maybe_init_distributed`); no
 collective uses it yet.
 
-The dp/tp/pp meshes, pipelines, telemetry and the preflight analysis
-are still to port; ``HetuConfig`` refuses their options.
+**Pipelines** (``gpipe=True`` or ``pipedream=True``, with
+``num_microbatches`` and ``pp_options``): stages placed by ``with
+ht.context(...)`` run under GPipe or PipeDream 1F1B
+(:class:`~hetu_tpu_torch.parallel.pipeline.PipelineSubExecutor`), in one
+process or across a launcher's worker processes; each parameter, and
+its optimizer slots, lives on its stage's device, and a worker process
+materializes only its own stages' parameters.
+
+The dp/tp meshes, the collective pipeline, telemetry and the preflight
+analysis are still to port; ``HetuConfig`` refuses their options, each
+naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -89,6 +98,18 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
            "worker_finish", "server_init", "server_finish",
            "get_worker_communicate", "maybe_init_distributed"]
 
+# the reference's options of modes still to port -> their ROADMAP item
+_REFUSED_OPTIONS = {
+    "pipeline_mode": "item 11b (collective_pp.py over NCCL send/recv)",
+    "mesh": "items 11a and 11b (the dp mesh, the TP planner)",
+    "parallel": "item 11b (autoplan.py)",
+    "rules": "item 11b (autoplan.py)",
+    "autoplan_options": "item 11b (autoplan.py)",
+    "telemetry": "item 14", "health_options": "item 14",
+    "log_path": "item 14 (profiler.py's StepLogger)",
+    "validate": "item 17",
+}
+
 
 def maybe_init_distributed(device=None):
     """Join the launcher's multi-process job (reference
@@ -114,6 +135,47 @@ def maybe_init_distributed(device=None):
     return True
 
 
+def ingest_value(value, device, dtype=None, staged=False):
+    """A feed value on ``device``, floating values in ``dtype`` where it
+    is set. ``staged`` copies a host array through pinned memory on the
+    side stream (the ingest worker's path,
+    :func:`~hetu_tpu_torch.ingest.to_device`)."""
+    # a CSR feed: made a CSRValue on the device each run, as the
+    # reference does; one already there (a pinned graph) as it is
+    if isinstance(value, ND_Sparse_Array):
+        return CSRValue.from_sparse_array(value, device)
+    if isinstance(value, CSRValue):
+        return value.to(device)
+    if isinstance(value, NDArray):
+        value = value.tensor
+    if not isinstance(value, torch.Tensor):
+        value = torch.from_numpy(np.ascontiguousarray(value))
+    # float64 feeds (numpy's default, JSON bodies) compute in f32, as
+    # the reference's JAX canonicalizes them with 64-bit mode off
+    if value.dtype == torch.float64:
+        value = value.to(torch.float32)
+    if staged and value.device.type == "cpu":
+        value = to_device(value, device)
+    else:
+        value = value.to(device)
+    if dtype is not None and value.is_floating_point():
+        value = value.to(dtype)
+    return value
+
+
+def _first_stage_device(eval_node_list):
+    """The device of the first op placed by a context, in topological
+    order: a pipeline's first stage (its session device)."""
+    for node in find_topo_sort(eval_node_list):
+        if isinstance(node, PlaceholderOp) or node.raw_ctx is None \
+                or not len(node.raw_ctx):
+            continue
+        first = node.raw_ctx[0]
+        return (first[0] if isinstance(first, tuple)
+                else first).torch_device()
+    return None
+
+
 class HetuConfig:
     """Session configuration (reference executor.py:107-356): the eval
     nodes, the seed of parameter initialization and of per-op
@@ -135,7 +197,11 @@ class HetuConfig:
     ``drain_compress`` (bf16 drains).
 
     ``overlap_options`` (a dict or ``OverlapOptions``) sets the ingest
-    engine of ``run_batches_stream``. The reference's ``train_name``,
+    engine of ``run_batches_stream``. ``gpipe`` / ``pipedream`` train
+    under a pipeline schedule over ``num_microbatches`` microbatches
+    (``pp_options``: ``virtual_stages``); without ``ctx`` or ``device``
+    the session's device is then the first stage's. The reference's
+    ``train_name``,
     ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
     ``dynamic_memory`` are accepted and, as there, change nothing."""
 
@@ -145,12 +211,16 @@ class HetuConfig:
                  bsp=False, prefetch=True, enable_lazy=False,
                  cstable_policy=None, cache_bound=100, cache_capacity=None,
                  drain_compress=False, dynamic_memory=False,
-                 overlap_options=None, **options):
+                 overlap_options=None, gpipe=False, pipedream=False,
+                 num_microbatches=None, pp_options=None, **options):
         if options:
+            items = "; ".join(f"{k}: ROADMAP {_REFUSED_OPTIONS[k]}"
+                              for k in sorted(options)
+                              if k in _REFUSED_OPTIONS)
             raise TypeError(
-                f"HetuConfig options {sorted(options)} belong to modes the "
-                f"port does not have yet (parallel meshes, pipelines, "
-                f"telemetry, analysis): see ROADMAP.md")
+                f"HetuConfig options {sorted(options)} are not ported: "
+                f"{items or 'not options of the reference either'} (see "
+                f"ROADMAP.md)")
         if dtype is not None and not (isinstance(dtype, torch.dtype)
                                       and dtype.is_floating_point):
             raise TypeError(f"dtype must be a floating torch.dtype, got "
@@ -165,11 +235,19 @@ class HetuConfig:
         self.eval_node_list = eval_node_list
         self.seed = seed
         self.dtype = dtype
+        self.use_gpipe = bool(gpipe)
+        self.use_pipedream = bool(pipedream)
+        self.num_microbatches = num_microbatches
+        self.pp_options = dict(pp_options or {})
+        pipeline = self.use_gpipe or self.use_pipedream
         ctx = ctx if ctx is not None else get_current_context()
         self.context = DeviceGroup(ctx if ctx is not None else [])
         if device is None and len(self.context):
             first = (self.context.workers or list(self.context))[0]
-            device = first.torch_device()
+            device = (first[0] if isinstance(first, tuple)
+                      else first).torch_device()
+        if device is None and pipeline:
+            device = _first_stage_device(eval_node_list)
         self.device = resolve_device(device)
         self.telemetry = _telemetry.NULL
         self.overlap = OverlapOptions.resolve(overlap_options)
@@ -214,6 +292,10 @@ class HetuConfig:
             raise NotImplementedError(
                 f"{self.comm_mode} over {self.nrank} workers: the "
                 f"multi-card modes wait for ROADMAP item 11")
+        if pipeline and self.comm_mode is not None:
+            raise NotImplementedError(
+                f"a pipeline in the {self.comm_mode} mode: data parallel or "
+                f"PS stages wait for ROADMAP item 11b")
         if self.comm_mode == "Hybrid":
             # each worker process of a fleet sees one worker in its own
             # context, so nrank is 1 there: the PS client knows the fleet
@@ -235,6 +317,11 @@ class HetuConfig:
                 self.comm_mode in ("PS", "Hybrid"):
             self._rewrite_device_cache(eval_node_list)
             self.cstable_policy = None
+        # explicit pipeline send/recv markers splice before parameters
+        # materialize (reference executor.py:312-316)
+        if pipeline:
+            from .parallel.pipeline import splice_send_recv
+            splice_send_recv(eval_node_list)
         # the graph pass: splice the comm ops (reference executor.py:314)
         for node in reversed(find_topo_sort(eval_node_list)):
             node.backward_hook(self)
@@ -460,31 +547,8 @@ class SubExecutor:
                     f"match the op's {shapes}")
 
     def _ingest(self, value, staged=False):
-        """A feed value on the device. ``staged`` copies a host array
-        through pinned memory on the side stream (the ingest worker's
-        path, :func:`~hetu_tpu_torch.ingest.to_device`)."""
-        # a CSR feed: made a CSRValue on the device each run, as the
-        # reference does; one already there (a pinned graph) as it is
-        if isinstance(value, ND_Sparse_Array):
-            return CSRValue.from_sparse_array(value, self.config.device)
-        if isinstance(value, CSRValue):
-            return value.to(self.config.device)
-        if isinstance(value, NDArray):
-            value = value.tensor
-        if not isinstance(value, torch.Tensor):
-            value = torch.from_numpy(np.ascontiguousarray(value))
-        # float64 feeds (numpy's default, JSON bodies) compute in f32, as
-        # the reference's JAX canonicalizes them with 64-bit mode off
-        if value.dtype == torch.float64:
-            value = value.to(torch.float32)
-        if staged and value.device.type == "cpu":
-            value = to_device(value, self.config.device)
-        else:
-            value = value.to(self.config.device)
-        dtype = self.config.dtype
-        if dtype is not None and value.is_floating_point():
-            value = value.to(dtype)
-        return value
+        return ingest_value(value, self.config.device, self.config.dtype,
+                            staged)
 
     def _stack_feed(self, values):
         """A block's per-step values of one feed -> ``(tensor, tiled)``:
@@ -612,32 +676,56 @@ class Executor:
                                     key=lambda n: n.id)
         ps_embeds = {op.parameter for op in config.ps_nodes
                      if op.parameter.is_embed}
+        # a pipeline places each parameter on its stage's device, and a
+        # worker process materializes only its own stages' (None)
+        placement = None
+        if config.use_gpipe or config.use_pipedream:
+            from .parallel.pipeline import PipelineSubExecutor
+            schedule = "gpipe" if config.use_gpipe else "1f1b"
+            self.subexecutors = {
+                name: PipelineSubExecutor(name, nodes, config, schedule,
+                                          config.num_microbatches)
+                for name, nodes in eval_node_dict.items()}
+            placement = {}
+            for sub in self.subexecutors.values():
+                placement.update(sub.param_devices())
         for node in topo:
             if node in ps_embeds:
                 continue        # lives on the PS server only
             if isinstance(node, PlaceholderOp) and (
                     node.tensor_value is not None
                     or node.initializer is not None):
+                device = config.device if placement is None \
+                    else placement.get(node)
+                if device is None:
+                    continue        # another worker process's stage
                 if getattr(node, "device_cached", False) and node.is_embed:
                     # cache rows fill from the server on a miss: zeros
                     # made on the device, no table-sized host transfer
                     value = torch.zeros(node.shape, dtype=torch.float32,
-                                        device=config.device)
+                                        device=device)
                 else:
                     value = torch.from_numpy(np.ascontiguousarray(
-                        node.initial_value(seed=config.seed))).to(
-                            config.device)
+                        node.initial_value(seed=config.seed))).to(device)
                 self.params[str(node.id)] = value
                 self._param_nodes[str(node.id)] = node
-        for nodes in eval_node_dict.values():
-            for n in find_topo_sort(nodes):
-                if isinstance(n, OptimizerOp):
-                    self.opt_state.update(n.optimizer.init_state(
-                        {p: self.params[str(p.id)]
-                         for p in n.optimizer.params
-                         if str(p.id) in self.params}))
-        self.subexecutors = {name: SubExecutor(name, nodes, config)
-                             for name, nodes in eval_node_dict.items()}
+        if placement is None:
+            for nodes in eval_node_dict.values():
+                for n in find_topo_sort(nodes):
+                    if isinstance(n, OptimizerOp):
+                        self.opt_state.update(n.optimizer.init_state(
+                            {p: self.params[str(p.id)]
+                             for p in n.optimizer.params
+                             if str(p.id) in self.params}))
+            self.subexecutors = {name: SubExecutor(name, nodes, config)
+                                 for name, nodes in eval_node_dict.items()}
+        else:
+            # the slots of what the pipeline trains: every trainable
+            # parameter the loss reaches once markers are spliced
+            for sub in self.subexecutors.values():
+                self.opt_state.update(sub.optimizer.init_state(
+                    {p: self.params[str(p.id)] for p in sub.train_params
+                     if str(p.id) in self.params}))
         # the PS runtime: registers the PS tensors on the server now,
         # so save() and load() work before the first step
         self.ps_runtime = None
@@ -668,6 +756,11 @@ class Executor:
         :meth:`PSRuntime.run_block`: slots for the whole block are
         assigned up front, as in the reference."""
         sub = self._sub(name)
+        if not isinstance(sub, SubExecutor):
+            raise ValueError(
+                "run_batches is not supported for gpipe/pipedream "
+                "executors — the pipeline schedule already amortizes "
+                "dispatch over microbatches; call run() per step")
         if sub.needs_ps:
             return self.ps_runtime.run_block(sub, feed_dicts,
                                              convert_to_numpy_ret_vals)
@@ -692,6 +785,11 @@ class Executor:
         if lookahead < 1:
             raise ValueError(f"lookahead must be >= 1, got {lookahead}")
         sub = self._sub(name)
+        if not isinstance(sub, SubExecutor):
+            raise ValueError(
+                "run_batches_stream is not supported for pipeline "
+                "executors — the pipeline schedule already amortizes "
+                "dispatch over microbatches; call run() per step")
         blocks = iter(blocks)
         gnn = any(isinstance(dl, GNNDataLoaderOp)
                   for dl in sub.dataloader_ops)

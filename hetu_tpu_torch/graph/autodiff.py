@@ -47,32 +47,76 @@ def sum_node_list(node_list, ctx=None):
     return result
 
 
-def gradients(output_node, node_list, insert_grad=None):
+def _place_new(place, roots, mark, part):
+    """Give ``part`` to every node made since node id ``mark`` that
+    ``roots`` reach and that has no place yet."""
+    stack = list(roots)
+    while stack:
+        n = stack.pop()
+        if n.id >= mark and n not in place:
+            place[n] = part
+            stack.extend(n.inputs)
+
+
+def _presum(parts, part_of_node, place, ctx):
+    """Partial adjoints of one node grouped by their place: the partials
+    made in one other place are summed there, so one value leaves it."""
+    from . import node as _node
+    by_part = {}
+    for p in parts:
+        by_part.setdefault(place[p], []).append(p)
+    out = []
+    for part, group in by_part.items():
+        if part == part_of_node or len(group) == 1:
+            out.extend(group)
+            continue
+        mark = _node.G_NODE_ID
+        total = sum_node_list(group, ctx=ctx)
+        _place_new(place, [total], mark, part)
+        out.append(total)
+    return out
+
+
+def gradients(output_node, node_list, insert_grad=None, place=None):
     """Gradient ops of ``output_node`` with respect to each node of
     ``node_list`` (reference executor.py:1867-1919). ``insert_grad`` is
-    the seed adjoint of ``output_node`` (default: OnesLike)."""
+    the seed adjoint of ``output_node`` (default: OnesLike).
+
+    ``place`` ({node: part}, holding every forward node) places the
+    gradient graph on the parts of the forward graph, as a pipeline
+    places it on its stages: each gradient op made by a forward node's
+    adjoint sum or ``gradient()`` joins that node's part (the seed joins
+    ``output_node``'s), and a node's partial adjoints made in one other
+    part are summed there first. The dict is filled in."""
     from ..ops.shape import oneslike_op
+    from . import node as _node
 
     if insert_grad is None:
         insert_grad = oneslike_op(output_node, ctx=output_node.raw_ctx)
+    if place is not None:
+        place.setdefault(insert_grad, place[output_node])
     node_to_grads = {output_node: [insert_grad]}
     node_to_grad = {}
 
     for node in reversed(find_topo_sort([output_node])):
         if node not in node_to_grads:
             continue
-        grad = sum_node_list(node_to_grads[node], ctx=node.raw_ctx)
+        parts = node_to_grads[node]
+        if place is not None:
+            parts = _presum(parts, place[node], place, node.raw_ctx)
+        mark = _node.G_NODE_ID
+        grad = sum_node_list(parts, ctx=node.raw_ctx)
         if grad is None:
             continue
         node_to_grad[node] = grad
-        if not node.inputs:
-            continue
-        input_grads = node.gradient(grad)
-        if input_grads is None:
-            continue
-        for inp, ig in zip(node.inputs, input_grads):
+        made = [grad]
+        input_grads = node.gradient(grad) if node.inputs else None
+        for inp, ig in zip(node.inputs, input_grads or ()):
             if ig is not None:
                 node_to_grads.setdefault(inp, []).append(ig)
+                made.append(ig)
+        if place is not None:
+            _place_new(place, made, mark, place[node])
 
     missing = [n.name for n in node_list if n not in node_to_grad]
     if missing:

@@ -25,6 +25,14 @@ in-process ``launch(target, args)``.
   ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, beside the reference's
   ``HETU_COORDINATOR`` / ``HETU_NUM_PROCS`` / ``HETU_PROC_ID``; the
   executor joins it (``executor.maybe_init_distributed``).
+* **Pipeline stages across workers** reach each other over the host
+  channel (``parallel/p2p.py``): such a job's workers also get
+  ``HETU_PIPE_HOSTS`` (each rank's host, loopback on one host),
+  ``HETU_PIPE_BASE_PORT`` (rank k listens on base + k; the caller's
+  value, else on one host a range free at launch, so jobs that share a
+  host keep apart, and 19500 across hosts) and ``HETU_HOSTS`` (each
+  rank's hostname, which maps a stage's hostname to its owner), as the
+  reference's launcher exports them.
 * **A fleet's environment is its own.** What the launcher sets on its
   servers and workers (:data:`FLEET_VARS`) is taken out of the
   environment they inherit first, so a value left by an earlier fleet
@@ -84,7 +92,8 @@ FLEET_VARS = ("HETU_PS_HOSTS", "HETU_PS_PORTS", "HETU_PS_NWORKERS",
               "HETU_PS_MY_BACKUP_HOST", "HETU_PS_MY_BACKUP_PORT",
               "HETU_PS_REPLICATE", "HETU_COORDINATOR", "HETU_NUM_PROCS",
               "HETU_PROC_ID", "MASTER_ADDR", "MASTER_PORT", "RANK",
-              "WORLD_SIZE", "LOCAL_RANK")
+              "WORLD_SIZE", "LOCAL_RANK", "HETU_PIPE_HOSTS",
+              "HETU_PIPE_BASE_PORT", "HETU_HOSTS")
 
 _procs = []
 _claims = {}        # port -> the listening socket that claims it
@@ -320,6 +329,52 @@ def _master(cfg):
     return cfg.chief, int(port or 29400)
 
 
+def _free_port_range(n, tries=64):
+    """A base port whose ``n`` ports from it up are all free on every
+    interface now, as the pipeline channel binds them."""
+    import socket
+    from .ps.server import pick_free_port
+    for _ in range(tries):
+        base = pick_free_port()
+        if base + n > 65536:
+            continue
+        held = []
+        try:
+            for k in range(n):
+                s = socket.socket()
+                held.append(s)
+                s.bind(("0.0.0.0", base + k))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in held:
+                s.close()
+    raise RuntimeError(f"no {n} free consecutive ports for the pipeline "
+                       f"channel; set HETU_PIPE_BASE_PORT")
+
+
+def _pipe_env(cfg):
+    """The pipeline channel's addresses for a job's workers (reference
+    launcher.py:465-482): one endpoint per rank, the chief's first. Only
+    a single-host cluster may use loopback: in a mixed one, a remote
+    rank dialing 127.0.0.1 for a local rank would dial itself. The base
+    port is ``HETU_PIPE_BASE_PORT``; unset, a single host takes a range
+    free now (as ``_master`` does for the rendezvous), so two jobs on
+    one host do not share a channel, and a cluster the reference's
+    19500."""
+    pipe_hosts, hosts = [], []
+    for host, n in cfg.worker_hosts():
+        pipe_hosts.extend(["127.0.0.1" if cfg.single_host else host] * n)
+        hosts.extend([host] * n)
+    base = os.environ.get("HETU_PIPE_BASE_PORT")
+    if base is None:
+        base = _free_port_range(len(hosts)) if cfg.single_host else 19500
+    return {"HETU_PIPE_HOSTS": ",".join(pipe_hosts),
+            "HETU_PIPE_BASE_PORT": str(base),
+            "HETU_HOSTS": ",".join(hosts)}
+
+
 def _omp_threads(nlocal):
     """The CPU threads of one of ``nlocal`` workers on this host, unless
     ``OMP_NUM_THREADS`` says otherwise: the host's cores shared out.
@@ -369,6 +424,8 @@ def launch_command(cfg, command, identify=None):
         _spawn_servers(cfg, endpoints, identify, extra_env=server_env)
         ps_env = _ps_env(cfg, endpoints, backups)
         master = _master(cfg)
+        if master is not None:
+            ps_env.update(_pipe_env(cfg))
         pypath = PKG_ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")
         workers = []
         rank = 0

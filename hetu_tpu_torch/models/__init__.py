@@ -16,7 +16,7 @@ from .gpt import (GPTConfig, GPTLMHeadModel, GPTModel, gpt_cached_step,
                   gpt_paged_prefill, gpt_paged_step, gpt_paged_suffix_prefill,
                   gpt_param_names, gpt_prefill, gpt_serving_params,
                   init_kv_cache, random_gpt_checkpoint,
-                  serving_params_from_numpy)
+                  serving_params_from_numpy, staged_gpt)
 from .ncf import neural_mf
 from .transformer import Transformer, TransformerConfig
 
@@ -27,7 +27,7 @@ __all__ = ["BertConfig", "BertModel", "BertForPreTraining",
            "serving_params_from_numpy", "random_gpt_checkpoint",
            "init_kv_cache", "gpt_prefill", "gpt_cached_step",
            "gpt_paged_prefill", "gpt_paged_step", "gpt_paged_suffix_prefill",
-           "Embedding", "BertLayerNorm", "Dropout", "Linear",
+           "staged_gpt", "Embedding", "BertLayerNorm", "Dropout", "Linear",
            "logreg", "mlp", "cnn_3_layers", "digits_cnn", "lenet", "alexnet",
            "vgg16", "vgg19", "resnet18", "resnet34", "rnn", "lstm",
            "wdl_criteo", "wdl_adult", "deepfm_criteo", "dcn_criteo",

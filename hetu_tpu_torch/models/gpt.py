@@ -35,9 +35,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..context import context
 from ..device import resolve_device
 from ..ops import (array_reshape_op, batch_matmul_op, broadcastto_op,
-                   flash_attention_op, softmax_op,
+                   flash_attention_op, reduce_mean_op, slice_op, softmax_op,
                    softmaxcrossentropy_sparse_op, split_op, squeeze_op,
                    transpose_op)
 from ..ops.attention import (decode_attention, paged_decode_attention,
@@ -50,7 +51,7 @@ __all__ = ["GPTConfig", "GPTModel", "GPTLMHeadModel", "gpt_param_names",
            "gpt_serving_params", "serving_params_from_numpy",
            "random_gpt_checkpoint", "init_kv_cache", "gpt_prefill",
            "gpt_cached_step", "gpt_paged_prefill", "gpt_paged_step",
-           "gpt_paged_suffix_prefill"]
+           "gpt_paged_suffix_prefill", "staged_gpt"]
 
 
 class GPTConfig:
@@ -494,3 +495,42 @@ class GPTLMHeadModel:
         if labels is None:
             return logits
         return logits, softmaxcrossentropy_sparse_op(logits, labels)
+
+
+def staged_gpt(config, contexts, learning_rate):
+    """:class:`GPTLMHeadModel` with its blocks split evenly over
+    ``contexts``, one pipeline stage each, for an ``Executor`` with
+    ``gpipe=True`` or ``pipedream=True``: the first stage also holds the
+    embeddings, the last the final LayerNorm, the LM head, the mean loss
+    over the positions and Adam's ``minimize``. The sequence is
+    ``max_position_embeddings`` long, and its position embeddings are
+    ``gpt_wpe``'s first S rows taken by a slice (the rows a lookup of
+    positions 0..S-1 reads), so the first stage holds no integer
+    constant and the table's gradient is dense. Returns (ids, labels,
+    loss, optimizer, train_op); labels are pre-shifted, -1 where
+    ignored."""
+    from ..optimizer import AdamOptimizer
+    nstages, layers = len(contexts), config.num_hidden_layers
+    if layers % nstages:
+        raise ValueError(f"{layers} blocks over {nstages} stages")
+    per, seq = layers // nstages, config.max_position_embeddings
+    ids = Variable("input_ids", trainable=False)
+    labels = Variable("labels", trainable=False)
+    model = GPTLMHeadModel(config)
+    body = model.transformer
+    for s, ctx in enumerate(contexts):
+        with context(ctx):
+            if s == 0:
+                x = body.wte(ids)
+                pos = slice_op(body.wpe.weight, (0, 0), (seq, -1))
+                x = body.dropout(x + broadcastto_op(pos, x))
+            for block in body.blocks[s * per:(s + 1) * per]:
+                x = block(x, seq)
+            if s == nstages - 1:
+                logits = model.lm_head(body.ln_f(x),
+                                       [-1, seq, config.vocab_size])
+                loss = reduce_mean_op(
+                    softmaxcrossentropy_sparse_op(logits, labels), [0, 1])
+                opt = AdamOptimizer(learning_rate=learning_rate)
+                train_op = opt.minimize(loss)
+    return ids, labels, loss, opt, train_op

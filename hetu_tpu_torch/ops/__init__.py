@@ -1,7 +1,7 @@
 """The port's ops: graph-op builders (reference-named ``*_op``, the CSR
-products of ``sparse.py`` and the PS / allreduce ops of ``comm.py``
-among them) and the attention kernels' wrappers (``flash_attention``,
-``_build``)."""
+products of ``sparse.py`` and the PS, allreduce, transfer and
+pipeline-boundary ops of ``comm.py`` among them) and the attention
+kernels' wrappers (``flash_attention``, ``_build``)."""
 from .activations import (dropout2d_gradient_op, dropout2d_op,
                           dropout_gradient_op, dropout_op, gelu_gradient_op,
                           gelu_op, leaky_relu_gradient_op, leaky_relu_op,
@@ -9,8 +9,10 @@ from .activations import (dropout2d_gradient_op, dropout2d_op,
                           softmax_func, softmax_gradient_op, softmax_op,
                           tanh_op)
 from .attention import FlashAttentionOp, flash_attention_op
-from .comm import (allreduceCommunicate_op, parameterServerCommunicate_op,
-                   parameterServerSparsePull_op)
+from .comm import (allreduceCommunicate_op, datad2h_op, datah2d_op,
+                   parameterServerCommunicate_op,
+                   parameterServerSparsePull_op, pipeline_receive_op,
+                   pipeline_send_op)
 from .basic import (abs_op, add_op, addbyconst_op, cast_op, clip_mask_op,
                     clip_op, div_const_op, div_handle_zero_op, div_op,
                     erf_op, exp_op, log_op, matrix_dot_op, mul_byconst_op,
@@ -90,5 +92,6 @@ __all__ = [
     "flash_attention_op", "FlashAttentionOp",
     "csrmm_op", "csrmv_op", "distgcn_15d_op",
     "allreduceCommunicate_op", "parameterServerCommunicate_op",
-    "parameterServerSparsePull_op",
+    "parameterServerSparsePull_op", "datah2d_op", "datad2h_op",
+    "pipeline_send_op", "pipeline_receive_op",
 ]

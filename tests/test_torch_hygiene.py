@@ -311,3 +311,19 @@ def test_ps_server_maps_no_torch():
         assert "libtorch" not in maps and "libc10" not in maps
     finally:
         server.shutdown_server()
+
+
+def test_parallel_modules_import_without_jax_or_hetu_tpu():
+    code = BLOCK + (
+        "import hetu_tpu_torch.parallel, hetu_tpu_torch.parallel.pipeline\n"
+        "import hetu_tpu_torch.parallel.p2p, hetu_tpu_torch.ops.comm\n"
+        "from hetu_tpu_torch import pipeline_send_op, datah2d_op\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
+        "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for name in ("pipeline.py", "p2p.py", "__init__.py"):
+        names = _imports(ROOT / "hetu_tpu_torch" / "parallel" / name)
+        assert not names & {"jax", "jaxlib", "hetu_tpu"}, (name, names)

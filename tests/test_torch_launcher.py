@@ -396,11 +396,13 @@ def test_reference_options_are_accepted(tmp_path):
         tht.HetuConfig([loss], ctx=tht.cpu(0),
                        overlap_options={"bucket_bytes": 1 << 20})
     for option in ({"pipeline_mode": "collective"}, {"mesh": None},
-                   {"gpipe": True}, {"telemetry": None},
+                   {"telemetry": None},
                    {"health_options": None}, {"validate": "warn"},
                    {"log_path": str(tmp_path)}):
         with pytest.raises(TypeError, match="ROADMAP"):
             tht.HetuConfig([loss], ctx=tht.cpu(0), **option)
+    # the pipelines are ported: gpipe is accepted (tests/test_torch_pipeline.py)
+    assert tht.HetuConfig([loss], ctx=tht.cpu(0), gpipe=True).use_gpipe
 
 
 def test_contexts_place_workers_as_the_reference_does(monkeypatch):

@@ -1,0 +1,374 @@
+"""Pipeline stages across worker processes: the port's host channel and
+its launcher against the JAX package, on the CPU.
+
+* ``PipeChannel`` carries f32, bf16 and int64 tensors by tag between
+  two ranks, and holds its inbox to ``HETU_PIPE_MAX_BUF_MB`` while the
+  consumer lags.
+* The port's launcher exports the channel's addresses as the JAX
+  package's does.
+* Two worker processes started by ``python -m hetu_tpu_torch.launcher``
+  (``spmd: true``), each owning the stages placed on its
+  ``rgpu("worker<k>", i)`` contexts, train the 2-stage MLP of
+  tests/test_launcher.py under GPipe and 1F1B: the rank that owns the
+  loss returns the in-process runs' losses (the port's, and the JAX
+  package's at rtol 2e-4 / atol 1e-5), the other rank None. A tiny GPT
+  over four stages round-robin on the two processes
+  (``virtual_stages=2``), in bf16 with its boundaries crossing the
+  channel as bf16, equals the port's in-process run bit for bit.
+
+Every fleet runs under a timeout that kills its whole session, so a
+hung channel fails the test instead of stalling the suite.
+"""
+import inspect
+import json
+import threading
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from hetu_tpu.executor import Executor as JExecutor
+import hetu_tpu as jht
+import hetu_tpu_torch as tht
+from hetu_tpu_torch.parallel.p2p import PipeChannel
+from torch_ps_util import run_fleet
+
+SPMD_CONFIG = """
+spmd: true
+nodes:
+  - host: localhost
+    workers: 2
+    chief: true
+"""
+
+
+def _channel_pair(max_buffered_mb=None):
+    """Ranks 0 and 1 of one job in this process, on a free port pair."""
+    from hetu_tpu_torch.ps.server import pick_free_port
+    for _ in range(20):
+        base = pick_free_port()
+        try:
+            a = PipeChannel(0, 2, base_port=base,
+                            max_buffered_mb=max_buffered_mb)
+        except OSError:
+            continue
+        try:
+            b = PipeChannel(1, 2, base_port=base,
+                            max_buffered_mb=max_buffered_mb)
+        except OSError:
+            a.close()
+            continue
+        return a, b
+    raise AssertionError("no free port pair")
+
+
+def test_channel_round_trips_tensors_by_tag():
+    a, b = _channel_pair()
+    try:
+        g = torch.Generator().manual_seed(0)
+        sent = {
+            "f32": torch.randn(3, 5, generator=g),
+            "bf16": torch.randn(2, 4, 8, generator=g).to(torch.bfloat16),
+            "i64": torch.randint(-2 ** 40, 2 ** 40, (7,), generator=g),
+            "scalar": torch.tensor(2.5),
+            "empty": torch.zeros(0, 3),
+            "big": torch.randn(3 << 20, generator=g),    # > one 4 MB chunk
+        }
+        for tag, value in sent.items():
+            a.send(1, tag, value)
+        b.send(0, "back", sent["bf16"][:, 1])      # a strided view
+        for tag in reversed(list(sent)):           # by tag, any order
+            got = b.recv(tag, timeout=30)
+            assert got.dtype == sent[tag].dtype and \
+                got.shape == sent[tag].shape, tag
+            assert torch.equal(got, sent[tag]), tag
+        assert torch.equal(a.recv("back", timeout=30), sent["bf16"][:, 1])
+        st = a.stats()
+        assert st["sent_messages"] == len(sent) and st["recv_messages"] == 1
+        assert st["sent_bytes"] == sum(v.numel() * v.element_size()
+                                       for v in sent.values())
+        with pytest.raises(TimeoutError, match="nothing"):
+            b.recv("nothing", timeout=0.2)
+    finally:
+        a.close()
+        b.close()
+
+
+def test_channel_bounds_its_inbox():
+    """With the consumer busy, a reader stops taking messages once the
+    inbox holds HETU_PIPE_MAX_BUF_MB; a recv admits them again, in order
+    per tag."""
+    a, b = _channel_pair(max_buffered_mb=1)
+    try:
+        chunk = torch.ones(600 << 10, dtype=torch.uint8)    # 0.6 MB
+        sender = threading.Thread(
+            target=lambda: [a.send(1, "t", chunk * i) for i in range(4)],
+            daemon=True)
+        sender.start()
+        time.sleep(1.0)
+        # two messages fill the 1 MB cap; the reader holds the third
+        assert b._buffered <= (1 << 20) + chunk.numel()
+        assert len(b._inbox.get("t", ())) == 2
+        for i in range(4):
+            assert int(b.recv("t", timeout=30)[0]) == i
+        sender.join(timeout=30)
+        assert not sender.is_alive() and b._buffered == 0
+    finally:
+        a.close()
+        b.close()
+
+
+ENV_WORKER = """
+import json, os
+keys = ("HETU_PIPE_HOSTS", "HETU_PIPE_BASE_PORT", "HETU_HOSTS",
+        "HETU_NUM_PROCS", "HETU_PROC_ID")
+with open(os.path.join(os.environ["HETU_TEST_OUT"],
+                       "env_" + os.environ["HETU_PROC_ID"] + "_"
+                       + os.environ["PKG"] + ".json"), "w") as f:
+    json.dump({k: os.environ.get(k) for k in keys}, f)
+"""
+
+
+def test_launcher_exports_the_pipeline_addresses_as_the_reference(
+        tmp_path):
+    for pkg in ("hetu_tpu", "hetu_tpu_torch"):
+        proc = run_fleet(pkg, SPMD_CONFIG, ENV_WORKER, tmp_path,
+                         timeout=120, PKG=pkg,
+                         HETU_PIPE_BASE_PORT="23456")
+        assert proc.returncode == 0, proc.stdout
+    for rank in range(2):
+        got = json.loads((tmp_path / f"env_{rank}_hetu_tpu_torch.json")
+                         .read_text())
+        want = json.loads((tmp_path / f"env_{rank}_hetu_tpu.json")
+                          .read_text())
+        assert got == want
+        assert got["HETU_PIPE_HOSTS"] == "127.0.0.1,127.0.0.1"
+        assert got["HETU_PIPE_BASE_PORT"] == "23456"
+        assert got["HETU_HOSTS"] == "localhost,localhost"
+        assert got["HETU_PROC_ID"] == str(rank)
+
+
+def _bindable(base, n):
+    import socket
+    held = []
+    try:
+        for k in range(n):
+            s = socket.socket()
+            held.append(s)
+            s.bind(("0.0.0.0", base + k))
+        return True
+    except OSError:
+        return False
+    finally:
+        for s in held:
+            s.close()
+
+
+def test_launcher_pipeline_addresses_default_to_the_references(
+        monkeypatch):
+    """Without HETU_PIPE_BASE_PORT a cluster's base is the reference's
+    19500, and one host's a range of ports free at launch; one host's
+    ranks dial loopback, a cluster's their hosts."""
+    from hetu_tpu_torch import launcher
+    monkeypatch.delenv("HETU_PIPE_BASE_PORT", raising=False)
+    cfg = launcher.ClusterConfig([{"host": "localhost", "workers": 3,
+                                   "chief": True}], spmd=True)
+    env = launcher._pipe_env(cfg)
+    base = int(env.pop("HETU_PIPE_BASE_PORT"))
+    assert env == {
+        "HETU_PIPE_HOSTS": "127.0.0.1,127.0.0.1,127.0.0.1",
+        "HETU_HOSTS": "localhost,localhost,localhost"}
+    assert _bindable(base, 3)
+    cfg = launcher.ClusterConfig([{"host": "a", "workers": 1},
+                                  {"host": "b", "workers": 2,
+                                   "chief": True}])
+    env = launcher._pipe_env(cfg)
+    assert env["HETU_PIPE_HOSTS"] == "b,b,a"
+    assert env["HETU_HOSTS"] == "b,b,a"
+    assert env["HETU_PIPE_BASE_PORT"] == "19500"
+
+
+def test_launcher_keeps_two_jobs_on_one_host_apart(monkeypatch):
+    """A second job launched on a host while the first one's channel
+    listens gets a port range of its own; a base the caller sets is
+    kept."""
+    from hetu_tpu_torch import launcher
+    monkeypatch.delenv("HETU_PIPE_BASE_PORT", raising=False)
+    cfg = launcher.ClusterConfig([{"host": "localhost", "workers": 2,
+                                   "chief": True}], spmd=True)
+    first = int(launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"])
+    channels = [PipeChannel(r, 2, base_port=first) for r in range(2)]
+    try:
+        for _ in range(8):
+            base = int(launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"])
+            assert not {base, base + 1} & {first, first + 1}
+            assert _bindable(base, 2)
+    finally:
+        for ch in channels:
+            ch.close()
+    monkeypatch.setenv("HETU_PIPE_BASE_PORT", str(first))
+    assert launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"] == str(first)
+
+
+# --- training fleets ------------------------------------------------------
+
+MLP_WORKER = """
+import os, sys
+import numpy as np
+import hetu_tpu_torch as ht
+
+rank = int(os.environ["HETU_PROC_ID"])
+rng = np.random.RandomState(0)
+w1v = rng.randn(12, 16).astype("f") * 0.3
+w2v = rng.randn(16, 4).astype("f") * 0.3
+# stage 0 on worker process 0, stage 1 (with the loss) on process 1
+with ht.context(ht.rgpu("worker0", 0)):
+    x = ht.Variable("x", trainable=False)
+    w1 = ht.Variable("w1", value=w1v)
+    a = ht.relu_op(ht.matmul_op(x, w1))
+with ht.context(ht.rgpu("worker1", 0)):
+    w2 = ht.Variable("w2", value=w2v)
+    y_ = ht.Variable("y_", trainable=False)
+    loss = ht.reduce_mean_op(
+        ht.softmaxcrossentropy_op(ht.matmul_op(a, w2), y_), [0])
+    train_op = ht.optim.SGDOptimizer(0.2).minimize(loss)
+exe = ht.Executor([loss, train_op], device="cpu", num_microbatches=4,
+                  **{os.environ["SCHEDULE"]: True})
+sub = exe.subexecutors["default"]
+assert sub.multiproc and [s.owner for s in sub.stages] == [0, 1]
+assert sorted(exe.params) == sorted(str(p.id) for s in sub.stages
+                                    if s.owner == rank for p in s.param_nodes)
+frng = np.random.RandomState(3)
+xs = frng.randn(32, 12).astype("f")
+ys = np.eye(4, dtype="f")[frng.randint(0, 4, 32)]
+losses = []
+for _ in range(6):
+    out = exe.run(feed_dict={x: xs, y_: ys})
+    assert out[1] is None
+    if out[0] is not None:
+        losses.append(repr(float(out[0].asnumpy().reshape(()))))
+with open(os.path.join(os.environ["HETU_TEST_OUT"],
+                       f"losses_{rank}.txt"), "w") as f:
+    f.write(" ".join(losses))
+"""
+
+
+def _mlp_in_process(ht, make, schedule, **kw):
+    """The fleet's model and batch trained in this process."""
+    rng = np.random.RandomState(0)
+    with ht.context(ht.cpu(0)):
+        x = ht.Variable("x", trainable=False)
+        w1 = ht.Variable("w1", value=rng.randn(12, 16).astype("f") * 0.3)
+        a = ht.relu_op(ht.matmul_op(x, w1))
+    with ht.context(ht.cpu(1)):
+        w2 = ht.Variable("w2", value=rng.randn(16, 4).astype("f") * 0.3)
+        y_ = ht.Variable("y_", trainable=False)
+        loss = ht.reduce_mean_op(
+            ht.softmaxcrossentropy_op(ht.matmul_op(a, w2), y_), [0])
+        train_op = ht.optim.SGDOptimizer(0.2).minimize(loss)
+    exe = make([loss, train_op], num_microbatches=4, **{schedule: True},
+               **kw)
+    frng = np.random.RandomState(3)
+    xs = frng.randn(32, 12).astype("f")
+    ys = np.eye(4, dtype="f")[frng.randint(0, 4, 32)]
+    return [float(np.asarray(exe.run(feed_dict={x: xs, y_: ys})[0]
+                             .asnumpy()).reshape(())) for _ in range(6)]
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "pipedream"])
+def test_two_process_mlp_follows_the_in_process_runs(tmp_path, schedule):
+    """Losses of the loss-owning rank: equal to the port's in-process run
+    (measured: bit for bit) and within rtol 2e-4 / atol 1e-5 of the JAX
+    package's in-process run."""
+    proc = run_fleet("hetu_tpu_torch", SPMD_CONFIG, MLP_WORKER, tmp_path,
+                     timeout=240, SCHEDULE=schedule)
+    assert proc.returncode == 0, proc.stdout
+    assert (tmp_path / "losses_0.txt").read_text().strip() == ""
+    got = [float(v) for v in (tmp_path / "losses_1.txt").read_text().split()]
+    assert len(got) == 6 and got[-1] < got[0]
+    port = _mlp_in_process(tht, tht.Executor, schedule, device="cpu")
+    np.testing.assert_array_equal(got, port)
+    jax = _mlp_in_process(jht, JExecutor, schedule)
+    np.testing.assert_allclose(got, jax, rtol=2e-4, atol=1e-5)
+
+
+GPT_CFG = dict(vocab_size=61, hidden_size=32, num_hidden_layers=4,
+               num_attention_heads=2, max_position_embeddings=32,
+               hidden_dropout_prob=0.0, use_flash_attention=True)
+
+
+def gpt_contexts(ht, fleet):
+    """Four stages, round-robin on worker0 / worker1 in the fleet."""
+    if fleet:
+        return [ht.rgpu(f"worker{i % 2}", i) for i in range(4)]
+    return [ht.gpu(i) for i in range(4)]
+
+
+def gpt_feeds(step):
+    rng = np.random.RandomState(step)
+    x = rng.randint(0, GPT_CFG["vocab_size"], (8, 32))
+    return x, np.concatenate([x[:, 1:], np.full((8, 1), -1)], axis=1)
+
+
+GPT_WORKER = """
+import os
+import numpy as np
+import torch
+import hetu_tpu_torch as ht
+import hetu_tpu_torch.models as M
+""" + f"GPT_CFG = {GPT_CFG!r}\n" + inspect.getsource(gpt_contexts) \
+    + inspect.getsource(gpt_feeds) + """
+rank = int(os.environ["HETU_PROC_ID"])
+cfg = M.GPTConfig(**GPT_CFG)
+ids, labels, loss, _, train = M.staged_gpt(cfg, gpt_contexts(ht, True),
+                                           1e-3)
+exe = ht.Executor([loss, train], device="cpu", dtype=torch.bfloat16,
+                  pipedream=True, num_microbatches=4,
+                  pp_options={"virtual_stages": 2})
+sub = exe.subexecutors["default"]
+assert [s.owner for s in sub.stages] == [0, 1, 0, 1]
+losses = []
+for step in range(3):
+    x, y = gpt_feeds(step)
+    out = exe.run(feed_dict={ids: x, labels: y})
+    if out[0] is not None:
+        losses.append(repr(float(out[0].asnumpy().reshape(-1)[0])))
+ch = ht.parallel.get_channel().stats()
+assert ch["sent_bytes"] > 0 and ch["recv_bytes"] > 0
+np.savez(os.path.join(os.environ["HETU_TEST_OUT"], f"gpt_{rank}.npz"),
+         losses=np.array(losses, dtype=object),
+         **{exe._param_nodes[sid].name: v.float().numpy()
+            for sid, v in exe.params.items()})
+"""
+
+def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
+        tmp_path):
+    """1F1B over four GPT stages owned round-robin by two processes, bf16
+    boundaries on the channel: losses and every weight bit-equal to the
+    in-process run."""
+    import hetu_tpu_torch.models as TM
+    proc = run_fleet("hetu_tpu_torch", SPMD_CONFIG, GPT_WORKER, tmp_path,
+                     timeout=240)
+    assert proc.returncode == 0, proc.stdout
+    runs = [np.load(tmp_path / f"gpt_{r}.npz", allow_pickle=True)
+            for r in range(2)]
+    cfg = TM.GPTConfig(**GPT_CFG)
+    ids, labels, loss, _, train = TM.staged_gpt(
+        cfg, gpt_contexts(tht, False), 1e-3)
+    exe = tht.Executor([loss, train], device="cpu", dtype=torch.bfloat16,
+                       pipedream=True, num_microbatches=4)
+    want = []
+    for step in range(3):
+        x, y = gpt_feeds(step)
+        want.append(float(exe.run(feed_dict={ids: x, labels: y})[0]
+                          .asnumpy().reshape(-1)[0]))
+    assert list(runs[0]["losses"]) == []
+    np.testing.assert_array_equal([float(v) for v in runs[1]["losses"]],
+                                  want)
+    fleet = {k: r[k] for r in runs for k in r.files if k != "losses"}
+    mine = {exe._param_nodes[sid].name: v.float().numpy()
+            for sid, v in exe.params.items()}
+    assert sorted(fleet) == sorted(mine)
+    for name, value in mine.items():
+        np.testing.assert_array_equal(fleet[name], value, err_msg=name)
