@@ -26,7 +26,9 @@ widths trained in the PS and Hybrid modes against the port's parameter
 server, and served from it; fleets of PS servers and workers started by
 the port's launcher, every worker on the card; GPT-2-small trained in
 four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
-two launcher processes — checks every kernel
+two launcher processes; the same model trained data parallel by two
+launcher processes, and WDL's Hybrid mode across two workers — checks
+every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
 
@@ -79,6 +81,18 @@ object per line (``--out`` also writes them to FILE):
   the rank that owns the loss against the in-process passes', each
   rank's step ms, channel bytes and seconds a step, peak memory and
   launches (6·M a step each of K2/K3/K4);
+* ``dp_gpt`` the ``train`` model trained data parallel by two ranks of
+  one launcher job (``spmd: true``; each ``python chip_smoke.py
+  --dp-worker SPEC``) on the one card, over gloo, 4 of the 8 rows each,
+  the dense gradients in 25 MiB buckets: tokens/s of the global batch,
+  step ms p50 beside ``train``'s, per rank the ms, calls and bytes a
+  step of the dense and sparse collectives, peak memory, launches a
+  step (K2/K3/K4 12 each, all ``tc``), the card's used memory while the
+  job runs; the checks: the step-1 global loss against ``train``'s, every
+  weight identical across the ranks;
+* ``dp_parity`` the model at 2 layers in f32 (``simt`` K2–K4), global
+  batch 4, 3 Adam steps, two ranks against one process: losses, Adam's
+  first moments and the weights;
 * ``bert``, ``bert_long`` the same for the two BERT passes, with MFU
   against the bf16 dense peak and the host time of one step by op type
   (the composed attention backward's and dropout's among them); BERT-base
@@ -170,6 +184,14 @@ object per line (``--out`` also writes them to FILE):
   CPU (losses and the touched server rows, as ``ps_wdl``'s parity). A
   fleet that does not come up, a worker that fails or a server that
   maps libtorch fails the run;
+* ``hybrid_fleet`` WDL in the Hybrid mode across two worker processes
+  of one job (each ``python chip_smoke.py --hybrid-worker SPEC``) and
+  one server: the dense weights all-reduced over gloo, the table through
+  each worker's device cache, the global batch of two ``ps_wdl``
+  streams: samples/s, per worker step p50, phases and the collectives a
+  step, losses falling, the server rows moved, the dense weights the
+  same on both ranks; then the host path under BSP against the same job
+  with CPU workers;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -580,14 +602,15 @@ FWD_KERNEL_SHAPES = (
 # row with each of its masks and causal on/off; the "half" mask hides the
 # second half of the first element's keys and the last quarter of the
 # last one's. D=64 is the training paths' (GPT-2 at H=12 S=1024, at B=2 the
-# pipeline passes' microbatch, BERT-small at H=8 S=2048 with BERT's
-# padding); D=128 and the ragged S=520 hold the
+# pipeline passes' microbatch, at B=4 a data-parallel rank's rows,
+# BERT-small at H=8 S=2048 with BERT's padding); D=128 and the ragged S=520 hold the
 # other tensor-core instantiations and the TMA edge; bf16 at D=96 the
 # simt route's bf16 instantiations
 TRAIN_KERNEL_SHAPES = (
     (("float32", "bfloat16"), (1, TRAIN_BATCH), (128, 512, 1024), 64, 12,
      (None, "half")),
     (("bfloat16",), (TRAIN_BATCH // 4,), (1024,), 64, 12, (None,)),  # PP_REP
+    (("bfloat16",), (TRAIN_BATCH // 2,), (1024,), 64, 12, (None,)),  # DP_REP
     (("bfloat16",), (8,), (2048,), 64, 8, (None, "half", "padding")),
     (("bfloat16",), (1,), (512, 1024), 128, 12, (None, "half")),
     (("bfloat16",), (1,), (520,), 64, 12, (None, "half")),
@@ -916,7 +939,7 @@ def check_flash_train_kernels(torch, seed):
                                else median_ms(torch, lib[kind]),
                                bound_ms=bound, bound_by=by)
                     if any(_is(row, rep) for rep in
-                           (TRAIN_REP, BERT_LONG_REP, PP_REP)):
+                           (TRAIN_REP, BERT_LONG_REP, PP_REP, DP_REP)):
                         row.update(_device_times(
                             torch, kern, lib[kind], DEVICE_LAUNCHES[kind],
                             f"{kind} B={b} H={h} S={s} mask={masked}"))
@@ -1705,38 +1728,10 @@ def pp_fleet_pass(card, seed, inproc):
     from hetu_tpu_torch.ops import flash_attention as fa
     out_dir = tempfile.mkdtemp(prefix="pp_fleet_")
     try:
-        cfg = os.path.join(out_dir, "cluster.yml")
-        with open(cfg, "w") as f:
-            f.write("spmd: true\nnodes:\n  - host: localhost\n"
-                    "    workers: 2\n    chief: true\n")
-        spec = {"seed": seed, "out": out_dir}
-        cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
-               sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-               "--pp-worker", json.dumps(spec)]
-        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", "")}
-        log_path = os.path.join(out_dir, "fleet.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
-                                    stderr=subprocess.STDOUT,
-                                    stdin=subprocess.DEVNULL,
-                                    start_new_session=True)
-            try:
-                rc = proc.wait(timeout=PP_FLEET_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                rc = f"no exit within {PP_FLEET_TIMEOUT_S} s"
-            finally:
-                try:
-                    os.killpg(proc.pid, 9)      # whatever is left of it
-                except ProcessLookupError:
-                    pass
-                proc.wait()
-        wall = time.perf_counter() - t0
-        if rc != 0:
-            with open(log_path) as f:
-                tail = f.read()[-4000:]
-            raise AssertionError(f"pp_fleet: launcher exit {rc}\n{tail}")
+        wall, _ = _launch_job(
+            "pp_fleet", "spmd: true\nnodes:\n  - host: localhost\n"
+            "    workers: 2\n    chief: true\n", "--pp-worker",
+            {"seed": seed, "out": out_dir}, PP_FLEET_TIMEOUT_S, False)
         records, states = [], {"gpipe": {}, "pipedream": {}}
         for r in range(2):
             with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
@@ -1816,6 +1811,643 @@ def pp_fleet_pass(card, seed, inproc):
         line["schedules"][schedule] = sched
     if faults:
         raise AssertionError(f"pp_fleet: {faults}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# dp_gpt, dp_parity: GPT-2-small data parallel across two launcher
+# processes on the one card (gloo); hybrid_fleet: WDL's dense weights
+# all-reduced beside its table on a parameter server
+# ---------------------------------------------------------------------------
+
+DP_RANKS = 2
+DP_REP = dict(TRAIN_REP, b=TRAIN_BATCH // DP_RANKS)   # K2-K4 in each rank
+DP_WARMUP, DP_STEPS = 2, 4
+DP_BUCKET_BYTES = 25 << 20          # PyTorch DDP's default bucket
+# the step-1 global loss (the mean of the ranks' bf16 losses over 4096
+# tokens each) against train's (one bf16 loss over 8192): two bf16
+# roundings of a loss near 11, one ulp 2**-4, ~0.6% of it
+DP_LOSS_TOL = 1e-2
+DP_SAME_TOL = 1e-5      # a weight across ranks, of its largest element
+# dp_parity: 2 layers at full width in f32 (K2-K4 on simt), global batch
+# 4, against one process: losses relative; Adam's first moments (linear
+# in the averaged gradients: a gradient not divided by the rank count
+# doubles them) and the weights, of each tensor's largest element. Adam
+# moves an element by lr * m / (sqrt(v) + eps), so where an element's
+# gradient cancels to near eps, its step is a rounding-dependent
+# fraction of lr; a tensor that starts at 0 (the biases) holds elements
+# of a few lr after 3 steps, so it is held at 1e-3 of them (the q/v
+# biases differ by 2.9e-4 of theirs on the H100, PERF.md §6)
+DP_PARITY_LAYERS, DP_PARITY_BATCH, DP_PARITY_STEPS = 2, 4, 3
+DP_PARITY_LOSS_TOL = 1e-5
+DP_PARITY_WEIGHT_TOL = 1e-4
+DP_PARITY_ZERO_INIT_TOL = 1e-3
+DP_TIMEOUT_S = 400
+# hybrid_fleet: one server, two workers, each a rank of one job fed the
+# global batch of both workers' ps_wdl traffic (B=128 a worker)
+HYBRID_WORKERS = 2
+HYBRID_BSP_STEPS = 20
+
+
+def _gpt_graph(ht, models, widths):
+    """train's graph (bench.py:1103-1118) at ``widths``: (ids, labels,
+    the mean loss, the Adam train op)."""
+    cfg = models.GPTConfig(**widths, hidden_dropout_prob=0.0,
+                           use_flash_attention=True)
+    ids = ht.Variable("input_ids", trainable=False)
+    labels = ht.Variable("labels", trainable=False)
+    _, loss = models.GPTLMHeadModel(cfg)(ids, labels)
+    lm = ht.reduce_mean_op(loss, [0, 1])
+    return ids, labels, lm, ht.optim.AdamOptimizer(
+        learning_rate=TRAIN_LR).minimize(lm)
+
+
+def _gpt_rows(seed, batch):
+    """train's batch (its first ``batch`` rows): ids and next-token
+    labels."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, GPT2_SMALL["vocab_size"],
+                    (TRAIN_BATCH, GPT2_SMALL["max_position_embeddings"]))
+    y = np.concatenate([x[:, 1:], np.full((TRAIN_BATCH, 1), -1)], axis=1)
+    return x[:batch], y[:batch]
+
+
+def _master_state(exe):
+    """{parameter name: its f32 master} of a session."""
+    return {node.name: exe.params[sid]
+            for sid, node in exe._param_nodes.items()}
+
+
+def _parity_state(exe):
+    """{parameter name: (f32 master, Adam's first moment)} of dp_parity's
+    session, on the host."""
+    return {node.name: (exe.params[sid].cpu(),
+                        exe.opt_state[node.id]["m"].cpu())
+            for sid, node in exe._param_nodes.items()
+            if node.id in exe.opt_state}
+
+
+def _across_ranks(torch, dist, tensors):
+    """max over ``tensors`` of max |rank 0's - rank 1's| / max |rank 0's|:
+    rank 1 all-reduces its negated copy onto rank 0's."""
+    worst = 0.0
+    for t in tensors:
+        d = t.detach().float().clone()
+        if dist.get_rank() == 1:
+            d.neg_()
+        dist.all_reduce(d)
+        scale = float(t.detach().float().abs().max()) or 1.0
+        worst = max(worst, float(d.abs().max()) / scale)
+    return worst
+
+
+def _comm_per_step(stats, steps):
+    return {kind: {"calls": s["calls"] / steps,
+                   "bytes": s["bytes"] / steps,
+                   "ms": s["seconds"] * 1e3 / steps}
+            for kind, s in stats.items()}
+
+
+def dp_worker(spec):
+    """One rank of ``dp_gpt`` and ``dp_parity``, run by the launcher as
+    ``python chip_smoke.py --dp-worker SPEC`` (``spmd: true``: one job of
+    DP_RANKS processes). ``dp_gpt``: train's model and batch at full
+    width and depth through ``Executor.run`` in bf16 with
+    ``overlap_options={"bucket_bytes": DP_BUCKET_BYTES}``; the executor
+    joins the job, the rank runs its 4 rows of the global 8, the launch
+    counts set to 0 before the steps and read after; then the largest
+    difference of any weight between the ranks. ``dp_parity``: the model
+    at DP_PARITY_LAYERS layers in f32 on DP_PARITY_BATCH rows, whose
+    weights rank 0 saves for the one-process run to be held to. Writes
+    ``worker_<rank>.json`` (and ``parity_state.pt``)."""
+    import torch
+    import torch.distributed as dist
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["RANK"])
+    t0 = time.perf_counter()
+    ids, labels, lm, train_op = _gpt_graph(ht, M, GPT2_SMALL)
+    exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                      overlap_options={"bucket_bytes": DP_BUCKET_BYTES})
+    cfg = exe.config
+    rec = {"rank": rank, "executor_setup_s": time.perf_counter() - t0,
+           "backend": dist.get_backend(), "nrank": cfg.nrank,
+           "comm_mode": cfg.comm_mode, "device": str(cfg.device),
+           "bucketed_gradients": len(
+               exe.subexecutors["default"].allreduce_defer)}
+    x, y = _gpt_rows(spec["seed"], TRAIN_BATCH)
+    feeds = {ids: torch.as_tensor(x, device=cfg.device),
+             labels: torch.as_tensor(y, device=cfg.device)}
+    comm = cfg.dp_comm
+    comm.sync_timing = True
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, step_ms = [], []
+    for i in range(DP_WARMUP + DP_STEPS):
+        if i == DP_WARMUP:
+            comm.reset_stats()
+            dist.barrier()
+            rec["window_start"] = time.time()
+        t = time.perf_counter()
+        losses.append(float(exe.run(feed_dict=feeds)[0].asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    rec["window_end"] = time.time()
+    rec["launches"] = dict(_build.launch_counts)    # main path ends
+    rec.update(losses=losses, step_ms=step_ms,
+               step_ms_p50=float(np.median(step_ms[DP_WARMUP:])),
+               comm_per_step=_comm_per_step(comm.stats, DP_STEPS),
+               peak_memory_bytes=int(torch.cuda.max_memory_allocated()))
+    state = _master_state(exe)
+    rec["weights_rel_diff_across_ranks"] = _across_ranks(
+        torch, dist, state.values())
+    rec["token_table_rel_diff_across_ranks"] = _across_ranks(
+        torch, dist, [state["gpt_wte"]])
+    del exe, state, feeds
+    _release(torch)
+
+    widths = dict(GPT2_SMALL, num_hidden_layers=DP_PARITY_LAYERS)
+    ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+    exe = ht.Executor([lm, train_op])
+    x, y = _gpt_rows(spec["seed"], DP_PARITY_BATCH)
+    feeds = {ids: torch.as_tensor(x, device=cfg.device),
+             labels: torch.as_tensor(y, device=cfg.device)}
+    rec["parity_losses"] = [float(exe.run(feed_dict=feeds)[0].asnumpy())
+                            for _ in range(DP_PARITY_STEPS)]
+    if rank == 0:
+        torch.save(_parity_state(exe),
+                   os.path.join(spec["out"], "parity_state.pt"))
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    return 0
+
+
+def _launch_job(name, config, flag, spec, timeout, sample_card):
+    """``python -m hetu_tpu_torch.launcher -c <config>`` running
+    ``python chip_smoke.py <flag> SPEC`` in each worker, in a session of
+    its own killed whole if it outlives ``timeout``; ``spec["out"]`` is a
+    temp dir (removed by the caller) for the workers' records. With
+    ``sample_card`` nvidia-smi's used memory is sampled while the job
+    runs. A launcher that exits non-zero raises with its log's tail.
+    Returns (wall seconds, the used-memory samples in MiB)."""
+    import threading
+    cfg = os.path.join(spec["out"], "cluster.yml")
+    with open(cfg, "w") as f:
+        f.write(config)
+    cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
+           sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
+           json.dumps(spec)]
+    # the launcher keeps a leaked fleet environment from its servers and
+    # workers; HETU_PS_REPLICATE it reads itself: these jobs have no
+    # replicas
+    env = {**os.environ, "HETU_PS_REPLICATE": "0",
+           "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH",
+                                                            "")}
+    used, stop = [], threading.Event()
+
+    def sample():
+        while not stop.wait(0.5):
+            used.append(_card_memory_used_mib())
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if sample_card:
+        sampler.start()
+    log_path = os.path.join(spec["out"], "job.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT,
+                                stdin=subprocess.DEVNULL,
+                                start_new_session=True)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            rc = f"no exit within {timeout} s"
+        finally:
+            stop.set()
+            try:
+                os.killpg(proc.pid, 9)          # whatever is left of it
+            except ProcessLookupError:
+                pass
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if sample_card:
+        sampler.join()
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        raise AssertionError(f"{name}: launcher exit {rc}\n{tail}")
+    return wall, used
+
+
+def dp_parity_reference(torch, seed):
+    """dp_parity's one process on the card: the same graph, rows and
+    steps with no job joined. Returns (losses, _parity_state, the names
+    of the parameters that start at 0)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    widths = dict(GPT2_SMALL, num_hidden_layers=DP_PARITY_LAYERS)
+    ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+    exe = ht.Executor([lm, train_op])
+    zero_init = {name for name, w in _master_state(exe).items()
+                 if not w.any()}
+    x, y = _gpt_rows(seed, DP_PARITY_BATCH)
+    feeds = {ids: torch.as_tensor(x, device="cuda"),
+             labels: torch.as_tensor(y, device="cuda")}
+    losses = [float(exe.run(feed_dict=feeds)[0].asnumpy())
+              for _ in range(DP_PARITY_STEPS)]
+    return losses, _parity_state(exe), zero_init
+
+
+def dp_pass(card, seed, train_line):
+    """``dp_gpt`` and ``dp_parity``: DP_RANKS processes of one job
+    started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``),
+    each ``python chip_smoke.py --dp-worker SPEC`` on the one card, where
+    the executors pick gloo (NCCL refuses two ranks on one card). The
+    checks: the backend gloo, each rank on cuda:0; K2, K3 and K4 12
+    launches a step in each rank, all on tc, K1 none; the step-1 global
+    loss against train's step 1 (the same weights and rows) within
+    DP_LOSS_TOL; every weight, the token table among them, the same on
+    both ranks within DP_SAME_TOL of its largest element. dp_parity:
+    rank 0's losses within DP_PARITY_LOSS_TOL, its Adam first moments
+    within DP_PARITY_WEIGHT_TOL and its weights within
+    DP_PARITY_WEIGHT_TOL (DP_PARITY_ZERO_INIT_TOL for a tensor that
+    starts at 0) of each tensor's largest element against the one
+    process on the card (dp_parity_reference). Returns ({"dp_gpt":
+    line, "dp_parity": line}, dp_gpt's launch counts summed over the
+    ranks)."""
+    import shutil
+    import tempfile
+    import torch
+    from hetu_tpu_torch.ops import flash_attention as fa
+    t = time.perf_counter()
+    ref_losses, ref_state, zero_init = dp_parity_reference(torch, seed)
+    ref_s = time.perf_counter() - t
+    _release(torch)
+    out_dir = tempfile.mkdtemp(prefix="dp_job_")
+    try:
+        wall, used = _launch_job(
+            "dp", f"spmd: true\nnodes:\n  - host: localhost\n"
+            f"    workers: {DP_RANKS}\n    chief: true\n", "--dp-worker",
+            {"seed": seed, "out": out_dir}, DP_TIMEOUT_S, True)
+        records = []
+        for r in range(DP_RANKS):
+            with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+                records.append(json.load(f))
+        got_state = torch.load(os.path.join(out_dir, "parity_state.pt"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = DP_WARMUP + DP_STEPS
+    per_rank = GPT2_SMALL["num_hidden_layers"] * steps
+    want_l = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), per_rank)
+    faults = []
+    ranks = []
+    for rec in records:
+        got_l = {k: rec["launches"].get(k, 0) for k in want_l}
+        if got_l != want_l:
+            faults.append(f"rank {rec['rank']} launched {got_l}")
+        if rec["backend"] != "gloo" or rec["device"] != "cuda:0" or \
+                rec["nrank"] != DP_RANKS or rec["comm_mode"] != "AllReduce":
+            faults.append(f"rank {rec['rank']}: {rec['backend']} on "
+                          f"{rec['device']}, {rec['nrank']} ranks, "
+                          f"{rec['comm_mode']}")
+        for key in ("weights_rel_diff_across_ranks",
+                    "token_table_rel_diff_across_ranks"):
+            if rec[key] > DP_SAME_TOL:
+                faults.append(f"rank {rec['rank']} {key} {rec[key]}")
+        ranks.append({k: rec[k] for k in (
+            "rank", "device", "executor_setup_s", "step_ms", "step_ms_p50",
+            "comm_per_step", "peak_memory_bytes", "bucketed_gradients",
+            "weights_rel_diff_across_ranks",
+            "token_table_rel_diff_across_ranks")})
+        ranks[-1]["launches_per_step"] = {
+            k: rec["launches"].get(k, 0) / steps
+            for k in (fa.K1, fa.K2, fa.K3, fa.K4)}
+    losses = records[0]["losses"]
+    step1 = losses[0]
+    train1 = train_line["losses"][0]
+    loss_err = abs(step1 - train1) / abs(train1)
+    if loss_err > DP_LOSS_TOL or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0] or \
+            any(r["losses"] != losses for r in records):
+        faults.append(f"losses {[r['losses'] for r in records]} against "
+                      f"train's step 1 {train1}")
+    window = max(r["window_end"] - r["window_start"] for r in records)
+    tokens = TRAIN_BATCH * GPT2_SMALL["max_position_embeddings"]
+    p50 = max(r["step_ms_p50"] for r in records)
+    dp_gpt = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+              "ranks": DP_RANKS, "global_batch": TRAIN_BATCH,
+              "rows_per_rank": TRAIN_BATCH // DP_RANKS,
+              "seq": GPT2_SMALL["max_position_embeddings"],
+              "dtype": "bfloat16", "optimizer": "Adam", "lr": TRAIN_LR,
+              "backend": records[0]["backend"],
+              "bucket_bytes": DP_BUCKET_BYTES, "warmup_steps": DP_WARMUP,
+              "timed_steps": DP_STEPS,
+              "tokens_per_s": tokens * DP_STEPS / window,
+              "slowest_window_s": window, "step_ms_p50": p50,
+              "train_step_ms_p50": train_line["step_ms_p50"],
+              "step_cost_vs_train": p50 / train_line["step_ms_p50"],
+              "losses": losses, "step1_global_loss": step1,
+              "train_step1_loss": train1, "step1_loss_rel_err": loss_err,
+              "loss_tol": DP_LOSS_TOL, "same_weights_tol": DP_SAME_TOL,
+              "launcher_wall_s": wall,
+              "card_memory_used_mib_max": max(used) if used else None,
+              "card_memory_samples": len(used), "per_rank": ranks}
+    parity_rel = abs(np.asarray(records[0]["parity_losses"])
+                     - ref_losses) / np.abs(ref_losses)
+    weight_err, moment_err = {}, {}
+    for name, (ref_w, ref_m) in ref_state.items():
+        got_w, got_m = got_state[name]
+        weight_err[name] = float((got_w - ref_w).abs().max()
+                                 / (ref_w.abs().max() or 1.0))
+        moment_err[name] = float((got_m - ref_m).abs().max()
+                                 / (ref_m.abs().max() or 1.0))
+    weight_faults = {
+        name: err for name, err in weight_err.items()
+        if err > (DP_PARITY_ZERO_INIT_TOL if name in zero_init
+                  else DP_PARITY_WEIGHT_TOL)}
+    worst = max(weight_err, key=weight_err.get)
+    worst_m = max(moment_err, key=moment_err.get)
+    trained = [n for n in weight_err if n not in zero_init]
+    worst_trained = max(trained, key=weight_err.get)
+    dp_parity = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+                 "num_hidden_layers": DP_PARITY_LAYERS, "dtype": "float32",
+                 "ranks": DP_RANKS, "global_batch": DP_PARITY_BATCH,
+                 "steps": DP_PARITY_STEPS, "reference": "one process on "
+                 "the card, no job joined", "reference_s": ref_s,
+                 "losses": records[0]["parity_losses"],
+                 "reference_losses": ref_losses,
+                 "loss_rel_err": float(parity_rel.max()),
+                 "loss_tol": DP_PARITY_LOSS_TOL,
+                 "weight_err_of_largest": weight_err[worst],
+                 "worst_weight": worst,
+                 "worst_nonzero_init_weight": [worst_trained,
+                                               weight_err[worst_trained]],
+                 "weight_tol": DP_PARITY_WEIGHT_TOL,
+                 "zero_init_weight_tol": DP_PARITY_ZERO_INIT_TOL,
+                 "zero_init_weights": sorted(zero_init),
+                 "first_moment_err_of_largest": moment_err[worst_m],
+                 "worst_first_moment": worst_m,
+                 "tensors_compared": len(weight_err)}
+    if sorted(got_state) != sorted(ref_state) or \
+            dp_parity["loss_rel_err"] > DP_PARITY_LOSS_TOL or \
+            weight_faults or moment_err[worst_m] > DP_PARITY_WEIGHT_TOL:
+        faults.append(f"dp_parity {dp_parity}")
+    if faults:
+        log(f"dp failed: {dp_gpt}")
+        raise AssertionError(f"dp: {faults}")
+    counts = {}
+    for rec in records:
+        for k, v in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return {"dp_gpt": dp_gpt, "dp_parity": dp_parity}, counts
+
+
+def _hybrid_traffic(seed):
+    """The global batches of ``hybrid_fleet``: the rows of HYBRID_WORKERS
+    ps_wdl streams (seeds seed .. seed + workers - 1) stacked, so each
+    rank's row shard is one stream's B=128; the dense features and labels
+    are one array for every step, as in ps_wdl."""
+    streams = [sparse_traffic("wdl_criteo", seed + r)
+               for r in range(HYBRID_WORKERS)]
+    dense = np.concatenate([s[0][0] for s in streams])
+    y = np.concatenate([s[0][2] for s in streams])
+    return [(dense, np.concatenate([s[i][1] for s in streams]), y)
+            for i in range(SPARSE_CYCLE)]
+
+
+def _dense_params(exe):
+    """The worker-side dense parameters of a WDL session (not the
+    device cache)."""
+    return [exe.params[sid] for sid, node in exe._param_nodes.items()
+            if not getattr(node, "device_cached", False)]
+
+
+def hybrid_worker(spec):
+    """One worker of ``hybrid_fleet``, run by the launcher as ``python
+    chip_smoke.py --hybrid-worker SPEC``: a rank of an ``spmd`` job
+    beside one server, on ``ht.rgpu("localhost", rank)`` (cuda:0 on a
+    one-card host) or, for the CPU twin, the CPU. Mode "cache" (on the
+    card): WDL in the Hybrid mode through the device cache
+    (cache_bound 100, bf16 drains), run_batches blocks of 100 on the
+    global batch — one warm-up block, a barrier, PS_TIMED_BLOCKS timed
+    ones —, then drain(), the rows of the first batch moved on the
+    server, and the dense weights across the ranks. Mode "bsp": the
+    host path under BSP for HYBRID_BSP_STEPS run() steps, then the
+    server rows of every id touched (rank 0). Writes
+    ``worker_<rank>.json`` and ``rows.npz``."""
+    import torch
+    import torch.distributed as dist
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["RANK"])
+    cuda = spec["device"] == "cuda"
+    ctx = ht.rgpu("localhost", rank) if cuda else ht.cpu(0)
+    traffic = _hybrid_traffic(spec["seed"])
+    out = {"rank": rank, "device": spec["device"]}
+    if "cache" in spec["modes"]:
+        t0 = time.perf_counter()
+        with ps_node_ids(PS_ID_BASE):
+            nodes, loss, _, train_op = ps_wdl_graph(ht)
+            exe = ht.Executor([loss, train_op], ctx=ctx,
+                              comm_mode="Hybrid", cstable_policy="Device",
+                              cache_bound=PS_BLOCK, drain_compress=True)
+        cfg = exe.config
+        rec = {"executor_setup_s": time.perf_counter() - t0,
+               "executor_device": str(cfg.device), "nrank": cfg.nrank,
+               "backend": dist.get_backend(),
+               "ps_dense_cached": len(cfg.ps_dense_cached),
+               "device_cache_tables": len(cfg.device_cache_tables)}
+        rt, client, comm = exe.ps_runtime, cfg.ps_comm, cfg.dp_comm
+        comm.sync_timing = cuda
+        tid, width = _ps_table(exe)
+        first_ids = np.unique(traffic[0][1])
+        first_rows = client.sparse_pull(tid, first_ids, width)
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()                # main path starts
+        losses = _step_losses(exe.run_batches(
+            _ps_block(nodes, traffic, 0, PS_BLOCK)))
+        rt.reset_phase_times()
+        comm.reset_stats()
+        dist.barrier()                  # the timed windows start together
+        block_ms = []
+        rec["window_start"] = time.time()
+        for b in range(PS_TIMED_BLOCKS):
+            t = time.perf_counter()
+            outs = exe.run_batches(_ps_block(nodes, traffic,
+                                             (1 + b) * PS_BLOCK, PS_BLOCK))
+            outs[-1][0].asnumpy()
+            block_ms.append((time.perf_counter() - t) * 1e3)
+            losses += _step_losses(outs)
+        rec["window_end"] = time.time()
+        steps = PS_BLOCK * PS_TIMED_BLOCKS
+        rec["launches"] = _k1_k4_launches(_build.launch_counts)  # ends
+        rec["peak_memory_bytes"] = int(torch.cuda.max_memory_allocated()) \
+            if cuda else None
+        rec["step_ms"] = [ms / PS_BLOCK for ms in block_ms]
+        rec["step_ms_p50"] = float(np.median(rec["step_ms"]))
+        rec["phase_ms_per_step"], rec["cache"] = _phase_ms(rt, steps)
+        rec["comm_per_step"] = _comm_per_step(comm.stats, steps)
+        rec["steps"] = steps
+        rec["losses_finite"] = bool(np.all(np.isfinite(losses)))
+        rec["first_last_block_mean_loss"] = [
+            float(np.mean(losses[:PS_BLOCK])),
+            float(np.mean(losses[-PS_BLOCK:]))]
+        rt.drain()
+        dt = next(iter(rt.device_tables.values()))
+        rec["dirty_after_drain"] = int(dt.dirty.sum())
+        dist.barrier()                  # every worker's drain landed
+        rec["first_rows_moved"] = float(np.abs(
+            client.sparse_pull(tid, first_ids, width) - first_rows).max())
+        rec["dense_rel_diff_across_ranks"] = _across_ranks(
+            torch, dist, _dense_params(exe))
+        dist.barrier()
+        exe.close()
+        del exe
+        _release(torch)
+        out["cache"] = rec
+    with ps_node_ids(PS_ID_BSP):
+        nodes, loss, _, train_op = ps_wdl_graph(ht)
+        exe = ht.Executor([loss, train_op], ctx=ctx, comm_mode="Hybrid",
+                          bsp=True)
+    rec = {"executor_device": str(exe.config.device), "losses": []}
+    t0 = time.perf_counter()
+    for i in range(HYBRID_BSP_STEPS):
+        rec["losses"].append(float(exe.run(feed_dict=dict(zip(
+            nodes, traffic[i % SPARSE_CYCLE])))[0].asnumpy().reshape(-1)[0]))
+    rec["seconds"] = time.perf_counter() - t0
+    exe.ps_runtime.drain()
+    dist.barrier()
+    if rank == 0:
+        tid, width = _ps_table(exe)
+        ids = np.unique(np.concatenate([traffic[i % SPARSE_CYCLE][1].ravel()
+                                        for i in range(HYBRID_BSP_STEPS)]))
+        np.savez(os.path.join(spec["out"], "rows.npz"), ids=ids,
+                 rows=exe.config.ps_comm.sparse_pull(tid, ids, width))
+    rec["dense_rel_diff_across_ranks"] = _across_ranks(
+        torch, dist, _dense_params(exe))
+    dist.barrier()
+    exe.close()
+    out["bsp"] = rec
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def _hybrid_job(seed, device, modes):
+    """One hybrid_fleet job (one server, HYBRID_WORKERS workers): the
+    workers' records by rank, the server rows of the BSP session, and
+    (wall seconds, used-memory samples)."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="hybrid_job_")
+    try:
+        info = _launch_job(
+            f"hybrid_fleet ({device})",
+            f"spmd: true\nnodes:\n  - host: localhost\n    servers: 1\n"
+            f"    workers: {HYBRID_WORKERS}\n    chief: true\n",
+            "--hybrid-worker", {"seed": seed, "device": device,
+                                "modes": modes, "out": out_dir},
+            DP_TIMEOUT_S, device == "cuda")
+        records = []
+        for r in range(HYBRID_WORKERS):
+            with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+                records.append(json.load(f))
+        with np.load(os.path.join(out_dir, "rows.npz")) as z:
+            rows = (z["ids"], z["rows"])
+        return records, rows, info
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def hybrid_fleet_pass(card, seed):
+    """``hybrid_fleet``: WDL at Criteo widths (the 1,000,000 x 128 table,
+    ps_wdl's zipf traffic, B=128 a worker) in the Hybrid mode across
+    two worker processes of one ``spmd`` job and one server, every
+    worker on the one card: the dense weights all-reduced over the job
+    (gloo), the table through each worker's device cache. The checks:
+    every loss finite, the workers' mean loss over the last block below
+    the first's, no dirty row after drain(), the server rows moved, the
+    dense weights the same on both ranks within DP_SAME_TOL, no dense
+    weight on the PS, K1-K4 0 launches. Then the host path under BSP,
+    HYBRID_BSP_STEPS steps, in the same job against a job of CPU
+    workers: losses within PS_LOSS_TOL relative, the touched server rows
+    within PS_ROW_TOL of their largest element."""
+    t = time.perf_counter()
+    records, rows, (wall, used) = _hybrid_job(seed, "cuda",
+                                              ["cache", "bsp"])
+    card_s = time.perf_counter() - t
+    t = time.perf_counter()
+    cpu_records, cpu_rows, _ = _hybrid_job(seed, "cpu", ["bsp"])
+    cpu_s = time.perf_counter() - t
+    caches = [r["cache"] for r in records]
+    total = sum(CTR_BATCH * c["steps"] for c in caches)
+    window = max(c["window_end"] - c["window_start"] for c in caches)
+    first, last = np.mean([c["first_last_block_mean_loss"]
+                           for c in caches], axis=0)
+    faults = []
+    for r, c in zip(records, caches):
+        if not c["losses_finite"] or c["dirty_after_drain"] or \
+                not c["first_rows_moved"] > 0 or c["ps_dense_cached"] or \
+                not c["device_cache_tables"] or any(c["launches"].values()) \
+                or c["dense_rel_diff_across_ranks"] > DP_SAME_TOL or \
+                not c["executor_device"].startswith("cuda") or \
+                c["backend"] != "gloo" or c["nrank"] != HYBRID_WORKERS:
+            faults.append(f"rank {r['rank']}: {c}")
+    if not last < first:
+        faults.append(f"fleet mean loss {first} -> {last}")
+    bsp = {"mode": "BSP, host path", "steps": HYBRID_BSP_STEPS,
+           "reference": "the same job, workers on the CPU",
+           "loss_tol": PS_LOSS_TOL, "row_tol": PS_ROW_TOL,
+           "seconds": {"cuda": card_s, "cpu": cpu_s}, "ranks": []}
+    for rec, cpu_rec in zip(records, cpu_records):
+        got, want = (np.asarray(x["bsp"]["losses"])
+                     for x in (rec, cpu_rec))
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        bsp["ranks"].append({
+            "rank": rec["rank"], "loss_rel_err": err,
+            "losses_first_last": [float(got[0]), float(got[-1])],
+            "dense_rel_diff_across_ranks":
+                rec["bsp"]["dense_rel_diff_across_ranks"],
+            "steps_per_s": HYBRID_BSP_STEPS / rec["bsp"]["seconds"]})
+        if err > PS_LOSS_TOL or not rec["bsp"]["executor_device"] \
+                .startswith("cuda") or cpu_rec["bsp"]["executor_device"] \
+                != "cpu" or rec["bsp"]["dense_rel_diff_across_ranks"] > \
+                DP_SAME_TOL:
+            faults.append(f"bsp rank {rec['rank']}: {bsp['ranks'][-1]}")
+    if not np.array_equal(rows[0], cpu_rows[0]):
+        faults.append("bsp: the twins touched different ids")
+    else:
+        bsp["touched_rows"] = int(len(rows[0]))
+        bsp["row_err_of_largest"] = _rel(rows[1], cpu_rows[1])
+        if bsp["row_err_of_largest"] > PS_ROW_TOL:
+            faults.append(f"bsp rows {bsp['row_err_of_largest']}")
+    line = {"card": card, "model": "wdl_criteo", "comm_mode": "Hybrid",
+            "servers": 1, "workers": HYBRID_WORKERS,
+            "backend": caches[0]["backend"], "batch_per_worker": CTR_BATCH,
+            "table_rows": CTR_ROWS, "cstable_policy": "Device",
+            "cache_bound": PS_BLOCK, "drain_compress": True, "mode": "ASP",
+            "timed_blocks": PS_TIMED_BLOCKS, "block_steps": PS_BLOCK,
+            "samples_per_s": total / window, "slowest_window_s": window,
+            "fleet_mean_loss_first_last_block": [float(first), float(last)],
+            "launcher_wall_s": wall,
+            "card_memory_used_mib_max": max(used) if used else None,
+            "per_worker": [{"rank": r["rank"], **{k: c[k] for k in (
+                "executor_device", "executor_setup_s", "step_ms_p50",
+                "step_ms", "phase_ms_per_step", "comm_per_step", "cache",
+                "peak_memory_bytes", "first_last_block_mean_loss",
+                "dirty_after_drain", "first_rows_moved",
+                "dense_rel_diff_across_ranks", "launches")}}
+                for r, c in zip(records, caches)],
+            "bsp_parity": bsp}
+    if faults:
+        log(f"hybrid_fleet failed: {line}")
+        raise AssertionError(f"hybrid_fleet: {faults}")
     return line
 
 
@@ -3555,6 +4187,7 @@ PS_LOSS_TOL = 1e-5          # card losses against the CPU twin's, relative
 PS_ROW_TOL = 1e-4           # server rows after drain(), of the largest
 PS_SERVE_TOL = 1e-5         # PS session against the dense one, relative
 PS_ID_BASE = 1 << 40        # node ids of the twin graphs (ps_node_ids)
+PS_ID_BSP = PS_ID_BASE + (1 << 30)  # hybrid_fleet's BSP session's
 
 
 @contextlib.contextmanager
@@ -4167,62 +4800,17 @@ def run_fleet(seed, servers, workers, mode, device,
     info)."""
     import shutil
     import tempfile
-    import threading
     out_dir = tempfile.mkdtemp(prefix="ps_fleet_")
     try:
-        cfg = os.path.join(out_dir, "cluster.yml")
-        with open(cfg, "w") as f:
-            f.write(f"nodes:\n  - host: localhost\n"
-                    f"    servers: {servers}\n"
-                    f"    workers: {workers}\n    chief: true\n")
         spec = {"mode": mode, "device": device, "seed": seed,
                 "steps": steps, "out": out_dir}
-        cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
-               sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-               "--fleet-worker", json.dumps(spec)]
-        # the launcher keeps a leaked fleet environment from its servers
-        # and workers; HETU_PS_REPLICATE it reads itself: these fleets
-        # have no replicas
-        env = {**os.environ, "HETU_PS_REPLICATE": "0",
-               "PYTHONPATH": ROOT + os.pathsep
-               + os.environ.get("PYTHONPATH", "")}
-        used, stop = [], threading.Event()
-
-        def sample():
-            while not stop.wait(0.5):
-                used.append(_card_memory_used_mib())
-
-        sampler = threading.Thread(target=sample, daemon=True)
         before = _card_memory_used_mib() if device == "cuda" else None
-        if device == "cuda":
-            sampler.start()
-        log_path = os.path.join(out_dir, "fleet.log")
-        t0 = time.perf_counter()
-        with open(log_path, "w") as logf:
-            proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=logf,
-                                    stderr=subprocess.STDOUT,
-                                    stdin=subprocess.DEVNULL,
-                                    start_new_session=True)
-            try:
-                rc = proc.wait(timeout=timeout)
-            except subprocess.TimeoutExpired:
-                rc = f"no exit within {timeout} s"
-            finally:
-                stop.set()
-                try:
-                    os.killpg(proc.pid, 9)      # whatever is left of it
-                except ProcessLookupError:
-                    pass
-                proc.wait()
-        wall = time.perf_counter() - t0
-        if device == "cuda":
-            sampler.join()
-        if rc != 0:
-            with open(log_path) as f:
-                tail = f.read()[-4000:]
-            raise AssertionError(f"fleet ({servers} servers, {workers} "
-                                 f"workers, {mode}, {device}): launcher "
-                                 f"exit {rc}\n{tail}")
+        wall, used = _launch_job(
+            f"fleet ({servers} servers, {workers} workers, {mode}, "
+            f"{device})", f"nodes:\n  - host: localhost\n"
+            f"    servers: {servers}\n    workers: {workers}\n"
+            f"    chief: true\n", "--fleet-worker", spec, timeout,
+            device == "cuda")
         records = []
         for r in range(workers):
             with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
@@ -4462,6 +5050,10 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # ps_fleet's workers
     ap.add_argument("--pp-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # pp_fleet's workers
+    ap.add_argument("--dp-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # dp_gpt's ranks
+    ap.add_argument("--hybrid-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # hybrid_fleet's workers
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -4474,6 +5066,12 @@ def main(argv=None):
     if args.pp_worker is not None:
         sys.path.insert(0, ROOT)
         return pp_worker(json.loads(args.pp_worker))
+    if args.dp_worker is not None:
+        sys.path.insert(0, ROOT)
+        return dp_worker(json.loads(args.dp_worker))
+    if args.hybrid_worker is not None:
+        sys.path.insert(0, ROOT)
+        return hybrid_worker(json.loads(args.hybrid_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -4544,6 +5142,11 @@ def main(argv=None):
     pp_lines["pp_fleet"] = pp_fleet_pass(card, args.seed, pp_fleet_refs)
     del pp_fleet_refs
     log(f"pp_fleet ({time.perf_counter() - t:.1f} s) {pp_lines['pp_fleet']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    dp_lines, dp_launches = dp_pass(card, args.seed, train_line)
+    log(f"dp ({time.perf_counter() - t:.1f} s) {dp_lines}")
+    torch.cuda.empty_cache()
 
     bert_lines, bert_launches = {}, {}
     for name in BERT_PASSES:
@@ -4612,6 +5215,10 @@ def main(argv=None):
     ps_lines = ps_passes(torch, card, args.seed)
     torch.cuda.empty_cache()
     ps_lines["ps_fleet"] = ps_fleet_pass(card, args.seed)
+    t = time.perf_counter()
+    ps_lines["hybrid_fleet"] = hybrid_fleet_pass(card, args.seed)
+    log(f"hybrid_fleet ({time.perf_counter() - t:.1f} s) "
+        f"{ps_lines['hybrid_fleet']}")
 
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
@@ -4637,7 +5244,8 @@ def main(argv=None):
     train_paths = [("train", train_launches, TRAIN_REP),
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
-                   ("pp_1f1b", pp_launches["1f1b"], PP_REP)]
+                   ("pp_1f1b", pp_launches["1f1b"], PP_REP),
+                   ("dp_gpt", dp_launches, DP_REP)]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -4668,6 +5276,7 @@ def main(argv=None):
              {"check_faults": faults}, {"serve": serve_line},
              {"serve_dense": dense_line}, {"train": train_line},
              *({name: line} for name, line in pp_lines.items()),
+             *({name: line} for name, line in dp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},

@@ -30,6 +30,10 @@ What runs today:
 * the PS and Hybrid modes against the port's C++ parameter server, and
   fleets of PS workers and servers started by its launcher
   (``python -m hetu_tpu_torch.launcher -c cluster.yml <command>``);
+* data-parallel training (AllReduce, and Hybrid's dense half) across a
+  launcher's ``spmd: true`` processes, one a card: the global batch
+  split over the ranks, gradients averaged over ``torch.distributed``
+  (:mod:`.parallel.mesh`, :mod:`.parallel.data_parallel`);
 * pipeline-parallel training, GPipe and PipeDream 1F1B (``gpipe=True``
   / ``pipedream=True``), its stages placed by ``with ht.context(...)``,
   in one process or across a launcher's worker processes
@@ -53,9 +57,10 @@ from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
                          dataloader_op)
 from .device import resolve_device
 from .executor import (Executor, HetuConfig, SubExecutor,
-                       get_worker_communicate, gradients, scheduler_finish,
-                       scheduler_init, server_finish, server_init,
-                       worker_finish, worker_init)
+                       get_worker_communicate, gradients, new_group_comm,
+                       scheduler_finish, scheduler_init, server_finish,
+                       server_init, worker_finish, worker_init,
+                       wrapped_mpi_nccl_init)
 from .graph.node import Op
 from .ndarray import (DLContext, IndexedSlices, ND_Sparse_Array, NDArray,
                       array, cpu, empty, gpu, is_gpu_ctx, is_tpu_ctx, rcpu,
@@ -69,11 +74,19 @@ __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
            "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
            "scheduler_init", "scheduler_finish", "server_init",
            "server_finish", "worker_init", "worker_finish",
-           "get_worker_communicate", "optim", "init", "lr", "data",
+           "get_worker_communicate", "wrapped_mpi_nccl_init",
+           "new_group_comm", "mpi_nccl_init", "optim", "init", "lr", "data",
            "metrics", "models", "launcher", "telemetry", "parallel",
            "Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp",
            "ND_Sparse_Array", "sparse_array", "array", "empty", "stream",
            *_ops_all]
+
+
+def mpi_nccl_init(init_nccl=True):
+    """The reference's ``(comm, device_id)``: the job's communicator and
+    this rank's card (:func:`wrapped_mpi_nccl_init`)."""
+    comm = wrapped_mpi_nccl_init(init_nccl)
+    return comm, comm.dev_id()
 
 
 def __getattr__(name):

@@ -7,9 +7,10 @@ workers — GPUs — and servers — host CPUs, the parameter-server role),
 :func:`get_launch_config_by_traverse_nodes`, which infers each node's
 communication strategy (PS where its group has servers and workers,
 AllReduce where it has several workers) and the session's mode from
-the device groups. ``NodeStatus`` and the tensor-parallel planner
-belong to the parallel modes and wait for them: the PS strategy reads
-only the device groups.
+the device groups. ``NodeStatus`` waits for the tensor-parallel
+planner (ROADMAP item 11b): the PS strategy reads only the device
+groups, and data parallelism one process's worker and the job's process
+group (``executor.HetuConfig``).
 """
 from __future__ import annotations
 

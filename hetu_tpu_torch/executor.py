@@ -46,12 +46,23 @@ its steps through :class:`~hetu_tpu_torch.ps.runtime.PSRuntime`, which
 pulls before :meth:`SubExecutor.step` and pushes after it. The PS mode
 runs one worker per process of a launcher's fleet
 (:mod:`hetu_tpu_torch.launcher`), any number of them, against any
-number of servers. Hybrid puts the dense gradients on allreduce, the
-identity at one worker; more than one worker, in one context or across
-a fleet's processes, waits for the multi-card modes (ROADMAP item 11a).
-Under a launcher's ``spmd`` or multi-host fleet the executor joins its
-``torch.distributed`` rendezvous (:func:`maybe_init_distributed`); no
-collective uses it yet.
+number of servers. Hybrid puts the dense gradients on allreduce.
+
+**Data parallel** (AllReduce, and Hybrid's dense half): one process a
+rank, as a launcher's ``spmd: true`` job starts them. The executor joins
+the job's ``torch.distributed`` rendezvous (:func:`maybe_init_distributed`:
+NCCL where every rank owns a card, else gloo), and with more than one
+rank and no pipeline its rank count is the group's (or the ``dp`` axis
+of ``mesh=``, a :func:`~hetu_tpu_torch.parallel.mesh.build_mesh` mesh).
+Every rank is fed the global batch, as in the reference: each step runs
+on the rank's contiguous row shard of every feed whose dim 0 divides by
+the rank count, the optimizer's allreduce ops average the gradients
+(``overlap_options["bucket_bytes"]`` buckets them), and the fetched
+values are made global
+(:class:`~hetu_tpu_torch.parallel.data_parallel.DataParallel`, which
+also refuses graphs whose rows are reduced other than by a mean).
+Several devices of one process's context stay refused (ROADMAP item
+11a's remainder).
 
 **Pipelines** (``gpipe=True`` or ``pipedream=True``, with
 ``num_microbatches`` and ``pp_options``): stages placed by ``with
@@ -61,9 +72,9 @@ process or across a launcher's worker processes; each parameter, and
 its optimizer slots, lives on its stage's device, and a worker process
 materializes only its own stages' parameters.
 
-The dp/tp meshes, the collective pipeline, telemetry and the preflight
-analysis are still to port; ``HetuConfig`` refuses their options, each
-naming its ROADMAP item.
+Tensor parallelism, the collective pipeline, telemetry and the
+preflight analysis are still to port; ``HetuConfig`` refuses their
+options, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -96,12 +107,12 @@ from . import telemetry as _telemetry
 __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
            "scheduler_init", "scheduler_finish", "worker_init",
            "worker_finish", "server_init", "server_finish",
-           "get_worker_communicate", "maybe_init_distributed"]
+           "get_worker_communicate", "maybe_init_distributed",
+           "wrapped_mpi_nccl_init", "new_group_comm", "dp_backend"]
 
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
     "pipeline_mode": "item 11b (collective_pp.py over NCCL send/recv)",
-    "mesh": "items 11a and 11b (the dp mesh, the TP planner)",
     "parallel": "item 11b (autoplan.py)",
     "rules": "item 11b (autoplan.py)",
     "autoplan_options": "item 11b (autoplan.py)",
@@ -111,28 +122,84 @@ _REFUSED_OPTIONS = {
 }
 
 
+def dp_backend(device=None):
+    """This rank's choice of collective backend, from the host's
+    layout: ``nccl`` where its card is its own (``LOCAL_RANK`` below the
+    card count), else ``gloo`` — on the CPU, and where ranks share a card
+    (NCCL refuses two ranks on one card). ``gloo`` reduces CUDA tensors
+    too, through the host."""
+    if device is None:
+        cuda = torch.cuda.is_available()
+    else:
+        cuda = torch.device(device).type == "cuda"
+    if not cuda:
+        return "gloo"
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    return "nccl" if local < torch.cuda.device_count() else "gloo"
+
+
 def maybe_init_distributed(device=None):
     """Join the launcher's multi-process job (reference
     executor.py:68-87, where ``jax.distributed`` joins it): with the
     launcher's rendezvous set (``HETU_COORDINATOR``, and the
     ``MASTER_ADDR`` / ``MASTER_PORT`` / ``RANK`` / ``WORLD_SIZE`` it
     exports beside it), ``torch.distributed.init_process_group`` over
-    TCP — gloo for a CPU ``device``, nccl for a CUDA one (None: nccl
-    where CUDA is available). Returns True when it joined now, False
-    when there is nothing to join or the group already exists."""
+    its TCP store. The backend is decided before the group exists:
+    every rank posts :func:`dp_backend` to the store, and the job takes
+    ``nccl`` if every rank can, else ``gloo`` (one rank on the CPU, or
+    two on one card, makes it gloo). ``dist.get_backend()`` reports it.
+    Returns True when it joined now, False when there is nothing to
+    join or the group already exists."""
+    import datetime
     import torch.distributed as dist
     if "HETU_COORDINATOR" not in os.environ or dist.is_initialized():
         return False
-    if device is None:
-        cuda = torch.cuda.is_available()
-    else:
-        cuda = torch.device(device).type == "cuda"
     env = os.environ
-    dist.init_process_group(
-        backend="nccl" if cuda else "gloo",
-        init_method=f"tcp://{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
-        world_size=int(env["WORLD_SIZE"]), rank=int(env["RANK"]))
+    rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    store = dist.TCPStore(env["MASTER_ADDR"], int(env["MASTER_PORT"]),
+                          world, rank == 0,
+                          timeout=datetime.timedelta(seconds=300))
+    store.set(f"hetu_backend/{rank}", dp_backend(device))
+    votes = {store.get(f"hetu_backend/{r}").decode() for r in range(world)}
+    dist.init_process_group(backend="nccl" if votes == {"nccl"} else "gloo",
+                            store=store, world_size=world, rank=rank)
     return True
+
+
+def wrapped_mpi_nccl_init(init_nccl=True, devices=None):
+    """The job's communicator (reference executor.py:42-50, which boots
+    MPI and NCCL): joins the launcher's job if there is one and returns
+    an object with ``rank``, ``nrank`` and ``dev_id()``, the rank's card
+    (``LOCAL_RANK``; 0 outside a job)."""
+    import torch.distributed as dist
+    maybe_init_distributed()
+
+    class _JobComm:
+        rank = dist.get_rank() if dist.is_initialized() else 0
+        nrank = dist.get_world_size() if dist.is_initialized() else 1
+
+        @staticmethod
+        def dev_id():
+            count = torch.cuda.device_count()
+            local = int(os.environ.get("LOCAL_RANK", "0"))
+            return local % count if count else 0
+
+    return _JobComm()
+
+
+def new_group_comm(devices=None):
+    """A communicator over a subgroup of the job's ranks (reference
+    executor.py:53-60): ``devices`` lists ranks (or contexts, by their
+    device id), None all of them. Every rank must call it, as
+    ``torch.distributed.new_group`` is collective; a rank outside the
+    subgroup gets None."""
+    import torch.distributed as dist
+    from .ops.comm import GroupComm
+    if devices is None:
+        return GroupComm()
+    ranks = sorted({int(getattr(d, "device_id", d)) for d in devices})
+    group = dist.new_group(ranks)
+    return GroupComm(group) if dist.get_rank() in ranks else None
 
 
 def ingest_value(value, device, dtype=None, staged=False):
@@ -197,7 +264,11 @@ class HetuConfig:
     ``drain_compress`` (bf16 drains).
 
     ``overlap_options`` (a dict or ``OverlapOptions``) sets the ingest
-    engine of ``run_batches_stream``. ``gpipe`` / ``pipedream`` train
+    engine of ``run_batches_stream`` and, with ``bucket_bytes``, buckets
+    the data-parallel allreduce. ``mesh`` (a
+    :class:`~hetu_tpu_torch.parallel.mesh.Mesh`) names the process
+    groups: data parallelism runs over its ``dp`` axis; without it, over
+    the whole job when one is joined. ``gpipe`` / ``pipedream`` train
     under a pipeline schedule over ``num_microbatches`` microbatches
     (``pp_options``: ``virtual_stages``); without ``ctx`` or ``device``
     the session's device is then the first stage's. The reference's
@@ -212,7 +283,8 @@ class HetuConfig:
                  cstable_policy=None, cache_bound=100, cache_capacity=None,
                  drain_compress=False, dynamic_memory=False,
                  overlap_options=None, gpipe=False, pipedream=False,
-                 num_microbatches=None, pp_options=None, **options):
+                 num_microbatches=None, pp_options=None, mesh=None,
+                 **options):
         if options:
             items = "; ".join(f"{k}: ROADMAP {_REFUSED_OPTIONS[k]}"
                               for k in sorted(options)
@@ -251,10 +323,6 @@ class HetuConfig:
         self.device = resolve_device(device)
         self.telemetry = _telemetry.NULL
         self.overlap = OverlapOptions.resolve(overlap_options)
-        if self.overlap.bucket_bytes is not None:
-            raise NotImplementedError(
-                "overlap_options bucket_bytes buckets the data-parallel "
-                "allreduce, which waits for ROADMAP item 11a")
         # accepted as the reference accepts them: dynamic_memory and
         # enable_lazy are no-ops there too (the allocator and the eager
         # walk's views subsume them), use_sparse_pull and val_name are
@@ -283,28 +351,52 @@ class HetuConfig:
                 self.comm_mode = "PS"
             elif launch_mpi:
                 self.comm_mode = "AllReduce"
-        self.nrank = max(1, self.context.worker_num)
+        # data parallel: one process a rank, over the mesh's dp axis or
+        # the joined job (reference executor.py:276-283, :307-310)
+        self.mesh = mesh
+        self.dp_comm = None
+        if pipeline and (mesh is not None or self.comm_mode is not None):
+            raise NotImplementedError(
+                f"a pipeline in the {self.comm_mode or 'data-parallel'} "
+                f"mode: data parallel or PS stages wait for ROADMAP item "
+                f"11b")
+        if mesh is not None:
+            if "dp" in mesh.axis_names:
+                self.dp_comm = mesh.comm("dp")
+        elif not pipeline and self.comm_mode != "PS":
+            import torch.distributed as dist
+            if dist.is_initialized() and dist.get_world_size() > 1:
+                from .ops.comm import GroupComm
+                self.dp_comm = GroupComm()
+        ranks = self.dp_comm.nrank if self.dp_comm is not None else 1
+        if self.comm_mode is None and ranks > 1:
+            self.comm_mode = "AllReduce"
+        if self.context.worker_num > 1 and \
+                self.comm_mode in ("AllReduce", "Hybrid"):
+            raise NotImplementedError(
+                f"{self.comm_mode} over {self.context.worker_num} devices "
+                f"of one process's context: in-process multi-device data "
+                f"parallel is ROADMAP item 11a's remainder; run one process "
+                f"per card under the launcher's spmd: true")
+        self.nrank = ranks if self.comm_mode in ("AllReduce", "Hybrid") \
+            else 1
         # the process's rank in a launcher's fleet: HETU_PROC_ID in one
         # job (spmd, several hosts), else HETU_PS_RANK (a PS worker)
         self.rank = int(os.environ.get(
             "HETU_PROC_ID", os.environ.get("HETU_PS_RANK", "0")))
-        if self.nrank > 1 and self.comm_mode in ("AllReduce", "Hybrid"):
-            raise NotImplementedError(
-                f"{self.comm_mode} over {self.nrank} workers: the "
-                f"multi-card modes wait for ROADMAP item 11")
-        if pipeline and self.comm_mode is not None:
-            raise NotImplementedError(
-                f"a pipeline in the {self.comm_mode} mode: data parallel or "
-                f"PS stages wait for ROADMAP item 11b")
         if self.comm_mode == "Hybrid":
             # each worker process of a fleet sees one worker in its own
-            # context, so nrank is 1 there: the PS client knows the fleet
+            # context: the PS client knows the fleet, and its dense
+            # weights stay together only through the job's allreduce
             from .ps.client import get_default_client
             nworkers = get_default_client().nworkers
-            if nworkers > 1:
+            if nworkers > 1 and self.nrank != nworkers:
                 raise NotImplementedError(
-                    f"Hybrid over {nworkers} worker processes: the dense "
-                    f"weights' allreduce waits for ROADMAP item 11a")
+                    f"Hybrid over {nworkers} worker processes with "
+                    f"{self.nrank} data-parallel rank(s): the dense "
+                    f"weights' allreduce runs over the job's process group "
+                    f"(ROADMAP item 11a); start the fleet with the "
+                    f"launcher's spmd: true")
         self.ps_nodes = []
         self.ps_comm = None
         # the device cache (HET path): PS embedding lookups gather from
@@ -322,9 +414,12 @@ class HetuConfig:
         if pipeline:
             from .parallel.pipeline import splice_send_recv
             splice_send_recv(eval_node_list)
-        # the graph pass: splice the comm ops (reference executor.py:314)
+        # the graph pass: splice the comm ops, then bind contexts and
+        # process groups (reference executor.py:314, topo_sort_with_hook)
         for node in reversed(find_topo_sort(eval_node_list)):
             node.backward_hook(self)
+        for node in find_topo_sort(eval_node_list):
+            node.forward_hook(self)
         if self.comm_mode in ("PS", "Hybrid") or self.ps_nodes:
             from .ps.client import get_default_client
             self.ps_comm = get_default_client()
@@ -496,6 +591,17 @@ class SubExecutor:
                               if isinstance(dl, DataloaderOp)), default=None)
         self.step_count = 0
         self._shapes_key = None
+        # data parallel over the session's ranks: the feeds' row shards
+        # in, the fetched values made global out
+        self.dp = None
+        if config.nrank > 1:
+            from .parallel.data_parallel import DataParallel
+            self.dp = DataParallel(self, config.dp_comm)
+        self.allreduce_defer = None
+        if config.nrank > 1 and config.overlap.bucket_bytes:
+            from .ops.comm import optimizer_allreduce_ops
+            self.allreduce_defer = optimizer_allreduce_ops(
+                self.topo_order, self.optimizer_ops, eval_node_list)
         # the step index after which each value is dead: its last
         # consumer's position, or never for what the caller fetches and
         # for the gradients the PS runtime pushes after the step
@@ -588,14 +694,24 @@ class SubExecutor:
         config = self.config
         key = tuple((n.id, tuple(v.shape), v.dtype)
                     for n, v in feed_map.items())
+        dp = self.dp
+        if dp is not None:
+            global_feed, feed_map = feed_map, dp.shard(feed_map)
         if key != self._shapes_key:
-            self._infer_shapes(feed_map)
+            if dp is not None:
+                dp.classify(global_feed, feed_map)
+            else:
+                self._infer_shapes(feed_map)
             self._ensure_state(executor)
             self._shapes_key = key
 
-        ectx = ExecContext(training=self.training, seed=config.seed,
+        # each rank draws its own dropout masks for its rows
+        seed = config.seed if dp is None else \
+            config.seed * 1_000_003 + dp.rank
+        ectx = ExecContext(training=self.training, seed=seed,
                            step=self.step_count, device=config.device,
                            config=config)
+        ectx.allreduce_defer = self.allreduce_defer
         params = {n: executor.params[str(n.id)] for n in self.param_nodes}
         if config.dtype is not None:
             ectx.master_params = params
@@ -631,6 +747,8 @@ class SubExecutor:
         self.step_count += 1
         outputs = [None if isinstance(node, OptimizerOp) else env[node]
                    for node in self.eval_node_list]
+        if dp is not None:
+            outputs = dp.fetch(self.eval_node_list, outputs)
         return outputs, [env[op.inputs[0]] for op in self.ps_ops]
 
     def results(self, outputs, convert_to_numpy_ret_vals=False):

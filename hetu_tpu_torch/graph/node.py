@@ -36,7 +36,9 @@ class ExecContext:
       running statistics), read with ``get_state`` and written with
       ``put_state``; the executor keeps what a training step writes;
     * ``cache`` — values shared between a forward op and its gradient
-      ops inside the step (the flash residuals and grads).
+      ops inside the step (the flash residuals and grads);
+    * ``allreduce_defer`` — the allreduce ops whose reduction the
+      optimizer settles in buckets (None: each reduces its own).
     """
 
     def __init__(self, training=True, seed=0, step=0, device=None,
@@ -55,6 +57,7 @@ class ExecContext:
         self.state = {}
         self.new_state = {}
         self.cache = {}
+        self.allreduce_defer = None
 
     def get_state(self, op, default=None):
         return self.state.get(op, default)
@@ -110,6 +113,14 @@ class Op:
         """The session's graph pass over this node, run in reverse
         topological order before the first step (the optimizer splices
         its PS and allreduce ops here)."""
+
+    def forward_hook(self, config):
+        """The session's second graph pass, in topological order after
+        every ``backward_hook`` (reference executor.py
+        ``topo_sort_with_hook``): an op without a context takes the
+        session's, and an allreduce op binds its process group."""
+        if self.ctx is None:
+            self.ctx = config.context
 
     # ------------------------------------------------------------- operators
     def __add__(self, other):

@@ -24,7 +24,10 @@ in-process ``launch(target, args)``.
   ``MASTER_ADDR`` / ``MASTER_PORT`` (the chief, which runs rank 0),
   ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, beside the reference's
   ``HETU_COORDINATOR`` / ``HETU_NUM_PROCS`` / ``HETU_PROC_ID``; the
-  executor joins it (``executor.maybe_init_distributed``).
+  executor joins it (``executor.maybe_init_distributed``: NCCL where
+  every rank has a card of its own, else gloo), and a rank's default
+  device is its ``LOCAL_RANK``'s card. Its data-parallel sessions run
+  over that group.
 * **Pipeline stages across workers** reach each other over the host
   channel (``parallel/p2p.py``): such a job's workers also get
   ``HETU_PIPE_HOSTS`` (each rank's host, loopback on one host),

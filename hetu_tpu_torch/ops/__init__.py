@@ -10,6 +10,7 @@ from .activations import (dropout2d_gradient_op, dropout2d_op,
                           tanh_op)
 from .attention import FlashAttentionOp, flash_attention_op
 from .comm import (allreduceCommunicate_op, datad2h_op, datah2d_op,
+                   dispatch, groupallreduceCommunicate_op,
                    parameterServerCommunicate_op,
                    parameterServerSparsePull_op, pipeline_receive_op,
                    pipeline_send_op)
@@ -91,7 +92,8 @@ __all__ = [
     "binarycrossentropy_gradient_op", "crossentropy_op",
     "flash_attention_op", "FlashAttentionOp",
     "csrmm_op", "csrmv_op", "distgcn_15d_op",
-    "allreduceCommunicate_op", "parameterServerCommunicate_op",
+    "allreduceCommunicate_op", "groupallreduceCommunicate_op", "dispatch",
+    "parameterServerCommunicate_op",
     "parameterServerSparsePull_op", "datah2d_op", "datad2h_op",
     "pipeline_send_op", "pipeline_receive_op",
 ]

@@ -1,11 +1,21 @@
-"""Communication ops of the PS and Hybrid modes and the pipeline.
+"""Communication ops: the data-parallel allreduce, the PS and Hybrid
+modes' push and pull, and the pipeline's boundaries.
 
-Counterpart of ``hetu_tpu/ops/comm.py``, its PS part, the single-worker
-AllReduce, the host/device transfer markers and the pipeline stage
-boundaries (reference parity: gpu_ops/ParameterServerCommunicate.py,
-gpu_ops/AllReduceCommunicate.py, gpu_ops/DataTransfer.py,
-gpu_ops/PipelineSend.py, gpu_ops/PipelineReceive.py).
+Counterpart of ``hetu_tpu/ops/comm.py`` (reference parity:
+gpu_ops/AllReduceCommunicate.py, gpu_ops/ParameterServerCommunicate.py,
+gpu_ops/DataTransfer.py, gpu_ops/PipelineSend.py,
+gpu_ops/PipelineReceive.py).
 
+* :class:`AllReduceCommunicateOp` averages a gradient over the
+  session's data-parallel ranks (one process each, ``torch.distributed``;
+  :class:`GroupComm`): a dense gradient is summed and divided by the
+  rank count, as the reference's ``lax.pmean``; an ``IndexedSlices``
+  gradient is all-gathered, indices and values / nrank. At one rank it
+  is the identity. With ``overlap_options["bucket_bytes"]`` the
+  optimizer settles its dense gradients in buckets instead
+  (:func:`settle_deferred_allreduce`).
+  :class:`GroupAllReduceCommunicateOp` reduces over one axis of the
+  session's mesh (:mod:`~hetu_tpu_torch.parallel.mesh`).
 * :class:`ParameterServerCommunicateOp` pushes a gradient to the
   parameter server (and, for a dense parameter, pulls the updated
   value back). It is a *host op*: the executor never computes it; the
@@ -14,44 +24,273 @@ gpu_ops/PipelineSend.py, gpu_ops/PipelineReceive.py).
 * :class:`ParameterServerSparsePullOp` pulls embedding rows for given
   ids — the inference path. Also a host op: the PS runtime feeds its
   value before the step.
-* :class:`AllReduceCommunicateOp` averages a gradient over the data-
-  parallel workers. With one worker — all the port runs until the
-  launcher and the multi-card modes come (ROADMAP item 11) — it is the
-  identity; the session refuses more than one worker.
+
+Every collective is an ``all_reduce``: gloo on CUDA tensors runs
+``all_reduce`` and ``broadcast`` only, so an all-gather is an
+``all_reduce`` of a zeroed ``[nrank, ...]`` buffer in which each rank
+fills its slot (:meth:`GroupComm.gather_rows`), and the same code runs
+on gloo and on NCCL.
 """
 from __future__ import annotations
 
-from ..graph.node import Op
+import time
 
-__all__ = ["AllReduceCommunicateOp", "ParameterServerCommunicateOp",
+import torch
+
+from ..graph.node import Op
+from ..ndarray import IndexedSlices
+
+__all__ = ["AllReduceCommunicateOp", "GroupAllReduceCommunicateOp",
+           "GroupComm", "ParameterServerCommunicateOp",
            "ParameterServerSparsePullOp", "DataH2DOp", "DataD2HOp",
            "PipelineSendOp", "PipelineReceiveOp", "allreduceCommunicate_op",
-           "parameterServerCommunicate_op", "parameterServerSparsePull_op",
-           "datah2d_op", "datad2h_op", "pipeline_send_op",
-           "pipeline_receive_op"]
+           "groupallreduceCommunicate_op", "optimizer_allreduce_ops",
+           "settle_deferred_allreduce", "parameterServerCommunicate_op",
+           "parameterServerSparsePull_op", "datah2d_op", "datad2h_op",
+           "pipeline_send_op", "pipeline_receive_op", "dispatch"]
+
+# the dtypes a gradient is reduced in as it is (the reference's pmean
+# reduces in the gradient's own dtype); gloo and NCCL sum every one of
+# them on the CPU and on CUDA, bf16 included. Others go through f32.
+_REDUCE_DTYPES = (torch.float32, torch.float64, torch.float16,
+                  torch.bfloat16, torch.int32, torch.int64, torch.uint8)
+
+
+class GroupComm:
+    """The collectives of one process group, as the graph's comm ops use
+    them: every collective is one ``torch.distributed.all_reduce`` on
+    ``group`` (a ``ProcessGroup``; None for the default group).
+
+    ``stats`` counts, by kind ("dense" gradients, "sparse" gradients,
+    "fetch" for values made global), the ``all_reduce`` calls, the
+    bytes they reduced and their host seconds. With ``sync_timing`` set
+    the device is synchronized before each is timed, so its seconds
+    start when its inputs are ready and not before: the reduction's own
+    cost (gloo copies a CUDA tensor to the host and back inside it)."""
+
+    def __init__(self, group=None):
+        import torch.distributed as dist
+        self.group = group
+        pg = group if group is not None else dist.group.WORLD
+        self.nrank = int(pg.size())
+        self.rank = int(pg.rank())
+        self.sync_timing = False
+        self.reset_stats()
+
+    def reset_stats(self):
+        self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
+                      for k in ("dense", "sparse", "fetch")}
+
+    def all_reduce(self, tensor, op=None, kind="dense"):
+        """Reduce ``tensor`` in place over the group (SUM by default)."""
+        import torch.distributed as dist
+        if self.sync_timing and tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        t0 = time.perf_counter()
+        dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None else op,
+                        group=self.group)
+        st = self.stats[kind]
+        st["calls"] += 1
+        st["bytes"] += tensor.numel() * tensor.element_size()
+        st["seconds"] += time.perf_counter() - t0
+        return tensor
+
+    def mean(self, value, kind="dense"):
+        """The average of ``value`` over the ranks, in its dtype (a copy:
+        the input is left as it was)."""
+        dtype = value.dtype
+        wire = dtype if dtype in _REDUCE_DTYPES else torch.float32
+        buf = value.detach().to(wire, memory_format=torch.contiguous_format,
+                                copy=True)
+        self.all_reduce(buf, kind=kind)
+        if not buf.is_floating_point():
+            buf = buf.to(torch.float32)
+        buf.div_(self.nrank)
+        return buf if buf.dtype == dtype else buf.to(dtype)
+
+    def gather_rows(self, value, kind="fetch", equal=False):
+        """Every rank's ``value`` concatenated on dim 0, in rank order.
+        Rows may differ between ranks: their counts are all-reduced first
+        (each rank fills its slot of a zeroed count vector), each rank
+        pads to the largest, and the padding is cut off again. ``equal``
+        (every rank holds the same row count) skips the counts."""
+        n = value.shape[0]
+        if equal:
+            counts = [n] * self.nrank
+        else:
+            cnt = torch.zeros(self.nrank, dtype=torch.int64,
+                              device=value.device)
+            cnt[self.rank] = n
+            counts = self.all_reduce(cnt, kind=kind).tolist()
+        width = max(counts)
+        dtype = value.dtype
+        wire = dtype if dtype in _REDUCE_DTYPES and dtype != torch.bool \
+            else (torch.uint8 if dtype == torch.bool else torch.float32)
+        buf = torch.zeros((self.nrank, width) + tuple(value.shape[1:]),
+                          dtype=wire, device=value.device)
+        buf[self.rank, :n] = value.to(wire)
+        self.all_reduce(buf, kind=kind)
+        out = torch.cat([buf[r, :c] for r, c in enumerate(counts)]) \
+            if width != n or any(c != n for c in counts) \
+            else buf.reshape((-1,) + tuple(value.shape[1:]))
+        return out.to(dtype) if wire != dtype else out
+
+    def gather_slices(self, grad):
+        """An ``IndexedSlices`` gradient of every rank: indices and
+        values all-gathered, values / nrank (reference
+        AllReduceCommunicate.py:25-53)."""
+        idx = self.gather_rows(grad.get_flat_indices(), kind="sparse")
+        vals = self.gather_rows(grad.get_dense_rows(), kind="sparse")
+        return IndexedSlices(idx, vals / self.nrank, grad.dense_shape)
 
 
 class AllReduceCommunicateOp(Op):
-    """Gradient allreduce over the session's workers (reference
-    AllReduceCommunicate.py:11-60): the identity at one worker."""
+    """Gradient allreduce over the session's data-parallel ranks
+    (reference AllReduceCommunicate.py:11-60): the identity at one
+    rank."""
 
     def __init__(self, node_A, comm=None, ctx=None):
         super().__init__(AllReduceCommunicateOp, [node_A], ctx)
         self.comm = comm
 
+    def group_comm(self, ectx):
+        """The :class:`GroupComm` this op reduces over, or None (one
+        rank: nothing to reduce)."""
+        config = ectx.config
+        if config is None or getattr(config, "nrank", 1) <= 1:
+            return None
+        return self.comm or getattr(config, "dp_comm", None)
+
+    def _deferred(self, ectx, val):
+        """True when the consuming OptimizerOp buckets this op's
+        reduction (``overlap_options["bucket_bytes"]``): the per-gradient
+        collective is skipped here and :func:`settle_deferred_allreduce`
+        reduces it in a bucket. Sparse gradients never defer (their
+        all-gather has no bucket)."""
+        defer = getattr(ectx, "allreduce_defer", None)
+        return (defer is not None and self in defer
+                and not isinstance(val, IndexedSlices))
+
     def compute(self, input_vals, ectx):
-        nrank = getattr(ectx.config, "nrank", 1)
-        if nrank > 1:
-            raise NotImplementedError(
-                f"allreduce over {nrank} workers: the multi-card modes "
-                f"wait for ROADMAP item 11")
-        return input_vals[0]
+        val = input_vals[0]
+        comm = self.group_comm(ectx)
+        if comm is None or comm.nrank == 1 or self._deferred(ectx, val):
+            return val
+        if isinstance(val, IndexedSlices):
+            return comm.gather_slices(val)
+        return comm.mean(val)
 
     def gradient(self, output_grad):
         raise NotImplementedError
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def forward_hook(self, config):
+        super().forward_hook(config)
+        if self.comm is None:
+            self.comm = getattr(config, "dp_comm", None)
+
+
+class GroupAllReduceCommunicateOp(AllReduceCommunicateOp):
+    """Allreduce within a subgroup (model-parallel replica groups,
+    reference AllReduceCommunicate.py:92-123): ``group`` names an axis of
+    the session's mesh, and the op reduces over that axis's process
+    group. Without that axis (no mesh, or a mesh without it) it is the
+    identity, as the reference's op is where the axis is unbound."""
+
+    def __init__(self, node_A, group=None, ctx=None):
+        super().__init__(node_A, ctx=ctx)
+        self.op_type = "GroupAllReduceCommunicateOp"
+        self.group = group
+
+    def group_comm(self, ectx):
+        config = ectx.config
+        mesh = getattr(config, "mesh", None)
+        if self.group is None:
+            return super().group_comm(ectx)
+        if mesh is None or self.group not in mesh.axis_names:
+            return None
+        return mesh.comm(self.group)
+
+    def compute(self, input_vals, ectx):
+        val = input_vals[0]
+        comm = self.group_comm(ectx)
+        if comm is None or comm.nrank == 1 or self._deferred(ectx, val):
+            return val
+        return comm.mean(val)
+
+
+def optimizer_allreduce_ops(topo, optimizer_ops, eval_nodes):
+    """The gradient allreduce ops eligible for bucketing: optimizer
+    inputs that are allreduce ops, not fetched by the session
+    themselves, and consumed by nothing but optimizers (a second
+    consumer needs the per-gradient value in place)."""
+    optimizer_set = set(optimizer_ops)
+    consumers = {}
+    for op in topo:
+        for inp in op.inputs:
+            consumers.setdefault(inp, []).append(op)
+    eval_set = set(eval_nodes)
+    return frozenset(
+        inp for op in optimizer_set for inp in op.inputs
+        if isinstance(inp, AllReduceCommunicateOp)
+        and inp not in eval_set
+        and all(c in optimizer_set for c in consumers.get(inp, ())))
+
+
+def settle_deferred_allreduce(inputs, input_vals, ectx):
+    """Bucketed gradient allreduce (PyTorch DDP's, Li et al., VLDB
+    2020): the OptimizerOp's deferred dense gradients are reduced in
+    size-targeted buckets, one flattened ``all_reduce`` a bucket in
+    place of one a gradient. Buckets form in reverse input order (the
+    backward makes the last layers' gradients first), are pure in dtype
+    (a concat must not promote) and in process group (one collective
+    rides one group), and close once they hold ``bucket_bytes``. The
+    sum and the division are elementwise, so the result is the
+    per-gradient path's, bit for bit.
+
+    Returns a new ``input_vals`` with the deferred positions replaced by
+    their reduced values; everything else passes through."""
+    defer = getattr(ectx, "allreduce_defer", None)
+    overlap = getattr(ectx.config, "overlap", None)
+    bucket_bytes = overlap.bucket_bytes if overlap is not None else None
+    if not defer or not bucket_bytes:
+        return input_vals
+    items = []          # (position, dense gradient, comm)
+    for pos, (op, val) in enumerate(zip(inputs, input_vals)):
+        if op not in defer or val is None or \
+                isinstance(val, IndexedSlices):
+            continue
+        comm = op.group_comm(ectx)
+        if comm is None or comm.nrank == 1:
+            continue
+        items.append((pos, val, comm))
+    out = list(input_vals)
+    buckets, cur, cur_bytes, cur_key = [], [], 0, None
+    for pos, val, comm in reversed(items):
+        key = (id(comm), val.dtype)
+        if cur and (key != cur_key or cur_bytes >= bucket_bytes):
+            buckets.append(cur)
+            cur, cur_bytes = [], 0
+        cur_key = key
+        cur.append((pos, val, comm))
+        cur_bytes += val.numel() * val.element_size()
+    if cur:
+        buckets.append(cur)
+    for members in buckets:
+        comm = members[0][2]
+        if len(members) == 1:
+            pos, val, _ = members[0]
+            out[pos] = comm.mean(val)
+            continue
+        red = comm.mean(torch.cat([v.reshape(-1) for _, v, _ in members]))
+        off = 0
+        for pos, val, _ in members:
+            n = val.numel()
+            out[pos] = red[off:off + n].view(val.shape)
+            off += n
+    return out
 
 
 class ParameterServerCommunicateOp(Op):
@@ -192,6 +431,10 @@ def allreduceCommunicate_op(node, comm=None, ctx=None):
     return AllReduceCommunicateOp(node, comm=comm, ctx=ctx)
 
 
+def groupallreduceCommunicate_op(node, group=None, ctx=None):
+    return GroupAllReduceCommunicateOp(node, group=group, ctx=ctx)
+
+
 def parameterServerCommunicate_op(node, parameter, optimizer_info=None,
                                   ctx=None):
     return ParameterServerCommunicateOp(node, parameter, optimizer_info,
@@ -217,3 +460,11 @@ def pipeline_send_op(node, destination=None, comm=None, stream=None,
 
 def pipeline_receive_op(source=None, comm=None, stream=None, ctx=None):
     return PipelineReceiveOp(source=source, ctx=ctx)
+
+
+def dispatch(node, parts, ctx=None):
+    """The reference's tensor-parallel repartition marker: it needs the
+    planner's ``NodeStatus`` (ROADMAP item 11b)."""
+    raise NotImplementedError(
+        "dispatch marks a tensor-parallel partition: the TP planner is "
+        "ROADMAP item 11b")

@@ -18,11 +18,13 @@ step would move the whole table through memory twice. The reference's
 compiled step donates its parameters, so its scatter-add is in place
 too.
 
-``OptimizerOp.backward_hook`` is the PS and Hybrid modes' graph pass
-(reference optimizer.py:381-432): per gradient, a PS push op, the
-device cache's pass-through, the unified dense HET path for SGD, or
-an allreduce. The health ``sentinel_stats`` wait for the telemetry
-port.
+``OptimizerOp.backward_hook`` is the PS, Hybrid and AllReduce modes'
+graph pass (reference optimizer.py:381-432): per gradient, a PS push
+op, the device cache's pass-through, the unified dense HET path for
+SGD, or an allreduce; under ``overlap_options["bucket_bytes"]`` the op
+settles its dense allreduces in buckets before the update
+(:func:`~hetu_tpu_torch.ops.comm.settle_deferred_allreduce`). The
+health ``sentinel_stats`` wait for the telemetry port.
 """
 from __future__ import annotations
 
@@ -80,11 +82,14 @@ class Optimizer:
     def minimize(self, loss, var_list=None):
         from .graph.autodiff import gradients
         from .ops.basic import mul_byconst_op
+        from .ops.shape import oneslike_op
         self.params = var_list or self.get_var_list(loss)
         target = loss
         if self.loss_scale and self.loss_scale != 1:
             target = mul_byconst_op(loss, float(self.loss_scale))
-        return OptimizerOp(gradients(target, self.params), self)
+        seed = oneslike_op(target, ctx=target.raw_ctx)
+        return OptimizerOp(gradients(target, self.params, insert_grad=seed),
+                           self, seed)
 
     # ------------------------------------------------------- functional API
     def init_state(self, param_vals):
@@ -271,13 +276,23 @@ class OptimizerOp(Op):
     optimizer.py:88-177): writes the new parameters and slots into the
     step's ExecContext; the executor swaps them in after the step."""
 
-    def __init__(self, grads, optimizer):
+    def __init__(self, grads, optimizer, grad_seed=None):
         super().__init__(OptimizerOp, grads, None)
         self.name = "Optimizer_%s" % optimizer.name
         self.optimizer = optimizer
+        # the loss's seed adjoint: every gradient op descends from it, so
+        # the data-parallel session tells the forward graph by it
+        self.grad_seed = grad_seed
 
     def compute(self, input_vals, ectx):
         opt = self.optimizer
+        if getattr(ectx, "allreduce_defer", None):
+            # bucketed data-parallel gradients: the allreduce ops feeding
+            # only optimizers skipped their collective; reduce them here
+            # in buckets (ops/comm.py)
+            from .ops.comm import settle_deferred_allreduce
+            input_vals = settle_deferred_allreduce(self.inputs, input_vals,
+                                                   ectx)
         # mixed precision: update the f32 masters from upcast gradients;
         # ectx.params holds the compute-dtype copies
         masters = ectx.master_params or ectx.params
@@ -338,8 +353,13 @@ class OptimizerOp(Op):
             if getattr(param, "device_cached", False):
                 # device cache: the worker optimizer updates the cache
                 # rows in the step; the accumulated gradients drain to
-                # the server from the PS runtime, not through a comm op
+                # the server from the PS runtime, not through a comm op.
+                # Over several data-parallel ranks the rows' gradient is
+                # all-gathered first, so that every rank's cache takes
+                # the global batch's update
                 comm = grad
+                if config.nrank > 1 and strategy in ("AllReduce", "Hybrid"):
+                    comm = allreduceCommunicate_op(grad, ctx=grad.raw_ctx)
             elif (strategy == "PS" and not param.is_embed
                     and config.device_cache_tables
                     and config.prefetch and not config.bsp

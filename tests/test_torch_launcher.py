@@ -370,8 +370,9 @@ def test_executor_rank_comes_from_the_launcher(monkeypatch, env, rank):
 def test_reference_options_are_accepted(tmp_path):
     """``dynamic_memory``, ``enable_lazy``, ``use_sparse_pull``,
     ``train_name`` and ``val_name`` are accepted and change nothing;
-    ``overlap_options`` reaches ``config.overlap``; the options of modes
-    still to port stay refused, naming ROADMAP."""
+    ``overlap_options`` reaches ``config.overlap`` (``bucket_bytes``
+    too), ``mesh`` is accepted; the options of modes still to port stay
+    refused, naming ROADMAP."""
     x, loss, train = _graph()
     feed = {x: np.ones((4, 3), np.float32)}
     plain = tht.Executor([loss, train], ctx=tht.cpu(0))
@@ -392,10 +393,12 @@ def test_reference_options_are_accepted(tmp_path):
     # the engine off: run_batches_stream runs its blocks synchronously
     out = exe.run_batches_stream([[feed] * 2, [feed]])
     assert len(out) == 1
-    with pytest.raises(NotImplementedError, match="item 11a"):
-        tht.HetuConfig([loss], ctx=tht.cpu(0),
-                       overlap_options={"bucket_bytes": 1 << 20})
-    for option in ({"pipeline_mode": "collective"}, {"mesh": None},
+    # bucket_bytes buckets the data-parallel allreduce
+    # (tests/test_torch_dp.py); mesh=None is the job's process group
+    cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), mesh=None,
+                         overlap_options={"bucket_bytes": 1 << 20})
+    assert cfg.overlap.bucket_bytes == 1 << 20 and cfg.mesh is None
+    for option in ({"pipeline_mode": "collective"},
                    {"telemetry": None},
                    {"health_options": None}, {"validate": "warn"},
                    {"log_path": str(tmp_path)}):

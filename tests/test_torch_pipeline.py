@@ -430,8 +430,8 @@ def test_refusals_name_their_roadmap_item():
     x, y_, loss, train = _mlp(tht, _weights(), True)
     with pytest.raises(TypeError, match="ROADMAP item 11b"):
         tht.Executor([loss, train], gpipe=True, pipeline_mode="collective")
-    with pytest.raises(TypeError, match="ROADMAP items 11a and 11b"):
-        tht.Executor([loss, train], gpipe=True, mesh=None)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
+        tht.Executor([loss, train], gpipe=True, comm_mode="AllReduce")
     exe = tht.Executor([loss, train], gpipe=True, num_microbatches=2)
     xs, ys = _data(8)
     with pytest.raises(ValueError, match="run_batches is not supported"):

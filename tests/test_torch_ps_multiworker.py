@@ -3,7 +3,8 @@
 a BSP fleet's losses against the JAX package trained in one process on
 the workers' batches together, the device cache's staleness refresh,
 its kPushSyncEmbedding fold, the drain and the dense HET weights'
-pull-back at two workers, and Hybrid refused across worker processes.
+pull-back at two workers, and Hybrid refused across worker processes
+outside one job.
 Module-level imports stay light: spawned workers import this module."""
 import multiprocessing as mp
 import os
@@ -240,8 +241,10 @@ def test_device_cache_fleet_refreshes_folds_and_drains(tmp_path):
 
 def test_hybrid_is_refused_across_worker_processes(monkeypatch):
     """Each worker process of a fleet sees one worker in its context, so
-    the client's worker count decides: Hybrid's dense allreduce across
-    processes waits for ROADMAP item 11a. PS mode is accepted."""
+    the client's worker count decides: Hybrid across worker processes
+    that have not joined one job (the launcher's ``spmd: true``) has no
+    process group for its dense allreduce, and is refused; PS mode is
+    accepted. Hybrid in such a job trains: tests/test_torch_hybrid_fleet.py."""
     import hetu_tpu_torch as tht
     from hetu_tpu_torch.ps import client as ps_client
     port, _ = start_server(nworkers=2)
@@ -259,7 +262,8 @@ def test_hybrid_is_refused_across_worker_processes(monkeypatch):
         return [loss, tht.optim.SGDOptimizer(0.1).minimize(loss)]
 
     try:
-        with pytest.raises(NotImplementedError, match="item 11a"):
+        with pytest.raises(NotImplementedError,
+                           match="item 11a.*spmd: true"):
             tht.HetuConfig(graph(), comm_mode="Hybrid", device="cpu")
         cfg = tht.HetuConfig(graph(), comm_mode="PS", device="cpu")
         assert cfg.ps_comm.nworkers == 2 and cfg.ps_comm.rank == 1
