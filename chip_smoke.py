@@ -93,6 +93,26 @@ object per line (``--out`` also writes them to FILE):
 * ``dp_parity`` the model at 2 layers in f32 (``simt`` K2–K4), global
   batch 4, 3 Adam steps, two ranks against one process: losses, Adam's
   first moments and the weights;
+* ``tp_gpt`` the ``train`` model split by the JAX package's default
+  rules at tp=2 (``compile_rules`` + ``apply_rules``: each block's four
+  weights by columns, the position table by rows; the odd vocabulary
+  leaves the token table and the LM head whole) and trained by two
+  ranks of one launcher job (``spmd: true``; each ``python chip_smoke.py
+  --tp-worker SPEC``) on the one card, over gloo, all 8 rows each, at
+  hidden dropout 0.1: tokens/s, step ms p50 beside ``train``'s, per
+  rank the calls, bytes and ms a step of the all-gathers and the
+  all-reduces, the values moved between layouts by op type, peak
+  memory, the parameter and slot bytes against one process's, launches
+  a step (K2/K3/K4 12 each, all ``tc``), the card's used memory while
+  the job runs; the checks: step 1 at dropout 0 against one process at
+  the same weights and rows (the loss, and Adam's first moment of layer
+  0's qkv, each rank's columns, and of the LM head), every replicated
+  weight the same on both ranks after the timed steps, every split one
+  at its shard's shape;
+* ``tp_parity`` the model at 2 layers in f32 (``simt`` K2–K4), batch 4,
+  3 Adam steps at dropout 0, two TP ranks against one process (the
+  ``dp_parity`` reference): losses, Adam's first moments and the
+  weights, each gathered whole;
 * ``bert``, ``bert_long`` the same for the two BERT passes, with MFU
   against the bf16 dense peak and the host time of one step by op type
   (the composed attention backward's and dropout's among them); BERT-base
@@ -1849,10 +1869,11 @@ HYBRID_WORKERS = 2
 HYBRID_BSP_STEPS = 20
 
 
-def _gpt_graph(ht, models, widths):
-    """train's graph (bench.py:1103-1118) at ``widths``: (ids, labels,
-    the mean loss, the Adam train op)."""
-    cfg = models.GPTConfig(**widths, hidden_dropout_prob=0.0,
+def _gpt_graph(ht, models, widths, dropout=0.0):
+    """train's graph (bench.py:1103-1118) at ``widths`` (and hidden
+    dropout ``dropout``): (ids, labels, the mean loss, the Adam train
+    op)."""
+    cfg = models.GPTConfig(**widths, hidden_dropout_prob=dropout,
                            use_flash_attention=True)
     ids = ht.Variable("input_ids", trainable=False)
     labels = ht.Variable("labels", trainable=False)
@@ -2062,6 +2083,50 @@ def dp_parity_reference(torch, seed):
     return losses, _parity_state(exe), zero_init
 
 
+def _parity_line(losses, got_state, ref):
+    """A 2-layer f32 parity run of several ranks (``dp_parity``,
+    ``tp_parity``) against the one process ``ref`` (losses, state, the
+    names of the parameters that start at 0): losses within
+    DP_PARITY_LOSS_TOL relative, Adam's first moments within
+    DP_PARITY_WEIGHT_TOL and the weights within DP_PARITY_WEIGHT_TOL
+    (DP_PARITY_ZERO_INIT_TOL for a tensor that starts at 0) of each
+    tensor's largest element. Returns (the line's numbers, ok)."""
+    ref_losses, ref_state, zero_init = ref
+    parity_rel = abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)
+    weight_err, moment_err = {}, {}
+    for name, (ref_w, ref_m) in ref_state.items():
+        got_w, got_m = got_state[name]
+        weight_err[name] = float((got_w - ref_w).abs().max()
+                                 / (ref_w.abs().max() or 1.0))
+        moment_err[name] = float((got_m - ref_m).abs().max()
+                                 / (ref_m.abs().max() or 1.0))
+    weight_faults = {
+        name: err for name, err in weight_err.items()
+        if err > (DP_PARITY_ZERO_INIT_TOL if name in zero_init
+                  else DP_PARITY_WEIGHT_TOL)}
+    worst = max(weight_err, key=weight_err.get)
+    worst_m = max(moment_err, key=moment_err.get)
+    trained = [n for n in weight_err if n not in zero_init]
+    worst_trained = max(trained, key=weight_err.get)
+    line = {"losses": losses, "reference_losses": ref_losses,
+            "loss_rel_err": float(parity_rel.max()),
+            "loss_tol": DP_PARITY_LOSS_TOL,
+            "weight_err_of_largest": weight_err[worst],
+            "worst_weight": worst,
+            "worst_nonzero_init_weight": [worst_trained,
+                                          weight_err[worst_trained]],
+            "weight_tol": DP_PARITY_WEIGHT_TOL,
+            "zero_init_weight_tol": DP_PARITY_ZERO_INIT_TOL,
+            "zero_init_weights": sorted(zero_init),
+            "first_moment_err_of_largest": moment_err[worst_m],
+            "worst_first_moment": worst_m,
+            "tensors_compared": len(weight_err)}
+    ok = sorted(got_state) == sorted(ref_state) and \
+        line["loss_rel_err"] <= DP_PARITY_LOSS_TOL and not weight_faults \
+        and moment_err[worst_m] <= DP_PARITY_WEIGHT_TOL
+    return line, ok
+
+
 def dp_pass(card, seed, train_line):
     """``dp_gpt`` and ``dp_parity``: DP_RANKS processes of one job
     started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``),
@@ -2078,7 +2143,8 @@ def dp_pass(card, seed, train_line):
     starts at 0) of each tensor's largest element against the one
     process on the card (dp_parity_reference). Returns ({"dp_gpt":
     line, "dp_parity": line}, dp_gpt's launch counts summed over the
-    ranks)."""
+    ranks, the one-process reference, which ``tp_parity`` is held to
+    too)."""
     import shutil
     import tempfile
     import torch
@@ -2156,45 +2222,16 @@ def dp_pass(card, seed, train_line):
               "launcher_wall_s": wall,
               "card_memory_used_mib_max": max(used) if used else None,
               "card_memory_samples": len(used), "per_rank": ranks}
-    parity_rel = abs(np.asarray(records[0]["parity_losses"])
-                     - ref_losses) / np.abs(ref_losses)
-    weight_err, moment_err = {}, {}
-    for name, (ref_w, ref_m) in ref_state.items():
-        got_w, got_m = got_state[name]
-        weight_err[name] = float((got_w - ref_w).abs().max()
-                                 / (ref_w.abs().max() or 1.0))
-        moment_err[name] = float((got_m - ref_m).abs().max()
-                                 / (ref_m.abs().max() or 1.0))
-    weight_faults = {
-        name: err for name, err in weight_err.items()
-        if err > (DP_PARITY_ZERO_INIT_TOL if name in zero_init
-                  else DP_PARITY_WEIGHT_TOL)}
-    worst = max(weight_err, key=weight_err.get)
-    worst_m = max(moment_err, key=moment_err.get)
-    trained = [n for n in weight_err if n not in zero_init]
-    worst_trained = max(trained, key=weight_err.get)
+    dp_parity, parity_ok = _parity_line(
+        records[0]["parity_losses"], got_state,
+        (ref_losses, ref_state, zero_init))
     dp_parity = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
                  "num_hidden_layers": DP_PARITY_LAYERS, "dtype": "float32",
                  "ranks": DP_RANKS, "global_batch": DP_PARITY_BATCH,
                  "steps": DP_PARITY_STEPS, "reference": "one process on "
                  "the card, no job joined", "reference_s": ref_s,
-                 "losses": records[0]["parity_losses"],
-                 "reference_losses": ref_losses,
-                 "loss_rel_err": float(parity_rel.max()),
-                 "loss_tol": DP_PARITY_LOSS_TOL,
-                 "weight_err_of_largest": weight_err[worst],
-                 "worst_weight": worst,
-                 "worst_nonzero_init_weight": [worst_trained,
-                                               weight_err[worst_trained]],
-                 "weight_tol": DP_PARITY_WEIGHT_TOL,
-                 "zero_init_weight_tol": DP_PARITY_ZERO_INIT_TOL,
-                 "zero_init_weights": sorted(zero_init),
-                 "first_moment_err_of_largest": moment_err[worst_m],
-                 "worst_first_moment": worst_m,
-                 "tensors_compared": len(weight_err)}
-    if sorted(got_state) != sorted(ref_state) or \
-            dp_parity["loss_rel_err"] > DP_PARITY_LOSS_TOL or \
-            weight_faults or moment_err[worst_m] > DP_PARITY_WEIGHT_TOL:
+                 **dp_parity}
+    if not parity_ok:
         faults.append(f"dp_parity {dp_parity}")
     if faults:
         log(f"dp failed: {dp_gpt}")
@@ -2203,7 +2240,351 @@ def dp_pass(card, seed, train_line):
     for rec in records:
         for k, v in rec["launches"].items():
             counts[k] = counts.get(k, 0) + v
-    return {"dp_gpt": dp_gpt, "dp_parity": dp_parity}, counts
+    return {"dp_gpt": dp_gpt, "dp_parity": dp_parity}, counts, \
+        (ref_losses, ref_state, zero_init)
+
+
+# ---------------------------------------------------------------------------
+# tp_gpt, tp_parity: the train model split by the default rules at tp=2,
+# two ranks of one launcher job on the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2
+TP_WARMUP, TP_STEPS = 2, 4
+TP_DROPOUT = 0.1        # the timed steps' hidden dropout
+# step 1 (dropout 0) against one process at the same weights and rows:
+# the loss within DP_LOSS_TOL; Adam's first moment of these (each rank's
+# block against the same block) within GRAD_PARITY_TOL of its largest
+# element: the k-split products' bf16 partial sums round otherwise than
+# one product of the whole contraction
+TP_MOMENTS = ("gpt_h0_attn_qkv_weights", "gpt_lm_head_weights")
+# a replicated weight across the ranks after the timed steps, of its
+# largest element: both ranks compute every replicated value from the
+# same inputs (dropout's masks from the same generator)
+TP_SAME_TOL = 1e-6
+TP_TIMEOUT_S = 400
+
+
+def _tp_split(ht, nodes):
+    """The default rules compiled at tp=TP_RANKS and spliced into the
+    graph (the JAX package's way to put dispatch specs on a model);
+    returns the bindings' parameter names."""
+    bindings, _ = ht.parallel.compile_rules(nodes, tp=TP_RANKS)
+    ht.parallel.apply_rules(nodes, bindings)
+    return sorted(b.param.name for b in bindings)
+
+
+def _params_and_slots_bytes(exe):
+    return sum(t.numel() * t.element_size() for t in exe.params.values()) \
+        + sum(t.numel() * t.element_size() for slots in
+              exe.opt_state.values() for t in slots.values())
+
+
+def tp_reference(torch, seed):
+    """One process's step 1 of tp_gpt's graph without the split (train's
+    model, weights and rows, dropout 0, bf16): its loss, Adam's first
+    moments of TP_MOMENTS (on the host), and the parameter and slot
+    bytes and parameter elements it holds."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    ids, labels, lm, train_op = _gpt_graph(ht, M, GPT2_SMALL)
+    exe = ht.Executor([lm, train_op], dtype=torch.bfloat16)
+    x, y = _gpt_rows(seed, TRAIN_BATCH)
+    loss = float(exe.run(feed_dict={
+        ids: torch.as_tensor(x, device="cuda"),
+        labels: torch.as_tensor(y, device="cuda")})[0].asnumpy())
+    nodes = {n.name: n for n in exe._param_nodes.values()}
+    moments = {name: exe.opt_state[nodes[name].id]["m"].cpu()
+               for name in TP_MOMENTS}
+    return {"loss": loss, "moments": moments,
+            "params_and_slots_bytes": _params_and_slots_bytes(exe),
+            "param_elements": sum(t.numel() for t in exe.params.values())}
+
+
+def tp_worker(spec):
+    """One rank of ``tp_gpt`` and ``tp_parity``, run by the launcher as
+    ``python chip_smoke.py --tp-worker SPEC`` (``spmd: true``: one job of
+    TP_RANKS processes; nothing passes a mesh, the executor lays the
+    plan over the job). Step 1 of the split graph at dropout 0, whose
+    loss and first moments (this rank's blocks) go to the parent; then
+    the timed steps at TP_DROPOUT through ``Executor.run`` in bf16, the
+    launch counts set to 0 before them and read after, the collectives
+    timed after a device sync; then the largest difference of a
+    replicated weight between the ranks. ``tp_parity``: the model at
+    DP_PARITY_LAYERS layers in f32 on DP_PARITY_BATCH rows, its weights
+    and first moments gathered whole, saved by rank 0. ``spec`` may set
+    ``device`` and ``widths`` (a rehearsal on the CPU at small widths).
+    Writes ``worker_<rank>.json``, ``moments_<rank>.pt`` and
+    ``parity_state.pt``."""
+    import torch
+    import torch.distributed as dist
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["RANK"])
+    device = spec.get("device", "cuda")
+    widths = spec.get("widths", GPT2_SMALL)
+    batch = spec.get("batch", TRAIN_BATCH)
+    dtype = torch.bfloat16 if device == "cuda" else None
+
+    def rows(n):
+        # train's rows; a rehearsal's narrower model takes their first
+        # positions, its ids folded into its vocabulary
+        x = _gpt_rows(spec["seed"], n)[0][
+            :, :widths["max_position_embeddings"]] % widths["vocab_size"]
+        return x, np.concatenate([x[:, 1:], np.full((n, 1), -1)], axis=1)
+
+    def session(nodes, **options):
+        # on the card the entry point's own default: cuda:{LOCAL_RANK}
+        if device != "cuda":
+            options["device"] = device
+        exe = ht.Executor(nodes, **options)
+        return exe, {n.name: n for n in exe._param_nodes.values()}
+
+    ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+    bound = _tp_split(ht, [lm, train_op])
+    t0 = time.perf_counter()
+    exe, nodes = session([lm, train_op], dtype=dtype)
+    cfg = exe.config
+    rec = {"rank": rank, "executor_setup_s": time.perf_counter() - t0,
+           "backend": dist.get_backend(), "nrank": cfg.nrank,
+           "mesh": dict(cfg.mesh.shape), "coord": cfg.mesh.coord("tp0"),
+           "device": str(cfg.device), "bound": bound}
+    x, y = rows(batch)
+    feeds = {ids: torch.as_tensor(x, device=cfg.device),
+             labels: torch.as_tensor(y, device=cfg.device)}
+    rec["step1_loss"] = float(exe.run(feed_dict=feeds)[0].asnumpy())
+    torch.save({name: (exe.opt_state[nodes[name].id]["m"].cpu(),
+                       exe._layout(nodes[name])) for name in TP_MOMENTS},
+               os.path.join(spec["out"], f"moments_{rank}.pt"))
+    rec["shards"] = {name: [list(node.shape), list(exe.params[str(
+        node.id)].shape), exe._layout(node)] for name, node in nodes.items()}
+    rec["params_and_slots_bytes"] = _params_and_slots_bytes(exe)
+    rec["param_elements"] = sum(t.numel() for t in exe.params.values())
+    del exe, feeds
+    _release(torch)
+
+    ids, labels, lm, train_op = _gpt_graph(ht, M, widths, TP_DROPOUT)
+    _tp_split(ht, [lm, train_op])
+    exe, nodes = session([lm, train_op], dtype=dtype)
+    sub = exe.subexecutors["default"]
+    comm = exe.config.mesh.comm("tp0")
+    comm.sync_timing = True
+    feeds = {ids: torch.as_tensor(x, device=cfg.device),
+             labels: torch.as_tensor(y, device=cfg.device)}
+    cuda = device == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, step_ms = [], []
+    for i in range(TP_WARMUP + TP_STEPS):
+        if i == TP_WARMUP:
+            comm.reset_stats()
+            sub.tp.reset_stats()
+            dist.barrier()
+            rec["window_start"] = time.time()
+        t = time.perf_counter()
+        losses.append(float(exe.run(feed_dict=feeds)[0].asnumpy()))
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    rec["window_end"] = time.time()
+    rec["launches"] = dict(_build.launch_counts)    # main path ends
+    per_step = {kind: {op: n / TP_STEPS for op, n in counts.items()}
+                for kind, counts in sub.tp.moves.items()}
+    rec.update(losses=losses, step_ms=step_ms,
+               step_ms_p50=float(np.median(step_ms[TP_WARMUP:])),
+               comm_per_step=_comm_per_step(comm.stats, TP_STEPS),
+               moves_per_step=per_step,
+               gather_rule_per_step={op: n / TP_STEPS for op, n in
+                                     sub.tp.gather_rule.items()},
+               peak_memory_bytes=int(torch.cuda.max_memory_allocated())
+               if cuda else None)
+    rec["replicated_rel_diff_across_ranks"] = _across_ranks(
+        torch, dist, [exe.params[str(n.id)] for n in nodes.values()
+                      if exe._layout(n) is None])
+    del exe, feeds
+    _release(torch)
+
+    parity_widths = dict(widths, num_hidden_layers=DP_PARITY_LAYERS)
+    ids, labels, lm, train_op = _gpt_graph(ht, M, parity_widths)
+    _tp_split(ht, [lm, train_op])
+    exe, nodes = session([lm, train_op])
+    x, y = rows(DP_PARITY_BATCH)
+    feeds = {ids: torch.as_tensor(x, device=cfg.device),
+             labels: torch.as_tensor(y, device=cfg.device)}
+    rec["parity_losses"] = [float(exe.run(feed_dict=feeds)[0].asnumpy())
+                            for _ in range(DP_PARITY_STEPS)]
+    state = {name: (exe._whole(n, exe.params[str(n.id)]).cpu(),
+                    exe._whole(n, exe.opt_state[n.id]["m"]).cpu())
+             for name, n in nodes.items() if n.id in exe.opt_state}
+    if rank == 0:
+        torch.save(state, os.path.join(spec["out"], "parity_state.pt"))
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    return 0
+
+
+def _tp_job(seed, out_dir, sample_card, **spec):
+    """tp_gpt's job: TP_RANKS launcher processes of one spmd job, each
+    ``python chip_smoke.py --tp-worker SPEC``. Returns (wall s, the
+    card's used-memory samples, the workers' records by rank, rank 0's
+    parity state, each rank's first moments)."""
+    import torch
+    wall, used = _launch_job(
+        "tp", f"spmd: true\nnodes:\n  - host: localhost\n"
+        f"    workers: {TP_RANKS}\n    chief: true\n", "--tp-worker",
+        {"seed": seed, "out": out_dir, **spec}, TP_TIMEOUT_S, sample_card)
+    records, moments = [], []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+            records.append(json.load(f))
+        moments.append(torch.load(os.path.join(out_dir,
+                                               f"moments_{r}.pt")))
+    return wall, used, records, torch.load(
+        os.path.join(out_dir, "parity_state.pt")), moments
+
+
+def _block(ref, layout, coord):
+    """The block of a whole ``ref`` a rank holds in ``layout`` (a dim
+    split over the one tp axis: its coord-th part)."""
+    for d, axes in enumerate(layout or ()):
+        if axes:
+            n = ref.shape[d] // TP_RANKS
+            ref = ref.narrow(d, coord * n, n)
+    return ref
+
+
+def tp_pass(card, seed, train_line, parity_ref):
+    """``tp_gpt`` and ``tp_parity``: TP_RANKS processes of one job
+    started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``) on
+    the one card, where the executors pick gloo. The checks: the
+    backend gloo, each rank on cuda:0 at its coordinate of a ("tp0",)
+    mesh; K2, K3 and K4 12 launches a step in each rank, all on tc, K1
+    none; step 1 (dropout 0) against one process at the same weights
+    and rows (tp_reference): the loss within DP_LOSS_TOL, Adam's first
+    moments of TP_MOMENTS (each rank's block) within GRAD_PARITY_TOL of
+    their largest element; the timed losses finite and falling; every
+    replicated weight the same on both ranks within TP_SAME_TOL of its
+    largest element; every split weight at its shard's shape (one dim
+    halved). tp_parity: rank 0's losses, first moments and weights
+    against ``parity_ref`` (``dp_parity``'s one process) as dp_parity
+    holds them. Returns ({"tp_gpt": line, "tp_parity": line}, tp_gpt's
+    launch counts summed over the ranks)."""
+    import shutil
+    import tempfile
+    import torch
+    from hetu_tpu_torch.ops import flash_attention as fa
+    t = time.perf_counter()
+    ref = tp_reference(torch, seed)
+    ref_s = time.perf_counter() - t
+    _release(torch)
+    out_dir = tempfile.mkdtemp(prefix="tp_job_")
+    try:
+        wall, used, records, got_state, moments = _tp_job(seed, out_dir,
+                                                          True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = TP_WARMUP + TP_STEPS
+    want_l = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                           GPT2_SMALL["num_hidden_layers"] * steps)
+    faults, ranks = [], []
+    split_want = {"gpt_wpe"} | {
+        f"gpt_h{i}_{w}_weights"
+        for i in range(GPT2_SMALL["num_hidden_layers"])
+        for w in ("attn_qkv", "attn_proj", "mlp_fc", "mlp_proj")}
+    for rec, mom in zip(records, moments):
+        r = rec["rank"]
+        got_l = {k: rec["launches"].get(k, 0) for k in want_l}
+        if got_l != want_l:
+            faults.append(f"rank {r} launched {got_l}")
+        if rec["backend"] != "gloo" or rec["device"] != "cuda:0" or \
+                rec["mesh"] != {"tp0": TP_RANKS} or rec["coord"] != r:
+            faults.append(f"rank {r}: {rec['backend']} on {rec['device']}, "
+                          f"mesh {rec['mesh']} at {rec['coord']}")
+        split = {name for name, (_, _, lay) in rec["shards"].items() if lay}
+        halved = all(
+            got == [s // TP_RANKS if ax else s for s, ax in zip(whole, lay)]
+            for whole, got, lay in rec["shards"].values() if lay)
+        if split != split_want or set(rec["bound"]) != split_want or \
+                not halved:
+            faults.append(f"rank {r} split {sorted(split)}, bound "
+                          f"{rec['bound']}, shapes halved {halved}")
+        moment_err = {}
+        for name, (m, layout) in mom.items():
+            want = _block(ref["moments"][name], layout, r)
+            moment_err[name] = float((m - want).abs().max()
+                                     / want.abs().max())
+        if max(moment_err.values()) > GRAD_PARITY_TOL:
+            faults.append(f"rank {r} first moments {moment_err}")
+        if rec["replicated_rel_diff_across_ranks"] > TP_SAME_TOL:
+            faults.append(f"rank {r} replicated weights differ by "
+                          f"{rec['replicated_rel_diff_across_ranks']}")
+        ranks.append({k: rec[k] for k in (
+            "rank", "device", "coord", "executor_setup_s", "step_ms",
+            "step_ms_p50", "comm_per_step", "moves_per_step",
+            "gather_rule_per_step", "peak_memory_bytes",
+            "params_and_slots_bytes", "param_elements", "step1_loss",
+            "replicated_rel_diff_across_ranks")})
+        ranks[-1]["first_moment_err_of_largest"] = moment_err
+        ranks[-1]["launches_per_step"] = {
+            k: rec["launches"].get(k, 0) / steps
+            for k in (fa.K1, fa.K2, fa.K3, fa.K4)}
+    losses = records[0]["losses"]
+    step1 = records[0]["step1_loss"]
+    loss_err = abs(step1 - ref["loss"]) / abs(ref["loss"])
+    if loss_err > DP_LOSS_TOL or not all(np.isfinite(losses)) or \
+            not losses[-1] < losses[0] or \
+            any(r["losses"] != losses or r["step1_loss"] != step1
+                for r in records):
+        faults.append(f"losses {[r['losses'] for r in records]}, step 1 "
+                      f"{[r['step1_loss'] for r in records]} against one "
+                      f"process's {ref['loss']}")
+    window = max(r["window_end"] - r["window_start"] for r in records)
+    tokens = TRAIN_BATCH * GPT2_SMALL["max_position_embeddings"]
+    p50 = max(r["step_ms_p50"] for r in records)
+    tp_gpt = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+              "tp": TP_RANKS, "rows_per_rank": TRAIN_BATCH,
+              "seq": GPT2_SMALL["max_position_embeddings"],
+              "dtype": "bfloat16", "optimizer": "Adam", "lr": TRAIN_LR,
+              "dropout": TP_DROPOUT, "rules": "DEFAULT_RULES",
+              "split_params": len(split_want),
+              "backend": records[0]["backend"],
+              "warmup_steps": TP_WARMUP, "timed_steps": TP_STEPS,
+              "tokens_per_s": tokens * TP_STEPS / window,
+              "slowest_window_s": window, "step_ms_p50": p50,
+              "train_step_ms_p50": train_line["step_ms_p50"],
+              "step_cost_vs_train": p50 / train_line["step_ms_p50"],
+              "losses": losses, "step1_loss": step1,
+              "one_process_step1_loss": ref["loss"],
+              "step1_loss_rel_err": loss_err, "loss_tol": DP_LOSS_TOL,
+              "first_moment_tol": GRAD_PARITY_TOL,
+              "same_weights_tol": TP_SAME_TOL,
+              "one_process_params_and_slots_bytes":
+                  ref["params_and_slots_bytes"],
+              "one_process_param_elements": ref["param_elements"],
+              "reference_s": ref_s, "launcher_wall_s": wall,
+              "card_memory_used_mib_max": max(used) if used else None,
+              "card_memory_samples": len(used), "per_rank": ranks}
+    line, parity_ok = _parity_line(records[0]["parity_losses"], got_state,
+                                   parity_ref)
+    tp_parity = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+                 "num_hidden_layers": DP_PARITY_LAYERS, "dtype": "float32",
+                 "tp": TP_RANKS, "batch": DP_PARITY_BATCH,
+                 "steps": DP_PARITY_STEPS, "reference": "dp_parity's one "
+                 "process on the card", **line}
+    if not parity_ok:
+        faults.append(f"tp_parity {tp_parity}")
+    if faults:
+        log(f"tp failed: {tp_gpt}")
+        raise AssertionError(f"tp: {faults}")
+    counts = {}
+    for rec in records:
+        for k, v in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return {"tp_gpt": tp_gpt, "tp_parity": tp_parity}, counts
 
 
 def _hybrid_traffic(seed):
@@ -5054,6 +5435,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # dp_gpt's ranks
     ap.add_argument("--hybrid-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # hybrid_fleet's workers
+    ap.add_argument("--tp-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # tp_gpt's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -5072,6 +5455,9 @@ def main(argv=None):
     if args.hybrid_worker is not None:
         sys.path.insert(0, ROOT)
         return hybrid_worker(json.loads(args.hybrid_worker))
+    if args.tp_worker is not None:
+        sys.path.insert(0, ROOT)
+        return tp_worker(json.loads(args.tp_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -5144,8 +5530,13 @@ def main(argv=None):
     log(f"pp_fleet ({time.perf_counter() - t:.1f} s) {pp_lines['pp_fleet']}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    dp_lines, dp_launches = dp_pass(card, args.seed, train_line)
+    dp_lines, dp_launches, parity_ref = dp_pass(card, args.seed, train_line)
     log(f"dp ({time.perf_counter() - t:.1f} s) {dp_lines}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    tp_lines, tp_launches = tp_pass(card, args.seed, train_line, parity_ref)
+    del parity_ref
+    log(f"tp ({time.perf_counter() - t:.1f} s) {tp_lines}")
     torch.cuda.empty_cache()
 
     bert_lines, bert_launches = {}, {}
@@ -5245,7 +5636,8 @@ def main(argv=None):
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
                    ("pp_1f1b", pp_launches["1f1b"], PP_REP),
-                   ("dp_gpt", dp_launches, DP_REP)]
+                   ("dp_gpt", dp_launches, DP_REP),
+                   ("tp_gpt", tp_launches, TRAIN_REP)]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -5277,6 +5669,7 @@ def main(argv=None):
              {"serve_dense": dense_line}, {"train": train_line},
              *({name: line} for name, line in pp_lines.items()),
              *({name: line} for name, line in dp_lines.items()),
+             *({name: line} for name, line in tp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},

@@ -34,6 +34,12 @@ What runs today:
   launcher's ``spmd: true`` processes, one a card: the global batch
   split over the ranks, gradients averaged over ``torch.distributed``
   (:mod:`.parallel.mesh`, :mod:`.parallel.data_parallel`);
+* tensor-parallel training (``ht.dispatch`` specs, by hand or from
+  :func:`~.parallel.autoplan.compile_rules`) across a launcher's
+  ``spmd: true`` processes: the planner's ``NodeStatus`` propagation,
+  each rank holding and computing its shards
+  (:mod:`.parallel.planner`, :mod:`.parallel.tensor_parallel`), with
+  data parallelism beside it on the mesh's ``dp`` axis;
 * pipeline-parallel training, GPipe and PipeDream 1F1B (``gpipe=True``
   / ``pipedream=True``), its stages placed by ``with ht.context(...)``,
   in one process or across a launcher's worker processes
@@ -52,7 +58,7 @@ from . import data, metrics, models, parallel, stream, telemetry
 from . import initializers as init
 from . import lr_scheduler as lr
 from . import optimizer as optim
-from .context import DeviceGroup, context, get_current_context
+from .context import DeviceGroup, NodeStatus, context, get_current_context
 from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
                          dataloader_op)
 from .device import resolve_device
@@ -70,7 +76,8 @@ from .ops import __all__ as _ops_all
 
 __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
            "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu", "is_gpu_ctx",
-           "is_tpu_ctx", "DeviceGroup", "context", "get_current_context",
+           "is_tpu_ctx", "DeviceGroup", "NodeStatus", "context",
+           "get_current_context",
            "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
            "scheduler_init", "scheduler_finish", "server_init",
            "server_finish", "worker_init", "worker_finish",

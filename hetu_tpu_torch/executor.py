@@ -72,8 +72,23 @@ process or across a launcher's worker processes; each parameter, and
 its optimizer slots, lives on its stage's device, and a worker process
 materializes only its own stages' parameters.
 
-Tensor parallelism, the collective pipeline, telemetry and the
-preflight analysis are still to port; ``HetuConfig`` refuses their
+**Tensor parallel** (``ht.dispatch`` specs, by hand or from
+:func:`~hetu_tpu_torch.parallel.autoplan.apply_rules`): without a
+pipeline the planner propagates the dispatches' statuses to a partition
+spec a node (reference executor.py:320-330,
+:mod:`~hetu_tpu_torch.parallel.planner`) over a mesh of the job's ranks,
+``("dp", "tp0", ...)`` — ``mesh=`` or, without one, the joined job laid
+out by ``mesh_for_statuses``. Each rank draws every parameter whole from
+the seed, as one process does, and keeps its shard (its optimizer slots
+are the shard's); the step's walk runs through
+:class:`~hetu_tpu_torch.parallel.tensor_parallel.TensorParallel`, which
+computes each op on the shards or moves values between layouts; fetched
+values are made whole; ``save`` gathers (every rank calls it, the mesh's
+rank 0 writes) and ``load_params`` slices. Data parallelism then rides
+the mesh's ``dp`` axis alone, and its dropout seed is the rank's ``dp``
+coordinate. TP or DP inside a pipeline stage, TP on a parameter server,
+the collective pipeline, the auto-planner's cost model, telemetry and
+the preflight analysis are still to port; ``HetuConfig`` refuses their
 options, each naming its ROADMAP item.
 """
 from __future__ import annotations
@@ -112,10 +127,11 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
 
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
-    "pipeline_mode": "item 11b (collective_pp.py over NCCL send/recv)",
-    "parallel": "item 11b (autoplan.py)",
-    "rules": "item 11b (autoplan.py)",
-    "autoplan_options": "item 11b (autoplan.py)",
+    "pipeline_mode": "item 11b.2 (collective_pp.py over NCCL send/recv)",
+    "parallel": "item 11b.3 (autoplan.py's choose_plan and cost model)",
+    "rules": "item 11b.3 (autoplan.py's choose_plan and cost model)",
+    "autoplan_options": "item 11b.3 (autoplan.py's choose_plan and cost "
+                        "model)",
     "telemetry": "item 14", "health_options": "item 14",
     "log_path": "item 14 (profiler.py's StepLogger)",
     "validate": "item 17",
@@ -268,11 +284,14 @@ class HetuConfig:
     the data-parallel allreduce. ``mesh`` (a
     :class:`~hetu_tpu_torch.parallel.mesh.Mesh`) names the process
     groups: data parallelism runs over its ``dp`` axis; without it, over
-    the whole job when one is joined. ``gpipe`` / ``pipedream`` train
-    under a pipeline schedule over ``num_microbatches`` microbatches
-    (``pp_options``: ``virtual_stages``); without ``ctx`` or ``device``
-    the session's device is then the first stage's. The reference's
-    ``train_name``,
+    the whole job when one is joined; a graph with tensor-parallel
+    dispatches lays them over the mesh's model axes (``tp0``, ``tp1``,
+    ...; without ``mesh``, a mesh over the joined job) and
+    :meth:`spec_for` names each node's partition. ``gpipe`` /
+    ``pipedream`` train under a pipeline schedule over
+    ``num_microbatches`` microbatches (``pp_options``:
+    ``virtual_stages``); without ``ctx`` or ``device`` the session's
+    device is then the first stage's. The reference's ``train_name``,
     ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
     ``dynamic_memory`` are accepted and, as there, change nothing."""
 
@@ -359,7 +378,19 @@ class HetuConfig:
             raise NotImplementedError(
                 f"a pipeline in the {self.comm_mode or 'data-parallel'} "
                 f"mode: data parallel or PS stages wait for ROADMAP item "
-                f"11b")
+                f"11b.4 (TP and DP inside a pipeline stage)")
+        # tensor parallel: the planner's statuses on the user's graph
+        # decide the TP degree, and with it the job's mesh (dp x tp)
+        self.node_status, self.node_spec, self.model_axes = {}, {}, {}
+        self.tp_layouts = None
+        from .parallel.mesh import tp_degree
+        from .parallel.planner import propagate_statuses
+        statuses = propagate_statuses(find_topo_sort(eval_node_list))
+        tp = tp_degree(statuses.values())
+        if tp > 1:
+            self._refuse_tp(tp, pipeline)
+            mesh = self._tp_mesh(statuses, mesh, tp)
+            self.mesh = mesh
         if mesh is not None:
             if "dp" in mesh.axis_names:
                 self.dp_comm = mesh.comm("dp")
@@ -420,9 +451,62 @@ class HetuConfig:
             node.backward_hook(self)
         for node in find_topo_sort(eval_node_list):
             node.forward_hook(self)
+        # the TP planner (reference executor.py:320-330), on the graph
+        # with its comm ops spliced
+        if tp > 1:
+            from .parallel.planner import assign_states
+            from .parallel.tensor_parallel import Layouts
+            assign_states(eval_node_list, self)
+            self.tp_layouts = Layouts(self.mesh, self.model_axes)
         if self.comm_mode in ("PS", "Hybrid") or self.ps_nodes:
             from .ps.client import get_default_client
             self.ps_comm = get_default_client()
+
+    def _refuse_tp(self, degree, pipeline):
+        """A ``degree``-way tensor-parallel plan where the port has none:
+        inside a pipeline, on a parameter server, over several devices of
+        one process. Raises naming its ROADMAP item."""
+        if pipeline:
+            raise NotImplementedError(
+                f"tensor parallel ({degree}-way dispatch) inside a "
+                f"pipeline: TP and DP inside a pipeline stage wait for "
+                f"ROADMAP item 11b.4")
+        if self.comm_mode in ("PS", "Hybrid"):
+            raise NotImplementedError(
+                f"tensor parallel ({degree}-way dispatch) in the "
+                f"{self.comm_mode} mode: a split parameter on a parameter "
+                f"server is not ported (ROADMAP item 11b.4)")
+        if self.context.worker_num > 1:
+            raise NotImplementedError(
+                f"tensor parallel over {self.context.worker_num} devices of "
+                f"one process's context: run one process per rank under "
+                f"the launcher's spmd: true (several devices in one process "
+                f"are ROADMAP item 11a's remainder)")
+
+    def _tp_mesh(self, statuses, mesh, degree):
+        """The session's mesh for a ``degree``-way plan: ``mesh`` if the
+        caller gave one (its model axes must be the degree's prime
+        factors, ``tp0``, ``tp1``, ...), else one over the joined job,
+        ``("dp", "tp0", ...)`` with dp = world / degree."""
+        from .parallel.mesh import factorized_axes, mesh_for_statuses
+        want = factorized_axes(degree)
+        if mesh is not None:
+            have = {a: mesh.shape[a] for a in mesh.axis_names if a != "dp"}
+            if have != want or list(have) != list(want):
+                raise ValueError(
+                    f"a {degree}-way tensor-parallel plan needs the model "
+                    f"axes {want} beside an optional 'dp' axis; the mesh "
+                    f"has {mesh.shape}")
+            return mesh
+        import torch.distributed as dist
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        return mesh_for_statuses(statuses.values(),
+                                 dp=max(1, world // degree))[0]
+
+    def spec_for(self, node):
+        """The partition spec the TP planner assigned ``node`` (None: it
+        is replicated)."""
+        return self.node_spec.get(node)
 
     def _rewrite_device_cache(self, eval_node_list):
         """Rewrite PS embedding lookups onto device-cache parameters
@@ -597,6 +681,11 @@ class SubExecutor:
         if config.nrank > 1:
             from .parallel.data_parallel import DataParallel
             self.dp = DataParallel(self, config.dp_comm)
+        # tensor parallel: every node laid out over the mesh's model axes
+        self.tp = None
+        if config.tp_layouts is not None:
+            from .parallel.tensor_parallel import TensorParallel
+            self.tp = TensorParallel(self, config)
         self.allreduce_defer = None
         if config.nrank > 1 and config.overlap.bucket_bytes:
             from .ops.comm import optimizer_allreduce_ops
@@ -697,15 +786,22 @@ class SubExecutor:
         dp = self.dp
         if dp is not None:
             global_feed, feed_map = feed_map, dp.shard(feed_map)
+        tp = self.tp
         if key != self._shapes_key:
             if dp is not None:
                 dp.classify(global_feed, feed_map)
             else:
                 self._infer_shapes(feed_map)
+            if tp is not None:
+                tp.classify()
             self._ensure_state(executor)
             self._shapes_key = key
+        if tp is not None:
+            feed_map = tp.shard_feeds(feed_map)
 
-        # each rank draws its own dropout masks for its rows
+        # each data-parallel rank draws its own dropout masks for its
+        # rows (dp.rank is the rank's coordinate on the dp axis: the
+        # ranks of one tensor-parallel group draw the same masks)
         seed = config.seed if dp is None else \
             config.seed * 1_000_003 + dp.rank
         ectx = ExecContext(training=self.training, seed=seed,
@@ -731,8 +827,10 @@ class SubExecutor:
                 if node not in env:
                     # a PS push op or an unmaterialized PS table: the PS
                     # runtime works on them between steps
-                    env[node] = None if node in host_ops else node.compute(
-                        [env[n] for n in node.inputs], ectx)
+                    vals = [env[n] for n in node.inputs]
+                    env[node] = None if node in host_ops \
+                        else node.compute(vals, ectx) if tp is None \
+                        else tp.compute(node, vals, ectx)
                 for dead in self._free_after[i]:
                     env.pop(dead, None)
 
@@ -747,6 +845,8 @@ class SubExecutor:
         self.step_count += 1
         outputs = [None if isinstance(node, OptimizerOp) else env[node]
                    for node in self.eval_node_list]
+        if tp is not None:
+            outputs = tp.fetch(self.eval_node_list, outputs)
         if dp is not None:
             outputs = dp.fetch(self.eval_node_list, outputs)
         return outputs, [env[op.inputs[0]] for op in self.ps_ops]
@@ -823,8 +923,12 @@ class Executor:
                     value = torch.zeros(node.shape, dtype=torch.float32,
                                         device=device)
                 else:
-                    value = torch.from_numpy(np.ascontiguousarray(
-                        node.initial_value(seed=config.seed))).to(device)
+                    # drawn whole, as one process draws it; a rank of a
+                    # tensor-parallel session keeps its shard
+                    value = self._local(node, torch.from_numpy(
+                        np.ascontiguousarray(
+                            node.initial_value(seed=config.seed))))
+                    value = value.contiguous().to(device)
                 self.params[str(node.id)] = value
                 self._param_nodes[str(node.id)] = node
         if placement is None:
@@ -999,19 +1103,49 @@ class Executor:
             by_name[node.name] = sid
         return by_name
 
+    def _layout(self, node):
+        """A parameter's tensor-parallel layout (None: held whole)."""
+        tp = self.config.tp_layouts
+        return None if tp is None else tp.fit(self.config.spec_for(node),
+                                              tuple(node.shape))
+
+    def _local(self, node, value):
+        """This rank's shard of a parameter's (or slot's) whole value."""
+        layout = self._layout(node)
+        return value if layout is None else \
+            self.config.tp_layouts.local(value, layout)
+
+    def _whole(self, node, value):
+        """A parameter's (or slot's) whole value from every rank's shard:
+        a collective under tensor parallelism."""
+        layout = self._layout(node)
+        return value if layout is None else \
+            self.config.tp_layouts.redistribute(value, layout, None)[0]
+
     def save(self, file_path, file_name=None):
         """One ``<name>.npy`` per parameter (the f32 masters) plus
         optimizer slots and op state (keyed by op id) in a sidecar
-        pickle — ``hetu_tpu``'s layout (reference executor.py:376-434)."""
+        pickle — ``hetu_tpu``'s layout (reference executor.py:376-434).
+        A tensor-parallel session saves whole tensors: every rank calls
+        ``save`` (the shards are gathered) and the mesh's rank 0
+        writes."""
+        nodes = {node.id: node for node in self._param_nodes.values()}
+        params = {sid: self._whole(node, self.params[sid])
+                  for sid, node in self._param_nodes.items()}
+        slots_of = {k: {s: self._whole(nodes[k], t) if k in nodes else t
+                        for s, t in slots.items()}
+                    for k, slots in self.opt_state.items()}
+        if self.config.tp_layouts is not None and self.config.mesh.rank:
+            return
         os.makedirs(file_path, exist_ok=True)
         self._by_name()
         for sid, node in self._param_nodes.items():
             np.save(os.path.join(file_path, node.name + ".npy"),
-                    NDArray(self.params[sid]).asnumpy())
+                    NDArray(params[sid]).asnumpy())
         sidecar = {
             "opt_state": {k: {s: NDArray(t).asnumpy()
                               for s, t in slots.items()}
-                          for k, slots in self.opt_state.items()},
+                          for k, slots in slots_of.items()},
             "state": {k: {s: NDArray(t).asnumpy() for s, t in vals.items()}
                       for k, vals in self.state.items()},
             "id_to_name": {sid: node.name
@@ -1062,8 +1196,9 @@ class Executor:
                 continue
             mine = self.opt_state[node.id]
             self.opt_state[node.id] = {
-                s: torch.as_tensor(np.asarray(v), dtype=mine[s].dtype,
-                                   device=mine[s].device)
+                s: self._local(node, torch.as_tensor(
+                    np.asarray(v), dtype=mine[s].dtype)).contiguous().to(
+                    mine[s].device)
                 for s, v in slots.items() if s in mine}
 
     def load_state(self, state):
@@ -1093,19 +1228,22 @@ class Executor:
 
     def load_params(self, values):
         """Set parameters from ``{name: array}``; names the session does
-        not have are ignored, shapes must match."""
+        not have are ignored, shapes must match (the whole shape: a
+        tensor-parallel rank keeps its shard)."""
         by_name = self._by_name()
         for name, value in values.items():
             sid = by_name.get(name)
             if sid is None:
                 continue
-            old = self.params[sid]
+            old, node = self.params[sid], self._param_nodes[sid]
             value = np.asarray(value)
-            if tuple(value.shape) != tuple(old.shape):
+            want = tuple(node.shape) if self._layout(node) is not None \
+                else tuple(old.shape)
+            if tuple(value.shape) != want:
                 raise ValueError(f"parameter {name!r}: checkpoint shape "
-                                 f"{value.shape} != {tuple(old.shape)}")
-            self.params[sid] = torch.as_tensor(value, dtype=old.dtype,
-                                               device=old.device)
+                                 f"{value.shape} != {want}")
+            self.params[sid] = self._local(node, torch.as_tensor(
+                value, dtype=old.dtype)).contiguous().to(old.device)
 
     def recordLoads(self):
         """The PS client's load counter (reference executor.py:1724);

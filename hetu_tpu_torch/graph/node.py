@@ -3,7 +3,9 @@
 Counterpart of ``hetu_tpu/graph/node.py``. An :class:`Op` is a DAG node
 with inputs, a device context, operator-overloading sugar and the
 ``compute(input_vals, ectx)`` / ``gradient(output_grad)`` /
-``infer_shape(input_shapes)`` protocol users write against. ``compute``
+``infer_shape(input_shapes)`` protocol users write against, and
+``deduce_states``, the tensor-parallel planner's partition rule
+(:mod:`~hetu_tpu_torch.parallel.planner`). ``compute``
 takes and returns torch tensors (or an
 :class:`~hetu_tpu_torch.ndarray.IndexedSlices`, or a tuple for packed
 gradients); the executor calls it eagerly in topological order.
@@ -121,6 +123,28 @@ class Op:
         session's, and an allreduce op binds its process group."""
         if self.ctx is None:
             self.ctx = config.context
+
+    # --------------------------------------------------------- parallel (TP)
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Propagate NodeStatus through this op. Default: elementwise — all
+        inputs and the output share one partition state (reference
+        Node.py:160-190)."""
+        if deduce_order:
+            for st in input_statuses:
+                if st is not None and st.order is not None:
+                    status.set_attr(st.duplicate, st.order)
+                    break
+        else:
+            for st in input_statuses:
+                if st is not None and st.state is not None:
+                    status.set_state(st.state)
+                    if st.duplicate is not None and st.order is not None:
+                        status.set_attr(st.duplicate, st.order)
+                    break
+            for st in input_statuses:
+                if st is not None and st.state is None and \
+                        status.state is not None:
+                    st.set_state(status.state)
 
     # ------------------------------------------------------------- operators
     def __add__(self, other):

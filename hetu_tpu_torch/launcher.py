@@ -52,7 +52,7 @@ The options of modes still to port are refused, each naming its
 ROADMAP item: ``--telemetry``, ``--health``, ``--watch`` and
 ``--hang-timeout`` (item 14, which also brings the watchdog that calls
 :func:`_respawn_dead_servers`), ``--preflight`` (item 17) and
-``--autoplan`` (item 11b).
+``--autoplan`` (item 11b.3).
 
 Config (the reference's shape):
 
@@ -86,7 +86,7 @@ REFUSED = {"telemetry": ("--telemetry", "item 14"),
            "watch": ("--watch", "item 14"),
            "hang_timeout": ("--hang-timeout", "item 14"),
            "preflight": ("--preflight", "item 17"),
-           "autoplan": ("--autoplan", "item 11b")}
+           "autoplan": ("--autoplan", "item 11b.3")}
 
 # what the launcher sets on a fleet's servers and workers, or sets for
 # one fleet only: never inherited from the caller
@@ -558,8 +558,8 @@ def main(argv=None):
                         help="refused: the analysis waits for ROADMAP "
                              "item 17")
     parser.add_argument("--autoplan", action="store_true",
-                        help="refused: the planner waits for ROADMAP "
-                             "item 11b")
+                        help="refused: the autoplanner waits for "
+                             "ROADMAP item 11b.3")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="worker command, e.g. python train.py")
     args = parser.parse_args(argv)

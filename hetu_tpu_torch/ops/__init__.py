@@ -1,6 +1,7 @@
 """The port's ops: graph-op builders (reference-named ``*_op``, the CSR
 products of ``sparse.py`` and the PS, allreduce, transfer and
-pipeline-boundary ops of ``comm.py`` among them) and the attention
+pipeline-boundary ops and the tensor-parallel ``dispatch`` of
+``comm.py`` among them) and the attention
 kernels' wrappers (``flash_attention``, ``_build``)."""
 from .activations import (dropout2d_gradient_op, dropout2d_op,
                           dropout_gradient_op, dropout_op, gelu_gradient_op,

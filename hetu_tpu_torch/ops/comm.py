@@ -24,6 +24,9 @@ gpu_ops/PipelineReceive.py).
 * :class:`ParameterServerSparsePullOp` pulls embedding rows for given
   ids — the inference path. Also a host op: the PS runtime feeds its
   value before the step.
+* :class:`DispatchOp` (``dispatch``) marks a tensor-parallel partition
+  and :class:`DispatchGradientOp` mirrors it in the backward; the
+  tensor-parallel realization moves their values between layouts.
 
 Every collective is an ``all_reduce``: gloo on CUDA tensors runs
 ``all_reduce`` and ``broadcast`` only, so an all-gather is an
@@ -37,11 +40,12 @@ import time
 
 import torch
 
+from ..context import NodeStatus
 from ..graph.node import Op
 from ..ndarray import IndexedSlices
 
 __all__ = ["AllReduceCommunicateOp", "GroupAllReduceCommunicateOp",
-           "GroupComm", "ParameterServerCommunicateOp",
+           "GroupComm", "DispatchOp", "DispatchGradientOp", "ParameterServerCommunicateOp",
            "ParameterServerSparsePullOp", "DataH2DOp", "DataD2HOp",
            "PipelineSendOp", "PipelineReceiveOp", "allreduceCommunicate_op",
            "groupallreduceCommunicate_op", "optimizer_allreduce_ops",
@@ -62,7 +66,9 @@ class GroupComm:
     ``group`` (a ``ProcessGroup``; None for the default group).
 
     ``stats`` counts, by kind ("dense" gradients, "sparse" gradients,
-    "fetch" for values made global), the ``all_reduce`` calls, the
+    "fetch" for values made global; the tensor-parallel realization's
+    "gather" for its all-gathers and "reduce" for its partial sums),
+    the ``all_reduce`` calls, the
     bytes they reduced and their host seconds. With ``sync_timing`` set
     the device is synchronized before each is timed, so its seconds
     start when its inputs are ready and not before: the reduction's own
@@ -79,7 +85,8 @@ class GroupComm:
 
     def reset_stats(self):
         self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
-                      for k in ("dense", "sparse", "fetch")}
+                      for k in ("dense", "sparse", "fetch", "gather",
+                                "reduce")}
 
     def all_reduce(self, tensor, op=None, kind="dense"):
         """Reduce ``tensor`` in place over the group (SUM by default)."""
@@ -366,6 +373,70 @@ class DataD2HOp(Op):
         return input_shapes[0]
 
 
+class DispatchOp(Op):
+    """Marks the desired partition of its input (reference Dispatch.py).
+
+    ``parts`` is a tuple of split counts per dim (-1 = duplicate axis).
+    Planning turns it into a NodeStatus (:mod:`~hetu_tpu_torch.parallel.
+    planner`); a tensor-parallel session moves the value to that
+    layout here (:mod:`~hetu_tpu_torch.parallel.tensor_parallel`: a
+    local slice, or an all-gather over the split axes). Outside one it
+    is the identity, as the JAX package's sharding constraint is
+    without a mesh.
+    """
+
+    def __init__(self, node_A, parts, ctx=None):
+        super().__init__(DispatchOp, [node_A], ctx)
+        if isinstance(parts, dict):
+            ndim = max(parts) + 1 if parts else 0
+            parts = tuple(parts.get(i, 1) for i in range(ndim))
+        self.parts = tuple(parts)
+
+    def target_status(self):
+        state = tuple(p if p > 0 else 1 for p in self.parts)
+        dup = 1
+        for p in self.parts:
+            if p < 0:
+                dup *= -p
+        st = NodeStatus(state, duplicate=dup)
+        st.get_default()
+        return st
+
+    def compute(self, input_vals, ectx):
+        return input_vals[0]
+
+    def gradient(self, output_grad):
+        return [DispatchGradientOp(output_grad, self.inputs[0],
+                                   ctx=self.raw_ctx)]
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        target = self.target_status()
+        status.set_state(target.state)
+        status.set_attr(target.duplicate, target.order)
+
+
+class DispatchGradientOp(Op):
+    """Gradient of a dispatch mirrors the forward *input's* partition
+    (reference Dispatch.py:50-65): a tensor-parallel session moves it
+    to that layout."""
+
+    def __init__(self, node_A, forward_input, ctx=None):
+        super().__init__(DispatchGradientOp, [node_A], ctx)
+        self.forward_input = forward_input
+
+    def compute(self, input_vals, ectx):
+        return input_vals[0]
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[0]
+
+
 class PipelineSendOp(Op):
     """Stage-boundary marker: the value leaves this pipeline stage
     (reference PipelineSend.py); inside a stage it is the identity.
@@ -463,8 +534,4 @@ def pipeline_receive_op(source=None, comm=None, stream=None, ctx=None):
 
 
 def dispatch(node, parts, ctx=None):
-    """The reference's tensor-parallel repartition marker: it needs the
-    planner's ``NodeStatus`` (ROADMAP item 11b)."""
-    raise NotImplementedError(
-        "dispatch marks a tensor-parallel partition: the TP planner is "
-        "ROADMAP item 11b")
+    return DispatchOp(node, parts, ctx=ctx)

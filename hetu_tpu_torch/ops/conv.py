@@ -73,6 +73,32 @@ class Conv2dOp(Op):
         o, _, kh, kw = input_shapes[1]
         return (n, o) + _out_hw(h, w, kh, kw, self.padding, self.stride)
 
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Data (n,c,h,w) × filter (o,c,kh,kw) → (n,o,oh,ow): batch split
+        from data dim 0, out-channel split from filter dim 0, matching
+        in-channel splits contract into the duplicate axis. Spatial splits
+        would need halo exchange — left unsplit (reference Conv2d.py
+        forbids them too).
+        """
+        ld, lf = input_statuses
+
+        def dims(st):
+            if st is None or st.state is None:
+                return None
+            return st.state + (1,) * (4 - len(st.state))
+
+        d, f = dims(ld), dims(lf)
+        if d is None and f is None:
+            return
+        n = d[0] if d is not None else 1
+        o = f[0] if f is not None else 1
+        c = d[1] if d is not None else (f[1] if f is not None else 1)
+        if not deduce_order:
+            status.set_state((n, o, 1, 1))
+            dup = max(ld.duplicate or 1 if ld else 1,
+                      lf.duplicate or 1 if lf else 1) * (c or 1)
+            status.set_attr(dup, (-1, 0, 1, 2, 3))
+
 
 class Conv2dGradientOfDataOp(Op):
     """inputs: (filter, grad_y[, data_ref]); output: grad wrt data."""

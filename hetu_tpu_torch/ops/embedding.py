@@ -57,6 +57,28 @@ class EmbeddingLookUp(Op):
         emb_shape, idx_shape = input_shapes
         return tuple(idx_shape) + (emb_shape[-1],)
 
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Output [*idx_dims, D]: index splits pass through the leading
+        dims; a table column split (dim 1) splits the feature dim; a table
+        row split (dim 0, vocab-sharded) contracts into the duplicate axis
+        — realized as a masked gather of the local rows and an
+        all-reduce (reference EmbeddingLookUp.py:109-131 requires
+        dim-0-only table splits for the same layout).
+        """
+        lt, li = input_statuses
+        if li is None or li.state is None:
+            # index rank unknown — guessing it would shard the wrong dim
+            # of the [*idx_dims, D] output; leave unconstrained
+            return
+        idx_state = li.state
+        tbl = lt.state + (1,) * (2 - len(lt.state)) \
+            if lt is not None and lt.state is not None else (1, 1)
+        if not deduce_order:
+            status.set_state(tuple(idx_state) + (tbl[1],))
+            dup = max(lt.duplicate or 1 if lt else 1,
+                      li.duplicate or 1 if li else 1) * (tbl[0] or 1)
+            status.set_attr(dup, (-1,) + tuple(range(len(idx_state) + 1)))
+
 
 class EmbeddingLookUpGradient(Op):
     """The lookup's adjoint as IndexedSlices (reference

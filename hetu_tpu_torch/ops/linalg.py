@@ -54,6 +54,38 @@ class MatMulOp(Op):
             raise ValueError(f"matmul contraction mismatch {a} x {b}")
         return (m, n)
 
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Propagate partition state through the matmul.
+
+        Logical dims: A=(m,k) B=(k,n) C=(m,n) after accounting for
+        transposes. Row split of A -> row split of C; col split of B ->
+        col split of C; matching k-splits contract into the replica
+        (duplicate) axis: their partial products are all-reduced
+        (:mod:`~hetu_tpu_torch.parallel.tensor_parallel`).
+        """
+        lA, lB = input_statuses
+        tA, tB = self.matmul_attr_trans_A, self.matmul_attr_trans_B
+
+        def dims(st, trans):
+            if st is None or st.state is None:
+                return None, None
+            s = st.state + (1,) * (2 - len(st.state))
+            return (s[1], s[0]) if trans else (s[0], s[1])
+
+        a_row, a_col = dims(lA, tA)   # m, k
+        b_row, b_col = dims(lB, tB)   # k, n
+        if a_row is None and b_row is None:
+            return
+        m = a_row if a_row is not None else 1
+        n = b_col if b_col is not None else 1
+        k = a_col if a_col is not None else (b_row or 1)
+        if not deduce_order:
+            status.set_state((m, n))
+            dup = max(lA.duplicate or 1 if lA else 1,
+                      lB.duplicate or 1 if lB else 1) * (k or 1)
+            order = (-1, 0, 1)
+            status.set_attr(dup, order)
+
 
 class BatchMatMulOp(Op):
     """Products over the two trailing dims, batched over the leading
@@ -103,6 +135,36 @@ class BatchMatMulOp(Op):
         if a[-1] != b[-2] or a[:-2] != b[:-2]:
             raise ValueError(f"batch matmul mismatch {a} x {b}")
         return tuple(a[:-1]) + (b[-1],)
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Batch dims pass through; m from A, n from B, matching k-splits
+        contract into the duplicate axis (reference BatchMatrixMult.py's
+        per-dim table, same shape algebra as MatMulOp over trailing dims).
+        """
+        lA, lB = input_statuses
+        tA, tB = self.trans_A, self.trans_B
+
+        def trail(st, trans):
+            if st is None or st.state is None or len(st.state) < 2:
+                return None, None, ()
+            s = st.state
+            batch = s[:-2]
+            r, c = s[-2], s[-1]
+            return ((c, r) if trans else (r, c)) + (batch,)
+
+        a_row, a_col, a_batch = trail(lA, tA)
+        b_row, b_col, b_batch = trail(lB, tB)
+        if a_row is None and b_row is None:
+            return
+        batch = a_batch if a_batch else b_batch
+        m = a_row if a_row is not None else 1
+        n = b_col if b_col is not None else 1
+        k = a_col if a_col is not None else (b_row or 1)
+        if not deduce_order:
+            status.set_state(tuple(batch) + (m, n))
+            dup = max(lA.duplicate or 1 if lA else 1,
+                      lB.duplicate or 1 if lB else 1) * (k or 1)
+            status.set_attr(dup, (-1,) + tuple(range(len(batch) + 2)))
 
 
 def matmul_op(node_A, node_B, trans_A=False, trans_B=False, ctx=None):

@@ -13,6 +13,10 @@ with numpy's rules (``torch.nn.functional.pad`` reflects only the last
 dims and has no symmetric mode), and their gradient scatter-adds back
 through the same index.
 
+The tensor-parallel planner's ``deduce_states`` rules of reshape,
+broadcast, concat, concatenate, split, transpose, reduce-sum and
+reduce-mean are the JAX package's.
+
 Several gradient ops read the forward input's ``inferred_shape``, which
 the executor's shape pass (``SubExecutor._infer_shapes``) sets on every
 node before the first step of a feed-shape signature, as in the
@@ -34,6 +38,50 @@ __all__ = [
     "oneslike_op", "zeroslike_op", "broadcast_shape_op", "flatten_op",
     "unsqueeze_op", "reducesumaxiszero_op",
 ]
+
+
+def _concat_deduce(input_statuses, status, deduce_order, axis):
+    """Shared concat rule: non-axis splits must agree across inputs (take
+    the first distributed one); the concat axis can't stay split (shard
+    boundaries interleave) — it folds into the duplicate axis."""
+    st = next((s for s in input_statuses
+               if s is not None and s.state is not None), None)
+    if st is None:
+        return
+    state = list(st.state)
+    folded = 1
+    if axis < len(state):
+        folded = state[axis]
+        state[axis] = 1
+    if not deduce_order:
+        status.set_state(tuple(state))
+        status.set_attr((st.duplicate or 1) * folded,
+                        (-1,) + tuple(range(len(state))))
+
+
+def _reduce_deduce(input_statuses, status, deduce_order, axes, keepdims):
+    """Shared reduce rule: splits on reduced axes become partial sums —
+    they fold into the duplicate axis; kept axes carry their splits
+    through (reference ReduceSum.py deduce_states)."""
+    st = input_statuses[0]
+    if st is None or st.state is None:
+        return
+    ndim = len(st.state)
+    ax_norm = [a if a >= 0 else a + ndim for a in axes]
+    state, folded = [], 1
+    for i, p in enumerate(st.state):
+        if i in ax_norm:
+            folded *= p
+            if keepdims[ax_norm.index(i)]:
+                state.append(1)
+        else:
+            state.append(p)
+    if not state:
+        state = [1]
+    if not deduce_order:
+        status.set_state(tuple(state))
+        status.set_attr((st.duplicate or 1) * folded,
+                        (-1,) + tuple(range(len(state))))
 
 
 def _resolve_shape(shape, total):
@@ -61,6 +109,35 @@ class ArrayReshapeOp(Op):
     def infer_shape(self, input_shapes):
         return _resolve_shape(self.output_shape,
                               int(np.prod(input_shapes[0])))
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        """Only a leading-dim split survives a reshape for sure (the
+        reference Reshape.py likewise allows dim-0 splits only), and only
+        when the reshape preserves the leading row blocks: dim 0 of -1
+        (the batch-agnostic pattern) or a dim 0 that divides the input's.
+        A reshape that reorders dim 0 away (e.g. (B,S,D)->(S,B*D)) folds
+        the split into the duplicate axis instead.
+        """
+        st = input_statuses[0]
+        if st is None or st.state is None:
+            return
+        ndim = len(self.output_shape)
+        lead = st.state[0] if st.state else 1
+        in_shape = getattr(self.inputs[0], "inferred_shape", None)
+        keep_lead = self.output_shape[0] == -1 or (
+            in_shape is not None and in_shape[0] > 0
+            and self.output_shape[0] % in_shape[0] == 0)
+        if not keep_lead:
+            lead, fold = 1, lead
+        else:
+            fold = 1
+        rest = fold
+        for p in st.state[1:]:
+            rest *= p
+        if not deduce_order:
+            status.set_state((lead,) + (1,) * (ndim - 1))
+            status.set_attr((st.duplicate or 1) * rest,
+                            (-1,) + tuple(range(ndim)))
 
 
 class ArrayReshapeGradientOp(Op):
@@ -98,6 +175,16 @@ class BroadcastToOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[1]
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        # output has node_B's shape, so adopt node_B's partition state
+        st = input_statuses[1]
+        if st is None or st.state is None:
+            return
+        if not deduce_order:
+            status.set_state(st.state)
+            if st.duplicate is not None and st.order is not None:
+                status.set_attr(st.duplicate, st.order)
 
 
 class BroadcastShapeOp(Op):
@@ -189,6 +276,21 @@ class SplitOp(Op):
                                  f"does not split {spl} ways")
             out[ax] //= spl
         return tuple(out)
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        # each output piece is a slice: splits on the sliced axes can't be
+        # carried (the shard boundary moved) — force them to 1
+        st = input_statuses[0]
+        if st is None or st.state is None:
+            return
+        state = list(st.state)
+        for ax in self.axes:
+            if ax < len(state):
+                state[ax] = 1
+        if not deduce_order:
+            status.set_state(tuple(state))
+            status.set_attr(st.duplicate or 1,
+                            (-1,) + tuple(range(len(state))))
 
 
 class SplitGradientOp(Op):
@@ -299,6 +401,20 @@ class TransposeOp(Op):
         shape = input_shapes[0]
         return tuple(shape[p] for p in self._perm(len(shape)))
 
+    def deduce_states(self, input_statuses, status, deduce_order):
+        # permute the split counts exactly like the dims (reference
+        # Transpose.py deduce_states)
+        st = input_statuses[0]
+        if st is None or st.state is None:
+            return
+        perm = self.perm if self.perm is not None \
+            else tuple(reversed(range(len(st.state))))
+        state = st.state + (1,) * (len(perm) - len(st.state))
+        if not deduce_order:
+            status.set_state(tuple(state[p] for p in perm))
+            status.set_attr(st.duplicate or 1,
+                            (-1,) + tuple(range(len(perm))))
+
 
 class ConcatOp(Op):
     def __init__(self, node_A, node_B, axis=0, ctx=None):
@@ -318,6 +434,9 @@ class ConcatOp(Op):
         out = list(input_shapes[0])
         out[self.axis] += input_shapes[1][self.axis]
         return tuple(out)
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        _concat_deduce(input_statuses, status, deduce_order, self.axis)
 
 
 class ConcatGradientOp(Op):
@@ -361,6 +480,9 @@ class ConcatenateOp(Op):
         out = list(input_shapes[0])
         out[self.axis] = sum(s[self.axis] for s in input_shapes)
         return tuple(out)
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        _concat_deduce(input_statuses, status, deduce_order, self.axis)
 
 
 class ConcatenateGradientOp(Op):
@@ -520,12 +642,20 @@ class ReduceSumOp(_ReduceOp):
     def __init__(self, node_A, axes, keepdims=False, ctx=None):
         super().__init__(ReduceSumOp, node_A, axes, keepdims, ctx)
 
+    def deduce_states(self, input_statuses, status, deduce_order):
+        _reduce_deduce(input_statuses, status, deduce_order,
+                       self.axes, self.keepdims)
+
 
 class ReduceMeanOp(_ReduceOp):
     _mean = True
 
     def __init__(self, node_A, axes, keepdims=False, ctx=None):
         super().__init__(ReduceMeanOp, node_A, axes, keepdims, ctx)
+
+    def deduce_states(self, input_statuses, status, deduce_order):
+        _reduce_deduce(input_statuses, status, deduce_order,
+                       self.axes, self.keepdims)
 
 
 class BroadcastShapeGradSourceOp(Op):

@@ -5,8 +5,9 @@ the axes of a ``jax.sharding.Mesh`` of devices, the port names the axes
 of a grid of process ranks: one process per card (the launcher's
 ``spmd: true``), each axis slice a process subgroup
 (``torch.distributed.new_group``) that the graph's collectives ride.
-``mesh_for_statuses`` needs the tensor-parallel planner's
-``NodeStatus`` and waits for it (ROADMAP item 11b).
+:func:`mesh_for_statuses` lays the tensor-parallel planner's job out
+as ``("dp", "tp0", "tp1", ...)``: the data-parallel axis major, the
+prime-factored model axes minor.
 """
 from __future__ import annotations
 
@@ -39,6 +40,13 @@ class Mesh:
     def group(self, axis):
         """The process group of this rank's slice along ``axis``."""
         return self._groups[axis]
+
+    def coord(self, axis):
+        """This rank's coordinate along ``axis`` (its rank in the
+        axis's group)."""
+        sizes = [self.shape[a] for a in self.axis_names]
+        return int(np.unravel_index(self.rank, sizes)[
+            self.axis_names.index(axis)])
 
     def comm(self, axis):
         """The :class:`~hetu_tpu_torch.ops.comm.GroupComm` of ``axis``:
@@ -110,9 +118,37 @@ def factorized_axes(n, prefix="tp"):
     return axes
 
 
+def tp_degree(statuses):
+    """The largest number of shards any status splits a tensor into."""
+    degree = 1
+    for st in statuses:
+        if st is not None and st.state is not None:
+            degree = max(degree, int(np.prod([s for s in st.state])))
+    return degree
+
+
 def mesh_for_statuses(statuses, dp=1, devices=None):
-    """The reference builds a mesh for the planner's ``NodeStatus``
-    partitions here; the tensor-parallel planner is ROADMAP item 11b."""
-    raise NotImplementedError(
-        "mesh_for_statuses needs NodeStatus and the tensor-parallel "
-        "planner: ROADMAP item 11b")
+    """Build a mesh able to express every NodeStatus in ``statuses``
+    over the job's ranks (reference mesh.py:75-96).
+
+    The model axes come from prime-factorizing the max TP degree; a
+    leading "dp" axis carries data parallelism when ``dp`` > 1. The
+    job (``devices``, default every rank of the default process group)
+    must hold exactly dp × the TP degree ranks. Returns (mesh,
+    model_axes) where model_axes is the {name: size} dict of the TP
+    axes (used by the planner's spec assignment)."""
+    import torch.distributed as dist
+    model_axes = factorized_axes(tp_degree(statuses))
+    axes = {}
+    if dp > 1:
+        axes["dp"] = dp
+    axes.update(model_axes)
+    need = int(np.prod(list(axes.values()))) if axes else 1
+    world = (len(devices) if devices is not None
+             else dist.get_world_size() if dist.is_initialized() else 1)
+    if world != need:
+        raise ValueError(
+            f"the tensor-parallel plan {axes} needs {need} ranks, the job "
+            f"has {world}: run dp x tp processes under the launcher's "
+            f"spmd: true (or pass mesh= a Mesh of your own groups)")
+    return build_mesh(axes, devices), model_axes

@@ -317,8 +317,8 @@ class PipelineSubExecutor:
                 raise NotImplementedError(
                     f"{node.name}: a stage over the devices {k} (a tuple "
                     f"context) is tensor or data parallel inside the "
-                    f"stage, which waits for ROADMAP item 11b (the TP "
-                    f"planner)")
+                    f"stage, which waits for ROADMAP item 11b.4 (TP and "
+                    f"DP inside a pipeline stage)")
             keys.append(k)
             ctx_of[k] = node.raw_ctx[0]
         if not keys:

@@ -342,21 +342,23 @@ def test_a_per_row_op_of_a_mean_is_refused():
 
 
 def test_modes_that_stay_refused():
-    """A pipeline over a data-parallel mesh (11b), a mesh's statuses
-    (11b), and several devices of one process's context (11a's
-    remainder)."""
+    """A pipeline over a data-parallel mesh (11b.4), and several devices
+    of one process's context (11a's remainder). A mesh for the
+    planner's statuses, and a graph with a dispatch, need the job's
+    ranks: outside a job both name the ranks they need."""
     x, y_, nodes, _ = _mlp(tht)
     mesh = tmesh.Mesh({"dp": 1}, 0, {"dp": None})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.4"):
         tht.HetuConfig(nodes, gpipe=True, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 11b"):
+    with pytest.raises(ValueError, match="needs 2 ranks, the job has 1"):
         tmesh.mesh_for_statuses([None], dp=2)
     with pytest.raises(NotImplementedError, match="11a's remainder"):
         tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
     with pytest.raises(RuntimeError, match="spmd: true"):
         tmesh.build_mesh({"dp": 2})
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        tht.dispatch(x, (2, 1))
+    h = tht.reduce_mean_op(tht.dispatch(x, (2, 1)), [0, 1])
+    with pytest.raises(ValueError, match="needs 2 ranks, the job has 1"):
+        tht.HetuConfig([h], device="cpu")
 
 
 def test_reference_communicator_outside_a_job(monkeypatch):
