@@ -27,7 +27,8 @@ server, and served from it; fleets of PS servers and workers started by
 the port's launcher, every worker on the card; GPT-2-small trained in
 four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
 two launcher processes; the same model trained data parallel by two
-launcher processes, and WDL's Hybrid mode across two workers — checks
+launcher processes, split at tp=2 by two, and in two stages x tp=2 by
+four, and WDL's Hybrid mode across two workers — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
@@ -113,6 +114,26 @@ object per line (``--out`` also writes them to FILE):
   3 Adam steps at dropout 0, two TP ranks against one process (the
   ``dp_parity`` reference): losses, Adam's first moments and the
   weights, each gathered whole;
+* ``pp_tp_gpt`` the same model in two pipeline stages of six blocks,
+  each stage's context a tuple of two worker devices and split at tp=2
+  by the default rules (``models.staged_gpt`` + ``compile_rules`` +
+  ``apply_rules``), trained under GPipe at M=4 by four ranks of one
+  launcher job on the one card (each ``python chip_smoke.py
+  --pp-tp-worker SPEC``; gloo inside the stages, the pipe channel
+  between them): step ms p50 and tokens/s, per rank the collectives of
+  its stage a step (calls, bytes, ms), the pipe channel's bytes, the
+  values moved by op type and the ops computed whole, parameters and
+  Adam slots against one process's and a ``tp_gpt`` rank's, peak memory,
+  launches a step (K2/K3/K4 24 each, all ``tc``) and one profiled
+  step's kernel time on rank 0; the checks: step 1 against the same
+  stages in one process (the loss within one bf16 ulp; Adam's first
+  moment of layer 0's qkv, each stage-0 rank's columns, and of the LM
+  head), every replicated weight the same on both ranks of its stage,
+  every split one at its shard's shape;
+* ``pp_tp_parity`` the same plan at 2 layers in f32, batch 4, 3 Adam
+  steps under GPipe and under 1F1B (M=4) against the same stages in one
+  process: losses, Adam's first moments and the weights gathered whole,
+  at ``tp_parity``'s tolerances;
 * ``bert``, ``bert_long`` the same for the two BERT passes, with MFU
   against the bf16 dense peak and the host time of one step by op type
   (the composed attention backward's and dropout's among them); BERT-base
@@ -1310,14 +1331,15 @@ def _pp_batch(seed, vocab, seq, batch=TRAIN_BATCH):
     return x, np.concatenate([x[:, 1:], np.full((batch, 1), -1)], axis=1)
 
 
-def _pp_graph(ht, models, contexts, lr=TRAIN_LR, init=None):
-    """models.staged_gpt at GPT-2-small's widths; with ``init`` ({name:
+def _pp_graph(ht, models, contexts, lr=TRAIN_LR, init=None,
+              widths=GPT2_SMALL):
+    """models.staged_gpt at ``widths``; with ``init`` ({name:
     numpy}) every drawn parameter takes its value from it instead of a
     new draw (the same values: the draws are seeded by name). Returns
     (ids, labels, loss, optimizer, train_op, {PP_PARITY_PARAMS name: its
     gradient node})."""
     from hetu_tpu_torch.graph.autodiff import find_topo_sort
-    cfg = models.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
+    cfg = models.GPTConfig(**widths, hidden_dropout_prob=0.0,
                            use_flash_attention=True)
     ids, labels, loss, opt, train_op = models.staged_gpt(cfg, contexts, lr)
     if init is not None:
@@ -1908,15 +1930,16 @@ def _parity_state(exe):
             if node.id in exe.opt_state}
 
 
-def _across_ranks(torch, dist, tensors):
-    """max over ``tensors`` of max |rank 0's - rank 1's| / max |rank 0's|:
-    rank 1 all-reduces its negated copy onto rank 0's."""
+def _across_ranks(torch, dist, tensors, group=None):
+    """max over ``tensors`` of max |rank 0's - rank 1's| / max |rank 0's|
+    of ``group`` (two ranks; None: the job's): rank 1 all-reduces its
+    negated copy onto rank 0's."""
     worst = 0.0
     for t in tensors:
         d = t.detach().float().clone()
-        if dist.get_rank() == 1:
+        if dist.get_rank(group) == 1:
             d.neg_()
-        dist.all_reduce(d)
+        dist.all_reduce(d, group=group)
         scale = float(t.detach().float().abs().max()) or 1.0
         worst = max(worst, float(d.abs().max()) / scale)
     return worst
@@ -2585,6 +2608,396 @@ def tp_pass(card, seed, train_line, parity_ref):
         for k, v in rec["launches"].items():
             counts[k] = counts.get(k, 0) + v
     return {"tp_gpt": tp_gpt, "tp_parity": tp_parity}, counts
+
+
+# ---------------------------------------------------------------------------
+# TP and DP inside pipeline stages: GPT-2-small in 2 stages x tp=2
+# ---------------------------------------------------------------------------
+
+# train's model, rows and rate in PP_TP_STAGES stages of six blocks, each
+# over a tuple of TP_RANKS worker devices and split by DEFAULT_RULES at
+# tp=TP_RANKS: four ranks of one launcher job, GPipe at M=PP_MICROBATCHES
+# (K2-K4 at PP_REP's B=2 in every rank). Step 1 is held against the same
+# stages in one process (pp_tp_reference): the loss within one bf16 ulp,
+# the first moments of PP_PARITY_PARAMS (layer 0's qkv in stage 0, the
+# LM head in stage 1) within GRAD_PARITY_TOL of their largest element
+PP_TP_STAGES = 2
+PP_TP_RANKS = PP_TP_STAGES * TP_RANKS
+PP_TP_WARMUP, PP_TP_STEPS = 1, 4     # after step 1
+PP_TP_TIMEOUT_S = 400
+PP_TP_SCHEDULES = {"gpipe": "gpipe", "1f1b": "pipedream"}
+
+
+def _pp_tp_contexts(ht, split=True):
+    """The stages' contexts: a tuple of TP_RANKS worker devices each
+    (``split``), else one device each (the one-process reference)."""
+    if not split:
+        return [ht.gpu(s) for s in range(PP_TP_STAGES)]
+    return [tuple(ht.rgpu(f"worker{s * TP_RANKS + k}", 0)
+                  for k in range(TP_RANKS)) for s in range(PP_TP_STAGES)]
+
+
+def _pp_tp_session(ht, widths, schedule, dtype, split=True,
+                   device=None):
+    """A pipeline executor over the staged model (split by the default
+    rules where ``split``): (executor, ids, labels, the split parameters'
+    names)."""
+    from hetu_tpu_torch import models as M
+    ids, labels, loss, _, train_op, _ = _pp_graph(
+        ht, M, _pp_tp_contexts(ht, split), widths=widths)
+    bound = _tp_split(ht, [loss, train_op]) if split else []
+    exe = ht.Executor([loss, train_op], dtype=dtype,
+                      num_microbatches=PP_MICROBATCHES,
+                      **{PP_TP_SCHEDULES[schedule]: True},
+                      **({"device": device} if device else {}))
+    return exe, ids, labels, bound
+
+
+def _pp_tp_rows(seed, widths, n):
+    """train's first ``n`` rows; a rehearsal's narrower model takes their
+    first positions, its ids folded into its vocabulary."""
+    x = _gpt_rows(seed, n)[0][:, :widths["max_position_embeddings"]] \
+        % widths["vocab_size"]
+    return x, np.concatenate([x[:, 1:], np.full((n, 1), -1)], axis=1)
+
+
+def pp_tp_reference(torch, seed):
+    """The same stages in one process, each on the card whole: step 1 of
+    pp_tp_gpt's graph in bf16 (its loss, Adam's first moments of
+    PP_PARITY_PARAMS on the host, the parameter and slot bytes and the
+    parameter elements), and pp_tp_parity's runs in f32 by schedule
+    (losses, _parity_state, the names of the parameters that start at
+    0)."""
+    import hetu_tpu_torch as ht
+    exe, ids, labels, _ = _pp_tp_session(ht, GPT2_SMALL, "gpipe",
+                                         torch.bfloat16, split=False)
+    x, y = _gpt_rows(seed, TRAIN_BATCH)
+    loss = float(exe.run(feed_dict={ids: x, labels: y})[0].asnumpy())
+    nodes = {n.name: n for n in exe._param_nodes.values()}
+    ref = {"loss": loss,
+           "moments": {name: exe.opt_state[nodes[name].id]["m"].cpu()
+                       for name in PP_PARITY_PARAMS},
+           "params_and_slots_bytes": _params_and_slots_bytes(exe),
+           "param_elements": sum(t.numel() for t in exe.params.values())}
+    del exe
+    _release(torch)
+    widths = dict(GPT2_SMALL, num_hidden_layers=DP_PARITY_LAYERS)
+    x, y = _gpt_rows(seed, DP_PARITY_BATCH)
+    ref["parity"] = {}
+    for schedule in PP_TP_SCHEDULES:
+        exe, ids, labels, _ = _pp_tp_session(ht, widths, schedule, None,
+                                             split=False)
+        zero_init = {name for name, w in _master_state(exe).items()
+                     if not w.any()}
+        losses = [float(exe.run(feed_dict={ids: x, labels: y})[0]
+                        .asnumpy()) for _ in range(DP_PARITY_STEPS)]
+        ref["parity"][schedule] = (losses, _parity_state(exe), zero_init)
+        del exe
+        _release(torch)
+    return ref
+
+
+def pp_tp_worker(spec):
+    """One rank of ``pp_tp_gpt`` and ``pp_tp_parity``, run by the
+    launcher as ``python chip_smoke.py --pp-tp-worker SPEC`` (``spmd:
+    true``: one job of PP_TP_RANKS processes; the executor reads the job,
+    and a stage's ranks from its context's hostnames). Step 1, whose
+    first moments of this stage's PP_PARITY_PARAMS (this rank's block)
+    go to the parent, then PP_TP_WARMUP + PP_TP_STEPS timed steps through
+    ``Executor.run`` in bf16, the launch counts set to 0 before step 1
+    and read after the last, the collectives timed after a device sync;
+    then one step profiled on rank 0, and the largest difference of a
+    replicated weight between the stage's two ranks. ``pp_tp_parity``:
+    the model at DP_PARITY_LAYERS layers in f32 on DP_PARITY_BATCH rows
+    under each schedule, its weights and first moments gathered whole in
+    each stage, saved by the stage's first rank. ``spec`` may set
+    ``device`` and ``widths`` (a rehearsal on the CPU at small widths).
+    Writes ``worker_<rank>.json``, ``moments_<rank>.pt`` and
+    ``parity_<schedule>_<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["RANK"])
+    device = spec.get("device", "cuda")
+    widths = spec.get("widths", GPT2_SMALL)
+    cuda = device == "cuda"
+    opts = {} if cuda else {"device": device}
+
+    t0 = time.perf_counter()
+    exe, ids, labels, bound = _pp_tp_session(
+        ht, widths, "gpipe", torch.bfloat16 if cuda else None,
+        **opts)
+    sub = exe.subexecutors["default"]
+    st = next(s for s in sub.stages if rank in s.ranks)
+    nodes = {n.name: n for n in exe._param_nodes.values()}
+    rec = {"rank": rank, "executor_setup_s": time.perf_counter() - t0,
+           "backend": dist.get_backend(), "stage": st.index,
+           "ranks": [s.ranks for s in sub.stages],
+           "mesh": dict(st.mesh.shape), "coord": st.mesh.coord("tp0"),
+           "device": str(st.device), "bound": bound,
+           "shards": {name: [list(n.shape), list(exe.params[str(
+               n.id)].shape), exe._layout(n)] for name, n in nodes.items()},
+           "params_and_slots_bytes": _params_and_slots_bytes(exe),
+           "param_elements": sum(t.numel() for t in exe.params.values())}
+    x, y = _pp_tp_rows(spec["seed"], widths, TRAIN_BATCH)
+    feeds = {ids: x, labels: y}
+    comm = st.mesh.comm("tp0")
+    comm.sync_timing = True
+    channel = sub.job.channel()
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, step_ms = [], []
+    for i in range(1 + PP_TP_WARMUP + PP_TP_STEPS):
+        if i == 1 + PP_TP_WARMUP:
+            comm.reset_stats()
+            channel.reset_stats()
+            st.tp.reset_stats()
+            dist.barrier()
+            rec["window_start"] = time.time()
+        t = time.perf_counter()
+        out = exe.run(feed_dict=feeds)[0]
+        losses.append(None if out is None else float(out.asnumpy()))
+        if cuda:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        if i == 0:
+            torch.save({name: (exe.opt_state[n.id]["m"].cpu(),
+                               exe._layout(n))
+                        for name, n in nodes.items()
+                        if name in PP_PARITY_PARAMS},
+                       os.path.join(spec["out"], f"moments_{rank}.pt"))
+    rec["window_end"] = time.time()
+    rec["launches"] = dict(_build.launch_counts)    # main path ends
+    per_step = {kind: {op: n / PP_TP_STEPS for op, n in counts.items()}
+                for kind, counts in st.tp.moves.items()}
+    rec.update(losses=losses, step_ms=step_ms,
+               step_ms_p50=float(np.median(step_ms[1 + PP_TP_WARMUP:])),
+               comm_per_step=_comm_per_step(comm.stats, PP_TP_STEPS),
+               channel_per_step={k: v / PP_TP_STEPS for k, v in
+                                 channel.stats().items()},
+               moves_per_step=per_step,
+               gather_rule_per_step={op: n / PP_TP_STEPS for op, n in
+                                     st.tp.gather_rule.items()},
+               peak_memory_bytes=int(torch.cuda.max_memory_allocated())
+               if cuda else None)
+    if cuda and rank == 0:
+        rec["profile"] = profile_window(
+            torch, lambda: exe.run(feed_dict=feeds))
+    else:
+        exe.run(feed_dict=feeds)
+    rec["replicated_rel_diff_across_ranks"] = _across_ranks(
+        torch, dist, [exe.params[str(n.id)] for n in nodes.values()
+                      if exe._layout(n) is None], st.mesh.group("tp0"))
+    del exe, sub, st
+    _release(torch)
+
+    parity_widths = dict(widths, num_hidden_layers=DP_PARITY_LAYERS)
+    x, y = _pp_tp_rows(spec["seed"], widths, DP_PARITY_BATCH)
+    for schedule in PP_TP_SCHEDULES:
+        exe, ids, labels, _ = _pp_tp_session(ht, parity_widths, schedule,
+                                             None, **opts)
+        out = [exe.run(feed_dict={ids: x, labels: y})[0]
+               for _ in range(DP_PARITY_STEPS)]
+        rec[f"parity_losses_{schedule}"] = [
+            None if v is None else float(v.asnumpy()) for v in out]
+        state = {n.name: (exe._whole(n, exe.params[sid]).cpu(),
+                          exe._whole(n, exe.opt_state[n.id]["m"]).cpu())
+                 for sid, n in exe._param_nodes.items()}
+        if exe._writes(next(iter(exe._param_nodes.values()))):
+            torch.save(state, os.path.join(
+                spec["out"], f"parity_{schedule}_{rank}.pt"))
+        del exe
+        _release(torch)
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    return 0
+
+
+def _pp_tp_job(seed, out_dir, sample_card, **spec):
+    """pp_tp_gpt's job: PP_TP_RANKS launcher processes of one spmd job,
+    each ``python chip_smoke.py --pp-tp-worker SPEC``. Returns (wall s,
+    the card's used-memory samples, the workers' records by rank, each
+    rank's first moments, {schedule: the stages' parity state merged})."""
+    import torch
+    wall, used = _launch_job(
+        "pp_tp", f"spmd: true\nnodes:\n  - host: localhost\n"
+        f"    workers: {PP_TP_RANKS}\n    chief: true\n", "--pp-tp-worker",
+        {"seed": seed, "out": out_dir, **spec}, PP_TP_TIMEOUT_S,
+        sample_card)
+    records, moments, parity = [], [], {s: {} for s in PP_TP_SCHEDULES}
+    for r in range(PP_TP_RANKS):
+        with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+            records.append(json.load(f))
+        moments.append(torch.load(os.path.join(out_dir,
+                                               f"moments_{r}.pt")))
+        for schedule in PP_TP_SCHEDULES:
+            path = os.path.join(out_dir, f"parity_{schedule}_{r}.pt")
+            if os.path.exists(path):
+                parity[schedule].update(torch.load(path))
+    return wall, used, records, moments, parity
+
+
+def pp_tp_pass(card, seed, train_line, tp_line):
+    """``pp_tp_gpt`` and ``pp_tp_parity``: PP_TP_RANKS processes of one
+    job started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``)
+    on the one card, where the executors pick gloo. The checks: the
+    backend gloo, every rank on cuda:0 in its stage's ranks, at its
+    coordinate of the stage's ("tp0",) mesh; K2, K3 and K4 24 launches a
+    step (6 blocks x M=4) in each rank, all on tc, K1 none; step 1
+    against the same stages in one process (pp_tp_reference): the loss
+    within one bf16 ulp, Adam's first moments of layer 0's qkv (each
+    stage-0 rank's columns) and of the LM head (each stage-1 rank's)
+    within GRAD_PARITY_TOL of their largest element; the timed losses
+    finite and falling; every replicated weight the same on both ranks
+    of its stage within TP_SAME_TOL of its largest element; every split
+    weight at its shard's shape, the split weights those the rules bound.
+    pp_tp_parity: the losses of the loss stage's ranks, the first moments
+    and the weights gathered whole against the one process as
+    ``_parity_line`` holds them, under GPipe and 1F1B. Returns
+    ({"pp_tp_gpt": line, "pp_tp_parity": line}, pp_tp_gpt's launch counts
+    summed over the ranks)."""
+    import shutil
+    import tempfile
+    import torch
+    from hetu_tpu_torch.ops import flash_attention as fa
+    t = time.perf_counter()
+    ref = pp_tp_reference(torch, seed)
+    ref_s = time.perf_counter() - t
+    out_dir = tempfile.mkdtemp(prefix="pp_tp_job_")
+    try:
+        wall, used, records, moments, parity = _pp_tp_job(seed, out_dir,
+                                                          True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = 1 + PP_TP_WARMUP + PP_TP_STEPS
+    per_stage = GPT2_SMALL["num_hidden_layers"] // PP_TP_STAGES
+    want_l = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                           per_stage * PP_MICROBATCHES * steps)
+    faults, ranks = [], []
+    bound = set(records[0]["bound"])
+    split = set()
+    for rec, mom in zip(records, moments):
+        r = rec["rank"]
+        got_l = {k: rec["launches"].get(k, 0) for k in want_l}
+        if got_l != want_l:
+            faults.append(f"rank {r} launched {got_l}")
+        stage_ranks = [list(range(s * TP_RANKS, (s + 1) * TP_RANKS))
+                       for s in range(PP_TP_STAGES)]
+        if rec["backend"] != "gloo" or rec["device"] != "cuda:0" or \
+                rec["ranks"] != stage_ranks or \
+                rec["mesh"] != {"tp0": TP_RANKS} or \
+                rec["coord"] != r % TP_RANKS or rec["bound"] != records[0][
+                    "bound"]:
+            faults.append(f"rank {r}: {rec['backend']} on {rec['device']}, "
+                          f"stages {rec['ranks']}, mesh {rec['mesh']} at "
+                          f"{rec['coord']}")
+        mine = {name for name, (_, _, lay) in rec["shards"].items() if lay}
+        split |= mine
+        halved = all(
+            got == [s // TP_RANKS if ax else s for s, ax in zip(whole, lay)]
+            for whole, got, lay in rec["shards"].values() if lay)
+        if not halved or not mine:
+            faults.append(f"rank {r} split {sorted(mine)}, shapes halved "
+                          f"{halved}")
+        moment_err = {}
+        for name, (m, layout) in mom.items():
+            want = _block(ref["moments"][name], layout, r % TP_RANKS)
+            moment_err[name] = float((m - want).abs().max()
+                                     / want.abs().max())
+        if len(moment_err) != 1 or \
+                max(moment_err.values()) > GRAD_PARITY_TOL:
+            faults.append(f"rank {r} first moments {moment_err}")
+        if rec["replicated_rel_diff_across_ranks"] > TP_SAME_TOL:
+            faults.append(f"rank {r} replicated weights differ by "
+                          f"{rec['replicated_rel_diff_across_ranks']}")
+        ranks.append({k: rec[k] for k in (
+            "rank", "stage", "coord", "executor_setup_s", "step_ms",
+            "step_ms_p50", "comm_per_step", "channel_per_step",
+            "moves_per_step", "gather_rule_per_step", "peak_memory_bytes",
+            "params_and_slots_bytes", "param_elements",
+            "replicated_rel_diff_across_ranks")})
+        ranks[-1]["first_moment_err_of_largest"] = moment_err
+        ranks[-1]["launches_per_step"] = {
+            k: rec["launches"].get(k, 0) / steps
+            for k in (fa.K1, fa.K2, fa.K3, fa.K4)}
+    if split != bound:
+        faults.append(f"split {sorted(split)} against bound {sorted(bound)}")
+    last = records[-1]["losses"]
+    step1 = last[0]
+    ulp = _bf16_ulp(ref["loss"])
+    if abs(step1 - ref["loss"]) > ulp or not all(np.isfinite(last)) or \
+            not last[-1] < last[0] or any(
+                rec["losses"] != (last if rec["stage"] == PP_TP_STAGES - 1
+                                  else [None] * steps) for rec in records):
+        faults.append(f"losses {[r['losses'] for r in records]} against "
+                      f"one process's step 1 {ref['loss']}")
+    window = max(r["window_end"] - r["window_start"] for r in records)
+    tokens = TRAIN_BATCH * GPT2_SMALL["max_position_embeddings"]
+    p50 = max(r["step_ms_p50"] for r in records)
+    profile = records[0]["profile"]
+    launches_r0 = per_stage * PP_MICROBATCHES
+    pp_tp_gpt = {
+        "card": card, "model": "gpt2-small", **GPT2_SMALL,
+        "stages": PP_TP_STAGES, "tp": TP_RANKS, "ranks": PP_TP_RANKS,
+        "schedule": "gpipe", "microbatches": PP_MICROBATCHES,
+        "microbatch_rows": PP_MICROBATCH, "batch": TRAIN_BATCH,
+        "seq": GPT2_SMALL["max_position_embeddings"], "dtype": "bfloat16",
+        "optimizer": "Adam", "lr": TRAIN_LR, "dropout": 0.0,
+        "rules": "DEFAULT_RULES", "split_params": len(bound),
+        "backend": records[0]["backend"],
+        "warmup_steps": 1 + PP_TP_WARMUP, "timed_steps": PP_TP_STEPS,
+        "tokens_per_s": tokens * PP_TP_STEPS / window,
+        "slowest_window_s": window, "step_ms_p50": p50,
+        "train_step_ms_p50": train_line["step_ms_p50"],
+        "step_cost_vs_train": p50 / train_line["step_ms_p50"],
+        "tp_gpt_step_ms_p50": tp_line["step_ms_p50"],
+        "losses": last, "step1_loss": step1,
+        "one_process_step1_loss": ref["loss"], "loss_tol": ulp,
+        "first_moment_tol": GRAD_PARITY_TOL,
+        "same_weights_tol": TP_SAME_TOL,
+        "one_process_params_and_slots_bytes": ref["params_and_slots_bytes"],
+        "one_process_param_elements": ref["param_elements"],
+        "tp_gpt_params_and_slots_bytes": [
+            r["params_and_slots_bytes"] for r in tp_line["per_rank"]],
+        "rank0_profiled_step": {
+            "wall_ms": profile["wall_ms"],
+            "device_idle_share": profile["device_idle_share"],
+            "flash_fwd_lse_device_ms_a_launch":
+                profile["flash_fwd_kernel_ms"] / launches_r0,
+            "flash_bwd_dkv_device_ms_a_launch":
+                profile["flash_bwd_dkv_kernel_ms"] / launches_r0,
+            "flash_bwd_dq_device_ms_a_launch":
+                profile["flash_bwd_dq_kernel_ms"] / launches_r0,
+            "by_category": profile["by_category"]},
+        "reference_s": ref_s, "launcher_wall_s": wall,
+        "card_memory_used_mib_max": max(used) if used else None,
+        "card_memory_samples": len(used), "per_rank": ranks}
+    pp_tp_parity = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+                    "num_hidden_layers": DP_PARITY_LAYERS,
+                    "dtype": "float32", "stages": PP_TP_STAGES,
+                    "tp": TP_RANKS, "batch": DP_PARITY_BATCH,
+                    "microbatches": PP_MICROBATCHES,
+                    "steps": DP_PARITY_STEPS, "reference": "the same "
+                    "stages in one process on the card"}
+    for schedule in PP_TP_SCHEDULES:
+        got = records[-1][f"parity_losses_{schedule}"]
+        line, ok = _parity_line(got, parity[schedule],
+                                ref["parity"][schedule])
+        pp_tp_parity[schedule] = line
+        if not ok:
+            faults.append(f"pp_tp_parity {schedule} {line}")
+    if faults:
+        log(f"pp_tp failed: {pp_tp_gpt}")
+        raise AssertionError(f"pp_tp: {faults}")
+    counts = {}
+    for rec in records:
+        for k, v in rec["launches"].items():
+            counts[k] = counts.get(k, 0) + v
+    return {"pp_tp_gpt": pp_tp_gpt, "pp_tp_parity": pp_tp_parity}, counts
 
 
 def _hybrid_traffic(seed):
@@ -5437,6 +5850,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # hybrid_fleet's workers
     ap.add_argument("--tp-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # tp_gpt's ranks
+    ap.add_argument("--pp-tp-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # pp_tp_gpt's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -5458,6 +5873,9 @@ def main(argv=None):
     if args.tp_worker is not None:
         sys.path.insert(0, ROOT)
         return tp_worker(json.loads(args.tp_worker))
+    if args.pp_tp_worker is not None:
+        sys.path.insert(0, ROOT)
+        return pp_tp_worker(json.loads(args.pp_tp_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -5537,6 +5955,11 @@ def main(argv=None):
     tp_lines, tp_launches = tp_pass(card, args.seed, train_line, parity_ref)
     del parity_ref
     log(f"tp ({time.perf_counter() - t:.1f} s) {tp_lines}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pp_tp_lines, pp_tp_launches = pp_tp_pass(card, args.seed, train_line,
+                                             tp_lines["tp_gpt"])
+    log(f"pp_tp ({time.perf_counter() - t:.1f} s) {pp_tp_lines}")
     torch.cuda.empty_cache()
 
     bert_lines, bert_launches = {}, {}
@@ -5637,7 +6060,8 @@ def main(argv=None):
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
                    ("pp_1f1b", pp_launches["1f1b"], PP_REP),
                    ("dp_gpt", dp_launches, DP_REP),
-                   ("tp_gpt", tp_launches, TRAIN_REP)]
+                   ("tp_gpt", tp_launches, TRAIN_REP),
+                   ("pp_tp_gpt", pp_tp_launches, PP_REP)]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -5670,6 +6094,7 @@ def main(argv=None):
              *({name: line} for name, line in pp_lines.items()),
              *({name: line} for name, line in dp_lines.items()),
              *({name: line} for name, line in tp_lines.items()),
+             *({name: line} for name, line in pp_tp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},

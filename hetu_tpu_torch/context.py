@@ -27,9 +27,10 @@ class DeviceGroup:
     """An ordered set of device contexts (reference context.py:7-96).
     Accepts a context, a list of them, or a string like ``"gpu:0"`` or
     ``"host:cpu:0"``. GPUs are workers, CPUs are servers; a tuple of
-    contexts is one worker whose devices share a model-parallel copy
-    (a pipeline refuses it until tensor parallelism inside a stage,
-    ROADMAP item 11b.4)."""
+    contexts is one worker whose devices share a model-parallel copy:
+    as a pipeline stage's context it lists the stage's ranks, one a
+    device, each the owner of its hostname (``'worker<k>'`` or
+    ``HETU_HOSTS``; :mod:`.parallel.pipeline`)."""
 
     def __init__(self, ctxs):
         self._contexts = self.parse_contexts(ctxs)

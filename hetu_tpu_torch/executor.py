@@ -86,14 +86,18 @@ computes each op on the shards or moves values between layouts; fetched
 values are made whole; ``save`` gathers (every rank calls it, the mesh's
 rank 0 writes) and ``load_params`` slices. Data parallelism then rides
 the mesh's ``dp`` axis alone, and its dropout seed is the rank's ``dp``
-coordinate. TP or DP inside a pipeline stage, TP on a parameter server,
-the collective pipeline, the auto-planner's cost model, telemetry and
-the preflight analysis are still to port; ``HetuConfig`` refuses their
-options, each naming its ROADMAP item.
+coordinate. Inside a pipeline the planner runs per stage instead: a
+stage whose context is a tuple of devices is split over its own ranks
+(:mod:`~hetu_tpu_torch.parallel.pipeline`), its parameters stored as
+shards, ``save`` gathering each stage and its first rank writing it.
+TP on a parameter server, the collective pipeline, the auto-planner's
+cost model, telemetry and the preflight analysis are still to port;
+``HetuConfig`` refuses their options, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import contextlib
+import glob
 import os
 import pickle
 import threading
@@ -290,7 +294,9 @@ class HetuConfig:
     :meth:`spec_for` names each node's partition. ``gpipe`` /
     ``pipedream`` train under a pipeline schedule over
     ``num_microbatches`` microbatches (``pp_options``:
-    ``virtual_stages``); without ``ctx`` or ``device`` the session's
+    ``virtual_stages``, and ``job``, a :class:`~hetu_tpu_torch.parallel.
+    mesh.Job` where ranks are not processes of a launcher's job); a
+    pipeline refuses ``mesh``; without ``ctx`` or ``device`` the session's
     device is then the first stage's. The reference's ``train_name``,
     ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
     ``dynamic_memory`` are accepted and, as there, change nothing."""
@@ -375,10 +381,15 @@ class HetuConfig:
         self.mesh = mesh
         self.dp_comm = None
         if pipeline and (mesh is not None or self.comm_mode is not None):
+            where = "over mesh=" if mesh is not None \
+                else f"in the {self.comm_mode} mode"
             raise NotImplementedError(
-                f"a pipeline in the {self.comm_mode or 'data-parallel'} "
-                f"mode: data parallel or PS stages wait for ROADMAP item "
-                f"11b.4 (TP and DP inside a pipeline stage)")
+                f"a pipeline {where}: "
+                f"a pipeline plans each stage over the ranks of its own "
+                f"context, so data parallelism inside a stage is a "
+                f"row-splitting ht.dispatch(act, (n, 1)) in a stage whose "
+                f"context is a tuple of n devices (ROADMAP item 11b.4); "
+                f"parameter-server stages are not ported")
         # tensor parallel: the planner's statuses on the user's graph
         # decide the TP degree, and with it the job's mesh (dp x tp)
         self.node_status, self.node_spec, self.model_axes = {}, {}, {}
@@ -388,7 +399,8 @@ class HetuConfig:
         statuses = propagate_statuses(find_topo_sort(eval_node_list))
         tp = tp_degree(statuses.values())
         if tp > 1:
-            self._refuse_tp(tp, pipeline)
+            self._refuse_tp(tp)
+        if tp > 1 and not pipeline:     # a pipeline plans per stage
             mesh = self._tp_mesh(statuses, mesh, tp)
             self.mesh = mesh
         if mesh is not None:
@@ -452,8 +464,9 @@ class HetuConfig:
         for node in find_topo_sort(eval_node_list):
             node.forward_hook(self)
         # the TP planner (reference executor.py:320-330), on the graph
-        # with its comm ops spliced
-        if tp > 1:
+        # with its comm ops spliced; a pipeline plans each stage instead
+        # (parallel/pipeline.py, JAX package executor.py:321-327)
+        if tp > 1 and not pipeline:
             from .parallel.planner import assign_states
             from .parallel.tensor_parallel import Layouts
             assign_states(eval_node_list, self)
@@ -462,20 +475,15 @@ class HetuConfig:
             from .ps.client import get_default_client
             self.ps_comm = get_default_client()
 
-    def _refuse_tp(self, degree, pipeline):
+    def _refuse_tp(self, degree):
         """A ``degree``-way tensor-parallel plan where the port has none:
-        inside a pipeline, on a parameter server, over several devices of
-        one process. Raises naming its ROADMAP item."""
-        if pipeline:
-            raise NotImplementedError(
-                f"tensor parallel ({degree}-way dispatch) inside a "
-                f"pipeline: TP and DP inside a pipeline stage wait for "
-                f"ROADMAP item 11b.4")
+        on a parameter server, over several devices of one process.
+        Raises naming its ROADMAP item."""
         if self.comm_mode in ("PS", "Hybrid"):
             raise NotImplementedError(
                 f"tensor parallel ({degree}-way dispatch) in the "
                 f"{self.comm_mode} mode: a split parameter on a parameter "
-                f"server is not ported (ROADMAP item 11b.4)")
+                f"server is not ported (ROADMAP item 11b.5)")
         if self.context.worker_num > 1:
             raise NotImplementedError(
                 f"tensor parallel over {self.context.worker_num} devices of "
@@ -685,7 +693,8 @@ class SubExecutor:
         self.tp = None
         if config.tp_layouts is not None:
             from .parallel.tensor_parallel import TensorParallel
-            self.tp = TensorParallel(self, config)
+            self.tp = TensorParallel(self.topo_order, config.tp_layouts,
+                                     config.spec_for)
         self.allreduce_defer = None
         if config.nrank > 1 and config.overlap.bucket_bytes:
             from .ops.comm import optimizer_allreduce_ops
@@ -895,8 +904,10 @@ class Executor:
         ps_embeds = {op.parameter for op in config.ps_nodes
                      if op.parameter.is_embed}
         # a pipeline places each parameter on its stage's device, and a
-        # worker process materializes only its own stages' (None)
+        # worker process materializes only its own stages' (None); a
+        # split stage stores its shards
         placement = None
+        self._stage_layouts = {}
         if config.use_gpipe or config.use_pipedream:
             from .parallel.pipeline import PipelineSubExecutor
             schedule = "gpipe" if config.use_gpipe else "1f1b"
@@ -907,6 +918,7 @@ class Executor:
             placement = {}
             for sub in self.subexecutors.values():
                 placement.update(sub.param_devices())
+                self._stage_layouts.update(sub.param_layouts())
         for node in topo:
             if node in ps_embeds:
                 continue        # lives on the PS server only
@@ -1103,24 +1115,40 @@ class Executor:
             by_name[node.name] = sid
         return by_name
 
+    def _tp_of(self, node):
+        """(Layouts, layout) of a parameter: its pipeline stage's or the
+        session's; the layout None where it is held whole."""
+        if node in self._stage_layouts:
+            return self._stage_layouts[node]
+        tp = self.config.tp_layouts
+        return (None, None) if tp is None else \
+            (tp, tp.fit(self.config.spec_for(node), tuple(node.shape)))
+
     def _layout(self, node):
         """A parameter's tensor-parallel layout (None: held whole)."""
-        tp = self.config.tp_layouts
-        return None if tp is None else tp.fit(self.config.spec_for(node),
-                                              tuple(node.shape))
+        return self._tp_of(node)[1]
 
     def _local(self, node, value):
         """This rank's shard of a parameter's (or slot's) whole value."""
-        layout = self._layout(node)
-        return value if layout is None else \
-            self.config.tp_layouts.local(value, layout)
+        lay, layout = self._tp_of(node)
+        return value if layout is None else lay.local(value, layout)
 
     def _whole(self, node, value):
         """A parameter's (or slot's) whole value from every rank's shard:
-        a collective under tensor parallelism."""
-        layout = self._layout(node)
+        a collective over its group under tensor parallelism."""
+        lay, layout = self._tp_of(node)
         return value if layout is None else \
-            self.config.tp_layouts.redistribute(value, layout, None)[0]
+            lay.redistribute(value, layout, None)[0]
+
+    def _writes(self, node):
+        """Whether this rank writes ``node`` in ``save``: every parameter
+        in one process; a tensor-parallel session's mesh rank 0; a
+        pipeline stage's first rank its stage's."""
+        subs = [s for s in self.subexecutors.values()
+                if not isinstance(s, SubExecutor)]
+        if subs:
+            return any(s.writes(node) for s in subs)
+        return self.config.tp_layouts is None or not self.config.mesh.rank
 
     def save(self, file_path, file_name=None):
         """One ``<name>.npy`` per parameter (the f32 masters) plus
@@ -1128,31 +1156,40 @@ class Executor:
         pickle — ``hetu_tpu``'s layout (reference executor.py:376-434).
         A tensor-parallel session saves whole tensors: every rank calls
         ``save`` (the shards are gathered) and the mesh's rank 0
-        writes."""
+        writes. Across a pipeline's worker processes each stage's first
+        rank writes its stage's, the sidecar of a rank k > 0 under the
+        name suffixed ``.rank<k>``, which ``load`` reads beside it."""
         nodes = {node.id: node for node in self._param_nodes.values()}
         params = {sid: self._whole(node, self.params[sid])
                   for sid, node in self._param_nodes.items()}
         slots_of = {k: {s: self._whole(nodes[k], t) if k in nodes else t
                         for s, t in slots.items()}
                     for k, slots in self.opt_state.items()}
-        if self.config.tp_layouts is not None and self.config.mesh.rank:
+        mine = {sid: node for sid, node in self._param_nodes.items()
+                if self._writes(node)}
+        if not mine and (self._param_nodes or self.config.tp_layouts
+                         is not None):
             return
         os.makedirs(file_path, exist_ok=True)
         self._by_name()
-        for sid, node in self._param_nodes.items():
+        for sid, node in mine.items():
             np.save(os.path.join(file_path, node.name + ".npy"),
                     NDArray(params[sid]).asnumpy())
+        slots_of = {k: v for k, v in slots_of.items()
+                    if k not in nodes or str(k) in mine}
         sidecar = {
             "opt_state": {k: {s: NDArray(t).asnumpy()
                               for s, t in slots.items()}
                           for k, slots in slots_of.items()},
             "state": {k: {s: NDArray(t).asnumpy() for s, t in vals.items()}
                       for k, vals in self.state.items()},
-            "id_to_name": {sid: node.name
-                           for sid, node in self._param_nodes.items()},
+            "id_to_name": {sid: node.name for sid, node in mine.items()},
         }
-        with open(os.path.join(file_path, file_name or "session.ckpt"),
-                  "wb") as f:
+        name = file_name or "session.ckpt"
+        rank = self._pipeline_rank()
+        if rank:
+            name += f".rank{rank}"
+        with open(os.path.join(file_path, name), "wb") as f:
             pickle.dump(sidecar, f)
         if self.ps_runtime is not None:
             # the server's tensors, one ps_<id>.bin each, after every
@@ -1180,15 +1217,19 @@ class Executor:
         ckpt = os.path.join(file_path, file_name or "session.ckpt")
         if os.path.exists(ckpt):
             self._load_sidecar(ckpt)
+        # the other pipeline ranks' slots (see save)
+        for extra in sorted(glob.glob(glob.escape(ckpt) + ".rank*")):
+            self._load_sidecar(extra, state=False)
         if self.ps_runtime is not None:
             self.ps_runtime.load(file_path)
 
-    def _load_sidecar(self, ckpt):
+    def _load_sidecar(self, ckpt, state=True):
         # the sidecar is a pickle of plain dicts and numpy arrays written
         # by Executor.save of this package or of hetu_tpu
         with open(ckpt, "rb") as f:
             sidecar = pickle.load(f)
-        self.load_state(sidecar["state"])
+        if state:
+            self.load_state(sidecar["state"])
         node_of = {node.name: node for node in self._param_nodes.values()}
         for key, slots in sidecar["opt_state"].items():
             node = node_of.get(sidecar["id_to_name"].get(str(key)))
@@ -1244,6 +1285,12 @@ class Executor:
                                  f"{value.shape} != {want}")
             self.params[sid] = self._local(node, torch.as_tensor(
                 value, dtype=old.dtype)).contiguous().to(old.device)
+
+    def _pipeline_rank(self):
+        """This process's rank in a pipeline across worker processes,
+        else 0."""
+        return max((s.my_rank for s in self.subexecutors.values()
+                    if getattr(s, "multiproc", False)), default=0)
 
     def recordLoads(self):
         """The PS client's load counter (reference executor.py:1724);

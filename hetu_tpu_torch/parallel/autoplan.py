@@ -153,6 +153,11 @@ def compile_rules(eval_nodes, rules=None, tp=1, topo=None):
     return bindings, conflicts
 
 
+def _placed(node):
+    ctx = node.raw_ctx
+    return ctx is not None and ctx.worker_num + ctx.server_num > 0
+
+
 def apply_rules(eval_nodes, bindings, shapes=None):
     """Splice the compiled Dispatch markers into the graph: for each
     binding, consumers of the parameter are rewired through a fresh
@@ -176,7 +181,15 @@ def apply_rules(eval_nodes, bindings, shapes=None):
         for i in getattr(node, "inputs", ()):
             consumers_of.setdefault(id(i), []).append(node)
     for b in bindings:
-        d = dispatch(b.param, b.parts, ctx=b.param.raw_ctx)
+        # the dispatch sits where its parameter's readers are: a pipeline
+        # puts unplaced compute in its deepest input's stage, and a
+        # model built outside every stage context (staged_gpt) leaves
+        # its parameters unplaced
+        readers = [n for n in consumers_of.get(id(b.param), ())
+                   if _placed(n)]
+        ctx = b.param.raw_ctx if _placed(b.param) or not readers \
+            else readers[0].raw_ctx
+        d = dispatch(b.param, b.parts, ctx=ctx)
         split_ops = []
         for node in consumers_of.get(id(b.param), ()):
             if node is d:

@@ -7,13 +7,18 @@ of a grid of process ranks: one process per card (the launcher's
 (``torch.distributed.new_group``) that the graph's collectives ride.
 :func:`mesh_for_statuses` lays the tensor-parallel planner's job out
 as ``("dp", "tp0", "tp1", ...)``: the data-parallel axis major, the
-prime-factored model axes minor.
+prime-factored model axes minor. A pipeline stage over several ranks
+takes a mesh over those alone (:func:`subset_mesh`, through its
+:class:`Job`).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
-__all__ = ["Mesh", "build_mesh", "factorized_axes", "mesh_for_statuses"]
+__all__ = ["Job", "Mesh", "build_mesh", "factorized_axes",
+           "mesh_for_statuses", "subset_mesh"]
 
 
 class Mesh:
@@ -60,6 +65,72 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
+class Job:
+    """The worker processes of one job as a pipeline sees them: this
+    process's ``rank``, their count ``nprocs``, ``new_group(members)``
+    (the process group over a list of ranks, or None on a rank outside
+    it) and ``channel()`` (the host channel stage boundaries cross,
+    :mod:`.p2p`).
+
+    :meth:`from_env` reads a launcher's job (``HETU_PROC_ID``,
+    ``HETU_NUM_PROCS``; groups by ``torch.distributed.new_group``, which
+    every rank of the job must call for every group, in one order). A
+    test running ranks as threads of one process passes its own (the
+    executor's ``pp_options={"job": ...}``): they share one environment,
+    and so one rank and one channel."""
+
+    def __init__(self, rank, nprocs, new_group=None, channel=None):
+        self.rank = int(rank)
+        self.nprocs = int(nprocs)
+        self._new_group = new_group
+        self._channel = channel
+
+    @classmethod
+    def from_env(cls):
+        return cls(int(os.environ.get("HETU_PROC_ID", "0")),
+                   int(os.environ.get("HETU_NUM_PROCS", "1")))
+
+    def new_group(self, members):
+        if self._new_group is not None:
+            return self._new_group(list(members))
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"a stage over the ranks {list(members)} needs the job's "
+                f"process group: run one process a rank under the "
+                f"launcher's spmd: true")
+        group = dist.new_group(list(members))
+        return group if self.rank in members else None
+
+    def channel(self):
+        if self._channel is None:
+            from .p2p import get_channel
+            self._channel = get_channel()
+        return self._channel
+
+
+def subset_mesh(axis_sizes, ranks, job):
+    """The mesh of ``axis_sizes`` over ``ranks`` (a subset of the job's,
+    laid out row-major) for ``job``'s rank, or None where it is not one
+    of them. Every rank of the job calls it for every subset, in one
+    order: each axis slice's group is made on every rank, as
+    ``torch.distributed.new_group`` needs."""
+    names = list(axis_sizes)
+    sizes = [int(axis_sizes[n]) for n in names]
+    grid = np.asarray(ranks).reshape(sizes)
+    groups = {}
+    for i, axis in enumerate(names):
+        for members in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
+            members = [int(r) for r in members]
+            group = job.new_group(members)
+            if job.rank in members:
+                groups[axis] = group
+    if job.rank not in grid:
+        return None
+    return Mesh(dict(zip(names, sizes)),
+                int(np.argwhere(grid.ravel() == job.rank)[0][0]), groups)
+
+
 def build_mesh(axis_sizes, devices=None):
     """Mesh from an ``{axis_name: size}`` dict over the default process
     group (joined by ``executor.maybe_init_distributed``), ranks
@@ -84,20 +155,12 @@ def build_mesh(axis_sizes, devices=None):
     if len(ranks) < need:
         raise ValueError(f"mesh {axis_sizes} needs {need} ranks, the job "
                          f"has {len(ranks)}")
-    grid = np.asarray(ranks[:need]).reshape(sizes)
-    me = dist.get_rank()
-    groups = {}
-    for i, axis in enumerate(names):
-        for members in np.moveaxis(grid, i, -1).reshape(-1, sizes[i]):
-            members = [int(r) for r in members]
-            group = dist.new_group(members)
-            if me in members:
-                groups[axis] = group
-    if me not in grid:
-        raise ValueError(f"rank {me} is not in the mesh's ranks "
-                         f"{grid.ravel().tolist()}")
-    return Mesh(dict(zip(names, sizes)),
-                int(np.argwhere(grid.ravel() == me)[0][0]), groups)
+    mesh = subset_mesh(dict(zip(names, sizes)), ranks[:need],
+                       Job(dist.get_rank(), world))
+    if mesh is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh's "
+                         f"ranks {ranks[:need]}")
+    return mesh
 
 
 def factorized_axes(n, prefix="tp"):

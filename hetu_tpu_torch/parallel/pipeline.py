@@ -42,6 +42,22 @@ or ``pipedream=True`` (with ``num_microbatches``) to the Executor.
   channel (:mod:`.p2p`) under tags, whose blocking receives are the
   cross-process schedule. ``pp_options={"virtual_stages": V}`` needs
   round-robin ownership.
+* **TP and DP inside a stage** (reference context.py:652-656; JAX
+  package pipeline.py:431-460): a stage whose context is a tuple runs on
+  one rank a device, ``_owner_of`` each device's hostname (the JAX
+  package drives a tuple stage's devices from one process). The
+  planner's statuses propagate once over the whole graph, forward and
+  backward; a stage whose statuses split something gets a mesh over its
+  ranks (:func:`~.mesh.subset_mesh`, every stage's groups made on every
+  rank in one order), its nodes' specs over it, and walks through its
+  own :class:`~.tensor_parallel.TensorParallel` — a column-split weight
+  is TP, a row-split activation (``dispatch(act, (n, 1))``) DP. Its
+  parameters and their slots are stored as shards. A tuple stage whose
+  statuses split nothing runs on its first rank alone, as the JAX
+  package runs it on its first device. A boundary value is made whole
+  in the sending group; rank k of the receiving group takes it from rank
+  k mod width of the sending group and cuts its own layout locally;
+  adjoints cross back alike.
 
 The LR scheduler advances once per global step under both schedules;
 all M updates of a 1F1B step share its rate and step count. ``run``
@@ -63,25 +79,34 @@ from ..graph.autodiff import find_topo_sort, gradients
 from ..graph.node import ExecContext
 from ..ndarray import IndexedSlices, NDArray, cpu, gpu
 from ..optimizer import Optimizer, OptimizerOp, SGDOptimizer
-from ..ops.comm import PipelineReceiveOp, PipelineSendOp
+from ..ops.comm import DispatchOp, PipelineReceiveOp, PipelineSendOp
 from ..ops.embedding import EmbeddingLookUp
 from ..ops.shape import oneslike_op
 from ..ops.variable import PlaceholderOp
+from .mesh import Job, factorized_axes, subset_mesh, tp_degree
+from .planner import propagate_statuses, spec_for_status
+from .tensor_parallel import Layouts, TensorParallel
 
 __all__ = ["PipelineSubExecutor", "analytic_bubble_fraction",
            "virtual_stage_program", "splice_send_recv"]
 
 
 class _Stage:
-    __slots__ = ("index", "ctx", "device", "owner", "nodes", "param_nodes",
-                 "feed_nodes", "in_nodes", "grad_nodes", "grad_in",
-                 "train_params", "free_after", "compute_params")
+    __slots__ = ("index", "ctx", "device", "owner", "ranks", "axes", "mesh",
+                 "node_spec", "tp", "nodes", "param_nodes", "feed_nodes",
+                 "in_nodes", "grad_nodes", "grad_in", "train_params",
+                 "free_after", "compute_params")
 
     def __init__(self, index, ctx):
         self.index = index
-        self.ctx = ctx
-        self.device = None       # None: owned by another worker process
-        self.owner = 0
+        self.ctx = ctx           # its contexts (a tuple), or None
+        self.device = None       # None: run by other worker processes
+        self.ranks = [0]         # the ranks that run it, one a context
+        self.owner = 0           # the first of them
+        self.axes = {}           # its plan's model axes, where it splits
+        self.mesh = None         # over them, on its ranks
+        self.node_spec = {}      # node -> partition spec over that mesh
+        self.tp = None           # its TensorParallel walk, on its ranks
         self.nodes = []          # forward ops, topological order
         self.param_nodes = []
         self.feed_nodes = []
@@ -276,6 +301,10 @@ class PipelineSubExecutor:
                     f"a pipeline stage are not ported; feed placeholders")
         self._build_stages(topo)
         self._build_backward()
+        self._shape_topo = find_topo_sort(
+            self.eval_nodes + list(self.param_grad.values()))
+        self._wire = {n: i for i, n in enumerate(self._shape_topo)}
+        self._plan_stages()
         self.virtual_stages = max(1, int(
             config.pp_options.get("virtual_stages", 1)))
         self.num_microbatches = int(num_microbatches
@@ -283,7 +312,7 @@ class PipelineSubExecutor:
         if self.virtual_stages > 1 and self.multiproc:
             # the interleaved schedule is round-robin ownership under the
             # unchanged 1F1B order; a blocked placement would forfeit it
-            owners = [s.owner for s in self.stages]
+            owners = [tuple(s.ranks) for s in self.stages]
             nr = len(set(owners))
             if len(owners) % nr or any(o != owners[i % nr]
                                        for i, o in enumerate(owners)):
@@ -303,8 +332,6 @@ class PipelineSubExecutor:
                     f"gpipe=True or an optimizer whose sparse update is out "
                     f"of place (Adam, AdaGrad)")
         self._feed_shapes = None
-        self._shape_topo = find_topo_sort(
-            self.eval_nodes + list(self.param_grad.values()))
 
     # ------------------------------------------------------------------
     def _build_stages(self, topo):
@@ -313,14 +340,9 @@ class PipelineSubExecutor:
             k = _device_key(node)
             if k is None or isinstance(node, PlaceholderOp) or k in keys:
                 continue
-            if len(k) > 1:
-                raise NotImplementedError(
-                    f"{node.name}: a stage over the devices {k} (a tuple "
-                    f"context) is tensor or data parallel inside the "
-                    f"stage, which waits for ROADMAP item 11b.4 (TP and "
-                    f"DP inside a pipeline stage)")
             keys.append(k)
-            ctx_of[k] = node.raw_ctx[0]
+            first = node.raw_ctx[0]
+            ctx_of[k] = first if isinstance(first, tuple) else (first,)
         if not keys:
             keys = [(("localhost", 0),)]
             ctx_of[keys[0]] = None
@@ -360,19 +382,67 @@ class PipelineSubExecutor:
                     stages[s].feed_nodes.append(node)
         self.assign = assign
         self.stages = stages
-
-        self.my_rank = int(os.environ.get("HETU_PROC_ID", "0"))
-        nprocs = int(os.environ.get("HETU_NUM_PROCS", "1"))
+        # the rank of each device of a stage's context
+        self.job = self.config.pp_options.get("job") or Job.from_env()
+        self.my_rank = self.job.rank
         for st, key in zip(stages, keys):
-            st.owner = _owner_of(key[0][0], nprocs)
-        self.multiproc = nprocs > 1 and len({s.owner for s in stages}) > 1
-        for st in stages:
-            if self.multiproc and st.owner != self.my_rank:
-                continue            # another process runs it
+            st.ranks = [_owner_of(host, self.job.nprocs) for host, _ in key]
+
+    def _plan_stages(self):
+        """The stages' plans (JAX package pipeline.py:431-460), then who
+        runs each stage and on which device. Statuses propagate once over
+        the forward and backward graph; a stage over several ranks whose
+        statuses split something gets a mesh over them, its nodes' specs
+        over it and a TensorParallel walk, and every rank makes every
+        such stage's groups in stage order; one whose statuses split
+        nothing keeps its first rank alone."""
+        status = propagate_statuses(self._shape_topo)
+        for st in self.stages:
+            own = set(st.nodes) | set(st.param_nodes) | \
+                set(st.feed_nodes) | set(st.grad_nodes)
+            sts = {n: s for n, s in status.items() if n in own}
+            if not any(s is not None and s.is_dist() for s in sts.values()):
+                st.ranks = st.ranks[:1]
+            if len(st.ranks) < 2:
+                continue
+            if len(set(st.ranks)) < len(st.ranks):
+                raise NotImplementedError(
+                    f"stage {st.index} over the contexts {st.ctx}: their "
+                    f"hostnames map to the ranks {st.ranks}, so one process "
+                    f"would drive several devices (ROADMAP item 11a's "
+                    f"remainder); name each device's worker ('worker<k>' "
+                    f"or HETU_HOSTS) and run one process a rank under the "
+                    f"launcher's spmd: true")
+            axes = factorized_axes(tp_degree(sts.values()))
+            need = int(np.prod(list(axes.values())))
+            if need != len(st.ranks):
+                raise ValueError(
+                    f"stage {st.index}: its tensor-parallel plan {axes} "
+                    f"needs {need} ranks, its context {st.ctx} lists "
+                    f"{len(st.ranks)}")
+            st.axes = axes
+            st.mesh = subset_mesh(axes, st.ranks, self.job)
+            st.node_spec = {n: spec for n, s in sts.items() for spec in
+                            [spec_for_status(s, axes, node=n)]
+                            if spec is not None}
+            if st.mesh is not None:
+                topo = st.param_nodes + st.feed_nodes + st.nodes \
+                    + st.grad_nodes
+                st.tp = TensorParallel(topo, Layouts(st.mesh, axes),
+                                       st.node_spec.get)
+        everyone = {r for st in self.stages for r in st.ranks}
+        self.multiproc = self.job.nprocs > 1 and len(everyone) > 1
+        for st in self.stages:
+            if not self.multiproc:
+                st.ranks = [self.my_rank]       # this process runs it all
+            st.owner = st.ranks[0]
+            if self.my_rank not in st.ranks:
+                continue            # other processes run it
             if self.config.device.type == "cpu" or st.ctx is None:
                 st.device = self.config.device
             else:
-                st.device = st.ctx.torch_device()
+                st.device = st.ctx[st.ranks.index(self.my_rank)] \
+                    .torch_device()
 
     def _build_backward(self):
         """The gradient graph of the loss, placed on the stages by
@@ -457,10 +527,24 @@ class PipelineSubExecutor:
 
     # ------------------------------------------------------------------
     def param_devices(self):
-        """{parameter: the device of its stage, or None where another
-        worker process owns the stage}: where the executor materializes
+        """{parameter: the device of its stage, or None where other
+        worker processes run the stage}: where the executor materializes
         each parameter."""
         return {p: st.device for st in self.stages for p in st.param_nodes}
+
+    def param_layouts(self):
+        """{parameter: (Layouts, layout)} of this rank's split stages'
+        parameters: how each is stored (a layout None is whole)."""
+        return {p: (st.tp.lay, st.tp.lay.fit(st.node_spec.get(p),
+                                               tuple(p.shape)))
+                for st in self._own() if st.tp is not None
+                for p in st.param_nodes}
+
+    def writes(self, param):
+        """Whether this rank writes ``param`` when the session is saved:
+        the first rank of its stage does."""
+        return any(param in st.param_nodes and st.owner == self.my_rank
+                   for st in self.stages)
 
     def _own(self):
         return [st for st in self.stages if st.device is not None]
@@ -485,41 +569,51 @@ class PipelineSubExecutor:
         return ectx
 
     def _tag(self, kind, m, node, st):
-        return f"{kind}{self.step_count}:{m}:{node.id}:{st.index}"
+        # a node by its place in the graph's topological order: the same
+        # in every rank's copy of the graph, where the gradient ops'
+        # ids, drawn as each rank's executor builds them, need not be
+        return f"{kind}{self.step_count}:{m}:{self._wire[node]}:{st.index}"
 
     def _hand_over(self, st, m, node, value, kind):
-        """Pass a boundary value to every other stage that reads it: into
-        its inbox in this process, over the channel to another."""
+        """Pass a boundary value to every other stage that reads it, made
+        whole in ``st``'s group first: rank k of a reading stage takes it
+        from rank k mod width of ``st``'s, into its inbox in this
+        process, over the channel to another. A tag is unique per (step,
+        microbatch, node, reading stage) on the receiving rank."""
+        if st.tp is not None:
+            value = st.tp.whole(node, value)
+        me = st.ranks.index(self.my_rank)
         for reader in self._readers.get(node, ()):
-            if reader is st:
-                continue
-            if reader.device is not None:
-                self._inbox[(reader.index, m, node)] = value.to(
-                    reader.device)
-            else:
-                self._channel().send(reader.owner,
-                                     self._tag(kind, m, node, reader), value)
+            for k, dst in enumerate(reader.ranks):
+                if k % len(st.ranks) != me:
+                    continue
+                if dst == self.my_rank:
+                    self._inbox[(reader.index, m, node)] = value.to(
+                        reader.device)
+                else:
+                    self.job.channel().send(
+                        dst, self._tag(kind, m, node, reader), value)
 
     def _take(self, st, m, node, kind):
         """A boundary value the microbatch's ``kind`` ("f" forward, "b"
-        backward) walk of ``st`` reads: from its inbox, or the channel."""
-        src = self.stage_of_grad[node] if kind == "b" else self.assign[node]
-        if self.stages[src].device is not None:
+        backward) walk of ``st`` reads, whole: from its inbox, or the
+        channel."""
+        src = self.stages[self.stage_of_grad[node] if kind == "b"
+                          else self.assign[node]]
+        k = st.ranks.index(self.my_rank)
+        if src.ranks[k % len(src.ranks)] == self.my_rank:
             return self._inbox.pop((st.index, m, node))
-        return self._channel().recv(self._tag(kind, m, node, st)).to(
+        return self.job.channel().recv(self._tag(kind, m, node, st)).to(
             st.device)
-
-    @staticmethod
-    def _channel():
-        from .p2p import get_channel
-        return get_channel()
 
     def _walk(self, st, env, ectx, nodes, offset, m, kind):
         handed = self._readers
+        tp = st.tp
         for i, node in enumerate(nodes):
             if node not in env:
-                env[node] = node.compute([env[x] for x in node.inputs],
-                                         ectx)
+                vals = [env[x] for x in node.inputs]
+                env[node] = node.compute(vals, ectx) if tp is None \
+                    else tp.compute(node, vals, ectx)
             if node in handed:
                 self._hand_over(st, m, node, env[node], kind)
             for dead in st.free_after[offset + i]:
@@ -527,14 +621,17 @@ class PipelineSubExecutor:
 
     def _forward(self, executor, st, m):
         env = dict(self._compute_params(executor, st))
-        env.update(self._feeds[(st.index, m)])
+        feeds = self._feeds[(st.index, m)]
+        env.update(feeds if st.tp is None else st.tp.shard_feeds(feeds))
         for node in st.in_nodes:
             env[node] = self._take(st, m, node, "f")
         ectx = self._exec_context(st, m)
         self._walk(st, env, ectx, st.nodes, 0, m, "f")
         self._envs[(st.index, m)] = (env, ectx)
         if self.assign[self.loss_node] == st.index:
-            self._losses.append(env[self.loss_node])
+            loss = env[self.loss_node]
+            self._losses.append(loss if st.tp is None
+                                else st.tp.whole(self.loss_node, loss))
 
     def _backward_env(self, st, m):
         """The microbatch's forward environment, its stash: the weights,
@@ -551,9 +648,14 @@ class PipelineSubExecutor:
         for node in st.grad_in:
             env[node] = self._take(st, m, node, "b")
         self._walk(st, env, ectx, st.grad_nodes, len(st.nodes), m, "b")
-        return {p: _as_dtype(env[self.param_grad[p]],
-                             executor.params[str(p.id)].dtype)
-                for p in st.train_params}
+        grads = {}
+        for p in st.train_params:
+            node = self.param_grad[p]
+            g = env[node]
+            if st.tp is not None:     # into the parameter's layout
+                g = st.tp.to_param(node, p, g, st.tp.layout.get(node))
+            grads[p] = _as_dtype(g, executor.params[str(p.id)].dtype)
+        return grads
 
     def _apply(self, executor, st, grads):
         """One optimizer update of the stage's parameters (``grads`` is
@@ -653,7 +755,33 @@ class PipelineSubExecutor:
             else:
                 node.inferred_shape = node.infer_shape(
                     [inp.inferred_shape for inp in node.inputs])
+        for st in self.stages:
+            self._check_splits(st)
+            if st.tp is not None and st.device is not None:
+                st.tp.classify()
         self._feed_shapes = shapes
+
+    @staticmethod
+    def _check_splits(st):
+        """Refuse a split that a stage's dispatch asks for and its value's
+        shape at the microbatch does not divide, as the JAX package's
+        sharding constraint refuses it, where the stage would otherwise
+        hold the value whole. Every rank checks every stage, so all of
+        them stop before any boundary crosses."""
+        for node, spec in st.node_spec.items():
+            if not spec or not isinstance(node, (DispatchOp, PlaceholderOp)):
+                continue
+            shape = tuple(node.inferred_shape)
+            for d, entry in enumerate(spec):
+                axes = (entry,) if isinstance(entry, str) else entry or ()
+                parts = int(np.prod([st.axes[a] for a in axes]))
+                if d >= len(shape) or shape[d] % parts:
+                    raise ValueError(
+                        f"stage {st.index}: {node.name} splits dim {d} of "
+                        f"its value of shape {shape} {parts} ways (spec "
+                        f"{spec} over {st.axes}), which does not divide "
+                        f"it; a microbatch is the batch / num_microbatches "
+                        f"rows: make it a multiple of the split")
 
     def run(self, executor, feed_dict=None, convert_to_numpy_ret_vals=False):
         from ..executor import _EXACT_F32_CONVS

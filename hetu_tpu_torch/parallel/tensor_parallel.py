@@ -223,20 +223,23 @@ def _reshape_layout(in_shape, out_shape, layout, parts):
 
 
 class TensorParallel:
-    """One subgraph's tensor-parallel walk: :meth:`classify` lays every
-    node out at new feed shapes, :meth:`shard_feeds` cuts the feeds that
-    a dispatch splits, :meth:`compute` runs an op on its shards and
-    :meth:`fetch` makes fetched values whole.
+    """The tensor-parallel walk of the nodes ``topo_order`` (a subgraph,
+    or a pipeline stage's forward and backward) over ``layouts`` (a
+    :class:`Layouts`), each node's partition named by ``spec_for``:
+    :meth:`classify` lays every node out at new feed shapes,
+    :meth:`shard_feeds` cuts the feeds that a dispatch splits,
+    :meth:`compute` runs an op on its shards and :meth:`fetch` makes
+    fetched values whole.
 
     ``moves`` counts, by op type, the values moved between layouts:
     ``"gather"`` where a collective ran, ``"slice"`` where a local cut
     sufficed; ``gather_rule`` counts the ops computed whole by the
     gather rule."""
 
-    def __init__(self, sub, config):
-        self.sub = sub
-        self.config = config
-        self.lay = config.tp_layouts
+    def __init__(self, topo_order, layouts, spec_for):
+        self.topo_order = topo_order
+        self.spec_for = spec_for
+        self.lay = layouts
         self.layout = {}
         self.reset_stats()
 
@@ -247,8 +250,8 @@ class TensorParallel:
     def classify(self):
         """Every node's layout, from its spec and its inferred shape: a
         dispatch gradient takes its forward input's, an optimizer none."""
-        spec_for = self.config.spec_for
-        for node in self.sub.topo_order:
+        spec_for = self.spec_for
+        for node in self.topo_order:
             src = node.forward_input \
                 if isinstance(node, DispatchGradientOp) else node
             self.layout[node] = None if isinstance(node, OptimizerOp) \
@@ -423,15 +426,27 @@ class TensorParallel:
         return vals[0].reshape(local), _norm(have)
 
     def _optimizer(self, node, vals, ins, out, ectx):
-        grads = []
-        for param, g, lg in zip(node.optimizer.params, vals, ins):
-            lp = self.layout.get(param)
-            if isinstance(g, IndexedSlices):
-                g = self.lay.local_slices(g, lp)
-            elif g is not None:
-                g = self._move(node, g, lg, lp)
-            grads.append(g)
+        grads = [self.to_param(node, param, g, lg) for param, g, lg in
+                 zip(node.optimizer.params, vals, ins)]
         return node.compute(grads, ectx), None
+
+    def to_param(self, node, param, grad, layout):
+        """``param``'s gradient ``grad``, held in ``layout``, in the
+        parameter's layout (a sparse one keeps the shard's rows)."""
+        lp = self.layout.get(param)
+        if isinstance(grad, IndexedSlices):
+            return self.lay.local_slices(grad, lp)
+        if grad is None:
+            return None
+        return self._move(node, grad, layout, lp)
+
+    def whole(self, node, value):
+        """``node``'s ``value`` on this rank made whole (all-gathered
+        where split): what crosses to another pipeline stage."""
+        layout = self.layout.get(node)
+        if layout is None or not isinstance(value, torch.Tensor):
+            return value
+        return self._move(node, value, layout, None)
 
     def fetch(self, nodes, values):
         """Fetched values made whole (all-gathered where split)."""

@@ -440,16 +440,24 @@ def test_refusals_name_their_roadmap_item():
         exe.run_batches_stream([[{x: xs, y_: ys}]])
     with pytest.raises(ValueError, match="not divisible into 2"):
         exe.run(feed_dict={x: xs[:7], y_: ys[:7]})
-    # a tuple context is a stage that is model-parallel inside
-    with tht.context((tht.cpu(0), tht.cpu(1))):
-        a = tht.Variable("t_x", trainable=False)
-        w = tht.Variable("t_w", value=np.ones((3, 3), "f"))
-        h = tht.matmul_op(a, w)
-    with tht.context(tht.cpu(2)):
-        l2 = tht.reduce_mean_op(h, [0, 1])
-        t2 = tht.optim.SGDOptimizer(0.1).minimize(l2)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11b"):
-        tht.Executor([l2, t2], gpipe=True)
+    # a tuple context is a stage that is model-parallel inside: one
+    # that splits nothing runs on its first device, as in the JAX
+    # package; one that splits needs a process a device
+    for split in (False, True):
+        with tht.context((tht.cpu(0), tht.cpu(1))):
+            a = tht.Variable("t_x", trainable=False)
+            w = tht.Variable("t_w", value=np.ones((4, 4), "f"))
+            h = tht.matmul_op(a, tht.dispatch(w, (1, 2)) if split else w)
+        with tht.context(tht.cpu(2)):
+            l2 = tht.reduce_mean_op(h, [0, 1])
+            t2 = tht.optim.SGDOptimizer(0.1).minimize(l2)
+        if split:
+            with pytest.raises(NotImplementedError,
+                               match="ROADMAP item 11a's remainder"):
+                tht.Executor([l2, t2], gpipe=True)
+        else:
+            sub = tht.Executor([l2, t2], gpipe=True).subexecutors["default"]
+            assert [st.ranks for st in sub.stages] == [[0], [0]]
 
 
 def test_pipedream_refuses_sgd_on_an_embedding_table():

@@ -373,25 +373,29 @@ def test_refusals_name_their_roadmap_sub_items():
     with pytest.raises(TypeError, match=r"ROADMAP item 11b\.2"):
         tht.HetuConfig(nodes, device="cpu", gpipe=True,
                        pipeline_mode="collective")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.4"):
-        tht.HetuConfig(nodes, device="cpu", gpipe=True)
+    # a pipeline plans each stage (tests/test_torch_pp_tp.py): no session
+    # mesh, no refusal
+    config = tht.HetuConfig(nodes, device="cpu", gpipe=True)
+    assert config.mesh is None and config.tp_layouts is None
     mesh = tmesh.Mesh({"dp": 1}, 0, {"dp": None})
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.4"):
         tht.HetuConfig(_mlp(tht, ((1, 1), (1, 1))), device="cpu",
                        gpipe=True, mesh=mesh)
-    with pytest.raises(NotImplementedError, match=r"item 11b\.4"):
+    with pytest.raises(NotImplementedError, match=r"item 11b\.5"):
         tht.HetuConfig(nodes, device="cpu", comm_mode="PS")
     with pytest.raises(NotImplementedError, match="11a's remainder"):
         tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.3"):
         tht.parallel.autoplan.choose_plan(nodes)
+    # a pipeline stage over two devices of one process
     with tht.context((tht.cpu(0), tht.cpu(1))):
         a = tht.Variable("t_x", trainable=False)
-        h = tht.matmul_op(a, tht.Variable("t_w", value=np.ones((3, 3), "f")))
+        w = tht.Variable("t_w", value=np.ones((4, 4), "f"))
+        h = tht.matmul_op(a, tht.dispatch(w, (1, 2)))
     with tht.context(tht.cpu(2)):
         loss = tht.reduce_mean_op(h, [0, 1])
         train = tht.optim.SGDOptimizer(0.1).minimize(loss)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.4"):
+    with pytest.raises(NotImplementedError, match="11a's remainder"):
         tht.Executor([loss, train], gpipe=True)
 
 

@@ -48,31 +48,16 @@ def same_ids(build, *args):
         tnode.G_NODE_ID = start
 
 
-def ranks(axes, run, build=None):
-    """``run(rank, mesh, built)`` on one thread a rank of the mesh
-    ``axes``; ``build(rank)`` runs first, serially, every rank's graph
-    with the same node ids, as every process of a job builds it.
-    Returns the results by rank; a rank's exception is raised here, and
-    a rank that outlives TIMEOUT_S fails the test."""
-    n = int(np.prod(list(axes.values())))
-    start = end = tnode.G_NODE_ID
-    built = []
-    for r in range(n):
-        tnode.G_NODE_ID = start
-        built.append(build(r) if build else None)
-        end = max(end, tnode.G_NODE_ID)
-    tnode.G_NODE_ID = end
-    store = dist.HashStore()
+def _run_threads(n, go):
     results, errors = [None] * n, [None] * n
 
-    def go(r):
+    def target(r):
         try:
-            mesh = tmesh.Mesh(dict(axes), r, axis_groups(axes, r, store))
-            results[r] = run(r, mesh, built[r])
+            results[r] = go(r)
         except BaseException as e:      # raised again on the caller
             errors[r] = e
 
-    threads = [threading.Thread(target=go, args=(r,), daemon=True)
+    threads = [threading.Thread(target=target, args=(r,), daemon=True)
                for r in range(n)]
     for t in threads:
         t.start()
@@ -83,3 +68,68 @@ def ranks(axes, run, build=None):
         if e is not None:
             raise e
     return results
+
+
+def _build_all(n, build):
+    start = end = tnode.G_NODE_ID
+    built = []
+    for r in range(n):
+        tnode.G_NODE_ID = start
+        built.append(build(r) if build else None)
+        end = max(end, tnode.G_NODE_ID)
+    tnode.G_NODE_ID = end
+    return built
+
+
+def job_ranks(n, run, build=None):
+    """``run(rank, job, built)`` on one thread a rank of an ``n``-rank
+    job, ``job`` the pipeline's :class:`~hetu_tpu_torch.parallel.mesh.Job`
+    of the rank (the executor's ``pp_options={"job": job}``): its groups
+    gloo over one in-memory store, keyed by their order of creation and
+    their members (every rank makes every group in one order; a rank
+    outside one makes nothing), its channel a
+    :class:`~hetu_tpu_torch.parallel.p2p.PipeChannel` of its own on
+    loopback. ``build`` as for :func:`ranks`."""
+    from hetu_tpu_torch.launcher import _free_port_range
+    from hetu_tpu_torch.parallel.p2p import PipeChannel
+    built = _build_all(n, build)
+    store = dist.HashStore()
+    base = _free_port_range(n)
+    channels = [PipeChannel(r, n, base_port=base) for r in range(n)]
+
+    def go(r):
+        made = [0]
+
+        def new_group(members):
+            made[0] += 1
+            if r not in members:
+                return None
+            return dist.ProcessGroupGloo(
+                dist.PrefixStore(f"g{made[0]}/{members}", store),
+                members.index(r), len(members),
+                datetime.timedelta(seconds=60))
+
+        return run(r, tmesh.Job(r, n, new_group, channels[r]), built[r])
+
+    try:
+        return _run_threads(n, go)
+    finally:
+        for ch in channels:
+            ch.close()
+
+
+def ranks(axes, run, build=None):
+    """``run(rank, mesh, built)`` on one thread a rank of the mesh
+    ``axes``; ``build(rank)`` runs first, serially, every rank's graph
+    with the same node ids, as every process of a job builds it.
+    Returns the results by rank; a rank's exception is raised here, and
+    a rank that outlives TIMEOUT_S fails the test."""
+    n = int(np.prod(list(axes.values())))
+    built = _build_all(n, build)
+    store = dist.HashStore()
+
+    def go(r):
+        mesh = tmesh.Mesh(dict(axes), r, axis_groups(axes, r, store))
+        return run(r, mesh, built[r])
+
+    return _run_threads(n, go)
