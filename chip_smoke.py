@@ -28,7 +28,9 @@ the port's launcher, every worker on the card; GPT-2-small trained in
 four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
 two launcher processes; the same model trained data parallel by two
 launcher processes, split at tp=2 by two, and in two stages x tp=2 by
-four, and WDL's Hybrid mode across two workers — checks
+four; the same model, and BERT-small at S=2048, trained sequence
+parallel by two (the zigzag ring, Ulysses, the masked ring); and WDL's
+Hybrid mode across two workers — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
@@ -233,6 +235,25 @@ object per line (``--out`` also writes them to FILE):
   step, losses falling, the server rows moved, the dense weights the
   same on both ranks; then the host path under BSP against the same job
   with CPU workers;
+* ``sp_gpt`` the ``train`` model under ``GPTConfig(sequence_parallel=
+  "ring")`` (the zigzag causal ring) and ``"ulysses"``, and
+  ``sp_bert_long`` the ``bert_long`` model under ``BertConfig(
+  sequence_parallel=True)`` (a masked, non-causal ring), each trained by
+  two ranks of one launcher job (``spmd: true``; each ``python
+  chip_smoke.py --sp-worker SPEC``) on the one card over an ``{"sp": 2}``
+  mesh, over gloo, all 8 rows each and half of each sequence, at
+  dropout 0.1: step ms p50 beside the one-process line's, tokens/s,
+  per rank the ring hops, all-to-alls, gathers and host staging a step
+  (calls, bytes, ms), peak memory, launches a step by route (K2/K3/K4 36
+  each for the ring, 12 for Ulysses, 8 for BERT's ring, all ``tc``) and
+  the composed blocks (none); the checks: step 1 at dropout 0 against
+  one process at the same weights and rows (the loss, and Adam's first
+  moments of layer 0's attention weights and of the LM head / MLM
+  transform) and against the same job with the plain K2-K4 in the
+  blocks, every weight the same on both ranks after the timed steps;
+* ``sp_parity`` the GPT at 2 layers (ring and Ulysses) and BERT-small at
+  1 layer in f32 (``simt`` K2-K4), 3 Adam steps, two sp ranks against
+  one process: losses, Adam's first moments and the weights;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -644,7 +665,9 @@ FWD_KERNEL_SHAPES = (
 # second half of the first element's keys and the last quarter of the
 # last one's. D=64 is the training paths' (GPT-2 at H=12 S=1024, at B=2 the
 # pipeline passes' microbatch, at B=4 a data-parallel rank's rows,
-# BERT-small at H=8 S=2048 with BERT's padding); D=128 and the ragged S=520 hold the
+# BERT-small at H=8 S=2048 with BERT's padding; the sp passes' blocks:
+# the zigzag ring's diagonal at S=512 and squares at S=256, Ulysses' 6
+# heads at S=1024, BERT's ring at S=1024); D=128 and the ragged S=520 hold the
 # other tensor-core instantiations and the TMA edge; bf16 at D=96 the
 # simt route's bf16 instantiations
 TRAIN_KERNEL_SHAPES = (
@@ -653,6 +676,9 @@ TRAIN_KERNEL_SHAPES = (
     (("bfloat16",), (TRAIN_BATCH // 4,), (1024,), 64, 12, (None,)),  # PP_REP
     (("bfloat16",), (TRAIN_BATCH // 2,), (1024,), 64, 12, (None,)),  # DP_REP
     (("bfloat16",), (8,), (2048,), 64, 8, (None, "half", "padding")),
+    (("bfloat16",), (TRAIN_BATCH,), (256,), 64, 12, (None,)),  # ring squares
+    (("bfloat16",), (TRAIN_BATCH,), (1024,), 64, 6, (None,)),  # Ulysses
+    (("bfloat16",), (8,), (1024,), 64, 8, (None, "padding")),  # BERT's ring
     (("bfloat16",), (1,), (512, 1024), 128, 12, (None, "half")),
     (("bfloat16",), (1,), (520,), 64, 12, (None, "half")),
     (("bfloat16",), (1,), (512, 1024), 96, 12, (None, "half")),
@@ -980,7 +1006,9 @@ def check_flash_train_kernels(torch, seed):
                                else median_ms(torch, lib[kind]),
                                bound_ms=bound, bound_by=by)
                     if any(_is(row, rep) for rep in
-                           (TRAIN_REP, BERT_LONG_REP, PP_REP, DP_REP)):
+                           (TRAIN_REP, BERT_LONG_REP, PP_REP, DP_REP,
+                            SP_RING_DIAG_REP, SP_RING_SQUARE_REP,
+                            SP_ULYSSES_REP, SP_BERT_REP)):
                         row.update(_device_times(
                             torch, kern, lib[kind], DEVICE_LAUNCHES[kind],
                             f"{kind} B={b} H={h} S={s} mask={masked}"))
@@ -1891,12 +1919,12 @@ HYBRID_WORKERS = 2
 HYBRID_BSP_STEPS = 20
 
 
-def _gpt_graph(ht, models, widths, dropout=0.0):
+def _gpt_graph(ht, models, widths, dropout=0.0, sp=None):
     """train's graph (bench.py:1103-1118) at ``widths`` (and hidden
-    dropout ``dropout``): (ids, labels, the mean loss, the Adam train
-    op)."""
+    dropout ``dropout``, ``sequence_parallel=sp``): (ids, labels, the
+    mean loss, the Adam train op)."""
     cfg = models.GPTConfig(**widths, hidden_dropout_prob=dropout,
-                           use_flash_attention=True)
+                           use_flash_attention=True, sequence_parallel=sp)
     ids = ht.Variable("input_ids", trainable=False)
     labels = ht.Variable("labels", trainable=False)
     _, loss = models.GPTLMHeadModel(cfg)(ids, labels)
@@ -2106,18 +2134,30 @@ def dp_parity_reference(torch, seed):
     return losses, _parity_state(exe), zero_init
 
 
-def _parity_line(losses, got_state, ref):
+def _parity_line(losses, got_state, ref, zero_grad=None):
     """A 2-layer f32 parity run of several ranks (``dp_parity``,
-    ``tp_parity``) against the one process ``ref`` (losses, state, the
-    names of the parameters that start at 0): losses within
-    DP_PARITY_LOSS_TOL relative, Adam's first moments within
+    ``tp_parity``, ``sp_parity``) against the one process ``ref``
+    (losses, state, the names of the parameters that start at 0): losses
+    within DP_PARITY_LOSS_TOL relative, Adam's first moments within
     DP_PARITY_WEIGHT_TOL and the weights within DP_PARITY_WEIGHT_TOL
     (DP_PARITY_ZERO_INIT_TOL for a tensor that starts at 0) of each
-    tensor's largest element. Returns (the line's numbers, ok)."""
+    tensor's largest element. ``zero_grad`` maps a tensor whose exact
+    gradient is 0 (BERT's attention key biases: a shift of every key
+    adds one term to all of a query's scores, which the softmax cancels)
+    to a tensor of the same layer: each run's moves are its own rounding
+    noise, scaled by Adam to steps of lr, so such a tensor is held by its
+    first moment instead, within DP_PARITY_WEIGHT_TOL of the other's
+    largest. Returns (the line's numbers, ok)."""
     ref_losses, ref_state, zero_init = ref
+    zero_grad = zero_grad or {}
     parity_rel = abs(np.asarray(losses) - ref_losses) / np.abs(ref_losses)
-    weight_err, moment_err = {}, {}
+    weight_err, moment_err, noise = {}, {}, {}
+    for name, other in zero_grad.items():
+        noise[name] = float(got_state[name][1].abs().max()
+                            / got_state[other][1].abs().max())
     for name, (ref_w, ref_m) in ref_state.items():
+        if name in zero_grad:
+            continue
         got_w, got_m = got_state[name]
         weight_err[name] = float((got_w - ref_w).abs().max()
                                  / (ref_w.abs().max() or 1.0))
@@ -2143,10 +2183,13 @@ def _parity_line(losses, got_state, ref):
             "zero_init_weights": sorted(zero_init),
             "first_moment_err_of_largest": moment_err[worst_m],
             "worst_first_moment": worst_m,
-            "tensors_compared": len(weight_err)}
+            "tensors_compared": len(weight_err),
+            **({"zero_gradient_first_moment_of_other": noise}
+               if zero_grad else {})}
     ok = sorted(got_state) == sorted(ref_state) and \
         line["loss_rel_err"] <= DP_PARITY_LOSS_TOL and not weight_faults \
-        and moment_err[worst_m] <= DP_PARITY_WEIGHT_TOL
+        and moment_err[worst_m] <= DP_PARITY_WEIGHT_TOL \
+        and all(v <= DP_PARITY_WEIGHT_TOL for v in noise.values())
     return line, ok
 
 
@@ -2495,7 +2538,8 @@ def tp_pass(card, seed, train_line, parity_ref):
     halved). tp_parity: rank 0's losses, first moments and weights
     against ``parity_ref`` (``dp_parity``'s one process) as dp_parity
     holds them. Returns ({"tp_gpt": line, "tp_parity": line}, tp_gpt's
-    launch counts summed over the ranks)."""
+    launch counts summed over the ranks, tp_reference's one process,
+    which the sp passes are held to too)."""
     import shutil
     import tempfile
     import torch
@@ -2607,7 +2651,7 @@ def tp_pass(card, seed, train_line, parity_ref):
     for rec in records:
         for k, v in rec["launches"].items():
             counts[k] = counts.get(k, 0) + v
-    return {"tp_gpt": tp_gpt, "tp_parity": tp_parity}, counts
+    return {"tp_gpt": tp_gpt, "tp_parity": tp_parity}, counts, ref
 
 
 # ---------------------------------------------------------------------------
@@ -2998,6 +3042,482 @@ def pp_tp_pass(card, seed, train_line, tp_line):
         for k, v in rec["launches"].items():
             counts[k] = counts.get(k, 0) + v
     return {"pp_tp_gpt": pp_tp_gpt, "pp_tp_parity": pp_tp_parity}, counts
+
+
+# ---------------------------------------------------------------------------
+# sp_gpt, sp_bert_long, sp_parity: sequence parallelism, two ranks of one
+# launcher job on the one card
+# ---------------------------------------------------------------------------
+
+# train's model and rows under GPTConfig(sequence_parallel="ring") (the
+# zigzag causal ring) and "ulysses", and bert_long's model and rows under
+# BertConfig(sequence_parallel=True) (a masked, non-causal ring), each
+# trained by SP_RANKS ranks of one job over an {"sp": 2} mesh, every rank
+# fed the whole batch and attending its half of each sequence. Step 1
+# runs at dropout 0 (held against one process at the same weights and
+# rows: the loss within DP_LOSS_TOL, Adam's first moments of SP_MOMENTS
+# within GRAD_PARITY_TOL of their largest element; and against the same
+# job with the plain K2-K4 swapped into the blocks: the loss within one
+# bf16 ulp), the warm-up and timed steps at SP_DROPOUT (tp_gpt's; train's
+# own is 0), after which every weight is the same on both ranks within
+# TP_SAME_TOL of its largest element
+SP_RANKS = 2
+SP_WARMUP, SP_STEPS = 1, 3
+SP_DROPOUT = TP_DROPOUT
+SP_TIMEOUT_S = 500
+SP_MOMENTS = {"gpt": TP_MOMENTS,
+              "bert": tuple(f"layer0_attn_{w}_weights"
+                            for w in ("query", "key", "value"))
+              + ("mlm_transform_weights",)}
+# the passes: (model, sequence_parallel, K2 launches a layer a step a
+# rank: the ring's diagonal and a hop's two square blocks at sp=2, one
+# Ulysses attention, the non-causal ring's two blocks)
+SP_PASSES = {"ring": ("gpt", "ring", 3), "ulysses": ("gpt", "ulysses", 1),
+             "bert_long": ("bert", True, 2)}
+# the blocks' shapes on these paths (kernel_shapes holds each)
+SP_RING_DIAG_REP = dict(TRAIN_REP, s=TRAIN_REP["s"] // SP_RANKS)
+SP_RING_SQUARE_REP = dict(TRAIN_REP, s=TRAIN_REP["s"] // (2 * SP_RANKS),
+                          causal=False)
+SP_ULYSSES_REP = dict(TRAIN_REP, h=TRAIN_REP["h"] // SP_RANKS)
+SP_BERT_REP = dict(BERT_LONG_REP, s=BERT_LONG_REP["s"] // SP_RANKS)
+# sp_parity: dp_parity's GPT (2 layers, f32, batch 4) under the ring and
+# Ulysses, and BERT-small at 1 layer (f32, SP_BERT_PARITY_BATCH rows of
+# bert_long's), 3 Adam steps at dropout 0 against one process, at
+# dp_parity's tolerances
+SP_BERT_PARITY_LAYERS, SP_BERT_PARITY_BATCH = 1, 2
+
+
+def _bert_graph(ht, models, widths, dropout=0.1, sp=False):
+    """bert_long's graph (bench.py:2390-2406) at ``widths``, hidden and
+    attention-probs dropout ``dropout``, ``sequence_parallel=sp``:
+    (feed nodes, the loss, the Adam train op)."""
+    cfg = models.BertConfig(**widths, use_flash_attention=True,
+                            hidden_dropout_prob=dropout,
+                            attention_probs_dropout_prob=dropout,
+                            sequence_parallel=sp)
+    feed_nodes = [ht.Variable(n, trainable=False) for n in BERT_FEEDS]
+    _, _, mlm_loss, nsp_loss = models.BertForPreTraining(cfg)(*feed_nodes)
+    loss = ht.reduce_mean_op(mlm_loss, [0, 1]) + \
+        ht.reduce_mean_op(nsp_loss, [0])
+    return feed_nodes, loss, ht.optim.AdamOptimizer(
+        learning_rate=TRAIN_LR).minimize(loss)
+
+
+def _sp_model(ht, models, model, widths, dropout, sp, seed, batch, device):
+    """One sp pass's graph and feeds: (nodes, feeds). ``model`` "gpt"
+    (train's rows) or "bert" (bert_long's padded rows)."""
+    import torch
+    if model == "gpt":
+        ids, labels, lm, train_op = _gpt_graph(ht, models, widths, dropout,
+                                               sp)
+        x, y = _gpt_rows(seed, batch)
+        seq, vocab = widths["max_position_embeddings"], widths["vocab_size"]
+        x, y = x[:, :seq] % vocab, np.concatenate(
+            [x[:, 1:seq] % vocab, np.full((batch, 1), -1)], axis=1)
+        values = {ids: x, labels: y}
+        nodes = [lm, train_op]
+    else:
+        feed_nodes, loss, train_op = _bert_graph(ht, models, widths,
+                                                 dropout, sp)
+        seq = widths["max_position_embeddings"]
+        values = bert_feed_values(feed_nodes, batch, seq,
+                                  widths["vocab_size"],
+                                  (seq // 2, seq), seed)
+        nodes = [loss, train_op]
+    return nodes, {n: torch.as_tensor(v, device=device)
+                   for n, v in values.items()}
+
+
+def _sp_widths(spec, model):
+    if model == "gpt":
+        return spec.get("widths", GPT2_SMALL), spec.get("batch", TRAIN_BATCH)
+    return spec.get("bert_widths", BERT_SMALL_2048), \
+        spec.get("bert_batch", BERT_PASSES["bert_long"]["batch"])
+
+
+@contextlib.contextmanager
+def _plain_blocks():
+    """The plain K2-K4 swapped into the ring's and Ulysses' blocks."""
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.parallel import ring, ulysses
+    saved = []
+    for mod in (ring, ulysses):
+        for name, fn in (("flash_attention_with_lse",
+                          fa.flash_attention_with_lse_plain),
+                         ("flash_attention_bwd", fa.flash_attention_bwd_plain)):
+            saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def sp_references(torch, seed):
+    """One process's runs that the sp passes are held to, on the card:
+    bert_long's graph without sequence parallelism at dropout 0, step 1
+    (its loss and Adam's first moments of SP_MOMENTS["bert"] on the
+    host); and sp_parity's BERT at SP_BERT_PARITY_LAYERS in f32, 3 Adam
+    steps (losses, _parity_state, the names of the parameters that start
+    at 0). train's GPT reference is tp_reference's."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    widths, batch = _sp_widths({}, "bert")
+    nodes, feeds = _sp_model(ht, M, "bert", widths, 0.0, False, seed, batch,
+                             "cuda")
+    exe = ht.Executor(nodes, dtype=torch.bfloat16)
+    loss = float(exe.run(feed_dict=feeds)[0].asnumpy())
+    names = {n.name: n for n in exe._param_nodes.values()}
+    bert = {"loss": loss,
+            "moments": {name: exe.opt_state[names[name].id]["m"].cpu()
+                        for name in SP_MOMENTS["bert"]}}
+    del exe, feeds
+    _release(torch)
+    widths = dict(widths, num_hidden_layers=SP_BERT_PARITY_LAYERS)
+    nodes, feeds = _sp_model(ht, M, "bert", widths, 0.0, False, seed,
+                             SP_BERT_PARITY_BATCH, "cuda")
+    exe = ht.Executor(nodes)
+    zero_init = {name for name, w in _master_state(exe).items()
+                 if not w.any()}
+    losses = [float(exe.run(feed_dict=feeds)[0].asnumpy())
+              for _ in range(DP_PARITY_STEPS)]
+    parity = (losses, _parity_state(exe), zero_init)
+    del exe, feeds
+    _release(torch)
+    return bert, parity
+
+
+def sp_worker(spec):
+    """One rank of the sp passes, run by the launcher as ``python
+    chip_smoke.py --sp-worker SPEC`` (``spmd: true``: one job of SP_RANKS
+    processes). The rank joins the job and takes an {"sp": SP_RANKS}
+    mesh; then for each of SP_PASSES: step 1 at dropout 0 (its loss, and
+    Adam's first moments of SP_MOMENTS saved), step 1 again in a new
+    session with the plain K2-K4 in the blocks, and warm-up and timed
+    steps at SP_DROPOUT through ``Executor.run`` in bf16, the launch
+    counts and the composed-block counts set to 0 before them and read
+    after, the collectives timed after a device sync; then the largest
+    difference of any weight between the ranks. ``sp_parity``: the
+    passes' models at 2 layers (GPT) and 1 (BERT) in f32, 3 Adam steps,
+    rank 0 saving their state. ``spec`` may set ``device``, ``widths``,
+    ``bert_widths``, ``batch`` and ``bert_batch`` (a rehearsal on the
+    CPU at small widths). Writes ``worker_<rank>.json``,
+    ``moments_<rank>.pt`` and ``parity_state.pt``."""
+    import torch
+    import torch.distributed as dist
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.executor import maybe_init_distributed
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.parallel import ring
+    rank = int(os.environ["RANK"])
+    device = spec.get("device", "cuda")
+    cuda = device == "cuda"
+    dtype = torch.bfloat16 if cuda else None
+    maybe_init_distributed(device)
+    mesh = ht.parallel.build_mesh({"sp": SP_RANKS})
+    comm = mesh.comm("sp")
+    comm.sync_timing = cuda
+
+    def session(nodes, **options):
+        # on the card the entry point's own default: cuda:{LOCAL_RANK}
+        if not cuda:
+            options["device"] = device
+        exe = ht.Executor(nodes, mesh=mesh, **options)
+        return exe, {n.name: n for n in exe._param_nodes.values()}
+
+    def step1(model, widths, sp, batch, names):
+        nodes, feeds = _sp_model(ht, M, model, widths, 0.0, sp,
+                                 spec["seed"], batch, device)
+        exe, params = session(nodes, dtype=dtype)
+        loss = float(exe.run(feed_dict=feeds)[0].asnumpy())
+        moments = {n: exe.opt_state[params[n].id]["m"].cpu() for n in names}
+        del exe, feeds
+        _release(torch)
+        return loss, moments
+
+    rec = {"rank": rank, "backend": dist.get_backend(),
+           "mesh": dict(mesh.shape), "coord": mesh.coord("sp"), "passes": {}}
+    saved = {}
+    passes = {n: SP_PASSES[n] for n in spec.get("passes", SP_PASSES)}
+    for name, (model, sp, _) in passes.items():
+        widths, batch = _sp_widths(spec, model)
+        t0 = time.perf_counter()
+        ring.reset_composed_blocks()
+        loss1, moments = step1(model, widths, sp, batch, SP_MOMENTS[model])
+        with _plain_blocks():
+            plain1, plain_moments = step1(model, widths, sp, batch,
+                                          SP_MOMENTS[model])
+        saved[name] = {"kernels": moments, "plain": plain_moments}
+        nodes, feeds = _sp_model(ht, M, model, widths, SP_DROPOUT, sp,
+                                 spec["seed"], batch, device)
+        exe, params = session(nodes, dtype=dtype)
+        p = {"step1_loss": loss1, "plain_step1_loss": plain1,
+             "device": str(exe.config.device),
+             "sp_mesh": dict(exe.config.mesh.shape),
+             "nrank": exe.config.nrank}
+        if cuda:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()                # main path starts
+        losses, step_ms = [], []
+        for i in range(SP_WARMUP + SP_STEPS):
+            if i == SP_WARMUP:
+                comm.reset_stats()
+                dist.barrier()
+                p["window_start"] = time.time()
+            t = time.perf_counter()
+            losses.append(float(exe.run(feed_dict=feeds)[0].asnumpy()))
+            if cuda:
+                torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        p["window_end"] = time.time()
+        p["launches"] = dict(_build.launch_counts)  # main path ends
+        p["launches_by_shape"] = [[k, route, list(shape), n] for
+                                  (k, route, shape), n in
+                                  _build.launch_shapes.items()]
+        p["composed_blocks"] = dict(ring.composed_blocks)
+        p.update(losses=losses, step_ms=step_ms,
+                 step_ms_p50=float(np.median(step_ms[SP_WARMUP:])),
+                 comm_per_step=_comm_per_step(comm.stats, SP_STEPS),
+                 peak_memory_bytes=int(torch.cuda.max_memory_allocated())
+                 if cuda else None,
+                 weights_rel_diff_by_tensor={
+                     n: _across_ranks(torch, dist, [exe.params[str(node.id)]],
+                                      mesh.group("sp"))
+                     for n, node in params.items()},
+                 pass_s=time.perf_counter() - t0)
+        rec["passes"][name] = p
+        del exe, feeds
+        _release(torch)
+    torch.save(saved, os.path.join(spec["out"], f"moments_{rank}.pt"))
+
+    states, rec["parity_losses"] = {}, {}
+    for name, (model, sp, _) in passes.items():
+        widths, _ = _sp_widths(spec, model)
+        if model == "gpt":
+            widths = dict(widths, num_hidden_layers=DP_PARITY_LAYERS)
+            batch = DP_PARITY_BATCH
+        else:
+            widths = dict(widths, num_hidden_layers=SP_BERT_PARITY_LAYERS)
+            batch = SP_BERT_PARITY_BATCH
+        nodes, feeds = _sp_model(ht, M, model, widths, 0.0, sp, spec["seed"],
+                                 batch, device)
+        exe, _ = session(nodes)
+        rec["parity_losses"][name] = [
+            float(exe.run(feed_dict=feeds)[0].asnumpy())
+            for _ in range(DP_PARITY_STEPS)]
+        states[name] = _parity_state(exe)
+        del exe, feeds
+        _release(torch)
+    if rank == 0:
+        torch.save(states, os.path.join(spec["out"], "parity_state.pt"))
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    return 0
+
+
+def _sp_job(seed, out_dir, sample_card, **spec):
+    """The sp passes' job: SP_RANKS launcher processes of one spmd job,
+    each ``python chip_smoke.py --sp-worker SPEC``. Returns (wall s, the
+    card's used-memory samples, the workers' records by rank, their
+    saved first moments by rank, rank 0's parity states)."""
+    import torch
+    wall, used = _launch_job(
+        "sp", f"spmd: true\nnodes:\n  - host: localhost\n"
+        f"    workers: {SP_RANKS}\n    chief: true\n", "--sp-worker",
+        {"seed": seed, "out": out_dir, **spec}, SP_TIMEOUT_S, sample_card)
+    records, moments = [], []
+    for r in range(SP_RANKS):
+        with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+            records.append(json.load(f))
+        moments.append(torch.load(os.path.join(out_dir,
+                                               f"moments_{r}.pt")))
+    return wall, used, records, moments, torch.load(
+        os.path.join(out_dir, "parity_state.pt"))
+
+
+def _moment_err(got, want):
+    return {name: float((got[name] - w).abs().max() / w.abs().max())
+            for name, w in want.items()}
+
+
+def _launches_at(by_shape, rep):
+    """The launch counts of a worker's ``launches_by_shape`` ([key,
+    route, shape, n]) at ``rep``'s [b, h, s, d], under ``key`` and
+    ``key.route`` as in ``_build.launch_counts``."""
+    want = [rep[k] for k in ("b", "h", "s", "d")]
+    out = {}
+    for key, route, shape, n in by_shape:
+        if list(shape) == want:
+            for k in (key, f"{key}.{route}"):
+                out[k] = out.get(k, 0) + n
+    return out
+
+
+def sp_pass(card, seed, train_line, bert_long_line, gpt_ref, parity_ref):
+    """``sp_gpt`` (ring and Ulysses), ``sp_bert_long`` and ``sp_parity``:
+    one job of SP_RANKS processes started by ``python -m
+    hetu_tpu_torch.launcher`` (``spmd: true``) on the one card, where the
+    executors pick gloo. ``gpt_ref``: tp_reference's one process (train's
+    model, weights and rows at dropout 0); ``parity_ref``: dp_parity's.
+    The checks, per pass and rank: the backend gloo, cuda:0, an {"sp": 2}
+    mesh at the rank's coordinate; K2, K3 and K4 at SP_PASSES' blocks a
+    layer a step, all on tc, K1 none; no composed block; step 1 against
+    one process (the loss within DP_LOSS_TOL, the first moments within
+    GRAD_PARITY_TOL of their largest element) and against the plain
+    K2-K4 (the loss within one bf16 ulp, the first moments within
+    GRAD_PARITY_TOL); the timed losses finite, falling and the same on
+    both ranks; every weight the same on both ranks within TP_SAME_TOL.
+    sp_parity: rank 0's losses, first moments and weights against one
+    process at dp_parity's tolerances. The ring's launches also by
+    shape: the diagonal a layer at SP_RING_DIAG_REP, the hops' squares
+    at SP_RING_SQUARE_REP. Returns ({"sp_gpt": {variant: line},
+    "sp_bert_long": line, "sp_parity": {pass: line}}, launch counts by
+    pass summed over the ranks, the ring's also as "ring.diagonal" and
+    "ring.squares")."""
+    import shutil
+    import tempfile
+    import torch
+    from hetu_tpu_torch.ops import flash_attention as fa
+    t = time.perf_counter()
+    bert_ref, bert_parity_ref = sp_references(torch, seed)
+    ref_s = time.perf_counter() - t
+    out_dir = tempfile.mkdtemp(prefix="sp_job_")
+    try:
+        wall, used, records, moments, states = _sp_job(seed, out_dir, True)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    refs = {"gpt": gpt_ref, "bert": bert_ref}
+    steps = SP_WARMUP + SP_STEPS
+    faults, lines, counts = [], {}, {}
+    for name, (model, sp, blocks) in SP_PASSES.items():
+        widths, batch = _sp_widths({}, model)
+        layers = widths["num_hidden_layers"]
+        want_l = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                               blocks * layers * steps)
+        ref = refs[model]
+        ranks, counts[name] = [], {}
+        for rec, mom in zip(records, moments):
+            r, p = rec["rank"], rec["passes"][name]
+            got_l = {k: p["launches"].get(k, 0) for k in want_l}
+            if got_l != want_l:
+                faults.append(f"{name} rank {r} launched {got_l}")
+            if p["composed_blocks"]:
+                faults.append(f"{name} rank {r} composed blocks "
+                              f"{p['composed_blocks']}")
+            if rec["backend"] != "gloo" or p["device"] != "cuda:0" or \
+                    p["sp_mesh"] != {"sp": SP_RANKS} or rec["coord"] != r:
+                faults.append(f"{name} rank {r}: {rec['backend']} on "
+                              f"{p['device']}, mesh {p['sp_mesh']} at "
+                              f"{rec['coord']}")
+            ulp = _bf16_ulp(p["plain_step1_loss"])
+            loss_err = abs(p["step1_loss"] - ref["loss"]) / abs(ref["loss"])
+            m_ref = _moment_err(mom[name]["kernels"], ref["moments"])
+            m_plain = _moment_err(mom[name]["kernels"],
+                                  mom[name]["plain"])
+            if loss_err > DP_LOSS_TOL or \
+                    abs(p["step1_loss"] - p["plain_step1_loss"]) > ulp or \
+                    max(m_ref.values()) > GRAD_PARITY_TOL or \
+                    max(m_plain.values()) > GRAD_PARITY_TOL:
+                faults.append(f"{name} rank {r} step 1: loss "
+                              f"{p['step1_loss']}, plain "
+                              f"{p['plain_step1_loss']}, one process "
+                              f"{ref['loss']}; moments against one "
+                              f"process {m_ref}, against plain {m_plain}")
+            by_tensor = p["weights_rel_diff_by_tensor"]
+            worst_w = sorted(by_tensor, key=by_tensor.get)[-3:][::-1]
+            if by_tensor[worst_w[0]] > TP_SAME_TOL:
+                faults.append(f"{name} rank {r} weights differ across the "
+                              f"ranks: {[(n, by_tensor[n]) for n in worst_w]}")
+            row = {k: p[k] for k in (
+                "step_ms", "step_ms_p50", "comm_per_step", "peak_memory_bytes",
+                "composed_blocks", "step1_loss", "plain_step1_loss",
+                "pass_s")}
+            ranks.append({"rank": r, "device": p["device"], **row,
+                          "weights_rel_diff_across_ranks":
+                              by_tensor[worst_w[0]],
+                          "largest_rel_diffs_across_ranks": {
+                              n: by_tensor[n] for n in worst_w},
+                          "step1_loss_rel_err": loss_err,
+                          "first_moment_err_vs_one_process": m_ref,
+                          "first_moment_err_vs_plain": m_plain,
+                          "launches_per_step": {
+                              f"{x}.{route}": p["launches"].get(
+                                  f"{x}.{route}", 0) / steps
+                              for x in (fa.K1, fa.K2, fa.K3, fa.K4)
+                              for route in ("tc", "simt")}})
+            for k, v in p["launches"].items():
+                counts[name][k] = counts[name].get(k, 0) + v
+            if name == "ring":
+                # the diagonal block and the hops' squares by their S
+                for path, rep, per_layer in (
+                        ("ring.diagonal", SP_RING_DIAG_REP, 1),
+                        ("ring.squares", SP_RING_SQUARE_REP, blocks - 1)):
+                    at = _launches_at(p["launches_by_shape"], rep)
+                    want_s = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                                           per_layer * layers * steps)
+                    got_s = {k: at.get(k, 0) for k in want_s}
+                    if got_s != want_s:
+                        faults.append(f"{name} rank {r} launched {got_s} "
+                                      f"at S={rep['s']}")
+                    into = counts.setdefault(path, {})
+                    for k, v in at.items():
+                        into[k] = into.get(k, 0) + v
+        passes = [rec["passes"][name] for rec in records]
+        losses = passes[0]["losses"]
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] or \
+                any(q["losses"] != losses for q in passes):
+            faults.append(f"{name} losses {[q['losses'] for q in passes]}")
+        window = max(q["window_end"] - q["window_start"] for q in passes)
+        seq = widths["max_position_embeddings"]
+        p50 = max(q["step_ms_p50"] for q in passes)
+        base = train_line if model == "gpt" else bert_long_line
+        lines[name] = {
+            "card": card, "model": "gpt2-small" if model == "gpt"
+            else "bert-small-2048", **widths, "sequence_parallel": sp,
+            "sp": SP_RANKS, "batch": batch, "seq": seq,
+            "rows_per_rank_shard": seq // SP_RANKS, "dtype": "bfloat16",
+            "optimizer": "Adam", "lr": TRAIN_LR, "dropout": SP_DROPOUT,
+            "backend": records[0]["backend"], "warmup_steps": SP_WARMUP,
+            "timed_steps": SP_STEPS,
+            "tokens_per_s": batch * seq * SP_STEPS / window,
+            "slowest_window_s": window, "step_ms_p50": p50,
+            "one_process_step_ms_p50": base["step_ms_p50"],
+            "one_process_line": "train" if model == "gpt" else "bert_long",
+            "step_cost_vs_one_process": p50 / base["step_ms_p50"],
+            "k2_k3_k4_launches_per_step_per_rank": blocks * layers,
+            "losses": losses, "one_process_step1_loss": ref["loss"],
+            "loss_tol": DP_LOSS_TOL, "first_moment_tol": GRAD_PARITY_TOL,
+            "same_weights_tol": TP_SAME_TOL, "per_rank": ranks}
+    parity = {}
+    for name, (model, sp, _) in SP_PASSES.items():
+        ref = parity_ref if model == "gpt" else bert_parity_ref
+        zero_grad = {n: n.replace("_key_", "_query_")
+                     for n in states[name] if n.endswith("_attn_key_bias")}
+        line, ok = _parity_line(records[0]["parity_losses"][name],
+                                states[name], ref, zero_grad)
+        parity[name] = {"model": "gpt2-small" if model == "gpt"
+                        else "bert-small-2048", "sequence_parallel": sp,
+                        "num_hidden_layers": DP_PARITY_LAYERS
+                        if model == "gpt" else SP_BERT_PARITY_LAYERS,
+                        "batch": DP_PARITY_BATCH if model == "gpt"
+                        else SP_BERT_PARITY_BATCH, **line}
+        if not ok:
+            faults.append(f"sp_parity {name} {line}")
+    out = {"sp_gpt": {"ring": lines["ring"], "ulysses": lines["ulysses"],
+                      "launcher_wall_s": wall, "reference_s": ref_s,
+                      "card_memory_used_mib_max": max(used) if used
+                      else None, "card_memory_samples": len(used)},
+           "sp_bert_long": lines["bert_long"],
+           "sp_parity": {"card": card, "dtype": "float32", "sp": SP_RANKS,
+                         "steps": DP_PARITY_STEPS, **parity}}
+    if faults:
+        log(f"sp failed: {out}")
+        raise AssertionError(f"sp: {faults}")
+    return out, counts
 
 
 def _hybrid_traffic(seed):
@@ -5852,6 +6372,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # tp_gpt's ranks
     ap.add_argument("--pp-tp-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # pp_tp_gpt's ranks
+    ap.add_argument("--sp-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # the sp passes' ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -5876,6 +6398,9 @@ def main(argv=None):
     if args.pp_tp_worker is not None:
         sys.path.insert(0, ROOT)
         return pp_tp_worker(json.loads(args.pp_tp_worker))
+    if args.sp_worker is not None:
+        sys.path.insert(0, ROOT)
+        return sp_worker(json.loads(args.sp_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -5952,8 +6477,8 @@ def main(argv=None):
     log(f"dp ({time.perf_counter() - t:.1f} s) {dp_lines}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
-    tp_lines, tp_launches = tp_pass(card, args.seed, train_line, parity_ref)
-    del parity_ref
+    tp_lines, tp_launches, gpt_ref = tp_pass(card, args.seed, train_line,
+                                             parity_ref)
     log(f"tp ({time.perf_counter() - t:.1f} s) {tp_lines}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
@@ -5969,6 +6494,13 @@ def main(argv=None):
             torch, args.seed, card, name)
         log(f"{name} ({time.perf_counter() - t:.1f} s) {bert_lines[name]}")
         torch.cuda.empty_cache()
+    t = time.perf_counter()
+    sp_lines, sp_launches = sp_pass(card, args.seed, train_line,
+                                    bert_lines["bert_long"], gpt_ref,
+                                    parity_ref)
+    del gpt_ref, parity_ref
+    log(f"sp ({time.perf_counter() - t:.1f} s) {sp_lines}")
+    torch.cuda.empty_cache()
 
     from hetu_tpu_torch import data
     cifar = data.cifar10()
@@ -6061,7 +6593,14 @@ def main(argv=None):
                    ("pp_1f1b", pp_launches["1f1b"], PP_REP),
                    ("dp_gpt", dp_launches, DP_REP),
                    ("tp_gpt", tp_launches, TRAIN_REP),
-                   ("pp_tp_gpt", pp_tp_launches, PP_REP)]
+                   ("pp_tp_gpt", pp_tp_launches, PP_REP),
+                   ("sp_gpt.ring", sp_launches["ring.diagonal"],
+                    SP_RING_DIAG_REP),
+                   ("sp_gpt.ring.squares", sp_launches["ring.squares"],
+                    SP_RING_SQUARE_REP),
+                   ("sp_gpt.ulysses", sp_launches["ulysses"],
+                    SP_ULYSSES_REP),
+                   ("sp_bert_long", sp_launches["bert_long"], SP_BERT_REP)]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -6096,6 +6635,7 @@ def main(argv=None):
              *({name: line} for name, line in tp_lines.items()),
              *({name: line} for name, line in pp_tp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
+             *({name: line} for name, line in sp_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},
              {"transformer": transformer_line},

@@ -90,6 +90,13 @@ coordinate. Inside a pipeline the planner runs per stage instead: a
 stage whose context is a tuple of devices is split over its own ranks
 (:mod:`~hetu_tpu_torch.parallel.pipeline`), its parameters stored as
 shards, ``save`` gathering each stage and its first rank writing it.
+**Sequence parallel** (``ring_attention_op``, ``ulysses_attention_op``,
+the models' ``sequence_parallel``): over a mesh with an ``"sp"`` axis,
+``("sp",)`` or ``("dp", "sp")``, the attention ops cut the sequence over
+the axis's ranks and gather their output whole; every other op, and
+every parameter, is replicated over it, and dropout draws the same
+masks on its ranks (the seed is the ``dp`` coordinate's). The axis
+beside model axes, in a pipeline or on a parameter server is refused.
 TP on a parameter server, the collective pipeline, the auto-planner's
 cost model, telemetry and the preflight analysis are still to port;
 ``HetuConfig`` refuses their options, each naming its ROADMAP item.
@@ -291,7 +298,9 @@ class HetuConfig:
     the whole job when one is joined; a graph with tensor-parallel
     dispatches lays them over the mesh's model axes (``tp0``, ``tp1``,
     ...; without ``mesh``, a mesh over the joined job) and
-    :meth:`spec_for` names each node's partition. ``gpipe`` /
+    :meth:`spec_for` names each node's partition; its ``sp`` axis (a
+    ``("sp",)`` or ``("dp", "sp")`` mesh) carries the sequence-parallel
+    attention ops, everything else replicated over it. ``gpipe`` /
     ``pipedream`` train under a pipeline schedule over
     ``num_microbatches`` microbatches (``pp_options``:
     ``virtual_stages``, and ``job``, a :class:`~hetu_tpu_torch.parallel.
@@ -380,6 +389,8 @@ class HetuConfig:
         # the joined job (reference executor.py:276-283, :307-310)
         self.mesh = mesh
         self.dp_comm = None
+        if mesh is not None and "sp" in mesh.axis_names:
+            self._refuse_sp(mesh, pipeline)
         if pipeline and (mesh is not None or self.comm_mode is not None):
             where = "over mesh=" if mesh is not None \
                 else f"in the {self.comm_mode} mode"
@@ -398,6 +409,11 @@ class HetuConfig:
         from .parallel.planner import propagate_statuses
         statuses = propagate_statuses(find_topo_sort(eval_node_list))
         tp = tp_degree(statuses.values())
+        if tp > 1 and mesh is not None and "sp" in mesh.axis_names:
+            raise NotImplementedError(
+                f"sequence parallelism beside a {tp}-way tensor-parallel "
+                f"plan: the sp axis beside model axes is ROADMAP item "
+                f"11c.1")
         if tp > 1:
             self._refuse_tp(tp)
         if tp > 1 and not pipeline:     # a pipeline plans per stage
@@ -490,6 +506,26 @@ class HetuConfig:
                 f"one process's context: run one process per rank under "
                 f"the launcher's spmd: true (several devices in one process "
                 f"are ROADMAP item 11a's remainder)")
+
+    def _refuse_sp(self, mesh, pipeline):
+        """A mesh with an ``"sp"`` axis where the port has no sequence
+        parallelism: beside model axes, in a pipeline, on a parameter
+        server. Raises naming its ROADMAP item."""
+        other = [a for a in mesh.axis_names if a not in ("dp", "sp")]
+        if other:
+            raise NotImplementedError(
+                f"a mesh {mesh.shape}: the sp axis beside model axes "
+                f"{other} is ROADMAP item 11c.1; sequence parallelism "
+                f"takes ('sp',) or ('dp', 'sp')")
+        if pipeline:
+            raise NotImplementedError(
+                f"a pipeline over a mesh {mesh.shape}: sequence "
+                f"parallelism inside a pipeline stage is ROADMAP item "
+                f"11c.2")
+        if self.comm_mode in ("PS", "Hybrid"):
+            raise NotImplementedError(
+                f"sequence parallelism in the {self.comm_mode} mode is "
+                f"ROADMAP item 11c.3")
 
     def _tp_mesh(self, statuses, mesh, degree):
         """The session's mesh for a ``degree``-way plan: ``mesh`` if the

@@ -13,8 +13,10 @@ The attention core runs as composed ops (``batch_matmul_op`` +
 ``flash_attention_op`` under the ``[B, 1, 1, S]`` padding mask: kernel
 K1 forward and the composed backward below ``FUSED_BWD_MIN_SEQ``, K2
 forward and K3 + K4 backward from it on (``ops/attention.py``). The
-flash path skips probs-dropout, as the reference's does. Sequence
-parallelism (ring attention) waits for the parallel modes.
+flash path skips probs-dropout, as the reference's does. With
+``sequence_parallel`` the core is ``ring_attention_op`` under the same
+mask over the session mesh's ``"sp"`` axis (the flash path off it), and
+it skips probs-dropout as the flash path does.
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from .. import initializers as init
 from ..ops import (array_reshape_op, batch_matmul_op, broadcastto_op,
                    dropout_op, embedding_lookup_op, flash_attention_op,
                    gelu_op, layer_normalization_op, matmul_op, relu_op,
-                   slice_op, softmax_op, softmaxcrossentropy_sparse_op,
+                   ring_attention_op, slice_op, softmax_op, softmaxcrossentropy_sparse_op,
                    tanh_op, transpose_op)
 from ..ops.variable import Variable
 
@@ -183,10 +185,7 @@ class BertSelfAttention:
         self.hidden_size = config.hidden_size
         self.seq_len = config.max_position_embeddings
         self.use_flash = config.use_flash_attention
-        if getattr(config, "sequence_parallel", False):
-            raise NotImplementedError(
-                "sequence-parallel attention (ring, Ulysses) is not ported "
-                "yet: see ROADMAP.md")
+        self.sequence_parallel = getattr(config, "sequence_parallel", False)
         self.query = Linear(config.hidden_size, config.hidden_size,
                             name=name + "_query")
         self.key = Linear(config.hidden_size, config.hidden_size,
@@ -207,7 +206,13 @@ class BertSelfAttention:
         k = self._heads(self.key(hidden_states, shape3), seq_len)
         v = self._heads(self.value(hidden_states, shape3), seq_len)
 
-        if self.use_flash:
+        if self.sequence_parallel:
+            # ring attention over the "sp" mesh axis; probs-dropout is
+            # skipped exactly as on the flash path
+            context = ring_attention_op(q, k, v, attention_mask,
+                                        sm_scale=1.0 / float(
+                                            np.sqrt(self.head_size)))
+        elif self.use_flash:
             # the kernels never hold the probabilities in device memory
             # and apply no probs-dropout (dropout on the output
             # projection still applies), as the reference's flash path

@@ -38,9 +38,9 @@ import torch.nn.functional as F
 from ..context import context
 from ..device import resolve_device
 from ..ops import (array_reshape_op, batch_matmul_op, broadcastto_op,
-                   flash_attention_op, reduce_mean_op, slice_op, softmax_op,
-                   softmaxcrossentropy_sparse_op, split_op, squeeze_op,
-                   transpose_op)
+                   flash_attention_op, reduce_mean_op, ring_attention_op,
+                   slice_op, softmax_op, softmaxcrossentropy_sparse_op,
+                   split_op, squeeze_op, transpose_op, ulysses_attention_op)
 from ..ops.attention import (decode_attention, paged_decode_attention,
                              paged_prefill_attention, prefill_attention)
 from ..ops.variable import Variable
@@ -372,18 +372,17 @@ class CausalSelfAttention:
     a kernel flag and no [S, S] tensor exists; the composed path
     (``use_flash_attention=False``) adds a broadcast [1, 1, S, S]
     causal-mask constant, as the encoder's composed path adds its
-    padding mask."""
+    padding mask. ``sequence_parallel="ring"`` / ``"ulysses"`` takes the
+    zigzag causal ring / causal Ulysses over the session mesh's ``"sp"``
+    axis (the flash path off it), as the reference routes."""
 
     def __init__(self, config, name="attn"):
         if config.hidden_size % config.num_attention_heads:
             raise ValueError(
                 f"hidden size {config.hidden_size} not a multiple of "
                 f"num heads {config.num_attention_heads}")
-        if config.sequence_parallel:
-            raise NotImplementedError(
-                "sequence-parallel attention (ring, Ulysses) is not "
-                "ported yet: see ROADMAP.md")
         self.use_flash = config.use_flash_attention
+        self.sequence_parallel = config.sequence_parallel
         self.num_heads = config.num_attention_heads
         self.head_size = config.hidden_size // config.num_attention_heads
         self.hidden_size = config.hidden_size
@@ -408,7 +407,11 @@ class CausalSelfAttention:
         qkv = self.qkv(hidden_states, [-1, 3 * self.hidden_size])
         q, k, v = (self._split_heads(qkv, seq_len, i) for i in range(3))
         scale = 1.0 / float(np.sqrt(self.head_size))
-        if self.use_flash:
+        if self.sequence_parallel == "ring":
+            ctx = ring_attention_op(q, k, v, sm_scale=scale, causal=True)
+        elif self.sequence_parallel == "ulysses":
+            ctx = ulysses_attention_op(q, k, v, sm_scale=scale, causal=True)
+        elif self.use_flash:
             ctx = flash_attention_op(q, k, v, sm_scale=scale, causal=True)
         else:
             cmask = Variable(

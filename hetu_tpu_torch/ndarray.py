@@ -199,16 +199,28 @@ class IndexedSlices:
         unique rows."""
         uniq, inv = torch.unique(self.get_flat_indices(),
                                  return_inverse=True)
-        rows = self.get_dense_rows()
-        summed = torch.zeros(uniq.shape[0], rows.shape[1], dtype=rows.dtype,
-                             device=rows.device).index_add_(0, inv, rows)
-        return uniq, summed
+        return uniq, _sum_rows(inv, self.get_dense_rows(), uniq.shape[0])
 
     def to_dense(self):
-        rows = self.get_dense_rows()
-        return torch.zeros(self.dense_shape, dtype=rows.dtype,
-                           device=rows.device).index_add_(
-            0, self.get_flat_indices(), rows)
+        return _sum_rows(self.get_flat_indices(), self.get_dense_rows(),
+                         self.dense_shape[0]).reshape(self.dense_shape)
+
+
+def _sum_rows(index, rows, n):
+    """``rows`` summed into ``n`` rows by ``index``, in one fixed order on
+    every device: a stable sort, then a segment sum (in f32 for a 16-bit
+    dtype), so each repeated index adds its rows in the order they came.
+    ``index_add_``'s atomics on the card add them in the order they land,
+    so two runs of one step (two sequence-parallel ranks) would round
+    apart."""
+    order = torch.argsort(index, stable=True)
+    wide = rows.index_select(0, order)
+    if wide.element_size() < 4:
+        wide = wide.to(torch.float32)
+    summed = torch.segment_reduce(wide, "sum",
+                                  lengths=torch.bincount(index, minlength=n),
+                                  axis=0, unsafe=True)
+    return summed.to(rows.dtype)
 
 
 def array(arr, ctx=None, dtype=np.float32):

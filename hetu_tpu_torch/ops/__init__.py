@@ -9,7 +9,9 @@ from .activations import (dropout2d_gradient_op, dropout2d_op,
                           relu_gradient_op, relu_op, sigmoid_op, sign_op,
                           softmax_func, softmax_gradient_op, softmax_op,
                           tanh_op)
-from .attention import FlashAttentionOp, flash_attention_op
+from .attention import (FlashAttentionOp, RingAttentionOp,
+                        UlyssesAttentionOp, flash_attention_op,
+                        ring_attention_op, ulysses_attention_op)
 from .comm import (allreduceCommunicate_op, datad2h_op, datah2d_op,
                    dispatch, groupallreduceCommunicate_op,
                    parameterServerCommunicate_op,
@@ -91,7 +93,8 @@ __all__ = [
     "softmaxcrossentropy_sparse_op",
     "softmaxcrossentropy_sparse_gradient_op", "binarycrossentropy_op",
     "binarycrossentropy_gradient_op", "crossentropy_op",
-    "flash_attention_op", "FlashAttentionOp",
+    "flash_attention_op", "FlashAttentionOp", "ring_attention_op",
+    "RingAttentionOp", "ulysses_attention_op", "UlyssesAttentionOp",
     "csrmm_op", "csrmv_op", "distgcn_15d_op",
     "allreduceCommunicate_op", "groupallreduceCommunicate_op", "dispatch",
     "parameterServerCommunicate_op",

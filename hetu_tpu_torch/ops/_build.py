@@ -12,7 +12,10 @@ kernel or header never loads a stale build.
 adds one to its kernel's entry through :func:`count_launch` right after
 a successful launch, and nowhere else, so a run can show that its main
 path went through the kernels. The count stays exact when several
-threads launch (a server's batcher threads).
+threads launch (a server's batcher threads). :data:`launch_shapes`
+counts the same launches by ``(key, route, shape)`` where the wrapper
+gives its shape, so a path that launches one kernel at several shapes
+(a sequence-parallel ring's blocks) can tell them apart.
 """
 from __future__ import annotations
 
@@ -26,8 +29,8 @@ import threading
 import time
 from pathlib import Path
 
-__all__ = ["build", "build_log", "load", "launch_counts", "count_launch",
-           "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
+__all__ = ["build", "build_log", "load", "launch_counts", "launch_shapes",
+           "count_launch", "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -37,24 +40,30 @@ NVCC_FLAGS = ["-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launch_counts = collections.Counter()
+launch_shapes = collections.Counter()
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs = {}
 
 
-def count_launch(key, route):
+def count_launch(key, route, shape=None):
     """One launch of kernel ``key`` on ``route``: counted under ``key``
-    and ``f"{key}.{route}"``. A ``+=`` on the counter is a read and a
-    write, so two threads could lose one without the lock."""
+    and ``f"{key}.{route}"``, and under ``(key, route, shape)`` in
+    :data:`launch_shapes` when ``shape`` is given. A ``+=`` on the
+    counter is a read and a write, so two threads could lose one without
+    the lock."""
     with _count_lock:
         launch_counts[key] += 1
         launch_counts[f"{key}.{route}"] += 1
+        if shape is not None:
+            launch_shapes[(key, route, tuple(shape))] += 1
 
 
 def reset_launch_counts():
     with _count_lock:
         launch_counts.clear()
+        launch_shapes.clear()
 
 
 def _nvcc():

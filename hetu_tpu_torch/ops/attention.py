@@ -4,9 +4,11 @@ Counterpart of ``hetu_tpu/ops/attention.py``: ``attention_reference``,
 the serving helpers, and the graph op :class:`FlashAttentionOp` with
 its gradient op, routed as in the reference (training at S >=
 :data:`FUSED_BWD_MIN_SEQ` runs kernel K2 forward and K3 + K4 backward,
-otherwise K1 forward and the composed vjp backward). The
-sequence-parallel variants (ring, Ulysses) wait for the parallel
-modes. Layouts match the reference: ``[B, H, S, D]`` for dense
+otherwise K1 forward and the composed vjp backward), and the
+sequence-parallel ops :class:`RingAttentionOp` and
+:class:`UlyssesAttentionOp`, which run over the session mesh's ``"sp"``
+axis and take :class:`FlashAttentionOp`'s path off it. Layouts match
+the reference: ``[B, H, S, D]`` for dense
 attention, ``[num_blocks, block_size, H, D]`` (or flat
 ``[num_blocks * block_size, H, D]``) for the paged pools.
 
@@ -23,7 +25,9 @@ from .flash_attention import (flash_attention, flash_attention_bwd,
 
 __all__ = ["attention_reference", "decode_attention", "prefill_attention",
            "paged_decode_attention", "paged_prefill_attention",
-           "flash_attention_op", "FlashAttentionOp", "FUSED_BWD_MIN_SEQ"]
+           "flash_attention_op", "FlashAttentionOp", "FUSED_BWD_MIN_SEQ",
+           "RingAttentionOp", "UlyssesAttentionOp", "ring_attention_op",
+           "ulysses_attention_op"]
 
 # sequence length from which training takes the fused kernels (K2
 # forward, K3 + K4 backward) instead of K1 and the composed vjp; the
@@ -200,3 +204,179 @@ class _FlashAttentionGradOp(Op):
 def flash_attention_op(q, k, v, mask=None, sm_scale=1.0, causal=False,
                        ctx=None):
     return FlashAttentionOp(q, k, v, mask, sm_scale, causal, ctx=ctx)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: ring and Ulysses attention as graph ops
+# ---------------------------------------------------------------------------
+
+def _sp_comm(ectx):
+    """The :class:`~hetu_tpu_torch.ops.comm.GroupComm` of the session
+    mesh's ``"sp"`` axis, or None where the mesh has none (the
+    reference's ``_sp_mesh``)."""
+    mesh = getattr(getattr(ectx, "config", None), "mesh", None)
+    if mesh is not None and "sp" in mesh.axis_names:
+        return mesh.comm("sp")
+    return None
+
+
+def _cut(x, rows, dim):
+    """``x``'s ``rows`` (a slice or an index tensor) on ``dim``."""
+    if isinstance(rows, slice):
+        return x.narrow(dim, rows.start, rows.stop - rows.start)
+    return x.index_select(dim, rows.to(x.device))
+
+
+class _SeqParallelAttentionOp(FlashAttentionOp):
+    """Base of the sequence-parallel attention ops (the reference's
+    ``_SeqParallelAttentionOp``). On a session mesh with an ``"sp"``
+    axis each rank cuts its shard of the (replicated) q, k, v and mask
+    (:meth:`_rows`), runs the sharded program over the axis's group,
+    and gathers the output whole: what ``shard_map``'s sequence-sharded
+    output, consumed whole, amounts to. Its gradient ops return dq, dk
+    and dv whole, gathered the same way, so every ``sp`` rank holds the
+    same gradient of every replicated parameter. Off such a mesh the op
+    is :class:`FlashAttentionOp`."""
+
+    def _rows(self, s, comm):
+        """(this rank's rows of the sequence, the order that puts the
+        gathered rows back, or None)."""
+        n, r = comm.nrank, comm.rank
+        if s % n:
+            raise ValueError(f"sequence parallelism needs the sequence "
+                             f"({s}) divisible by the sp axis ({n})")
+        sl = s // n
+        return slice(r * sl, (r + 1) * sl), None
+
+    def _shards(self, input_vals, rows):
+        q, k, v = (_cut(x, rows, 2) for x in input_vals[:3])
+        mask = input_vals[3] if self.has_mask else None
+        if mask is not None:
+            mask = _cut(mask, rows, mask.dim() - 1)
+        return q, k, v, mask
+
+    def _whole(self, x, comm, inv, dim):
+        out = comm.all_gather(x, dim=dim)
+        return out if inv is None else out.index_select(
+            dim, inv.to(out.device))
+
+    def compute(self, input_vals, ectx):
+        comm = _sp_comm(ectx)
+        if comm is None:
+            return super().compute(input_vals, ectx)
+        rows, inv = self._rows(input_vals[0].shape[2], comm)
+        out, res = self._forward(*self._shards(input_vals, rows), comm)
+        if ectx.training:
+            ectx.cache[("sp_res", self.id)] = res
+        return self._whole(out, comm, inv, 2)
+
+    def _forward(self, q, k, v, mask, comm):
+        """(this rank's output rows, the residual of its backward)."""
+        raise NotImplementedError
+
+    def _backward(self, shards, res, do, comm):
+        """This rank's (dq, dk, dv) rows from the residual and the
+        output's adjoint on its rows."""
+        raise NotImplementedError
+
+    def gradient(self, output_grad):
+        grads = [_SeqParallelAttentionGradOp(self, output_grad, i,
+                                             ctx=self.raw_ctx)
+                 for i in range(3)]
+        if self.has_mask:
+            grads.append(None)
+        return grads
+
+
+class _SeqParallelAttentionGradOp(_FlashAttentionGradOp):
+    """dq / dk / dv of a sequence-parallel op through its sharded
+    program: the first of the three to run computes all three on the
+    rank's rows and gathers them whole (one collective for the three);
+    off an ``"sp"`` mesh, :class:`_FlashAttentionGradOp`."""
+
+    def compute(self, input_vals, ectx):
+        comm = _sp_comm(ectx)
+        if comm is None:
+            return super().compute(input_vals, ectx)
+        fwd = self.forward_op
+        key = ("spattn_vjp", fwd.id)
+        if key not in ectx.cache:
+            dy = input_vals[4 if fwd.has_mask else 3]
+            rows, inv = fwd._rows(dy.shape[2], comm)
+            shards = fwd._shards(input_vals, rows)
+            res = ectx.cache.pop(("sp_res", fwd.id), None)
+            if res is None:             # the forward ran without training
+                res = fwd._forward(*shards, comm)[1]
+            grads = fwd._backward(shards, res, _cut(dy, rows, 2), comm)
+            stacked = torch.stack([g.to(shards[0].dtype) for g in grads])
+            ectx.cache[key] = list(fwd._whole(stacked, comm, inv, 3)
+                                   .unbind(0))
+        grads = ectx.cache[key]
+        out, grads[self.which] = grads[self.which], None
+        if all(g is None for g in grads):
+            del ectx.cache[key]
+        return out
+
+
+class RingAttentionOp(_SeqParallelAttentionOp):
+    """Sequence-parallel attention over [B, H, S, D]: the sequence is cut
+    over the mesh's ``"sp"`` axis and K/V shards pass around the ring
+    with online-softmax merging (:mod:`~hetu_tpu_torch.parallel.ring`),
+    forward and backward; ``causal=True`` takes the load-balanced zigzag
+    layout. Every block is K2 forward and K3 + K4 backward where the
+    kernels take its shape."""
+
+    def _rows(self, s, comm):
+        if not self.causal:
+            return super()._rows(s, comm)
+        from ..parallel.ring import zigzag_indices
+        perm, inv = zigzag_indices(s, comm.nrank)
+        sl = s // comm.nrank
+        rows = torch.as_tensor(perm[comm.rank * sl:(comm.rank + 1) * sl])
+        return rows, torch.as_tensor(inv)
+
+    def _forward(self, q, k, v, mask, comm):
+        from ..parallel import ring
+        fn = ring.zigzag_ring_attention if self.causal \
+            else ring.ring_attention
+        o, lse = fn(q, k, v, comm, sm_scale=self.sm_scale, mask=mask)
+        return o, (o, lse)
+
+    def _backward(self, shards, res, do, comm):
+        from ..parallel import ring
+        q, k, v, mask = shards
+        fn = ring.zigzag_ring_attention_bwd if self.causal \
+            else ring.ring_attention_bwd
+        return fn(q, k, v, *res, do, comm, sm_scale=self.sm_scale,
+                  mask=mask)
+
+
+class UlyssesAttentionOp(_SeqParallelAttentionOp):
+    """Ulysses sequence parallelism: an all-to-all swaps the cut from the
+    sequence to the heads, each rank attends the whole sequence for its
+    heads (K2, K3 + K4), and a second all-to-all restores the sequence
+    cut (:mod:`~hetu_tpu_torch.parallel.ulysses`). Needs H % n == 0."""
+
+    def _forward(self, q, k, v, mask, comm):
+        from ..parallel.ulysses import ulysses_attention
+        return ulysses_attention(q, k, v, comm, sm_scale=self.sm_scale,
+                                 mask=mask, causal=self.causal)
+
+    def _backward(self, shards, res, do, comm):
+        from ..parallel.ulysses import ulysses_attention_bwd
+        return ulysses_attention_bwd(res, do, comm, sm_scale=self.sm_scale,
+                                     causal=self.causal)
+
+
+def ring_attention_op(q, k, v, mask=None, sm_scale=1.0, causal=False,
+                      ctx=None):
+    """Sequence-parallel (ring) attention; see RingAttentionOp."""
+    return RingAttentionOp(q, k, v, mask, sm_scale, causal=causal, ctx=ctx)
+
+
+def ulysses_attention_op(q, k, v, mask=None, sm_scale=1.0, causal=False,
+                         ctx=None):
+    """Sequence-parallel (Ulysses all-to-all) attention; see
+    UlyssesAttentionOp."""
+    return UlyssesAttentionOp(q, k, v, mask, sm_scale, causal=causal,
+                              ctx=ctx)

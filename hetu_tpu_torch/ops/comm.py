@@ -28,11 +28,20 @@ gpu_ops/PipelineReceive.py).
   and :class:`DispatchGradientOp` mirrors it in the backward; the
   tensor-parallel realization moves their values between layouts.
 
-Every collective is an ``all_reduce``: gloo on CUDA tensors runs
-``all_reduce`` and ``broadcast`` only, so an all-gather is an
-``all_reduce`` of a zeroed ``[nrank, ...]`` buffer in which each rank
-fills its slot (:meth:`GroupComm.gather_rows`), and the same code runs
-on gloo and on NCCL.
+The gradients' collectives and the tensor-parallel layouts' are
+``all_reduce`` calls: an all-gather there is an ``all_reduce`` of a
+zeroed ``[nrank, ...]`` buffer in which each rank fills its slot
+(:meth:`GroupComm.gather_rows`), which also takes row counts that differ
+between ranks. It moves about twice an all-gather's bytes; putting
+gloo's all-gather in its place is a performance item of ``ROADMAP.md``.
+Sequence parallelism uses the group's own collectives: an all-gather
+(:meth:`GroupComm.all_gather`), an all-to-all
+(:meth:`GroupComm.all_to_all`) and a ring hop
+(:meth:`GroupComm.ring_shift`, the reference's ``lax.ppermute``). Gloo's
+all-gather and all-to-all take CUDA tensors (they copy them through the
+host themselves); its send and receive read a CUDA tensor's pointer as
+host memory, so on a gloo group a hop's CUDA tensors go through pinned
+host copies.
 """
 from __future__ import annotations
 
@@ -67,12 +76,15 @@ class GroupComm:
 
     ``stats`` counts, by kind ("dense" gradients, "sparse" gradients,
     "fetch" for values made global; the tensor-parallel realization's
-    "gather" for its all-gathers and "reduce" for its partial sums),
-    the ``all_reduce`` calls, the
-    bytes they reduced and their host seconds. With ``sync_timing`` set
-    the device is synchronized before each is timed, so its seconds
-    start when its inputs are ready and not before: the reduction's own
-    cost (gloo copies a CUDA tensor to the host and back inside it)."""
+    and sequence parallelism's "gather" for their all-gathers and
+    "reduce" for partial sums; "ring" for ring hops, "all_to_all"), the
+    calls, the bytes each rank put in and their host seconds; "staged"
+    counts the hops whose CUDA tensors went through pinned host memory,
+    their bytes and the seconds of those copies.
+    With ``sync_timing`` set the device is synchronized before each is
+    timed, so its seconds start when its inputs are ready and not
+    before: the collective's own cost (gloo copies a CUDA tensor to the
+    host and back inside an all_reduce)."""
 
     def __init__(self, group=None):
         import torch.distributed as dist
@@ -80,26 +92,109 @@ class GroupComm:
         pg = group if group is not None else dist.group.WORLD
         self.nrank = int(pg.size())
         self.rank = int(pg.rank())
+        self.backend = str(pg.name()).lower()
         self.sync_timing = False
         self.reset_stats()
 
     def reset_stats(self):
         self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
                       for k in ("dense", "sparse", "fetch", "gather",
-                                "reduce")}
+                                "reduce", "ring", "all_to_all", "staged")}
+
+    def _pg(self):
+        import torch.distributed as dist
+        return self.group if self.group is not None else dist.group.WORLD
+
+    def _start(self, tensor):
+        if self.sync_timing and tensor.is_cuda:
+            torch.cuda.synchronize(tensor.device)
+        return time.perf_counter()
+
+    def _count(self, kind, t0, nbytes, seconds=None):
+        st = self.stats[kind]
+        st["calls"] += 1
+        st["bytes"] += nbytes
+        st["seconds"] += time.perf_counter() - t0 if seconds is None \
+            else seconds
+
+    def ring_shift(self, tensors, kind="ring"):
+        """One hop of a ring (the reference's ``lax.ppermute`` over
+        ``[(i, (i + 1) % n)]``): each of ``tensors`` goes to the next
+        rank of the group, and the previous rank's takes its place.
+        None entries stay None. Counted as one call of the bytes this
+        rank sends; on a gloo group CUDA tensors cross through pinned
+        host copies, counted under "staged" with the copies' seconds."""
+        live = [i for i, t in enumerate(tensors) if t is not None]
+        out = list(tensors)
+        if self.nrank == 1 or not live:
+            return out
+        sends = [tensors[i].contiguous() for i in live]
+        t0 = self._start(sends[0])
+        staged = sends[0].is_cuda and self.backend == "gloo"
+        if staged:
+            sends = [torch.empty(t.shape, dtype=t.dtype,
+                                 pin_memory=True).copy_(t) for t in sends]
+            copy_s = time.perf_counter() - t0
+        recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                 if staged else torch.empty_like(t) for t in sends]
+        pg = self._pg()
+        nxt, prv = (self.rank + 1) % self.nrank, (self.rank - 1) % self.nrank
+        works = []
+        for tag, (snd, rcv) in enumerate(zip(sends, recvs)):
+            works.append(pg.send([snd], nxt, tag))
+            works.append(pg.recv([rcv], prv, tag))
+        for w in works:
+            w.wait()
+        t1 = time.perf_counter()
+        for i, r in zip(live, recvs):
+            out[i] = r.to(tensors[i].device)
+        nbytes = sum(t.numel() * t.element_size() for t in sends)
+        self._count(kind, t0, nbytes)
+        if staged:
+            self._count("staged", t1, nbytes,
+                        copy_s + time.perf_counter() - t1)
+        return out
+
+    def all_to_all(self, value, kind="all_to_all"):
+        """``value``'s dim 0 (of size nrank) split, part j sent to rank
+        j; returns the parts received, by source rank, on dim 0 (the
+        reference's tiled ``lax.all_to_all``)."""
+        import torch.distributed as dist
+        if self.nrank == 1:
+            return value
+        x = value.contiguous()
+        t0 = self._start(x)
+        out = torch.empty_like(x)
+        self._pg().alltoall_base(out, x, [], [],
+                                 dist.AllToAllOptions()).wait()
+        self._count(kind, t0, x.numel() * x.element_size())
+        return out
+
+    def all_gather(self, value, dim, kind="gather"):
+        """Every rank's ``value`` (one shape on every rank) concatenated
+        on ``dim`` in rank order, by the group's all-gather. Counted as
+        one call of the bytes this rank puts in."""
+        import torch.distributed as dist
+        if self.nrank == 1:
+            return value
+        x = value.movedim(dim, 0).contiguous()
+        if x.dtype == torch.bool:
+            x = x.to(torch.uint8)
+        t0 = self._start(x)
+        out = torch.empty((self.nrank,) + tuple(x.shape), dtype=x.dtype,
+                          device=x.device)
+        dist.all_gather(list(out.unbind(0)), x, group=self.group)
+        self._count(kind, t0, x.numel() * x.element_size())
+        out = out.reshape((-1,) + tuple(x.shape[1:])).to(value.dtype)
+        return out.movedim(0, dim)
 
     def all_reduce(self, tensor, op=None, kind="dense"):
         """Reduce ``tensor`` in place over the group (SUM by default)."""
         import torch.distributed as dist
-        if self.sync_timing and tensor.is_cuda:
-            torch.cuda.synchronize(tensor.device)
-        t0 = time.perf_counter()
+        t0 = self._start(tensor)
         dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None else op,
                         group=self.group)
-        st = self.stats[kind]
-        st["calls"] += 1
-        st["bytes"] += tensor.numel() * tensor.element_size()
-        st["seconds"] += time.perf_counter() - t0
+        self._count(kind, t0, tensor.numel() * tensor.element_size())
         return tensor
 
     def mean(self, value, kind="dense"):

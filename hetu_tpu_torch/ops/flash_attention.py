@@ -423,7 +423,7 @@ def _flash_fwd_cuda(q, k, v, mask, sm_scale, causal, want_lse):
     with torch.cuda.device(q.device):
         rc = fn(*ptrs, *args)
     _build.check(lib, lib_name, rc)
-    _build.count_launch(K2 if want_lse else K1, route)
+    _build.count_launch(K2 if want_lse else K1, route, (b, h, s, d))
     return (out, lse) if want_lse else out
 
 
@@ -477,7 +477,8 @@ _BWD_PTRS = {"simt": ("q", "k", "v", "do", "lse", "delta", "rows"),
 
 def _launch_bwd(prep, kernel, key, outs, sm_scale, causal):
     """Launch K3 (``kernel="dkv"``) or K4 (``"dq"``) on ``prep``'s
-    route; count it under ``key`` and ``f"{key}.{route}"``."""
+    route; count it under ``key`` and ``f"{key}.{route}"``, and by
+    shape."""
     q, route = prep["q"], prep["route"]
     b, h, s, d = q.shape
     lib_name = _BWD_LIBS[route]
@@ -498,7 +499,7 @@ def _launch_bwd(prep, kernel, key, outs, sm_scale, causal):
     with torch.cuda.device(q.device):
         rc = fn(*ptrs, *args)
     _build.check(lib, lib_name, rc)
-    _build.count_launch(key, route)
+    _build.count_launch(key, route, (b, h, s, d))
 
 
 def _launch_dkv(prep, sm_scale, causal):

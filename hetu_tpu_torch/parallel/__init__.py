@@ -22,11 +22,16 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
   ``torch.distributed`` collectives;
 * ``autoplan`` — the rules compiler (``DEFAULT_RULES``,
   ``compile_rules``, ``apply_rules``) that puts ``dispatch`` specs on a
-  model.
+  model;
+* ``ring`` and ``ulysses`` — sequence parallelism over a mesh's ``"sp"``
+  axis: ring attention (the zigzag layout when causal) and Ulysses'
+  all-to-all, their blocks on the flash kernels, as
+  ``ring_attention_op`` / ``ulysses_attention_op`` run them.
 
 The collective pipeline waits for ROADMAP item 11b.2, the auto-planner's
 cost model for 11b.3, a split parameter on a parameter server for 11b.5;
-ring and Ulysses attention for 11c; DistGCN for 11d.
+the sp axis beside model axes, in a pipeline and on a parameter server
+for 11c.1-11c.3; DistGCN for 11d.
 """
 from . import autoplan
 from .autoplan import DEFAULT_RULES, apply_rules, compile_rules
@@ -36,6 +41,7 @@ from .p2p import PipeChannel, get_channel
 from .planner import assign_states, propagate_statuses, spec_for_status
 from .pipeline import (PipelineSubExecutor, analytic_bubble_fraction,
                        splice_send_recv, virtual_stage_program)
+from . import ring, ulysses
 
 __all__ = ["Job", "Mesh", "build_mesh", "factorized_axes",
            "mesh_for_statuses", "subset_mesh",
@@ -43,4 +49,4 @@ __all__ = ["Job", "Mesh", "build_mesh", "factorized_axes",
            "autoplan", "DEFAULT_RULES", "compile_rules", "apply_rules",
            "PipelineSubExecutor", "analytic_bubble_fraction",
            "virtual_stage_program", "splice_send_recv", "PipeChannel",
-           "get_channel"]
+           "get_channel", "ring", "ulysses"]

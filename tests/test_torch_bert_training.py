@@ -293,9 +293,31 @@ def test_dropout_trains_deterministically_per_seed():
         assert first != losses(case)[0]
 
 
-def test_sequence_parallel_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.BertForPreTraining(_config(TM, "flash", sequence_parallel=True))
+@pytest.mark.parametrize("fused", [False, True])
+def test_sequence_parallel_off_an_sp_mesh_is_the_flash_path(fused,
+                                                             monkeypatch):
+    """``sequence_parallel=True`` builds ring attention, which off a mesh
+    with an "sp" axis is the flash path (plain K1 and the composed vjp,
+    or with ``fused`` the plain K2-K4): 3 Adam steps of the two graphs
+    give equal losses and parameters, bit for bit."""
+    if fused:
+        monkeypatch.setattr(tattn, "FUSED_BWD_MIN_SEQ", 0)
+    runs = []
+    for sp in (False, True):
+        feeds = [tht.Variable(n, trainable=False) for n in FEEDS]
+        _, _, mlm, nsp = TM.BertForPreTraining(
+            _config(TM, "flash", sequence_parallel=sp))(*feeds)
+        total = tht.reduce_mean_op(mlm, [0, 1]) + tht.reduce_mean_op(nsp,
+                                                                      [0])
+        train = tht.optim.AdamOptimizer(learning_rate=LR).minimize(total)
+        exe = tht.Executor([total, train], ctx=tht.cpu(0))
+        runs.append(([_loss(exe, feeds, step) for step in range(3)],
+                     _params(exe)))
+    (want, want_p), (got, got_p) = runs
+    assert got == want
+    for name in want_p:
+        np.testing.assert_array_equal(got_p[name], want_p[name],
+                                      err_msg=name)
 
 
 # BERT-base's widths (bench.py:1150-1168), with a third, unused token-type

@@ -229,3 +229,28 @@ def test_executor_defaults_to_cuda(monkeypatch):
         tht.Executor(nodes, comm_mode="PS")
     with pytest.raises(TypeError, match="ROADMAP"):
         tht.Executor(nodes, ctx=tht.cpu(0), pipeline_mode="collective")
+
+
+@pytest.mark.parametrize("sp", ["ring", "ulysses"])
+def test_sequence_parallel_off_an_sp_mesh_is_the_flash_path(sp):
+    """``GPTConfig(sequence_parallel=...)`` builds ring or Ulysses
+    attention, which off a mesh with an "sp" axis is the flash path (the
+    fused K2-K4 here): 3 Adam steps of the two graphs give equal losses
+    and parameters, bit for bit."""
+    runs = []
+    for kind in (None, sp):
+        ids = tht.Variable("input_ids", trainable=False)
+        labels = tht.Variable("labels", trainable=False)
+        cfg = TM.GPTConfig(**CFG, sequence_parallel=kind)
+        _, loss = TM.GPTLMHeadModel(cfg)(ids, labels)
+        lm = tht.reduce_mean_op(loss, [0, 1])
+        train = tht.optim.AdamOptimizer(learning_rate=LR).minimize(lm)
+        exe = tht.Executor([lm, train], ctx=tht.cpu(0))
+        x, y = _batch()
+        runs.append(([float(exe.run(feed_dict={ids: x, labels: y})[0]
+                            .asnumpy()) for _ in range(3)], _params(exe)))
+    (want, want_p), (got, got_p) = runs
+    assert got == want
+    for name in want_p:
+        np.testing.assert_array_equal(got_p[name], want_p[name],
+                                      err_msg=name)

@@ -275,6 +275,15 @@ def test_reference_top_level_names_of_ported_modules_are_exported():
     assert set(WAITING) <= {n for _, n in ported}
 
 
+def test_sequence_parallel_op_builders_are_exported():
+    """The reference exports ``ring_attention_op`` and
+    ``ulysses_attention_op`` through ``from .ops import *``, which the
+    check above does not read."""
+    for name in ("ring_attention_op", "ulysses_attention_op"):
+        assert name in ht.__all__ and name in ht.ops.__all__
+        assert getattr(ht, name) is getattr(ht.ops, name)
+
+
 def _imports(path):
     import ast
     names = set()

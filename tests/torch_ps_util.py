@@ -6,6 +6,7 @@ meet; the tests pass addresses explicitly instead of through
 ``HETU_PS_PORTS``. And fleets of either package's launcher, run with a
 clean environment."""
 import contextlib
+import fcntl
 import os
 import signal
 import subprocess
@@ -15,14 +16,28 @@ import hetu_tpu.ps.client as jclient
 import hetu_tpu.ps.native_lib as jnative
 import hetu_tpu.ps.server as jserver
 import hetu_tpu_torch.ps.client as tclient
+import hetu_tpu_torch.ps.native_lib as tnative
 import hetu_tpu_torch.ps.server as tserver
 from launcher_util import clean_launcher_env
+
+
+def build_jax_lib():
+    """The JAX package's server library, built here if it is not yet.
+    Its ``build_lib`` runs ``make`` with no lock, and each of its
+    servers calls it on start: left to them, two servers of one fleet
+    (and any other test process) run ``make`` on one tree at once, and
+    its launcher gives local servers 15 s to come up. So it is built
+    before any child starts, one builder at a time."""
+    tnative.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(tnative.BUILD_DIR / "hetu_tpu_ps_build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return jnative.build_lib()
 
 
 @contextlib.contextmanager
 def jax_server(nservers=1):
     """``nservers`` hetu_tpu servers and a hetu_tpu client on them."""
-    jnative.build_lib()     # before the child: it builds on first use
+    build_jax_lib()         # before the child: it builds on first use
     ports = [jserver.pick_free_port() for _ in range(nservers)]
     try:
         for port in ports:
@@ -91,7 +106,13 @@ def run_fleet(package, config, script, tmp_path, timeout=120, **extra):
     a clean environment (``HETU_TEST_OUT`` = ``tmp_path``); the
     launcher runs in a session of its own, and on a timeout the whole
     session is killed, servers and workers with it. Returns the
-    completed process."""
+    completed process. The package's server library is built first: its
+    servers would build it themselves, inside the launcher's wait for
+    them to come up."""
+    if package == "hetu_tpu":
+        build_jax_lib()
+    else:
+        tnative.build_lib()
     cfg = tmp_path / f"cluster_{package}.yml"
     cfg.write_text(config)
     src = tmp_path / f"worker_{package}.py"
