@@ -29,7 +29,11 @@ four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
 two launcher processes; the same model trained data parallel by two
 launcher processes, split at tp=2 by two, and in two stages x tp=2 by
 four; the same model, and BERT-small at S=2048, trained sequence
-parallel by two (the zigzag ring, Ulysses, the masked ring); and WDL's
+parallel by two (the zigzag ring, Ulysses, the masked ring); the same
+model under a tuple context of two devices in one process (thread
+ranks); a 2-layer GCN through ``distgcn_15d_op`` at (gr, gc) = (2, 2)
+as four launcher ranks and as four thread ranks; the port's runner zoo
+through its launcher and its BERT example; and WDL's
 Hybrid mode across two workers — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
@@ -78,7 +82,7 @@ object per line (``--out`` also writes them to FILE):
   gradient at the initial weights in turn; a backward reading the
   current weights must fail it);
 * ``pp_fleet`` the same model in two worker processes started by
-  ``python -m hetu_tpu_torch.launcher`` (``spmd: true``; each
+  ``python hetu_tpu_torch/run_launcher.py`` (``spmd: true``; each
   ``python chip_smoke.py --pp-worker SPEC``), two stages each, GPipe
   then 1F1B, boundaries crossing the host channel in bf16: the losses of
   the rank that owns the loss against the in-process passes', each
@@ -96,6 +100,13 @@ object per line (``--out`` also writes them to FILE):
 * ``dp_parity`` the model at 2 layers in f32 (``simt`` K2–K4), global
   batch 4, 3 Adam steps, two ranks against one process: losses, Adam's
   first moments and the weights;
+* ``dp_gpt_local`` the ``train`` model and rows under ``ht.context((
+  ht.gpu(0), ht.gpu(1)))`` with ``comm_mode="AllReduce"`` in this
+  process: two thread ranks on the one card, 4 rows each, gloo groups
+  of their own: step ms p50 beside ``dp_gpt``'s, launches a step in
+  each thread rank (K2/K3/K4 12 each, all ``tc``, counted by rank), the
+  collectives a step by rank; the checks: the step-1 loss against
+  ``dp_gpt``'s, every weight the same on both ranks;
 * ``tp_gpt`` the ``train`` model split by the JAX package's default
   rules at tp=2 (``compile_rules`` + ``apply_rules``: each block's four
   weights by columns, the position table by rows; the odd vocabulary
@@ -142,6 +153,15 @@ object per line (``--out`` also writes them to FILE):
   launches K1 12 times a step, all on ``tc``, and no K2–K4; BERT-small at
   S=2048 launches K2, K3 and K4 4 times a step each, all on ``tc``, and
   no K1; step-1 parity against the plain kernels;
+* ``bert_example`` ``hetu_tpu_torch/examples/train_hetu_bert.py`` as a
+  user runs it (BERT-base, S=128, B=64, 20 steps, bf16): its tokens/s,
+  the losses (finite), K1 12 launches a step, all ``tc``, K2-K4 none;
+* ``runner_zoo`` the port's parallel-config zoo through ``python
+  hetu_tpu_torch/run_launcher.py``: the MLP and CNN bases under ``config1``,
+  then ``test_mlp_mp --split middle``, ``test_mlp_pp``, ``test_mlp_mp_pp
+  --split left`` and ``test_cnn_mp --split middle`` under ``config4``
+  (one process driving four devices of the one card as thread ranks),
+  held to the bases by the zoo's ``validate_results.py`` (rtol 1e-4);
 * ``cnn_vgg16``, ``cnn_resnet18`` images/s, step ms p50, the loss of
   every step, MFU against the f32 peak, peak memory, the device idle
   share and device time by kernel category and by op type (and op
@@ -186,6 +206,18 @@ object per line (``--out`` also writes them to FILE):
   formulation in use (gather + scale + sorted segment-sum) against
   cuSPARSE's CSR SpMM on the same inputs, device ms of each (and of the
   gather alone, and of the product summed by ``index_add_``);
+* ``distgcn`` a 2-layer GCN (128 -> 256 -> 40, f32, SGD) through
+  ``distgcn_15d_op`` on the ``gcn`` graph, (gr, gc) = (2, 2), trained by
+  four ranks of one launcher job on the one card (each ``python
+  chip_smoke.py --distgcn-worker SPEC``): epoch ms p50 beside ``gcn``'s,
+  per rank the ring hops, gc sums and gr gathers an epoch (calls, bytes,
+  ms); the checks: each rank's step-1 loss and W1, W2 gradients against
+  the one-process ``csrmm_op`` model at the same weights, every weight
+  the same on the four ranks, ``dist_gcn_spmm`` alone against csrmm_op
+  at F=128;
+* ``distgcn_local`` the same model as four thread ranks of this process
+  (``mesh=`` a mesh built outside a job): epoch ms p50, and its losses
+  against ``distgcn``'s;
 * ``gcn_example`` ``gcn_main.run()`` at the reference example's graph:
   each epoch's loss and accuracy against the JAX package's CPU run;
 * ``gnn_sampled`` ``sampled_sage.main()`` (a sampled subgraph through
@@ -212,7 +244,7 @@ object per line (``--out`` also writes them to FILE):
 * ``hybrid_wdl`` comm_mode="Hybrid" with the device cache: samples/s,
   step ms, phases, cache counters;
 * ``ps_fleet`` fleets of (servers, workers) = (1, 1), (1, 2), (2, 2)
-  and (4, 4) started by ``python -m hetu_tpu_torch.launcher`` (each
+  and (4, 4) started by ``python hetu_tpu_torch/run_launcher.py`` (each
   worker ``python chip_smoke.py --fleet-worker SPEC``, a process of its
   own on the one card, placed by ``ht.rgpu("localhost", rank)``) on
   ``ps_wdl``'s configuration and traffic (ids from seed + rank), one
@@ -1778,8 +1810,8 @@ def pp_worker(spec):
 
 
 def pp_fleet_pass(card, seed, inproc):
-    """``pp_fleet``: two worker processes started by ``python -m
-    hetu_tpu_torch.launcher`` (``spmd: true``: one job, the pipeline
+    """``pp_fleet``: two worker processes started by ``python
+    hetu_tpu_torch/run_launcher.py`` (``spmd: true``: one job, the pipeline
     channel's addresses exported), each running pp_worker on the one
     card, stage boundaries crossing the host channel in bf16. Held
     against the in-process passes (``inproc``: {schedule: (losses,
@@ -2057,8 +2089,14 @@ def dp_worker(spec):
     return 0
 
 
+# the launcher by path (hetu_tpu_torch/run_launcher.py): the same main as
+# ``python -m hetu_tpu_torch.launcher`` without the package's __init__,
+# so a job's launcher does not spend seconds importing torch
+LAUNCHER = os.path.join(ROOT, "hetu_tpu_torch", "run_launcher.py")
+
+
 def _launch_job(name, config, flag, spec, timeout, sample_card):
-    """``python -m hetu_tpu_torch.launcher -c <config>`` running
+    """``python hetu_tpu_torch/run_launcher.py -c <config>`` running
     ``python chip_smoke.py <flag> SPEC`` in each worker, in a session of
     its own killed whole if it outlives ``timeout``; ``spec["out"]`` is a
     temp dir (removed by the caller) for the workers' records. With
@@ -2069,7 +2107,7 @@ def _launch_job(name, config, flag, spec, timeout, sample_card):
     cfg = os.path.join(spec["out"], "cluster.yml")
     with open(cfg, "w") as f:
         f.write(config)
-    cmd = [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
+    cmd = [sys.executable, LAUNCHER, "-c", cfg,
            sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
            json.dumps(spec)]
     # the launcher keeps a leaked fleet environment from its servers and
@@ -2195,7 +2233,7 @@ def _parity_line(losses, got_state, ref, zero_grad=None):
 
 def dp_pass(card, seed, train_line):
     """``dp_gpt`` and ``dp_parity``: DP_RANKS processes of one job
-    started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``),
+    started by ``python hetu_tpu_torch/run_launcher.py`` (``spmd: true``),
     each ``python chip_smoke.py --dp-worker SPEC`` on the one card, where
     the executors pick gloo (NCCL refuses two ranks on one card). The
     checks: the backend gloo, each rank on cuda:0; K2, K3 and K4 12
@@ -2316,7 +2354,7 @@ def dp_pass(card, seed, train_line):
 # ---------------------------------------------------------------------------
 
 TP_RANKS = 2
-TP_WARMUP, TP_STEPS = 2, 4
+TP_WARMUP, TP_STEPS = 1, 2
 TP_DROPOUT = 0.1        # the timed steps' hidden dropout
 # step 1 (dropout 0) against one process at the same weights and rows:
 # the loss within DP_LOSS_TOL; Adam's first moment of these (each rank's
@@ -2525,7 +2563,7 @@ def _block(ref, layout, coord):
 
 def tp_pass(card, seed, train_line, parity_ref):
     """``tp_gpt`` and ``tp_parity``: TP_RANKS processes of one job
-    started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``) on
+    started by ``python hetu_tpu_torch/run_launcher.py`` (``spmd: true``) on
     the one card, where the executors pick gloo. The checks: the
     backend gloo, each rank on cuda:0 at its coordinate of a ("tp0",)
     mesh; K2, K3 and K4 12 launches a step in each rank, all on tc, K1
@@ -2667,7 +2705,7 @@ def tp_pass(card, seed, train_line, parity_ref):
 # LM head in stage 1) within GRAD_PARITY_TOL of their largest element
 PP_TP_STAGES = 2
 PP_TP_RANKS = PP_TP_STAGES * TP_RANKS
-PP_TP_WARMUP, PP_TP_STEPS = 1, 4     # after step 1
+PP_TP_WARMUP, PP_TP_STEPS = 1, 2     # after step 1
 PP_TP_TIMEOUT_S = 400
 PP_TP_SCHEDULES = {"gpipe": "gpipe", "1f1b": "pipedream"}
 
@@ -2887,7 +2925,7 @@ def _pp_tp_job(seed, out_dir, sample_card, **spec):
 
 def pp_tp_pass(card, seed, train_line, tp_line):
     """``pp_tp_gpt`` and ``pp_tp_parity``: PP_TP_RANKS processes of one
-    job started by ``python -m hetu_tpu_torch.launcher`` (``spmd: true``)
+    job started by ``python hetu_tpu_torch/run_launcher.py`` (``spmd: true``)
     on the one card, where the executors pick gloo. The checks: the
     backend gloo, every rank on cuda:0 in its stage's ranks, at its
     coordinate of the stage's ("tp0",) mesh; K2, K3 and K4 24 launches a
@@ -3359,9 +3397,9 @@ def _launches_at(by_shape, rep):
 
 def sp_pass(card, seed, train_line, bert_long_line, gpt_ref, parity_ref):
     """``sp_gpt`` (ring and Ulysses), ``sp_bert_long`` and ``sp_parity``:
-    one job of SP_RANKS processes started by ``python -m
-    hetu_tpu_torch.launcher`` (``spmd: true``) on the one card, where the
-    executors pick gloo. ``gpt_ref``: tp_reference's one process (train's
+    one job of SP_RANKS processes started by ``python
+    hetu_tpu_torch/run_launcher.py`` (``spmd: true``) on the one card,
+    where the executors pick gloo. ``gpt_ref``: tp_reference's one process (train's
     model, weights and rows at dropout 0); ``parity_ref``: dp_parity's.
     The checks, per pass and rank: the backend gloo, cuda:0, an {"sp": 2}
     mesh at the rank's coordinate; K2, K3 and K4 at SP_PASSES' blocks a
@@ -4553,11 +4591,11 @@ def transformer_reverse(torch, card):
 # the GNNs: GCN and GraphSAGE at OGB-arxiv scale, and the two examples
 # ---------------------------------------------------------------------------
 
-def gnn_graph():
+def gnn_graph(n=GNN_NODES):
     """bench.py:1030-1079's graph and feeds: (normalized adjacency as a
-    scipy CSR, features, one-hot labels, mask), all from RandomState(0)."""
+    scipy CSR, features, one-hot labels, mask), all from RandomState(0);
+    ``n`` nodes (a rehearsal on the CPU cuts it)."""
     import scipy.sparse as sp
-    n = GNN_NODES
     rng = np.random.RandomState(0)
     rows = np.repeat(np.arange(n), GNN_DEGREE)
     cols = rng.randint(0, n, n * GNN_DEGREE)
@@ -5917,7 +5955,7 @@ def ps_passes(torch, card, seed):
 
 # ---------------------------------------------------------------------------
 # ps_fleet: fleets of PS servers and workers started by the port's launcher
-# (python -m hetu_tpu_torch.launcher), every worker on the one card
+# (python hetu_tpu_torch/run_launcher.py), every worker on the one card
 # ---------------------------------------------------------------------------
 
 FLEETS = ((1, 1), (1, 2), (2, 2), (4, 4))   # (servers, workers), bench.py:633
@@ -6103,7 +6141,7 @@ def _card_memory_used_mib():
 
 def run_fleet(seed, servers, workers, mode, device,
               steps=FLEET_PARITY_STEPS, timeout=FLEET_TIMEOUT_S):
-    """One fleet through ``python -m hetu_tpu_torch.launcher -c <yml>``
+    """One fleet through ``python hetu_tpu_torch/run_launcher.py -c <yml>``
     with :func:`fleet_worker` as the workers' command. The launcher runs
     in a session of its own, killed whole (servers and workers with it)
     if it outlives ``timeout``; a launcher that exits non-zero (a fleet
@@ -6273,6 +6311,596 @@ def ps_fleet_pass(card, seed):
     return {"card": card, "fleets": fleets, "parity": parity}
 
 
+# ---------------------------------------------------------------------------
+# distgcn, distgcn_local: a 2-layer GCN through distgcn_15d_op on the gcn
+# pass's graph at (gr, gc) = (2, 2), as four ranks of one launcher job and
+# as four thread ranks of this process, all on the one card
+# ---------------------------------------------------------------------------
+
+DISTGCN_MESH = {"gr": 2, "gc": 2}
+DISTGCN_RANKS = 4
+DISTGCN_LR = 0.1
+DISTGCN_WARMUP, DISTGCN_EPOCHS = 1, 3
+DISTGCN_TIMEOUT_S = 300
+# step 1 against the one-process csrmm_op GCN on the same weights: the
+# loss relative, each weight's gradient of its largest element; the SpMM
+# alone against csrmm_op at F=128; the weights across the four ranks
+# after the timed epochs, of their largest element; distgcn_local's
+# losses against the job's, relative (both reduce through gloo on the
+# host in one order, so bit-equal is expected)
+DISTGCN_LOSS_TOL = 1e-5
+DISTGCN_GRAD_TOL = 1e-4
+DISTGCN_SPMM_TOL = 1e-5
+DISTGCN_SAME_TOL = 1e-6
+DISTGCN_LOCAL_TOL = 1e-6
+
+
+def _distgcn_weights(seed):
+    """W1 [128, 256] and W2 [256, 40], Glorot-scaled normals from
+    ``seed``."""
+    rng = np.random.RandomState(seed + 17)
+    dims = (GNN_FEATURES, GNN_HIDDEN, GNN_CLASSES)
+    return [(rng.randn(a, b) * np.sqrt(2.0 / (a + b))).astype(np.float32)
+            for a, b in zip(dims[:-1], dims[1:])]
+
+
+def _distgcn_graph(ht, weights, dist):
+    """tests/test_distgcn.py's 2-layer GCN at the gcn pass's widths:
+    distgcn_15d_op layers (``dist``) or csrmm_op ones in the same order
+    of products (the op's rule: the SpMM first where W widens the
+    features, 128 -> 256; W first where it narrows them, 256 -> 40).
+    Returns (feed nodes, loss, train op, the first ReLU's input)."""
+    feat = ht.Variable("feat", trainable=False)
+    y_ = ht.Variable("y_", trainable=False)
+    adj = ht.Variable("adj", trainable=False)
+    w1 = ht.Variable("gcn_w1", value=weights[0])
+    w2 = ht.Variable("gcn_w2", value=weights[1])
+    if dist:
+        pre = ht.distgcn_15d_op(adj, feat, w1)
+        logits = ht.distgcn_15d_op(adj, ht.relu_op(pre), w2)
+    else:
+        pre = ht.matmul_op(ht.csrmm_op(adj, feat), w1)
+        logits = ht.csrmm_op(adj, ht.matmul_op(ht.relu_op(pre), w2))
+    loss = ht.reduce_mean_op(ht.softmaxcrossentropy_op(logits, y_), [0])
+    return (feat, y_, adj), loss, ht.optim.SGDOptimizer(
+        DISTGCN_LR).minimize(loss), pre
+
+
+def _distgcn_step1(exe, feeds, train_op):
+    """Step 1 of the "step1" subgraph ([loss, every gradient, the first
+    ReLU's input, train op]): the loss, the gradients by parameter name
+    and the ReLU's input."""
+    out = exe.run("step1", feed_dict=feeds)
+    names = [p.name for p in train_op.optimizer.params]
+    return float(out[0].asnumpy()), {
+        n: g.asnumpy() for n, g in zip(names, out[1:-2])}, \
+        out[-2].asnumpy()
+
+
+def _distgcn_train(torch, exe, feeds, train_op, comms):
+    """Step 1 (gradients fetched), then DISTGCN_WARMUP + DISTGCN_EPOCHS
+    epochs, each ending in the loss's readback; ``comms`` (GroupComms)
+    count the timed epochs' collectives alone. (On the CPU, as a
+    rehearsal runs it, the synchronize is a no-op.)"""
+    loss1, grads, pre = _distgcn_step1(exe, feeds, train_op)
+    losses, epoch_ms = [loss1], []
+    for i in range(DISTGCN_WARMUP + DISTGCN_EPOCHS):
+        if i == DISTGCN_WARMUP:
+            for comm in comms:
+                comm.reset_stats()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(exe.run("train", feed_dict=feeds)[0].asnumpy()))
+        epoch_ms.append((time.perf_counter() - t) * 1e3)
+    return losses, epoch_ms, grads, pre
+
+
+def _distgcn_session(ht, seed, graph, mesh, device):
+    """The distributed GCN's executor over ``mesh`` (a rank's mesh in a
+    job, or a LocalMesh) and its feeds: the partition and the features
+    and labels on the card."""
+    import torch
+    from hetu_tpu_torch.parallel.distgcn import partition_csr_15d
+    adj, feat, y, _ = graph
+    nodes, loss, train_op, pre = _distgcn_graph(
+        ht, _distgcn_weights(seed), True)
+    exe = ht.Executor({"step1": [loss, *train_op.inputs, pre, train_op],
+                       "train": [loss, train_op]}, mesh=mesh, device=device)
+    part = partition_csr_15d(adj, DISTGCN_MESH["gr"], DISTGCN_MESH["gc"])
+    feeds = dict(zip(nodes, (torch.from_numpy(feat).to(device),
+                             torch.from_numpy(y).to(device), part)))
+    return exe, feeds, train_op
+
+
+def _merged_stats(comms):
+    """The counters of several GroupComms summed by kind."""
+    out = {}
+    for comm in comms:
+        for kind, st in comm.stats.items():
+            out[kind] = {k: out.get(kind, {}).get(k, 0) + v
+                         for k, v in st.items()}
+    return out
+
+
+def _distgcn_comm(stats, epochs):
+    """The gcn epoch's collectives by kind: ring hops (the gr group's
+    ``ring``), the gc sums (``reduce``), the gr gathers (``gather``)."""
+    return {kind: _comm_per_step({kind: stats[kind]}, epochs)[kind]
+            for kind in ("ring", "reduce", "gather")}
+
+
+def distgcn_worker(spec):
+    """One rank of ``distgcn``, run by the launcher as ``python
+    chip_smoke.py --distgcn-worker SPEC`` (``spmd: true``: one job of four
+    processes): the rank's (gr, gc) mesh over the job, the graph
+    partitioned, step 1 with the gradients fetched, the timed epochs, its
+    collectives a timed epoch by kind, ``dist_gcn_spmm`` alone against
+    csrmm_op at F=128; writes ``worker_<rank>.json`` and its weights."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.executor import maybe_init_distributed
+    from hetu_tpu_torch.ndarray import CSRValue
+    from hetu_tpu_torch.ops.sparse import _csr_product
+    from hetu_tpu_torch.parallel.distgcn import dist_gcn_spmm
+    rank = int(os.environ["RANK"])
+    device = spec["device"]
+    maybe_init_distributed(device)
+    mesh = ht.parallel.build_mesh(DISTGCN_MESH)
+    graph = gnn_graph(spec["nodes"])
+    t0 = time.perf_counter()
+    exe, feeds, train_op = _distgcn_session(ht, spec["seed"], graph, mesh,
+                                            device)
+    rec = {"rank": rank, "coords": [mesh.coord("gr"), mesh.coord("gc")],
+           "setup_s": time.perf_counter() - t0,
+           "device": str(exe.config.device)}
+    comms = [mesh.comm(axis) for axis in ("gr", "gc")]
+    for comm in comms:
+        comm.sync_timing = True
+    losses, epoch_ms, grads, pre = _distgcn_train(torch, exe, feeds,
+                                                  train_op, comms)
+    rec.update(losses=losses, epoch_ms=epoch_ms,
+               comm_per_epoch=_distgcn_comm(_merged_stats(comms),
+                                            DISTGCN_EPOCHS),
+               peak_memory_bytes=int(torch.cuda.max_memory_allocated())
+               if device == "cuda" else None)
+    if rank == 0:
+        # the first ReLU's decisions, which the one-process reference
+        # takes (an input within rounding of 0 may fall either way)
+        np.save(os.path.join(spec["out"], "relu_mask.npy"),
+                np.packbits(pre > 0))
+    adj, feat, _, _ = graph
+    h = torch.from_numpy(feat).to(device)
+    csr = CSRValue.from_sparse_array(ht.ND_Sparse_Array(
+        adj.data.astype(np.float32), adj.indptr.astype(np.int32),
+        adj.indices.astype(np.int32), nrow=adj.shape[0],
+        ncol=adj.shape[1]), device)
+    want = _csr_product(csr, h, False)
+    got = dist_gcn_spmm(feeds[list(feeds)[2]], h, mesh)
+    rec["spmm_rel_err"] = float((got - want).abs().max()
+                                / want.abs().max())
+    np.savez(os.path.join(spec["out"], f"weights_{rank}.npz"),
+             **{exe._param_nodes[sid].name: v.cpu().numpy()
+                for sid, v in exe.params.items()})
+    np.savez(os.path.join(spec["out"], f"grads_{rank}.npz"), **grads)
+    with open(os.path.join(spec["out"], f"worker_{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    return 0
+
+
+def _rel_to_max(got, want):
+    return float(np.abs(got - want).max() / (np.abs(want).max() or 1.0))
+
+
+def _distgcn_reference(torch, seed, graph, mask, device):
+    """Step 1 of the one-process csrmm_op GCN on the card at distgcn's
+    weights, its first ReLU taking the decisions ``mask`` (np.packbits of
+    the job's ReLU input > 0), as gnn_parity does for the CPU twin.
+    Returns (loss, gradients by name, a record: seconds, the ReLU inputs
+    whose own sign differs from the mask, the largest |x| among them)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops.activations import ReluGradientOp, ReluOp
+    t = time.perf_counter()
+    nodes, loss, train_op, pre = _distgcn_graph(
+        ht, _distgcn_weights(seed), False)
+    n = graph[0].shape[0] * GNN_HIDDEN
+    decide = torch.from_numpy(np.unpackbits(mask)[:n].astype(bool)
+                              .reshape(-1, GNN_HIDDEN)).to(device)
+    for node in find_topo_sort([train_op]):
+        if isinstance(node, (ReluOp, ReluGradientOp)):
+            _relu_by_mask(node, decide)
+    exe = ht.Executor({"step1": [loss, *train_op.inputs, pre, train_op]},
+                      device=device)
+    feeds = _gnn_feeds(ht, graph, device)
+    loss1, grads, x = _distgcn_step1(
+        exe, dict(zip(nodes, (feeds[0], feeds[1], feeds[3]))), train_op)
+    flips = (x > 0) != decide.cpu().numpy()
+    del exe, feeds, decide
+    _release(torch)
+    return loss1, grads, {
+        "reference_s": time.perf_counter() - t,
+        "relu_flips": int(flips.sum()),
+        "relu_flip_max_abs_input": float(np.abs(x[flips]).max())
+        if flips.any() else 0.0}
+
+
+def distgcn_pass(card, seed, graph, gcn_line, device="cuda"):
+    """``distgcn`` and ``distgcn_local``. The reference first: the
+    one-process csrmm_op GCN on the card at the same weights (step 1's
+    loss and gradients). Then four ranks of one launcher job on the card
+    (``--distgcn-worker``), then the same model as four thread ranks of
+    this process (``mesh=`` a LocalMesh). The checks: each rank's step-1
+    loss within DISTGCN_LOSS_TOL of the reference's and its W1, W2
+    gradients within DISTGCN_GRAD_TOL of their largest element; every
+    weight equal across the four ranks within DISTGCN_SAME_TOL after the
+    timed epochs; ``dist_gcn_spmm`` alone against csrmm_op within
+    DISTGCN_SPMM_TOL; losses finite; distgcn_local's losses against the
+    job's within DISTGCN_LOCAL_TOL and its weights across its ranks as
+    the job's. Returns {"distgcn": line, "distgcn_local": line}.
+    ``device="cpu"`` rehearses it on the CPU (``GNN_NODES`` cut)."""
+    import shutil
+    import tempfile
+    import torch
+    import hetu_tpu_torch as ht
+    out_dir = tempfile.mkdtemp(prefix="distgcn_job_")
+    try:
+        wall, used = _launch_job(
+            "distgcn", f"spmd: true\nnodes:\n  - host: localhost\n"
+            f"    workers: {DISTGCN_RANKS}\n    chief: true\n",
+            "--distgcn-worker", {"seed": seed, "out": out_dir,
+                                 "device": device,
+                                 "nodes": int(graph[0].shape[0])},
+            DISTGCN_TIMEOUT_S, device == "cuda")
+        records, weights, grads = [], [], []
+        for r in range(DISTGCN_RANKS):
+            with open(os.path.join(out_dir, f"worker_{r}.json")) as f:
+                records.append(json.load(f))
+            weights.append(dict(np.load(os.path.join(
+                out_dir, f"weights_{r}.npz"))))
+            grads.append(dict(np.load(os.path.join(
+                out_dir, f"grads_{r}.npz"))))
+        mask = np.load(os.path.join(out_dir, "relu_mask.npy"))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    ref_loss, ref_grads, ref = _distgcn_reference(torch, seed, graph, mask,
+                                                  device)
+    adj = graph[0]
+    faults = []
+    step1 = {"loss_rel_err": [], "grad_rel_err": []}
+    for rec, g in zip(records, grads):
+        err = abs(rec["losses"][0] - ref_loss) / abs(ref_loss)
+        gerr = {n: _rel_to_max(g[n], ref_grads[n]) for n in ref_grads}
+        step1["loss_rel_err"].append(err)
+        step1["grad_rel_err"].append(gerr)
+        if err > DISTGCN_LOSS_TOL or max(gerr.values()) > DISTGCN_GRAD_TOL:
+            faults.append(f"rank {rec['rank']} step 1: loss {err}, "
+                          f"gradients {gerr}")
+        if rec["spmm_rel_err"] > DISTGCN_SPMM_TOL:
+            faults.append(f"rank {rec['rank']} spmm {rec['spmm_rel_err']}")
+        if not np.all(np.isfinite(rec["losses"])):
+            faults.append(f"rank {rec['rank']} losses {rec['losses']}")
+    same = max(_rel_to_max(w[n], weights[0][n]) for w in weights[1:]
+               for n in weights[0])
+    if same > DISTGCN_SAME_TOL:
+        faults.append(f"weights across ranks {same}")
+    losses = records[0]["losses"]
+    if any(r["losses"] != losses for r in records):
+        faults.append(f"losses differ across ranks "
+                      f"{[r['losses'] for r in records]}")
+    p50 = max(float(np.median(r["epoch_ms"][DISTGCN_WARMUP:]))
+              for r in records)
+    common = {"card": card, "model": "gcn (2 distgcn_15d_op layers)",
+              "nodes": int(adj.shape[0]), "nnz": int(adj.nnz),
+              "features": GNN_FEATURES, "hidden": GNN_HIDDEN,
+              "classes": GNN_CLASSES, "mesh": DISTGCN_MESH,
+              "dtype": "float32", "optimizer": "SGD", "lr": DISTGCN_LR,
+              "warmup_epochs": DISTGCN_WARMUP,
+              "timed_epochs": DISTGCN_EPOCHS,
+              "gcn_epoch_ms_p50": gcn_line["epoch_ms_p50"]}
+    line = {**common, "ranks": DISTGCN_RANKS, "backend": "gloo",
+            "epoch_ms_p50": p50, "epoch_cost_vs_gcn":
+            p50 / gcn_line["epoch_ms_p50"], "losses": losses,
+            "reference": "one process, csrmm_op, the same weights and "
+                         "order of products, the first ReLU deciding as "
+                         "the job's rank 0", **ref,
+            "reference_step1_loss": ref_loss,
+            "step1": step1, "weights_rel_diff_across_ranks": same,
+            "loss_tol": DISTGCN_LOSS_TOL, "grad_tol": DISTGCN_GRAD_TOL,
+            "spmm_tol": DISTGCN_SPMM_TOL, "same_tol": DISTGCN_SAME_TOL,
+            "launcher_wall_s": wall,
+            "card_memory_used_mib_max": max(used) if used else None,
+            "per_rank": [{k: r[k] for k in (
+                "rank", "coords", "device", "setup_s", "epoch_ms",
+                "comm_per_epoch", "peak_memory_bytes", "spmm_rel_err")}
+                for r in records]}
+    if faults:
+        log(f"distgcn failed: {line}")
+        raise AssertionError(f"distgcn: {faults}")
+
+    t = time.perf_counter()
+    mesh = ht.parallel.build_mesh(DISTGCN_MESH)
+    exe, feeds, train_op = _distgcn_session(ht, seed, graph, mesh, device)
+    setup_s = time.perf_counter() - t
+    plan = exe.config.local_ranks
+    comms = [[r.config.mesh.comm(axis) for axis in ("gr", "gc")]
+             for r in exe.ranks]
+    for comm in sum(comms, []):
+        comm.sync_timing = True
+    local_losses, epoch_ms, _, _ = _distgcn_train(
+        torch, exe, feeds, train_op, sum(comms, []))
+    stats = [_distgcn_comm(_merged_stats(c), DISTGCN_EPOCHS) for c in comms]
+    rank_weights = [{r._param_nodes[sid].name: v.cpu().numpy()
+                     for sid, v in r.params.items()} for r in exe.ranks]
+    exe.close()
+    del exe, feeds
+    _release(torch)
+    local_same = max(_rel_to_max(w[n], rank_weights[0][n])
+                     for w in rank_weights[1:] for n in rank_weights[0])
+    local_err = max(abs(a - b) / abs(b) for a, b in zip(local_losses,
+                                                        losses))
+    lp50 = float(np.median(epoch_ms[DISTGCN_WARMUP:]))
+    local = {**common, "thread_ranks": plan.n,
+             "devices": [str(d) for d in plan.devices],
+             "epoch_ms_p50": lp50, "epoch_ms": epoch_ms,
+             "job_epoch_ms_p50": p50, "setup_s": setup_s,
+             "losses": local_losses, "job_losses": losses,
+             "losses_rel_err_vs_job": local_err,
+             "losses_bit_equal_to_job": local_losses == losses,
+             "weights_rel_diff_across_ranks": local_same,
+             "local_tol": DISTGCN_LOCAL_TOL,
+             "comm_per_epoch_by_rank": stats}
+    if local_err > DISTGCN_LOCAL_TOL or local_same > DISTGCN_SAME_TOL:
+        log(f"distgcn_local failed: {local}")
+        raise AssertionError(f"distgcn_local: losses {local_err}, weights "
+                             f"across ranks {local_same}")
+    return {"distgcn": line, "distgcn_local": local}
+
+
+# ---------------------------------------------------------------------------
+# dp_gpt_local: dp_gpt's model and rows under a tuple context of two
+# devices and AllReduce in one process: two thread ranks on the one card
+# ---------------------------------------------------------------------------
+
+def dp_gpt_local(card, seed, train_line, dp_line):
+    """``train``'s model at full width under ``ht.context((ht.gpu(0),
+    ht.gpu(1)))`` with ``comm_mode="AllReduce"``, bf16, 25 MiB buckets:
+    the executor runs two thread ranks (both on cuda:0), 4 of the 8 rows
+    each. The launch counts set to 0 before the steps and read after, in
+    each rank apart. The checks: K2/K3/K4 12 a step in each thread rank,
+    all on tc, K1 none; the step-1 global loss against ``dp_gpt``'s
+    launcher job within DP_LOSS_TOL; every weight the same on both ranks
+    within DP_SAME_TOL of its largest element. Returns (line, the launch
+    counts summed over the ranks)."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    t0 = time.perf_counter()
+    with ht.context((ht.gpu(0), ht.gpu(1))):
+        ids, labels, lm, train_op = _gpt_graph(ht, M, GPT2_SMALL)
+        exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                          comm_mode="AllReduce", overlap_options={
+                              "bucket_bytes": DP_BUCKET_BYTES})
+    setup_s = time.perf_counter() - t0
+    plan = exe.config.local_ranks
+    x, y = _gpt_rows(seed, TRAIN_BATCH)
+    feeds = {ids: torch.as_tensor(x, device="cuda"),
+             labels: torch.as_tensor(y, device="cuda")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()                    # main path starts
+    losses, step_ms = [], []
+    for _ in range(DP_WARMUP + DP_STEPS):
+        t = time.perf_counter()
+        losses.append(float(exe.run(feed_dict=feeds)[0].asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    by_rank = {r: dict(c) for r, c in _build.rank_launch_counts.items()}
+    launches = dict(_build.launch_counts)           # main path ends
+    peak = int(torch.cuda.max_memory_allocated())
+    states = [_master_state(r) for r in exe.ranks]
+    same = max(float((states[1][n].float() - v.float()).abs().max()
+                     / (v.float().abs().max() or 1.0))
+               for n, v in states[0].items())
+    comm = [r.config.dp_comm.stats for r in exe.ranks]
+    exe.close()
+    del exe, states, feeds
+    _release(torch)
+    steps = DP_WARMUP + DP_STEPS
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                         GPT2_SMALL["num_hidden_layers"] * steps)
+    faults = []
+    for r in range(plan.n):
+        got = {k: by_rank.get(r, {}).get(k, 0) for k in want}
+        if got != want:
+            faults.append(f"thread rank {r} launched {got}")
+    step1, dp1 = losses[0], dp_line["losses"][0]
+    err = abs(step1 - dp1) / abs(dp1)
+    if err > DP_LOSS_TOL or not all(np.isfinite(losses)):
+        faults.append(f"losses {losses} against dp_gpt's step 1 {dp1}")
+    if same > DP_SAME_TOL:
+        faults.append(f"weights across ranks {same}")
+    p50 = float(np.median(step_ms[DP_WARMUP:]))
+    tokens = TRAIN_BATCH * GPT2_SMALL["max_position_embeddings"]
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "context": "(gpu(0), gpu(1)), comm_mode AllReduce",
+            "thread_ranks": plan.n, "devices": [str(d) for d in
+                                                plan.devices],
+            "global_batch": TRAIN_BATCH,
+            "rows_per_rank": TRAIN_BATCH // plan.n, "dtype": "bfloat16",
+            "bucket_bytes": DP_BUCKET_BYTES, "executor_setup_s": setup_s,
+            "warmup_steps": DP_WARMUP, "timed_steps": DP_STEPS,
+            "step_ms": step_ms, "step_ms_p50": p50,
+            "tokens_per_s": tokens * DP_STEPS / (sum(step_ms[DP_WARMUP:])
+                                                 / 1e3),
+            "dp_gpt_step_ms_p50": dp_line["step_ms_p50"],
+            "train_step_ms_p50": train_line["step_ms_p50"],
+            "step_cost_vs_dp_gpt": p50 / dp_line["step_ms_p50"],
+            "losses": losses, "dp_gpt_step1_loss": dp1,
+            "step1_loss_rel_err": err, "loss_tol": DP_LOSS_TOL,
+            "weights_rel_diff_across_ranks": same,
+            "same_weights_tol": DP_SAME_TOL,
+            "launches_per_step_by_rank": {
+                r: {k: c.get(k, 0) / steps for k in
+                    (fa.K1, fa.K2, fa.K3, fa.K4, f"{fa.K2}.tc",
+                     f"{fa.K3}.tc", f"{fa.K4}.tc")}
+                for r, c in by_rank.items()},
+            "comm_per_step_by_rank": [_comm_per_step(c, steps)
+                                      for c in comm],
+            "peak_memory_bytes": peak}
+    if faults:
+        log(f"dp_gpt_local failed: {line}")
+        raise AssertionError(f"dp_gpt_local: {faults}")
+    return line, launches
+
+
+# ---------------------------------------------------------------------------
+# runner_zoo, bert_example: the port's entry scripts as a user runs them
+# ---------------------------------------------------------------------------
+
+ZOO = os.path.join(ROOT, "hetu_tpu_torch", "examples", "runner", "parallel")
+# (yaml, script, flags, result dir): all at once (small MLPs and a small
+# CNN, one process each, all on the card); the gate reads them after
+ZOO_BASES = (("config1.yml", "test_mlp_base.py", ["--save"], "mlp"),
+             ("config1.yml", "test_cnn_base.py", ["--save"], "cnn"))
+ZOO_CASES = (("config4.yml", "test_mlp_mp.py", ["--split", "middle"], "mlp"),
+             ("config4.yml", "test_mlp_pp.py", [], "mlp"),
+             ("config4.yml", "test_mlp_mp_pp.py", ["--split", "left"], "mlp"),
+             ("config4.yml", "test_cnn_mp.py", ["--split", "middle"], "cnn"))
+ZOO_TIMEOUT_S = 240
+BERT_EXAMPLE_ARGS = ("--num-steps", "20", "--timing", "--batch-size", "64",
+                     "--seq-length", "128", "--log-every", "10")
+
+
+def _zoo_procs(cases, out_dir, index):
+    """Start each case through ``python hetu_tpu_torch/run_launcher.py``: its
+    loss series to ``out_dir/<dir>/base.npy`` (a base) or
+    ``res<i>.npy``."""
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", "")}
+    procs = []
+    for cfg, script, flags, sub in cases:
+        d = os.path.join(out_dir, sub)
+        os.makedirs(d, exist_ok=True)
+        name = "base.npy" if index is None else f"res{index[sub]}.npy"
+        if index is not None:
+            index[sub] += 1
+        log_f = open(os.path.join(out_dir, f"{sub}_{name}.log"), "w")
+        cmd = [sys.executable, LAUNCHER, "-c",
+               os.path.join(ZOO, cfg), sys.executable,
+               os.path.join(ZOO, script), *flags, "--log",
+               os.path.join(d, name)]
+        procs.append((script, flags, log_f, subprocess.Popen(
+            cmd, cwd=ZOO, env=env, stdout=log_f, stderr=subprocess.STDOUT,
+            stdin=subprocess.DEVNULL, start_new_session=True)))
+    return procs
+
+
+def _zoo_wait(procs):
+    """Wait for the cases, each killed whole past ZOO_TIMEOUT_S (every
+    one is stopped before a failure is raised); a case that fails raises
+    with its log's tail. Returns each case's seconds."""
+    t0, seconds, failed = time.perf_counter(), [], []
+    for script, flags, log_f, proc in procs:
+        try:
+            rc = proc.wait(timeout=max(1.0, ZOO_TIMEOUT_S
+                                       - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        finally:
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+            log_f.close()
+        seconds.append(time.perf_counter() - t0)
+        if rc != 0:
+            with open(log_f.name) as f:
+                failed.append(f"runner_zoo {script} {flags}: exit {rc}\n"
+                              f"{f.read()[-3000:]}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return seconds
+
+
+def runner_zoo(card):
+    """The port's parallel-config zoo on the card through the port's
+    launcher: ``config1`` ``test_mlp_base --save`` and ``test_cnn_base
+    --save``, and under ``config4`` — one process driving four devices,
+    every ``gpu(i)`` the one card, a context or tuple stage of several
+    run as thread ranks — ``test_mlp_mp --split middle``, ``test_mlp_pp``,
+    ``test_mlp_mp_pp --split left`` and ``test_cnn_mp --split middle``,
+    the six at once. The gate is the zoo's ``validate_results.py`` (rtol
+    1e-4, atol 1e-6) over each base's results."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="runner_zoo_")
+    try:
+        t0 = time.perf_counter()
+        index = {"mlp": 0, "cnn": 0}
+        seconds = _zoo_wait(_zoo_procs(ZOO_BASES, out_dir, None)
+                            + _zoo_procs(ZOO_CASES, out_dir, index))
+        gates = {}
+        for sub, n in index.items():
+            out = subprocess.run(
+                [sys.executable, os.path.join(ZOO, "validate_results.py"),
+                 str(n), "--dir", os.path.join(out_dir, sub)],
+                capture_output=True, text=True, timeout=60)
+            gates[sub] = out.returncode
+            if out.returncode != 0:
+                raise AssertionError(f"runner_zoo {sub}: validate_results "
+                                     f"{out.stdout[-2000:]}"
+                                     f"{out.stderr[-2000:]}")
+        series = {sub: {name: np.load(os.path.join(out_dir, sub, name))
+                        .tolist() for name in sorted(os.listdir(
+                            os.path.join(out_dir, sub)))}
+                  for sub in index}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return {"card": card, "launcher": "python hetu_tpu_torch/run_launcher.py",
+            "bases": [[c, s, f] for c, s, f, _ in ZOO_BASES],
+            "cases": [[c, s, f] for c, s, f, _ in ZOO_CASES],
+            "gate": "validate_results.py, rtol 1e-4, atol 1e-6",
+            "gate_exit_codes": gates, "loss_series": series,
+            "seconds": seconds,
+            "wall_s": time.perf_counter() - t0}
+
+
+def bert_example(torch, card):
+    """``hetu_tpu_torch/examples/train_hetu_bert.py`` as a user runs it,
+    BERT-base at S=128, B=64, 20 steps, bf16 (``run(parse_args(...))`` in
+    this process, so its launches are counted: set to 0 before, read
+    after). The checks: K1 12 launches a step, all on tc, K2-K4 none;
+    every loss finite. tokens/s is the example's own, over steps 11-20."""
+    from hetu_tpu_torch.examples import train_hetu_bert
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    steps = int(BERT_EXAMPLE_ARGS[1])
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    res = train_hetu_bert.run(train_hetu_bert.parse_args(
+        list(BERT_EXAMPLE_ARGS)))
+    wall = time.perf_counter() - t0
+    launches = dict(_build.launch_counts)           # main path ends
+    _release(torch)
+    want = _route_counts((fa.K1,), (fa.K2, fa.K3, fa.K4),
+                         BERT_BASE["num_hidden_layers"] * steps)
+    got = {k: launches.get(k, 0) for k in want}
+    line = {"card": card, "script": "hetu_tpu_torch/examples/"
+            "train_hetu_bert.py", "args": list(BERT_EXAMPLE_ARGS),
+            "tokens_per_s": res["tokens_per_sec"], "losses": res["losses"],
+            "wall_s": wall, "k1_launches_per_step": {
+                k: v / steps for k, v in got.items()}}
+    if got != want or not np.all(np.isfinite(res["losses"])):
+        log(f"bert_example failed: {line}")
+        raise AssertionError(f"bert_example: launches {got} against "
+                             f"{want}, losses {res['losses']}")
+    return line, launches
+
+
 def ptxas_report(log_text):
     """Registers and spills of every kernel instantiation in one
     ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
@@ -6374,6 +7002,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # pp_tp_gpt's ranks
     ap.add_argument("--sp-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # the sp passes' ranks
+    ap.add_argument("--distgcn-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # distgcn's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -6401,6 +7031,9 @@ def main(argv=None):
     if args.sp_worker is not None:
         sys.path.insert(0, ROOT)
         return sp_worker(json.loads(args.sp_worker))
+    if args.distgcn_worker is not None:
+        sys.path.insert(0, ROOT)
+        return distgcn_worker(json.loads(args.distgcn_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -6477,6 +7110,11 @@ def main(argv=None):
     log(f"dp ({time.perf_counter() - t:.1f} s) {dp_lines}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    dp_lines["dp_gpt_local"], dp_local_launches = dp_gpt_local(
+        card, args.seed, train_line, dp_lines["dp_gpt"])
+    log(f"dp_gpt_local ({time.perf_counter() - t:.1f} s) "
+        f"{dp_lines['dp_gpt_local']}")
+    t = time.perf_counter()
     tp_lines, tp_launches, gpt_ref = tp_pass(card, args.seed, train_line,
                                              parity_ref)
     log(f"tp ({time.perf_counter() - t:.1f} s) {tp_lines}")
@@ -6494,6 +7132,13 @@ def main(argv=None):
             torch, args.seed, card, name)
         log(f"{name} ({time.perf_counter() - t:.1f} s) {bert_lines[name]}")
         torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bert_lines["bert_example"], bert_ex_launches = bert_example(torch, card)
+    log(f"bert_example ({time.perf_counter() - t:.1f} s) "
+        f"{bert_lines['bert_example']}")
+    t = time.perf_counter()
+    zoo_line = runner_zoo(card)
+    log(f"runner_zoo ({time.perf_counter() - t:.1f} s) {zoo_line}")
     t = time.perf_counter()
     sp_lines, sp_launches = sp_pass(card, args.seed, train_line,
                                     bert_lines["bert_long"], gpt_ref,
@@ -6547,6 +7192,11 @@ def main(argv=None):
     t = time.perf_counter()
     gnn_lines["spmm"] = spmm_compare(torch, card, graph)
     log(f"spmm ({time.perf_counter() - t:.1f} s) {gnn_lines['spmm']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    gnn_lines.update(distgcn_pass(card, args.seed, graph, gnn_lines["gcn"]))
+    log(f"distgcn ({time.perf_counter() - t:.1f} s) "
+        f"{gnn_lines['distgcn']} {gnn_lines['distgcn_local']}")
     del graph
     t = time.perf_counter()
     gnn_lines["gcn_example"] = gcn_example(torch, card)
@@ -6586,12 +7236,14 @@ def main(argv=None):
                   K1_PREFILL_REP),
                  ("serve_dense.session", dense_launches["session"],
                   K1_SESSION_REP),
-                 ("bert", bert_launches["bert"], BERT_K1_REP)]
+                 ("bert", bert_launches["bert"], BERT_K1_REP),
+                 ("bert_example", bert_ex_launches, BERT_K1_REP)]
     train_paths = [("train", train_launches, TRAIN_REP),
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
                    ("pp_1f1b", pp_launches["1f1b"], PP_REP),
                    ("dp_gpt", dp_launches, DP_REP),
+                   ("dp_gpt_local", dp_local_launches, DP_REP),
                    ("tp_gpt", tp_launches, TRAIN_REP),
                    ("pp_tp_gpt", pp_tp_launches, PP_REP),
                    ("sp_gpt.ring", sp_launches["ring.diagonal"],
@@ -6635,6 +7287,7 @@ def main(argv=None):
              *({name: line} for name, line in tp_lines.items()),
              *({name: line} for name, line in pp_tp_lines.items()),
              *({name: line} for name, line in bert_lines.items()),
+             {"runner_zoo": zoo_line},
              *({name: line} for name, line in sp_lines.items()),
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},

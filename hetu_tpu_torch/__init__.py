@@ -44,6 +44,12 @@ What runs today:
   / ``pipedream=True``), its stages placed by ``with ht.context(...)``,
   in one process or across a launcher's worker processes
   (:mod:`.parallel`);
+* sequence parallelism (ring, Ulysses) and DistGCN-1.5D
+  (``distgcn_15d_op`` over a ``("gr", "gc")`` mesh);
+* several devices of one process's context, a tensor-parallel plan or a
+  tuple stage with no launcher job: one thread rank a device
+  (:mod:`.parallel.local_ranks`), so the reference's scripts run
+  unchanged;
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.

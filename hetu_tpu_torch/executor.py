@@ -33,7 +33,9 @@ subgraph the next batch of the dataloader of its name; graph loader ops
 A CSR feed (an ``ND_Sparse_Array``) becomes a ``CSRValue`` on the
 device at every run; a ``CSRValue`` already there, as a full-batch
 trainer pins its graph once, is used as it is. Its shape is (nrow,
-ncol).
+ncol). A DistGCN partition (``DistCSR15d``) puts only the rank's own
+(r, c) stages on its device, once a feed object; its shape is
+(n_nodes, n_nodes).
 
 **PS and Hybrid** (``comm_mode``, or inferred from the device groups:
 a group of GPU workers and CPU servers is PS). The optimizer's graph
@@ -61,8 +63,14 @@ the rank count, the optimizer's allreduce ops average the gradients
 values are made global
 (:class:`~hetu_tpu_torch.parallel.data_parallel.DataParallel`, which
 also refuses graphs whose rows are reduced other than by a mean).
-Several devices of one process's context stay refused (ROADMAP item
-11a's remainder).
+
+**Several devices of one process** (a context of several workers under
+AllReduce, a tensor-parallel plan, a pipeline's tuple stage that splits,
+or ``mesh=`` a :class:`~hetu_tpu_torch.parallel.mesh.LocalMesh`) outside
+a launcher's job: the session runs one thread rank a device, each a
+sub-executor on its own clone of the graph, fed the same feeds, the
+fetched values returned once (:mod:`~hetu_tpu_torch.parallel.local_ranks`,
+whose ``DEFAULT_TIMEOUT_S`` bounds a call).
 
 **Pipelines** (``gpipe=True`` or ``pipedream=True``, with
 ``num_microbatches`` and ``pp_options``): stages placed by ``with
@@ -147,6 +155,9 @@ _REFUSED_OPTIONS = {
     "log_path": "item 14 (profiler.py's StepLogger)",
     "validate": "item 17",
 }
+# HetuConfig's arguments that are not a thread rank's to copy: the rank
+# has its own graph, device and mesh (parallel/local_ranks.py)
+_NOT_RANK_OPTIONS = ("self", "eval_node_list", "device", "mesh", "options")
 
 
 def dp_backend(device=None):
@@ -306,7 +317,12 @@ class HetuConfig:
     ``virtual_stages``, and ``job``, a :class:`~hetu_tpu_torch.parallel.
     mesh.Job` where ranks are not processes of a launcher's job); a
     pipeline refuses ``mesh``; without ``ctx`` or ``device`` the session's
-    device is then the first stage's. The reference's ``train_name``,
+    device is then the first stage's. Where the session names several
+    devices of this process outside a job, ``local_ranks`` holds the
+    plan of its thread ranks (:mod:`~hetu_tpu_torch.parallel.local_ranks`)
+    and the config is their template: each rank makes its own from
+    ``rank_options``, this call's arguments but the rank's ``device``
+    and ``mesh``. The reference's ``train_name``,
     ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
     ``dynamic_memory`` are accepted and, as there, change nothing."""
 
@@ -319,6 +335,10 @@ class HetuConfig:
                  overlap_options=None, gpipe=False, pipedream=False,
                  num_microbatches=None, pp_options=None, mesh=None,
                  **options):
+        # what a thread rank makes its own config from: every argument
+        # but the graph and the rank's own device and mesh
+        rank_options = {k: v for k, v in locals().items()
+                        if k not in _NOT_RANK_OPTIONS}
         if options:
             items = "; ".join(f"{k}: ROADMAP {_REFUSED_OPTIONS[k]}"
                               for k in sorted(options)
@@ -348,6 +368,7 @@ class HetuConfig:
         pipeline = self.use_gpipe or self.use_pipedream
         ctx = ctx if ctx is not None else get_current_context()
         self.context = DeviceGroup(ctx if ctx is not None else [])
+        self.rank_options = dict(rank_options, ctx=self.context)
         if device is None and len(self.context):
             first = (self.context.workers or list(self.context))[0]
             device = (first[0] if isinstance(first, tuple)
@@ -416,6 +437,13 @@ class HetuConfig:
                 f"11c.1")
         if tp > 1:
             self._refuse_tp(tp)
+        # several devices of this process outside a job: thread ranks,
+        # each with its own config (parallel/local_ranks.py)
+        from .parallel.local_ranks import plan_local_ranks
+        self.local_ranks = plan_local_ranks(self, eval_node_list, mesh, tp,
+                                            pipeline)
+        if self.local_ranks is not None:
+            return
         if tp > 1 and not pipeline:     # a pipeline plans per stage
             mesh = self._tp_mesh(statuses, mesh, tp)
             self.mesh = mesh
@@ -430,13 +458,6 @@ class HetuConfig:
         ranks = self.dp_comm.nrank if self.dp_comm is not None else 1
         if self.comm_mode is None and ranks > 1:
             self.comm_mode = "AllReduce"
-        if self.context.worker_num > 1 and \
-                self.comm_mode in ("AllReduce", "Hybrid"):
-            raise NotImplementedError(
-                f"{self.comm_mode} over {self.context.worker_num} devices "
-                f"of one process's context: in-process multi-device data "
-                f"parallel is ROADMAP item 11a's remainder; run one process "
-                f"per card under the launcher's spmd: true")
         self.nrank = ranks if self.comm_mode in ("AllReduce", "Hybrid") \
             else 1
         # the process's rank in a launcher's fleet: HETU_PROC_ID in one
@@ -454,8 +475,8 @@ class HetuConfig:
                     f"Hybrid over {nworkers} worker processes with "
                     f"{self.nrank} data-parallel rank(s): the dense "
                     f"weights' allreduce runs over the job's process group "
-                    f"(ROADMAP item 11a); start the fleet with the "
-                    f"launcher's spmd: true")
+                    f"(refused on purpose, ROADMAP §3); start the fleet "
+                    f"with the launcher's spmd: true")
         self.ps_nodes = []
         self.ps_comm = None
         # the device cache (HET path): PS embedding lookups gather from
@@ -493,19 +514,12 @@ class HetuConfig:
 
     def _refuse_tp(self, degree):
         """A ``degree``-way tensor-parallel plan where the port has none:
-        on a parameter server, over several devices of one process.
-        Raises naming its ROADMAP item."""
+        on a parameter server. Raises naming its ROADMAP item."""
         if self.comm_mode in ("PS", "Hybrid"):
             raise NotImplementedError(
                 f"tensor parallel ({degree}-way dispatch) in the "
                 f"{self.comm_mode} mode: a split parameter on a parameter "
                 f"server is not ported (ROADMAP item 11b.5)")
-        if self.context.worker_num > 1:
-            raise NotImplementedError(
-                f"tensor parallel over {self.context.worker_num} devices of "
-                f"one process's context: run one process per rank under "
-                f"the launcher's spmd: true (several devices in one process "
-                f"are ROADMAP item 11a's remainder)")
 
     def _refuse_sp(self, mesh, pipeline):
         """A mesh with an ``"sp"`` axis where the port has no sequence
@@ -787,6 +801,15 @@ class SubExecutor:
                     f"match the op's {shapes}")
 
     def _ingest(self, value, staged=False):
+        from .parallel.distgcn import DistCSR15d
+        mesh = self.config.mesh
+        if isinstance(value, DistCSR15d):
+            # a DistGCN partition: only this rank's (r, c) stages move
+            # (off a ("gr", "gc") mesh the op itself refuses it)
+            if mesh is None or not {"gr", "gc"} <= set(mesh.axis_names):
+                return value
+            return value.local(mesh.coord("gr"), mesh.coord("gc"),
+                               self.config.device)
         return ingest_value(value, self.config.device, self.config.dtype,
                             staged)
 
@@ -926,6 +949,13 @@ class Executor:
         if config is None:
             config = HetuConfig(eval_node_list=all_eval_nodes, **kargs)
         self.config = config
+        # several devices of this process: one thread rank each, and this
+        # session their front (parallel/local_ranks.py)
+        self._threads = None
+        if config.local_ranks is not None:
+            from .parallel.local_ranks import LocalRanks
+            self._threads = LocalRanks(eval_node_dict, config)
+            return
 
         # parameters: f32 masters (integer parameters keep their dtype)
         # drawn from numpy with the reference's name-seeded draw
@@ -1004,10 +1034,26 @@ class Executor:
             self.ps_runtime = PSRuntime(self, config)
         self._ingest_stats = new_stats()
 
+    def __getattr__(self, name):
+        # a session of thread ranks reads its first rank's state
+        # (parameters, optimizer slots, subexecutors)
+        local = self.__dict__.get("_threads")
+        if local is None or name.startswith("__"):
+            raise AttributeError(name)
+        return getattr(local.executors[0], name)
+
+    @property
+    def ranks(self):
+        """The thread ranks' executors (a one-process session: itself)."""
+        return [self] if self._threads is None else self._threads.executors
+
     def run(self, name="default", eval_node_list=None, feed_dict=None,
             convert_to_numpy_ret_vals=False):
         if isinstance(name, dict) and feed_dict is None:
             feed_dict, name = name, "default"     # positional run(feeds)
+        if self._threads is not None:
+            return self._threads.run(name, feed_dict,
+                                   convert_to_numpy_ret_vals)
         return self._sub(name).run(self, feed_dict,
                                    convert_to_numpy_ret_vals)
 
@@ -1025,6 +1071,9 @@ class Executor:
         ``run`` calls. A device-cached PS graph runs the block through
         :meth:`PSRuntime.run_block`: slots for the whole block are
         assigned up front, as in the reference."""
+        if self._threads is not None:
+            return self._threads.run_batches(feed_dicts, name,
+                                           convert_to_numpy_ret_vals)
         sub = self._sub(name)
         if not isinstance(sub, SubExecutor):
             raise ValueError(
@@ -1050,6 +1099,9 @@ class Executor:
         :meth:`PSRuntime.run_stream_pipelined`, the next steps' feed
         transfer and SparsePull on the worker. Other graphs run their
         blocks one after another. Returns the last block's results."""
+        if self._threads is not None:
+            raise NotImplementedError(
+                "run_batches_stream over thread ranks: call run_batches")
         lookahead = self.config.overlap.lookahead if lookahead is None \
             else lookahead
         if lookahead < 1:
@@ -1129,6 +1181,8 @@ class Executor:
     def get_batch_num(self, name="default"):
         """Batches in an epoch of subgraph ``name``: the fewest any of
         its dataloaders gives (None without dataloaders)."""
+        if self._threads is not None:
+            return self.ranks[0].get_batch_num(name)
         return self.subexecutors[name].batch_num
 
     @property
@@ -1194,7 +1248,10 @@ class Executor:
         ``save`` (the shards are gathered) and the mesh's rank 0
         writes. Across a pipeline's worker processes each stage's first
         rank writes its stage's, the sidecar of a rank k > 0 under the
-        name suffixed ``.rank<k>``, which ``load`` reads beside it."""
+        name suffixed ``.rank<k>``, which ``load`` reads beside it. Thread
+        ranks save as those processes would."""
+        if self._threads is not None:
+            return self._threads.save(file_path, file_name)
         nodes = {node.id: node for node in self._param_nodes.values()}
         params = {sid: self._whole(node, self.params[sid])
                   for sid, node in self._param_nodes.items()}
@@ -1239,6 +1296,9 @@ class Executor:
         into the server (``ps_<id>.bin``, by tensor id: the graph must be
         built as the saving one was). A parameter without a file keeps
         its value, with a warning."""
+        if self._threads is not None:
+            self._threads.each("load", file_path, file_name)
+            return
         values = {}
         for node in self._param_nodes.values():
             path = os.path.join(file_path, node.name + ".npy")
@@ -1288,6 +1348,9 @@ class Executor:
         ops raises here; a key or shape an op does not have raises at the
         next run, where shapes are inferred again. Empty ``state`` (saved
         before any step) leaves every op to start afresh."""
+        if self._threads is not None:
+            self._threads.each("load_state", state)
+            return
         theirs = sorted(state.items(), key=lambda item: int(item[0]))
         if theirs and len(theirs) != len(self._stateful_ops):
             raise ValueError(
@@ -1307,6 +1370,9 @@ class Executor:
         """Set parameters from ``{name: array}``; names the session does
         not have are ignored, shapes must match (the whole shape: a
         tensor-parallel rank keeps its shard)."""
+        if self._threads is not None:
+            self._threads.each("load_params", values)
+            return
         by_name = self._by_name()
         for name, value in values.items():
             sid = by_name.get(name)
@@ -1337,7 +1403,11 @@ class Executor:
 
     def close(self):
         """Flush in-flight PS work (ASP pushes, device-cache drains) and
-        stop the push pool."""
+        stop the push pool; thread ranks close theirs and their job's
+        channels."""
+        if self._threads is not None:
+            self._threads.close()
+            return
         if self.ps_runtime is not None:
             self.ps_runtime.close()
 

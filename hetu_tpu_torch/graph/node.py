@@ -12,6 +12,8 @@ gradients); the executor calls it eagerly in topological order.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ..context import DeviceGroup, get_current_context
@@ -19,6 +21,8 @@ from ..context import DeviceGroup, get_current_context
 __all__ = ["Op", "ExecContext"]
 
 G_NODE_ID = 0
+# thread ranks of one process build their comm and gradient ops at once
+_ID_LOCK = threading.Lock()
 
 
 class ExecContext:
@@ -93,8 +97,9 @@ class Op:
         self.dtype = None
         self.op_type = (op_type if isinstance(op_type, str)
                         else op_type.__name__)
-        self.id = G_NODE_ID
-        G_NODE_ID += 1
+        with _ID_LOCK:
+            self.id = G_NODE_ID
+            G_NODE_ID += 1
         self.name = self.op_type + str(self.id)
         self.desc = self.name + "(" + ", ".join(
             inp.name for inp in self.inputs) + ")"

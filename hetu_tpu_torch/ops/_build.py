@@ -15,7 +15,10 @@ path went through the kernels. The count stays exact when several
 threads launch (a server's batcher threads). :data:`launch_shapes`
 counts the same launches by ``(key, route, shape)`` where the wrapper
 gives its shape, so a path that launches one kernel at several shapes
-(a sequence-parallel ring's blocks) can tell them apart.
+(a sequence-parallel ring's blocks) can tell them apart. Where the ranks
+of a job are threads of one process, each thread names its rank
+(:func:`set_rank`) and :data:`rank_launch_counts` counts its launches
+apart as well.
 """
 from __future__ import annotations
 
@@ -30,7 +33,8 @@ import time
 from pathlib import Path
 
 __all__ = ["build", "build_log", "load", "launch_counts", "launch_shapes",
-           "count_launch", "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
+           "rank_launch_counts", "set_rank", "count_launch",
+           "reset_launch_counts", "check", "BUILD_DIR", "CSRC_DIR"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -41,6 +45,8 @@ NVCC_FLAGS = ["-O3", "-std=c++17",
 
 launch_counts = collections.Counter()
 launch_shapes = collections.Counter()
+rank_launch_counts = collections.defaultdict(collections.Counter)
+_thread = threading.local()
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -53,17 +59,27 @@ def count_launch(key, route, shape=None):
     :data:`launch_shapes` when ``shape`` is given. A ``+=`` on the
     counter is a read and a write, so two threads could lose one without
     the lock."""
+    rank = getattr(_thread, "rank", None)
     with _count_lock:
         launch_counts[key] += 1
         launch_counts[f"{key}.{route}"] += 1
         if shape is not None:
             launch_shapes[(key, route, tuple(shape))] += 1
+        if rank is not None:
+            rank_launch_counts[rank][key] += 1
+            rank_launch_counts[rank][f"{key}.{route}"] += 1
+
+
+def set_rank(rank):
+    """Count this thread's launches under ``rank`` too (None: stop)."""
+    _thread.rank = rank
 
 
 def reset_launch_counts():
     with _count_lock:
         launch_counts.clear()
         launch_shapes.clear()
+        rank_launch_counts.clear()
 
 
 def _nvcc():

@@ -45,6 +45,7 @@ host copies.
 """
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -94,12 +95,15 @@ class GroupComm:
         self.rank = int(pg.rank())
         self.backend = str(pg.name()).lower()
         self.sync_timing = False
+        self._stats_lock = threading.Lock()
         self.reset_stats()
 
     def reset_stats(self):
-        self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
-                      for k in ("dense", "sparse", "fetch", "gather",
-                                "reduce", "ring", "all_to_all", "staged")}
+        with self._stats_lock:
+            self.stats = {k: {"calls": 0, "bytes": 0, "seconds": 0.0}
+                          for k in ("dense", "sparse", "fetch", "gather",
+                                    "reduce", "ring", "all_to_all",
+                                    "staged")}
 
     def _pg(self):
         import torch.distributed as dist
@@ -111,16 +115,20 @@ class GroupComm:
         return time.perf_counter()
 
     def _count(self, kind, t0, nbytes, seconds=None):
-        st = self.stats[kind]
-        st["calls"] += 1
-        st["bytes"] += nbytes
-        st["seconds"] += time.perf_counter() - t0 if seconds is None \
-            else seconds
+        # a rank's comms are its own, but a caller may read or reset the
+        # counters from another thread (thread ranks of one process)
+        with self._stats_lock:
+            st = self.stats[kind]
+            st["calls"] += 1
+            st["bytes"] += nbytes
+            st["seconds"] += time.perf_counter() - t0 if seconds is None \
+                else seconds
 
-    def ring_shift(self, tensors, kind="ring"):
+    def ring_shift(self, tensors, kind="ring", step=1):
         """One hop of a ring (the reference's ``lax.ppermute`` over
-        ``[(i, (i + 1) % n)]``): each of ``tensors`` goes to the next
-        rank of the group, and the previous rank's takes its place.
+        ``[(i, (i + step) % n)]``): each of ``tensors`` goes to rank
+        ``rank + step`` of the group, and rank ``rank - step``'s takes its
+        place (``step=-1``: DistGCN's ring, ``[(i, (i - 1) % n)]``).
         None entries stay None. Counted as one call of the bytes this
         rank sends; on a gloo group CUDA tensors cross through pinned
         host copies, counted under "staged" with the copies' seconds."""
@@ -138,7 +146,8 @@ class GroupComm:
         recvs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
                  if staged else torch.empty_like(t) for t in sends]
         pg = self._pg()
-        nxt, prv = (self.rank + 1) % self.nrank, (self.rank - 1) % self.nrank
+        nxt = (self.rank + step) % self.nrank
+        prv = (self.rank - step) % self.nrank
         works = []
         for tag, (snd, rcv) in enumerate(zip(sends, recvs)):
             works.append(pg.send([snd], nxt, tag))

@@ -14,8 +14,9 @@ csrmm backward) uses the copy of A^T the ingest made
 without it scatter-adds by column instead.
 
 The gather holds an [nnz, F] intermediate (1.39 GB at OGB-arxiv's
-1,354,709 entries and F=256, f32). ``distgcn_15d_op`` needs the
-multi-GPU port's device mesh and raises until it exists.
+1,354,709 entries and F=256, f32). ``distgcn_15d_op`` is the 1.5-D
+distributed layer over a ("gr", "gc") rank mesh
+(:mod:`~hetu_tpu_torch.parallel.distgcn`, the same block products).
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 
 from ..graph.node import Op
 
-__all__ = ["csrmv_op", "csrmm_op", "distgcn_15d_op", "CsrmmOp", "CsrmvOp"]
+__all__ = ["csrmv_op", "csrmm_op", "distgcn_15d_op", "CsrmmOp", "CsrmvOp",
+           "DistGCN15dOp"]
 
 
 def _row_ids(sp):
@@ -130,10 +132,97 @@ def csrmm_op(node_A, node_B, trans_A=False, trans_B=False, ctx=None):
     return CsrmmOp(node_A, node_B, trans_A=trans_A, trans_B=trans_B, ctx=ctx)
 
 
+class DistGCN15dOp(Op):
+    """Distributed GCN layer z = A @ (H @ W) over a ("gr", "gc") mesh
+    (reference gpu_ops/DistGCN_15d.py DistGCN_15dOp; JAX package
+    ops/sparse.py:112-148). ``node_A`` feeds a
+    :class:`~hetu_tpu_torch.parallel.distgcn.DistCSR15d` partition; W
+    applies on whichever side keeps the SpMM feature dim smaller,
+    exactly like the reference's dim check (DistGCN_15d.py:96-117),
+    which also fixes the order of the sums. A training step keeps the
+    SpMM's output A @ H where W follows it, for dW."""
+
+    def __init__(self, node_A, node_H, node_W, need_W=True, ctx=None):
+        super().__init__(DistGCN15dOp, [node_A, node_H, node_W], ctx)
+        self.need_W = need_W
+
+    def _w_first(self, h, w):
+        return self.need_W and w.shape[1] < h.shape[1]
+
+    def _mesh(self, ectx):
+        mesh = getattr(getattr(ectx, "config", None), "mesh", None)
+        if mesh is None or "gr" not in mesh.axis_names \
+                or "gc" not in mesh.axis_names:
+            raise AssertionError(
+                "distgcn_15d_op needs a mesh with ('gr', 'gc') axes")
+        return mesh
+
+    def compute(self, input_vals, ectx):
+        from ..parallel.distgcn import dist_gcn_spmm
+        adj, h, w = input_vals
+        mesh = self._mesh(ectx)
+        if self._w_first(h, w):
+            return dist_gcn_spmm(adj, h @ w, mesh)
+        z = dist_gcn_spmm(adj, h, mesh)
+        if not self.need_W:
+            return z
+        if ectx.training:
+            ectx.cache[("distgcn_z", self.id)] = z
+        return z @ w
+
+    def _grad(self, which, adj, h, w, dy, ectx):
+        """dH (``which`` 0) or dW (1): the forward's transpose, its ring
+        run backwards (the JAX package's ``jax.vjp``, where ppermute
+        transposes to the reverse rotation and psum to the identity).
+        Where both outputs need the transposed SpMM (W first) it runs
+        once a step and ``ectx.cache`` shares it."""
+        from ..parallel.distgcn import dist_gcn_spmm, dist_gcn_spmm_t
+        mesh = self._mesh(ectx)
+        if self._w_first(h, w):
+            key = ("distgcn_dhw", self.id)
+            if key not in ectx.cache:
+                ectx.cache[key] = dist_gcn_spmm_t(adj, dy, mesh)
+            dhw = ectx.cache[key]
+            return dhw @ w.t() if which == 0 else h.t() @ dhw
+        if not self.need_W:
+            return dist_gcn_spmm_t(adj, dy, mesh) if which == 0 \
+                else torch.zeros_like(w)
+        if which == 0:
+            return dist_gcn_spmm_t(adj, dy @ w.t(), mesh)
+        z = ectx.cache.get(("distgcn_z", self.id))
+        if z is None:
+            z = dist_gcn_spmm(adj, h, mesh)
+        return z.t() @ dy
+
+    def gradient(self, output_grad):
+        grads = [_DistGCN15dGradOp(self, output_grad, i,
+                                   ctx=self.raw_ctx) for i in range(2)]
+        return [None, grads[0], grads[1]]
+
+    def infer_shape(self, input_shapes):
+        _, h, w = input_shapes
+        return (h[0], w[1]) if self.need_W else tuple(h)
+
+
+class _DistGCN15dGradOp(Op):
+    """dH (``which`` 0) or dW (1) of a :class:`DistGCN15dOp`."""
+
+    def __init__(self, forward_op, output_grad, which, ctx=None):
+        super().__init__(_DistGCN15dGradOp,
+                         list(forward_op.inputs) + [output_grad], ctx)
+        self.forward_op = forward_op
+        self.which = which
+
+    def compute(self, input_vals, ectx):
+        adj, h, w, dy = input_vals
+        return self.forward_op._grad(self.which, adj, h, w, dy, ectx)
+
+    def gradient(self, output_grad):
+        raise NotImplementedError
+
+    def infer_shape(self, input_shapes):
+        return input_shapes[1 + self.which]
+
+
 def distgcn_15d_op(node_A, node_H, node_W, need_W=True, ctx=None):
-    """The 1.5-D distributed GCN layer of the reference (DistGCN_15d.py)
-    over a ("gr", "gc") device mesh: it comes with the multi-GPU port."""
-    raise NotImplementedError(
-        "distgcn_15d_op needs a ('gr', 'gc') device mesh, which comes with "
-        "the multi-GPU port (ROADMAP.md item 11, beside "
-        "parallel/distgcn.py); use csrmm_op on one device")
+    return DistGCN15dOp(node_A, node_H, node_W, need_W=need_W, ctx=ctx)

@@ -26,25 +26,34 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
 * ``ring`` and ``ulysses`` — sequence parallelism over a mesh's ``"sp"``
   axis: ring attention (the zigzag layout when causal) and Ulysses'
   all-to-all, their blocks on the flash kernels, as
-  ``ring_attention_op`` / ``ulysses_attention_op`` run them.
+  ``ring_attention_op`` / ``ulysses_attention_op`` run them;
+* ``distgcn`` — DistGCN-1.5D over a ``("gr", "gc")`` mesh
+  (``partition_csr_15d``, ``dist_gcn_spmm`` and its transpose), as
+  ``distgcn_15d_op`` runs it;
+* ``local_ranks`` — several devices of one process's context (or a
+  ``LocalMesh``) run as thread ranks of the process, each on its own
+  clone of the graph, over a ``LocalJob``.
 
 The collective pipeline waits for ROADMAP item 11b.2, the auto-planner's
 cost model for 11b.3, a split parameter on a parameter server for 11b.5;
 the sp axis beside model axes, in a pipeline and on a parameter server
-for 11c.1-11c.3; DistGCN for 11d.
+for 11c.1-11c.3.
 """
 from . import autoplan
 from .autoplan import DEFAULT_RULES, apply_rules, compile_rules
-from .mesh import (Job, Mesh, build_mesh, factorized_axes,
-                   mesh_for_statuses, subset_mesh)
+from .mesh import (Job, LocalJob, LocalMesh, Mesh, build_mesh,
+                   factorized_axes, mesh_for_statuses, subset_mesh)
 from .p2p import PipeChannel, get_channel
 from .planner import assign_states, propagate_statuses, spec_for_status
 from .pipeline import (PipelineSubExecutor, analytic_bubble_fraction,
                        splice_send_recv, virtual_stage_program)
-from . import ring, ulysses
+from . import distgcn, local_ranks, ring, ulysses
+from .distgcn import DistCSR15d, dist_gcn_spmm, partition_csr_15d
 
-__all__ = ["Job", "Mesh", "build_mesh", "factorized_axes",
-           "mesh_for_statuses", "subset_mesh",
+__all__ = ["Job", "LocalJob", "LocalMesh", "Mesh", "build_mesh",
+           "factorized_axes", "mesh_for_statuses", "subset_mesh",
+           "DistCSR15d", "dist_gcn_spmm", "partition_csr_15d", "distgcn",
+           "local_ranks",
            "assign_states", "propagate_statuses", "spec_for_status",
            "autoplan", "DEFAULT_RULES", "compile_rules", "apply_rules",
            "PipelineSubExecutor", "analytic_bubble_fraction",

@@ -26,7 +26,7 @@ graph infers at the global and at the local feed shapes:
   product contracted over them, batch norm's batch statistics in a
   training step, a per-row op of a reduced value. The reference's
   partitioner makes those global, and DDP's rule would not (ROADMAP
-  item 11a's remainder).
+  item 11a.1).
 
 The forward graph is every node that does not descend from an
 optimizer's seed adjoint (``OptimizerOp.grad_seed``, the ones that
@@ -45,7 +45,7 @@ from ..ops.variable import PlaceholderOp
 
 __all__ = ["DataParallel"]
 
-_ROADMAP = "ROADMAP item 11a's remainder"
+_ROADMAP = "ROADMAP item 11a.1"
 # ops of reduced values that stay reduced: the average over the ranks of
 # their local values is their value at the global means
 _AFFINE = (AddOp, AddByConstOp, MulByConstOp, OppositeOp)

@@ -10,15 +10,22 @@ as ``("dp", "tp0", "tp1", ...)``: the data-parallel axis major, the
 prime-factored model axes minor. A pipeline stage over several ranks
 takes a mesh over those alone (:func:`subset_mesh`, through its
 :class:`Job`).
+
+Outside a launcher's job the ranks are threads of this process
+(:class:`LocalJob`): :func:`build_mesh` then returns a
+:class:`LocalMesh`, which the executor realizes as one thread rank a
+position (:mod:`.local_ranks`).
 """
 from __future__ import annotations
 
+import datetime
 import os
+import threading
 
 import numpy as np
 
-__all__ = ["Job", "Mesh", "build_mesh", "factorized_axes",
-           "mesh_for_statuses", "subset_mesh"]
+__all__ = ["Job", "LocalJob", "LocalMesh", "Mesh", "build_mesh",
+           "factorized_axes", "mesh_for_statuses", "subset_mesh"]
 
 
 class Mesh:
@@ -77,13 +84,19 @@ class Job:
     every rank of the job must call for every group, in one order). A
     test running ranks as threads of one process passes its own (the
     executor's ``pp_options={"job": ...}``): they share one environment,
-    and so one rank and one channel."""
+    and so one rank and one channel. ``device_ranks`` maps a device's
+    ``(hostname, device_id)`` to the rank that drives it where the ranks
+    are threads (a pipeline stage's contexts then name devices of one
+    host); ``channel`` may be a callable that makes the channel on first
+    use."""
 
-    def __init__(self, rank, nprocs, new_group=None, channel=None):
+    def __init__(self, rank, nprocs, new_group=None, channel=None,
+                 device_ranks=None):
         self.rank = int(rank)
         self.nprocs = int(nprocs)
         self._new_group = new_group
         self._channel = channel
+        self.device_ranks = dict(device_ranks or {})
 
     @classmethod
     def from_env(cls):
@@ -106,7 +119,84 @@ class Job:
         if self._channel is None:
             from .p2p import get_channel
             self._channel = get_channel()
+        elif callable(self._channel):
+            self._channel = self._channel()
         return self._channel
+
+
+class LocalJob:
+    """The ranks of one job as ``n`` threads of this process: one
+    in-memory ``HashStore``; :meth:`job` gives rank r its :class:`Job`,
+    whose groups are ``ProcessGroupGloo`` over that store, keyed by
+    their order of creation and their members (every rank makes every
+    group in one order; a rank outside one makes nothing), and whose
+    channel is a :class:`~.p2p.PipeChannel` of its own on loopback, the
+    ``n`` of them opened together on the first rank's first use.
+    ``timeout_s`` bounds every collective of those groups."""
+
+    def __init__(self, n, timeout_s=60, device_ranks=None):
+        import torch.distributed as dist
+        self.nprocs = int(n)
+        self.store = dist.HashStore()
+        self.timeout = datetime.timedelta(seconds=timeout_s)
+        self.device_ranks = dict(device_ranks or {})
+        self._channels = None
+        self._lock = threading.Lock()
+
+    def job(self, rank):
+        import torch.distributed as dist
+        made = [0]
+
+        def new_group(members):
+            made[0] += 1
+            if rank not in members:
+                return None
+            return dist.ProcessGroupGloo(
+                dist.PrefixStore(f"g{made[0]}/{members}", self.store),
+                members.index(rank), len(members), self.timeout)
+
+        return Job(rank, self.nprocs, new_group,
+                   lambda: self.channel(rank), self.device_ranks)
+
+    def channel(self, rank):
+        with self._lock:
+            if self._channels is None:
+                from ..launcher import _free_port_range
+                from .p2p import PipeChannel
+                base = _free_port_range(self.nprocs)
+                self._channels = [PipeChannel(r, self.nprocs, base_port=base)
+                                  for r in range(self.nprocs)]
+            return self._channels[rank]
+
+    def close(self):
+        with self._lock:
+            for ch in self._channels or ():
+                ch.close()
+            self._channels = None
+
+
+class LocalMesh:
+    """A mesh over thread ranks of this process, as :func:`build_mesh`
+    returns it outside a launcher's job: the axes and their sizes, and
+    the device contexts of the ranks where the caller named them. The
+    executor given it as ``mesh=`` runs one thread rank a position, each
+    with the :class:`Mesh` :meth:`rank_mesh` makes over its groups."""
+
+    def __init__(self, axis_sizes, contexts=None):
+        self.axis_names = tuple(axis_sizes)
+        self.shape = {a: int(axis_sizes[a]) for a in self.axis_names}
+        sizes = [self.shape[a] for a in self.axis_names]
+        self.size = int(np.prod(sizes)) if sizes else 1
+        self.devices = np.arange(self.size).reshape(sizes)
+        self.contexts = None if contexts is None else list(contexts)
+
+    def rank_mesh(self, job):
+        """Rank ``job.rank``'s :class:`Mesh` (every rank calls it: each
+        axis slice's group is made on every rank)."""
+        return subset_mesh(self.shape, list(range(self.size)), job)
+
+    def __repr__(self):
+        return f"LocalMesh({self.shape})"
 
 
 def subset_mesh(axis_sizes, ranks, job):
@@ -138,17 +228,26 @@ def build_mesh(axis_sizes, devices=None):
     job must call it, in the same order as its other ``new_group``
     calls: each axis slice's group is made on every rank.
 
-    >>> build_mesh({"dp": 2, "tp": 2})   # 4 processes
+    Outside a job it returns a :class:`LocalMesh` over thread ranks of
+    this process, ``devices`` (contexts, if given) the ranks' devices.
+
+    >>> build_mesh({"dp": 2, "tp": 2})   # 4 processes, or 4 threads
     """
     import torch.distributed as dist
-    if not dist.is_initialized():
-        raise RuntimeError(
-            "build_mesh needs the job's process group: run one process "
-            "per card under the launcher (spmd: true) and join it with "
-            "hetu_tpu_torch.executor.maybe_init_distributed()")
     names = list(axis_sizes)
     sizes = [int(axis_sizes[n]) for n in names]
     need = int(np.prod(sizes)) if sizes else 1
+    if not dist.is_initialized():
+        contexts = None
+        if devices is not None:
+            contexts = list(devices)
+            if len(contexts) < need:
+                raise ValueError(f"mesh {axis_sizes} needs {need} devices, "
+                                 f"got {len(contexts)}")
+            contexts = contexts[:need]
+            if not all(hasattr(c, "torch_device") for c in contexts):
+                contexts = None         # rank numbers: no devices named
+        return LocalMesh(dict(zip(names, sizes)), contexts)
     world = dist.get_world_size()
     ranks = list(range(world)) if devices is None else [int(d) for d in
                                                         devices]

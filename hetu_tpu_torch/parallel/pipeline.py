@@ -44,8 +44,10 @@ or ``pipedream=True`` (with ``num_microbatches``) to the Executor.
   round-robin ownership.
 * **TP and DP inside a stage** (reference context.py:652-656; JAX
   package pipeline.py:431-460): a stage whose context is a tuple runs on
-  one rank a device, ``_owner_of`` each device's hostname (the JAX
-  package drives a tuple stage's devices from one process). The
+  one rank a device, ``_owner_of`` each device's hostname in a
+  launcher's job, the job's ``device_ranks`` where the ranks are thread
+  ranks of one process (:mod:`.local_ranks`; the JAX package drives a
+  tuple stage's devices from one process). The
   planner's statuses propagate once over the whole graph, forward and
   backward; a stage whose statuses split something gets a mesh over its
   ranks (:func:`~.mesh.subset_mesh`, every stage's groups made on every
@@ -385,8 +387,11 @@ class PipelineSubExecutor:
         # the rank of each device of a stage's context
         self.job = self.config.pp_options.get("job") or Job.from_env()
         self.my_rank = self.job.rank
+        owners = self.job.device_ranks
         for st, key in zip(stages, keys):
-            st.ranks = [_owner_of(host, self.job.nprocs) for host, _ in key]
+            st.ranks = [owners[(host, dev)] if (host, dev) in owners
+                        else _owner_of(host, self.job.nprocs)
+                        for host, dev in key]
 
     def _plan_stages(self):
         """The stages' plans (JAX package pipeline.py:431-460), then who
@@ -406,13 +411,13 @@ class PipelineSubExecutor:
             if len(st.ranks) < 2:
                 continue
             if len(set(st.ranks)) < len(st.ranks):
-                raise NotImplementedError(
+                raise ValueError(
                     f"stage {st.index} over the contexts {st.ctx}: their "
-                    f"hostnames map to the ranks {st.ranks}, so one process "
-                    f"would drive several devices (ROADMAP item 11a's "
-                    f"remainder); name each device's worker ('worker<k>' "
-                    f"or HETU_HOSTS) and run one process a rank under the "
-                    f"launcher's spmd: true")
+                    f"hostnames map to the ranks {st.ranks} of a job of "
+                    f"{self.job.nprocs} processes, one process a rank; name "
+                    f"each device's worker ('worker<k>' or HETU_HOSTS), or "
+                    f"run the script alone (its devices then run as thread "
+                    f"ranks)")
             axes = factorized_axes(tp_degree(sts.values()))
             need = int(np.prod(list(axes.values())))
             if need != len(st.ranks):

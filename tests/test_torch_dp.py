@@ -305,7 +305,7 @@ def test_a_sum_over_the_rows_is_refused():
         return [loss, tht.optim.SGDOptimizer(0.1).minimize(loss)], [x]
 
     _refused(build, [np.ones((4, 3), "f")],
-             "ReduceSumOp.*ROADMAP item 11a's remainder")
+             "ReduceSumOp.*ROADMAP item 11a\\.1")
 
 
 def test_batch_norm_statistics_under_dp_are_refused():
@@ -342,23 +342,26 @@ def test_a_per_row_op_of_a_mean_is_refused():
 
 
 def test_modes_that_stay_refused():
-    """A pipeline over a data-parallel mesh (11b.4), and several devices
-    of one process's context (11a's remainder). A mesh for the
-    planner's statuses, and a graph with a dispatch, need the job's
-    ranks: outside a job both name the ranks they need."""
+    """A pipeline over a data-parallel mesh stays refused (11b.4), and a
+    mesh for the planner's statuses outside a job names the ranks it
+    needs. Several devices of one process's context, a mesh built
+    outside a job and a graph with a splitting dispatch run as thread
+    ranks of this process (tests/test_torch_local_ranks.py): the config
+    holds their plan."""
     x, y_, nodes, _ = _mlp(tht)
     mesh = tmesh.Mesh({"dp": 1}, 0, {"dp": None})
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.4"):
         tht.HetuConfig(nodes, gpipe=True, mesh=mesh, device="cpu")
     with pytest.raises(ValueError, match="needs 2 ranks, the job has 1"):
         tmesh.mesh_for_statuses([None], dp=2)
-    with pytest.raises(NotImplementedError, match="11a's remainder"):
-        tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
-    with pytest.raises(RuntimeError, match="spmd: true"):
-        tmesh.build_mesh({"dp": 2})
+    plan = tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)],
+                          device="cpu").local_ranks
+    assert (plan.kind, plan.n, plan.axes) == ("dp", 2, {"dp": 2})
+    local = tmesh.build_mesh({"dp": 2})
+    assert isinstance(local, tmesh.LocalMesh) and local.size == 2
     h = tht.reduce_mean_op(tht.dispatch(x, (2, 1)), [0, 1])
-    with pytest.raises(ValueError, match="needs 2 ranks, the job has 1"):
-        tht.HetuConfig([h], device="cpu")
+    plan = tht.HetuConfig([h], device="cpu").local_ranks
+    assert (plan.kind, plan.n, plan.axes) == ("tp", 2, {"tp0": 2})
 
 
 def test_reference_communicator_outside_a_job(monkeypatch):

@@ -207,9 +207,15 @@ def test_the_executor_feeds_a_csr_and_passes_a_pinned_one_through():
 
 
 def test_distgcn_15d_op_waits_for_the_multi_gpu_port():
+    """The op builds over the rank mesh that came with the multi-GPU
+    port (tests/test_torch_distgcn.py trains it): its shape is the
+    reference's, W or not."""
     a, h, w = (tht.Variable(n) for n in "ahw")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 11"):
-        tht.distgcn_15d_op(a, h, w)
+    op = tht.distgcn_15d_op(a, h, w)
+    assert isinstance(op, tht.ops.sparse.DistGCN15dOp)
+    assert op.infer_shape([(9, 9), (9, 8), (8, 3)]) == (9, 3)
+    op = tht.distgcn_15d_op(a, h, w, need_W=False)
+    assert op.infer_shape([(9, 9), (9, 8), (8, 3)]) == (9, 8)
 
 
 def test_sparse_array_and_asnumpy_match_the_reference():

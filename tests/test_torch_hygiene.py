@@ -330,6 +330,11 @@ def test_parallel_modules_import_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch.parallel.planner\n"
         "import hetu_tpu_torch.parallel.tensor_parallel\n"
         "import hetu_tpu_torch.parallel.autoplan\n"
+        "import hetu_tpu_torch.parallel.distgcn\n"
+        "import hetu_tpu_torch.parallel.local_ranks\n"
+        "import hetu_tpu_torch.examples.train_hetu_bert\n"
+        "import hetu_tpu_torch.examples.runner.run_mlp\n"
+        "import hetu_tpu_torch.examples.runner.run_wdl\n"
         "from hetu_tpu_torch import pipeline_send_op, datah2d_op\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
@@ -339,6 +344,24 @@ def test_parallel_modules_import_without_jax_or_hetu_tpu():
     assert out.returncode == 0, out.stderr
     for name in ("pipeline.py", "p2p.py", "mesh.py", "data_parallel.py",
                  "planner.py", "tensor_parallel.py", "autoplan.py",
-                 "__init__.py"):
+                 "distgcn.py", "local_ranks.py", "__init__.py"):
         names = _imports(ROOT / "hetu_tpu_torch" / "parallel" / name)
         assert not names & {"jax", "jaxlib", "hetu_tpu"}, (name, names)
+
+
+def test_launcher_by_path_imports_no_torch():
+    """``python hetu_tpu_torch/run_launcher.py`` is the launcher's main
+    without the package's ``__init__``: the launcher process loads
+    neither torch nor JAX."""
+    code = BLOCK + (
+        "import runpy\n"
+        "sys.argv = ['run_launcher.py', '--help']\n"
+        "try:\n"
+        "    runpy.run_path('hetu_tpu_torch/run_launcher.py',\n"
+        "                   run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert not e.code, e.code\n"
+        "assert 'torch' not in sys.modules\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and "--config" in out.stdout, out.stderr

@@ -442,7 +442,7 @@ def test_refusals_name_their_roadmap_item():
         exe.run(feed_dict={x: xs[:7], y_: ys[:7]})
     # a tuple context is a stage that is model-parallel inside: one
     # that splits nothing runs on its first device, as in the JAX
-    # package; one that splits needs a process a device
+    # package; one that splits runs on a thread rank a device
     for split in (False, True):
         with tht.context((tht.cpu(0), tht.cpu(1))):
             a = tht.Variable("t_x", trainable=False)
@@ -452,9 +452,11 @@ def test_refusals_name_their_roadmap_item():
             l2 = tht.reduce_mean_op(h, [0, 1])
             t2 = tht.optim.SGDOptimizer(0.1).minimize(l2)
         if split:
-            with pytest.raises(NotImplementedError,
-                               match="ROADMAP item 11a's remainder"):
-                tht.Executor([l2, t2], gpipe=True)
+            exe = tht.Executor([l2, t2], gpipe=True)
+            assert exe.config.local_ranks.n == 3
+            assert [st.ranks for st in exe.subexecutors["default"].stages] \
+                == [[0, 1], [2]]
+            exe.close()
         else:
             sub = tht.Executor([l2, t2], gpipe=True).subexecutors["default"]
             assert [st.ranks for st in sub.stages] == [[0], [0]]

@@ -263,7 +263,7 @@ def test_hybrid_is_refused_across_worker_processes(monkeypatch):
 
     try:
         with pytest.raises(NotImplementedError,
-                           match="item 11a.*spmd: true"):
+                           match="refused on purpose.*spmd: true"):
             tht.HetuConfig(graph(), comm_mode="Hybrid", device="cpu")
         cfg = tht.HetuConfig(graph(), comm_mode="PS", device="cpu")
         assert cfg.ps_comm.nworkers == 2 and cfg.ps_comm.rank == 1

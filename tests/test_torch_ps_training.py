@@ -335,8 +335,9 @@ def test_tiered_f16_rows_train_like_hetu_tpu(clients, monkeypatch):
 def test_comm_mode_is_inferred_from_the_device_group(clients):
     """As in the reference (context.py:326): a session over a GPU worker
     and a CPU server is PS, one without a server uses no communication,
-    and two workers are allreduce: several devices of one process's
-    context stay refused (one process a card, the launcher's spmd)."""
+    and two workers are allreduce: outside a job, two devices of one
+    process's context run as two thread ranks
+    (tests/test_torch_local_ranks.py)."""
     table, w_val, _ = _data(seed=100, steps=1)
     m = _model(tht, table, w_val)
     cfg = tht.HetuConfig([m["loss"], m["train"]],
@@ -347,7 +348,7 @@ def test_comm_mode_is_inferred_from_the_device_group(clients):
     cfg = tht.HetuConfig([m["loss"], m["train"]], device="cpu")
     assert cfg.comm_mode is None and not cfg.ps_nodes
     m = _model(tht, table, w_val)
-    with pytest.raises(NotImplementedError,
-                       match="item 11a's remainder.*spmd: true"):
-        tht.HetuConfig([m["loss"], m["train"]],
-                       ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
+    cfg = tht.HetuConfig([m["loss"], m["train"]],
+                         ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
+    assert cfg.comm_mode == "AllReduce"
+    assert (cfg.local_ranks.kind, cfg.local_ranks.n) == ("dp", 2)

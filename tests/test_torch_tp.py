@@ -383,11 +383,16 @@ def test_refusals_name_their_roadmap_sub_items():
                        gpipe=True, mesh=mesh)
     with pytest.raises(NotImplementedError, match=r"item 11b\.5"):
         tht.HetuConfig(nodes, device="cpu", comm_mode="PS")
-    with pytest.raises(NotImplementedError, match="11a's remainder"):
-        tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)], device="cpu")
+    # a 2-way plan over two workers of one process's context: thread
+    # ranks, dp=2 x tp=2 (tests/test_torch_local_ranks.py)
+    plan = tht.HetuConfig(nodes, ctx=[tht.gpu(0), tht.gpu(1)],
+                          device="cpu").local_ranks
+    assert (plan.kind, plan.n, plan.axes) == ("tp", 4,
+                                              {"dp": 2, "tp0": 2})
     with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.3"):
         tht.parallel.autoplan.choose_plan(nodes)
-    # a pipeline stage over two devices of one process
+    # a pipeline stage over two devices of one process: a thread rank a
+    # device, the head's device the third
     with tht.context((tht.cpu(0), tht.cpu(1))):
         a = tht.Variable("t_x", trainable=False)
         w = tht.Variable("t_w", value=np.ones((4, 4), "f"))
@@ -395,15 +400,22 @@ def test_refusals_name_their_roadmap_sub_items():
     with tht.context(tht.cpu(2)):
         loss = tht.reduce_mean_op(h, [0, 1])
         train = tht.optim.SGDOptimizer(0.1).minimize(loss)
-    with pytest.raises(NotImplementedError, match="11a's remainder"):
-        tht.Executor([loss, train], gpipe=True)
+    exe = tht.Executor([loss, train], gpipe=True)
+    assert exe.config.local_ranks.kind == "pipeline"
+    assert [[st.ranks for st in r.subexecutors["default"].stages]
+            for r in exe.ranks] == [[[0, 1], [2]]] * 3
+    (got, _) = exe.run(feed_dict={a: np.ones((4, 4), "f")},
+                       convert_to_numpy_ret_vals=True)
+    assert float(got) == 4.0
+    exe.close()
 
 
 def test_a_plan_needs_its_ranks():
-    """One process cannot hold a 2-way split: the executor names the
-    ranks the plan needs; a mesh must carry the plan's model axes."""
-    with pytest.raises(ValueError, match="needs 2 ranks, the job has 1"):
-        tht.HetuConfig(_mlp(tht, ((1, 1), (1, 2))), device="cpu")
+    """One process holds a 2-way split as two thread ranks (the plan's
+    mesh over them); a mesh given must carry the plan's model axes."""
+    plan = tht.HetuConfig(_mlp(tht, ((1, 1), (1, 2))),
+                          device="cpu").local_ranks
+    assert (plan.kind, plan.n, plan.axes) == ("tp", 2, {"tp0": 2})
     mesh = tmesh.Mesh({"tp": 2}, 0, {"tp": None})
     with pytest.raises(ValueError, match="model axes"):
         tht.HetuConfig(_mlp(tht, ((1, 1), (1, 2))), device="cpu",

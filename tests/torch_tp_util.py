@@ -83,39 +83,18 @@ def _build_all(n, build):
 
 def job_ranks(n, run, build=None):
     """``run(rank, job, built)`` on one thread a rank of an ``n``-rank
-    job, ``job`` the pipeline's :class:`~hetu_tpu_torch.parallel.mesh.Job`
-    of the rank (the executor's ``pp_options={"job": job}``): its groups
-    gloo over one in-memory store, keyed by their order of creation and
-    their members (every rank makes every group in one order; a rank
-    outside one makes nothing), its channel a
+    job, ``job`` the rank's :class:`~hetu_tpu_torch.parallel.mesh.Job`
+    from the package's :class:`~hetu_tpu_torch.parallel.mesh.LocalJob`
+    (the executor's ``pp_options={"job": job}``): its groups gloo over
+    one in-memory store, its channel a
     :class:`~hetu_tpu_torch.parallel.p2p.PipeChannel` of its own on
     loopback. ``build`` as for :func:`ranks`."""
-    from hetu_tpu_torch.launcher import _free_port_range
-    from hetu_tpu_torch.parallel.p2p import PipeChannel
     built = _build_all(n, build)
-    store = dist.HashStore()
-    base = _free_port_range(n)
-    channels = [PipeChannel(r, n, base_port=base) for r in range(n)]
-
-    def go(r):
-        made = [0]
-
-        def new_group(members):
-            made[0] += 1
-            if r not in members:
-                return None
-            return dist.ProcessGroupGloo(
-                dist.PrefixStore(f"g{made[0]}/{members}", store),
-                members.index(r), len(members),
-                datetime.timedelta(seconds=60))
-
-        return run(r, tmesh.Job(r, n, new_group, channels[r]), built[r])
-
+    job = tmesh.LocalJob(n)
     try:
-        return _run_threads(n, go)
+        return _run_threads(n, lambda r: run(r, job.job(r), built[r]))
     finally:
-        for ch in channels:
-            ch.close()
+        job.close()
 
 
 def ranks(axes, run, build=None):
