@@ -31,7 +31,10 @@ launcher processes, split at tp=2 by two, and in two stages x tp=2 by
 four; the same model, and BERT-small at S=2048, trained sequence
 parallel by two (the zigzag ring, Ulysses, the masked ring); the same
 model under a tuple context of two devices in one process (thread
-ranks); a 2-layer GCN through ``distgcn_15d_op`` at (gr, gc) = (2, 2)
+ranks); the same model planned over two ranks by the cost-model
+planner (a CostDB measured on the card, its finalists timed, the chosen
+plan trained through ``Executor(parallel="auto")``, and a launcher job's
+``--autoplan``); a 2-layer GCN through ``distgcn_15d_op`` at (gr, gc) = (2, 2)
 as four launcher ranks and as four thread ranks; the port's runner zoo
 through its launcher and its BERT example; and WDL's
 Hybrid mode across two workers — checks
@@ -100,6 +103,21 @@ object per line (``--out`` also writes them to FILE):
 * ``dp_parity`` the model at 2 layers in f32 (``simt`` K2–K4), global
   batch 4, 3 Adam steps, two ranks against one process: losses, Adam's
   first moments and the weights;
+* ``autoplan`` the ``train`` model, rows and dtype planned over two
+  ranks (``parallel/autoplan.py``): a fresh CostDB measured on the card
+  (h2d, d2h; allreduce and p2p between two thread ranks over gloo and
+  the pipe channel: the points and fitted curves), one step's ops
+  profiled one by one (attention's eval forward on K1, 12 launches), the
+  top four finalists each realized and timed (one warm-up, two steps:
+  every candidate's predicted and measured ms, the coverage split), the
+  chosen plan trained 3 steps through ``Executor(parallel="auto")``
+  (each step's loss against ``train``'s within the tolerance of the
+  plan's mode, falling; K2/K3/K4 12 a step in each rank that runs
+  attention, all ``tc``), and a 2-rank launcher job of a small GPT,
+  its ops profiled into the same CostDB first: ``--autoplan`` (exit 0,
+  ``autoplan: OK``, the report, every op's cost measured), then the job
+  on the report's plan, 2 steps, both ranks agreeing, its losses
+  against one process's; the phase's wall;
 * ``dp_gpt_local`` the ``train`` model and rows under ``ht.context((
   ht.gpu(0), ht.gpu(1)))`` with ``comm_mode="AllReduce"`` in this
   process: two thread ranks on the one card, 4 rows each, gloo groups
@@ -597,7 +615,11 @@ BERT_LONG_REP = dict(b=8, h=8, s=2048, d=64, dtype="bfloat16", causal=False,
 K1_PREFILL_REP = dict(b=DENSE_MAX_BATCH, h=12, s=DENSE_PROMPT_BUCKET, d=64,
                       dtype="float32", causal=True, mask=None)
 K1_SESSION_REP = dict(K1_PREFILL_REP, s=DENSE_SEQ_BUCKET)
-K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP)
+# K1 in the autoplan phase's per-op profile: train's attention, eval
+# forward
+K1_PROFILE_REP = dict(TRAIN_REP)
+K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP,
+           K1_PROFILE_REP)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
@@ -688,6 +710,7 @@ FWD_KERNEL_SHAPES = (
     (("float32",), (DENSE_MAX_BATCH,), (DENSE_PROMPT_BUCKET, DENSE_SEQ_BUCKET),
      64, 12, (None,)),
     (("bfloat16",), (64,), (128,), 64, 12, (None, "half", "padding")),
+    (("bfloat16",), (TRAIN_BATCH,), (1024,), 64, 12, (None,)),  # autoplan
     (("bfloat16",), (4,), (512, 1024), 128, 12, (None, "half")),
     (("bfloat16",), (4,), (520,), 64, 12, (None, "half")),
     (("bfloat16",), (4,), (512, 1024), 96, 12, (None, "half")),
@@ -800,8 +823,9 @@ def _device_times(torch, kern, library, launches, label):
 def check_flash_fwd(torch, seed):
     """K1 against its plain version at every shape of FWD_KERNEL_SHAPES,
     with each of its masks and causal on/off; each row names the route
-    the kernel took and the wrapper's host time; the rows at the main
-    paths' shapes (K1_REPS) also their device times (_device_times). The
+    the kernel took; the rows at the main paths' shapes (K1_REPS) also
+    the kernel's, the plain version's and the PyTorch call's times, the
+    wrapper's host time and the device times (_device_times). The
     PyTorch call is SDPA with the same additive mask (and the causal
     one)."""
     import torch.nn.functional as F
@@ -854,15 +878,14 @@ def check_flash_fwd(torch, seed):
                        "max_rel_err": float((diff / ref.float().abs()
                                              .clamp_min(1.0)).max()),
                        "tol": tol, "ok": ok,
-                       "ms": median_ms(torch, kern),
-                       "host_ms": host_ms(torch, kern),
-                       "plain_ms": median_ms(
-                           torch, lambda: fa.flash_attention_plain(
-                               q, k, v, mask, scale, causal),
-                           reps=3, warmup=1),
-                       "library_ms": median_ms(torch, library),
                        "bound_ms": bound, "bound_by": by}
-                if any(_is(row, rep) for rep in K1_REPS):
+                # timed at the main paths' shapes; the others are held
+                # against the plain version only
+                timed = any(_is(row, rep) for rep in K1_REPS)
+                row.update(_row_times(
+                    torch, timed, kern, lambda: fa.flash_attention_plain(
+                        q, k, v, mask, scale, causal), library))
+                if timed:
                     row.update(_device_times(
                         torch, kern, library, DEVICE_LAUNCHES["K1"],
                         f"K1 {dname} B={b} H={h} S={s} mask={masked}"))
@@ -924,7 +947,19 @@ def _sdpa_efficient(torch, q, k, v, bias, scale, causal):
         q, k, v, bias, True, 0.0, causal, scale=scale)
 
 
-def check_flash_train_kernels(torch, seed):
+def _row_times(torch, timed, kern, plain, library):
+    """A checked shape's times: the kernel call's median and host time,
+    the plain version's and the library call's (None without one); all
+    None where the shape is on no main path (``timed`` false)."""
+    if not timed:
+        return dict.fromkeys(("ms", "host_ms", "plain_ms", "library_ms"))
+    return {"ms": median_ms(torch, kern), "host_ms": host_ms(torch, kern),
+            "plain_ms": median_ms(torch, plain, reps=3, warmup=1),
+            "library_ms": None if library is None
+            else median_ms(torch, library)}
+
+
+def check_flash_train_kernels(torch, seed, extra_reps=()):
     """K2, K3, K4 and the K3+K4 pair (one flash_attention_bwd) against
     their plain versions at every shape of TRAIN_KERNEL_SHAPES, with each
     of its masks and causal on/off. The masks leave every row an unmasked
@@ -937,8 +972,9 @@ def check_flash_train_kernels(torch, seed):
     The PyTorch calls: flash attention (bf16 without a mask) and, under
     BERT's padding mask, memory-efficient attention with the mask
     expanded to a [B, H, S, S] bias; each backward computes dq, dk and
-    dv, so K3's row and the pair's carry it. The rows at TRAIN_REP and
-    BERT_LONG_REP also carry device times (_device_times). Returns
+    dv, so K3's row and the pair's carry it. The rows at a main path's
+    shape (the *_REP shapes and ``extra_reps``) carry the times and the
+    device times (_device_times); the others the check alone. Returns
     {kernel: [row per shape]}."""
     from hetu_tpu_torch.ops import flash_attention as fa
     rows = {"K2": [], "K3": [], "K4": [], "pair": []}
@@ -1030,17 +1066,16 @@ def check_flash_train_kernels(torch, seed):
                                    row_rel_err=row_err,
                                    row_tol=BWD_ROW_TOL[dname], ok=ok,
                                    route=fa._bwd_route(dtype, d))
-                    row.update(ms=median_ms(torch, kern),
-                               host_ms=host_ms(torch, kern),
-                               plain_ms=median_ms(torch, plain, reps=3,
-                                                  warmup=1),
-                               library_ms=None if lib[kind] is None
-                               else median_ms(torch, lib[kind]),
+                    # timed at the main paths' shapes; the others are
+                    # held against the plain versions only
+                    timed = any(_is(row, rep) for rep in
+                                (TRAIN_REP, BERT_LONG_REP, PP_REP, DP_REP,
+                                 SP_RING_DIAG_REP, SP_RING_SQUARE_REP,
+                                 SP_ULYSSES_REP, SP_BERT_REP, *extra_reps))
+                    row.update(_row_times(torch, timed, kern, plain,
+                                          lib[kind]),
                                bound_ms=bound, bound_by=by)
-                    if any(_is(row, rep) for rep in
-                           (TRAIN_REP, BERT_LONG_REP, PP_REP, DP_REP,
-                            SP_RING_DIAG_REP, SP_RING_SQUARE_REP,
-                            SP_ULYSSES_REP, SP_BERT_REP)):
+                    if timed:
                         row.update(_device_times(
                             torch, kern, lib[kind], DEVICE_LAUNCHES[kind],
                             f"{kind} B={b} H={h} S={s} mask={masked}"))
@@ -1924,7 +1959,7 @@ def pp_fleet_pass(card, seed, inproc):
 
 DP_RANKS = 2
 DP_REP = dict(TRAIN_REP, b=TRAIN_BATCH // DP_RANKS)   # K2-K4 in each rank
-DP_WARMUP, DP_STEPS = 2, 4
+DP_WARMUP, DP_STEPS = 1, 3
 DP_BUCKET_BYTES = 25 << 20          # PyTorch DDP's default bucket
 # the step-1 global loss (the mean of the ranks' bf16 losses over 4096
 # tokens each) against train's (one bf16 loss over 8192): two bf16
@@ -2705,7 +2740,7 @@ def tp_pass(card, seed, train_line, parity_ref):
 # LM head in stage 1) within GRAD_PARITY_TOL of their largest element
 PP_TP_STAGES = 2
 PP_TP_RANKS = PP_TP_STAGES * TP_RANKS
-PP_TP_WARMUP, PP_TP_STEPS = 1, 2     # after step 1
+PP_TP_WARMUP, PP_TP_STEPS = 0, 2     # after step 1
 PP_TP_TIMEOUT_S = 400
 PP_TP_SCHEDULES = {"gpipe": "gpipe", "1f1b": "pipedream"}
 
@@ -6757,6 +6792,545 @@ def dp_gpt_local(card, seed, train_line, dp_line):
 
 
 # ---------------------------------------------------------------------------
+# autoplan: the cost-model planner (parallel/autoplan.py) on the card
+# ---------------------------------------------------------------------------
+
+AUTOPLAN_RANKS = 2          # the world the phase plans for: thread ranks
+AUTOPLAN_TOPK = 4           # finalists measured
+AUTOPLAN_WARMUP, AUTOPLAN_STEPS = 1, 2    # a finalist's measured steps
+AUTOPLAN_TRAIN_STEPS = 3    # the chosen plan's steps, each held to train's
+# the comm sweep's sizes (the JAX package's ladder)
+AUTOPLAN_SIZES = (1 << 14, 1 << 17, 1 << 20, 1 << 23)
+# the launcher job's small GPT (2 ranks, --autoplan, then 2 steps); S=512
+# so training takes the fused K2-K4
+AUTOPLAN_JOB_WIDTHS = dict(vocab_size=4096, hidden_size=256,
+                           num_hidden_layers=2, num_attention_heads=4,
+                           max_position_embeddings=512)
+AUTOPLAN_JOB_BATCH = 8
+AUTOPLAN_JOB_STEPS = 2
+AUTOPLAN_JOB_TIMEOUT_S = 240
+
+
+def _autoplan_feeds(torch, ids, labels, seed, widths=GPT2_SMALL,
+                    batch=TRAIN_BATCH, device="cuda"):
+    """train's rows (its seed's ids and next-token labels) at ``widths``
+    on ``device``, and their feed shapes."""
+    rng = np.random.RandomState(seed)
+    x = rng.randint(0, widths["vocab_size"],
+                    (batch, widths["max_position_embeddings"]))
+    y = np.concatenate([x[:, 1:], np.full((batch, 1), -1)], axis=1)
+    return ({ids: torch.as_tensor(x, device=device),
+             labels: torch.as_tensor(y, device=device)},
+            {ids: (x.shape, np.int64), labels: (y.shape, np.int64)})
+
+
+def _plan_loss_tols(plan, ref):
+    """Each step's tolerance for the losses of a plan (``dp``, ``tp``,
+    ``pp`` keys) against one process's ``ref`` losses on the same rows
+    and weights, from the parity check of the plan's mode: (1, 1, 1) is
+    one process's own path, one bf16 ulp at every step (check_pass);
+    any split plan's loss is a mean of several bf16 losses (its ranks'
+    or its microbatches') against one, DP_LOSS_TOL relative (dp_gpt's
+    and tp_gpt's rule)."""
+    if plan["dp"] == plan["tp"] == plan["pp"] == 1:
+        return [_bf16_ulp(r) for r in ref]
+    return [DP_LOSS_TOL * abs(r) for r in ref]
+
+
+def _loss_faults(what, plan, losses, ref):
+    """The faults of a plan's losses against ``ref`` (_plan_loss_tols),
+    and that they are finite and fall; (faults, tolerances)."""
+    tols = _plan_loss_tols(plan, ref)
+    faults = []
+    if not all(x is not None and np.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        faults.append(f"{what} losses {losses} not finite and falling")
+    elif any(abs(x - r) > t for x, r, t in zip(losses, ref, tols)):
+        faults.append(f"{what} losses {losses} against one process's "
+                      f"{ref[:len(losses)]}, tolerances {tols}")
+    return faults, tols
+
+
+def _count_calls(module, name):
+    """Count the calls of ``module.name`` until the returned function is
+    called: it puts the function back and returns the count."""
+    fn, calls = getattr(module, name), [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return fn(*args, **kwargs)
+
+    setattr(module, name, counted)
+
+    def stop():
+        setattr(module, name, fn)
+        return calls[0]
+
+    return stop
+
+
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _autoplan_steps(torch, exe, feeds, steps):
+    """``steps`` steps; (losses, step ms), each step ended by a sync."""
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        out = exe.run(feed_dict=feeds)
+        losses.append(None if out[0] is None
+                      else float(out[0].asnumpy()))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    return losses, step_ms
+
+
+def _per_step(counts, steps, keys):
+    return {k: counts.get(k, 0) / steps for k in keys}
+
+
+def _autoplan_measure(torch, seed, finalists, device="cuda",
+                      widths=GPT2_SMALL, batch=TRAIN_BATCH):
+    """``measure(plan)`` for choose_plan: a new GPT-2-small graph, the
+    plan applied (``plan_overrides``: its mesh of thread ranks on the
+    card, or its stages), one warm-up and AUTOPLAN_STEPS timed steps on
+    train's rows; seconds a step. Each finalist's record (or its error)
+    goes to ``finalists``."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.parallel import autoplan
+
+    keys = (fa.K1, fa.K2, fa.K3, fa.K4)
+
+    def measure(plan):
+        # keyed by the plan as applied: apply_plan may fold a collective
+        # plan's virtual stages out (V -> 1), as the reference's does
+        rec = {"plan": plan.describe()}
+        exe = None
+        try:
+            ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+            t0 = time.perf_counter()
+            try:
+                ov = autoplan.plan_overrides([lm, train_op], plan,
+                                             device=device)
+            finally:
+                rec = finalists.setdefault(autoplan.plan_key(plan), rec)
+                rec["applied"] = plan.describe()
+            exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                              device=device, **ov)
+            rec["executor_setup_s"] = time.perf_counter() - t0
+            rec["ranks"] = len(exe.ranks)
+            feeds, _ = _autoplan_feeds(torch, ids, labels, seed, widths,
+                                       batch, device)
+            _build.reset_launch_counts()
+            steps = AUTOPLAN_WARMUP + AUTOPLAN_STEPS
+            losses, step_ms = _autoplan_steps(torch, exe, feeds, steps)
+            rec["launches_per_step_by_rank"] = {
+                r: _per_step(c, steps, keys)
+                for r, c in _build.rank_launch_counts.items()} or {
+                0: _per_step(_build.launch_counts, steps, keys)}
+            rec.update(losses=losses, step_ms=step_ms)
+            timed = step_ms[AUTOPLAN_WARMUP:]
+            rec["measured_ms"] = float(np.mean(timed))
+            return rec["measured_ms"] / 1e3
+        except Exception as e:
+            rec["error"] = f"{type(e).__name__}: {e}"[:400]
+            raise
+        finally:
+            if exe is not None:
+                exe.close()
+            del exe
+            _release(torch)
+
+    return measure
+
+
+def autoplan_worker(spec):
+    """One rank of the autoplan phase's launcher job (and, under
+    ``--autoplan``, the one preview process): the small GPT on the card,
+    ``Executor(parallel="auto")`` over the phase's measured CostDB, then
+    AUTOPLAN_JOB_STEPS steps; its plan, losses and launches to
+    ``spec["out"]/rank<r>.json``."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.parallel import autoplan
+    from hetu_tpu_torch.telemetry.costdb import CostDB
+    rank = int(os.environ.get("RANK", "0"))
+    widths = spec["widths"]
+    ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+    device = spec["device"]
+    feeds, shapes = _autoplan_feeds(torch, ids, labels, spec["seed"],
+                                    widths, spec["batch"], device)
+    exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                      device=None if device == "cuda" else device,
+                      parallel="auto", autoplan_options={
+                          "db": CostDB(spec["db"]), "feed_shapes": shapes,
+                          "model": "gpt_job"})
+    _build.reset_launch_counts()
+    losses, step_ms = _autoplan_steps(torch, exe, feeds, spec["steps"])
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump({"rank": rank,
+                   "key": autoplan.plan_key(exe.config.autoplan.plan),
+                   "nworld": exe.config.autoplan.nworld,
+                   "idle": exe.config.idle, "losses": losses,
+                   "step_ms": step_ms,
+                   "launches": {k: _build.launch_counts.get(k, 0) for k in
+                                (fa.K1, fa.K2, fa.K3, fa.K4)}}, f)
+    exe.close()
+    return 0
+
+
+def _autoplan_job(seed, db_path, device="cuda"):
+    """The launcher's ``--autoplan`` on a 2-rank ``spmd: true`` job (one
+    preview process, its report) and, beside it, the job itself training
+    the plan: (report, the ranks' records, seconds of each)."""
+    import shutil
+    import tempfile
+    out_dir = tempfile.mkdtemp(prefix="autoplan_job_")
+    config = (f"spmd: true\nnodes:\n  - host: localhost\n"
+              f"    workers: {AUTOPLAN_RANKS}\n    chief: true\n")
+    spec = {"seed": seed, "out": out_dir, "db": db_path,
+            "widths": AUTOPLAN_JOB_WIDTHS, "batch": AUTOPLAN_JOB_BATCH,
+            "steps": AUTOPLAN_JOB_STEPS, "device": device}
+    try:
+        cfg = os.path.join(out_dir, "preview.yml")
+        with open(cfg, "w") as f:
+            f.write(config)
+        env = {**os.environ, "HETU_PS_REPLICATE": "0",
+               "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", "")}
+        t0 = time.perf_counter()
+        logs = [open(os.path.join(out_dir, f"preview.{k}"), "w+")
+                for k in ("out", "err")]
+        proc = subprocess.Popen(
+            [sys.executable, LAUNCHER, "-c", cfg, "--autoplan",
+             sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--autoplan-worker", json.dumps(spec)],
+            cwd=ROOT, env=env, stdout=logs[0], stderr=logs[1],
+            stdin=subprocess.DEVNULL, start_new_session=True)
+        try:
+            job_s, _ = _launch_job("autoplan_job", config,
+                                   "--autoplan-worker", spec,
+                                   AUTOPLAN_JOB_TIMEOUT_S, False)
+            proc.wait(timeout=AUTOPLAN_JOB_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            texts = []
+            for f in logs:
+                f.seek(0)
+                texts.append(f.read())
+                f.close()
+            out, err = texts
+        preview_s = time.perf_counter() - t0
+        marker = "autoplan: report written to "
+        if proc.returncode != 0 or "autoplan: OK" not in out or \
+                marker not in out:
+            raise AssertionError(
+                f"autoplan preview: exit {proc.returncode}\n"
+                f"{out[-2000:]}\n{err[-2000:]}")
+        path = out.split(marker)[1].split()[0]
+        with open(path) as f:
+            report = json.load(f)
+        shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+        ranks = []
+        for r in range(AUTOPLAN_RANKS):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    return report, ranks, preview_s, job_s
+
+
+def autoplan_pass(card, seed, train_line, device="cuda",
+                  widths=GPT2_SMALL, batch=TRAIN_BATCH):
+    """The cost-model planner on GPT-2-small at train's width, rows and
+    dtype (B=8, S=1024, bf16, Adam), over a world of AUTOPLAN_RANKS:
+
+    1. a fresh CostDB and autotune cache in a temp dir: the comm sweep
+       over two thread ranks on the card (h2d, d2h; allreduce over their
+       gloo group, p2p through their pipe channels), then one step's
+       forward ops profiled (``profile_op_records``: the eval forward,
+       attention on K1, the launch counts set to 0 before it and read
+       after, the plain attention's calls counted: none);
+    2. ``choose_plan(nworld=2, measure=...)``: the top AUTOPLAN_TOPK
+       finalists each realized (``plan_overrides`` + ``Executor``) and
+       timed; every candidate's predicted and measured ms, the coverage
+       split and the chosen ``plan_key``;
+    3. ``Executor(parallel="auto")`` (the warm autotune cache gives it
+       the measured winner) trains AUTOPLAN_TRAIN_STEPS steps, the
+       launch counts set to 0 before and read after: each step's loss
+       against ``train``'s within the plan's tolerance
+       (_plan_loss_tols), falling; K2/K3/K4 12 a step in each rank that
+       runs attention, all on tc, K1 none;
+    4. the job's small GPT profiled into the same DB and trained in this
+       process (the job's reference losses); then a 2-rank launcher job:
+       ``--autoplan`` (exit 0, ``autoplan: OK``, the JSON report, every
+       op priced by a measured cost), then the job training the plan
+       AUTOPLAN_JOB_STEPS steps, both ranks on the report's plan, its
+       losses against the reference within the plan's tolerance.
+
+    Returns (line, {"profile": launch counts, "train": launch counts
+    summed over ranks, "train_rep": K2-K4's shape on the path}).
+    ``device``, ``widths`` and ``batch`` rehearse the phase on the CPU
+    at small widths (its launch checks then fail: the plain versions
+    count nothing)."""
+    import shutil
+    import tempfile
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch import tune
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import attention as attn
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.parallel import autoplan
+    from hetu_tpu_torch.profiler import profile_op_records
+    from hetu_tpu_torch.telemetry import costdb
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="autoplan_")
+    saved_env = {k: os.environ.get(k) for k in ("HETU_COSTDB",
+                                                "HETU_AUTOTUNE_CACHE",
+                                                "HETU_AUTOTUNE")}
+    os.environ["HETU_COSTDB"] = db_path = os.path.join(tmp, "costdb.json")
+    os.environ["HETU_AUTOTUNE_CACHE"] = os.path.join(tmp, "autotune.json")
+    os.environ.pop("HETU_AUTOTUNE", None)
+    tune.configure(path=os.environ["HETU_AUTOTUNE_CACHE"])
+    faults, timing = [], {}
+    try:
+        db = costdb.CostDB(db_path)
+        t = time.perf_counter()
+        swept = costdb.comm_microbench(db, sizes=AUTOPLAN_SIZES, reps=3,
+                                       device=device, ranks=AUTOPLAN_RANKS)
+        timing["comm_microbench_s"] = time.perf_counter() - t
+        curves = {k: db.curve(k) for k in ("h2d", "d2h", "allreduce",
+                                           "p2p")}
+        points = {k: {e["shape"]: e["ms"] for e in db.entries().values()
+                      if e["kind"] == k}
+                  for k in ("h2d", "d2h", "allreduce", "p2p")}
+
+        # one step's ops profiled, attention's eval forward on K1
+        t = time.perf_counter()
+        ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+        exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                          device=device)
+        feeds, shapes = _autoplan_feeds(torch, ids, labels, seed, widths,
+                                        batch, device)
+        _sync(torch, device)
+        plain_attention = _count_calls(attn, "attention_reference")
+        _build.reset_launch_counts()                # main path starts
+        try:
+            records = profile_op_records(exe, feeds, costdb=db)
+            _sync(torch, device)
+        finally:
+            plain_attention = plain_attention()
+        profile_launches = dict(_build.launch_counts)   # main path ends
+        exe.close()
+        del exe, feeds
+        _release(torch)
+        timing["profile_s"] = time.perf_counter() - t
+        want_k1 = {fa.K1: widths["num_hidden_layers"],
+                   f"{fa.K1}.tc": widths["num_hidden_layers"],
+                   fa.K2: 0, fa.K3: 0, fa.K4: 0}
+        got_k1 = {k: profile_launches.get(k, 0) for k in want_k1}
+        if got_k1 != want_k1:
+            faults.append(f"profile launches {got_k1}, want {want_k1}")
+        if plain_attention:
+            faults.append(f"the profile ran the plain attention "
+                          f"{plain_attention} times")
+
+        # choose, measuring the finalists
+        t = time.perf_counter()
+        finalists = {}
+        measure = _autoplan_measure(torch, seed, finalists, device,
+                                    widths, batch)
+        ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+        _, shapes = _autoplan_feeds(torch, ids, labels, seed, widths,
+                                    batch, device)
+        res = autoplan.choose_plan(
+            [lm, train_op], nworld=AUTOPLAN_RANKS, db=db,
+            feed_shapes=shapes, model="gpt2_small", measure=measure,
+            topk=AUTOPLAN_TOPK, device=device, dtype=torch.bfloat16)
+        timing["choose_s"] = time.perf_counter() - t
+        del ids, labels, lm, train_op
+        log("autoplan table:\n" + res.render())
+        chosen = autoplan.plan_key(res.plan)
+        sources = {}
+        for s in res.info["sources"].values():
+            sources[s] = sources.get(s, 0) + 1
+        candidates = [dict(p.to_dict(), key=autoplan.plan_key(p),
+                           **{k: v for k, v in finalists.get(
+                               autoplan.plan_key(p), {}).items()
+                              if k not in ("plan", "measured_ms")})
+                      for p in res.candidates]
+
+        # train the chosen plan through parallel="auto"
+        t = time.perf_counter()
+        ids, labels, lm, train_op = _gpt_graph(ht, M, widths)
+        feeds, shapes = _autoplan_feeds(torch, ids, labels, seed, widths,
+                                        batch, device)
+        exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                          device=device, parallel="auto", autoplan_options={
+                              "nworld": AUTOPLAN_RANKS, "db": db,
+                              "feed_shapes": shapes, "model": "gpt2_small",
+                              "measure": measure, "topk": AUTOPLAN_TOPK})
+        timing["train_setup_s"] = time.perf_counter() - t
+        plan = exe.config.autoplan.plan
+        if autoplan.plan_key(plan) != chosen:
+            faults.append(f"parallel='auto' chose {autoplan.plan_key(plan)}"
+                          f", choose_plan {chosen}")
+        _sync(torch, device)
+        _build.reset_launch_counts()                # main path starts
+        losses, step_ms = _autoplan_steps(torch, exe, feeds,
+                                          AUTOPLAN_TRAIN_STEPS)
+        _sync(torch, device)
+        by_rank = {r: dict(c) for r, c in _build.rank_launch_counts.items()}
+        train_launches = dict(_build.launch_counts)     # main path ends
+        nranks = len(exe.ranks)
+        exe.close()
+        del exe, feeds
+        _release(torch)
+        timing["train_s"] = time.perf_counter() - t
+        if not by_rank:
+            by_rank = {0: train_launches}
+        attn_ranks = [r for r, c in by_rank.items() if c.get(fa.K2, 0)]
+        per_step = widths["num_hidden_layers"]
+        if plan.pp > 1:
+            per_step *= plan.M
+        want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                             per_step * AUTOPLAN_TRAIN_STEPS)
+        if plan.pp == 1 and len(attn_ranks) != nranks:
+            faults.append(f"ranks launching attention {attn_ranks} of "
+                          f"{nranks}")
+        for r in attn_ranks:
+            got = {k: by_rank[r].get(k, 0) for k in want}
+            if plan.pp == 1 and got != want:
+                faults.append(f"rank {r} launched {got}, want {want}")
+        if plan.pp > 1:
+            got = {k: sum(c.get(k, 0) for c in by_rank.values())
+                   for k in want}
+            if got != want:
+                faults.append(f"the stages launched {got}, want {want}")
+        train_ref = train_line["losses"][:AUTOPLAN_TRAIN_STEPS]
+        loss_faults, loss_tols = _loss_faults(
+            "parallel='auto'", plan.to_dict(), losses, train_ref)
+        faults += loss_faults
+        train_rep = dict(TRAIN_REP, b=batch // (
+            plan.dp * (plan.M if plan.pp > 1 else 1)))
+
+        # the job's small GPT in one process: its ops profiled into the
+        # DB (so the job's plan is priced by measured costs) and its
+        # losses, the job's reference
+        t = time.perf_counter()
+        jw = AUTOPLAN_JOB_WIDTHS
+        ids, labels, lm, train_op = _gpt_graph(ht, M, jw)
+        exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                          device=device)
+        feeds, _ = _autoplan_feeds(torch, ids, labels, seed, jw,
+                                   AUTOPLAN_JOB_BATCH, device)
+        job_records = profile_op_records(exe, feeds, costdb=db)
+        job_ref, _ = _autoplan_steps(torch, exe, feeds, AUTOPLAN_JOB_STEPS)
+        exe.close()
+        del exe, feeds
+        _release(torch)
+        timing["job_reference_s"] = time.perf_counter() - t
+
+        # the launcher job: --autoplan, then the job on the plan
+        t = time.perf_counter()
+        report, job_ranks, preview_s, job_s = _autoplan_job(seed, db_path,
+                                                            device)
+        timing["job_s"] = time.perf_counter() - t
+        preview = "dp{dp}-tp{tp}-pp{pp}-M{M}-V{V}-f{fuse_ticks}".format(
+            **report["chosen"])
+        keys = {r["key"] for r in job_ranks}
+        if keys != {preview} or report["nworld"] != AUTOPLAN_RANKS:
+            faults.append(f"job ranks chose {keys}, the preview {preview} "
+                          f"over {report['nworld']}")
+        op_cover = [k for k in report["coverage"]["measured"]
+                    if k.startswith("op-compute:")]
+        n_meas, n_ops = (map(int, op_cover[0].split(":")[1].split("/"))
+                         if op_cover else (0, 1))
+        if n_meas != n_ops:
+            faults.append(f"the job's plan priced {n_meas} of {n_ops} ops "
+                          f"by measured costs")
+        # a step's loss: the mean of the ranks' that return one (dp's
+        # ranks each their rows; tp's the same; a pipeline's last stage)
+        job_losses = []
+        for i in range(AUTOPLAN_JOB_STEPS):
+            got = [r["losses"][i] for r in job_ranks
+                   if not r["idle"] and r["losses"][i] is not None]
+            job_losses.append(float(np.mean(got)) if got else None)
+        job_faults, job_tols = _loss_faults("job", report["chosen"],
+                                            job_losses, job_ref)
+        faults += job_faults
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tune.reset()
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    timed = step_ms[1:]
+    tokens = batch * widths["max_position_embeddings"]
+    line = {"card": card, "model": "gpt2-small", **widths,
+            "batch": batch, "dtype": "bfloat16", "nworld":
+            AUTOPLAN_RANKS, "wall_s": wall, "timing_s": timing,
+            "costdb": {"swept": swept, "curves": curves, "points_ms": points,
+                       "profiled_ops": len(records),
+                       "profiled_ms_total": sum(r["ms"] for r in records),
+                       "profile_launches": got_k1,
+                       "profile_plain_attention_calls": plain_attention,
+                       "job_profiled_ops": len(job_records)},
+            "op_sources": sources,
+            "coverage": {"measured": res.coverage[0],
+                         "guessed": res.coverage[1]},
+            "candidates": candidates,
+            "rejected": [{"mesh": list(c), "reason": r}
+                         for c, r in res.rejected],
+            "chosen": chosen, "chosen_plan": res.plan.describe(),
+            "train": {"plan": autoplan.plan_key(plan), "ranks": nranks,
+                      "losses": losses, "step_ms": step_ms,
+                      "step_ms_p50": float(np.median(timed)),
+                      "tokens_per_s": tokens * len(timed)
+                      / (sum(timed) / 1e3),
+                      "train_losses": train_ref, "loss_tols": loss_tols,
+                      "train_step_ms_p50": train_line["step_ms_p50"],
+                      "launches_per_step_by_rank": {
+                          r: _per_step(c, AUTOPLAN_TRAIN_STEPS,
+                                       (fa.K1, fa.K2, fa.K3, fa.K4,
+                                        f"{fa.K2}.tc", f"{fa.K3}.tc",
+                                        f"{fa.K4}.tc"))
+                          for r, c in by_rank.items()}},
+            "job": {"widths": AUTOPLAN_JOB_WIDTHS,
+                    "batch": AUTOPLAN_JOB_BATCH, "preview_key": preview,
+                    "preview_nworld": report["nworld"],
+                    "preview_coverage": report["coverage"],
+                    "losses": job_losses, "one_process_losses": job_ref,
+                    "loss_tols": job_tols,
+                    "preview_candidates": [
+                        (c["dp"], c["tp"], c["pp"], c["predicted_ms"])
+                        for c in report["candidates"]],
+                    "ranks": job_ranks, "preview_s": preview_s,
+                    "job_s": job_s}}
+    if faults:
+        log(f"autoplan failed: {line}")
+        raise AssertionError(f"autoplan: {faults}")
+    return line, {"profile": profile_launches, "train": train_launches,
+                  "train_rep": train_rep}
+
+
+# ---------------------------------------------------------------------------
 # runner_zoo, bert_example: the port's entry scripts as a user runs them
 # ---------------------------------------------------------------------------
 
@@ -7004,6 +7578,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # the sp passes' ranks
     ap.add_argument("--distgcn-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # distgcn's ranks
+    ap.add_argument("--autoplan-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # autoplan's job ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -7034,6 +7610,9 @@ def main(argv=None):
     if args.distgcn_worker is not None:
         sys.path.insert(0, ROOT)
         return distgcn_worker(json.loads(args.distgcn_worker))
+    if args.autoplan_worker is not None:
+        sys.path.insert(0, ROOT)
+        return autoplan_worker(json.loads(args.autoplan_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -7146,6 +7725,11 @@ def main(argv=None):
     del gpt_ref, parity_ref
     log(f"sp ({time.perf_counter() - t:.1f} s) {sp_lines}")
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    autoplan_line, autoplan_launches = autoplan_pass(card, args.seed,
+                                                     train_line)
+    log(f"autoplan ({time.perf_counter() - t:.1f} s) {autoplan_line}")
+    torch.cuda.empty_cache()
 
     from hetu_tpu_torch import data
     cifar = data.cifar10()
@@ -7218,7 +7802,8 @@ def main(argv=None):
 
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
-    train_rows = check_flash_train_kernels(torch, args.seed)
+    train_rows = check_flash_train_kernels(
+        torch, args.seed, (autoplan_launches["train_rep"],))
     faults = check_catches_faults(torch, args.seed)
     log(f"kernels checked ({time.perf_counter() - t:.1f} s) {faults}")
 
@@ -7237,7 +7822,9 @@ def main(argv=None):
                  ("serve_dense.session", dense_launches["session"],
                   K1_SESSION_REP),
                  ("bert", bert_launches["bert"], BERT_K1_REP),
-                 ("bert_example", bert_ex_launches, BERT_K1_REP)]
+                 ("bert_example", bert_ex_launches, BERT_K1_REP),
+                 ("autoplan.profile", autoplan_launches["profile"],
+                  K1_PROFILE_REP)]
     train_paths = [("train", train_launches, TRAIN_REP),
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
@@ -7252,7 +7839,9 @@ def main(argv=None):
                     SP_RING_SQUARE_REP),
                    ("sp_gpt.ulysses", sp_launches["ulysses"],
                     SP_ULYSSES_REP),
-                   ("sp_bert_long", sp_launches["bert_long"], SP_BERT_REP)]
+                   ("sp_bert_long", sp_launches["bert_long"], SP_BERT_REP),
+                   ("autoplan.train", autoplan_launches["train"],
+                    autoplan_launches["train_rep"])]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -7289,6 +7878,7 @@ def main(argv=None):
              *({name: line} for name, line in bert_lines.items()),
              {"runner_zoo": zoo_line},
              *({name: line} for name, line in sp_lines.items()),
+             {"autoplan": autoplan_line},
              *({name: line} for name, line in cnn_lines.items()),
              {"ctr": sparse_lines}, {"ncf": ncf_line}, {"ncf_hr": ncf_hr_line},
              {"transformer": transformer_line},

@@ -105,9 +105,24 @@ the axis's ranks and gather their output whole; every other op, and
 every parameter, is replicated over it, and dropout draws the same
 masks on its ranks (the seed is the ``dp`` coordinate's). The axis
 beside model axes, in a pipeline or on a parameter server is refused.
-TP on a parameter server, the collective pipeline, the auto-planner's
-cost model, telemetry and the preflight analysis are still to port;
-``HetuConfig`` refuses their options, each naming its ROADMAP item.
+
+**The cost-model planner** (``parallel="auto"``, ``rules=``,
+``autoplan_options=``; :mod:`~hetu_tpu_torch.parallel.autoplan`): the
+session chooses a (dp, tp, pp) plan for the graph over ``nworld``
+devices (the job's world size in a launcher's job, else the card count
+on a card, else 1; ``autoplan_options={"nworld": n}`` wins), applies it
+(dispatch splices, stage contexts; its schedule, microbatches and
+``pp_options`` over the caller's, its dp bucket under the caller's
+``overlap_options``, as the reference merges them) and runs it on a
+mesh of the job's ranks, or on thread ranks of
+this process outside a job; in a job rank 0 plans and every rank takes
+its plan, and a rank the plan leaves out runs nothing (``run`` returns
+None for every eval node). ``HETU_AUTOPLAN_REPORT`` prints the plan and
+exits (the launcher's ``--autoplan``). A ``collective`` plan is refused
+(ROADMAP item 11b.2).
+TP on a parameter server, the collective pipeline, telemetry and the
+preflight analysis are still to port; ``HetuConfig`` refuses their
+options, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -147,10 +162,6 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
     "pipeline_mode": "item 11b.2 (collective_pp.py over NCCL send/recv)",
-    "parallel": "item 11b.3 (autoplan.py's choose_plan and cost model)",
-    "rules": "item 11b.3 (autoplan.py's choose_plan and cost model)",
-    "autoplan_options": "item 11b.3 (autoplan.py's choose_plan and cost "
-                        "model)",
     "telemetry": "item 14", "health_options": "item 14",
     "log_path": "item 14 (profiler.py's StepLogger)",
     "validate": "item 17",
@@ -334,6 +345,7 @@ class HetuConfig:
                  drain_compress=False, dynamic_memory=False,
                  overlap_options=None, gpipe=False, pipedream=False,
                  num_microbatches=None, pp_options=None, mesh=None,
+                 parallel=None, rules=None, autoplan_options=None,
                  **options):
         # what a thread rank makes its own config from: every argument
         # but the graph and the rank's own device and mesh
@@ -358,21 +370,59 @@ class HetuConfig:
             raise ValueError(
                 f"unknown cstable_policy {cstable_policy!r}; expected "
                 f"'Device', 'LRU', 'LFU', 'LFUOpt' or None")
+        if parallel not in (None, "auto"):
+            raise ValueError(
+                f"unknown parallel={parallel!r}; expected 'auto' (the "
+                f"cost-model planner, parallel/autoplan.py) or None")
         self.eval_node_list = eval_node_list
         self.seed = seed
         self.dtype = dtype
+        ctx = ctx if ctx is not None else get_current_context()
+        self.context = DeviceGroup(ctx if ctx is not None else [])
+        if device is None and len(self.context):
+            first = (self.context.workers or list(self.context))[0]
+            device = (first[0] if isinstance(first, tuple)
+                      else first).torch_device()
+        # the cost-model planner (parallel/autoplan.py): choose a plan,
+        # apply it to the graph, and take its kwargs; its ranks come as
+        # a mesh (a launcher job's ranks, or thread ranks outside one)
+        self.autoplan = None
+        self.idle = self.alone = False
+        if parallel == "auto" or \
+                os.environ.get("HETU_AUTOPLAN_REPORT") is not None:
+            device = resolve_device(device)
+            planned = self._autoplan(eval_node_list, device, rules,
+                                     num_microbatches, autoplan_options,
+                                     train_name)
+            gpipe = planned.get("gpipe", gpipe)
+            pipedream = planned.get("pipedream", pipedream)
+            num_microbatches = planned.get("num_microbatches",
+                                           num_microbatches)
+            if "pp_options" in planned:
+                pp_options = {**(pp_options or {}), **planned["pp_options"]}
+            if "overlap_options" in planned and \
+                    not isinstance(overlap_options, OverlapOptions):
+                # plan-derived knob defaults (the dp bucket): the user's
+                # explicit overlap_options keys win
+                overlap_options = {**planned["overlap_options"],
+                                   **(overlap_options or {})}
+            if mesh is None:
+                mesh = planned.get("mesh")
+            self.idle = planned.get("idle", False)
+            self.alone = planned.get("alone", False)
+            # the ranks run the plan this config chose: its kwargs, and
+            # no planner of their own
+            rank_options.update(gpipe=gpipe, pipedream=pipedream,
+                                num_microbatches=num_microbatches,
+                                pp_options=pp_options,
+                                overlap_options=overlap_options,
+                                parallel=None, autoplan_options=None)
         self.use_gpipe = bool(gpipe)
         self.use_pipedream = bool(pipedream)
         self.num_microbatches = num_microbatches
         self.pp_options = dict(pp_options or {})
         pipeline = self.use_gpipe or self.use_pipedream
-        ctx = ctx if ctx is not None else get_current_context()
-        self.context = DeviceGroup(ctx if ctx is not None else [])
         self.rank_options = dict(rank_options, ctx=self.context)
-        if device is None and len(self.context):
-            first = (self.context.workers or list(self.context))[0]
-            device = (first[0] if isinstance(first, tuple)
-                      else first).torch_device()
         if device is None and pipeline:
             device = _first_stage_device(eval_node_list)
         self.device = resolve_device(device)
@@ -388,6 +438,9 @@ class HetuConfig:
         self.enable_lazy = enable_lazy
         self.dynamic_memory = dynamic_memory
         maybe_init_distributed(self.device)
+        if self.idle:
+            self._idle_session()
+            return
 
         self.comm_mode = comm_mode
         self.bsp = bsp
@@ -450,7 +503,7 @@ class HetuConfig:
         if mesh is not None:
             if "dp" in mesh.axis_names:
                 self.dp_comm = mesh.comm("dp")
-        elif not pipeline and self.comm_mode != "PS":
+        elif not pipeline and self.comm_mode != "PS" and not self.alone:
             import torch.distributed as dist
             if dist.is_initialized() and dist.get_world_size() > 1:
                 from .ops.comm import GroupComm
@@ -511,6 +564,65 @@ class HetuConfig:
         if self.comm_mode in ("PS", "Hybrid") or self.ps_nodes:
             from .ps.client import get_default_client
             self.ps_comm = get_default_client()
+
+    def _autoplan(self, eval_node_list, device, rules, num_microbatches,
+                  options, train_name):
+        """Choose the session's plan (reference executor.py:129-205):
+        ``choose_plan`` over ``autoplan_options`` (``nworld``, ``db``,
+        ``feed_shapes``, ``measure``, ``topk``, ``max_pp``, ``model``),
+        rank 0's plan on every rank of a launcher's job (rank 0 alone
+        measures). Under ``HETU_AUTOPLAN_REPORT`` print the table to
+        stderr, write the JSON report there (unless it is ``1`` /
+        ``true``), print ``autoplan: OK`` and exit 0 before any fleet
+        machinery. Returns :func:`~.parallel.autoplan.plan_overrides`."""
+        import sys
+        import torch.distributed as dist
+        from .parallel import autoplan
+        report = os.environ.get("HETU_AUTOPLAN_REPORT")
+        if report is None:
+            maybe_init_distributed(device)      # plan over the job's world
+        opts = dict(options or {})
+        if dist.is_initialized() and dist.get_rank() != 0:
+            opts.pop("measure", None)
+        result = autoplan.choose_plan(
+            eval_node_list, rules=rules, num_microbatches=num_microbatches,
+            model=opts.pop("model", train_name), device=device,
+            dtype=self.dtype, **opts)
+        autoplan.agree_on_plan(result)
+        self.autoplan = result
+        if report is not None:
+            import json
+            print(result.render(), file=sys.stderr)
+            if report not in ("1", "true"):
+                try:
+                    os.makedirs(os.path.dirname(os.path.abspath(report)),
+                                exist_ok=True)
+                    with open(report, "w") as f:
+                        json.dump(result.to_dict(), f, indent=1)
+                        f.write("\n")
+                except OSError as e:
+                    print(f"autoplan: could not write {report}: {e}",
+                          file=sys.stderr)
+            print("autoplan: OK", flush=True)
+            raise SystemExit(0)
+        return autoplan.plan_overrides(eval_node_list, result.plan,
+                                       info=result.info, device=device)
+
+    def _idle_session(self):
+        """A rank of a launcher's job that the session's plan leaves out:
+        it holds nothing and runs nothing; the executor's ``run`` returns
+        None for every eval node."""
+        self.local_ranks = None
+        self.mesh = self.dp_comm = self.tp_layouts = self.ps_comm = None
+        self.node_status, self.node_spec, self.model_axes = {}, {}, {}
+        self.comm_mode = None
+        self.nrank = 1
+        self.rank = int(os.environ.get("HETU_PROC_ID", "0"))
+        self.ps_nodes = []
+        self.device_cache_tables = []
+        self.ps_dense_cached = []
+        self.bsp = False
+        self.cstable_policy = None
 
     def _refuse_tp(self, degree):
         """A ``degree``-way tensor-parallel plan where the port has none:
@@ -928,6 +1040,26 @@ class SubExecutor:
                 else NDArray(value, ctx) for value in outputs]
 
 
+class _IdleSubExecutor:
+    """A subgraph on a rank that the session's plan leaves out
+    (``parallel="auto"`` in a launcher job with fewer ranks in the plan
+    than in the job): every run returns None for every eval node."""
+
+    def __init__(self, name, eval_node_list):
+        self.name = name
+        self.eval_node_list = eval_node_list
+        self.batch_num = None
+        self.step_count = 0
+        self.multiproc = False
+
+    def run(self, executor, feed_dict=None, convert_to_numpy_ret_vals=False):
+        self.step_count += 1
+        return [None] * len(self.eval_node_list)
+
+    def writes(self, node):
+        return False
+
+
 def _context_of(config):
     dev = config.device
     return cpu(0) if dev.type == "cpu" else gpu(dev.index or 0)
@@ -955,6 +1087,16 @@ class Executor:
         if config.local_ranks is not None:
             from .parallel.local_ranks import LocalRanks
             self._threads = LocalRanks(eval_node_dict, config)
+            return
+        if config.idle:
+            # a rank of the job that the session's plan leaves out
+            self.params, self.opt_state, self.state = {}, {}, {}
+            self._param_nodes, self._stage_layouts = {}, {}
+            self._stateful_ops = []
+            self.subexecutors = {name: _IdleSubExecutor(name, nodes)
+                                 for name, nodes in eval_node_dict.items()}
+            self.ps_runtime = None
+            self._ingest_stats = new_stats()
             return
 
         # parameters: f32 masters (integer parameters keep their dtype)
@@ -1075,6 +1217,8 @@ class Executor:
             return self._threads.run_batches(feed_dicts, name,
                                            convert_to_numpy_ret_vals)
         sub = self._sub(name)
+        if isinstance(sub, _IdleSubExecutor):
+            return [sub.run(self) for _ in feed_dicts]
         if not isinstance(sub, SubExecutor):
             raise ValueError(
                 "run_batches is not supported for gpipe/pipedream "
@@ -1252,6 +1396,8 @@ class Executor:
         ranks save as those processes would."""
         if self._threads is not None:
             return self._threads.save(file_path, file_name)
+        if self.config.idle:
+            return None
         nodes = {node.id: node for node in self._param_nodes.values()}
         params = {sid: self._whole(node, self.params[sid])
                   for sid, node in self._param_nodes.items()}

@@ -48,11 +48,15 @@ in-process ``launch(target, args)``.
   at a BSP barrier for ever. The launcher exits with the first non-zero
   exit code.
 
+``--autoplan`` previews the cost-model planner's choice
+(:func:`run_autoplan`): the command runs once, in a plain process, with
+``HETU_AUTOPLAN_REPORT`` set; its first ``Executor`` prints the plan
+table, writes the JSON report and exits before any fleet starts.
+
 The options of modes still to port are refused, each naming its
 ROADMAP item: ``--telemetry``, ``--health``, ``--watch`` and
 ``--hang-timeout`` (item 14, which also brings the watchdog that calls
-:func:`_respawn_dead_servers`), ``--preflight`` (item 17) and
-``--autoplan`` (item 11b.3).
+:func:`_respawn_dead_servers`) and ``--preflight`` (item 17).
 
 Config (the reference's shape):
 
@@ -75,7 +79,7 @@ import sys
 import time
 
 __all__ = ["ClusterConfig", "parse_config", "launch", "launch_command",
-           "main"]
+           "run_autoplan", "main"]
 
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_SERVER = os.path.join("hetu_tpu_torch", "ps", "run_server.py")
@@ -85,8 +89,7 @@ REFUSED = {"telemetry": ("--telemetry", "item 14"),
            "health": ("--health", "item 14"),
            "watch": ("--watch", "item 14"),
            "hang_timeout": ("--hang-timeout", "item 14"),
-           "preflight": ("--preflight", "item 17"),
-           "autoplan": ("--autoplan", "item 11b.3")}
+           "preflight": ("--preflight", "item 17")}
 
 # what the launcher sets on a fleet's servers and workers, or sets for
 # one fleet only: never inherited from the caller
@@ -408,6 +411,44 @@ def _wait_workers(workers):
     return rc
 
 
+def run_autoplan(cfg, command):
+    """Cost-model plan preview (``--autoplan``; reference launcher.py:300):
+    run ``command`` ONCE in a plain subprocess with
+    ``HETU_AUTOPLAN_REPORT`` set — the executor's config (``HetuConfig``)
+    runs the planner over the graph the script builds, prints the chosen
+    plan and its predicted-vs-measured table to stderr, writes the JSON
+    report, prints ``autoplan: OK`` and exits before any fleet machinery.
+    No fleet variable reaches it (no rendezvous, no PS hosts) but the
+    job's size, ``HETU_NUM_PROCS`` (the world the planner plans for) and
+    ``HETU_HOSTS``, so pp plans map hostnames the way the real launch
+    would. Returns the subprocess's exit code: 0 = plan printed;
+    anything else = the script failed before an Executor was built."""
+    import tempfile
+    hosts_in_order = []
+    for host, n in cfg.worker_hosts():
+        hosts_in_order.extend([host] * n)
+    report_path = os.path.join(tempfile.mkdtemp(prefix="hetu-autoplan-"),
+                               "autoplan.json")
+    env = {**_inherited_env(),
+           "PYTHONPATH": PKG_ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", ""),
+           "HETU_AUTOPLAN_REPORT": report_path,
+           "HETU_NUM_PROCS": str(max(1, cfg.num_workers))}
+    if hosts_in_order:
+        env["HETU_HOSTS"] = ",".join(hosts_in_order)
+    env.pop("HETU_PREFLIGHT", None)
+    p = subprocess.run(command, env=env)
+    if p.returncode == 0:
+        if os.path.exists(report_path):
+            print(f"autoplan: report written to {report_path}", flush=True)
+        else:
+            print("autoplan: WARNING script exited 0 but no report "
+                  "file appeared — either the script never built an "
+                  "Executor, or the report path was unwritable (a "
+                  "plan table printed above means the latter)", flush=True)
+    return p.returncode
+
+
 def launch_command(cfg, command, identify=None):
     """Run ``command`` once per worker with the cluster env wired (the
     ``python -m hetu_tpu_torch.launcher -c conf.yml python train.py``
@@ -558,8 +599,12 @@ def main(argv=None):
                         help="refused: the analysis waits for ROADMAP "
                              "item 17")
     parser.add_argument("--autoplan", action="store_true",
-                        help="refused: the autoplanner waits for "
-                             "ROADMAP item 11b.3")
+                        help="cost-model plan preview: run the command "
+                             "once with the auto-parallelism planner "
+                             "armed (HETU_AUTOPLAN_REPORT), print the "
+                             "chosen (dp,tp,pp,M,V) plan and its "
+                             "predicted-vs-measured cost table, and "
+                             "exit WITHOUT spawning the fleet")
     parser.add_argument("command", nargs=argparse.REMAINDER,
                         help="worker command, e.g. python train.py")
     args = parser.parse_args(argv)
@@ -576,6 +621,8 @@ def main(argv=None):
           f"workers({cfg.num_workers})={cfg.workers}", flush=True)
     signal.signal(signal.SIGINT, _on_signal)
     signal.signal(signal.SIGTERM, _on_signal)
+    if args.autoplan:
+        return run_autoplan(cfg, args.command)
     return launch_command(cfg, args.command, args.identify)
 
 

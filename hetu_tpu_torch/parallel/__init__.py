@@ -20,9 +20,11 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
 * ``tensor_parallel`` — those specs realized across processes: each
   rank computes on its shards, values move between layouts by
   ``torch.distributed`` collectives;
-* ``autoplan`` — the rules compiler (``DEFAULT_RULES``,
-  ``compile_rules``, ``apply_rules``) that puts ``dispatch`` specs on a
-  model;
+* ``autoplan`` — the cost-model planner: the rules compiler
+  (``DEFAULT_RULES``, ``compile_rules``, ``apply_rules``) that puts
+  ``dispatch`` specs on a model, and ``choose_plan`` / ``apply_plan``,
+  which score (dp, tp, pp) plans on the measured CostDB and apply the
+  winner (the executor's ``parallel="auto"``);
 * ``ring`` and ``ulysses`` — sequence parallelism over a mesh's ``"sp"``
   axis: ring attention (the zigzag layout when causal) and Ulysses'
   all-to-all, their blocks on the flash kernels, as
@@ -34,13 +36,14 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
   ``LocalMesh``) run as thread ranks of the process, each on its own
   clone of the graph, over a ``LocalJob``.
 
-The collective pipeline waits for ROADMAP item 11b.2, the auto-planner's
-cost model for 11b.3, a split parameter on a parameter server for 11b.5;
+The collective pipeline waits for ROADMAP item 11b.2, a split parameter
+on a parameter server for 11b.5;
 the sp axis beside model axes, in a pipeline and on a parameter server
 for 11c.1-11c.3.
 """
 from . import autoplan
-from .autoplan import DEFAULT_RULES, apply_rules, compile_rules
+from .autoplan import (DEFAULT_RULES, apply_plan, apply_rules, choose_plan,
+                       compile_rules)
 from .mesh import (Job, LocalJob, LocalMesh, Mesh, build_mesh,
                    factorized_axes, mesh_for_statuses, subset_mesh)
 from .p2p import PipeChannel, get_channel
@@ -56,6 +59,7 @@ __all__ = ["Job", "LocalJob", "LocalMesh", "Mesh", "build_mesh",
            "local_ranks",
            "assign_states", "propagate_statuses", "spec_for_status",
            "autoplan", "DEFAULT_RULES", "compile_rules", "apply_rules",
+           "choose_plan", "apply_plan",
            "PipelineSubExecutor", "analytic_bubble_fraction",
            "virtual_stage_program", "splice_send_recv", "PipeChannel",
            "get_channel", "ring", "ulysses"]

@@ -208,8 +208,7 @@ def test_bsp_fleet_matches_the_jax_packages_fleet(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--telemetry=d", "--health=1", "--watch",
-                                  "--hang-timeout=30", "--preflight",
-                                  "--autoplan"])
+                                  "--hang-timeout=30", "--preflight"])
 def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     cfg_path = tmp_path / "cluster.yml"
     cfg_path.write_text(CONFIG)

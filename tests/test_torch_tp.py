@@ -367,9 +367,10 @@ def test_apply_rules_gather_dispatch_pads_short_statuses():
 
 def test_refusals_name_their_roadmap_sub_items():
     nodes = _mlp(tht, ((1, 1), (1, 2)))
-    for option in ("parallel", "rules", "autoplan_options"):
-        with pytest.raises(TypeError, match=r"ROADMAP item 11b\.3"):
-            tht.HetuConfig(nodes, device="cpu", **{option: "auto"})
+    # parallel= / rules= / autoplan_options= are ported (the planner,
+    # tests/test_torch_autoplan.py); an unknown parallel= still raises
+    with pytest.raises(ValueError, match="unknown parallel"):
+        tht.HetuConfig(nodes, device="cpu", parallel="manual")
     with pytest.raises(TypeError, match=r"ROADMAP item 11b\.2"):
         tht.HetuConfig(nodes, device="cpu", gpipe=True,
                        pipeline_mode="collective")
@@ -389,8 +390,6 @@ def test_refusals_name_their_roadmap_sub_items():
                           device="cpu").local_ranks
     assert (plan.kind, plan.n, plan.axes) == ("tp", 4,
                                               {"dp": 2, "tp0": 2})
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.3"):
-        tht.parallel.autoplan.choose_plan(nodes)
     # a pipeline stage over two devices of one process: a thread rank a
     # device, the head's device the third
     with tht.context((tht.cpu(0), tht.cpu(1))):
