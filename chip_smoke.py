@@ -26,7 +26,9 @@ widths trained in the PS and Hybrid modes against the port's parameter
 server, and served from it; fleets of PS servers and workers started by
 the port's launcher, every worker on the card; GPT-2-small trained in
 four pipeline stages on the card (GPipe and PipeDream 1F1B) and across
-two launcher processes; the same model trained data parallel by two
+two launcher processes; its 12 blocks as a uniform chain under the
+collective pipeline (one tick loop over four stages' streams, and
+interleaved at V=3); the same model trained data parallel by two
 launcher processes, split at tp=2 by two, and in two stages x tp=2 by
 four; the same model, and BERT-small at S=2048, trained sequence
 parallel by two (the zigzag ring, Ulysses, the masked ring); the same
@@ -91,6 +93,24 @@ object per line (``--out`` also writes them to FILE):
   the rank that owns the loss against the in-process passes', each
   rank's step ms, channel bytes and seconds a step, peak memory and
   launches (6·M a step each of K2/K3/K4);
+* ``collective_gpt`` the ``train`` model's 12 blocks (no embeddings or
+  LM head: a feed x [8, 1024, 768] in, a sparse cross-entropy of the
+  last block's output against labels in [0, 768) out) as a uniform
+  chain of four stages on ``ht.gpu(0)``..``gpu(3)`` under
+  ``pipeline_mode="collective"`` (one tick loop over the stages'
+  streams), M=4, bf16: tokens/s, step ms p50 beside the staged GPipe
+  runner's, ``pp_gpipe``'s and ``train``'s, peak memory, K2/K3/K4
+  launches (12·M a step, all on ``tc``), one profiled step; the checks:
+  step 1 and every loss against ``gpipe=True`` on the same chain (one
+  bf16 ulp; Adam's first moments of stage 0's qkv and of the last
+  stage's MLP projection within 2e-2 of their largest element), a fresh
+  executor's three losses bit-equal, the interleaved schedule (12
+  one-block chunks at V=3) against ``gpipe=True`` over the same 12
+  stages, and ``boundary_dtype="bf16"`` within ``BOUNDARY_RTOL``;
+* ``collective_parity`` the chain at 64 wide (4 stages of 2 blocks,
+  S=512, M=8) in f32, 3 Adam steps, against ``gpipe=True``: losses 1e-5
+  relative, every weight 1e-4 of its largest element; its bf16
+  boundary within ``BOUNDARY_RTOL``;
 * ``dp_gpt`` the ``train`` model trained data parallel by two ranks of
   one launcher job (``spmd: true``; each ``python chip_smoke.py
   --dp-worker SPEC``) on the one card, over gloo, 4 of the 8 rows each,
@@ -1948,6 +1968,348 @@ def pp_fleet_pass(card, seed, inproc):
         line["schedules"][schedule] = sched
     if faults:
         raise AssertionError(f"pp_fleet: {faults}")
+    return line
+
+
+# ---------------------------------------------------------------------------
+# collective_gpt, collective_parity: the collective pipeline
+# (pipeline_mode="collective"), one tick loop over each stage's stream
+# ---------------------------------------------------------------------------
+
+# GPT-2-small's 12 decoder blocks as a uniform chain of four stages of
+# three blocks on ht.gpu(0)..gpu(3) (the one card four times): the
+# contract wants homogeneous stages, so the embeddings and the LM head
+# are left out (as bench.py:1962-1978 closes its collective chain): a
+# feed x [B, 1024, 768] enters stage 0, the last stage's loss is the mean
+# sparse softmax cross-entropy of its [B·S, 768] output against labels
+# in [0, 768). B=8, M=4, bf16, Adam, dropout 0 (pp_gpipe's settings)
+COLL_STAGES, COLL_MICROBATCHES = 4, 4
+COLL_WARMUP, COLL_STEPS = 1, 3
+COLL_REPEAT_STEPS = 3            # a fresh executor's, bit-equal
+# the interleaved run: the 12 blocks as 12 one-block chunks at V=3, chunk
+# k on device k mod 4 under a host name of its own per group of four
+# (``v{k // 4}:gpu:{k % 4}``, as tests/test_autoplan.py places them)
+COLL_V, COLL_V_WARMUP, COLL_V_STEPS = 3, 1, 2
+COLL_BF16_WARMUP, COLL_BF16_STEPS = 1, 2
+# step-1 parity as the pp_* checks hold it: the loss within one bf16 ulp,
+# Adam's first moments of stage 0's qkv (by q, k, v) and of the last
+# stage's MLP projection within GRAD_PARITY_TOL of their largest element
+COLL_MOMENTS = ("coll_h0_attn_qkv_weights", "coll_h11_mlp_proj_weights")
+# collective_parity: 4 stages of 2 blocks, 64 wide (one head of 64),
+# S=512, B=8 at M=8, f32, 3 Adam steps against the staged GPipe runner
+COLL_PARITY = dict(hidden_size=64, num_attention_heads=1,
+                   max_position_embeddings=512, vocab_size=64)
+COLL_PARITY_PER_STAGE, COLL_PARITY_M, COLL_PARITY_STEPS = 2, 8, 3
+COLL_PARITY_LOSS_RTOL, COLL_PARITY_WEIGHT_TOL = 1e-5, 1e-4
+
+
+def _coll_chain(ht, models, contexts, per_stage, widths, lr=TRAIN_LR):
+    """``per_stage`` GPT blocks (``coll_h{i}``: the same names, so the
+    same seeded draws, however the chain is staged) under each context:
+    x [B, S, hidden] in, the mean sparse softmax cross-entropy of the
+    last stage's [B·S, hidden] output out. Returns (x, labels, loss,
+    train_op)."""
+    cfg = models.GPTConfig(**{**widths, "num_hidden_layers":
+                              len(contexts) * per_stage},
+                           hidden_dropout_prob=0.0, use_flash_attention=True)
+    seq, hidden = cfg.max_position_embeddings, cfg.hidden_size
+    blocks = [models.gpt.GPTBlock(cfg, name=f"coll_h{i}")
+              for i in range(cfg.num_hidden_layers)]
+    for s, ctx in enumerate(contexts):
+        with ht.context(ctx):
+            if s == 0:
+                x = ht.Variable("coll_x", trainable=False)
+                act = x
+            for block in blocks[s * per_stage:(s + 1) * per_stage]:
+                act = block(act, seq)
+            if s == len(contexts) - 1:
+                labels = ht.Variable("coll_labels", trainable=False)
+                loss = ht.reduce_mean_op(ht.softmaxcrossentropy_sparse_op(
+                    ht.array_reshape_op(act, [-1, hidden]), labels), [0])
+                train_op = ht.optim.AdamOptimizer(
+                    learning_rate=lr).minimize(loss)
+    return x, labels, loss, train_op
+
+
+def _coll_feeds(torch, seed, batch, widths):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    seq, hidden = widths["max_position_embeddings"], widths["hidden_size"]
+    x = torch.randn(batch, seq, hidden, device="cuda", generator=g)
+    y = torch.randint(0, hidden, (batch * seq,), device="cuda", generator=g)
+    return x, y
+
+
+def _coll_state(exe, names):
+    """{name: (f32 weight, Adam's first moment)} of the named weights."""
+    return {node.name: (exe.params[sid].float().clone(),
+                        exe.opt_state[node.id]["m"].float().clone())
+            for sid, node in exe._param_nodes.items() if node.name in names}
+
+
+def _coll_compare(got, want, hidden, m_tol=GRAD_PARITY_TOL):
+    """Step-1 parity of two (loss, _coll_state): the loss within one bf16
+    ulp, each first moment within ``m_tol`` of its largest element (a
+    qkv weight by its q, k, v column blocks). Returns (ok, record)."""
+    (loss, state), (rloss, rstate) = got, want
+    m_err = {}
+    for name, (_, m) in state.items():
+        rm = rstate[name][1]
+        parts = ({p: slice(i * hidden, (i + 1) * hidden)
+                  for i, p in enumerate("qkv")} if "qkv" in name
+                 else {"": slice(None)})
+        for part, cols in parts.items():
+            m_err[name + (f".{part}" if part else "")] = float(
+                (m[:, cols] - rm[:, cols]).abs().max()
+                / rm[:, cols].abs().max())
+    rec = {"loss": loss, "loss_ref": rloss, "loss_tol": _bf16_ulp(rloss),
+           "m_rel_err": m_err, "m_tol": m_tol}
+    ok = abs(loss - rloss) <= rec["loss_tol"] and \
+        max(m_err.values()) <= m_tol
+    return ok, rec
+
+
+def _coll_session(torch, contexts, per_stage, widths, feeds, steps, mode,
+                  microbatches, dtype="bfloat16", pp_options=None,
+                  keep=None):
+    """A pipeline executor over ``_coll_chain``, ``steps`` steps, each
+    ending in the loss's readback. Returns (executor, losses, step ms,
+    _coll_state of ``keep`` after step 1)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    x, labels, loss, train_op = _coll_chain(ht, M, contexts, per_stage,
+                                            widths)
+    exe = ht.Executor([loss, train_op], dtype=dtype and getattr(torch, dtype),
+                      num_microbatches=microbatches,
+                      pp_options=pp_options, **mode)
+    losses, step_ms, state1 = [], [], None
+    for i in range(steps):
+        t0 = time.perf_counter()
+        out = exe.run(feed_dict={x: feeds[0], labels: feeds[1]})
+        losses.append(float(out[0].asnumpy()))          # waits for the step
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0 and keep:
+            state1 = _coll_state(exe, keep)
+    return exe, losses, step_ms, state1
+
+
+def collective_pass(torch, card, seed, pp_line, train_p50):
+    """``collective_gpt``: the chain under ``gpipe=True`` (1 + 3 steps),
+    then the main path, ``pipeline_mode="collective"`` (1 + 3 steps, the
+    launch counts set to 0 before and read after: K2, K3, K4 12·M a step,
+    all on ``tc``, K1 none), one profiled step; a fresh collective
+    executor's first 3 losses, bit-equal (a stream race would show); the
+    interleaved run (12 one-block chunks at V=3, 1 + 2 steps) against
+    ``gpipe=True`` over the same 12 stages; ``boundary_dtype="bf16"``
+    (1 + 2 steps) within BOUNDARY_RTOL. ``collective_parity``: the f32
+    chain against the staged runner. Returns ({line name: line},
+    {"main": launches, "interleaved": launches})."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.parallel.collective_pp import BOUNDARY_RTOL
+    widths = {k: GPT2_SMALL[k] for k in ("hidden_size", "num_attention_heads",
+                                         "max_position_embeddings",
+                                         "vocab_size")}
+    hidden, seq = widths["hidden_size"], widths["max_position_embeddings"]
+    blocks = GPT2_SMALL["num_hidden_layers"]
+    per_stage = blocks // COLL_STAGES
+    contexts = [ht.gpu(i) for i in range(COLL_STAGES)]
+    feeds = _coll_feeds(torch, seed, TRAIN_BATCH, widths)
+    M = COLL_MICROBATCHES
+    collective = {"pipeline_mode": "collective"}
+    checks, faults = {}, []
+
+    def run(ctxs, per, steps, mode, **kw):
+        return _coll_session(torch, ctxs, per, widths, feeds, steps, mode,
+                             M, keep=COLL_MOMENTS, **kw)[1:]
+
+    _release(torch)
+    staged = _coll_session(torch, contexts, per_stage, widths, feeds,
+                           COLL_WARMUP + COLL_STEPS, {"gpipe": True}, M,
+                           keep=COLL_MOMENTS)
+    staged_ms = staged[2][COLL_WARMUP:]
+    staged = staged[1:]
+    _release(torch)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    _build.reset_launch_counts()                    # main path starts
+    t0 = time.perf_counter()
+    exe, losses, step_ms, state1 = _coll_session(
+        torch, contexts, per_stage, widths, feeds, COLL_WARMUP + COLL_STEPS,
+        collective, M, keep=COLL_MOMENTS)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)           # main path ends
+    wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before
+    sub = exe.subexecutors["default"]
+    cpp = sub._cpp
+    stage_streams = [str(s) for s in cpp.streams]
+    x_node, y_node = sub.stages[0].feed_nodes[0], \
+        sub.stages[-1].feed_nodes[0]
+    profile = profile_window(torch, lambda: exe.run(feed_dict={
+        x_node: feeds[0], y_node: feeds[1]})[0].asnumpy())
+    del exe, sub, cpp
+    _release(torch)
+    steps = COLL_WARMUP + COLL_STEPS
+    per_step = blocks * M
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), per_step * steps)
+    got = {key: launches.get(key, 0) for key in want}
+    if got != want:
+        faults.append(f"launches {got}, want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        faults.append(f"losses not finite and falling: {losses}")
+    ok, checks["vs_staged"] = _coll_compare((losses[0], state1),
+                                            (staged[0][0], staged[2]),
+                                            hidden)
+    checks["vs_staged"]["losses"] = losses
+    checks["vs_staged"]["staged_losses"] = staged[0]
+    later = [abs(a - b) <= _bf16_ulp(b) for a, b in zip(losses, staged[0])]
+    checks["vs_staged"]["every_loss_within_one_ulp"] = all(later)
+    if not ok or not all(later):
+        faults.append(f"collective against staged: {checks['vs_staged']}")
+
+    repeat = run(contexts, per_stage, COLL_REPEAT_STEPS, collective)
+    checks["repeat_bit_equal"] = {
+        "losses": repeat[0], "first_run": losses[:COLL_REPEAT_STEPS],
+        "equal": repeat[0] == losses[:COLL_REPEAT_STEPS]}
+    if not checks["repeat_bit_equal"]["equal"]:
+        faults.append(f"a fresh executor's losses differ: "
+                      f"{checks['repeat_bit_equal']}")
+    _release(torch)
+
+    s_dev = COLL_STAGES
+    chunks = [f"v{k // s_dev}:gpu:{k % s_dev}" for k in range(blocks)]
+    v_steps = COLL_V_WARMUP + COLL_V_STEPS
+    v_staged = run(chunks, 1, v_steps, {"gpipe": True})
+    _release(torch)
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    v_losses, v_ms, v_state = run(chunks, 1, v_steps, collective,
+                                  pp_options={"virtual_stages": COLL_V})
+    torch.cuda.synchronize()
+    v_launches = dict(_build.launch_counts)
+    v_wall = time.perf_counter() - t0
+    _release(torch)
+    v_want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                           per_step * v_steps)
+    v_got = {key: v_launches.get(key, 0) for key in v_want}
+    if v_got != v_want:
+        faults.append(f"interleaved launches {v_got}, want {v_want}")
+    ok, checks["interleaved_vs_staged"] = _coll_compare(
+        (v_losses[0], v_state), (v_staged[0][0], v_staged[2]), hidden)
+    checks["interleaved_vs_staged"]["losses"] = v_losses
+    checks["interleaved_vs_staged"]["staged_losses"] = v_staged[0]
+    later = [abs(a - b) <= _bf16_ulp(b) for a, b in
+             zip(v_losses, v_staged[0])]
+    checks["interleaved_vs_staged"]["every_loss_within_one_ulp"] = all(later)
+    if not ok or not all(later):
+        faults.append(f"interleaved against staged: "
+                      f"{checks['interleaved_vs_staged']}")
+
+    b_losses = run(contexts, per_stage, COLL_BF16_WARMUP + COLL_BF16_STEPS,
+                   collective, pp_options={"boundary_dtype": "bf16"})[0]
+    _release(torch)
+    rel = [abs(a - b) / abs(b) for a, b in zip(b_losses, losses)]
+    # in a bf16 session the boundary is bf16 already: the cast is exact
+    checks["bf16_boundary"] = {
+        "losses": b_losses, "f32_boundary_losses": losses[:len(b_losses)],
+        "rel_err": rel, "rtol": BOUNDARY_RTOL,
+        "bit_equal": b_losses == losses[:len(b_losses)]}
+    if max(rel) > BOUNDARY_RTOL:
+        faults.append(f"bf16 boundary: {checks['bf16_boundary']}")
+    if faults:
+        raise AssertionError(f"collective_gpt: {faults}")
+
+    timed = step_ms[COLL_WARMUP:]
+    v_timed = v_ms[COLL_V_WARMUP:]
+    line = {"card": card, "model": "gpt2-small blocks (no embeddings, no "
+            "LM head: a feed x [B, S, 768] in, a parameter-free sparse "
+            "cross-entropy of the last block's output against labels in "
+            "[0, 768) out)", "blocks": blocks, **widths,
+            "stages": COLL_STAGES, "blocks_per_stage": per_stage,
+            "stage_contexts": [str(c) for c in contexts],
+            "stage_streams": stage_streams,
+            "microbatches": M, "microbatch": TRAIN_BATCH // M,
+            "batch": TRAIN_BATCH, "seq": seq, "dtype": "bfloat16",
+            "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
+            "warmup_steps": COLL_WARMUP, "timed_steps": COLL_STEPS,
+            "tokens_per_s": TRAIN_BATCH * seq * len(timed)
+            / (sum(timed) / 1e3),
+            "step_ms_p50": float(np.median(timed)),
+            "staged_step_ms_p50": float(np.median(staged_ms)),
+            "pp_gpipe_step_ms_p50": pp_line["step_ms_p50"],
+            "train_step_ms_p50": train_p50,
+            "step_ms": step_ms, "staged_step_ms": staged_ms,
+            "losses": losses, "main_path_wall_s": wall_s,
+            "launches": got,
+            "launches_per_step": {k: v / steps for k, v in got.items()},
+            "peak_memory_bytes": int(peak),
+            "interleaved": {
+                "chunks": blocks, "virtual_stages": COLL_V,
+                "devices": s_dev, "chunk_contexts": chunks,
+                "microbatches": M, "warmup_steps": COLL_V_WARMUP,
+                "timed_steps": COLL_V_STEPS,
+                "step_ms_p50": float(np.median(v_timed)),
+                "staged_step_ms_p50": float(np.median(
+                    v_staged[1][COLL_V_WARMUP:])),
+                "step_ms": v_ms, "losses": v_losses, "wall_s": v_wall,
+                "launches": v_got,
+                "launches_per_step": {k: v / v_steps
+                                      for k, v in v_got.items()}},
+            "checks": checks, "profile": profile}
+    parity = collective_parity(torch, card, seed)
+    return {"collective_gpt": line, "collective_parity": parity}, \
+        {"main": launches, "interleaved": v_launches}
+
+
+def collective_parity(torch, card, seed):
+    """The f32 chain (4 stages of 2 blocks, 64 wide, S=512, B=8, M=8, 3
+    Adam steps, ``simt`` K2-K4) under ``pipeline_mode="collective"``
+    against ``gpipe=True``: losses within 1e-5 relative, every weight
+    within 1e-4 of its largest element; and with ``boundary_dtype=
+    "bf16"``, whose losses stay within BOUNDARY_RTOL."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.parallel.collective_pp import BOUNDARY_RTOL
+    contexts = [ht.gpu(i) for i in range(COLL_STAGES)]
+    feeds = _coll_feeds(torch, seed + 1, TRAIN_BATCH, COLL_PARITY)
+    runs, launches = {}, {}
+    for name, mode, opts in (
+            ("staged", {"gpipe": True}, None),
+            ("collective", {"pipeline_mode": "collective"}, None),
+            ("bf16_boundary", {"pipeline_mode": "collective"},
+             {"boundary_dtype": "bf16"})):
+        _build.reset_launch_counts()
+        exe, losses, _, _ = _coll_session(
+            torch, contexts, COLL_PARITY_PER_STAGE, COLL_PARITY, feeds,
+            COLL_PARITY_STEPS, mode, COLL_PARITY_M, dtype=None,
+            pp_options=opts)
+        torch.cuda.synchronize()
+        launches[name] = {k: v for k, v in _build.launch_counts.items()
+                          if v}
+        runs[name] = (losses, {node.name: exe.params[sid].float().clone()
+                               for sid, node in exe._param_nodes.items()})
+        del exe
+    (want, w_want), (got, w_got) = runs["staged"], runs["collective"]
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    weight_err = max(float((w_got[n] - w).abs().max() / w.abs().max())
+                     for n, w in w_want.items())
+    bf16 = runs["bf16_boundary"][0]
+    bf16_err = max(abs(a - b) / abs(b) for a, b in zip(bf16, got))
+    line = {"card": card, **COLL_PARITY, "stages": COLL_STAGES,
+            "blocks_per_stage": COLL_PARITY_PER_STAGE,
+            "microbatches": COLL_PARITY_M, "batch": TRAIN_BATCH,
+            "dtype": "float32", "steps": COLL_PARITY_STEPS,
+            "losses": got, "staged_losses": want,
+            "loss_rel_err": loss_err, "loss_rtol": COLL_PARITY_LOSS_RTOL,
+            "weight_rel_err": weight_err,
+            "weight_tol": COLL_PARITY_WEIGHT_TOL,
+            "bf16_boundary_losses": bf16, "bf16_boundary_rel_err": bf16_err,
+            "bf16_boundary_rtol": BOUNDARY_RTOL, "launches": launches}
+    if loss_err > COLL_PARITY_LOSS_RTOL or \
+            weight_err > COLL_PARITY_WEIGHT_TOL or \
+            bf16_err > BOUNDARY_RTOL or not got[-1] < got[0]:
+        raise AssertionError(f"collective_parity: {line}")
     return line
 
 
@@ -7685,6 +8047,12 @@ def main(argv=None):
     log(f"pp_fleet ({time.perf_counter() - t:.1f} s) {pp_lines['pp_fleet']}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    coll_lines, coll_launches = collective_pass(
+        torch, card, args.seed, pp_lines["pp_gpipe"],
+        train_line["step_ms_p50"])
+    log(f"collective ({time.perf_counter() - t:.1f} s) {coll_lines}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     dp_lines, dp_launches, parity_ref = dp_pass(card, args.seed, train_line)
     log(f"dp ({time.perf_counter() - t:.1f} s) {dp_lines}")
     torch.cuda.empty_cache()
@@ -7829,6 +8197,9 @@ def main(argv=None):
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
                    ("pp_1f1b", pp_launches["1f1b"], PP_REP),
+                   ("collective_gpt", coll_launches["main"], PP_REP),
+                   ("collective_gpt.interleaved",
+                    coll_launches["interleaved"], PP_REP),
                    ("dp_gpt", dp_launches, DP_REP),
                    ("dp_gpt_local", dp_local_launches, DP_REP),
                    ("tp_gpt", tp_launches, TRAIN_REP),
@@ -7872,6 +8243,7 @@ def main(argv=None):
              {"check_faults": faults}, {"serve": serve_line},
              {"serve_dense": dense_line}, {"train": train_line},
              *({name: line} for name, line in pp_lines.items()),
+             *({name: line} for name, line in coll_lines.items()),
              *({name: line} for name, line in dp_lines.items()),
              *({name: line} for name, line in tp_lines.items()),
              *({name: line} for name, line in pp_tp_lines.items()),

@@ -72,9 +72,10 @@ sub-executor on its own clone of the graph, fed the same feeds, the
 fetched values returned once (:mod:`~hetu_tpu_torch.parallel.local_ranks`,
 whose ``DEFAULT_TIMEOUT_S`` bounds a call).
 
-**Pipelines** (``gpipe=True`` or ``pipedream=True``, with
-``num_microbatches`` and ``pp_options``): stages placed by ``with
-ht.context(...)`` run under GPipe or PipeDream 1F1B
+**Pipelines** (``gpipe=True``, ``pipedream=True`` or
+``pipeline_mode="collective"``, with ``num_microbatches`` and
+``pp_options``): stages placed by ``with ht.context(...)`` run under
+GPipe, PipeDream 1F1B or the collective schedule
 (:class:`~hetu_tpu_torch.parallel.pipeline.PipelineSubExecutor`), in one
 process or across a launcher's worker processes; each parameter, and
 its optimizer slots, lives on its stage's device, and a worker process
@@ -118,11 +119,16 @@ mesh of the job's ranks, or on thread ranks of
 this process outside a job; in a job rank 0 plans and every rank takes
 its plan, and a rank the plan leaves out runs nothing (``run`` returns
 None for every eval node). ``HETU_AUTOPLAN_REPORT`` prints the plan and
-exits (the launcher's ``--autoplan``). A ``collective`` plan is refused
-(ROADMAP item 11b.2).
-TP on a parameter server, the collective pipeline, telemetry and the
-preflight analysis are still to port; ``HetuConfig`` refuses their
-options, each naming its ROADMAP item.
+exits (the launcher's ``--autoplan``). A ``collective`` plan runs as
+``pipeline_mode="collective"``.
+**The collective pipeline** (``pipeline_mode="collective"``,
+``pp_options``' ``feed_mode``, ``fuse_ticks``, ``unroll_fill_drain``,
+``boundary_dtype``, ``virtual_stages``;
+:mod:`~hetu_tpu_torch.parallel.collective_pp`): GPipe over a uniform
+chain of stages as one tick loop over each stage's device and stream.
+TP on a parameter server, telemetry and the preflight analysis are still
+to port; ``HetuConfig`` refuses their options, each naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -161,7 +167,6 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
 
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
-    "pipeline_mode": "item 11b.2 (collective_pp.py over NCCL send/recv)",
     "telemetry": "item 14", "health_options": "item 14",
     "log_path": "item 14 (profiler.py's StepLogger)",
     "validate": "item 17",
@@ -323,10 +328,12 @@ class HetuConfig:
     :meth:`spec_for` names each node's partition; its ``sp`` axis (a
     ``("sp",)`` or ``("dp", "sp")`` mesh) carries the sequence-parallel
     attention ops, everything else replicated over it. ``gpipe`` /
-    ``pipedream`` train under a pipeline schedule over
+    ``pipedream`` (or ``pipeline_mode="collective"``, which sets
+    ``use_gpipe``) train under a pipeline schedule over
     ``num_microbatches`` microbatches (``pp_options``:
-    ``virtual_stages``, and ``job``, a :class:`~hetu_tpu_torch.parallel.
-    mesh.Job` where ranks are not processes of a launcher's job); a
+    ``virtual_stages``, the collective schedule's knobs, and ``job``, a
+    :class:`~hetu_tpu_torch.parallel.mesh.Job` where ranks are not
+    processes of a launcher's job); a
     pipeline refuses ``mesh``; without ``ctx`` or ``device`` the session's
     device is then the first stage's. Where the session names several
     devices of this process outside a job, ``local_ranks`` holds the
@@ -346,7 +353,7 @@ class HetuConfig:
                  overlap_options=None, gpipe=False, pipedream=False,
                  num_microbatches=None, pp_options=None, mesh=None,
                  parallel=None, rules=None, autoplan_options=None,
-                 **options):
+                 pipeline_mode=None, **options):
         # what a thread rank makes its own config from: every argument
         # but the graph and the rank's own device and mesh
         rank_options = {k: v for k, v in locals().items()
@@ -370,6 +377,11 @@ class HetuConfig:
             raise ValueError(
                 f"unknown cstable_policy {cstable_policy!r}; expected "
                 f"'Device', 'LRU', 'LFU', 'LFUOpt' or None")
+        if pipeline_mode not in (None, "collective"):
+            raise ValueError(
+                f"unknown pipeline_mode {pipeline_mode!r}; expected "
+                "'collective' (one tick loop over the stages' devices and "
+                "streams) or None (staged gpipe/pipedream runners)")
         if parallel not in (None, "auto"):
             raise ValueError(
                 f"unknown parallel={parallel!r}; expected 'auto' (the "
@@ -396,6 +408,7 @@ class HetuConfig:
                                      train_name)
             gpipe = planned.get("gpipe", gpipe)
             pipedream = planned.get("pipedream", pipedream)
+            pipeline_mode = planned.get("pipeline_mode", pipeline_mode)
             num_microbatches = planned.get("num_microbatches",
                                            num_microbatches)
             if "pp_options" in planned:
@@ -413,12 +426,14 @@ class HetuConfig:
             # the ranks run the plan this config chose: its kwargs, and
             # no planner of their own
             rank_options.update(gpipe=gpipe, pipedream=pipedream,
+                                pipeline_mode=pipeline_mode,
                                 num_microbatches=num_microbatches,
                                 pp_options=pp_options,
                                 overlap_options=overlap_options,
                                 parallel=None, autoplan_options=None)
-        self.use_gpipe = bool(gpipe)
+        self.use_gpipe = bool(gpipe) or pipeline_mode == "collective"
         self.use_pipedream = bool(pipedream)
+        self.pipeline_mode = pipeline_mode
         self.num_microbatches = num_microbatches
         self.pp_options = dict(pp_options or {})
         pipeline = self.use_gpipe or self.use_pipedream
@@ -1118,7 +1133,10 @@ class Executor:
         self._stage_layouts = {}
         if config.use_gpipe or config.use_pipedream:
             from .parallel.pipeline import PipelineSubExecutor
-            schedule = "gpipe" if config.use_gpipe else "1f1b"
+            if config.pipeline_mode == "collective":
+                schedule = "collective"
+            else:
+                schedule = "gpipe" if config.use_gpipe else "1f1b"
             self.subexecutors = {
                 name: PipelineSubExecutor(name, nodes, config, schedule,
                                           config.num_microbatches)

@@ -8,6 +8,9 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
   ``gpipe=True`` / ``pipedream=True``), with the interleaved schedule's
   helpers; a stage whose context is a tuple of devices runs on one
   rank a device, tensor or data parallel inside;
+* ``collective_pp`` — the collective pipeline (``pipeline_mode=
+  "collective"``): GPipe over a uniform chain as one tick loop over
+  each stage's device and stream, interleaved under ``virtual_stages``;
 * ``p2p`` — the host TCP channel that carries stage boundaries between
   worker processes;
 * ``mesh`` — rank meshes over ``torch.distributed``, one process group
@@ -36,8 +39,7 @@ Counterpart of ``hetu_tpu/parallel/``. Ported so far:
   ``LocalMesh``) run as thread ranks of the process, each on its own
   clone of the graph, over a ``LocalJob``.
 
-The collective pipeline waits for ROADMAP item 11b.2, a split parameter
-on a parameter server for 11b.5;
+A split parameter on a parameter server waits for ROADMAP item 11b.5;
 the sp axis beside model axes, in a pipeline and on a parameter server
 for 11c.1-11c.3.
 """

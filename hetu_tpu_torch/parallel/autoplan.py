@@ -1055,8 +1055,10 @@ def plan_overrides(eval_nodes, plan, info=None, device=None):
     executor kwargs of a session that runs it (``Executor(nodes,
     **plan_overrides(...))``, the user's own kwargs beside them).
 
-    * A ``collective`` plan (a uniform chain at V > 1) is refused: the
-      collective pipeline is ROADMAP item 11b.2.
+    * A ``collective`` plan (a uniform chain at V > 1) runs as
+      ``pipeline_mode="collective"`` with its ``virtual_stages``; in a
+      launcher's job its stages span the worker processes, which the
+      collective pipeline refuses, as the reference's does.
     * dp and tp without a pipeline: ``mesh`` over the plan's ranks,
       ``{"dp": dp, "tp0": ..., ...}`` (tp by its prime factors). In a
       launcher's job it is a mesh over the job's first dp·tp ranks
@@ -1077,13 +1079,6 @@ def plan_overrides(eval_nodes, plan, info=None, device=None):
     in_job = _in_job()
     overrides = apply_plan(eval_nodes, plan, info=info, device=device,
                            in_job=in_job)
-    if overrides.get("pipeline_mode") == "collective":
-        raise NotImplementedError(
-            f"the chosen plan {plan.describe()} runs the collective "
-            f"pipeline (pipeline_mode='collective', V={plan.V} virtual "
-            f"stages over a uniform chain), which is ROADMAP item 11b.2 "
-            f"and not ported; pass autoplan_options={{'max_pp': 1}} or "
-            f"place stages by hand with gpipe=True")
     world = dist.get_world_size() if dist.is_initialized() else \
         int(os.environ.get("HETU_NUM_PROCS", "1"))
     if in_job and plan.nworld > world:

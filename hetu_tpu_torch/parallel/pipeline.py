@@ -1,4 +1,5 @@
-"""Pipeline-parallel training: GPipe and PipeDream 1F1B.
+"""Pipeline-parallel training: GPipe, PipeDream 1F1B and the collective
+schedule.
 
 Counterpart of ``hetu_tpu/parallel/pipeline.py`` (reference parity:
 SubExecutor4Gpipe, executor.py:457-809, and SubExecutor4Pipedream,
@@ -36,6 +37,15 @@ or ``pipedream=True`` (with ``num_microbatches``) to the Executor.
   cotangents go with its stash. SGD's sparse update writes the table in
   place and would change a stash, so PipeDream refuses SGD on an
   embedding table.
+* **Collective** (`_run_collective`, ``pipeline_mode="collective"``):
+  GPipe's math as one tick loop over each stage's device and stream
+  (:mod:`.collective_pp`): at tick t stage r runs microbatch t - r, the
+  backward is the reverse tick loop, boundaries cross as device tensors
+  ordered by events, one update a step. Its contract is the
+  reference's: a linear chain of one boundary shape, homogeneous
+  stages, the loss on the last, one device a stage (``virtual_stages``
+  V > 1: stage i on device i mod S/V), no stage over several ranks,
+  all in one process.
 * **Across worker processes** (``HETU_NUM_PROCS`` > 1, stages owned by
   ``'worker<k>'`` hostnames or ``HETU_HOSTS``): each rank runs its own
   stages' share of the same global schedule; boundaries cross the host
@@ -61,7 +71,7 @@ or ``pipedream=True`` (with ``num_microbatches``) to the Executor.
   k mod width of the sending group and cuts its own layout locally;
   adjoints cross back alike.
 
-The LR scheduler advances once per global step under both schedules;
+The LR scheduler advances once per global step under every schedule;
 all M updates of a 1F1B step share its rate and step count. ``run``
 returns the mean of the microbatch losses for the loss node (on the
 rank that owns it; None elsewhere) and None for the other eval nodes
@@ -275,7 +285,7 @@ class PipelineSubExecutor:
 
     def __init__(self, name, eval_node_list, config, schedule="gpipe",
                  num_microbatches=None):
-        if schedule not in ("gpipe", "1f1b"):
+        if schedule not in ("gpipe", "1f1b", "collective"):
             raise ValueError(f"unknown pipeline schedule {schedule!r}")
         self.name = name
         self.config = config
@@ -311,7 +321,8 @@ class PipelineSubExecutor:
             config.pp_options.get("virtual_stages", 1)))
         self.num_microbatches = int(num_microbatches
                                     or max(2, len(self.stages)))
-        if self.virtual_stages > 1 and self.multiproc:
+        if self.virtual_stages > 1 and self.multiproc and \
+                schedule != "collective":
             # the interleaved schedule is round-robin ownership under the
             # unchanged 1F1B order; a blocked placement would forfeit it
             owners = [tuple(s.ranks) for s in self.stages]
@@ -334,6 +345,7 @@ class PipelineSubExecutor:
                     f"gpipe=True or an optimizer whose sparse update is out "
                     f"of place (Adam, AdaGrad)")
         self._feed_shapes = None
+        self._cpp = None        # the collective schedule, built at step 1
 
     # ------------------------------------------------------------------
     def _build_stages(self, topo):
@@ -593,8 +605,10 @@ class PipelineSubExecutor:
                 if k % len(st.ranks) != me:
                     continue
                 if dst == self.my_rank:
-                    self._inbox[(reader.index, m, node)] = value.to(
-                        reader.device)
+                    self._inbox[(reader.index, m, node)] = \
+                        value.to(reader.device) if self._cpp is None \
+                        else self._cpp.send(value, reader.index,
+                                             reader.device)
                 else:
                     self.job.channel().send(
                         dst, self._tag(kind, m, node, reader), value)
@@ -607,7 +621,8 @@ class PipelineSubExecutor:
                           else self.assign[node]]
         k = st.ranks.index(self.my_rank)
         if src.ranks[k % len(src.ranks)] == self.my_rank:
-            return self._inbox.pop((st.index, m, node))
+            value = self._inbox.pop((st.index, m, node))
+            return value if self._cpp is None else self._cpp.receive(value)
         return self.job.channel().recv(self._tag(kind, m, node, st)).to(
             st.device)
 
@@ -707,6 +722,122 @@ class PipelineSubExecutor:
 
         _drive_1f1b(forward, backward, len(self.stages), M)
 
+    def _build_collective(self, executor):
+        """The collective schedule over the stages (JAX package
+        pipeline.py:1012-1115): the reference's contract, checked in its
+        order with its words, then the lanes' streams."""
+        from .collective_pp import CollectiveGPipe
+        stages = self.stages
+        S = len(stages)
+        if any(len(st.ranks) > 1 for st in stages):
+            raise ValueError(
+                "pipeline_mode='collective' does not compose with "
+                "in-stage TP/DP meshes yet; use the staged runners")
+        if self.multiproc:
+            raise ValueError(
+                "pipeline_mode='collective' is the in-slice SPMD mode; "
+                "stages spanning worker processes keep the staged "
+                "runners (the p2p channel is the DCN transport)")
+        if S < 2:
+            raise ValueError(
+                "pipeline_mode='collective' needs >= 2 stages (wrap "
+                "layer blocks in distinct ht.context(...) scopes)")
+        # a stage's device is its context's (kind, id): gpu(0)..gpu(3)
+        # are four devices even where they share one card
+        devs = [f"{st.ctx[0].kind}:{st.ctx[0].device_id}" for st in stages]
+        V = self.virtual_stages
+        if V > 1:
+            if S % V != 0:
+                raise ValueError(
+                    f"virtual_stages={V} must divide the stage count "
+                    f"{S}: build V chunks per device (contexts "
+                    f"cycling over the same device list V times)")
+            s_dev = S // V
+            if len(set(devs[:s_dev])) != s_dev or any(
+                    devs[i] != devs[i % s_dev] for i in range(S)):
+                raise ValueError(
+                    f"interleaved collective pipeline needs round-robin "
+                    f"placement: stage i on device i % {s_dev} "
+                    f"(got {devs}) — cycle the ht.context(...) device "
+                    f"list V={V} times over the same devices")
+        elif len(set(devs)) != S:
+            raise ValueError(
+                "pipeline_mode='collective' needs one distinct "
+                f"device per stage; got {devs} — on a single chip "
+                "use the staged/fused runners instead (or fold "
+                "stages with pp_options virtual_stages)")
+        loss_stage = self.assign[self.loss_node]
+        if loss_stage != S - 1:
+            raise ValueError(
+                f"collective pipeline expects the loss on the last "
+                f"stage (found on stage {loss_stage})")
+        exported = [[n for n in self._readers if n in self.assign
+                     and self.assign[n] == i] for i in range(S)]
+        for i, st in enumerate(stages):
+            if i == 0 and st.in_nodes:
+                raise ValueError("stage 0 must not consume boundaries")
+            if i > 0 and (len(st.in_nodes) != 1 or
+                          self.assign[st.in_nodes[0]] != i - 1):
+                raise ValueError(
+                    f"collective pipeline needs a linear chain with one "
+                    f"boundary tensor per stage; stage {i} consumes "
+                    f"{[(n.name, self.assign[n]) for n in st.in_nodes]}")
+            if i < S - 1 and len(exported[i]) != 1:
+                raise ValueError(
+                    f"stage {i} must export exactly one boundary tensor "
+                    f"(got {len(exported[i])})")
+        shapes0 = [tuple(executor.params[str(p.id)].shape)
+                   for p in stages[0].param_nodes]
+        for st in stages[1:]:
+            shp = [tuple(executor.params[str(p.id)].shape)
+                   for p in st.param_nodes]
+            if shp != shapes0:
+                raise ValueError(
+                    "collective pipeline needs homogeneous stages: "
+                    f"stage {st.index} params {shp} != stage 0 "
+                    f"{shapes0} — make the stage blocks uniform or use "
+                    "the staged runners")
+        first = tuple(exported[0][0].inferred_shape)
+        for i in range(1, S - 1):
+            shape = tuple(exported[i][0].inferred_shape)
+            if shape != first:
+                raise ValueError(
+                    "collective pipeline needs one uniform boundary "
+                    f"shape; stage {i} emits {shape} after {first}")
+        opts = {k: v for k, v in self.config.pp_options.items()
+                if k not in ("job", "boundary_rtol")}
+        opts.setdefault("virtual_stages", V)
+        cpp = CollectiveGPipe(S, self.num_microbatches, **opts)
+        cpp.bind([stages[r].device for r in range(cpp.S_dev)])
+        return cpp
+
+    def _run_collective(self, executor):
+        """One step of the collective schedule: every tick's forwards on
+        their lanes' streams, the reverse ticks' backwards, the gradients
+        summed over microbatches on each stage's lane, then one update a
+        stage there."""
+        cpp = self._cpp
+        acc = [{} for _ in self.stages]
+
+        def forward(chunk, m):
+            with cpp.on_lane(chunk):
+                self._forward(executor, self.stages[chunk], m)
+
+        def backward(chunk, m):
+            with cpp.on_lane(chunk):
+                grads = self._backward(executor, self.stages[chunk], m)
+                for p, g in grads.items():
+                    acc[chunk][p] = _accumulate(acc[chunk].get(p), g)
+
+        cpp.begin()
+        try:
+            cpp.run(forward, backward)
+            for st in self.stages:
+                with cpp.on_lane(st.index):
+                    self._apply(executor, st, acc[st.index])
+        finally:
+            cpp.end()
+
     # ------------------------------------------------------------------
     def _split_feeds(self, feed_dict, M):
         """Every stage's feeds of each microbatch, on its device; every
@@ -717,8 +848,14 @@ class PipelineSubExecutor:
         if missing:
             raise ValueError(f"no feed for placeholder(s) {missing}")
         feeds, shapes, done = {}, {}, {}
+        every = [n for st in self.stages for n in st.feed_nodes]
+        # the collective schedule's replicated transport: every feed on
+        # every stage's device
+        replicated = self.schedule == "collective" and \
+            self.config.pp_options.get("feed_mode") == "replicated"
         for st in self.stages:
-            for node in st.feed_nodes:
+            for node in dict.fromkeys(every) if replicated \
+                    else st.feed_nodes:
                 value = feed_dict[node]
                 if isinstance(value, NDArray):
                     value = value.tensor
@@ -793,9 +930,15 @@ class PipelineSubExecutor:
         M = self.num_microbatches
         self._feeds, shapes = self._split_feeds(feed_dict or {}, M)
         self._infer_shapes(shapes)
+        if self.schedule == "collective":
+            if self._cpp is None:
+                self._cpp = self._build_collective(executor)
+            self._cpp.check_feeds([
+                [((M,) + shapes[n], self._feeds[(st.index, 0)][n].dtype)
+                 for n in st.feed_nodes] for st in self.stages])
         self._lr = float(self.optimizer.learning_rate)
         scale = float(self.optimizer.loss_scale or 1.0)
-        self._seed_scale = scale / M if self.schedule == "gpipe" else scale
+        self._seed_scale = scale if self.schedule == "1f1b" else scale / M
         self._envs, self._inbox, self._losses = {}, {}, []
         for st in self.stages:      # the weights as the executor holds them
             st.compute_params = None
@@ -804,6 +947,8 @@ class PipelineSubExecutor:
             with _EXACT_F32_CONVS if exact else contextlib.nullcontext():
                 if self.schedule == "gpipe":
                     self._run_gpipe(executor, M)
+                elif self.schedule == "collective":
+                    self._run_collective(executor)
                 else:
                     self._run_1f1b(executor, M)
             losses = self._losses

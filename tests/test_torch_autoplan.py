@@ -8,9 +8,9 @@ training against the JAX package's run of the same graph (rtol 2e-4,
 atol 1e-5), on plans of each kind (dp, tp, pp; the port runs dp and tp
 on thread ranks of one process, the JAX package on its host devices);
 ``HETU_AUTOPLAN_REPORT`` and the launcher's ``--autoplan`` in a
-subprocess; two launcher ranks agreeing on one plan; and the refusals
-(a ``collective`` plan, naming ROADMAP item 11b.2; no card where one was
-not asked for).
+subprocess; two launcher ranks agreeing on one plan; a ``collective``
+plan run as ``pipeline_mode="collective"``; and the refusals (no card
+where one was not asked for).
 """
 import json
 import os
@@ -474,32 +474,50 @@ def test_virtual_chunks_fold_onto_ranks_as_the_reference():
 
 
 def test_collective_plan_is_refused_naming_11b2():
+    """A ``collective`` plan (a uniform chain at V > 1) is applied as the
+    JAX package applies it: ``pipeline_mode="collective"`` with its
+    ``virtual_stages`` and M, the chunks on the reference's contexts."""
     x, y_, loss, train, feeds = _chain(tht, layers=8, h=32)
     info = taplan.graph_costs([loss, train], feed_shapes=feeds)
     plan = taplan.Plan(dp=1, tp=1, pp=2, M=4, V=2, schedule="collective")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.2"):
-        taplan.plan_overrides([loss, train], plan, info=info, device="cpu")
+    ov = taplan.plan_overrides([loss, train], plan, info=info, device="cpu")
+    assert ov["pipeline_mode"] == "collective"
+    assert ov["pp_options"]["virtual_stages"] == 2
+    assert ov["num_microbatches"] == 4 and not ov.get("gpipe")
+    jx, jy, jloss, jtrain, jfeeds = _chain(jht, layers=8, h=32)
+    jov = japlan.apply_plan([jloss, jtrain], plan, info=japlan.graph_costs(
+        [jloss, jtrain], feed_shapes=jfeeds))
+    assert {k: jov[k] for k in ("pipeline_mode", "num_microbatches")} == \
+        {k: ov[k] for k in ("pipeline_mode", "num_microbatches")}
+    assert jov["pp_options"]["virtual_stages"] == 2
 
 
 def test_collective_choice_is_refused_by_the_executor(tmp_path):
     """A uniform chain whose cheapest plan over two devices is the
     interleaved collective pipeline (V=4), which survives the uniformity
-    check: the JAX package applies it as ``pipeline_mode="collective"``;
-    the port's executor refuses it loudly rather than run it as GPipe."""
+    check: both packages choose it and run it as ``pipeline_mode=
+    "collective"``; the port's ``parallel="auto"`` session trains it as
+    the JAX package's does, 3 losses within 1e-5."""
     widths = [(256, 256)] * 8
-    x, y_, loss, train, feeds = _chain(jht, widths=widths, rows=64)
-    jdb = _synthetic_db(JDB, tmp_path / "j.json", 1000.0, 1e-6)
-    res = japlan.choose_plan([loss, train], nworld=2, db=jdb,
-                             feed_shapes=feeds, rules={"out": None})
-    ov = japlan.apply_plan([loss, train], res.plan, info=res.info)
-    assert ov["pipeline_mode"] == "collective" and res.plan.V == 4
-    x, y_, loss, train, feeds = _chain(tht, widths=widths, rows=64)
-    tdb = _synthetic_db(TDB, tmp_path / "t.json", 1000.0, 1e-6)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP item 11b\.2"):
-        tht.Executor([loss, train], ctx=tht.cpu(0), parallel="auto",
-                     rules={"out": None},
-                     autoplan_options={"nworld": 2, "db": tdb,
-                                       "feed_shapes": feeds})
+    losses, plans = {}, {}
+    for name, (ht, ap, DB, kw) in PACKAGES.items():
+        x, y_, loss, train, feeds = _chain(ht, widths=widths, rows=64)
+        db = _synthetic_db(DB, tmp_path / f"{name}.json", 1000.0, 1e-6)
+        exe = ht.Executor([loss, train], parallel="auto",
+                          rules={"out": None},
+                          autoplan_options={"nworld": 2, "db": db,
+                                            "feed_shapes": feeds}, **kw)
+        plan = exe.config.autoplan.plan
+        assert plan.schedule == "collective" and plan.V == 4
+        assert exe.config.pipeline_mode == "collective"
+        plans[name] = ap.plan_key(plan)
+        xv, yv = _rows(64, 256, 256)
+        losses[name] = _run(exe, x, y_, xv, yv)
+    sub = exe.subexecutors["default"]
+    assert sub.schedule == "collective"
+    assert (sub._cpp.V, sub._cpp.S_dev) == (4, 2)
+    assert plans["port"] == plans["jax"]
+    np.testing.assert_allclose(losses["port"], losses["jax"], rtol=1e-5)
 
 
 def test_more_microbatches_than_rows_is_refused_by_both():

@@ -397,14 +397,16 @@ def test_reference_options_are_accepted(tmp_path):
     cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), mesh=None,
                          overlap_options={"bucket_bytes": 1 << 20})
     assert cfg.overlap.bucket_bytes == 1 << 20 and cfg.mesh is None
-    for option in ({"pipeline_mode": "collective"},
-                   {"telemetry": None},
+    for option in ({"telemetry": None},
                    {"health_options": None}, {"validate": "warn"},
                    {"log_path": str(tmp_path)}):
         with pytest.raises(TypeError, match="ROADMAP"):
             tht.HetuConfig([loss], ctx=tht.cpu(0), **option)
     # the pipelines are ported: gpipe is accepted (tests/test_torch_pipeline.py)
     assert tht.HetuConfig([loss], ctx=tht.cpu(0), gpipe=True).use_gpipe
+    # so is the collective pipeline (tests/test_torch_collective_pp.py)
+    assert tht.HetuConfig([loss], ctx=tht.cpu(0),
+                          pipeline_mode="collective").use_gpipe
 
 
 def test_contexts_place_workers_as_the_reference_does(monkeypatch):

@@ -371,9 +371,10 @@ def test_refusals_name_their_roadmap_sub_items():
     # tests/test_torch_autoplan.py); an unknown parallel= still raises
     with pytest.raises(ValueError, match="unknown parallel"):
         tht.HetuConfig(nodes, device="cpu", parallel="manual")
-    with pytest.raises(TypeError, match=r"ROADMAP item 11b\.2"):
-        tht.HetuConfig(nodes, device="cpu", gpipe=True,
-                       pipeline_mode="collective")
+    # the collective pipeline is ported (tests/test_torch_collective_pp.py)
+    config = tht.HetuConfig(nodes, device="cpu", gpipe=True,
+                            pipeline_mode="collective")
+    assert config.use_gpipe and config.pipeline_mode == "collective"
     # a pipeline plans each stage (tests/test_torch_pp_tp.py): no session
     # mesh, no refusal
     config = tht.HetuConfig(nodes, device="cpu", gpipe=True)
