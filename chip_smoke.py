@@ -38,8 +38,9 @@ planner (a CostDB measured on the card, its finalists timed, the chosen
 plan trained through ``Executor(parallel="auto")``, and a launcher job's
 ``--autoplan``); a 2-layer GCN through ``distgcn_15d_op`` at (gr, gc) = (2, 2)
 as four launcher ranks and as four thread ranks; the port's runner zoo
-through its launcher and its BERT example; and WDL's
-Hybrid mode across two workers — checks
+through its launcher and its BERT example; WDL's
+Hybrid mode across two workers; and, with telemetry on, the training
+step, the request-level plane and a two-process pipeline job — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
@@ -324,6 +325,26 @@ object per line (``--out`` also writes them to FILE):
 * ``sp_parity`` the GPT at 2 layers (ring and Ulysses) and BERT-small at
   1 layer in f32 (``simt`` K2-K4), 3 Adam steps, two sp ranks against
   one process: losses, Adam's first moments and the weights;
+* ``telemetry_train`` the ``train`` model and rows in two executors
+  over one graph, one with ``telemetry=<dir>`` and ``log_path``, one
+  with telemetry off, 8 steps each interleaved: the traced and untraced
+  step p50 and their ratio, and the checks (losses bit-equal, the trace
+  valid with one ``step`` span a run, ``h2d_transfer`` and ``h2d_bytes``
+  the feeds' bytes, ``step_wall_ms``, the memory gauges beside
+  ``torch.cuda.max_memory_allocated``, a step-log line a step, K2/K3/K4
+  12 a step on ``tc``; two more steps under ``profiler.trace`` whose
+  Chrome trace names the three ``tc`` kernels 24 times each);
+* ``telemetry_serve`` ``serve_dense``'s plane with one enabled
+  Telemetry, 4 clients x 4 requests: ``/metrics`` (200, the serving
+  histograms, its latency), ``/v1/requests``, ``/stats``, every request
+  recorded at every hop, ``requests_rank0.json`` flushed, the replies
+  against a decoder with telemetry off, K1 on ``simt``;
+* ``telemetry_job`` a two-rank launcher job of two GPipe stages (2
+  layers, 1 + 2 steps; each ``python chip_smoke.py --telemetry-worker
+  SPEC``) with ``--telemetry``, then without: the merged trace through
+  ``python -m hetu_tpu_torch.telemetry.check``, spans of both ranks,
+  ``p2p_*`` / ``pp_*`` spans, ``pp_bubble_fraction``, both metrics
+  files, the losses equal to the untraced job's;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -384,6 +405,9 @@ DENSE_PROMPT_BUCKET = 256
 DENSE_SEQ_BUCKET = 1024             # the session's sequence bucket
 DENSE_CLIENTS, DENSE_PER_CLIENT = 16, 4
 DENSE_MAX_BATCH, DENSE_MAX_WAIT_MS = 8, 5
+# telemetry_serve: the same plane at 4 closed-loop clients over two
+# replicas, so a tick pads its batch to 1, 2 or 4
+TEL_SERVE_CLIENTS, TEL_SERVE_PER_CLIENT = 4, 4
 DENSE_DECODE_STEPS = 20             # timed decode_step calls (:1245-1252)
 DENSE_NO_CACHE_STEPS = 4            # no-cache recompute steps (:1233-1242)
 # sess.predict's logits, K1 against its plain version (f32, B=8 S=1024):
@@ -635,11 +659,13 @@ BERT_LONG_REP = dict(b=8, h=8, s=2048, d=64, dtype="bfloat16", causal=False,
 K1_PREFILL_REP = dict(b=DENSE_MAX_BATCH, h=12, s=DENSE_PROMPT_BUCKET, d=64,
                       dtype="float32", causal=True, mask=None)
 K1_SESSION_REP = dict(K1_PREFILL_REP, s=DENSE_SEQ_BUCKET)
+# telemetry_serve's prefill: its largest tick (B=4) in the prompt bucket
+K1_TEL_SERVE_REP = dict(K1_PREFILL_REP, b=TEL_SERVE_CLIENTS)
 # K1 in the autoplan phase's per-op profile: train's attention, eval
 # forward
 K1_PROFILE_REP = dict(TRAIN_REP)
 K1_REPS = (K1_REP, BERT_K1_REP, K1_PREFILL_REP, K1_SESSION_REP,
-           K1_PROFILE_REP)
+           K1_TEL_SERVE_REP, K1_PROFILE_REP)
 # device kernels of the profiled training step, by name (first match)
 PROFILE_CATEGORIES = (
     ("flash attention (K1-K4)", ("flash_fwd", "flash_bwd_")),
@@ -668,6 +694,32 @@ DEVICE_LAUNCHES = {"K1": ("flash_fwd",), "K2": ("flash_fwd_lse",),
 
 def log(msg):
     print(f"[chip_smoke] {msg}", file=sys.stderr, flush=True)
+
+
+def _reuse_weight_draws():
+    """Keep each named weight's initial draw (``PlaceholderOp.
+    initial_value``) for the rest of the process and hand out copies:
+    the phases build the same models again and again (GPT-2-small in
+    some twenty executors here and in the jobs' ranks), and numpy's draw
+    of its 124M weights is most of an executor's setup (about 6 s on the
+    H100's host). Every executor starts from the same values as before;
+    only ``executor_setup_s`` after a model's first build shrinks."""
+    import threading
+    from hetu_tpu_torch.ops.variable import PlaceholderOp
+    draw = PlaceholderOp.initial_value
+    kept, lock = {}, threading.Lock()
+
+    def initial_value(self, seed=0):
+        init = self.initializer
+        if self.tensor_value is not None or init is None:
+            return draw(self, seed)
+        key = (self.name, seed, type(init), repr(sorted(vars(init).items())))
+        with lock:
+            if key not in kept:
+                kept[key] = draw(self, seed)
+            return kept[key].copy()
+
+    PlaceholderOp.initial_value = initial_value
 
 
 def nvidia_smi_line():
@@ -720,8 +772,9 @@ FLASH_WORK = {"K1": (4, 4, 0), "K2": (4, 4, 1), "K3": (8, 6, 2),
 # row with each of its masks and causal on/off. The "half" mask hides the
 # second half of the first batch element's keys and every key of the
 # last one's rows where B > 1. D=64 is the main paths' (f32 serving on
-# the simt route, B=8 at S=256 and 1024 on the request-level plane,
-# bf16 BERT-base on tc, B=64 with BERT's padding); bf16 D=128 and the
+# the simt route, B=8 at S=256 and 1024 on the request-level plane and
+# the smaller ticks' B=1, 2, 4 at S=256, bf16 BERT-base on tc, B=64 with
+# BERT's padding); bf16 D=128 and the
 # ragged S=520 hold the other tensor-core instantiation and the TMA
 # edge; bf16 D=96 the simt route's bf16
 FWD_KERNEL_SHAPES = (
@@ -729,6 +782,7 @@ FWD_KERNEL_SHAPES = (
      (None, "half")),
     (("float32",), (DENSE_MAX_BATCH,), (DENSE_PROMPT_BUCKET, DENSE_SEQ_BUCKET),
      64, 12, (None,)),
+    (("float32",), (1, 2, 4), (DENSE_PROMPT_BUCKET,), 64, 12, (None,)),
     (("bfloat16",), (64,), (128,), 64, 12, (None, "half", "padding")),
     (("bfloat16",), (TRAIN_BATCH,), (1024,), 64, 12, (None,)),  # autoplan
     (("bfloat16",), (4,), (512, 1024), 128, 12, (None, "half")),
@@ -2492,8 +2546,10 @@ def dp_worker(spec):
 LAUNCHER = os.path.join(ROOT, "hetu_tpu_torch", "run_launcher.py")
 
 
-def _launch_job(name, config, flag, spec, timeout, sample_card):
-    """``python hetu_tpu_torch/run_launcher.py -c <config>`` running
+def _launch_job(name, config, flag, spec, timeout, sample_card,
+                launcher_args=()):
+    """``python hetu_tpu_torch/run_launcher.py -c <config>
+    [launcher_args]`` running
     ``python chip_smoke.py <flag> SPEC`` in each worker, in a session of
     its own killed whole if it outlives ``timeout``; ``spec["out"]`` is a
     temp dir (removed by the caller) for the workers' records. With
@@ -2504,7 +2560,7 @@ def _launch_job(name, config, flag, spec, timeout, sample_card):
     cfg = os.path.join(spec["out"], "cluster.yml")
     with open(cfg, "w") as f:
         f.write(config)
-    cmd = [sys.executable, LAUNCHER, "-c", cfg,
+    cmd = [sys.executable, LAUNCHER, "-c", cfg, *launcher_args,
            sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag,
            json.dumps(spec)]
     # the launcher keeps a leaked fleet environment from its servers and
@@ -5617,26 +5673,27 @@ def _post(port, ids, gen, rid):
     return body
 
 
-def _http_clients(port, prompts, gen):
-    """DENSE_CLIENTS closed-loop client threads, each POSTing
-    DENSE_PER_CLIENT of ``prompts`` in turn. Returns ({request index:
+def _http_clients(port, prompts, gen, clients=DENSE_CLIENTS,
+                  per_client=DENSE_PER_CLIENT, rid="dense"):
+    """``clients`` closed-loop client threads, each POSTing
+    ``per_client`` of ``prompts`` in turn. Returns ({request index:
     tokens}, client latencies in ms)."""
     import threading
     out, latency, errors = {}, [], []
 
     def client(k):
         try:
-            for i in range(k * DENSE_PER_CLIENT, (k + 1) * DENSE_PER_CLIENT):
+            for i in range(k * per_client, (k + 1) * per_client):
                 t0 = time.perf_counter()
                 body = _post(port, prompts[i:i + 1].tolist(), gen,
-                             f"dense-{i}")
+                             f"{rid}-{i}")
                 latency.append((time.perf_counter() - t0) * 1e3)
                 out[i] = np.asarray(body["outputs"][0])
         except Exception as e:                      # noqa: BLE001
             errors.append(e)
 
     threads = [threading.Thread(target=client, args=(k,))
-               for k in range(DENSE_CLIENTS)]
+               for k in range(clients)]
     for t in threads:
         t.start()
     for t in threads:
@@ -5644,6 +5701,22 @@ def _http_clients(port, prompts, gen):
     if errors:
         raise errors[0]
     return out, latency
+
+
+def _dense_tick(decoder):
+    """A MicroBatcher tick over ``decoder``: the batch padded to the next
+    power of two with its last row, every row generated to the longest
+    request's ``gen``."""
+    from hetu_tpu_torch.serving import next_bucket
+
+    def tick(feeds):
+        x, gen = feeds["ids"], int(np.max(feeds["gen"]))
+        n = len(x)
+        b = next_bucket(n)
+        if b > n:
+            x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
+        return decoder.generate(x, gen)[:n]
+    return tick
 
 
 def _k1_counts(launches):
@@ -5687,7 +5760,7 @@ def serve_dense(torch, seed, card):
     from hetu_tpu_torch.ops import flash_attention as fa
     from hetu_tpu_torch.serving import (GPTDecoder, InferenceSession,
                                         MicroBatcher, ReplicaRouter,
-                                        ServingHTTPServer, next_bucket)
+                                        ServingHTTPServer)
 
     torch.cuda.reset_peak_memory_stats()
     cfg = M.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
@@ -5723,16 +5796,6 @@ def serve_dense(torch, seed, card):
         for n in rng.integers(16, pb + 1, n_req)])  # the client's padding
     x8 = prompts[:DENSE_MAX_BATCH]
 
-    def tick_fn(d):
-        def tick(feeds):
-            x, gen = feeds["ids"], int(np.max(feeds["gen"]))
-            n = len(x)
-            b = next_bucket(n)
-            if b > n:
-                x = np.concatenate([x, np.repeat(x[-1:], b - n, axis=0)])
-            return d.generate(x, gen)[:n]
-        return tick
-
     # the untimed warm pass, on this thread before any server thread
     # launches: every batch bucket on both decoders
     for d in decs:
@@ -5742,7 +5805,8 @@ def serve_dense(torch, seed, card):
             b *= 2
     torch.cuda.synchronize()
 
-    batchers = [MicroBatcher(tick_fn(d), max_batch_size=DENSE_MAX_BATCH,
+    batchers = [MicroBatcher(_dense_tick(d),
+                             max_batch_size=DENSE_MAX_BATCH,
                              max_wait_ms=DENSE_MAX_WAIT_MS,
                              name=f"replica{i}") for i, d in enumerate(decs)]
     router = ReplicaRouter(batchers)
@@ -5880,7 +5944,7 @@ def serve_dense(torch, seed, card):
                              f"{tf_tokens.tolist()}, plain K1 "
                              f"{plain_tokens.tolist()}")
 
-    tick = tick_fn(dec)
+    tick = _dense_tick(dec)
     profile = profile_window(torch, lambda: tick(
         {"ids": x8, "gen": np.full((len(x8), 1), MAX_NEW)}))
     peak = torch.cuda.max_memory_allocated()
@@ -6650,14 +6714,22 @@ def fleet_parity(seed):
     steps with its workers on the card, against the same fleet with its
     workers on the CPU (same seeds, tables drawn alike by the servers):
     each rank's losses within PS_LOSS_TOL relative, the server rows of
-    every id it touched within PS_ROW_TOL of their largest element."""
+    every id it touched within PS_ROW_TOL of their largest element. The
+    twins run at once: their numbers are only compared, and the card's
+    fleet shares the host with the CPU's (its samples/s is not
+    ps_fleet's measure; FLEETS' are)."""
+    from concurrent.futures import ThreadPoolExecutor
     servers, workers = FLEET_PARITY
     devices = ("cuda", "cpu")
-    runs = []
-    for device in devices:
+
+    def twin(device):
         t = time.perf_counter()
-        runs.append(run_fleet(seed, servers, workers, "bsp", device))
-        runs[-1][1]["seconds"] = time.perf_counter() - t
+        records, info = run_fleet(seed, servers, workers, "bsp", device)
+        info["seconds"] = time.perf_counter() - t
+        return records, info
+
+    with ThreadPoolExecutor(len(devices)) as pool:
+        runs = list(pool.map(twin, devices))
     out = {"servers": servers, "workers": workers, "mode": "BSP, host path",
            "steps": FLEET_PARITY_STEPS, "reference": "the same fleet, "
            "workers on the CPU", "loss_tol": PS_LOSS_TOL,
@@ -7837,6 +7909,498 @@ def bert_example(torch, card):
     return line, launches
 
 
+# ---------------------------------------------------------------------------
+# telemetry_train, telemetry_serve, telemetry_job: the telemetry layer on
+# (hetu_tpu_torch/telemetry) over the train, serve_dense and pp_fleet paths
+# ---------------------------------------------------------------------------
+
+TEL_WARMUP, TEL_STEPS = 2, 6      # each executor's, interleaved
+TEL_PROFILE_STEPS = 2             # under profiler.trace
+# the kernels torch.profiler's trace must name on train's path (tc route)
+TEL_TRACE_KERNELS = ("flash_fwd_tc_kernel", "flash_bwd_dkv_tc_kernel",
+                     "flash_bwd_dq_tc_kernel")
+TEL_SERVE_HISTS = ("serve_queue_wait_ms", "serve_ttft_ms", "serve_tpot_ms",
+                   "http_request_ms")
+TEL_JOB_LAYERS, TEL_JOB_WARMUP, TEL_JOB_STEPS = 2, 1, 2
+TEL_JOB_TIMEOUT_S = 300
+
+
+def _quiet_telemetry(tel):
+    """Stop ``tel`` being the process default and flushing at exit (its
+    directory is removed with the phase)."""
+    import atexit
+    from hetu_tpu_torch import telemetry
+    atexit.unregister(tel.flush)
+    if telemetry._default is tel:
+        telemetry._default = None
+
+
+def telemetry_train(torch, seed, card):
+    """``train``'s model and rows (GPT-2-small, B=8, S=1024, bf16, Adam,
+    dropout 0) in two executors over the one graph: one with
+    ``telemetry=<dir>`` and ``log_path=<dir>/steps.jsonl``, one with
+    telemetry off, TEL_WARMUP + TEL_STEPS steps each, interleaved, the
+    rows fed from the host. Checks: the traced losses bit-equal to the
+    untraced ones; the trace valid (``telemetry.check.validate``); one
+    ``step`` span a run; the ``h2d_transfer`` spans and ``h2d_bytes`` the
+    feeds' bytes; ``step_wall_ms`` counting every step; the memory
+    gauges read (beside ``torch.cuda.max_memory_allocated``); a JSON line
+    a step; K2/K3/K4 12 launches a step on ``tc`` for each executor. Then
+    TEL_PROFILE_STEPS traced steps under ``profiler.trace``, whose Chrome
+    trace must name TEL_TRACE_KERNELS 12 times a step each. Reports the
+    traced and untraced step p50 and their ratio (not gated). Returns
+    (line, launch counts of the interleaved steps)."""
+    import shutil
+    import tempfile
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch import profiler
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.telemetry import validate
+
+    cfg = M.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
+                      use_flash_attention=True)
+    seq = cfg.max_position_embeddings
+    ids = ht.Variable("input_ids", trainable=False)
+    labels = ht.Variable("labels", trainable=False)
+    _, loss = M.GPTLMHeadModel(cfg)(ids, labels)
+    lm = ht.reduce_mean_op(loss, [0, 1])
+    train_op = ht.optim.AdamOptimizer(learning_rate=TRAIN_LR).minimize(lm)
+    x, y = _pp_batch(seed, cfg.vocab_size, seq)
+    feeds = {ids: x, labels: y}                     # host rows: h2d a step
+    feed_bytes = int(x.nbytes + y.nbytes)
+    tdir = tempfile.mkdtemp(prefix="telemetry_train_")
+    try:
+        traced = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                             telemetry=tdir,
+                             log_path=os.path.join(tdir, "steps.jsonl"))
+        tel = traced.config.telemetry
+        plain = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                            telemetry=False)
+        if not tel.enabled or plain.config.telemetry.enabled:
+            raise AssertionError("telemetry_train: telemetry= not honored")
+        steps = TEL_WARMUP + TEL_STEPS
+        losses = {"traced": [], "untraced": []}
+        step_ms = {"traced": [], "untraced": []}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()                # main path starts
+        for _ in range(steps):
+            for key, exe in (("traced", traced), ("untraced", plain)):
+                t0 = time.perf_counter()
+                out = exe.run(feed_dict=feeds)
+                losses[key].append(float(out[0].asnumpy()))  # waits
+                step_ms[key].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)       # main path ends
+        peak_alloc = int(torch.cuda.max_memory_allocated())
+        gauges = {g: tel.metrics.peek(g)
+                  for g in ("memory_live_bytes", "memory_peak_bytes")}
+        h2d_counter = tel.counter_value("h2d_bytes")
+        wall_count = tel.metrics.histogram("step_wall_ms").count
+        traced.close()                              # flushes the files
+        trace = os.path.join(tdir, "trace_rank0.json")
+        n_events, errors = validate(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+        names = {}
+        for e in events:
+            if e["ph"] != "M":
+                names[e["name"]] = names.get(e["name"], 0) + 1
+        h2d = [e for e in events if e["name"] == "h2d_transfer"]
+        with open(os.path.join(tdir, "steps.jsonl")) as f:
+            step_lines = [json.loads(line) for line in f]
+
+        # two more traced steps under torch.profiler
+        trace_exe = ht.Executor([lm, train_op], dtype=torch.bfloat16,
+                                telemetry=tel)
+        trace_exe.run(feed_dict=feeds)[0].asnumpy()  # its state, warm
+        _build.reset_launch_counts()
+        with profiler.trace(os.path.join(tdir, "profile")) as prof:
+            for _ in range(TEL_PROFILE_STEPS):
+                trace_exe.run(feed_dict=feeds)[0].asnumpy()
+        profiled = dict(_build.launch_counts)
+        with open(prof.trace_path) as f:
+            kernel_events = [e for e in json.load(f)["traceEvents"]
+                             if e.get("cat") == "kernel"]
+        named = {k: sum(1 for e in kernel_events if k in e.get("name", ""))
+                 for k in TEL_TRACE_KERNELS}
+        del trace_exe, traced, plain
+        _quiet_telemetry(tel)
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    layers = cfg.num_hidden_layers
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), layers * 2 * steps)
+    got = {k: launches.get(k, 0) for k in want}
+    p50 = {k: float(np.median(v[TEL_WARMUP:])) for k, v in step_ms.items()}
+    checks = {
+        "losses_bit_equal": losses["traced"] == losses["untraced"],
+        "trace_events": n_events, "trace_errors": errors[:5],
+        "step_spans": names.get("step", 0),
+        "device_dispatch_spans": names.get("device_dispatch", 0),
+        "h2d_transfer_spans": len(h2d),
+        "h2d_transfer_bytes": sum(e["args"]["bytes"] for e in h2d),
+        "h2d_bytes_counter": h2d_counter,
+        "feed_bytes": feed_bytes * steps,
+        "step_wall_ms_count": wall_count,
+        "memory_gauges": gauges, "max_memory_allocated": peak_alloc,
+        "step_log_lines": len(step_lines),
+        "launches": got, "launches_want": want,
+        "profiler_kernel_events": named,
+        "profiler_launches": {k: profiled.get(k, 0)
+                              for k in (fa.K2, fa.K3, fa.K4)},
+        "profiler_want": layers * TEL_PROFILE_STEPS}
+    faults = []
+    if not checks["losses_bit_equal"] or not all(
+            np.isfinite(losses["traced"])):
+        faults.append(f"losses traced {losses['traced']} untraced "
+                      f"{losses['untraced']}")
+    if errors or checks["step_spans"] != steps or \
+            checks["step_wall_ms_count"] != steps or \
+            checks["step_log_lines"] != steps:
+        faults.append("trace / step counts")
+    if len(h2d) != 2 * steps or not (
+            checks["h2d_transfer_bytes"] == checks["h2d_bytes_counter"]
+            == checks["feed_bytes"]):
+        faults.append("h2d accounting")
+    if not gauges["memory_live_bytes"] or gauges["memory_peak_bytes"] \
+            is None or gauges["memory_peak_bytes"] > peak_alloc:
+        faults.append("memory gauges")
+    if got != want:
+        faults.append("launches")
+    if any(n != checks["profiler_want"] for n in named.values()) or any(
+            n != checks["profiler_want"]
+            for n in checks["profiler_launches"].values()):
+        faults.append("profiler.trace kernel events")
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "batch": TRAIN_BATCH, "seq": seq, "dtype": "bfloat16",
+            "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
+            "warmup_steps": TEL_WARMUP, "timed_steps": TEL_STEPS,
+            "losses": losses["traced"], "step_ms": step_ms,
+            "step_ms_p50_traced": p50["traced"],
+            "step_ms_p50_untraced": p50["untraced"],
+            "telemetry_overhead_ratio": p50["traced"] / p50["untraced"],
+            "checks": checks}
+    if faults:
+        raise AssertionError(f"telemetry_train: {faults}: {line}")
+    return line, launches
+
+
+def telemetry_serve(torch, seed, card):
+    """``serve_dense``'s plane (GPT-2-small f32, HTTP -> ReplicaRouter ->
+    two MicroBatchers -> GPTDecoder.from_session, K1 ``simt`` on the
+    prefill) with one enabled Telemetry through every layer, under
+    TEL_SERVE_CLIENTS closed-loop clients x TEL_SERVE_PER_CLIENT requests
+    of MAX_NEW tokens, K1 counted from 0. Checks: ``GET /metrics`` 200
+    with the serving histograms (TEL_SERVE_HISTS) and its latency;
+    ``GET /v1/requests`` and ``GET /stats``; each request's timeline
+    complete (recorded at every hop: HTTP, router, batcher queue and
+    latency, one count each); ``flush()`` writing ``requests_rank0.json``
+    beside the trace, no request left in flight; the replies equal a
+    telemetry-off decoder's generate of each request alone up to the
+    first top-2 logit gap under MARGIN_TOL, and one batch of every prompt
+    bit-equal between a decoder with telemetry on and one with it off.
+    Returns (line, launch counts)."""
+    import http.client
+    import shutil
+    import tempfile
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch import telemetry
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.serving import (GPTDecoder, InferenceSession,
+                                        MicroBatcher, ReplicaRouter,
+                                        ServingHTTPServer)
+
+    cfg = M.GPTConfig(**GPT2_SMALL, hidden_dropout_prob=0.0,
+                      use_flash_attention=True)
+    ids = ht.Variable("input_ids", trainable=False)
+    logits = M.GPTLMHeadModel(cfg)(ids)
+    tdir = tempfile.mkdtemp(prefix="telemetry_serve_")
+    tel = telemetry.Telemetry(enabled=True, out_dir=tdir, rank=0)
+    sess = InferenceSession([logits], seed=seed,
+                            seq_buckets=(DENSE_SEQ_BUCKET,))
+    decs = [GPTDecoder.from_session(sess, cfg, telemetry=tel,
+                                    prompt_buckets=(DENSE_PROMPT_BUCKET,))
+            for _ in range(2)]
+    off = GPTDecoder.from_session(sess, cfg, telemetry=False,
+                                  prompt_buckets=(DENSE_PROMPT_BUCKET,))
+    rng = np.random.default_rng(seed)
+    n_req = TEL_SERVE_CLIENTS * TEL_SERVE_PER_CLIENT
+    pb = DENSE_PROMPT_BUCKET
+    prompts = np.stack([
+        np.pad(rng.integers(0, cfg.vocab_size, int(n)), (0, pb - int(n)),
+               mode="edge") for n in rng.integers(16, pb + 1, n_req)])
+
+    for d in decs:                                  # untimed warm pass
+        b = 1
+        while b <= TEL_SERVE_CLIENTS:
+            d.generate(prompts[:b], 2)
+            b *= 2
+    torch.cuda.synchronize()
+    batchers = [MicroBatcher(_dense_tick(d),
+                             max_batch_size=DENSE_MAX_BATCH,
+                             max_wait_ms=DENSE_MAX_WAIT_MS,
+                             name=f"replica{i}", telemetry=tel)
+                for i, d in enumerate(decs)]
+    router = ReplicaRouter(batchers, telemetry=tel)
+    srv = ServingHTTPServer(router, host="127.0.0.1", telemetry=tel)
+
+    def get(port, path):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            t0 = time.perf_counter()
+            conn.request("GET", path)
+            resp = conn.getresponse()
+            body = resp.read()
+            return resp.status, body, (time.perf_counter() - t0) * 1e3
+        finally:
+            conn.close()
+
+    try:
+        port = srv.start()
+        _build.reset_launch_counts()                # main path starts
+        t0 = time.perf_counter()
+        got, latency = _http_clients(port, prompts, MAX_NEW,
+                                     TEL_SERVE_CLIENTS,
+                                     TEL_SERVE_PER_CLIENT, "tel")
+        wall = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)       # main path ends
+        m_status, m_body, m_ms = get(port, "/metrics")
+        r_status, r_body, _ = get(port, "/v1/requests")
+        s_status, s_body, _ = get(port, "/stats")
+        stats = router.stats()["replicas"]
+    finally:
+        srv.stop()
+        for mb in batchers:
+            mb.close()
+    try:
+        paths = tel.flush()
+        with open(os.path.join(tdir, "requests_rank0.json")) as f:
+            inflight = json.load(f)
+        n_events, errors = telemetry.validate(
+            os.path.join(tdir, "trace_rank0.json"))
+    finally:
+        _quiet_telemetry(tel)
+        shutil.rmtree(tdir, ignore_errors=True)
+    ticks = sum(r["replica"]["ticks"] for r in stats)
+
+    # the replies against a telemetry-off decoder: each request alone up
+    # to its first near-tie (teacher-forced margins), and one batch of
+    # every prompt bit-equal between the two decoders
+    checked = []
+    for i in range(n_req):
+        alone = off.generate(prompts[i:i + 1], MAX_NEW)
+        tf = sess.predict({ids: np.concatenate(
+            [prompts[i:i + 1], alone[:, :-1]], axis=1)})[0][0, pb - 1:]
+        _, n_ok, _ = _margin_checked(tf)
+        if not np.array_equal(got[i][0, :n_ok], alone[0, :n_ok]):
+            raise AssertionError(
+                f"telemetry_serve request {i}: {got[i].tolist()} against "
+                f"{alone.tolist()} with telemetry off (first {n_ok})")
+        checked.append(n_ok)
+    batch_on = decs[0].generate(prompts, MAX_NEW)
+    batch_off = off.generate(prompts, MAX_NEW)
+    text = m_body.decode()
+    snap = {s["name"]: s for s in tel.metrics.snapshot()}
+    hops = {"http_request_ms": snap.get("http_request_ms", {}).get("count"),
+            "router_latency_ms": snap.get("router_latency_ms",
+                                          {}).get("count"),
+            "serve_queue_wait_ms": snap.get("serve_queue_wait_ms",
+                                            {}).get("count"),
+            "replica_latency_ms": sum(
+                snap.get(f"replica{i}_latency_ms", {}).get("count", 0)
+                for i in range(2))}
+    rows_left = sum(len(c["requests"]) for c in inflight["components"])
+    checks = {
+        "metrics_status": m_status, "metrics_ms": m_ms,
+        "metrics_histograms": {h: f"# TYPE {h} summary" in text
+                               for h in TEL_SERVE_HISTS},
+        "requests_status": r_status,
+        "requests_in_flight": json.loads(r_body)["count"],
+        "stats_status": s_status,
+        "stats_healthy": json.loads(s_body)["healthy"],
+        "timeline_hops": hops, "requests": n_req,
+        "flushed": sorted(os.path.basename(p) for p in paths),
+        "requests_file_components": [c["kind"]
+                                     for c in inflight["components"]],
+        "requests_left_in_flight": rows_left,
+        "trace_events": n_events, "trace_errors": errors[:5],
+        "replies_checked_positions": checked,
+        "batch_on_equals_off": bool(np.array_equal(batch_on, batch_off)),
+        "k1": _k1_counts(launches), "ticks": ticks}
+    sess.close()
+    del sess, decs, off
+    torch.cuda.empty_cache()
+    faults = []
+    if m_status != 200 or not all(checks["metrics_histograms"].values()):
+        faults.append("/metrics")
+    if (r_status, s_status) != (200, 200) or checks["requests_in_flight"]:
+        faults.append("/v1/requests or /stats")
+    if any(v != n_req for v in hops.values()) or rows_left or \
+            "requests_rank0.json" not in checks["flushed"]:
+        faults.append("request timelines")
+    if errors or not checks["batch_on_equals_off"]:
+        faults.append("trace or tokens")
+    try:
+        _check_k1_path("telemetry_serve", launches,
+                       cfg.num_hidden_layers * ticks)
+    except AssertionError as e:
+        faults.append(str(e))
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "dtype": "float32", "seed": seed,
+            "stack": "HTTP -> ReplicaRouter -> 2 x MicroBatcher -> "
+                     "GPTDecoder.from_session(InferenceSession), one "
+                     "enabled Telemetry",
+            "clients": TEL_SERVE_CLIENTS,
+            "requests_per_client": TEL_SERVE_PER_CLIENT,
+            "max_new_tokens": MAX_NEW, "wall_s": wall,
+            "tokens_per_s": n_req * MAX_NEW / wall,
+            "latency_ms_p50": float(np.percentile(latency, 50)),
+            "checks": checks}
+    if faults:
+        raise AssertionError(f"telemetry_serve: {faults}: {line}")
+    return line, launches
+
+
+def telemetry_worker(spec):
+    """One rank of ``telemetry_job`` (``python chip_smoke.py
+    --telemetry-worker SPEC``): GPT-2-small's widths at TEL_JOB_LAYERS
+    layers in two stages, one a rank (``ht.rgpu("worker<r>", r)``, the
+    one card), GPipe M=PP_MICROBATCHES, bf16, TEL_JOB_WARMUP +
+    TEL_JOB_STEPS steps on train's rows; the executor's telemetry is the
+    job's (``HETU_TELEMETRY`` when the launcher had ``--telemetry``).
+    Writes ``rank_<r>.json``: losses, launches, whether telemetry was
+    on."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["HETU_PROC_ID"])
+    widths = dict(GPT2_SMALL, num_hidden_layers=TEL_JOB_LAYERS)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in _pp_batch(
+        spec["seed"], widths["vocab_size"],
+        widths["max_position_embeddings"]))
+    contexts = [ht.rgpu(f"worker{i}", i) for i in range(2)]
+    ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, contexts,
+                                                  widths=widths)
+    exe = ht.Executor([loss, train_op], dtype=torch.bfloat16,
+                      num_microbatches=PP_MICROBATCHES, gpipe=True)
+    _build.reset_launch_counts()
+    losses = []
+    for _ in range(TEL_JOB_WARMUP + TEL_JOB_STEPS):
+        res = exe.run(feed_dict={ids: xt, labels: yt})
+        if res[0] is not None:
+            losses.append(float(res[0].asnumpy()))
+    torch.cuda.synchronize()
+    kernels = _k1_k4_launches(_build.launch_counts)
+    out = {"rank": rank, "losses": losses,
+           "telemetry": exe.config.telemetry.enabled,
+           "launches": {k: v for k, v in _build.launch_counts.items()
+                        if k.split(".")[0] in kernels}}
+    exe.close()
+    with open(os.path.join(spec["out"], f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def telemetry_job(card, seed):
+    """``telemetry_job``: a two-rank launcher job (``spmd: true``) of
+    telemetry_worker with ``--telemetry <dir>``, then the same job
+    without. Checks: ``trace_merged.json`` passes ``python -m
+    hetu_tpu_torch.telemetry.check``; it holds spans of both pids, the
+    channel's ``p2p_*`` and the pipeline's ``pp_*`` spans; both
+    ``metrics_rank<r>.jsonl`` files exist, rank 1's with
+    ``pp_bubble_fraction``; every loss equals the untraced job's; each
+    rank launches K2-K4 once a layer and microbatch a step."""
+    import shutil
+    import tempfile
+    from hetu_tpu_torch.ops import flash_attention as fa
+    config = ("spmd: true\nnodes:\n  - host: localhost\n    workers: 2\n"
+              "    chief: true\n")
+    runs = {}
+    for traced in (True, False):
+        out_dir = tempfile.mkdtemp(prefix="telemetry_job_")
+        tdir = os.path.join(out_dir, "telemetry")
+        try:
+            wall, _ = _launch_job(
+                "telemetry_job", config, "--telemetry-worker",
+                {"seed": seed, "out": out_dir}, TEL_JOB_TIMEOUT_S, False,
+                launcher_args=["--telemetry", tdir] if traced else [])
+            ranks = []
+            for r in range(2):
+                with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+                    ranks.append(json.load(f))
+            rec = {"wall_s": wall, "ranks": ranks}
+            if traced:
+                merged = os.path.join(tdir, "trace_merged.json")
+                t0 = time.perf_counter()
+                check = subprocess.run(
+                    [sys.executable, "-m", "hetu_tpu_torch.telemetry.check",
+                     merged], cwd=ROOT, capture_output=True, text=True)
+                rec["check_s"] = time.perf_counter() - t0
+                rec["check_rc"] = check.returncode
+                rec["check_out"] = check.stdout.strip()[-300:]
+                with open(merged) as f:
+                    events = json.load(f)["traceEvents"]
+                spans = [e for e in events if e["ph"] == "X"]
+                names = {}
+                for e in spans:
+                    names[e["name"]] = names.get(e["name"], 0) + 1
+                rec["events"] = len(events)
+                rec["span_pids"] = sorted({e["pid"] for e in spans})
+                rec["spans"] = {k: v for k, v in sorted(names.items())
+                                if k.startswith(("p2p_", "pp_", "step"))}
+                rec["metrics_files"] = sorted(
+                    f for f in os.listdir(tdir) if f.startswith("metrics_"))
+                with open(os.path.join(tdir, "metrics_rank1.jsonl")) as f:
+                    bubble = [json.loads(line) for line in f
+                              if "pp_bubble_fraction" in line]
+                rec["pp_bubble_fraction"] = bubble[0]["p50"] \
+                    if bubble else None
+            runs["traced" if traced else "untraced"] = rec
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+    steps = TEL_JOB_WARMUP + TEL_JOB_STEPS
+    per_rank = TEL_JOB_LAYERS // 2 * PP_MICROBATCHES * steps
+    want = {fa.K1: 0, fa.K2: per_rank, fa.K3: per_rank, fa.K4: per_rank}
+    tr, un = runs["traced"], runs["untraced"]
+    losses = [r["losses"] for r in tr["ranks"]]
+    faults = []
+    if tr["check_rc"] != 0 or len(tr["span_pids"]) < 2:
+        faults.append("merged trace")
+    if not any(k.startswith("p2p_") for k in tr["spans"]) or not any(
+            k.startswith("pp_") for k in tr["spans"]) or \
+            tr["pp_bubble_fraction"] is None or \
+            tr["metrics_files"] != ["metrics_rank0.jsonl",
+                                    "metrics_rank1.jsonl"]:
+        faults.append("spans / metrics files")
+    if losses != [r["losses"] for r in un["ranks"]] or \
+            len(losses[1]) != steps or losses[0]:
+        faults.append(f"losses {losses} against "
+                      f"{[r['losses'] for r in un['ranks']]}")
+    if [r["telemetry"] for r in tr["ranks"] + un["ranks"]] != \
+            [True, True, False, False]:
+        faults.append("telemetry on/off by the launcher flag")
+    want.update({f"{k}.tc": per_rank for k in (fa.K2, fa.K3, fa.K4)})
+    if any({k: r["launches"].get(k, 0) for k in want} != want
+           for r in tr["ranks"] + un["ranks"]):
+        faults.append(f"launches, want {want}")
+    line = {"card": card, "model": "gpt2-small",
+            **dict(GPT2_SMALL, num_hidden_layers=TEL_JOB_LAYERS),
+            "workers": 2, "stages": 2, "microbatches": PP_MICROBATCHES,
+            "schedule": "gpipe", "dtype": "bfloat16",
+            "steps": steps, "losses": losses[1], "traced": tr,
+            "untraced_wall_s": un["wall_s"],
+            "launches_per_rank": [r["launches"] for r in tr["ranks"]]}
+    if faults:
+        raise AssertionError(f"telemetry_job: {faults}: {line}")
+    return line, [r["launches"] for r in tr["ranks"]]
+
+
 def ptxas_report(log_text):
     """Registers and spills of every kernel instantiation in one
     ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
@@ -7942,44 +8506,40 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # distgcn's ranks
     ap.add_argument("--autoplan-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # autoplan's job ranks
+    ap.add_argument("--telemetry-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # telemetry_job's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
         log("hetu_tpu_torch is not beside chip_smoke.py: run it from a "
             "checkout of the repository")
         return 2
+    sys.path.insert(0, ROOT)
+    _reuse_weight_draws()
     if args.fleet_worker is not None:
-        sys.path.insert(0, ROOT)
         return fleet_worker(json.loads(args.fleet_worker))
     if args.pp_worker is not None:
-        sys.path.insert(0, ROOT)
         return pp_worker(json.loads(args.pp_worker))
     if args.dp_worker is not None:
-        sys.path.insert(0, ROOT)
         return dp_worker(json.loads(args.dp_worker))
     if args.hybrid_worker is not None:
-        sys.path.insert(0, ROOT)
         return hybrid_worker(json.loads(args.hybrid_worker))
     if args.tp_worker is not None:
-        sys.path.insert(0, ROOT)
         return tp_worker(json.loads(args.tp_worker))
     if args.pp_tp_worker is not None:
-        sys.path.insert(0, ROOT)
         return pp_tp_worker(json.loads(args.pp_tp_worker))
     if args.sp_worker is not None:
-        sys.path.insert(0, ROOT)
         return sp_worker(json.loads(args.sp_worker))
     if args.distgcn_worker is not None:
-        sys.path.insert(0, ROOT)
         return distgcn_worker(json.loads(args.distgcn_worker))
     if args.autoplan_worker is not None:
-        sys.path.insert(0, ROOT)
         return autoplan_worker(json.loads(args.autoplan_worker))
+    if args.telemetry_worker is not None:
+        return telemetry_worker(json.loads(args.telemetry_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
         return 1
-    sys.path.insert(0, ROOT)
     from hetu_tpu_torch.ops import _build
     from hetu_tpu_torch.ops import flash_attention as fa
 
@@ -8168,6 +8728,23 @@ def main(argv=None):
     log(f"hybrid_fleet ({time.perf_counter() - t:.1f} s) "
         f"{ps_lines['hybrid_fleet']}")
 
+    tel_lines = {}
+    t = time.perf_counter()
+    tel_lines["telemetry_train"], tel_train_launches = telemetry_train(
+        torch, args.seed, card)
+    log(f"telemetry_train ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['telemetry_train']}")
+    t = time.perf_counter()
+    tel_lines["telemetry_serve"], tel_serve_launches = telemetry_serve(
+        torch, args.seed, card)
+    log(f"telemetry_serve ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['telemetry_serve']}")
+    t = time.perf_counter()
+    tel_lines["telemetry_job"], tel_job_launches = telemetry_job(
+        card, args.seed)
+    log(f"telemetry_job ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['telemetry_job']}")
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(
@@ -8192,7 +8769,8 @@ def main(argv=None):
                  ("bert", bert_launches["bert"], BERT_K1_REP),
                  ("bert_example", bert_ex_launches, BERT_K1_REP),
                  ("autoplan.profile", autoplan_launches["profile"],
-                  K1_PROFILE_REP)]
+                  K1_PROFILE_REP),
+                 ("telemetry_serve", tel_serve_launches, K1_TEL_SERVE_REP)]
     train_paths = [("train", train_launches, TRAIN_REP),
                    ("bert_long", bert_launches["bert_long"], BERT_LONG_REP),
                    ("pp_gpipe", pp_launches["gpipe"], PP_REP),
@@ -8212,7 +8790,10 @@ def main(argv=None):
                     SP_ULYSSES_REP),
                    ("sp_bert_long", sp_launches["bert_long"], SP_BERT_REP),
                    ("autoplan.train", autoplan_launches["train"],
-                    autoplan_launches["train_rep"])]
+                    autoplan_launches["train_rep"]),
+                   ("telemetry_train", tel_train_launches, TRAIN_REP),
+                   *((f"telemetry_job.rank{r}", c, PP_REP)
+                     for r, c in enumerate(tel_job_launches))]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,
@@ -8257,6 +8838,7 @@ def main(argv=None):
              {"transformer_reverse": reverse_line},
              *({name: line} for name, line in gnn_lines.items()),
              *({name: line} for name, line in ps_lines.items()),
+             *({name: line} for name, line in tel_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

@@ -8,8 +8,9 @@ with bounded-staleness pulls and pushes against the server and the
 reference's perf counters. The PS runtime's host path reads a table
 through it when ``cstable_policy`` names one of the policies.
 
-The reference's health-monitor staleness shadow waits for the port's
-telemetry.
+The reference's one telemetry site here is the health monitor's
+staleness shadow (``telemetry/health.py``), which comes with the port's
+health monitor (ROADMAP item 14).
 """
 from __future__ import annotations
 

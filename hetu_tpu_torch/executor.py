@@ -126,9 +126,17 @@ exits (the launcher's ``--autoplan``). A ``collective`` plan runs as
 ``boundary_dtype``, ``virtual_stages``;
 :mod:`~hetu_tpu_torch.parallel.collective_pp`): GPipe over a uniform
 chain of stages as one tick loop over each stage's device and stream.
-TP on a parameter server, telemetry and the preflight analysis are still
-to port; ``HetuConfig`` refuses their options, each naming its ROADMAP
-item.
+**Telemetry** (``telemetry=``, ``log_path=``; :mod:`.telemetry`): a
+``step`` span and the ``step_wall_ms`` histogram a ``run``,
+``h2d_transfer`` spans and the ``h2d_bytes`` counter a host feed,
+``device_dispatch`` around the walk, ``step_block`` around
+``run_batches``, the device-memory gauges, the flight recorder's step
+ring, the OOM report before an allocator failure re-raises, the
+watchdog's heartbeat (``HETU_WATCHDOG_DIR``), and ``close()`` flushing
+the per-rank files. No span synchronizes the device.
+TP on a parameter server, the health monitor and the preflight analysis
+are still to port; ``HetuConfig`` refuses their options, each naming its
+ROADMAP item.
 """
 from __future__ import annotations
 
@@ -136,7 +144,9 @@ import contextlib
 import glob
 import os
 import pickle
+import sys
 import threading
+import time
 import warnings
 from collections import deque
 
@@ -149,8 +159,8 @@ from .dataloader import DataloaderOp, GNNDataLoaderOp
 from .device import resolve_device
 from .graph.autodiff import find_topo_sort, gradients
 from .graph.node import ExecContext
-from .ingest import (IngestEngine, OverlapOptions, new_stats, stats_fields,
-                     to_device)
+from .ingest import (IngestEngine, OverlapOptions, new_stats, on_worker,
+                     stats_fields, to_device)
 from .ndarray import CSRValue, ND_Sparse_Array, NDArray, cpu, gpu
 from .optimizer import OptimizerOp
 from .ops.comm import (ParameterServerCommunicateOp,
@@ -158,6 +168,8 @@ from .ops.comm import (ParameterServerCommunicateOp,
 from .ops.embedding import EmbeddingLookUp
 from .ops.variable import PlaceholderOp
 from . import telemetry as _telemetry
+from .telemetry import memory as _memory
+from .telemetry import watchdog as _watchdog
 
 __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
            "scheduler_init", "scheduler_finish", "worker_init",
@@ -167,9 +179,8 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
 
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
-    "telemetry": "item 14", "health_options": "item 14",
-    "log_path": "item 14 (profiler.py's StepLogger)",
-    "validate": "item 17",
+    "health_options": "item 14 (telemetry/health.py)",
+    "validate": "item 17 (the preflight analysis)",
 }
 # HetuConfig's arguments that are not a thread rank's to copy: the rank
 # has its own graph, device and mesh (parallel/local_ranks.py)
@@ -210,9 +221,13 @@ def maybe_init_distributed(device=None):
         return False
     env = os.environ
     rank, world = int(env["RANK"]), int(env["WORLD_SIZE"])
+    # rank 0 of a one-host job serves the socket the launcher claimed
+    # for the rendezvous, so no other process can have bound its port
+    fd = env.get("HETU_MASTER_LISTEN_FD") if rank == 0 else None
     store = dist.TCPStore(env["MASTER_ADDR"], int(env["MASTER_PORT"]),
                           world, rank == 0,
-                          timeout=datetime.timedelta(seconds=300))
+                          timeout=datetime.timedelta(seconds=300),
+                          **({"master_listen_fd": int(fd)} if fd else {}))
     store.set(f"hetu_backend/{rank}", dp_backend(device))
     votes = {store.get(f"hetu_backend/{r}").decode() for r in range(world)}
     dist.init_process_group(backend="nccl" if votes == {"nccl"} else "gloo",
@@ -284,6 +299,19 @@ def ingest_value(value, device, dtype=None, staged=False):
     return value
 
 
+def _host_bytes(value):
+    """The bytes of a feed that crosses from the host, as the reference
+    counts them (the host array's own ``nbytes``); None for a value that
+    is no host array: a tensor on a device, an ``NDArray``, a CSR feed."""
+    if isinstance(value, (NDArray, ND_Sparse_Array, CSRValue)):
+        return None
+    if isinstance(value, torch.Tensor):
+        if value.device.type != "cpu":
+            return None
+        return value.numel() * value.element_size()
+    return int(np.asarray(value).nbytes)
+
+
 def _first_stage_device(eval_node_list):
     """The device of the first op placed by a context, in topological
     order: a pipeline's first stage (its session device)."""
@@ -353,7 +381,8 @@ class HetuConfig:
                  overlap_options=None, gpipe=False, pipedream=False,
                  num_microbatches=None, pp_options=None, mesh=None,
                  parallel=None, rules=None, autoplan_options=None,
-                 pipeline_mode=None, **options):
+                 pipeline_mode=None, telemetry=None, log_path=None,
+                 **options):
         # what a thread rank makes its own config from: every argument
         # but the graph and the rank's own device and mesh
         rank_options = {k: v for k, v in locals().items()
@@ -441,7 +470,15 @@ class HetuConfig:
         if device is None and pipeline:
             device = _first_stage_device(eval_node_list)
         self.device = resolve_device(device)
-        self.telemetry = _telemetry.NULL
+        # span tracer + metrics (telemetry/): None follows the
+        # process default, which the launcher's --telemetry enables
+        # through HETU_TELEMETRY
+        self.telemetry = _telemetry.resolve(telemetry)
+        self.log_path = log_path
+        # the thread ranks share this process's one Telemetry (each
+        # records under its own thread id); the front session alone
+        # writes the step log
+        self.rank_options.update(telemetry=self.telemetry, log_path=None)
         self.overlap = OverlapOptions.resolve(overlap_options)
         # accepted as the reference accepts them: dynamic_memory and
         # enable_lazy are no-ops there too (the allocator and the eager
@@ -937,6 +974,19 @@ class SubExecutor:
                 return value
             return value.local(mesh.coord("gr"), mesh.coord("gc"),
                                self.config.device)
+        tel = self.config.telemetry
+        if tel.enabled:
+            nbytes = _host_bytes(value)
+            if nbytes is not None:
+                # h2d attribution: bytes on the span + running counter
+                # (the copy is issued, not awaited: the span times the
+                # host side); `overlapped` marks the ingest worker's
+                with tel.span("h2d_transfer", bytes=nbytes,
+                              overlapped=on_worker()):
+                    out = ingest_value(value, self.config.device,
+                                       self.config.dtype, staged)
+                tel.inc("h2d_bytes", nbytes)
+                return out
         return ingest_value(value, self.config.device, self.config.dtype,
                             staged)
 
@@ -1016,8 +1066,11 @@ class SubExecutor:
         env = dict(feed_map)
         env.update(params)
         host_ops = self._host_ops
+        tel = config.telemetry
         with _EXACT_F32_CONVS if config.dtype in (None, torch.float32) \
-                else contextlib.nullcontext():
+                else contextlib.nullcontext(), \
+                tel.span("device_dispatch", subgraph=self.name) \
+                if tel.enabled else _telemetry._NULL_SPAN:
             for i, node in enumerate(self.topo_order):
                 if node not in env:
                     # a PS push op or an unmaterialized PS table: the PS
@@ -1096,6 +1149,18 @@ class Executor:
         if config is None:
             config = HetuConfig(eval_node_list=all_eval_nodes, **kargs)
         self.config = config
+        # the step timeline (reference profiler hooks): a compatibility
+        # wrapper over the telemetry sink, one JSON line a step
+        self.step_logger = None
+        if config.log_path:
+            from .profiler import StepLogger
+            self.step_logger = StepLogger(config.log_path,
+                                          telemetry=config.telemetry)
+        # the watchdog's heartbeat, armed by the launcher's
+        # --hang-timeout (HETU_WATCHDOG_DIR); None otherwise, so the
+        # disabled path costs one `is None` check a step. Thread ranks
+        # beat through the front session's (parallel/local_ranks.py)
+        self._heartbeat = _watchdog.heartbeat_from_env()
         # several devices of this process: one thread rank each, and this
         # session their front (parallel/local_ranks.py)
         self._threads = None
@@ -1211,16 +1276,61 @@ class Executor:
             convert_to_numpy_ret_vals=False):
         if isinstance(name, dict) and feed_dict is None:
             feed_dict, name = name, "default"     # positional run(feeds)
+        if self.step_logger is not None:
+            self.step_logger.begin()
         if self._threads is not None:
-            return self._threads.run(name, feed_dict,
-                                   convert_to_numpy_ret_vals)
-        return self._sub(name).run(self, feed_dict,
-                                   convert_to_numpy_ret_vals)
+            # each thread rank records its own step span
+            out = self._threads.run(name, feed_dict,
+                                    convert_to_numpy_ret_vals)
+        else:
+            name = self._sub_name(name)
+            sub = self.subexecutors[name]
+            tel = self.config.telemetry
+            try:
+                if tel.enabled:
+                    t0 = time.perf_counter()
+                    with tel.span("step", subgraph=name):
+                        out = sub.run(self, feed_dict,
+                                      convert_to_numpy_ret_vals)
+                    tel.observe("step_wall_ms",
+                                (time.perf_counter() - t0) * 1000.0)
+                    # black box: the step boundary into the flight ring,
+                    # and the allocator's live/peak bytes (a host read)
+                    tel.flight_step(sub.step_count)
+                    _memory.observe_device_memory(tel)
+                else:
+                    out = sub.run(self, feed_dict,
+                                  convert_to_numpy_ret_vals)
+            except Exception as e:
+                if _memory.is_oom(e):
+                    self._report_oom(e)
+                raise
+        if self._heartbeat is not None:
+            self._heartbeat.beat(self._sub(name).step_count)
+        if self.step_logger is not None:
+            self.step_logger.end(self, subgraph=name)
+        return out
 
-    def _sub(self, name):
+    def _sub_name(self, name):
         if name not in self.subexecutors and "default" in self.subexecutors:
             name = "default"
-        return self.subexecutors[name]
+        return name
+
+    def _sub(self, name):
+        return self.subexecutors[self._sub_name(name)]
+
+    def _report_oom(self, exc):
+        """Allocator-failure post-mortem: print (and write into the
+        telemetry dir) the largest live tensors, named parameters first,
+        before the error re-raises, so the OOM names tensors instead of
+        just a byte count."""
+        named = {node.name: self.params[sid]
+                 for sid, node in self._param_nodes.items()
+                 if sid in self.params}
+        text = _memory.oom_report(
+            named_params=named, out_dir=self.config.telemetry.out_dir,
+            rank=self.config.telemetry.rank, device=self.config.device)
+        print(text, file=sys.stderr)
 
     def run_batches(self, feed_dicts, name="default",
                     convert_to_numpy_ret_vals=False):
@@ -1242,12 +1352,27 @@ class Executor:
                 "run_batches is not supported for gpipe/pipedream "
                 "executors — the pipeline schedule already amortizes "
                 "dispatch over microbatches; call run() per step")
-        if sub.needs_ps:
-            return self.ps_runtime.run_block(sub, feed_dicts,
-                                             convert_to_numpy_ret_vals)
-        return [self.run(name, feed_dict=feeds,
-                         convert_to_numpy_ret_vals=convert_to_numpy_ret_vals)
-                for feeds in feed_dicts]
+        tel = self.config.telemetry
+        try:
+            with tel.span("step_block", steps=len(feed_dicts),
+                          subgraph=self._sub_name(name)) \
+                    if tel.enabled else _telemetry._NULL_SPAN:
+                if sub.needs_ps:
+                    out = self.ps_runtime.run_block(
+                        sub, feed_dicts, convert_to_numpy_ret_vals)
+                else:
+                    out = [sub.run(self, feeds, convert_to_numpy_ret_vals)
+                           for feeds in feed_dicts]
+        except Exception as e:
+            if _memory.is_oom(e):
+                self._report_oom(e)
+            raise
+        if tel.enabled:
+            tel.flight_step(sub.step_count)
+            _memory.observe_device_memory(tel)
+        if self._heartbeat is not None:
+            self._heartbeat.beat(sub.step_count)
+        return out
 
     def run_batches_stream(self, blocks, name="default",
                            convert_to_numpy_ret_vals=False,
@@ -1317,17 +1442,25 @@ class Executor:
                     engine.submit(rt.ingest_feeds, sub, nxt,
                                   fetch_dl(nxt), tag=i)
 
+            tel = self.config.telemetry
             pre = rt.ingest_feeds(sub, cur, fetch_dl(cur))    # priming
             refill()
             while cur is not None:
-                out = rt.run_block(sub, cur, convert_to_numpy_ret_vals,
-                                   pre_ingested=pre)
-                if pending:
-                    cur = pending.popleft()
-                    _, pre = engine.pop()
-                    refill()
-                else:
-                    cur, pre = None, None
+                # the window covers the block AND the wait for the next
+                # block's ingest, so an exposed host stall lands in it
+                with tel.span("step_block", steps=len(cur),
+                              subgraph=self._sub_name(name)) \
+                        if tel.enabled else _telemetry._NULL_SPAN:
+                    out = rt.run_block(sub, cur, convert_to_numpy_ret_vals,
+                                       pre_ingested=pre)
+                    if pending:
+                        cur = pending.popleft()
+                        _, pre = engine.pop()
+                        refill()
+                    else:
+                        cur, pre = None, None
+                if self._heartbeat is not None:
+                    self._heartbeat.beat(sub.step_count)
         return out
 
     def ingest_stats(self):
@@ -1567,13 +1700,21 @@ class Executor:
 
     def close(self):
         """Flush in-flight PS work (ASP pushes, device-cache drains) and
-        stop the push pool; thread ranks close theirs and their job's
-        channels."""
+        stop the push pool (thread ranks close theirs and their job's
+        channels), release the step logger's file, mark the heartbeat
+        done, and write this rank's telemetry files when an output
+        directory is configured."""
         if self._threads is not None:
             self._threads.close()
-            return
-        if self.ps_runtime is not None:
+        elif self.ps_runtime is not None:
             self.ps_runtime.close()
+        if self.step_logger is not None:
+            self.step_logger.close()
+            self.step_logger = None
+        if self._heartbeat is not None:
+            # clean completion: the watchdog stops counting this rank
+            self._heartbeat.done()
+        self.config.telemetry.flush()
 
 
 def scheduler_init():

@@ -23,7 +23,10 @@ in-process ``launch(target, args)``.
   one host's with ``spmd: true``, is one job: each worker gets
   ``MASTER_ADDR`` / ``MASTER_PORT`` (the chief, which runs rank 0),
   ``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK``, beside the reference's
-  ``HETU_COORDINATOR`` / ``HETU_NUM_PROCS`` / ``HETU_PROC_ID``; the
+  ``HETU_COORDINATOR`` / ``HETU_NUM_PROCS`` / ``HETU_PROC_ID``. On one
+  host the launcher claims the rendezvous port (a listening socket) and
+  hands it to rank 0 (``HETU_MASTER_LISTEN_FD``), whose store serves
+  it: no other process can take the port in between. The
   executor joins it (``executor.maybe_init_distributed``: NCCL where
   every rank has a card of its own, else gloo), and a rank's default
   device is its ``LOCAL_RANK``'s card. Its data-parallel sessions run
@@ -35,7 +38,9 @@ in-process ``launch(target, args)``.
   value, else on one host a range free at launch, so jobs that share a
   host keep apart, and 19500 across hosts) and ``HETU_HOSTS`` (each
   rank's hostname, which maps a stage's hostname to its owner), as the
-  reference's launcher exports them.
+  reference's launcher exports them. On one host, a range the caller did
+  not set is claimed (listening sockets) and rank k is handed port
+  base + k's (``HETU_PIPE_LISTEN_FD``), as the rendezvous port is.
 * **A fleet's environment is its own.** What the launcher sets on its
   servers and workers (:data:`FLEET_VARS`) is taken out of the
   environment they inherit first, so a value left by an earlier fleet
@@ -53,10 +58,19 @@ in-process ``launch(target, args)``.
 ``HETU_AUTOPLAN_REPORT`` set; its first ``Executor`` prints the plan
 table, writes the JSON report and exits before any fleet starts.
 
+``--telemetry DIR`` turns telemetry on fleet-wide (:func:`launch_command`):
+every worker writes its per-rank trace, metrics and flight dump there
+(``HETU_TELEMETRY``), each PS server serves a ``/metrics`` scrape
+(``HETU_TELEMETRY_PORT``), and the launcher merges the ranks' traces
+into ``trace_merged.json`` at the end. ``--hang-timeout S`` arms the
+watchdog (:func:`_wait_with_watchdog`): workers heartbeat a step into
+the telemetry dir, and a rank stalled past ``S`` seconds has the fleet
+dumped and killed, with exit code
+:data:`~.telemetry.watchdog.EXIT_WATCHDOG`.
+
 The options of modes still to port are refused, each naming its
-ROADMAP item: ``--telemetry``, ``--health``, ``--watch`` and
-``--hang-timeout`` (item 14, which also brings the watchdog that calls
-:func:`_respawn_dead_servers`) and ``--preflight`` (item 17).
+ROADMAP item: ``--health`` and ``--watch`` (item 14, the health monitor
+and the fleet plane) and ``--preflight`` (item 17).
 
 Config (the reference's shape):
 
@@ -85,10 +99,8 @@ PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_SERVER = os.path.join("hetu_tpu_torch", "ps", "run_server.py")
 
 # the options of modes the port does not have yet -> their ROADMAP item
-REFUSED = {"telemetry": ("--telemetry", "item 14"),
-           "health": ("--health", "item 14"),
-           "watch": ("--watch", "item 14"),
-           "hang_timeout": ("--hang-timeout", "item 14"),
+REFUSED = {"health": ("--health", "item 14 (telemetry/health.py)"),
+           "watch": ("--watch", "item 14 (telemetry/fleet.py)"),
            "preflight": ("--preflight", "item 17")}
 
 # what the launcher sets on a fleet's servers and workers, or sets for
@@ -99,7 +111,9 @@ FLEET_VARS = ("HETU_PS_HOSTS", "HETU_PS_PORTS", "HETU_PS_NWORKERS",
               "HETU_PS_REPLICATE", "HETU_COORDINATOR", "HETU_NUM_PROCS",
               "HETU_PROC_ID", "MASTER_ADDR", "MASTER_PORT", "RANK",
               "WORLD_SIZE", "LOCAL_RANK", "HETU_PIPE_HOSTS",
-              "HETU_PIPE_BASE_PORT", "HETU_HOSTS")
+              "HETU_PIPE_BASE_PORT", "HETU_HOSTS", "HETU_MASTER_LISTEN_FD",
+              "HETU_PIPE_LISTEN_FD", "HETU_WATCHDOG_DIR",
+              "HETU_HANG_TIMEOUT", "HETU_TELEMETRY_PORT")
 
 _procs = []
 _claims = {}        # port -> the listening socket that claims it
@@ -264,8 +278,11 @@ def _spawn_one_server(cfg, host, port, senv, identify):
     if _is_local(host):
         from .ps.server import claim_port, spawn_server
         lsock = _claims.pop(port, None) or claim_port(port)
+        # the scrape port's claim goes to the first server on it; a
+        # respawn binds the port its dead predecessor released
+        scrape = _claims.pop(int(senv.get("HETU_TELEMETRY_PORT", 0)), None)
         p = spawn_server(lsock, cfg.num_workers, wait_s=60, extra_env=senv,
-                         base_env=_inherited_env())
+                         base_env=_inherited_env(), scrape_sock=scrape)
     else:
         ssh = ["ssh"] + (["-i", identify] if identify else []) + [host]
         remote = " ".join(shlex.quote(a) for a in [
@@ -329,17 +346,25 @@ def _master(cfg):
     port = os.environ.get("HETU_COORDINATOR_PORT")
     if cfg.single_host:
         if port is None:
-            from .ps.server import pick_free_port
-            port = pick_free_port()
+            # claimed, not just picked: a port picked free and released
+            # can be taken by any other process (a server or store that
+            # binds port 0 gets it) before rank 0's store binds it; the
+            # claim is handed to rank 0 (HETU_MASTER_LISTEN_FD)
+            from .ps.server import claim_port
+            sock = claim_port(0)
+            port = sock.getsockname()[1]
+            _claims[port] = sock
         return "127.0.0.1", int(port)
     return cfg.chief, int(port or 29400)
 
 
-def _free_port_range(n, tries=64):
-    """A base port whose ``n`` ports from it up are all free on every
-    interface now, as the pipeline channel binds them."""
-    import socket
-    from .ps.server import pick_free_port
+def _claim_port_range(n, tries=64):
+    """``n`` consecutive ports, each claimed by a listening socket
+    (:func:`~.ps.server.claim_port`): ``(base, sockets)``, for the
+    pipeline channel's ranks. A range picked free and released could
+    lose a port to any process binding port 0 before the rank that
+    listens on it starts."""
+    from .ps.server import claim_port, pick_free_port
     for _ in range(tries):
         base = pick_free_port()
         if base + n > 65536:
@@ -347,13 +372,9 @@ def _free_port_range(n, tries=64):
         held = []
         try:
             for k in range(n):
-                s = socket.socket()
-                held.append(s)
-                s.bind(("0.0.0.0", base + k))
-            return base
+                held.append(claim_port(base + k))
+            return base, held
         except OSError:
-            continue
-        finally:
             for s in held:
                 s.close()
     raise RuntimeError(f"no {n} free consecutive ports for the pipeline "
@@ -365,17 +386,21 @@ def _pipe_env(cfg):
     launcher.py:465-482): one endpoint per rank, the chief's first. Only
     a single-host cluster may use loopback: in a mixed one, a remote
     rank dialing 127.0.0.1 for a local rank would dial itself. The base
-    port is ``HETU_PIPE_BASE_PORT``; unset, a single host takes a range
-    free now (as ``_master`` does for the rendezvous), so two jobs on
-    one host do not share a channel, and a cluster the reference's
-    19500."""
+    port is ``HETU_PIPE_BASE_PORT``; unset, a single host claims a range
+    (``_claims``, handed to the ranks at spawn, as ``_master`` claims the
+    rendezvous), so two jobs on one host do not share a channel, and a
+    cluster takes the reference's 19500."""
     pipe_hosts, hosts = [], []
     for host, n in cfg.worker_hosts():
         pipe_hosts.extend(["127.0.0.1" if cfg.single_host else host] * n)
         hosts.extend([host] * n)
     base = os.environ.get("HETU_PIPE_BASE_PORT")
-    if base is None:
-        base = _free_port_range(len(hosts)) if cfg.single_host else 19500
+    if base is None and cfg.single_host:
+        base, socks = _claim_port_range(len(hosts))
+        for k, sock in enumerate(socks):
+            _claims[base + k] = sock
+    elif base is None:
+        base = 19500
     return {"HETU_PIPE_HOSTS": ",".join(pipe_hosts),
             "HETU_PIPE_BASE_PORT": str(base),
             "HETU_HOSTS": ",".join(hosts)}
@@ -449,24 +474,70 @@ def run_autoplan(cfg, command):
     return p.returncode
 
 
-def launch_command(cfg, command, identify=None):
+def launch_command(cfg, command, identify=None, telemetry=None,
+                   hang_timeout=None):
     """Run ``command`` once per worker with the cluster env wired (the
     ``python -m hetu_tpu_torch.launcher -c conf.yml python train.py``
-    path). Returns the first non-zero exit code of a worker, else 0."""
+    path). Returns the first non-zero exit code of a worker, else 0.
+
+    ``telemetry`` (a directory, ``--telemetry``): every worker exports
+    its per-rank trace and metrics there (``HETU_TELEMETRY``), each PS
+    server serves a Prometheus ``/metrics`` scrape
+    (``HETU_TELEMETRY_PORT``: ``HETU_TELEMETRY_BASE_PORT`` + i where it
+    is set, else on one host a free port, across hosts 18790 + i), a
+    reused directory loses the previous fleet's heartbeats and dumps
+    first, and after the workers exit the ranks' traces merge into one
+    ``trace_merged.json``.
+
+    ``hang_timeout`` (seconds, ``--hang-timeout``) arms the watchdog:
+    workers heartbeat a step into the telemetry dir
+    (``HETU_WATCHDOG_DIR``); a rank stalled past the timeout has every
+    live worker's stacks and flight ring dumped, the fleet killed, and
+    the launcher exits with ``EXIT_WATCHDOG``. It implies telemetry (a
+    temporary directory where ``--telemetry`` was not given)."""
+    tdir = None
+    if hang_timeout and not telemetry:
+        import tempfile
+        telemetry = tempfile.mkdtemp(prefix="hetu-watchdog-")
+        print(f"watchdog: --hang-timeout without --telemetry; black-box "
+              f"dumps go to {telemetry}", flush=True)
     try:
         endpoints = cfg.server_endpoints()
+        server_env = {}
+        if telemetry:
+            tdir = os.path.abspath(telemetry)
+            os.makedirs(tdir, exist_ok=True)
+            _clear_stale_blackbox(tdir)
+            for i, port in enumerate(_scrape_ports(cfg, len(endpoints))):
+                server_env[i] = {"HETU_TELEMETRY_PORT": str(port),
+                                 # server stacks land beside the workers'
+                                 "HETU_TELEMETRY": tdir}
+                print(f"telemetry: PS server {i} scrape at "
+                      f"http://{endpoints[i][0]}:{port}/metrics",
+                      flush=True)
         # replicated shards (HETU_PS_REPLICATE=1): backups come up first
         # so each primary can dial its replication target at startup;
         # workers learn both endpoint lists and fail over client-side
-        server_env = {}
         backups = _backup_endpoints(cfg, endpoints)
+        servers = []
         if backups:
-            _spawn_servers(cfg, backups, identify)
+            servers += _spawn_servers(cfg, backups, identify)
             for i, (bhost, bport) in enumerate(backups):
-                server_env[i] = {"HETU_PS_MY_BACKUP_HOST": bhost,
-                                 "HETU_PS_MY_BACKUP_PORT": str(bport)}
-        _spawn_servers(cfg, endpoints, identify, extra_env=server_env)
+                server_env.setdefault(i, {}).update({
+                    "HETU_PS_MY_BACKUP_HOST": bhost,
+                    "HETU_PS_MY_BACKUP_PORT": str(bport)})
+        servers += _spawn_servers(cfg, endpoints, identify,
+                                  extra_env=server_env)
         ps_env = _ps_env(cfg, endpoints, backups)
+        if tdir:
+            ps_env["HETU_TELEMETRY"] = tdir
+        if hang_timeout:
+            ps_env["HETU_WATCHDOG_DIR"] = tdir
+            ps_env["HETU_HANG_TIMEOUT"] = str(float(hang_timeout))
+            if not cfg.single_host:
+                print("watchdog: WARNING multi-host fleet — stall "
+                      "detection and dumps cover launcher-local ranks "
+                      "only", flush=True)
         master = _master(cfg)
         if master is not None:
             ps_env.update(_pipe_env(cfg))
@@ -479,7 +550,8 @@ def launch_command(cfg, command, identify=None):
                 wenv["PYTHONPATH"] = pypath
                 if _is_local(host):
                     wenv.setdefault("OMP_NUM_THREADS", _omp_threads(n))
-                    p = subprocess.Popen(command,
+                    fds = _hand_claims(wenv, master, rank)
+                    p = subprocess.Popen(command, pass_fds=fds,
                                          env={**_inherited_env(), **wenv})
                 else:
                     ssh = ["ssh"] + (["-i", identify] if identify else [])
@@ -491,9 +563,145 @@ def launch_command(cfg, command, identify=None):
                 workers.append(p)
                 _procs.append(p)
                 rank += 1
-        return _wait_workers(workers)
+        if hang_timeout:
+            rc = _wait_with_watchdog(workers, tdir, float(hang_timeout),
+                                     servers, cfg)
+        else:
+            rc = _wait_workers(workers)
     finally:
         _shutdown()
+    if tdir:
+        _merge_telemetry(tdir, cfg.num_workers)
+    return rc
+
+
+def _hand_claims(wenv, master, rank):
+    """The launcher's claimed ports that rank ``rank`` serves, set in its
+    environment: the rendezvous for rank 0 (``HETU_MASTER_LISTEN_FD``,
+    its store's socket) and its channel port (``HETU_PIPE_LISTEN_FD``).
+    Returns the file descriptors to pass."""
+    fds = []
+    if master and rank == 0 and master[1] in _claims:
+        fds.append(_claims[master[1]].fileno())
+        wenv["HETU_MASTER_LISTEN_FD"] = str(fds[-1])
+    base = wenv.get("HETU_PIPE_BASE_PORT")
+    pipe = _claims.get(int(base) + rank) if base else None
+    if pipe is not None:
+        fds.append(pipe.fileno())
+        wenv["HETU_PIPE_LISTEN_FD"] = str(fds[-1])
+    return tuple(fds)
+
+
+def _scrape_ports(cfg, n):
+    """The PS servers' scrape ports: ``HETU_TELEMETRY_BASE_PORT`` + i
+    where it is set; else on one host a port claimed for each
+    (``_claims``, handed to its server at spawn, so fleets that share a
+    host keep apart), across hosts 18790 + i."""
+    base = os.environ.get("HETU_TELEMETRY_BASE_PORT")
+    if base is None and cfg.single_host:
+        from .ps.server import claim_port
+        ports = []
+        for _ in range(n):
+            sock = claim_port(0)
+            ports.append(sock.getsockname()[1])
+            _claims[ports[-1]] = sock
+        return ports
+    base = int(base or 18790)
+    return [base + i for i in range(n)]
+
+
+def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
+                        cfg=None):
+    """Wait for the workers under :class:`~.telemetry.watchdog.
+    FleetWatchdog` (reference launcher.py:580-627, without the fleet
+    monitor, which comes with ``--watch``): a stalled rank — hung, or
+    dead, its heartbeat stopped — triggers the diagnose-then-kill
+    sequence (SIGUSR1 stacks, SIGTERM flight dumps, kill) on the live
+    ones and the watchdog's exit code. When every worker has exited
+    with a code of its own, the first non-zero one, at once (a crash is
+    not a hang). A rank killed by a signal is named by its stall even
+    where the others then exit at once (a peer's broken channel); past
+    the timeout with no stall, the first non-zero exit code. A dead PS
+    server is survivable (replicated shards): it respawns instead of
+    failing the fleet."""
+    from .telemetry.watchdog import FleetWatchdog
+    wd = FleetWatchdog(tdir, num_workers=len(workers),
+                       timeout=hang_timeout)
+    by_rank = dict(enumerate(workers))
+    poll_s = min(0.25, hang_timeout / 8)
+    gone = None         # when every worker had exited, one by a signal
+    while True:
+        codes = [p.poll() for p in workers]
+        if all(c == 0 for c in codes):
+            break
+        if None not in codes:
+            if min(codes) >= 0:
+                break
+            gone = gone or time.time()
+            if time.time() - gone > hang_timeout + 1.0:
+                break   # a rank that never beat is not waited for
+        if cfg is not None:
+            _respawn_dead_servers(servers, cfg)
+        stalled = wd.check(by_rank)
+        if stalled:
+            for rank, age, step in stalled:
+                print(f"watchdog: rank {rank} stalled {age:.1f}s > "
+                      f"{hang_timeout:.1f}s (last step {step}) — "
+                      f"collecting stack + flight dumps, killing fleet",
+                      flush=True)
+            rc = wd.fire(by_rank)
+            print(f"watchdog: fleet killed; stacks_rank*.log and "
+                  f"flight_rank*.json are in {tdir} (exit code {rc})",
+                  flush=True)
+            return rc
+        time.sleep(poll_s)
+    rc = 0
+    for p in workers:
+        rc = rc or p.returncode
+    return rc
+
+
+def _clear_stale_blackbox(tdir):
+    """Drop a previous fleet's heartbeats, flight dumps, stack logs and
+    OOM reports from a reused telemetry dir: a stale ``hb_rank*.json``
+    with an old timestamp would false-fire the watchdog on the new
+    fleet, and stale dumps would pollute its post-mortem."""
+    import glob as _glob
+    for pat in ("hb_rank*.json", "flight_rank*.json", "stacks_*.log",
+                "oom_rank*.txt", "requests_rank*.json"):
+        for path in _glob.glob(os.path.join(tdir, pat)):
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+
+def _merge_telemetry(tdir, num_workers=None):
+    """Merge the per-rank traces into one validated Perfetto file (best
+    effort: a worker that never built an Executor exports nothing).
+    Warns when fewer rank files exist than workers: remote ranks write
+    on their own filesystem."""
+    import glob as _glob
+    from .telemetry import merge_traces
+    from .telemetry.check import validate
+    ranks = _glob.glob(os.path.join(tdir, "trace_rank*.json"))
+    if num_workers and len(ranks) < num_workers:
+        print(f"telemetry: WARNING only {len(ranks)}/{num_workers} "
+              f"rank traces present under {tdir} — remote workers "
+              f"export on their own filesystem; the merged trace "
+              f"covers launcher-local ranks only", flush=True)
+    try:
+        merged = merge_traces(tdir)
+    except ValueError as e:
+        print(f"telemetry: no traces to merge ({e})", flush=True)
+        return None
+    n, errors = validate(merged)
+    if errors:
+        print(f"telemetry: merged trace INVALID: {errors[:3]}", flush=True)
+    else:
+        print(f"telemetry: merged trace -> {merged} ({n} events)",
+              flush=True)
+    return merged
 
 
 def _respawn_dead_servers(servers, cfg):
@@ -502,8 +710,8 @@ def _respawn_dead_servers(servers, cfg):
     replay their acked-push window (ps_client.cc), so the launcher
     respawns a fresh standby on the same endpoint (it rejoins empty; the
     one-way client flip never reads it, but a later death of the
-    surviving replica has somewhere to forward to). The fleet watchdog
-    that calls this comes with ROADMAP item 14."""
+    surviving replica has somewhere to forward to). The watchdog's wait
+    (:func:`_wait_with_watchdog`) calls it."""
     for srec in servers or []:
         p = srec["proc"]
         if p.poll() is None:
@@ -582,18 +790,24 @@ def main(argv=None):
                         help="cluster yaml (nodes: host/servers/workers)")
     parser.add_argument("-i", "--identify", default=None,
                         help="ssh identity file for remote hosts")
-    # the reference's options of modes still to port: parsed so that
-    # they are refused by name, not taken for the command
     parser.add_argument("--telemetry", default=None, metavar="DIR",
-                        help="refused: telemetry waits for ROADMAP item 14")
-    parser.add_argument("--health", default=None, metavar="SPEC",
-                        help="refused: health waits for ROADMAP item 14")
-    parser.add_argument("--watch", action="store_true",
-                        help="refused: the fleet plane waits for ROADMAP "
-                             "item 14")
+                        help="fleet-wide telemetry: per-rank Chrome "
+                             "traces + metrics into DIR, a /metrics "
+                             "scrape on each PS server, and one merged "
+                             "trace_merged.json at the end")
     parser.add_argument("--hang-timeout", type=float, default=None,
                         metavar="SECONDS",
-                        help="refused: the watchdog waits for ROADMAP "
+                        help="arm the watchdog: a rank whose heartbeat "
+                             "goes stale past SECONDS has the fleet "
+                             "dumped and killed (exit code 117); implies "
+                             "telemetry")
+    # the reference's options of modes still to port: parsed so that
+    # they are refused by name, not taken for the command
+    parser.add_argument("--health", default=None, metavar="SPEC",
+                        help="refused: the health monitor waits for "
+                             "ROADMAP item 14")
+    parser.add_argument("--watch", action="store_true",
+                        help="refused: the fleet plane waits for ROADMAP "
                              "item 14")
     parser.add_argument("--preflight", action="store_true",
                         help="refused: the analysis waits for ROADMAP "
@@ -623,7 +837,9 @@ def main(argv=None):
     signal.signal(signal.SIGTERM, _on_signal)
     if args.autoplan:
         return run_autoplan(cfg, args.command)
-    return launch_command(cfg, args.command, args.identify)
+    return launch_command(cfg, args.command, args.identify,
+                          telemetry=args.telemetry,
+                          hang_timeout=args.hang_timeout)
 
 
 if __name__ == "__main__":

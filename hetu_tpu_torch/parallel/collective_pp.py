@@ -54,6 +54,13 @@ The knobs of ``pp_options``:
   the reference's. There they shape the compiled loop; here they only
   group the host's tick iterations (:meth:`tick_groups`) and change no
   launch and no number.
+
+With telemetry on (``telemetry=``, the session's), a step is one
+``cpp_dispatch`` span (ticks, fill, drain, stages, microbatches) over
+one ``cpp_tick`` span per tick and lane (``stage`` the chunk,
+``microbatch``, ``phase`` ``fwd`` / ``bwd``). They are host spans: a
+tick's span closes when its lane's work is issued, and none waits on a
+stream.
 """
 from __future__ import annotations
 
@@ -61,6 +68,8 @@ import contextlib
 from dataclasses import dataclass
 
 import torch
+
+from .. import telemetry as _telemetry
 
 __all__ = ["CollectiveGPipe", "BOUNDARY_RTOL"]
 
@@ -96,7 +105,7 @@ class CollectiveGPipe:
 
     def __init__(self, num_stages, num_microbatches, feed_mode="sharded",
                  fuse_ticks=2, unroll_fill_drain=True, boundary_dtype=None,
-                 virtual_stages=1):
+                 virtual_stages=1, telemetry=None):
         if feed_mode not in ("sharded", "replicated"):
             raise ValueError(
                 f"feed_mode must be 'sharded' or 'replicated', got "
@@ -126,6 +135,8 @@ class CollectiveGPipe:
         self.boundary_dtype = _canon_boundary_dtype(boundary_dtype)
         self.streams = [None] * self.S_dev     # a lane's, on a card
         self._layout = None
+        self.telemetry = (telemetry if telemetry is not None
+                          else _telemetry.NULL)
 
     @property
     def n_ticks(self):
@@ -175,14 +186,26 @@ class CollectiveGPipe:
         every tick in order, then ``backward(chunk, m)`` over the ticks
         in reverse (the transpose of the forward loop)."""
         groups = self.tick_groups()
-        for group in groups:
-            for t in group:
-                for chunk, m in self.lanes(t):
-                    forward(chunk, m)
-        for group in reversed(groups):
-            for t in reversed(group):
-                for chunk, m in reversed(self.lanes(t)):
-                    backward(chunk, m)
+        tel = self.telemetry
+        # disabled: the shared no-op span, nothing allocated that lives
+        span = tel.span if tel.enabled \
+            else lambda *a, **k: _telemetry._NULL_SPAN
+        fill = min(self.S_dev - 1, self.n_ticks)
+        with span("cpp_dispatch", ticks=self.n_ticks, fill=fill,
+                  drain=fill, fuse_ticks=self.fuse_ticks, stages=self.S,
+                  microbatches=self.M, virtual_stages=self.V):
+            for group in groups:
+                for t in group:
+                    for chunk, m in self.lanes(t):
+                        with span("cpp_tick", tick=t, stage=chunk,
+                                  microbatch=m, phase="fwd"):
+                            forward(chunk, m)
+            for group in reversed(groups):
+                for t in reversed(group):
+                    for chunk, m in reversed(self.lanes(t)):
+                        with span("cpp_tick", tick=t, stage=chunk,
+                                  microbatch=m, phase="bwd"):
+                            backward(chunk, m)
 
     def stack_stage_values(self, per_stage):
         """One per-stage value list in the schedule's layout: [S] for

@@ -252,7 +252,9 @@ class LocalRanks:
             if plan.kind == "pipeline":
                 opts["pp_options"] = dict(opts.get("pp_options") or {},
                                           job=job)
-            return Executor(clones[r][0], **opts)
+            exe = Executor(clones[r][0], **opts)
+            exe._heartbeat = None   # the process beats through the front
+            return exe
 
         self.executors = self.on_ranks(make)
 

@@ -161,11 +161,13 @@ class LocalJob:
     def channel(self, rank):
         with self._lock:
             if self._channels is None:
-                from ..launcher import _free_port_range
+                from ..launcher import _claim_port_range
                 from .p2p import PipeChannel
-                base = _free_port_range(self.nprocs)
-                self._channels = [PipeChannel(r, self.nprocs, base_port=base)
-                                  for r in range(self.nprocs)]
+                base, socks = _claim_port_range(self.nprocs)
+                self._channels = [
+                    PipeChannel(r, self.nprocs, base_port=base,
+                                listen_fd=sock.detach())
+                    for r, sock in enumerate(socks)]
             return self._channels[rank]
 
     def close(self):

@@ -9,7 +9,9 @@ NCCL refuses two ranks on one device, so nothing here calls a
 ``torch.distributed`` collective.
 
 Addressing: rank k listens on ``HETU_PIPE_HOSTS[k] : HETU_PIPE_BASE_PORT
-+ k`` (the launcher exports both; the defaults cover one machine).
++ k`` (the launcher exports both; the defaults cover one machine). On one
+host the launcher claims the ports and hands rank k its listening socket
+(``HETU_PIPE_LISTEN_FD``), so no other process can take it first.
 Messages are tagged; ``recv(tag)`` blocks until a matching message
 arrives, so the pipeline's data dependencies are the cross-process
 schedule — no separate barrier.
@@ -42,6 +44,8 @@ from collections import deque
 
 import torch
 
+from .. import telemetry as _telemetry
+
 __all__ = ["PipeChannel", "get_channel"]
 
 _MAGIC = 0x48503250  # "HP2P"
@@ -59,7 +63,8 @@ class PipeChannel:
     ``max_buffered_mb`` default to ``HETU_PIPE_BASE_PORT`` and
     ``HETU_PIPE_MAX_BUF_MB``."""
 
-    def __init__(self, rank, nprocs, base_port=None, max_buffered_mb=None):
+    def __init__(self, rank, nprocs, base_port=None, max_buffered_mb=None,
+                 listen_fd=None):
         self.rank = rank
         self.nprocs = nprocs
         hosts = os.environ.get(
@@ -84,11 +89,16 @@ class PipeChannel:
         self._staging_mu = threading.Lock()
         self._closing = False
         self.reset_stats()
-        self._listener = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-        self._listener.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR,
-                                  1)
-        self._listener.bind(("0.0.0.0", self.addrs[rank][1]))
-        self._listener.listen(8)
+        if listen_fd is not None:
+            # the launcher's claim of this rank's port, already listening
+            self._listener = socket.socket(fileno=listen_fd)
+        else:
+            self._listener = socket.socket(socket.AF_INET,
+                                           socket.SOCK_STREAM)
+            self._listener.setsockopt(socket.SOL_SOCKET,
+                                      socket.SO_REUSEADDR, 1)
+            self._listener.bind(("0.0.0.0", self.addrs[rank][1]))
+            self._listener.listen(8)
         self._accept_thread = threading.Thread(target=self._accept_loop,
                                                daemon=True)
         self._accept_thread.start()
@@ -179,7 +189,33 @@ class PipeChannel:
         """Block until a message tagged ``tag`` arrives (FIFO per tag)
         and return it as a CPU tensor. ``timeout`` defaults to
         ``HETU_PIPE_TIMEOUT_S`` (600 s: the peer may be building its
-        kernels on its first step); past it, ``TimeoutError``."""
+        kernels on its first step); past it, ``TimeoutError``. With
+        telemetry on, the wait is a ``p2p_recv`` span with the payload's
+        bytes, and a flight record: a recv that never completes names
+        its tag (and, in a 2-process job, its peer) in the black box."""
+        tel = _telemetry.get_telemetry()
+        if not tel.enabled:
+            return self._recv(tag, timeout)
+        frec = tel.flight_start("p2p", "p2p_recv",
+                                peer=self._peer_of_tag(tag), tag=tag)
+        t0 = tel.clock()
+        value = self._recv(tag, timeout)
+        t1 = tel.clock()
+        tel.flight_complete(frec)
+        nbytes = value.numel() * value.element_size()
+        tel.complete("p2p_recv", t0, t1, {"tag": tag, "bytes": nbytes})
+        tel.inc("p2p_recv_bytes", nbytes)
+        tel.observe("p2p_recv_wait_ms", (t1 - t0) / 1e6)
+        return value
+
+    def _peer_of_tag(self, tag):
+        """Best-effort peer rank for a recv: in a 2-process job the
+        sender is unambiguous; beyond that the tag is the diagnostic."""
+        if self.nprocs == 2:
+            return 1 - self.rank
+        return None
+
+    def _recv(self, tag, timeout=None):
         if timeout is None:
             timeout = float(os.environ.get("HETU_PIPE_TIMEOUT_S", "600"))
         t0 = time.perf_counter()
@@ -263,7 +299,20 @@ class PipeChannel:
 
     def send(self, dst, tag, value):
         """Send tensor ``value`` to rank ``dst`` under ``tag``. Returns
-        when its bytes are in the kernel's socket buffer."""
+        when its bytes are in the kernel's socket buffer. With telemetry
+        on: a ``p2p_send`` span, a flight record and ``p2p_send_bytes``."""
+        tel = _telemetry.get_telemetry()
+        if not tel.enabled:
+            return self._send(dst, tag, value)
+        nbytes = value.numel() * value.element_size()
+        frec = tel.flight_start("p2p", "p2p_send", peer=dst, tag=tag,
+                                nbytes=nbytes)
+        with tel.span("p2p_send", tag=tag, dst=dst, bytes=nbytes):
+            self._send(dst, tag, value)
+        tel.flight_complete(frec)
+        tel.inc("p2p_send_bytes", nbytes)
+
+    def _send(self, dst, tag, value):
         t0 = time.perf_counter()
         body, release = self._host_bytes(value)
         try:
@@ -321,13 +370,16 @@ _channel_mu = threading.Lock()
 def get_channel():
     """The process's channel, built from the launcher's environment
     (``HETU_PROC_ID``, ``HETU_NUM_PROCS``, the ``HETU_PIPE_*`` addresses)
-    on first use."""
+    on first use, listening on the socket the launcher claimed for it
+    where it handed one (``HETU_PIPE_LISTEN_FD``, taken once)."""
     global _channel
     if _channel is None:
         with _channel_mu:
             if _channel is None:
+                fd = os.environ.pop("HETU_PIPE_LISTEN_FD", None)
                 _channel = PipeChannel(
                     int(os.environ.get("HETU_PROC_ID", "0")),
-                    int(os.environ.get("HETU_NUM_PROCS", "1")))
+                    int(os.environ.get("HETU_NUM_PROCS", "1")),
+                    listen_fd=None if fd is None else int(fd))
     return _channel
 

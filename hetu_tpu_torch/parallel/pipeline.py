@@ -77,6 +77,14 @@ returns the mean of the microbatch losses for the loss node (on the
 rank that owns it; None elsewhere) and None for the other eval nodes
 and the train op. Dropout draws one stream per (op, microbatch):
 ``ExecContext.step`` is ``step * M + m``.
+
+Telemetry (the session's): ``pp_fwd_block`` / ``pp_bwd_block`` spans a
+stage and microbatch, each also a ``sched`` flight record (a job that
+hangs mid-schedule leaves how far each rank got in the black box);
+``pp_fill`` / ``pp_steady`` / ``pp_drain`` around 1F1B's phases; a
+cross-process receive as ``pp_stage_idle`` with the
+``pp_stage<i>_idle_ms`` histogram (the stage's bubble); and the
+analytic ``pp_bubble_fraction`` a step.
 """
 from __future__ import annotations
 
@@ -86,6 +94,7 @@ import os
 import numpy as np
 import torch
 
+from .. import telemetry as _telemetry
 from ..dataloader import DataloaderOp, GNNDataLoaderOp
 from ..graph.autodiff import find_topo_sort, gradients
 from ..graph.node import ExecContext
@@ -101,6 +110,28 @@ from .tensor_parallel import Layouts, TensorParallel
 
 __all__ = ["PipelineSubExecutor", "analytic_bubble_fraction",
            "virtual_stage_program", "splice_send_recv"]
+
+_NULL_CM = _telemetry._NULL_SPAN       # shared no-op context manager
+
+
+class _FlightSpan:
+    """Span context manager that also completes a flight-ring record on
+    exit — one object so stage-block call sites stay a single `with`."""
+
+    __slots__ = ("_tel", "_span", "_rec")
+
+    def __init__(self, tel, span, rec):
+        self._tel = tel
+        self._span = span
+        self._rec = rec
+
+    def __enter__(self):
+        self._span.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._tel.flight_complete(self._rec)
+        return self._span.__exit__(*exc)
 
 
 class _Stage:
@@ -143,24 +174,31 @@ def _device_key(node):
     return ((first.hostname, first.device_id),)
 
 
-def _drive_1f1b(forward, backward, nstages, M):
+def _drive_1f1b(forward, backward, nstages, M, telemetry=None):
     """The 1F1B order: min(nstages, M) warm-up forwards, then backward
     and forward alternating, then the drain. The one definition every
     runner executes — in one process, and each rank's share across
-    processes — which is why their losses agree."""
+    processes — which is why their losses agree. ``telemetry``
+    brackets the fill / steady / drain phases as spans."""
     warmup = min(nstages, M)
+    tel = telemetry
+    span = (tel.span if tel is not None and tel.enabled
+            else lambda *a, **k: _NULL_CM)
     done_f = done_b = 0
-    for _ in range(warmup):
-        forward(done_f)
-        done_f += 1
-    while done_f < M:
-        backward(done_b)
-        done_b += 1
-        forward(done_f)
-        done_f += 1
-    while done_b < M:
-        backward(done_b)
-        done_b += 1
+    with span("pp_fill", warmup=warmup):
+        for _ in range(warmup):
+            forward(done_f)
+            done_f += 1
+    with span("pp_steady", ticks=max(M - warmup, 0)):
+        while done_f < M:
+            backward(done_b)
+            done_b += 1
+            forward(done_f)
+            done_f += 1
+    with span("pp_drain", ticks=M - done_b):
+        while done_b < M:
+            backward(done_b)
+            done_b += 1
 
 
 def analytic_bubble_fraction(nstages, M, V=1, schedule="1f1b"):
@@ -623,8 +661,34 @@ class PipelineSubExecutor:
         if src.ranks[k % len(src.ranks)] == self.my_rank:
             value = self._inbox.pop((st.index, m, node))
             return value if self._cpp is None else self._cpp.receive(value)
-        return self.job.channel().recv(self._tag(kind, m, node, st)).to(
-            st.device)
+        return self._recv_traced(self._tag(kind, m, node, st),
+                                 st.index).to(st.device)
+
+    def _recv_traced(self, tag, stage_index):
+        """Blocking channel recv, recorded as that stage's idle (bubble)
+        interval: the time a stage waits on a boundary from another rank
+        is its pipeline bubble."""
+        tel = self.config.telemetry
+        if not tel.enabled:
+            return self.job.channel().recv(tag)
+        t0 = tel.clock()
+        val = self.job.channel().recv(tag)
+        t1 = tel.clock()
+        tel.complete("pp_stage_idle", t0, t1,
+                     {"stage": stage_index, "tag": tag,
+                      "bytes": val.numel() * val.element_size()})
+        tel.observe(f"pp_stage{stage_index}_idle_ms", (t1 - t0) / 1e6)
+        return val
+
+    def _stage_span(self, name, stage_index):
+        """Span for one stage's walk of a microbatch (the shared no-op
+        when telemetry is off: the kwargs dict builds only on the
+        enabled path), also a ``sched`` flight record."""
+        tel = self.config.telemetry
+        if not tel.enabled:
+            return _NULL_CM
+        rec = tel.flight_start("sched", name, tag=f"stage{stage_index}")
+        return _FlightSpan(tel, tel.span(name, stage=stage_index), rec)
 
     def _walk(self, st, env, ectx, nodes, offset, m, kind):
         handed = self._readers
@@ -640,6 +704,10 @@ class PipelineSubExecutor:
                 env.pop(dead, None)
 
     def _forward(self, executor, st, m):
+        with self._stage_span("pp_fwd_block", st.index):
+            self._forward_walk(executor, st, m)
+
+    def _forward_walk(self, executor, st, m):
         env = dict(self._compute_params(executor, st))
         feeds = self._feeds[(st.index, m)]
         env.update(feeds if st.tp is None else st.tp.shard_feeds(feeds))
@@ -661,6 +729,10 @@ class PipelineSubExecutor:
     def _backward(self, executor, st, m):
         """The microbatch's backward through the stage: its parameters'
         gradients, in the masters' dtype."""
+        with self._stage_span("pp_bwd_block", st.index):
+            return self._backward_walk(executor, st, m)
+
+    def _backward_walk(self, executor, st, m):
         env, ectx = self._backward_env(st, m)
         if self.assign[self.loss_node] == st.index:
             env[self._seed] = torch.full_like(env[self.loss_node],
@@ -720,7 +792,8 @@ class PipelineSubExecutor:
             for st in reversed(own):
                 self._apply(executor, st, self._backward(executor, st, m))
 
-        _drive_1f1b(forward, backward, len(self.stages), M)
+        _drive_1f1b(forward, backward, len(self.stages), M,
+                    telemetry=self.config.telemetry)
 
     def _build_collective(self, executor):
         """The collective schedule over the stages (JAX package
@@ -807,7 +880,8 @@ class PipelineSubExecutor:
         opts = {k: v for k, v in self.config.pp_options.items()
                 if k not in ("job", "boundary_rtol")}
         opts.setdefault("virtual_stages", V)
-        cpp = CollectiveGPipe(S, self.num_microbatches, **opts)
+        cpp = CollectiveGPipe(S, self.num_microbatches,
+                              telemetry=self.config.telemetry, **opts)
         cpp.bind([stages[r].device for r in range(cpp.S_dev)])
         return cpp
 
@@ -932,7 +1006,8 @@ class PipelineSubExecutor:
         self._infer_shapes(shapes)
         if self.schedule == "collective":
             if self._cpp is None:
-                self._cpp = self._build_collective(executor)
+                with self.config.telemetry.span("cpp_build"):
+                    self._cpp = self._build_collective(executor)
             self._cpp.check_feeds([
                 [((M,) + shapes[n], self._feeds[(st.index, 0)][n].dtype)
                  for n in st.feed_nodes] for st in self.stages])
@@ -963,6 +1038,11 @@ class PipelineSubExecutor:
         # schedules
         self.optimizer.lr_sched.step()
         self.step_count += 1
+        tel = self.config.telemetry
+        if tel.enabled:
+            # the analytic bubble at this (S, M, V); the measured idle
+            # of each stage is the pp_stage_idle spans across processes
+            tel.observe("pp_bubble_fraction", self.bubble_fraction)
         out = []
         for node in self.eval_node_list:
             if node is not self.loss_node or loss is None:

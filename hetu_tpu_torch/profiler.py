@@ -14,14 +14,84 @@ the planner prices forward ops only (``parallel/autoplan.graph_costs``
 scales each by the training factor), and after an eval forward there is
 no (o, logsumexp) residual for K3/K4, so attention's gradient would run
 its plain composed version on the card (ROADMAP §3).
-``StepLogger`` (the executor's ``log_path``) and ``trace`` wait for
-ROADMAP item 14.
+
+``StepLogger`` (the executor's ``log_path``) appends one JSON line per
+step, and mirrors it into the telemetry layer when given one.
+``trace(logdir)`` records a ``torch.profiler`` trace (CUDA activity
+where a card is present) and exports it as a Chrome trace into
+``logdir``: the reference's ``jax.profiler`` trace.
 """
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import time
 
-__all__ = ["profile_ops", "profile_op_records"]
+__all__ = ["StepLogger", "profile_ops", "profile_op_records", "trace"]
+
+
+class StepLogger:
+    """Appends one JSON line per step: wall ms, step index, optional
+    extra phase dict (reference ``hetu_tpu/profiler.py:27-85``). Kept as
+    a compatibility wrapper over the telemetry layer: when constructed
+    with an enabled Telemetry it mirrors each step into the span trace
+    (a ``step_logged`` instant) and the ``steplogger_wall_ms``
+    histogram, so the JSONL timeline and the trace agree. The wall time
+    is the host's: it closes when the step's work is issued, and never
+    synchronizes the device."""
+
+    def __init__(self, path, telemetry=None):
+        self.path = path
+        self._f = open(path, "a")
+        self._t0 = None
+        self._phase_snap = {}
+        self.step = 0
+        self.telemetry = telemetry
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+        return False
+
+    def begin(self):
+        self._t0 = time.perf_counter()
+
+    def end(self, executor=None, **extra):
+        dt = (time.perf_counter() - self._t0) * 1000 \
+            if self._t0 is not None else None
+        # `dt is not None`, NOT truthiness: a clock-granularity 0.0 ms
+        # step is a real measurement, null means begin() never ran
+        rec = {"step": self.step,
+               "wall_ms": round(dt, 3) if dt is not None else None}
+        rt = getattr(executor, "ps_runtime", None) if executor else None
+        if rt is not None:
+            # rt.times accumulates for the runtime's life: log the DELTA
+            # since the previous step, which is this step's cost
+            delta = {k: v - self._phase_snap.get(k, 0.0)
+                     for k, v in rt.times.items()}
+            self._phase_snap = dict(rt.times)
+            rec["ps_phases_ms"] = {k: round(v * 1000, 3)
+                                   for k, v in delta.items() if v > 0}
+        rec.update(extra)
+        self._f.write(json.dumps(rec) + "\n")
+        self._f.flush()
+        tel = self.telemetry
+        if tel is not None and tel.enabled and dt is not None:
+            tel.instant("step_logged", step=self.step,
+                        wall_ms=rec["wall_ms"])
+            tel.observe("steplogger_wall_ms", dt)
+        self.step += 1
+
+    def close(self):
+        if not self._f.closed:
+            self._f.close()
+
+    @property
+    def closed(self):
+        return self._f.closed
 
 
 def profile_op_records(executor, feed_dict=None, name="default",
@@ -131,3 +201,29 @@ def profile_ops(executor, feed_dict=None, name="default", top=20,
         for opname, ms in times[:top]:
             print(f"  {ms:8.3f} ms  {opname}")
     return times
+
+
+@contextlib.contextmanager
+def trace(logdir):
+    """A ``torch.profiler`` trace of the block (CPU activity, and CUDA
+    activity where a card is present), exported as a Chrome trace
+    ``torch_profile_<pid>.json`` into ``logdir`` (Perfetto and
+    chrome://tracing render it). Yields the profiler; its file is
+    ``prof.trace_path`` after the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    prof = profile(activities=activities)
+    prof.trace_path = None
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        path = os.path.join(logdir, f"torch_profile_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        prof.trace_path = path

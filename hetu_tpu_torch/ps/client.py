@@ -29,9 +29,12 @@ _default_client = None
 
 
 def _flight(kind, tid, nbytes):
-    """Black-box record of one PS RPC. The port's telemetry is the
-    disabled facade, so this returns before anything is built."""
-    tel = _telemetry.NULL
+    """Black-box record of one PS RPC (flight.py): an RPC that never
+    returns — dead server, wedged van thread — is a pending entry
+    naming the tensor id and byte count. The disabled path returns
+    before the tag string is built — no per-RPC allocations with
+    telemetry off."""
+    tel = _telemetry.get_telemetry()
     if not tel.enabled:
         return None
     return tel.flight.start("ps", kind, tag=f"tid{tid}", nbytes=nbytes)
@@ -41,12 +44,16 @@ _flight_done = _telemetry.Telemetry.flight_complete
 
 
 def _pull_span(nbytes):
-    """``ps:pull`` trace span of one pull-family RPC: the shared null
-    span while telemetry is the disabled facade."""
-    tel = _telemetry.NULL
+    """``ps:pull`` trace span for one pull-family RPC. The
+    ``overlapped`` attr marks pulls issued from the ingest worker
+    (:mod:`hetu_tpu_torch.ingest`): speculative pulls riding under the
+    device's in-flight work. Returns the shared null context when
+    telemetry is off."""
+    tel = _telemetry.get_telemetry()
     if not tel.enabled:
         return _telemetry._NULL_SPAN
-    return tel.span("ps:pull", bytes=int(nbytes))
+    from ..ingest import on_worker
+    return tel.span("ps:pull", bytes=int(nbytes), overlapped=on_worker())
 
 # reference OptType mapping (ps/server/optimizer.h:15-22)
 OPT_KIND = {"SGD": 0, "Momentum": 1, "Nesterov": 2, "AdaGrad": 3,
@@ -65,6 +72,13 @@ class PSClient:
         self.nworkers = nworkers
         self.servers_down = False
         self._closed = False
+        # post-mortem breadcrumb: with the fleet size on the flight
+        # dump, a pending RPC's tensor id maps to its server shard
+        # (tid % nservers) and the replica set it waited on
+        tel = _telemetry.get_telemetry()
+        if tel.enabled and tel.flight is not None:
+            tel.flight.meta["ps_nservers"] = int(self.nservers)
+            tel.flight.meta["ps_nreplicas"] = self.nreplicas
         # fail fast on a dead fleet (async paths would otherwise drop
         # requests silently); with replication a dead primary is
         # survivable — any reachable replica of shard 0 counts

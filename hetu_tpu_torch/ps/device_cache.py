@@ -32,6 +32,11 @@ Two copies cross the host link, each fenced by an event:
   rows into pinned memory with ``non_blocking`` and records an event;
   the push thread waits on that event before it reads them
   (:func:`host_rows`).
+
+The reference's one telemetry site here is the health monitor's
+staleness shadow (``telemetry/health.py``), which comes with the port's
+health monitor (ROADMAP item 14); the misses this cache fills are counted
+by the PS runtime (``dcache_miss_rows``).
 """
 from __future__ import annotations
 

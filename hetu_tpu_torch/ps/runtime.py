@@ -149,13 +149,25 @@ class PSRuntime:
 
     @contextlib.contextmanager
     def _phase(self, name):
-        """One PS step phase: its host seconds add to ``times``."""
+        """One PS step phase: its host seconds add to ``times`` (the
+        step logger's deltas) and, with telemetry on, a ``ps:<name>``
+        span, a ``ps_<name>_ms`` histogram and a flight record (a phase
+        that never completes — a hung server — is a pending entry)."""
+        tel = self.config.telemetry
+        t0n = tel.clock() if tel.enabled else 0
         t0 = time.perf_counter()
+        frec = (tel.flight.start("ps", "ps:" + name)
+                if tel.enabled else None)
         try:
             yield
         finally:
             with self._times_mu:    # prep phases run on the ingest worker
                 self.times[name] += time.perf_counter() - t0
+            tel.flight_complete(frec)
+            if tel.enabled:
+                t1n = tel.clock()
+                tel.complete("ps:" + name, t0n, t1n)
+                tel.observe(f"ps_{name}_ms", (t1n - t0n) / 1e6)
 
     def _put(self, value, shape=None):
         """A host numpy value as a tensor on the session's device."""
@@ -311,6 +323,7 @@ class PSRuntime:
         """Pull missed rows and copy them into the cache. A re-missed id
         whose gradients are still in an in-flight drain would read a
         pre-push row: that drain is waited for first."""
+        self.config.telemetry.inc("dcache_miss_rows", len(miss_ids))
         with self._phase("miss_fill"):
             fut = rt._drain_future
             if fut is not None and not fut.done() and \
@@ -664,7 +677,7 @@ class PSRuntime:
         first = next(it, None)
         if first is None:
             return None
-        engine = IngestEngine(_telemetry.NULL, lookahead=lookahead,
+        engine = IngestEngine(self.config.telemetry, lookahead=lookahead,
                               name="ps-ingest", sink=sink)
         pending = deque()    # (fd, block_end, dirty) aligned with engine
         self._track_push_tids = spec_tids or None
@@ -700,24 +713,33 @@ class PSRuntime:
                 pre = self.prep_step(sub, fd, fetch_dl())   # priming
                 dirty = {}
                 refill()
+                tel = self.config.telemetry
                 while fd is not None:
-                    res = self.run_step(sub, fd, convert_to_numpy_ret_vals,
-                                        prepped=pre, dirty=dirty)
-                    block_out.append(res)
-                    if block_end:
-                        out, block_out = block_out, []
-                    pushed = self._last_pushed
-                    if pushed:
-                        # this step's pushes dirty every in-flight prep
-                        for _fd, _be, d in pending:
-                            for tid, ids in pushed.items():
-                                d.setdefault(tid, set()).update(ids)
-                    if pending:
-                        fd, block_end, dirty = pending.popleft()
-                        _, pre = engine.pop()
-                        refill()
-                    else:
-                        fd = None
+                    # a step window of its own (this path runs per step,
+                    # under no Executor.run span); the engine.pop wait
+                    # lands inside it
+                    with tel.span("step", subgraph=sub.name,
+                                  pipelined=True) \
+                            if tel.enabled else _telemetry._NULL_SPAN:
+                        res = self.run_step(sub, fd,
+                                            convert_to_numpy_ret_vals,
+                                            prepped=pre, dirty=dirty)
+                        block_out.append(res)
+                        if block_end:
+                            out, block_out = block_out, []
+                        pushed = self._last_pushed
+                        if pushed:
+                            # this step's pushes dirty every in-flight
+                            # prep
+                            for _fd, _be, d in pending:
+                                for tid, ids in pushed.items():
+                                    d.setdefault(tid, set()).update(ids)
+                        if pending:
+                            fd, block_end, dirty = pending.popleft()
+                            _, pre = engine.pop()
+                            refill()
+                        else:
+                            fd = None
         finally:
             self._track_push_tids = None
             self._last_pushed = {}

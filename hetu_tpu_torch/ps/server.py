@@ -71,7 +71,7 @@ def claim_port(port=0):
 
 
 def spawn_server(lsock, nworkers, wait_s=10.0, extra_env=None,
-                 base_env=None):
+                 base_env=None, scrape_sock=None):
     """Start a server process on the claimed socket ``lsock`` (closed
     here: the child holds its own copy) and wait until it serves.
     Returns its ``Popen``.
@@ -87,12 +87,19 @@ def spawn_server(lsock, nworkers, wait_s=10.0, extra_env=None,
     ``extra_env`` adds to the child's environment — the replication
     hook: a primary is armed with its backup target via
     ``HETU_PS_MY_BACKUP_HOST``/``HETU_PS_MY_BACKUP_PORT``. ``base_env``
-    replaces ``os.environ`` as the environment it adds to."""
+    replaces ``os.environ`` as the environment it adds to.
+    ``scrape_sock``, a claimed port for the ``/metrics`` scrape, is
+    handed over as the PS socket is (``HETU_TELEMETRY_LISTEN_FD``) and
+    closed here too."""
     port = lsock.getsockname()[1]
     # build the library here, not in the child: a first build takes
     # longer than the child's startup allowance
     build_lib()
     lsock.set_inheritable(True)
+    scrape = {}
+    if scrape_sock is not None:
+        scrape_sock.set_inheritable(True)
+        scrape["HETU_TELEMETRY_LISTEN_FD"] = str(scrape_sock.fileno())
     rfd, wfd = os.pipe()
     try:
         try:
@@ -101,8 +108,9 @@ def spawn_server(lsock, nworkers, wait_s=10.0, extra_env=None,
                 env={**(os.environ if base_env is None else base_env),
                      "HETU_PS_LISTEN_FD": str(lsock.fileno()),
                      "HETU_PS_READY_FD": str(wfd),
-                     **(extra_env or {})},
-                pass_fds=(lsock.fileno(), wfd),
+                     **(extra_env or {}), **scrape},
+                pass_fds=(lsock.fileno(), wfd) + tuple(
+                    int(fd) for fd in scrape.values()),
                 # a fresh fd table otherwise: the child must not hold
                 # the parent's stdio pipes open past the parent's
                 # death (a `script | tail` would otherwise never see
@@ -115,6 +123,8 @@ def spawn_server(lsock, nworkers, wait_s=10.0, extra_env=None,
         # the child inherited its own copies; keeping ours would hold
         # the port (and the claim, and the pipe's EOF) for life
         lsock.close()
+        if scrape_sock is not None:
+            scrape_sock.close()
         os.close(wfd)
     import select
     deadline = time.time() + wait_s

@@ -9,12 +9,12 @@ request arrives, then concatenates the feeds along the batch dim, runs
 to ``max_batch_size`` stay whole — their rows never split across ticks;
 wider requests split server-side into adjacent chunks that resolve
 through one Future. ``stats()`` also counts the ticks served and the
-rows they carried, so a run can read its mean batch occupancy while
-telemetry is not ported.
+rows they carried, so a run can read its mean batch occupancy with
+telemetry off.
 
-Telemetry (the reference's names; its sites wait behind
-``telemetry.enabled`` until ROADMAP.md item 14): ``<name>_queue_depth``
-gauge, ``<name>_latency_ms`` histogram (submit -> result),
+Telemetry (the reference's names, behind ``telemetry.enabled``):
+``<name>_queue_depth`` gauge, ``<name>_latency_ms`` histogram (submit ->
+result),
 ``<name>_batch_size`` / ``<name>_batch_occupancy`` histograms,
 ``<name>_requests`` / ``<name>_batches`` counters and the fleet-level
 ``serve_queue_wait_ms`` histogram (submit -> tick claim).

@@ -9,8 +9,7 @@ JSON in / JSON out, five routes:
   ``{"outputs": [...], "latency_ms": ..., "request_id": ...}``.
 * ``GET /healthz`` — liveness (an SLO probe when SLOs are configured).
 * ``GET /metrics`` — Prometheus text scrape of the serving telemetry
-  (404 when telemetry is disabled, which in the port is always, until
-  ROADMAP.md item 14).
+  (404 when telemetry is disabled).
 * ``GET /v1/requests`` — live in-flight table from the backend
   (``inflight_requests()``; 404 when the backend has none).
 * ``GET /stats`` — frontend + backend snapshot (``stats()``), the

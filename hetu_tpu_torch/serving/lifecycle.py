@@ -1,9 +1,10 @@
 """Per-request serving lifecycle: ids, phase timelines, in-flight dumps.
 
 A copy of ``hetu_tpu/serving/lifecycle.py`` (pure host code, no tensor
-ops). In the port the timelines stay unused until telemetry is ported:
-the engine creates one only when telemetry is enabled. The text below
-is the reference's and names the reference's tools.
+ops): the engine creates a timeline only when telemetry is enabled, and
+``Telemetry.flush`` writes the in-flight tables. The text below is the
+reference's and names the reference's tools (the doctor is still to
+port: ROADMAP item 14).
 
 The serving plane used to be observable only at engine granularity
 (``step`` spans + counters); this module is the request-level layer the

@@ -3,7 +3,7 @@ package's (twins of tests/test_autotune.py's engine tests): each scenario
 runs through both engines, over cache files of their own, with the same
 candidates and timings, and both must pick the same configs, sweep the
 same number of times and persist the same entries. Sweeps are counted by
-the ``measure`` calls (the port's telemetry is the disabled facade).
+the ``measure`` calls (with telemetry off, no span records them).
 """
 import json
 import threading

@@ -1,7 +1,8 @@
 """hetu_tpu_torch stands alone: it imports with JAX and hetu_tpu
 blocked — its parameter-server modules too, and its server process
 starts so —, its entry points default to CUDA and raise without it, the
-telemetry stub refuses to record silently, and its copy of the
+telemetry facade resolves as the reference's (disabled by default,
+enabled by a path, True or ``HETU_TELEMETRY``), and its copy of the
 parameter server's C++ sources stays byte-identical to hetu_tpu's."""
 import os
 import socket
@@ -201,15 +202,29 @@ def test_ps_native_sources_are_hetu_tpus():
         assert (mine / name).read_bytes() == (ref / name).read_bytes(), name
 
 
-@pytest.mark.parametrize("arg", [True, "some/dir", "env"])
-def test_enabled_telemetry_is_refused(monkeypatch, arg):
-    if arg == "env":
-        monkeypatch.setenv("HETU_TELEMETRY", "some/dir")
+@pytest.mark.parametrize("arg", [True, "dir", "env"])
+def test_enabled_telemetry_resolves(monkeypatch, tmp_path, arg):
+    """True, a directory and ``HETU_TELEMETRY`` (with None) each resolve
+    to an enabled instance that becomes the process default, and a
+    second request for the same directory reuses it (the reference's
+    rule: two instances would overwrite each other's rank files)."""
+    monkeypatch.setattr(telemetry, "_default", None)
+    out = str(tmp_path / "tel")
+    monkeypatch.setenv("HETU_TELEMETRY", out)
+    if arg == "dir":
+        monkeypatch.delenv("HETU_TELEMETRY")
+        arg = out
+    elif arg == "env":
         arg = None
-    with pytest.raises(NotImplementedError):
-        telemetry.resolve(arg)
-    with pytest.raises(NotImplementedError):
-        telemetry.Telemetry(enabled=True)
+    tel = telemetry.resolve(arg)
+    assert tel.enabled and tel.out_dir == out
+    assert telemetry.get_telemetry() is tel
+    assert telemetry.resolve(out) is tel
+    with tel.span("x", a=1):
+        tel.inc("c", 3)
+    paths = tel.flush()
+    assert tel.counter_value("c") == 3 and len(paths) >= 2
+    assert all(os.path.exists(p) for p in paths)
 
 
 def test_disabled_telemetry_is_a_no_op(monkeypatch):

@@ -207,8 +207,7 @@ def test_bsp_fleet_matches_the_jax_packages_fleet(tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", ["--telemetry=d", "--health=1", "--watch",
-                                  "--hang-timeout=30", "--preflight"])
+@pytest.mark.parametrize("flag", ["--health=1", "--watch", "--preflight"])
 def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     cfg_path = tmp_path / "cluster.yml"
     cfg_path.write_text(CONFIG)
@@ -220,6 +219,104 @@ def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     err = capsys.readouterr().err
     assert name in err and f"ROADMAP {item}" in err
     assert not launcher._procs and not launcher._claims
+
+
+TELEMETRY_ENV_WORKER = r"""
+import json, os, sys
+keys = ("HETU_TELEMETRY", "HETU_WATCHDOG_DIR", "HETU_HANG_TIMEOUT")
+with open(os.path.join(os.environ["HETU_TEST_OUT"],
+                       "env%s.json" % os.environ["HETU_PS_RANK"]), "w") as f:
+    json.dump({k: os.environ.get(k) for k in keys}, f)
+"""
+
+
+@pytest.mark.parametrize("flag", ["--telemetry", "--hang-timeout"])
+def test_telemetry_and_watchdog_options_are_accepted(tmp_path, flag):
+    """``--telemetry DIR`` exports the directory to every worker;
+    ``--hang-timeout S`` arms the watchdog (``HETU_WATCHDOG_DIR``,
+    ``HETU_HANG_TIMEOUT``) in a temporary telemetry directory of its
+    own. Both fleets exit 0 (the end-to-end traces are
+    tests/test_torch_telemetry.py's)."""
+    import json
+    import subprocess
+    cfg = tmp_path / "cluster.yml"
+    cfg.write_text("nodes:\n  - host: localhost\n    workers: 2\n"
+                   "    chief: true\n")
+    script = tmp_path / "worker.py"
+    script.write_text(TELEMETRY_ENV_WORKER)
+    tdir = str(tmp_path / "teldir")
+    args = ["--telemetry", tdir] if flag == "--telemetry" \
+        else ["--hang-timeout", "30"]
+    env = clean_fleet_env(HETU_TEST_OUT=str(tmp_path))
+    env.pop("HETU_TELEMETRY", None)
+    proc = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "hetu_tpu_torch",
+            "run_launcher.py"), "-c", str(cfg)] + args
+        + [sys.executable, str(script)],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    got = [json.loads((tmp_path / f"env{r}.json").read_text())
+           for r in range(2)]
+    assert got[0]["HETU_TELEMETRY"] == got[1]["HETU_TELEMETRY"]
+    if flag == "--telemetry":
+        assert got[0]["HETU_TELEMETRY"] == tdir
+        assert got[0]["HETU_WATCHDOG_DIR"] is None
+        assert "no traces to merge" in proc.stdout
+    else:
+        wd = got[0]["HETU_WATCHDOG_DIR"]
+        assert wd == got[0]["HETU_TELEMETRY"] and "hetu-watchdog-" in wd
+        assert float(got[1]["HETU_HANG_TIMEOUT"]) == 30.0
+        assert os.path.isdir(wd)
+
+
+def test_rendezvous_port_is_claimed_until_rank0_serves(monkeypatch):
+    """On one host the job's rendezvous port is claimed (a listening
+    socket) from the moment it is chosen, so no other process binding a
+    port of its own can take it before rank 0's store runs on it; rank
+    0 is handed the claim (``HETU_MASTER_LISTEN_FD``)."""
+    import socket
+    monkeypatch.delenv("HETU_COORDINATOR_PORT", raising=False)
+    cfg = ClusterConfig([{"host": "localhost", "workers": 2,
+                          "chief": True}], spmd=True)
+    try:
+        host, port = launcher._master(cfg)
+        assert host == "127.0.0.1" and port in launcher._claims
+        probe = socket.socket()
+        with pytest.raises(OSError):
+            probe.bind(("0.0.0.0", port))
+        probe.close()
+    finally:
+        launcher._shutdown()
+    assert not launcher._claims
+
+
+def test_scrape_ports_are_claimed_and_handed_to_their_servers(monkeypatch):
+    """On one host ``--telemetry``'s PS scrape ports are claimed when
+    chosen (no other process can take one before its server serves it)
+    and each server is handed its claim (``HETU_TELEMETRY_LISTEN_FD``):
+    ``/metrics`` answers on the port with the server's identity."""
+    import socket
+    import urllib.request
+    monkeypatch.delenv("HETU_TELEMETRY_BASE_PORT", raising=False)
+    cfg = ClusterConfig([{"host": "localhost", "servers": 1, "workers": 1,
+                          "chief": True}])
+    try:
+        (host, ps_port), = cfg.server_endpoints()
+        scrape, = launcher._scrape_ports(cfg, 1)
+        assert scrape in launcher._claims
+        probe = socket.socket()
+        with pytest.raises(OSError):
+            probe.bind(("0.0.0.0", scrape))
+        probe.close()
+        launcher._spawn_one_server(
+            cfg, host, ps_port, {"HETU_TELEMETRY_PORT": str(scrape)}, None)
+        assert not launcher._claims         # both claims handed over
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{scrape}/metrics", timeout=10).read()
+        assert f"hetu_ps_server_port {ps_port}" in body.decode()
+    finally:
+        launcher._shutdown()
 
 
 SPMD_CONFIG = """
@@ -397,11 +494,14 @@ def test_reference_options_are_accepted(tmp_path):
     cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), mesh=None,
                          overlap_options={"bucket_bytes": 1 << 20})
     assert cfg.overlap.bucket_bytes == 1 << 20 and cfg.mesh is None
-    for option in ({"telemetry": None},
-                   {"health_options": None}, {"validate": "warn"},
-                   {"log_path": str(tmp_path)}):
+    for option in ({"health_options": None}, {"validate": "warn"}):
         with pytest.raises(TypeError, match="ROADMAP"):
             tht.HetuConfig([loss], ctx=tht.cpu(0), **option)
+    # telemetry and the step log are ported (tests/test_torch_telemetry.py)
+    log = str(tmp_path / "steps.jsonl")
+    cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), telemetry=False,
+                         log_path=log)
+    assert cfg.telemetry is tht.telemetry.NULL and cfg.log_path == log
     # the pipelines are ported: gpipe is accepted (tests/test_torch_pipeline.py)
     assert tht.HetuConfig([loss], ctx=tht.cpu(0), gpipe=True).use_gpipe
     # so is the collective pipeline (tests/test_torch_collective_pp.py)

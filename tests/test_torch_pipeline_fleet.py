@@ -168,17 +168,23 @@ def _bindable(base, n):
 def test_launcher_pipeline_addresses_default_to_the_references(
         monkeypatch):
     """Without HETU_PIPE_BASE_PORT a cluster's base is the reference's
-    19500, and one host's a range of ports free at launch; one host's
-    ranks dial loopback, a cluster's their hosts."""
+    19500, and one host's a range of ports the launcher claims at launch
+    (held until its shutdown, then free); one host's ranks dial
+    loopback, a cluster's their hosts."""
     from hetu_tpu_torch import launcher
     monkeypatch.delenv("HETU_PIPE_BASE_PORT", raising=False)
     cfg = launcher.ClusterConfig([{"host": "localhost", "workers": 3,
                                    "chief": True}], spmd=True)
-    env = launcher._pipe_env(cfg)
-    base = int(env.pop("HETU_PIPE_BASE_PORT"))
-    assert env == {
-        "HETU_PIPE_HOSTS": "127.0.0.1,127.0.0.1,127.0.0.1",
-        "HETU_HOSTS": "localhost,localhost,localhost"}
+    try:
+        env = launcher._pipe_env(cfg)
+        base = int(env.pop("HETU_PIPE_BASE_PORT"))
+        assert env == {
+            "HETU_PIPE_HOSTS": "127.0.0.1,127.0.0.1,127.0.0.1",
+            "HETU_HOSTS": "localhost,localhost,localhost"}
+        assert {base, base + 1, base + 2} <= set(launcher._claims)
+        assert not any(_bindable(base + k, 1) for k in range(3))
+    finally:
+        launcher._shutdown()
     assert _bindable(base, 3)
     cfg = launcher.ClusterConfig([{"host": "a", "workers": 1},
                                   {"host": "b", "workers": 2,
@@ -191,24 +197,36 @@ def test_launcher_pipeline_addresses_default_to_the_references(
 
 def test_launcher_keeps_two_jobs_on_one_host_apart(monkeypatch):
     """A second job launched on a host while the first one's channel
-    listens gets a port range of its own; a base the caller sets is
-    kept."""
+    listens gets a port range of its own; the channel listens on the
+    socket the launcher claimed for it; a base the caller sets is kept
+    (and not claimed)."""
     from hetu_tpu_torch import launcher
     monkeypatch.delenv("HETU_PIPE_BASE_PORT", raising=False)
     cfg = launcher.ClusterConfig([{"host": "localhost", "workers": 2,
                                    "chief": True}], spmd=True)
-    first = int(launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"])
-    channels = [PipeChannel(r, 2, base_port=first) for r in range(2)]
+    channels = []
     try:
+        first = int(launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"])
+        channels = [PipeChannel(r, 2, base_port=first,
+                                listen_fd=launcher._claims.pop(
+                                    first + r).detach())
+                    for r in range(2)]
         for _ in range(8):
             base = int(launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"])
             assert not {base, base + 1} & {first, first + 1}
-            assert _bindable(base, 2)
+            assert {base, base + 1} <= set(launcher._claims)
+        t = threading.Thread(target=channels[0].send,
+                             args=(1, "t", torch.arange(3)))
+        t.start()
+        assert channels[1].recv("t", timeout=30).tolist() == [0, 1, 2]
+        t.join(timeout=30)
     finally:
         for ch in channels:
             ch.close()
+        launcher._shutdown()
     monkeypatch.setenv("HETU_PIPE_BASE_PORT", str(first))
     assert launcher._pipe_env(cfg)["HETU_PIPE_BASE_PORT"] == str(first)
+    assert not launcher._claims
 
 
 # --- training fleets ------------------------------------------------------

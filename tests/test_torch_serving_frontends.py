@@ -5,10 +5,10 @@ positions).
 
 The cases are the reference's (tests/test_serving.py batcher and HTTP
 tests, tests/test_paged_serving.py and
-tests/test_serving_observability.py router and HTTP tests) without
-their telemetry assertions, which wait for the telemetry port (ROADMAP.md
-item 14): the batcher's ``stats()`` carries the tick and row counts
-instead. Numerics: session outputs within rtol 1e-5 of the numpy
+tests/test_serving_observability.py router and HTTP tests) with
+telemetry off (the enabled cases are
+tests/test_torch_serving_observability.py's): the batcher's ``stats()``
+carries the tick and row counts. Numerics: session outputs within rtol 1e-5 of the numpy
 product; tokens through the stack identical to a direct
 ``GPTDecoder.generate``.
 """
