@@ -39,8 +39,10 @@ plan trained through ``Executor(parallel="auto")``, and a launcher job's
 ``--autoplan``); a 2-layer GCN through ``distgcn_15d_op`` at (gr, gc) = (2, 2)
 as four launcher ranks and as four thread ranks; the port's runner zoo
 through its launcher and its BERT example; WDL's
-Hybrid mode across two workers; and, with telemetry on, the training
-step, the request-level plane and a two-process pipeline job — checks
+Hybrid mode across two workers; with telemetry on, the training
+step, the request-level plane and a two-process pipeline job; and with
+the training health monitor on, the training step and a two-worker job
+with a NaN injected — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
@@ -191,7 +193,9 @@ object per line (``--out`` also writes them to FILE):
   (the composed attention backward's and dropout's among them); BERT-base
   launches K1 12 times a step, all on ``tc``, and no K2–K4; BERT-small at
   S=2048 launches K2, K3 and K4 4 times a step each, all on ``tc``, and
-  no K1; step-1 parity against the plain kernels;
+  no K1; step-1 parity against the plain kernels; for ``bert_long`` also
+  the errors of both against the same step in f32 (the plain versions,
+  reported, not gated);
 * ``bert_example`` ``hetu_tpu_torch/examples/train_hetu_bert.py`` as a
   user runs it (BERT-base, S=128, B=64, 20 steps, bf16): its tokens/s,
   the losses (finite), K1 12 launches a step, all ``tc``, K2-K4 none;
@@ -345,6 +349,22 @@ object per line (``--out`` also writes them to FILE):
   ``python -m hetu_tpu_torch.telemetry.check``, spans of both ranks,
   ``p2p_*`` / ``pp_*`` spans, ``pp_bubble_fraction``, both metrics
   files, the losses equal to the untraced job's;
+* ``health_train`` a third executor interleaved with
+  ``telemetry_train``'s two, the health monitor at every_n=2: its losses
+  bit-equal to the untraced ones, records at steps 2, 4, 6, 8 with every
+  parameter tensor, each grad norm and update ratio within 1e-5 of a
+  plain f32 recomputation from the step's gradients and weights, K2/K3/K4
+  12 a step on ``tc``; the monitored and untraced step p50, their ratio
+  and the monitor's ms a sample (reported); then a NaN set in an f32
+  master before step 3 under ``action="dump"``: the trip at step 4, the
+  last-good record at 2, the flight dump, and the health CLI's
+  ``first_bad_step``;
+* ``health_job`` the reference's acceptance run on the card: two
+  launcher workers (``--health-worker``) of the 12-16-4 MLP with
+  ``--telemetry --health every_n=5,action=dump`` and a NaN at step 7:
+  both ranks' records at 5 and 10, their trips at 10 naming a layer, the
+  last-good files, and ``first_bad_step`` 10 from ``python -m
+  hetu_tpu_torch.telemetry.health`` and ``.blackbox``;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -459,7 +479,8 @@ BERT_PASSES = {
     "bert": dict(model="bert-base", widths=BERT_BASE, batch=64,
                  lengths=(64, 128), warmup=2, steps=6),
     "bert_long": dict(model="bert-small-2048", widths=BERT_SMALL_2048,
-                      batch=8, lengths=(1024, 2048), warmup=2, steps=6),
+                      batch=8, lengths=(1024, 2048), warmup=2, steps=6,
+                      f32_reference=True),
 }
 BERT_FEEDS = ("input_ids", "token_type_ids", "attention_mask",
               "masked_lm_labels", "next_sentence_label")
@@ -1282,6 +1303,39 @@ def train_pass(torch, nodes, feeds, plain, steps):
                  "peak": torch.cuda.max_memory_allocated(),
                  "plain_loss": plain_loss, "plain_grads": plain_grads,
                  "kernel_grads": kernel_grads}
+
+
+def f32_reference(torch, nodes, feeds, plain, run):
+    """Step 1 of the graph in f32 with the plain kernel versions of
+    ``plain`` (the same weights and, keyed by the graph's own op ids,
+    the same dropout masks as the bf16 executors): the errors of the
+    bf16 kernels' step and of the bf16 plain versions' against it, as
+    ``check_pass`` measures them (each gradient's largest difference
+    over its largest element). Reported, not gated: it says whether the
+    kernels or bf16 itself set a bf16 parity gate's margin."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.ops import attention as attn
+    kernels = {key: getattr(attn, key) for key in plain}
+    for key, fn in plain.items():
+        setattr(attn, key, fn)
+    try:
+        exe = ht.Executor(nodes)
+        out = exe.run(feed_dict=feeds)
+        loss = float(out[0].asnumpy())
+        grads = [o.tensor.float().clone() for o in out[1:-1]]
+    finally:
+        for key, fn in kernels.items():
+            setattr(attn, key, fn)
+    del exe, out
+    torch.cuda.empty_cache()
+
+    def errs(got):
+        return {part: float((g - r).abs().max() / r.abs().max())
+                for part, g, r in zip("qkv", got, grads)}
+    return {"loss_f32": loss, "loss_kernels": run["losses"][0],
+            "loss_plain_bf16": run["plain_loss"],
+            "kernels_rel_err": errs(run["kernel_grads"]),
+            "plain_bf16_rel_err": errs(run["plain_grads"])}
 
 
 def check_pass(name, run, want, grads):
@@ -2600,9 +2654,13 @@ def _launch_job(name, config, flag, spec, timeout, sample_card,
     if sample_card:
         sampler.join()
     if rc != 0:
+        # the workers write into the launcher's log: their stderr, and
+        # the launcher's line naming the rank that failed and how
         with open(log_path) as f:
-            tail = f.read()[-4000:]
-        raise AssertionError(f"{name}: launcher exit {rc}\n{tail}")
+            tail = f.read()[-8000:]
+        how = f" (a worker killed by signal {256 - rc})" \
+            if isinstance(rc, int) and rc > 128 else ""
+        raise AssertionError(f"{name}: launcher exit {rc}{how}\n{tail}")
     return wall, used
 
 
@@ -4334,6 +4392,9 @@ def bert_train(torch, seed, card, name):
     got, parity = check_pass(
         name, run, _route_counts(on, off, cfg.num_hidden_layers * steps),
         dict(zip("qkv", zip(run["kernel_grads"], run["plain_grads"]))))
+    if spec.get("f32_reference"):
+        parity["f32_reference"] = f32_reference(torch, nodes, feeds, plain,
+                                                run)
     timed = run["step_ms"][spec["warmup"]:]
     p50 = float(np.median(timed))
     flops = bert_train_flops(batch, seq, widths["hidden_size"],
@@ -7980,21 +8041,48 @@ def telemetry_train(torch, seed, card):
                             telemetry=False)
         if not tel.enabled or plain.config.telemetry.enabled:
             raise AssertionError("telemetry_train: telemetry= not honored")
+        # health_train: a third executor over the graph, the health
+        # monitor on (telemetry off)
+        monitored = _monitored_executor(ht, torch, [lm, train_op],
+                                        os.path.join(tdir, "health"))
         steps = TEL_WARMUP + TEL_STEPS
-        losses = {"traced": [], "untraced": []}
-        step_ms = {"traced": [], "untraced": []}
+        runs = (("traced", traced), ("untraced", plain),
+                ("health", monitored))
+        losses = {key: [] for key, _ in runs}
+        step_ms = {key: [] for key, _ in runs}
+        by_exe = {key: {} for key, _ in runs}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()                # main path starts
+        _build.reset_launch_counts()                # main paths start
         for _ in range(steps):
-            for key, exe in (("traced", traced), ("untraced", plain)):
+            for key, exe in runs:
+                before = dict(_build.launch_counts)
                 t0 = time.perf_counter()
                 out = exe.run(feed_dict=feeds)
                 losses[key].append(float(out[0].asnumpy()))  # waits
                 step_ms[key].append((time.perf_counter() - t0) * 1e3)
-        torch.cuda.synchronize()
-        launches = dict(_build.launch_counts)       # main path ends
+                for k, v in _build.launch_counts.items():
+                    by_exe[key][k] = by_exe[key].get(k, 0) + v \
+                        - before.get(k, 0)
+        torch.cuda.synchronize()                    # main paths end
         peak_alloc = int(torch.cuda.max_memory_allocated())
+        # the sentinels' check: a fourth executor, after the timed window,
+        # its sampled steps' gradients and weights kept
+        checker = _monitored_executor(ht, torch, [lm, train_op],
+                                      os.path.join(tdir, "health_check"))
+        sampled = _keep_sentinel_inputs(torch, train_op)
+        losses["check"] = [float(checker.run(feed_dict=feeds)[0].asnumpy())
+                           for _ in range(steps)]
+        del train_op.compute                        # the class's again
+        launches = {k: by_exe["traced"].get(k, 0)
+                    + by_exe["untraced"].get(k, 0)
+                    for k in set(by_exe["traced"]) | set(by_exe["untraced"])}
+        health_line = _health_train_line(
+            torch, monitored, checker, sampled, losses, step_ms,
+            by_exe["health"], card, seed)
+        del monitored, checker, sampled
+        health_line["trip"] = health_trip(torch, [lm, train_op], feeds,
+                                          os.path.join(tdir, "trip"))
         gauges = {g: tel.metrics.peek(g)
                   for g in ("memory_live_bytes", "memory_peak_bytes")}
         h2d_counter = tel.counter_value("h2d_bytes")
@@ -8035,7 +8123,8 @@ def telemetry_train(torch, seed, card):
     layers = cfg.num_hidden_layers
     want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), layers * 2 * steps)
     got = {k: launches.get(k, 0) for k in want}
-    p50 = {k: float(np.median(v[TEL_WARMUP:])) for k, v in step_ms.items()}
+    p50 = {k: float(np.median(step_ms[k][TEL_WARMUP:]))
+           for k in ("traced", "untraced")}
     checks = {
         "losses_bit_equal": losses["traced"] == losses["untraced"],
         "trace_events": n_events, "trace_errors": errors[:5],
@@ -8079,14 +8168,350 @@ def telemetry_train(torch, seed, card):
             "batch": TRAIN_BATCH, "seq": seq, "dtype": "bfloat16",
             "optimizer": "Adam", "lr": TRAIN_LR, "seed": seed,
             "warmup_steps": TEL_WARMUP, "timed_steps": TEL_STEPS,
-            "losses": losses["traced"], "step_ms": step_ms,
+            "losses": losses["traced"],
+            "step_ms": {k: step_ms[k] for k in ("traced", "untraced")},
             "step_ms_p50_traced": p50["traced"],
             "step_ms_p50_untraced": p50["untraced"],
             "telemetry_overhead_ratio": p50["traced"] / p50["untraced"],
             "checks": checks}
     if faults:
         raise AssertionError(f"telemetry_train: {faults}: {line}")
-    return line, launches
+    return line, launches, health_line, by_exe["health"]
+
+
+# health_train, health_job: the training health monitor
+# (hetu_tpu_torch/telemetry/health.py) on train's path and in a job
+HEALTH_EVERY_N = 2
+HEALTH_REL_TOL = 1e-5     # sentinels against their plain recomputation
+HEALTH_NAN_PARAM = "gpt_h0_attn_qkv_weights"
+HEALTH_NAN_STEP, HEALTH_TRIP_STEPS = 3, 4   # trips at the next sample
+HEALTH_JOB_SPEC = "every_n=5,action=dump"
+HEALTH_JOB_STEPS, HEALTH_JOB_NAN_STEP = 13, 7
+HEALTH_JOB_TIMEOUT_S = 180
+
+
+def _monitored_executor(ht, torch, nodes, out_dir):
+    """An executor of ``train``'s graph with the health monitor on at
+    every_n=HEALTH_EVERY_N (telemetry off), its records into ``out_dir``."""
+    return ht.Executor(nodes, dtype=torch.bfloat16, telemetry=False,
+                       health_options={"every_n": HEALTH_EVERY_N,
+                                       "out_dir": out_dir})
+
+
+def _keep_sentinel_inputs(torch, train_op):
+    """On every step the health monitor samples (``ectx.health_sentinels``
+    set), keep ``{name: (gradient, f32 master before, after)}`` of each
+    parameter ``train_op`` updates. The kept blocks do not go back to the
+    allocator, so only the untimed check executor runs with this. Returns
+    the list they go to; ``del train_op.compute`` undoes it."""
+    kept = []
+    compute = type(train_op).compute
+
+    def keep(input_vals, ectx):
+        if ectx.health_sentinels is None:
+            return compute(train_op, input_vals, ectx)
+        masters = ectx.master_params or ectx.params
+        params = train_op.optimizer.params
+        before = {p: masters[p] for p in params}
+        out = compute(train_op, input_vals, ectx)
+        kept.append({p.name: (g, before[p], ectx.new_params[p])
+                     for p, g in zip(params, input_vals) if g is not None})
+        return out
+
+    train_op.compute = keep
+    return kept
+
+
+def _plain_sentinels(torch, step):
+    """One sampled step's sentinels recomputed plainly in f32 on the card
+    from what ``_keep_sentinel_inputs`` kept: {name: (grad_norm,
+    nonfinite, update_ratio)}, read in one copy."""
+    from hetu_tpu_torch.ndarray import IndexedSlices
+    names, vals = sorted(step), []
+    for name in names:
+        g, old, new = step[name]
+        g = (g.values if isinstance(g, IndexedSlices) else g).float()
+        vals += [torch.linalg.vector_norm(g),
+                 (~torch.isfinite(g)).sum().float(),
+                 torch.linalg.vector_norm(new.float() - old.float())
+                 / (torch.linalg.vector_norm(old.float()) + 1e-12)]
+    host = torch.stack(vals).double().cpu().numpy().reshape(-1, 3)
+    return dict(zip(names, host))
+
+
+def _rel_err(got, ref):
+    """|got - ref| / |ref| (|got| where ref is 0); inf where either is
+    missing or not finite, so that no entry escapes its gate."""
+    if got is None or ref is None:
+        return float("inf")
+    err = abs(got - ref) / abs(ref) if ref else abs(got)
+    return float(err) if np.isfinite(err) else float("inf")
+
+
+def _health_train_line(torch, exe, checker, sampled, losses, step_ms,
+                       launches, card, seed):
+    """``health_train``'s line and checks. ``exe`` ran in the timed
+    window; ``checker``, a second monitored executor of the graph, ran the
+    same steps after it with their inputs kept (``sampled``). Checks: both
+    executors' losses bit-equal to the untraced one's; records at every
+    HEALTH_EVERY_N-th step, each with every parameter tensor of the
+    model, every nonfinite count 0 and ``loss_finite``; each of
+    ``checker``'s records' grad norms and update ratios within
+    HEALTH_REL_TOL of their plain f32 recomputation from the step's
+    gradients and weights, and ``exe``'s within HEALTH_REL_TOL of
+    ``checker``'s; K2/K3/K4 12 a step on ``tc`` in ``exe``. Reports the
+    monitored and untraced step p50 and their ratio (not gated) and
+    ``sample_wall_ms`` a sample, both of ``exe``, which ran no check."""
+    from hetu_tpu_torch.ops import flash_attention as fa
+    hm, hm_check = exe.config.health_monitor, checker.config.health_monitor
+    records, checked = list(hm.records), list(hm_check.records)
+    steps = len(losses["health"])
+    want_steps = list(range(HEALTH_EVERY_N, steps + 1, HEALTH_EVERY_N))
+    names = {p.name for p in exe.subexecutors["default"].optimizer_ops[0]
+             .optimizer.params}
+    worst = {"grad_norm": 0.0, "update_ratio": 0.0}
+    worst_window = {"grad_norm": 0.0, "update_ratio": 0.0}
+    faults = []
+    for rec, chk, step in zip(records, checked, sampled):
+        plain = _plain_sentinels(torch, step)
+        if not (set(rec["layers"]) == set(chk["layers"]) == set(plain)
+                == names) or rec["step"] != chk["step"]:
+            faults.append(f"step {rec['step']} layers")
+            continue
+        for name, (gn, nf, ur) in plain.items():
+            m, c = rec["layers"][name], chk["layers"][name]
+            if m["nonfinite"] != 0 or c["nonfinite"] != 0 or nf != 0:
+                faults.append(f"step {rec['step']} {name} nonfinite")
+            for key, ref in (("grad_norm", gn), ("update_ratio", ur)):
+                worst[key] = max(worst[key], _rel_err(c[key], ref))
+                worst_window[key] = max(worst_window[key],
+                                        _rel_err(m[key], c[key]))
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                         GPT2_SMALL["num_hidden_layers"] * steps)
+    got = {k: launches.get(k, 0) for k in want}
+    p50 = {k: float(np.median(step_ms[k][TEL_WARMUP:]))
+           for k in ("health", "untraced")}
+    both = records + checked
+    checks = {
+        "losses_bit_equal": losses["health"] == losses["untraced"]
+        == losses["check"],
+        "record_steps": [r["step"] for r in records],
+        "check_record_steps": [r["step"] for r in checked],
+        "record_steps_want": want_steps,
+        "layers_per_record": [len(r["layers"]) for r in records],
+        "parameter_tensors": len(names),
+        "loss_finite": [r["loss_finite"] for r in both],
+        "nonfinite_total": sum(m["nonfinite"] for r in both
+                               for m in r["layers"].values()),
+        "trips": sum(len(r["trips"]) for r in both),
+        "max_rel_err": worst, "max_rel_err_window_vs_check": worst_window,
+        "rel_tol": HEALTH_REL_TOL,
+        "launches": got, "launches_want": want}
+    if not checks["losses_bit_equal"]:
+        faults.append(f"losses {losses['health']} and {losses['check']} "
+                      f"against untraced {losses['untraced']}")
+    if checks["record_steps"] != want_steps or \
+            checks["check_record_steps"] != want_steps or \
+            len(sampled) != len(want_steps) or \
+            not all(checks["loss_finite"]) or \
+            checks["nonfinite_total"] or checks["trips"]:
+        faults.append("records")
+    if max(worst.values()) > HEALTH_REL_TOL:
+        faults.append("sentinels against their recomputation")
+    if max(worst_window.values()) > HEALTH_REL_TOL:
+        faults.append("the timed executor's sentinels against the check's")
+    if got != want:
+        faults.append("launches")
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "batch": TRAIN_BATCH, "dtype": "bfloat16", "optimizer": "Adam",
+            "seed": seed, "every_n": HEALTH_EVERY_N,
+            "warmup_steps": TEL_WARMUP, "timed_steps": TEL_STEPS,
+            "losses": losses["health"],
+            "step_ms": {k: step_ms[k] for k in ("health", "untraced")},
+            "step_ms_p50_monitored": p50["health"],
+            "step_ms_p50_untraced": p50["untraced"],
+            "health_overhead_ratio": p50["health"] / p50["untraced"],
+            "samples": len(records),
+            "sample_wall_ms": hm.sample_wall_ms / max(1, len(records)),
+            "checks": checks}
+    exe.close()
+    checker.close()
+    if faults:
+        raise AssertionError(f"health_train: {faults}: {line}")
+    return line
+
+
+def health_trip(torch, nodes, feeds, out_dir):
+    """``health_train``'s trip: a fresh executor of the graph with
+    telemetry into ``out_dir`` and the monitor at every_n=HEALTH_EVERY_N,
+    action ``dump``; one element of the f32 master HEALTH_NAN_PARAM set to
+    NaN before step HEALTH_NAN_STEP. Checks: the trip at the next sampled
+    step (kind ``nonfinite``, ``loss_finite`` false), the last-good record
+    at the sample before, the flight dump, and ``python -m
+    hetu_tpu_torch.telemetry.health``'s ``first_bad_step``."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch.telemetry import Telemetry
+    tel = Telemetry(enabled=True, out_dir=out_dir, rank=0)
+    exe = ht.Executor(nodes, dtype=torch.bfloat16, telemetry=tel,
+                      health_options={"every_n": HEALTH_EVERY_N,
+                                      "action": "dump"})
+    sid = next(sid for sid, n in exe._param_nodes.items()
+               if n.name == HEALTH_NAN_PARAM)
+    losses = []
+    for step in range(1, HEALTH_TRIP_STEPS + 1):
+        if step == HEALTH_NAN_STEP:
+            exe.params[sid].view(-1)[0] = float("nan")
+        losses.append(float(exe.run(feed_dict=feeds)[0].asnumpy()))
+    records = list(exe.config.health_monitor.records)
+    exe.close()
+    _quiet_telemetry(tel)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m",
+                          "hetu_tpu_torch.telemetry.health", out_dir,
+                          "--json"], cwd=ROOT, capture_output=True,
+                         text=True)
+    cli_s = time.perf_counter() - t0
+    rep = json.loads(cli.stdout) if cli.returncode == 0 else {}
+    with open(os.path.join(out_dir, "health_lastgood_rank0.json")) as f:
+        lastgood = json.load(f)
+    with open(os.path.join(out_dir, "flight_rank0.json")) as f:
+        reason = json.load(f)["reason"]
+    trip_step = HEALTH_NAN_STEP + (-HEALTH_NAN_STEP) % HEALTH_EVERY_N
+    bad = [r for r in records if r["trips"]]
+    out = {"nan_param": HEALTH_NAN_PARAM, "nan_step": HEALTH_NAN_STEP,
+           "losses": losses, "record_steps": [r["step"] for r in records],
+           "trip_step": bad[0]["step"] if bad else None,
+           "trip_kinds": sorted({t["kind"] for t in bad[0]["trips"]})
+           if bad else [], "loss_finite": bad[0]["loss_finite"]
+           if bad else None,
+           "layer": next((t["layer"] for t in bad[0]["trips"]
+                          if t.get("layer")), None) if bad else None,
+           "lastgood_step": lastgood["step"], "flight_reason": reason,
+           "cli_rc": cli.returncode, "cli_s": cli_s,
+           "cli_first_bad_step": rep.get("first_bad_step")}
+    if out["trip_step"] != trip_step or out["trip_kinds"] != \
+            ["nonfinite"] or out["loss_finite"] is not False or \
+            out["lastgood_step"] != trip_step - HEALTH_EVERY_N or \
+            not reason.startswith("health trip: nonfinite") or \
+            out["cli_first_bad_step"] != trip_step:
+        raise AssertionError(f"health_train trip: {out} {cli.stderr}")
+    return out
+
+
+def health_worker(spec):
+    """One rank of ``health_job`` (``python chip_smoke.py
+    --health-worker SPEC``): the reference's acceptance run on the card
+    (tests/test_health.py:684), the 12 -> 16 -> 4 MLP trained by SGD for
+    HEALTH_JOB_STEPS steps with a NaN fed at step HEALTH_JOB_NAN_STEP; the
+    monitor armed by the launcher's ``--health`` (``HETU_HEALTH``), on
+    ``spec["device"]``."""
+    import torch
+    import hetu_tpu_torch as ht
+    rank = int(os.environ.get("HETU_PS_RANK", "0"))
+    x = ht.Variable("x", trainable=False)
+    y_ = ht.Variable("y_", trainable=False)
+    w1 = ht.init.xavier_normal((12, 16), name="acc_w1")
+    w2 = ht.init.xavier_normal((16, 4), name="acc_w2")
+    h = ht.relu_op(ht.matmul_op(x, w1))
+    loss = ht.reduce_mean_op(
+        ht.softmaxcrossentropy_op(ht.matmul_op(h, w2), y_), [0])
+    train = ht.optim.SGDOptimizer(0.1).minimize(loss)
+    exe = ht.Executor([loss, train], device=spec["device"])
+    if exe.config.health_monitor is None:
+        raise AssertionError("health_job: HETU_HEALTH must arm the monitor")
+    frng = np.random.RandomState(spec["seed"] + 3 + rank)
+    for step in range(1, HEALTH_JOB_STEPS + 1):
+        xs = frng.randn(8, 12).astype("f")
+        ys = np.eye(4, dtype="f")[frng.randint(0, 4, 8)]
+        if step == HEALTH_JOB_NAN_STEP:
+            xs[0, 0] = np.nan
+        exe.run(feed_dict={x: xs, y_: ys})
+    if exe.config.device.type == "cuda":
+        torch.cuda.synchronize()
+    exe.close()
+    return 0
+
+
+def health_job(card, seed, device="cuda"):
+    """``health_job``: two launcher workers of health_worker with
+    ``--telemetry <dir> --health every_n=5,action=dump``. Checks: records
+    at steps 5 and 10 on both ranks; both tripped at 10 (``nonfinite``,
+    naming ``acc_w1`` or ``acc_w2``); the last-good files at step 5 and
+    the flight dumps; the health CLI's ``first_bad_step`` 10 and
+    ``bad_ranks`` [0, 1]; the black-box CLI's ``health.first_bad_step``
+    10. ``device="cpu"`` rehearses it without a card."""
+    import shutil
+    import tempfile
+    config = "nodes:\n  - host: localhost\n    workers: 2\n    chief: true\n"
+    out_dir = tempfile.mkdtemp(prefix="health_job_")
+    tdir = os.path.join(out_dir, "telemetry")
+    try:
+        wall, _ = _launch_job(
+            "health_job", config, "--health-worker",
+            {"seed": seed, "out": out_dir, "device": device},
+            HEALTH_JOB_TIMEOUT_S, False,
+            launcher_args=["--telemetry", tdir, "--health",
+                           HEALTH_JOB_SPEC])
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tdir, f"health_rank{r}.jsonl")) as f:
+                recs = [json.loads(line) for line in f]
+            with open(os.path.join(tdir,
+                                   f"health_lastgood_rank{r}.json")) as f:
+                lastgood = json.load(f)["step"]
+            trips = recs[-1]["trips"] if recs else []
+            ranks.append({
+                "record_steps": [rec["step"] for rec in recs],
+                "loss_finite": [rec["loss_finite"] for rec in recs],
+                "trip_kinds": sorted({t["kind"] for t in trips}),
+                "layers": sorted({t["layer"] for t in trips
+                                  if t.get("layer")}),
+                "lastgood_step": lastgood,
+                "flight_dump": os.path.exists(os.path.join(
+                    tdir, f"flight_rank{r}.json"))})
+        clis = {}
+        for tool in ("health", "blackbox"):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"hetu_tpu_torch.telemetry.{tool}",
+                 tdir, "--json"], cwd=ROOT, capture_output=True, text=True)
+            clis[tool] = {"rc": proc.returncode,
+                          "s": time.perf_counter() - t0,
+                          "report": json.loads(proc.stdout)
+                          if proc.returncode == 0 else proc.stderr[-500:]}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rep, bb = clis["health"]["report"], clis["blackbox"]["report"]
+    faults = []
+    for r in ranks:
+        if r["record_steps"] != [5, 10] or r["loss_finite"] != \
+                [True, False] or "nonfinite" not in r["trip_kinds"] or \
+                not set(r["layers"]) & {"acc_w1", "acc_w2"} or \
+                r["lastgood_step"] != 5 or not r["flight_dump"]:
+            faults.append("records")
+    if not isinstance(rep, dict) or rep.get("first_bad_step") != 10 or \
+            rep.get("bad_ranks") != [0, 1]:
+        faults.append("health CLI")
+    if not isinstance(bb, dict) or \
+            (bb.get("health") or {}).get("first_bad_step") != 10:
+        faults.append("blackbox CLI")
+    line = {"card": card, "workers": 2, "model": "mlp 12-16-4",
+            "health": HEALTH_JOB_SPEC, "steps": HEALTH_JOB_STEPS,
+            "nan_step": HEALTH_JOB_NAN_STEP, "wall_s": wall,
+            "ranks": ranks,
+            "health_cli": {"rc": clis["health"]["rc"],
+                           "s": clis["health"]["s"],
+                           "first_bad_step": rep.get("first_bad_step")
+                           if isinstance(rep, dict) else None,
+                           "bad_ranks": rep.get("bad_ranks")
+                           if isinstance(rep, dict) else None},
+            "blackbox_cli": {"rc": clis["blackbox"]["rc"],
+                             "s": clis["blackbox"]["s"],
+                             "health": bb.get("health")
+                             if isinstance(bb, dict) else None}}
+    if faults:
+        raise AssertionError(f"health_job: {faults}: {line}")
+    return line
 
 
 def telemetry_serve(torch, seed, card):
@@ -8508,6 +8933,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # autoplan's job ranks
     ap.add_argument("--telemetry-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # telemetry_job's ranks
+    ap.add_argument("--health-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # health_job's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -8536,6 +8963,8 @@ def main(argv=None):
         return autoplan_worker(json.loads(args.autoplan_worker))
     if args.telemetry_worker is not None:
         return telemetry_worker(json.loads(args.telemetry_worker))
+    if args.health_worker is not None:
+        return health_worker(json.loads(args.health_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -8730,10 +9159,11 @@ def main(argv=None):
 
     tel_lines = {}
     t = time.perf_counter()
-    tel_lines["telemetry_train"], tel_train_launches = telemetry_train(
+    (tel_lines["telemetry_train"], tel_train_launches,
+     tel_lines["health_train"], health_launches) = telemetry_train(
         torch, args.seed, card)
-    log(f"telemetry_train ({time.perf_counter() - t:.1f} s) "
-        f"{tel_lines['telemetry_train']}")
+    log(f"telemetry_train and health_train ({time.perf_counter() - t:.1f} "
+        f"s) {tel_lines['telemetry_train']} {tel_lines['health_train']}")
     t = time.perf_counter()
     tel_lines["telemetry_serve"], tel_serve_launches = telemetry_serve(
         torch, args.seed, card)
@@ -8744,6 +9174,10 @@ def main(argv=None):
         card, args.seed)
     log(f"telemetry_job ({time.perf_counter() - t:.1f} s) "
         f"{tel_lines['telemetry_job']}")
+    t = time.perf_counter()
+    tel_lines["health_job"] = health_job(card, args.seed)
+    log(f"health_job ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['health_job']}")
 
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
@@ -8792,6 +9226,7 @@ def main(argv=None):
                    ("autoplan.train", autoplan_launches["train"],
                     autoplan_launches["train_rep"]),
                    ("telemetry_train", tel_train_launches, TRAIN_REP),
+                   ("health_train", health_launches, TRAIN_REP),
                    *((f"telemetry_job.rank{r}", c, PP_REP)
                      for r, c in enumerate(tel_job_launches))]
     kernels = {"kernels": [

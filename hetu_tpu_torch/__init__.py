@@ -50,6 +50,12 @@ What runs today:
   tuple stage with no launcher job: one thread rank a device
   (:mod:`.parallel.local_ranks`), so the reference's scripts run
   unchanged;
+* the telemetry layer (span tracer, metrics, flight recorder, the
+  launcher's watchdog) and the training health monitor (sentinels on
+  sampled steps, staleness and hot keys of the PS caches, the trip
+  ladder), with their file tools ``python -m
+  hetu_tpu_torch.telemetry.{check,health,blackbox,regress}``, which run
+  without torch;
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.
@@ -60,39 +66,64 @@ Entry points run on ``cuda`` unless the caller asks for the CPU
 kernel's plain PyTorch version runs instead — that is what the tests
 use.
 """
-from . import data, metrics, models, parallel, stream, telemetry
-from . import initializers as init
-from . import lr_scheduler as lr
-from . import optimizer as optim
-from .context import DeviceGroup, NodeStatus, context, get_current_context
-from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
-                         dataloader_op)
-from .device import resolve_device
-from .executor import (Executor, HetuConfig, SubExecutor,
-                       get_worker_communicate, gradients, new_group_comm,
-                       scheduler_finish, scheduler_init, server_finish,
-                       server_init, worker_finish, worker_init,
-                       wrapped_mpi_nccl_init)
-from .graph.node import Op
-from .ndarray import (DLContext, IndexedSlices, ND_Sparse_Array, NDArray,
-                      array, cpu, empty, gpu, is_gpu_ctx, is_tpu_ctx, rcpu,
-                      rgpu, rtpu, sparse_array, tpu)
-from .ops import *                                        # noqa: F401,F403
-from .ops import __all__ as _ops_all
+import sys as _sys
 
-__all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
-           "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu", "is_gpu_ctx",
-           "is_tpu_ctx", "DeviceGroup", "NodeStatus", "context",
-           "get_current_context",
-           "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
-           "scheduler_init", "scheduler_finish", "server_init",
-           "server_finish", "worker_init", "worker_finish",
-           "get_worker_communicate", "wrapped_mpi_nccl_init",
-           "new_group_comm", "mpi_nccl_init", "optim", "init", "lr", "data",
-           "metrics", "models", "launcher", "telemetry", "parallel",
-           "Dataloader", "DataloaderOp", "dataloader_op", "GNNDataLoaderOp",
-           "ND_Sparse_Array", "sparse_array", "array", "empty", "stream",
-           *_ops_all]
+# the telemetry command-line tools read and write files only; run as
+# ``python -m hetu_tpu_torch.telemetry.<tool>`` they skip the API below
+# and its torch import (seconds a start), so they run where no card is
+_TOOLS = tuple(f"hetu_tpu_torch.telemetry.{t}"
+               for t in ("check", "health", "blackbox", "regress"))
+
+
+def _runs_tool():
+    """True while ``python -m`` imports this package on its way to one
+    of ``_TOOLS`` (runpy sets ``sys.argv[0]`` to "-m" until the target
+    module runs)."""
+    argv = getattr(_sys, "orig_argv", ())
+    if _sys.argv[:1] != ["-m"] or "-m" not in argv:
+        return False
+    i = argv.index("-m")
+    return i + 1 < len(argv) and argv[i + 1] in _TOOLS
+
+
+if _runs_tool():
+    __all__ = []
+else:
+    from . import data, metrics, models, parallel, stream, telemetry
+    from . import initializers as init
+    from . import lr_scheduler as lr
+    from . import optimizer as optim
+    from .context import (DeviceGroup, NodeStatus, context,
+                          get_current_context)
+    from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
+                             dataloader_op)
+    from .device import resolve_device
+    from .executor import (Executor, HetuConfig, SubExecutor,
+                           get_worker_communicate, gradients,
+                           new_group_comm, scheduler_finish, scheduler_init,
+                           server_finish, server_init, worker_finish,
+                           worker_init, wrapped_mpi_nccl_init)
+    from .graph.node import Op
+    from .ndarray import (DLContext, IndexedSlices, ND_Sparse_Array,
+                          NDArray, array, cpu, empty, gpu, is_gpu_ctx,
+                          is_tpu_ctx, rcpu, rgpu, rtpu, sparse_array, tpu)
+    from .ops import *                                    # noqa: F401,F403
+    from .ops import __all__ as _ops_all
+
+    __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
+               "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu", "is_gpu_ctx",
+               "is_tpu_ctx", "DeviceGroup", "NodeStatus", "context",
+               "get_current_context",
+               "Op", "Executor", "HetuConfig", "SubExecutor", "gradients",
+               "scheduler_init", "scheduler_finish", "server_init",
+               "server_finish", "worker_init", "worker_finish",
+               "get_worker_communicate", "wrapped_mpi_nccl_init",
+               "new_group_comm", "mpi_nccl_init", "optim", "init", "lr",
+               "data", "metrics", "models", "launcher", "telemetry",
+               "parallel", "Dataloader", "DataloaderOp", "dataloader_op",
+               "GNNDataLoaderOp", "ND_Sparse_Array", "sparse_array",
+               "array", "empty", "stream",
+               *_ops_all]
 
 
 def mpi_nccl_init(init_nccl=True):

@@ -8,15 +8,17 @@ with bounded-staleness pulls and pushes against the server and the
 reference's perf counters. The PS runtime's host path reads a table
 through it when ``cstable_policy`` names one of the policies.
 
-The reference's one telemetry site here is the health monitor's
-staleness shadow (``telemetry/health.py``), which comes with the port's
-health monitor (ROADMAP item 14).
+While a health monitor is live (``telemetry/health.py``) the table
+keeps the reference's staleness shadow: per-key pending-update counts
+since the last explicit flush, reported at lookup (``cstable``, an upper
+bound, never a trip).
 """
 from __future__ import annotations
 
 import numpy as np
 
 from .ps.native_lib import as_f32, as_i64, fptr, get_lib, lptr
+from .telemetry import health as _health
 
 __all__ = ["CacheSparseTable"]
 
@@ -41,20 +43,49 @@ class CacheSparseTable:
             node_id, self.limit, self.width, _POLICIES[policy],
             int(pull_bound), int(push_bound))
         self.push_bound = int(push_bound)
+        # observed-staleness shadow (telemetry/health.py): per-key
+        # pending-update counts since the last explicit flush. The C
+        # cache also flushes on its own bound, so these are an UPPER
+        # bound on true staleness — histogram-only, never a trip. Kept
+        # only while a health monitor is live; ``health_monitor``
+        # (stamped by the PS runtime) scopes the observations to the
+        # owning executor's
+        self._upd_pending = {}
+        self.health_monitor = None
 
     def embedding_lookup(self, keys):
         idx = as_i64(keys).ravel()
         out = np.empty((idx.size, self.width), np.float32)
         self.lib.CacheLookup(self.handle, lptr(idx), idx.size, fptr(out))
+        if self._upd_pending and (self.health_monitor is not None
+                                  or _health.active()):
+            uniq = np.unique(idx)
+            obs = np.fromiter(
+                (self._upd_pending.get(int(i), 0) for i in uniq),
+                np.int64, count=len(uniq))
+            obs = obs[obs > 0]
+            if len(obs):
+                _health.observe_staleness("cstable", self.node_id, obs,
+                                          self.push_bound,
+                                          monitor=self.health_monitor)
         return out.reshape(tuple(np.shape(keys)) + (self.width,))
 
     def embedding_update(self, keys, grads):
         idx = as_i64(keys).ravel()
         g = as_f32(grads).reshape(idx.size, self.width)
         self.lib.CacheUpdate(self.handle, lptr(idx), fptr(g), idx.size)
+        if self.health_monitor is not None or _health.active():
+            uniq, counts = np.unique(idx, return_counts=True)
+            pend = self._upd_pending
+            for i, n in zip(uniq, counts):
+                i = int(i)
+                pend[i] = pend.get(i, 0) + int(n)
+            if len(pend) > (1 << 16):
+                pend.clear()     # bound memory; counts restart (approx)
 
     def flush(self):
         self.lib.CacheFlush(self.handle)
+        self._upd_pending.clear()
 
     # -- perf counters (reference cstable.py:126-187) -------------------
     @property

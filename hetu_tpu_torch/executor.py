@@ -134,9 +134,16 @@ chain of stages as one tick loop over each stage's device and stream.
 ring, the OOM report before an allocator failure re-raises, the
 watchdog's heartbeat (``HETU_WATCHDOG_DIR``), and ``close()`` flushing
 the per-rank files. No span synchronizes the device.
-TP on a parameter server, the health monitor and the preflight analysis
-are still to port; ``HetuConfig`` refuses their options, each naming its
-ROADMAP item.
+**The health monitor** (``health_options=``, or ``HETU_HEALTH``, which
+the launcher's ``--health`` exports; :mod:`.telemetry.health`): on every
+``every_n``-th training step the optimizers record each parameter's
+gradient norm, nonfinite count and update/weight ratio, PS-pushed
+gradients theirs as ``ps:<name>``, beside the step's loss, all stacked
+into one float64 tensor that the monitor reads in one copy to the host;
+the other steps run as with the monitor off. The PS runtime feeds it the
+caches' staleness and the pulls' ids.
+TP on a parameter server and the preflight analysis are still to port;
+``HetuConfig`` refuses their options, each naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -179,7 +186,6 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
 
 # the reference's options of modes still to port -> their ROADMAP item
 _REFUSED_OPTIONS = {
-    "health_options": "item 14 (telemetry/health.py)",
     "validate": "item 17 (the preflight analysis)",
 }
 # HetuConfig's arguments that are not a thread rank's to copy: the rank
@@ -345,6 +351,12 @@ class HetuConfig:
     ``cache_capacity`` (device cache rows; default min(rows, 2^20)) and
     ``drain_compress`` (bf16 drains).
 
+    ``health_options`` (None reads ``HETU_HEALTH``; False, True, a dict,
+    a ``k=v,...`` spec or a ``HealthOptions``) arms the training health
+    monitor: ``health_monitor`` is a
+    :class:`~hetu_tpu_torch.telemetry.health.HealthMonitor`, or None when
+    it is off.
+
     ``overlap_options`` (a dict or ``OverlapOptions``) sets the ingest
     engine of ``run_batches_stream`` and, with ``bucket_bytes``, buckets
     the data-parallel allreduce. ``mesh`` (a
@@ -382,7 +394,7 @@ class HetuConfig:
                  num_microbatches=None, pp_options=None, mesh=None,
                  parallel=None, rules=None, autoplan_options=None,
                  pipeline_mode=None, telemetry=None, log_path=None,
-                 **options):
+                 health_options=None, **options):
         # what a thread rank makes its own config from: every argument
         # but the graph and the rank's own device and mesh
         rank_options = {k: v for k, v in locals().items()
@@ -416,6 +428,11 @@ class HetuConfig:
                 f"unknown parallel={parallel!r}; expected 'auto' (the "
                 f"cost-model planner, parallel/autoplan.py) or None")
         self.eval_node_list = eval_node_list
+        # dropout draws key by an op's id less this (graph/node.py
+        # generator_for): graphs built before this one do not move them,
+        # and a clone of the graph (ids kept) draws the same
+        self.op_id_base = min((n.id for n in find_topo_sort(eval_node_list)),
+                              default=0)
         self.seed = seed
         self.dtype = dtype
         ctx = ctx if ctx is not None else get_current_context()
@@ -479,6 +496,13 @@ class HetuConfig:
         # records under its own thread id); the front session alone
         # writes the step log
         self.rank_options.update(telemetry=self.telemetry, log_path=None)
+        # the training health monitor (telemetry/health.py), made below
+        # by a session that runs steps itself: each thread rank has its
+        # own. Imported here so the health CLI's module stays a clean
+        # runpy target
+        from .telemetry import health as _health
+        self.health = _health.HealthOptions.resolve(health_options)
+        self.health_monitor = None
         self.overlap = OverlapOptions.resolve(overlap_options)
         # accepted as the reference accepts them: dynamic_memory and
         # enable_lazy are no-ops there too (the allocator and the eager
@@ -549,6 +573,9 @@ class HetuConfig:
                                             pipeline)
         if self.local_ranks is not None:
             return
+        if self.health.enabled:
+            self.health_monitor = _health.HealthMonitor(self.health,
+                                                        self.telemetry)
         if tp > 1 and not pipeline:     # a pipeline plans per stage
             mesh = self._tp_mesh(statuses, mesh, tp)
             self.mesh = mesh
@@ -897,6 +924,10 @@ class SubExecutor:
                               if isinstance(dl, DataloaderOp)), default=None)
         self.step_count = 0
         self._shapes_key = None
+        # the health monitor's: a sampled step's sentinels until read,
+        # and the name of the eval output it took for the loss
+        self._last_health = None
+        self._health_loss_name = None
         # data parallel over the session's ranks: the feeds' row shards
         # in, the fetched values made global out
         self.dp = None
@@ -1017,6 +1048,9 @@ class SubExecutor:
         for dl in self.dataloader_ops:
             env[dl] = self._ingest(dl.get_arr(self.name))
         outputs, _ = self.step(executor, env)
+        hm = self.config.health_monitor
+        if hm is not None and self.training:
+            hm.after_step(self)
         return self.results(outputs, convert_to_numpy_ret_vals)
 
     def step(self, executor, feed_map):
@@ -1053,6 +1087,10 @@ class SubExecutor:
                            step=self.step_count, device=config.device,
                            config=config)
         ectx.allreduce_defer = self.allreduce_defer
+        hm = config.health_monitor
+        if hm is not None and self.training and \
+                hm.wants(self.step_count + 1):
+            ectx.health_sentinels = []      # a sampled step
         params = {n: executor.params[str(n.id)] for n in self.param_nodes}
         if config.dtype is not None:
             ectx.master_params = params
@@ -1097,7 +1135,58 @@ class SubExecutor:
             outputs = tp.fetch(self.eval_node_list, outputs)
         if dp is not None:
             outputs = dp.fetch(self.eval_node_list, outputs)
-        return outputs, [env[op.inputs[0]] for op in self.ps_ops]
+        ps_grads = [env[op.inputs[0]] for op in self.ps_ops]
+        if ectx.health_sentinels is not None:
+            self._last_health = self._health_values(ectx.health_sentinels,
+                                                    outputs, ps_grads)
+        return outputs, ps_grads
+
+    def _health_values(self, sentinels, outputs, ps_grads):
+        """A sampled step's sentinels for the health monitor (reference
+        executor.py:741-787) as ``{"names", "loss", "values"}``:
+        ``values`` is one float64 tensor, three a layer (the optimizers'
+        parameters by name, a repeated name suffixed ``#2``, ``#3``, ...;
+        each PS-pushed gradient as ``ps:<name>``), then the loss where
+        ``loss``. The loss is the first scalar floating eval output whose
+        name says loss, else the first scalar one."""
+        from .optimizer import sentinel_rows
+        names, rows = [], []
+        for chunk, chunk_rows in sentinels:
+            names += chunk
+            rows.append(chunk_rows)
+        pushed = [(op, g) for op, g in zip(self.ps_ops, ps_grads)
+                  if g is not None and hasattr(op, "parameter")]
+        if pushed:
+            names += [f"ps:{op.parameter.name}" for op, _ in pushed]
+            rows.append(sentinel_rows([None] * len(pushed),
+                                      [g for _, g in pushed],
+                                      [None] * len(pushed)))
+        seen = set()
+        for i, name in enumerate(names):
+            key, k = name, 2
+            while key in seen:
+                key, k = f"{name}#{k}", k + 1
+            seen.add(key)
+            names[i] = key
+        parts = [r.reshape(-1) for r in rows]
+        loss_node, loss_val = None, None
+        for node, v in zip(self.eval_node_list, outputs):
+            if isinstance(node, OptimizerOp) or \
+                    not isinstance(v, torch.Tensor) or v.numel() != 1 or \
+                    not v.is_floating_point():
+                continue
+            if "loss" in (node.name or "").lower():
+                loss_node, loss_val = node, v
+                break
+            if loss_node is None:
+                loss_node, loss_val = node, v
+        if loss_node is not None:
+            parts.append(loss_val.reshape(1).double())
+            self._health_loss_name = loss_node.name
+        values = torch.cat(parts) if parts else torch.zeros(
+            0, dtype=torch.float64, device=self.config.device)
+        return {"names": names, "loss": loss_node is not None,
+                "values": values}
 
     def results(self, outputs, convert_to_numpy_ret_vals=False):
         """A step's values as ``run`` returns them: NDArrays, or numpy
@@ -1702,8 +1791,8 @@ class Executor:
         """Flush in-flight PS work (ASP pushes, device-cache drains) and
         stop the push pool (thread ranks close theirs and their job's
         channels), release the step logger's file, mark the heartbeat
-        done, and write this rank's telemetry files when an output
-        directory is configured."""
+        done, close the health monitor, and write this rank's telemetry
+        files when an output directory is configured."""
         if self._threads is not None:
             self._threads.close()
         elif self.ps_runtime is not None:
@@ -1714,6 +1803,8 @@ class Executor:
         if self._heartbeat is not None:
             # clean completion: the watchdog stops counting this rank
             self._heartbeat.done()
+        if self.config.health_monitor is not None:
+            self.config.health_monitor.close()
         self.config.telemetry.flush()
 
 

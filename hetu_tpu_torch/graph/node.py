@@ -33,7 +33,9 @@ class ExecContext:
     * ``generator_for(op)`` — the per-op ``torch.Generator`` of this
       step, in place of the reference's ``rng_for`` (its numbers differ
       from ``jax.random``'s: tests feed both packages the same numpy
-      draws instead);
+      draws instead), keyed by the op's id less the session graph's
+      smallest (``config.op_id_base``), so graphs built before it do not
+      move its draws;
     * ``params`` / ``master_params`` — parameter values in the compute
       dtype and their f32 masters; ``new_params`` — updates written by
       the optimizer;
@@ -44,7 +46,9 @@ class ExecContext:
     * ``cache`` — values shared between a forward op and its gradient
       ops inside the step (the flash residuals and grads);
     * ``allreduce_defer`` — the allreduce ops whose reduction the
-      optimizer settles in buckets (None: each reduces its own).
+      optimizer settles in buckets (None: each reduces its own);
+    * ``health_sentinels`` — on a step the health monitor samples, the
+      list the optimizers append their sentinels to (None otherwise).
     """
 
     def __init__(self, training=True, seed=0, step=0, device=None,
@@ -64,6 +68,7 @@ class ExecContext:
         self.new_state = {}
         self.cache = {}
         self.allreduce_defer = None
+        self.health_sentinels = None
 
     def get_state(self, op, default=None):
         return self.state.get(op, default)
@@ -72,7 +77,8 @@ class ExecContext:
         self.new_state[op] = value
 
     def generator_for(self, op):
-        seed = ((self.seed * 1_000_003 + self.step) * 1_000_003 + op.id) \
+        key = op.id - getattr(self.config, "op_id_base", 0)
+        seed = ((self.seed * 1_000_003 + self.step) * 1_000_003 + key) \
             % (1 << 63)
         return torch.Generator(device=self.device).manual_seed(seed)
 

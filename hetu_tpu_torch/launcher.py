@@ -66,11 +66,14 @@ into ``trace_merged.json`` at the end. ``--hang-timeout S`` arms the
 watchdog (:func:`_wait_with_watchdog`): workers heartbeat a step into
 the telemetry dir, and a rank stalled past ``S`` seconds has the fleet
 dumped and killed, with exit code
-:data:`~.telemetry.watchdog.EXIT_WATCHDOG`.
+:data:`~.telemetry.watchdog.EXIT_WATCHDOG`. ``--health SPEC`` arms the
+training health monitor in every worker (``HETU_HEALTH``; records
+``health_rank<r>.jsonl`` in the telemetry dir, a temporary one without
+``--telemetry``).
 
 The options of modes still to port are refused, each naming its
-ROADMAP item: ``--health`` and ``--watch`` (item 14, the health monitor
-and the fleet plane) and ``--preflight`` (item 17).
+ROADMAP item: ``--watch`` (item 14c, the fleet plane) and
+``--preflight`` (item 17).
 
 Config (the reference's shape):
 
@@ -99,8 +102,7 @@ PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_SERVER = os.path.join("hetu_tpu_torch", "ps", "run_server.py")
 
 # the options of modes the port does not have yet -> their ROADMAP item
-REFUSED = {"health": ("--health", "item 14 (telemetry/health.py)"),
-           "watch": ("--watch", "item 14 (telemetry/fleet.py)"),
+REFUSED = {"watch": ("--watch", "item 14c (telemetry/fleet.py)"),
            "preflight": ("--preflight", "item 17")}
 
 # what the launcher sets on a fleet's servers and workers, or sets for
@@ -417,9 +419,23 @@ def _omp_threads(nlocal):
     return str(max(1, len(os.sched_getaffinity(0)) // nlocal))
 
 
+def _exit_text(code):
+    """A worker's exit code as words: a negative code is the signal
+    that killed it (the launcher's own exit status is then 256 - n)."""
+    if code >= 0:
+        return f"exit code {code}"
+    try:
+        name = signal.Signals(-code).name
+    except ValueError:
+        name = f"signal {-code}"
+    return f"killed by {name} (exit code {code}, {code & 0xff} from the " \
+           f"launcher)"
+
+
 def _wait_workers(workers):
-    """Wait for every worker; on the first that exits non-zero stop the
-    rest (they would wait for it at a barrier) and return its code."""
+    """Wait for every worker; on the first that exits non-zero say which
+    rank and how on stderr, stop the rest (they would wait for it at a
+    barrier) and return its code."""
     rc = 0
     pending = list(workers)
     while pending:
@@ -430,6 +446,9 @@ def _wait_workers(workers):
             pending.remove(p)
             if code != 0 and rc == 0:
                 rc = code
+                print(f"launcher: worker rank {workers.index(p)} (pid "
+                      f"{p.pid}) {_exit_text(code)}; stopping the others",
+                      file=sys.stderr, flush=True)
                 for q in pending:
                     q.terminate()
         time.sleep(0.05)
@@ -475,7 +494,7 @@ def run_autoplan(cfg, command):
 
 
 def launch_command(cfg, command, identify=None, telemetry=None,
-                   hang_timeout=None):
+                   hang_timeout=None, health=None):
     """Run ``command`` once per worker with the cluster env wired (the
     ``python -m hetu_tpu_torch.launcher -c conf.yml python train.py``
     path). Returns the first non-zero exit code of a worker, else 0.
@@ -494,13 +513,24 @@ def launch_command(cfg, command, identify=None, telemetry=None,
     (``HETU_WATCHDOG_DIR``); a rank stalled past the timeout has every
     live worker's stacks and flight ring dumped, the fleet killed, and
     the launcher exits with ``EXIT_WATCHDOG``. It implies telemetry (a
-    temporary directory where ``--telemetry`` was not given)."""
+    temporary directory where ``--telemetry`` was not given).
+
+    ``health`` (a ``HealthOptions`` spec string, ``--health``) arms the
+    training health monitor in every worker: each executor resolves
+    ``health_options=None`` from the exported ``HETU_HEALTH``, writes
+    ``health_rank<r>.jsonl`` into the telemetry dir and trips its action
+    ladder on nonfinite values, gradient spikes and staleness
+    violations (``telemetry/health.py``). It implies telemetry, as the
+    health doctor needs a directory to merge."""
     tdir = None
-    if hang_timeout and not telemetry:
+    if (hang_timeout or health) and not telemetry:
         import tempfile
-        telemetry = tempfile.mkdtemp(prefix="hetu-watchdog-")
-        print(f"watchdog: --hang-timeout without --telemetry; black-box "
-              f"dumps go to {telemetry}", flush=True)
+        prefix, flag, what = (
+            ("watchdog", "--hang-timeout", "black-box dumps") if hang_timeout
+            else ("health", "--health", "health records"))
+        telemetry = tempfile.mkdtemp(prefix=f"hetu-{prefix}-")
+        print(f"{prefix}: {flag} without --telemetry; {what} go to "
+              f"{telemetry}", flush=True)
     try:
         endpoints = cfg.server_endpoints()
         server_env = {}
@@ -531,6 +561,9 @@ def launch_command(cfg, command, identify=None, telemetry=None,
         ps_env = _ps_env(cfg, endpoints, backups)
         if tdir:
             ps_env["HETU_TELEMETRY"] = tdir
+        if health:
+            # every worker's Executor resolves health_options from it
+            ps_env["HETU_HEALTH"] = str(health)
         if hang_timeout:
             ps_env["HETU_WATCHDOG_DIR"] = tdir
             ps_env["HETU_HANG_TIMEOUT"] = str(float(hang_timeout))
@@ -662,13 +695,15 @@ def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
 
 
 def _clear_stale_blackbox(tdir):
-    """Drop a previous fleet's heartbeats, flight dumps, stack logs and
-    OOM reports from a reused telemetry dir: a stale ``hb_rank*.json``
-    with an old timestamp would false-fire the watchdog on the new
-    fleet, and stale dumps would pollute its post-mortem."""
+    """Drop a previous fleet's heartbeats, flight dumps, stack logs, OOM
+    reports and health records from a reused telemetry dir: a stale
+    ``hb_rank*.json`` with an old timestamp would false-fire the
+    watchdog on the new fleet, stale dumps would pollute its
+    post-mortem, and the health doctor would merge two runs' steps."""
     import glob as _glob
     for pat in ("hb_rank*.json", "flight_rank*.json", "stacks_*.log",
-                "oom_rank*.txt", "requests_rank*.json"):
+                "oom_rank*.txt", "requests_rank*.json",
+                "health_rank*.jsonl", "health_lastgood_rank*.json"):
         for path in _glob.glob(os.path.join(tdir, pat)):
             try:
                 os.remove(path)
@@ -801,14 +836,17 @@ def main(argv=None):
                              "goes stale past SECONDS has the fleet "
                              "dumped and killed (exit code 117); implies "
                              "telemetry")
+    parser.add_argument("--health", default=None, metavar="SPEC",
+                        help="arm the training health monitor in every "
+                             "worker (HETU_HEALTH, e.g. "
+                             "'every_n=5,action=dump'): per-rank "
+                             "health_rank<r>.jsonl records and the trip "
+                             "ladder; implies telemetry")
     # the reference's options of modes still to port: parsed so that
     # they are refused by name, not taken for the command
-    parser.add_argument("--health", default=None, metavar="SPEC",
-                        help="refused: the health monitor waits for "
-                             "ROADMAP item 14")
     parser.add_argument("--watch", action="store_true",
                         help="refused: the fleet plane waits for ROADMAP "
-                             "item 14")
+                             "item 14c")
     parser.add_argument("--preflight", action="store_true",
                         help="refused: the analysis waits for ROADMAP "
                              "item 17")
@@ -839,7 +877,8 @@ def main(argv=None):
         return run_autoplan(cfg, args.command)
     return launch_command(cfg, args.command, args.identify,
                           telemetry=args.telemetry,
-                          hang_timeout=args.hang_timeout)
+                          hang_timeout=args.hang_timeout,
+                          health=args.health)
 
 
 if __name__ == "__main__":

@@ -39,14 +39,18 @@ class ReluOp(Op):
 
 
 class ReluGradientOp(Op):
-    """grad * (x > 0) (node_A = forward input, node_B = adjoint)."""
+    """grad where x > 0, else 0 (node_A = forward input, node_B =
+    adjoint). The reference writes ``grad * (x > 0)``, which XLA's
+    simplifier compiles to this select: a nonfinite adjoint where x <= 0
+    (or x is NaN) gives 0, not NaN, as the health monitor's nonfinite
+    counts of the two packages show."""
 
     def __init__(self, node_A, node_B, ctx=None):
         super().__init__(ReluGradientOp, [node_A, node_B], ctx)
 
     def compute(self, input_vals, ectx):
         x, grad = input_vals
-        return grad * (x > 0).to(grad.dtype)
+        return torch.where(x > 0, grad, 0.0)
 
     def gradient(self, output_grad):
         raise NotImplementedError

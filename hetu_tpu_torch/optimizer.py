@@ -23,8 +23,15 @@ graph pass (reference optimizer.py:381-432): per gradient, a PS push
 op, the device cache's pass-through, the unified dense HET path for
 SGD, or an allreduce; under ``overlap_options["bucket_bytes"]`` the op
 settles its dense allreduces in buckets before the update
-(:func:`~hetu_tpu_torch.ops.comm.settle_deferred_allreduce`). The
-health ``sentinel_stats`` wait for the telemetry port.
+(:func:`~hetu_tpu_torch.ops.comm.settle_deferred_allreduce`).
+
+On a step the health monitor samples (``ectx.health_sentinels`` set,
+:mod:`~hetu_tpu_torch.telemetry.health`), ``OptimizerOp`` records each
+parameter's sentinels (:func:`sentinel_rows`): the unscaled gradient's
+norm and nonfinite count, and the update/weight ratio of the f32
+masters. An in-place update (sparse SGD) has lost the old weight when
+the new one exists, so its weight norm is taken before the update and
+its update norm from the deduplicated rows times lr.
 """
 from __future__ import annotations
 
@@ -38,7 +45,55 @@ from .ndarray import IndexedSlices
 from .ops.variable import PlaceholderOp
 
 __all__ = ["Optimizer", "OptimizerOp", "SGDOptimizer", "MomentumOptimizer",
-           "AdaGradOptimizer", "AdamOptimizer", "AdamWOptimizer"]
+           "AdaGradOptimizer", "AdamOptimizer", "AdamWOptimizer",
+           "sentinel_stats", "sentinel_rows"]
+
+
+def _norm32(t):
+    return torch.linalg.vector_norm(t.float())
+
+
+def sentinel_rows(params, grads, new_params, in_place=None):
+    """The health sentinels of several parameters as one float64 tensor
+    ``[n, 3]``: per row the gradient's global norm (in f32; an
+    ``IndexedSlices`` gradient by its values), its nonfinite element
+    count, and the update/weight ratio ``||new - param|| / (||param|| +
+    1e-12)`` in f32 — 0 where ``param`` or ``new_param`` is None (a
+    PS-pushed gradient has no worker-side update). ``in_place`` maps a
+    row index to ``(||param||, ||update||)`` taken around an update that
+    overwrote ``param``. Reference: ``hetu_tpu/optimizer.py``
+    ``sentinel_stats``, three reductions a parameter in its jitted step;
+    here the norms of all the rows are ``torch._foreach_norm`` calls."""
+    in_place = in_place or {}
+    vals = [(g.values if isinstance(g, IndexedSlices) else g).float()
+            for g in grads]
+    device = vals[0].device
+    grad_norm = torch.stack(torch._foreach_norm(vals)).double()
+    nonfinite = torch.stack([(~torch.isfinite(v)).sum() for v in vals])
+    ratio = torch.zeros(len(vals), dtype=torch.float32, device=device)
+    dense = [i for i, (p, q) in enumerate(zip(params, new_params))
+             if p is not None and q is not None and i not in in_place]
+    if dense:
+        olds = [params[i].float() for i in dense]
+        diffs = torch._foreach_sub([new_params[i].float() for i in dense],
+                                   olds)
+        upd = torch._foreach_norm(diffs)
+        pn = torch._foreach_norm(olds)
+        ratio[dense] = torch.stack(upd) / (torch.stack(pn) + 1e-12)
+    for i, (pn, upd) in in_place.items():
+        ratio[i] = upd / (pn + 1e-12)
+    return torch.stack([grad_norm, nonfinite.double(), ratio.double()],
+                       dim=1)
+
+
+def sentinel_stats(param, grad, new_param):
+    """One parameter's health sentinels (reference
+    ``hetu_tpu/optimizer.py:29-49``): ``{"grad_norm", "nonfinite",
+    "update_ratio"}`` as 0-dim tensors (f32, int64, f32), from
+    :func:`sentinel_rows`."""
+    row = sentinel_rows([param], [grad], [new_param])[0]
+    return {"grad_norm": row[0].float(), "nonfinite": row[1].long(),
+            "update_ratio": row[2].float()}
 
 
 class Optimizer:
@@ -117,6 +172,12 @@ class Optimizer:
         """(new_param, new_slots) for one parameter."""
         raise NotImplementedError
 
+    @staticmethod
+    def updates_in_place(grad):
+        """Whether ``update_one`` writes into the parameter it is given
+        (its old value is gone once the new one exists)."""
+        return False
+
     def update(self, param_vals, grad_vals, state, lr, step):
         """New parameters and slots over dicts keyed by parameter node."""
         new_params, new_state = {}, {}
@@ -133,6 +194,12 @@ class Optimizer:
 
 class SGDOptimizer(Optimizer):
     name = "SGD"
+
+    @staticmethod
+    def updates_in_place(grad):
+        """Whether ``update_one`` writes into the parameter (the sparse
+        scatter-add) instead of returning a new tensor."""
+        return isinstance(grad, IndexedSlices)
 
     def update_one(self, param, grad, slots, lr, step):
         if isinstance(grad, IndexedSlices):
@@ -322,8 +389,28 @@ class OptimizerOp(Op):
                     acc.add_(gval.to(acc.dtype))
                 ectx.new_state[node] = {"acc": acc}
         lr = ectx.lr if ectx.lr is not None else opt.learning_rate
+        sentinels = getattr(ectx, "health_sentinels", None)
+        in_place = {}
+        if sentinels is not None:
+            # a sampled step of the health monitor: an in-place update
+            # loses the old weight, so its norms are taken now — the
+            # update of a scatter-add is lr times the deduplicated rows
+            for i, (node, g) in enumerate(grad_vals.items()):
+                if opt.updates_in_place(g):
+                    _, rows = opt._unscale(g).dedup()
+                    in_place[i] = (_norm32(param_vals[node]),
+                                   float(lr) * _norm32(rows))
         new_params, new_state = opt.update(
             param_vals, grad_vals, ectx.opt_state or {}, lr, ectx.step)
+        if sentinels is not None and param_vals:
+            # the UNSCALED gradient: with loss_scale set the raw
+            # gradients are scale times reality
+            nodes = list(param_vals)
+            sentinels.append(([n.name for n in nodes], sentinel_rows(
+                [param_vals[n] for n in nodes],
+                [opt._unscale(grad_vals[n]) for n in nodes],
+                [new_params.get(n, param_vals[n]) for n in nodes],
+                in_place)))
         ectx.new_params.update(new_params)
         ectx.new_opt_state = {**(ectx.opt_state or {}), **new_state}
         return torch.zeros(1, dtype=torch.float32, device=ectx.device)

@@ -21,8 +21,9 @@ Each rank has its own clone of the user's graph, node ids kept (the
 planner's statuses, inferred shapes, the comm ops the graph pass
 splices and the optimizer's scheduler are per rank), its own
 sub-executor, device, :class:`~.mesh.Job` of a :class:`~.mesh.LocalJob`
-(gloo groups over one in-memory store, a loopback pipe channel) and
-parameters, drawn from the seed as every rank draws them. ``run`` hands
+(gloo groups over one in-memory store, a loopback pipe channel),
+parameters, drawn from the seed as every rank draws them, and, where the
+session arms it, health monitor (records in ``health_rank<i>.jsonl``). ``run`` hands
 every rank the same feeds and returns the fetched values once, each the
 first rank's that has it (the values every rank makes global; a
 pipeline's loss from the rank that owns it). Rank i runs on
@@ -254,6 +255,9 @@ class LocalRanks:
                                           job=job)
             exe = Executor(clones[r][0], **opts)
             exe._heartbeat = None   # the process beats through the front
+            if exe.config.health_monitor is not None:
+                # each rank's records go to a file of its own
+                exe.config.health_monitor.rank = r
             return exe
 
         self.executors = self.on_ranks(make)

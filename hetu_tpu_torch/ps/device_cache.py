@@ -33,10 +33,12 @@ Two copies cross the host link, each fenced by an event:
   the push thread waits on that event before it reads them
   (:func:`host_rows`).
 
-The reference's one telemetry site here is the health monitor's
-staleness shadow (``telemetry/health.py``), which comes with the port's
-health monitor (ROADMAP item 14); the misses this cache fills are counted
-by the PS runtime (``dcache_miss_rows``).
+Observed staleness feeds the health monitor (``telemetry/health.py``):
+how far a refreshed row ran behind the server (``pull``) and how many
+local updates a drain claimed per row (``push``, a trip past
+``push_bound``), to the owning executor's monitor that the PS runtime
+stamps on ``health_monitor``, else to every live one. The misses this
+cache fills are counted by the PS runtime (``dcache_miss_rows``).
 """
 from __future__ import annotations
 
@@ -44,6 +46,8 @@ from collections import deque
 
 import numpy as np
 import torch
+
+from ..telemetry import health as _health
 
 __all__ = ["DeviceCacheTable", "HostStaging", "pad_fill",
            "pad_gather_zero", "to_host_async", "host_rows"]
@@ -97,6 +101,9 @@ class DeviceCacheTable:
         self.evicts = 0
         self.pushed_rows = 0
         self.pulled_rows = 0
+        # the owning executor's health monitor (stamped by the PS
+        # runtime): staleness observations go to it alone
+        self.health_monitor = None
 
     # -- id<->slot -------------------------------------------------------
     def _lookup_slots(self, uniq_ids):
@@ -283,9 +290,20 @@ class DeviceCacheTable:
         if not n_ref:
             return None, None
         pos = np.nonzero(vers != self.ver[uniq_slots])[0]
+        self._observe_pull(pos, vers, uniq_slots)
         self.ver[uniq_slots[pos]] = vers[pos]
         self.pulled_rows += len(pos)
         return uniq_slots[pos], out[pos]
+
+    def _observe_pull(self, pos, vers, uniq_slots):
+        """Observed read staleness: how many server updates each
+        refreshed row ran behind before the sync caught it up — the
+        consistency knob, measured against ``pull_bound``."""
+        if len(pos) and (self.health_monitor is not None
+                         or _health.active()):
+            _health.observe_staleness(
+                "pull", self.tid, vers[pos] - self.ver[uniq_slots][pos],
+                self.pull_bound, monitor=self.health_monitor)
 
     # -- combined drain + refresh (kPushSyncEmbedding) ---------------------
     def push_sync(self, push_ids, push_rows, upds, uniq_ids, uniq_slots):
@@ -307,6 +325,7 @@ class DeviceCacheTable:
         if not n_ref:
             return None, None
         pos = np.nonzero(vers != self.ver[uniq_slots])[0]
+        self._observe_pull(pos, vers, uniq_slots)
         self.ver[uniq_slots[pos]] = vers[pos]
         self.pulled_rows += len(pos)
         return uniq_slots[pos], out[pos]
@@ -322,6 +341,14 @@ class DeviceCacheTable:
         self.upd[slots] = 0
         self.steps_since_drain = 0
         keep = ids >= 0
+        if keep.any() and (self.health_monitor is not None
+                           or _health.active()):
+            # observed write staleness: local updates a row had that the
+            # server had not seen when this drain claimed it; past
+            # push_bound the drain cadence failed to hold the bound
+            _health.observe_staleness("push", self.tid, upds[keep],
+                                      self.push_bound,
+                                      monitor=self.health_monitor)
         return slots[keep].astype(np.int64), ids[keep], upds[keep]
 
     def invalidate(self):

@@ -43,6 +43,14 @@ pulls them in the push's round trip, before its one barrier, so they
 race the other workers' pushes). The device cache over several workers
 refreshes rows whose server version ran ``cache_bound`` updates ahead
 (``SyncEmbedding``), so it depends on timing by design.
+
+With the session's health monitor on (``health_options``), the runtime
+stamps it on each device and host cache it registers (their staleness
+observations go to it alone), feeds it every pulled id stream (hot-key
+skew), pre-warms the tiered store with the ids it measured hottest, and
+hands it the step (``after_step``, after the pushes and the barrier) or
+a block's sampled steps (``after_block``), with itself for the server
+table sample.
 """
 from __future__ import annotations
 
@@ -143,6 +151,8 @@ class PSRuntime:
         self._last_pushed = {}
         self._inflight_pushed = {}
         self._closed = False
+        # tables converted to the tiered row store (_maybe_store_config)
+        self._store_tids = set()
         # eager registration so save()/load() work before the first step
         self._register_all()
         atexit.register(self._atexit)
@@ -219,11 +229,14 @@ class PSRuntime:
             if self.config.cstable_policy:
                 from ..cstable import CacheSparseTable
                 bound = self.config.cache_bound
-                self.caches[param.id] = CacheSparseTable(
+                cache = CacheSparseTable(
                     tid, shape[0], int(np.prod(shape[1:])),
                     limit=max(1, shape[0] // 5),
                     policy=self.config.cstable_policy,
                     pull_bound=bound, push_bound=bound)
+                # staleness observations go to this executor's monitor
+                cache.health_monitor = self.config.health_monitor
+                self.caches[param.id] = cache
         else:
             self.client.init_tensor(tid, shape, kind=0, opt=opt_name,
                                     lrs=lrs)
@@ -256,7 +269,8 @@ class PSRuntime:
         ``HETU_PS_STORE_DRAM_ROWS`` resident rows per shard,
         ``HETU_PS_STORE_DIR`` spill directory). The tiered store keeps no
         optimizer slots, so a slot-carrying optimizer keeps flat f32
-        storage, with a warning."""
+        storage, with a warning. The ids the health monitor measured
+        hottest so far are pre-warmed into the DRAM pool."""
         dt = os.environ.get("HETU_PS_STORE_DTYPE")
         dram = os.environ.get("HETU_PS_STORE_DRAM_ROWS")
         if dt is None and dram is None:
@@ -266,8 +280,24 @@ class PSRuntime:
                   f"tiered rows need a stateless server optimizer, "
                   f"got {opt_name}", file=sys.stderr)
             return
+        hm = self.config.health_monitor
+        hot = hm.hot_ids(tid) if hm is not None else ()
         self.client.store_config(
-            tid, dtype=dt or "f32", dram_rows=int(dram) if dram else -1)
+            tid, dtype=dt or "f32", dram_rows=int(dram) if dram else -1,
+            hot_ids=hot)
+        self._store_tids.add(tid)
+
+    def _refresh_hot_rows(self, tid, k=1024):
+        """Pin the measured-hot ids (the health monitor's skew telemetry)
+        into the tiered store's DRAM pool again: a repeated StoreConfig
+        on a tiered table is a read-promotion pass, so placement follows
+        the observed ids instead of a guessed prefix."""
+        hm = self.config.health_monitor
+        if hm is None or tid not in self._store_tids:
+            return
+        hot = hm.hot_ids(tid, k)
+        if len(hot):
+            self.client.store_config(tid, hot_ids=hot)
 
     def _register_device_table(self, entry):
         """Register a device-cached table (kind 2: the server keeps
@@ -286,6 +316,8 @@ class PSRuntime:
             pull_bound=self.config.cache_bound,
             nworkers=max(1, self.client.nworkers),
             drain_compress=self.config.drain_compress)
+        # staleness observations go to this executor's monitor
+        rt.health_monitor = self.config.health_monitor
         rt._drain_future = None
         rt._inflight_ids = None
         self.device_tables[tbl.id] = rt
@@ -397,10 +429,13 @@ class PSRuntime:
         # 0. device-cache path: ids -> slots, copy missed rows in (on
         # the step's stream, so before the step reads them)
         note = []
+        hm = self.config.health_monitor
         for rt, ids_node, slots_node in cached:
             with self._phase("slot_assign"):
                 ids = host_ids(ids_node, "device-cached lookup",
                                rows=rt.rows)
+                if hm is not None:
+                    hm.observe_ids(rt.tid, ids)     # hot-key skew
                 slots, miss_ids, miss_slots, uniq_slots = rt.assign(
                     ids, functools.partial(self._drain_device_table, rt,
                                            wait=True))
@@ -440,6 +475,8 @@ class PSRuntime:
             with self._phase("host_pull"):
                 idx = host_ids(lk.inputs[1], "embedding lookup",
                                rows=int(lk.inputs[0].shape[0]))
+                if hm is not None:
+                    hm.observe_ids(lk.inputs[0].id, idx)
                 width = int(lk.inputs[0].shape[-1])
                 cache = self.caches.get(lk.inputs[0].id)
                 if cache is not None:
@@ -460,6 +497,8 @@ class PSRuntime:
                 continue
             idx = host_ids(op.inputs[0], "sparse pull",
                            rows=int(op.parameter.shape[0]))
+            if hm is not None:
+                hm.observe_ids(op.parameter.id, idx)
             width = int(op.parameter.shape[-1])
             rows = client.sparse_pull(op.parameter.id, idx, width)
             feed_map[op] = self._put(rows)
@@ -488,6 +527,7 @@ class PSRuntime:
                 rt.note_step()
                 if rt.steps_since_drain >= rt.push_bound:
                     self._drain_device_table(rt, wait=self.config.bsp)
+                    self._refresh_hot_rows(rt.tid)
 
         # 3. push PS gradients / pull updated dense params
         track = self._track_push_tids
@@ -561,6 +601,12 @@ class PSRuntime:
         elif len(self._pending_push) > 4:
             self._pending_push[0].result()
             self._drain_done()
+        if hm is not None and sub.training:
+            # after the pushes and the barrier, so that the raise rung
+            # never leaves this step's server updates half applied; the
+            # monitor folds in this runtime's staleness and hot-key
+            # observations and samples the server's tables
+            hm.after_step(sub, runtime=self)
         return sub.results(outputs, convert_to_numpy_ret_vals)
 
     # ------------------------------------------------------------------
@@ -611,6 +657,9 @@ class PSRuntime:
         """One speculative (deduplicated) SparsePull, with what is needed
         to revalidate and reassemble it at consumption time."""
         _check_ids(idx, None, "PS speculative pull")
+        hm = self.config.health_monitor
+        if hm is not None:
+            hm.observe_ids(tid, idx)     # hot-key skew (ingest worker)
         with self._phase("prefetch"):
             uniq, inv = np.unique(idx.ravel(), return_inverse=True)
             rows = self.client.sparse_pull(tid, uniq, width)
@@ -810,12 +859,15 @@ class PSRuntime:
             ids_block[ids_node] = rows
 
         note = []
+        hm = self.config.health_monitor
         for rt, ids_node, slots_node in cached:
             # one assignment for the whole block: the residency set of
             # per-step assigns with pins held (assign_block)
             with self._phase("slot_assign"):
                 ids_stacked = np.stack(ids_block[ids_node])
                 _check_ids(ids_stacked, rt.rows, "device-cached lookup")
+                if hm is not None:
+                    hm.observe_ids(rt.tid, ids_stacked)
                 slots_full, miss_ids, miss_slots, uniq_slots, counts = \
                     rt.assign_block(
                         ids_stacked,
@@ -839,13 +891,23 @@ class PSRuntime:
                 if sub.training:
                     note.append((rt, uniq_slots, counts))
 
-        results = []
+        results, health = [], []
+        step0 = sub.step_count
         with self._phase("dispatch"):
             for k in range(nsteps):
                 step_feeds = {node: value if tiled else value[k]
                               for node, (value, tiled) in feed_map.items()}
                 outputs, _ = sub.step(executor, step_feeds)
                 results.append(outputs)
+                if sub._last_health is not None:
+                    health.append(sub._last_health)
+                    sub._last_health = None
+        if health:
+            # the block's sampled steps, checked from one stacked fetch
+            # (the reference's scan stacks every step's sentinels)
+            hm.after_block(sub, dict(health[0], values=torch.stack(
+                [h["values"] for h in health])), step0, nsteps,
+                runtime=self)
 
         stepped_tables = set()
         for rt, uniq_slots, counts in note:

@@ -4,9 +4,10 @@ accounting and OOM report, the disabled paths' zero allocations, the
 heartbeat and the launcher's watchdog (a SIGKILLed rank of a 2-process
 GPipe job named and the fleet shot with ``EXIT_WATCHDOG``), the salvage
 of a truncated trace, and ``/healthz`` with its 503s.
+The ``blackbox`` analyzer and the ``regress`` gate: each report against
+the JAX package's on the same files, and both CLIs.
 ``test_memory_analysis_captured_at_compile`` has no counterpart (the
-port compiles nothing, ROADMAP §3); the ``blackbox`` analyzer and
-``regress`` tests wait for their modules (ROADMAP item 14)."""
+port compiles nothing, ROADMAP §3)."""
 import gc
 import json
 import os
@@ -516,3 +517,177 @@ def test_serving_healthz_error_rate_503():
         assert "error rate" in json.loads(exc.value.read())["reason"]
     finally:
         srv.stop()
+
+
+# ---------------------------------------------------------------------------
+# the black-box analyzer and the regression gate
+# ---------------------------------------------------------------------------
+
+def _cli_env():
+    return {**os.environ, "PYTHONPATH": REPO + os.pathsep
+            + os.environ.get("PYTHONPATH", "")}
+
+
+def _write_dump(tmp_path, rank, events, last_step=0, nprocs=2):
+    doc = {"rank": rank, "pid": 1000 + rank, "nprocs": nprocs,
+           "wall": time.time(), "last_step": last_step,
+           "steps": [[last_step, time.time()]], "events": events,
+           "reason": "flush"}
+    with open(tmp_path / f"flight_rank{rank}.json", "w") as f:
+        json.dump(doc, f)
+
+
+def _coll(seq, kind="cpp_dispatch", t1=1.0):
+    return {"seq": seq, "group": "collective", "kind": kind,
+            "peer": None, "tag": f"s{seq}", "bytes": 0, "step": seq,
+            "t0": 1.0, "t1": t1}
+
+
+def _both_reports(tdir):
+    """The port's report and text on ``tdir``, held equal to the JAX
+    package's (its report, and its text up to the module path the
+    health line names)."""
+    from hetu_tpu.telemetry import blackbox as jbb
+    from hetu_tpu_torch.telemetry import blackbox as tbb
+    rep, want = tbb.analyze(str(tdir)), jbb.analyze(str(tdir))
+    assert rep == want
+    text = tbb.format_report(rep)
+    assert text == jbb.format_report(want).replace(
+        "hetu_tpu.telemetry", "hetu_tpu_torch.telemetry")
+    return rep, text
+
+
+def test_blackbox_seq_divergence(tmp_path):
+    """Rank 0 entered collective seq 4 that rank 1 never did -> rank 1
+    is the laggard/suspect and the divergence names the op."""
+    _write_dump(tmp_path, 0, [_coll(s) for s in range(5)], last_step=4)
+    _write_dump(tmp_path, 1, [_coll(s) for s in range(4)], last_step=3)
+    rep, text = _both_reports(tmp_path)
+    d = rep["divergence"]
+    assert d is not None
+    assert d["seq"] == 4 and d["ahead"] == [0] and d["behind"] == [1]
+    assert d["event"]["kind"] == "cpp_dispatch"
+    assert rep["suspect_ranks"] == [1]
+    assert "DIVERGENCE at collective seq 4" in text
+
+
+def test_blackbox_dead_rank_and_pending(tmp_path):
+    """A rank with a heartbeat but no flight dump is dead; a surviving
+    rank's pending recv corroborates by naming the peer."""
+    pending = {"seq": 0, "group": "p2p", "kind": "p2p_recv", "peer": 1,
+               "tag": "f3:77:1", "bytes": 0, "step": 3, "t0": 5.0,
+               "t1": None}
+    _write_dump(tmp_path, 0, [pending], last_step=3)
+    for rank, step in ((0, 3), (1, 2)):
+        with open(tmp_path / f"hb_rank{rank}.json", "w") as f:
+            json.dump({"rank": rank, "pid": 1000 + rank, "step": step,
+                       "time": time.time() - 60, "done": False}, f)
+    rep, text = _both_reports(tmp_path)
+    assert rep["dead_ranks"] == [1]
+    assert rep["suspect_ranks"] == [1]
+    assert rep["ranks"]["0"]["pending"][0]["kind"] == "p2p_recv"
+    assert "NO flight dump" in text and "PENDING p2p_recv" in text
+    # a pending PS RPC: the wire cross-reference waits for analysis/
+    # wire.py (ROADMAP item 17), so the port names the event alone
+    ps = {"seq": 1, "group": "ps", "kind": "ps_sparse_pull", "peer": None,
+          "tag": "tid7", "bytes": 0, "step": 3, "t0": 6.0, "t1": None}
+    _write_dump(tmp_path, 0, [pending, ps], last_step=3)
+    from hetu_tpu_torch.telemetry import blackbox as tbb
+    rep = tbb.analyze(str(tmp_path))
+    assert [e["kind"] for e in rep["ranks"]["0"]["pending"]] == \
+        ["p2p_recv", "ps_sparse_pull"]
+    assert "wire" not in rep["ranks"]["0"]["pending"][1]
+    assert rep["fleet"] is None
+
+
+def test_blackbox_cli(tmp_path):
+    _write_dump(tmp_path, 0, [_coll(0)], last_step=1)
+    out = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.blackbox",
+         str(tmp_path), "--json"],
+        capture_output=True, text=True, env=_cli_env())
+    assert out.returncode == 0, out.stderr
+    rep = json.loads(out.stdout)
+    assert "0" in rep["ranks"]
+    text = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.blackbox",
+         str(tmp_path)], capture_output=True, text=True, env=_cli_env())
+    assert text.returncode == 0 and "black box:" in text.stdout
+    empty = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.blackbox",
+         str(tmp_path / "nope")],
+        capture_output=True, text=True, env=_cli_env())
+    assert empty.returncode == 2
+
+
+def _bench_file(path, metrics):
+    lines = "\n".join(json.dumps(m) for m in metrics)
+    with open(path, "w") as f:
+        json.dump({"n": 1, "cmd": "bench", "rc": 0, "tail": lines,
+                   "parsed": metrics[-1]}, f)
+
+
+def test_regress_cli_gates_on_regression(tmp_path):
+    old = tmp_path / "OLD.json"
+    new_ok = tmp_path / "NEW_OK.json"
+    new_bad = tmp_path / "NEW_BAD.json"
+    base = [
+        {"metric": "step_time", "value": 10.0, "unit": "ms/step"},
+        {"metric": "tput", "value": 1000.0, "unit": "samples/sec/chip"},
+        {"metric": "broken", "value": -1, "unit": "error"},
+    ]
+    _bench_file(old, base)
+    _bench_file(new_ok, [
+        {"metric": "step_time", "value": 10.9, "unit": "ms/step"},
+        {"metric": "tput", "value": 950.0, "unit": "samples/sec/chip"},
+        {"metric": "broken", "value": -1, "unit": "error"},
+        {"metric": "fresh", "value": 1.0, "unit": "ms/step"},
+    ])
+    _bench_file(new_bad, [
+        {"metric": "step_time", "value": 14.0, "unit": "ms/step"},
+        {"metric": "tput", "value": 1000.0, "unit": "samples/sec/chip"},
+    ])
+    ok = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.regress",
+         str(old), str(new_ok), "--tolerance", "0.15"],
+        capture_output=True, text=True, env=_cli_env())
+    assert ok.returncode == 0, ok.stdout + ok.stderr
+    assert "0 regression(s)" in ok.stdout
+    bad = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.regress",
+         str(old), str(new_bad), "--tolerance", "0.15"],
+        capture_output=True, text=True, env=_cli_env())
+    assert bad.returncode == 1
+    assert "REGRESSED" in bad.stdout and "step_time" in bad.stdout
+    assert "tput" in bad.stdout
+    # the reference's gate says the same of the same files
+    ref = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu.telemetry.regress",
+         str(old), str(new_bad), "--tolerance", "0.15"],
+        capture_output=True, text=True, env=_cli_env())
+    assert ref.returncode == 1 and ref.stdout == bad.stdout
+    # --history over the rounds, and --warn-only
+    hist = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.regress",
+         "--history", str(old), str(new_ok), str(new_bad)],
+        capture_output=True, text=True, env=_cli_env())
+    assert hist.returncode == 0 and "| step_time |" in hist.stdout
+    warn = subprocess.run(
+        [sys.executable, "-m", "hetu_tpu_torch.telemetry.regress",
+         str(old), str(new_bad), "--warn-only"],
+        capture_output=True, text=True, env=_cli_env())
+    assert warn.returncode == 0 and "[warn-only]" in warn.stdout
+
+
+def test_regress_direction_inference():
+    # ms-like units regress UP, throughput units regress DOWN
+    from hetu_tpu.telemetry import regress as jregress
+    from hetu_tpu_torch.telemetry import regress
+    old = {"a": {"metric": "a", "value": 10.0, "unit": "ms/step"},
+           "b": {"metric": "b", "value": 100.0, "unit": "tokens/sec"}}
+    new = {"a": {"metric": "a", "value": 8.0, "unit": "ms/step"},
+           "b": {"metric": "b", "value": 130.0, "unit": "tokens/sec"}}
+    rows = {r[0]: r[4] for r in regress.compare(old, new, 0.15)}
+    assert rows == {"a": "improved", "b": "improved"}
+    assert regress.compare(old, new, 0.15) == \
+        jregress.compare(old, new, 0.15)

@@ -228,7 +228,7 @@ def test_executor_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tht.Executor(nodes, comm_mode="PS")
     with pytest.raises(TypeError, match="ROADMAP"):
-        tht.Executor(nodes, ctx=tht.cpu(0), health_options=None)
+        tht.Executor(nodes, ctx=tht.cpu(0), validate="warn")
 
 
 @pytest.mark.parametrize("sp", ["ring", "ulysses"])

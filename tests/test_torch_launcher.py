@@ -5,6 +5,7 @@ fleet's losses across the two packages, the refused options, the
 torch.distributed rendezvous, and the executor's side of a fleet (the
 role functions, its rank, the options it accepts, worker placement)."""
 import os
+import signal
 import sys
 
 import numpy as np
@@ -207,7 +208,7 @@ def test_bsp_fleet_matches_the_jax_packages_fleet(tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-5)
 
 
-@pytest.mark.parametrize("flag", ["--health=1", "--watch", "--preflight"])
+@pytest.mark.parametrize("flag", ["--watch", "--preflight"])
 def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     cfg_path = tmp_path / "cluster.yml"
     cfg_path.write_text(CONFIG)
@@ -221,22 +222,53 @@ def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     assert not launcher._procs and not launcher._claims
 
 
+def test_a_worker_killed_by_a_signal_is_named(tmp_path):
+    """A rank that dies by a signal (a C++ ``terminate`` aborts) makes
+    the launcher exit with 256 - the signal and say on stderr which rank
+    and which signal, beside the rank's own stderr."""
+    import subprocess
+    cfg = tmp_path / "cluster.yml"
+    cfg.write_text("nodes:\n  - host: localhost\n    workers: 2\n"
+                   "    chief: true\n")
+    script = tmp_path / "worker.py"
+    script.write_text(
+        "import os, signal, sys, time\n"
+        "if os.environ['HETU_PS_RANK'] == '1':\n"
+        "    print('rank 1 aborts', file=sys.stderr, flush=True)\n"
+        "    os.kill(os.getpid(), signal.SIGABRT)\n"
+        "time.sleep(30)\n")
+    env = clean_fleet_env()
+    proc = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "hetu_tpu_torch",
+            "run_launcher.py"), "-c", str(cfg), sys.executable,
+         str(script)], env=env, capture_output=True, text=True, timeout=60)
+    assert proc.returncode == 256 - signal.SIGABRT, proc.stderr
+    assert "rank 1 aborts" in proc.stderr
+    assert "launcher: worker rank 1" in proc.stderr
+    assert "killed by SIGABRT" in proc.stderr
+
+
 TELEMETRY_ENV_WORKER = r"""
 import json, os, sys
-keys = ("HETU_TELEMETRY", "HETU_WATCHDOG_DIR", "HETU_HANG_TIMEOUT")
+keys = ("HETU_TELEMETRY", "HETU_WATCHDOG_DIR", "HETU_HANG_TIMEOUT",
+        "HETU_HEALTH")
 with open(os.path.join(os.environ["HETU_TEST_OUT"],
                        "env%s.json" % os.environ["HETU_PS_RANK"]), "w") as f:
     json.dump({k: os.environ.get(k) for k in keys}, f)
 """
 
 
-@pytest.mark.parametrize("flag", ["--telemetry", "--hang-timeout"])
+@pytest.mark.parametrize("flag", ["--telemetry", "--hang-timeout",
+                                  "--health"])
 def test_telemetry_and_watchdog_options_are_accepted(tmp_path, flag):
     """``--telemetry DIR`` exports the directory to every worker;
     ``--hang-timeout S`` arms the watchdog (``HETU_WATCHDOG_DIR``,
     ``HETU_HANG_TIMEOUT``) in a temporary telemetry directory of its
-    own. Both fleets exit 0 (the end-to-end traces are
-    tests/test_torch_telemetry.py's)."""
+    own; ``--health SPEC`` exports ``HETU_HEALTH``, its records going to
+    a temporary telemetry directory too. The fleets exit 0 (the
+    end-to-end traces are tests/test_torch_telemetry.py's, the health
+    job tests/test_torch_health.py's)."""
     import json
     import subprocess
     cfg = tmp_path / "cluster.yml"
@@ -245,10 +277,12 @@ def test_telemetry_and_watchdog_options_are_accepted(tmp_path, flag):
     script = tmp_path / "worker.py"
     script.write_text(TELEMETRY_ENV_WORKER)
     tdir = str(tmp_path / "teldir")
-    args = ["--telemetry", tdir] if flag == "--telemetry" \
-        else ["--hang-timeout", "30"]
+    args = {"--telemetry": ["--telemetry", tdir],
+            "--hang-timeout": ["--hang-timeout", "30"],
+            "--health": ["--health", "every_n=5"]}[flag]
     env = clean_fleet_env(HETU_TEST_OUT=str(tmp_path))
     env.pop("HETU_TELEMETRY", None)
+    env.pop("HETU_HEALTH", None)
     proc = subprocess.run(
         [sys.executable, os.path.join(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))), "hetu_tpu_torch",
@@ -263,6 +297,10 @@ def test_telemetry_and_watchdog_options_are_accepted(tmp_path, flag):
         assert got[0]["HETU_TELEMETRY"] == tdir
         assert got[0]["HETU_WATCHDOG_DIR"] is None
         assert "no traces to merge" in proc.stdout
+    elif flag == "--health":
+        assert [g["HETU_HEALTH"] for g in got] == ["every_n=5"] * 2
+        assert "hetu-health-" in got[0]["HETU_TELEMETRY"]
+        assert "health: --health without --telemetry" in proc.stdout
     else:
         wd = got[0]["HETU_WATCHDOG_DIR"]
         assert wd == got[0]["HETU_TELEMETRY"] and "hetu-watchdog-" in wd
@@ -494,9 +532,11 @@ def test_reference_options_are_accepted(tmp_path):
     cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), mesh=None,
                          overlap_options={"bucket_bytes": 1 << 20})
     assert cfg.overlap.bucket_bytes == 1 << 20 and cfg.mesh is None
-    for option in ({"health_options": None}, {"validate": "warn"}):
-        with pytest.raises(TypeError, match="ROADMAP"):
-            tht.HetuConfig([loss], ctx=tht.cpu(0), **option)
+    with pytest.raises(TypeError, match="ROADMAP"):
+        tht.HetuConfig([loss], ctx=tht.cpu(0), validate="warn")
+    # the health monitor is ported (tests/test_torch_health.py)
+    assert tht.HetuConfig([loss], ctx=tht.cpu(0),
+                          health_options=None).health_monitor is None
     # telemetry and the step log are ported (tests/test_torch_telemetry.py)
     log = str(tmp_path / "steps.jsonl")
     cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), telemetry=False,

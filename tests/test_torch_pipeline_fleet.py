@@ -21,6 +21,7 @@ hung channel fails the test instead of stalling the suite.
 """
 import inspect
 import json
+import os
 import threading
 import time
 
@@ -356,21 +357,33 @@ ch = ht.parallel.get_channel().stats()
 assert ch["sent_bytes"] > 0 and ch["recv_bytes"] > 0
 np.savez(os.path.join(os.environ["HETU_TEST_OUT"], f"gpt_{rank}.npz"),
          losses=np.array(losses, dtype=object),
+         threads=np.array([torch.get_num_threads(),
+                           int(os.environ.get("OMP_NUM_THREADS") or -1)]),
          **{exe._param_nodes[sid].name: v.float().numpy()
             for sid, v in exe.params.items()})
 """
+
+# what each run's CPU products rounded under (ROADMAP §3 keeps a rare
+# weight mismatch of this test open): the intra-op thread count and
+# OMP_NUM_THREADS, -1 where unset
+_RUN_KEYS = ("losses", "threads")
 
 def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
         tmp_path):
     """1F1B over four GPT stages owned round-robin by two processes, bf16
     boundaries on the channel: losses and every weight bit-equal to the
-    in-process run."""
+    in-process run. A mismatch names every run's thread counts."""
     import hetu_tpu_torch.models as TM
     proc = run_fleet("hetu_tpu_torch", SPMD_CONFIG, GPT_WORKER, tmp_path,
                      timeout=240)
     assert proc.returncode == 0, proc.stdout
     runs = [np.load(tmp_path / f"gpt_{r}.npz", allow_pickle=True)
             for r in range(2)]
+    threads = {f"rank{r}": [int(v) for v in run["threads"]]
+               for r, run in enumerate(runs)}
+    threads["in_process"] = [torch.get_num_threads(), int(
+        os.environ.get("OMP_NUM_THREADS") or -1)]
+    threads = f"threads (torch, OMP_NUM_THREADS) {threads}"
     cfg = TM.GPTConfig(**GPT_CFG)
     ids, labels, loss, _, train = TM.staged_gpt(
         cfg, gpt_contexts(tht, False), 1e-3)
@@ -383,10 +396,11 @@ def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
                           .asnumpy().reshape(-1)[0]))
     assert list(runs[0]["losses"]) == []
     np.testing.assert_array_equal([float(v) for v in runs[1]["losses"]],
-                                  want)
-    fleet = {k: r[k] for r in runs for k in r.files if k != "losses"}
+                                  want, err_msg=threads)
+    fleet = {k: r[k] for r in runs for k in r.files if k not in _RUN_KEYS}
     mine = {exe._param_nodes[sid].name: v.float().numpy()
             for sid, v in exe.params.items()}
     assert sorted(fleet) == sorted(mine)
     for name, value in mine.items():
-        np.testing.assert_array_equal(fleet[name], value, err_msg=name)
+        np.testing.assert_array_equal(fleet[name], value,
+                                      err_msg=f"{name}; {threads}")

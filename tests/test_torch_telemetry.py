@@ -795,23 +795,33 @@ def test_two_process_gpipe_merged_trace(tmp_path):
          "-c", str(cfg_path), "--telemetry", str(tdir), sys.executable,
          str(script)], env=env, capture_output=True, text=True,
         timeout=300)
-    assert proc.returncode == 0, proc.stdout + proc.stderr
-    merged = tdir / "trace_merged.json"
-    assert merged.exists(), proc.stdout
-    for pkg in ("hetu_tpu_torch", "hetu_tpu"):
-        check = subprocess.run(
-            [sys.executable, "-m", f"{pkg}.telemetry.check", str(merged)],
-            env=_env(), capture_output=True, text=True)
-        assert check.returncode == 0, check.stdout + check.stderr
-    events = json.load(open(merged))["traceEvents"]
-    spans = [e for e in events if e["ph"] == "X"]
-    assert len({e["pid"] for e in spans}) >= 2
-    names = {e["name"] for e in spans}
-    assert any(n.startswith("ps:") for n in names), sorted(names)
-    assert {"p2p_send", "p2p_recv", "pp_fwd_block", "pp_bwd_block",
-            "pp_stage_idle"} <= names, sorted(names)
-    assert (tdir / "metrics_rank0.jsonl").exists()
-    assert (tdir / "metrics_rank1.jsonl").exists()
-    bubble = [json.loads(l) for l in open(tdir / "metrics_rank0.jsonl")
-              if "pp_bubble_fraction" in l]
-    assert bubble and bubble[0]["p50"] == pytest.approx(0.2)
+    # the job's whole output, kept beside its files and carried by every
+    # failed check below (ROADMAP §3: a failure of this test once left
+    # nothing to read)
+    job = (f"launcher exit {proc.returncode}\n--- stdout ---\n{proc.stdout}"
+           f"\n--- stderr ---\n{proc.stderr}\n--- {tdir} ---\n"
+           + "\n".join(sorted(os.listdir(tdir)) if tdir.exists() else []))
+    (tmp_path / "job.log").write_text(job)
+    try:
+        assert proc.returncode == 0
+        merged = tdir / "trace_merged.json"
+        assert merged.exists()
+        for pkg in ("hetu_tpu_torch", "hetu_tpu"):
+            check = subprocess.run(
+                [sys.executable, "-m", f"{pkg}.telemetry.check",
+                 str(merged)], env=_env(), capture_output=True, text=True)
+            assert check.returncode == 0, check.stdout + check.stderr
+        events = json.load(open(merged))["traceEvents"]
+        spans = [e for e in events if e["ph"] == "X"]
+        assert len({e["pid"] for e in spans}) >= 2
+        names = {e["name"] for e in spans}
+        assert any(n.startswith("ps:") for n in names), sorted(names)
+        assert {"p2p_send", "p2p_recv", "pp_fwd_block", "pp_bwd_block",
+                "pp_stage_idle"} <= names, sorted(names)
+        assert (tdir / "metrics_rank0.jsonl").exists()
+        assert (tdir / "metrics_rank1.jsonl").exists()
+        bubble = [json.loads(l) for l in open(tdir / "metrics_rank0.jsonl")
+                  if "pp_bubble_fraction" in l]
+        assert bubble and bubble[0]["p50"] == pytest.approx(0.2)
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n{job}") from e
