@@ -342,13 +342,29 @@ object per line (``--out`` also writes them to FILE):
   Telemetry, 4 clients x 4 requests: ``/metrics`` (200, the serving
   histograms, its latency), ``/v1/requests``, ``/stats``, every request
   recorded at every hop, ``requests_rank0.json`` flushed, the replies
-  against a decoder with telemetry off, K1 on ``simt``;
+  against a decoder with telemetry off, K1 on ``simt``; then an engine
+  leg (a ContinuousBatchingEngine over the same session and Telemetry,
+  8 requests) whose request timelines ``doctor_serve`` reads;
 * ``telemetry_job`` a two-rank launcher job of two GPipe stages (2
   layers, 1 + 2 steps; each ``python chip_smoke.py --telemetry-worker
-  SPEC``) with ``--telemetry``, then without: the merged trace through
-  ``python -m hetu_tpu_torch.telemetry.check``, spans of both ranks,
-  ``p2p_*`` / ``pp_*`` spans, ``pp_bubble_fraction``, both metrics
-  files, the losses equal to the untraced job's;
+  SPEC``) with ``--telemetry --watch``, then without: the merged trace
+  through ``python -m hetu_tpu_torch.telemetry.check``, spans of both
+  ranks, ``p2p_*`` / ``pp_*`` spans, ``pp_bubble_fraction``, both
+  metrics files, both step timelines and a fleet report with no
+  fault-sized skew, the losses equal to the untraced job's;
+* ``doctor_train``, ``doctor_serve``, ``doctor_job`` the perf doctor
+  over those three directories: every step window (every request)
+  conserved, the buckets in ms a step beside ``telemetry_train``'s
+  profiled device idle share, the measured bubble fraction beside the
+  analytic one, the serving TTFT p50;
+* ``fleet_job`` GPT-2-small's 12 blocks in two GPipe launcher processes
+  (``--watch-worker``; M=4 of B=2, 1 + 4 steps) under ``--telemetry
+  --watch --hang-timeout 120``, rank 1 slowed by
+  ``HETU_FAULT_SLOW_RANK`` for 0.75 of ``pp_fleet``'s GPipe p50: the
+  live ``fleet_report.json``, ``python -m
+  hetu_tpu_torch.telemetry.fleet`` and the black box name rank 1, with
+  its skew; the doctor's buckets a rank; K2/K3/K4 24 a step a rank on
+  ``tc``;
 * ``health_train`` a third executor interleaved with
   ``telemetry_train``'s two, the health monitor at every_n=2: its losses
   bit-equal to the untraced ones, records at steps 2, 4, 6, 8 with every
@@ -428,6 +444,10 @@ DENSE_MAX_BATCH, DENSE_MAX_WAIT_MS = 8, 5
 # telemetry_serve: the same plane at 4 closed-loop clients over two
 # replicas, so a tick pads its batch to 1, 2 or 4
 TEL_SERVE_CLIENTS, TEL_SERVE_PER_CLIENT = 4, 4
+# telemetry_serve's engine leg: the requests a ContinuousBatchingEngine
+# over the same session and Telemetry serves, whose request timelines
+# (serve_request / serve_phase spans) doctor_serve attributes
+TEL_SERVE_ENGINE_REQUESTS = 8
 DENSE_DECODE_STEPS = 20             # timed decode_step calls (:1245-1252)
 DENSE_NO_CACHE_STEPS = 4            # no-cache recompute steps (:1233-1242)
 # sess.predict's logits, K1 against its plain version (f32, B=8 S=1024):
@@ -2601,7 +2621,7 @@ LAUNCHER = os.path.join(ROOT, "hetu_tpu_torch", "run_launcher.py")
 
 
 def _launch_job(name, config, flag, spec, timeout, sample_card,
-                launcher_args=()):
+                launcher_args=(), env=None):
     """``python hetu_tpu_torch/run_launcher.py -c <config>
     [launcher_args]`` running
     ``python chip_smoke.py <flag> SPEC`` in each worker, in a session of
@@ -2609,7 +2629,8 @@ def _launch_job(name, config, flag, spec, timeout, sample_card,
     temp dir (removed by the caller) for the workers' records. With
     ``sample_card`` nvidia-smi's used memory is sampled while the job
     runs. A launcher that exits non-zero raises with its log's tail.
-    Returns (wall seconds, the used-memory samples in MiB)."""
+    ``env`` adds to the launcher's environment (which its workers
+    inherit). Returns (wall seconds, the used-memory samples in MiB)."""
     import threading
     cfg = os.path.join(spec["out"], "cluster.yml")
     with open(cfg, "w") as f:
@@ -2622,7 +2643,8 @@ def _launch_job(name, config, flag, spec, timeout, sample_card,
     # replicas
     env = {**os.environ, "HETU_PS_REPLICATE": "0",
            "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH",
-                                                            "")}
+                                                            ""),
+           **(env or {})}
     used, stop = [], threading.Event()
 
     def sample():
@@ -7984,6 +8006,12 @@ TEL_SERVE_HISTS = ("serve_queue_wait_ms", "serve_ttft_ms", "serve_tpot_ms",
                    "http_request_ms")
 TEL_JOB_LAYERS, TEL_JOB_WARMUP, TEL_JOB_STEPS = 2, 1, 2
 TEL_JOB_TIMEOUT_S = 300
+# telemetry_job's traced leg runs under --watch with no fault: its skew is
+# the stages' own imbalance (rank 1 holds the LM head and the loss, 11.4
+# and 13.9 ms against thresholds of 13.8 and 12.6 in two runs), which the
+# monitor names in some runs; a fault-sized skew (fleet_job injects half
+# a step or more) is this share of the median step wall
+TEL_JOB_MAX_SKEW = 0.5
 
 
 def _quiet_telemetry(tel):
@@ -8009,8 +8037,11 @@ def telemetry_train(torch, seed, card):
     a step; K2/K3/K4 12 launches a step on ``tc`` for each executor. Then
     TEL_PROFILE_STEPS traced steps under ``profiler.trace``, whose Chrome
     trace must name TEL_TRACE_KERNELS 12 times a step each. Reports the
-    traced and untraced step p50 and their ratio (not gated). Returns
-    (line, launch counts of the interleaved steps)."""
+    traced and untraced step p50 and their ratio (not gated), and the
+    device idle share of the profiled steps (their kernels' time against
+    their wall). Returns (line, launch counts of the interleaved steps,
+    health_train's line, its launches, the telemetry dir: the caller
+    runs the doctor over it, then removes it)."""
     import shutil
     import tempfile
     import hetu_tpu_torch as ht
@@ -8106,18 +8137,25 @@ def telemetry_train(torch, seed, card):
         trace_exe.run(feed_dict=feeds)[0].asnumpy()  # its state, warm
         _build.reset_launch_counts()
         with profiler.trace(os.path.join(tdir, "profile")) as prof:
+            t0 = time.perf_counter()
             for _ in range(TEL_PROFILE_STEPS):
                 trace_exe.run(feed_dict=feeds)[0].asnumpy()
+            torch.cuda.synchronize()
+            profiled_wall_ms = (time.perf_counter() - t0) * 1e3
         profiled = dict(_build.launch_counts)
         with open(prof.trace_path) as f:
             kernel_events = [e for e in json.load(f)["traceEvents"]
                              if e.get("cat") == "kernel"]
+        # the share of the profiled steps' wall no kernel ran in (the
+        # profiler's own host cost included)
+        kernel_ms = sum(float(e.get("dur", 0.0)) for e in kernel_events) / 1e3
         named = {k: sum(1 for e in kernel_events if k in e.get("name", ""))
                  for k in TEL_TRACE_KERNELS}
         del trace_exe, traced, plain
         _quiet_telemetry(tel)
-    finally:
+    except BaseException:
         shutil.rmtree(tdir, ignore_errors=True)
+        raise
     torch.cuda.empty_cache()
 
     layers = cfg.num_hidden_layers
@@ -8141,7 +8179,10 @@ def telemetry_train(torch, seed, card):
         "profiler_kernel_events": named,
         "profiler_launches": {k: profiled.get(k, 0)
                               for k in (fa.K2, fa.K3, fa.K4)},
-        "profiler_want": layers * TEL_PROFILE_STEPS}
+        "profiler_want": layers * TEL_PROFILE_STEPS,
+        "profiled_wall_ms": profiled_wall_ms,
+        "profiled_kernel_ms": kernel_ms,
+        "profiled_device_idle_share": 1.0 - kernel_ms / profiled_wall_ms}
     faults = []
     if not checks["losses_bit_equal"] or not all(
             np.isfinite(losses["traced"])):
@@ -8175,8 +8216,9 @@ def telemetry_train(torch, seed, card):
             "telemetry_overhead_ratio": p50["traced"] / p50["untraced"],
             "checks": checks}
     if faults:
+        shutil.rmtree(tdir, ignore_errors=True)
         raise AssertionError(f"telemetry_train: {faults}: {line}")
-    return line, launches, health_line, by_exe["health"]
+    return line, launches, health_line, by_exe["health"], tdir
 
 
 # health_train, health_job: the training health monitor
@@ -8528,7 +8570,13 @@ def telemetry_serve(torch, seed, card):
     telemetry-off decoder's generate of each request alone up to the
     first top-2 logit gap under MARGIN_TOL, and one batch of every prompt
     bit-equal between a decoder with telemetry on and one with it off.
-    Returns (line, launch counts)."""
+    The decoders behind the batchers record no request timeline (in
+    either package only the engine's scheduler does), so an engine leg
+    follows: a ContinuousBatchingEngine over the same session and
+    Telemetry serves TEL_SERVE_ENGINE_REQUESTS of the prompts, K1 on its
+    prefill, each retiring with its ``serve_request`` / ``serve_phase``
+    spans. Returns (line, launch counts of the HTTP leg, the telemetry
+    dir: the caller runs the serving doctor over it, then removes it)."""
     import http.client
     import shutil
     import tempfile
@@ -8536,7 +8584,8 @@ def telemetry_serve(torch, seed, card):
     from hetu_tpu_torch import models as M
     from hetu_tpu_torch import telemetry
     from hetu_tpu_torch.ops import _build
-    from hetu_tpu_torch.serving import (GPTDecoder, InferenceSession,
+    from hetu_tpu_torch.serving import (ContinuousBatchingEngine,
+                                        GPTDecoder, InferenceSession,
                                         MicroBatcher, ReplicaRouter,
                                         ServingHTTPServer)
 
@@ -8602,15 +8651,27 @@ def telemetry_serve(torch, seed, card):
         srv.stop()
         for mb in batchers:
             mb.close()
+    # the HTTP leg's hops, before the engine leg observes its own
+    snap = {s["name"]: s for s in tel.metrics.snapshot()}
     try:
+        # the engine leg: request timelines into the same trace
+        eng = ContinuousBatchingEngine.from_session(
+            sess, cfg, telemetry=tel, start=False, num_blocks=NUM_BLOCKS,
+            max_batch_size=8)
+        _, engine_metrics = drive(eng, list(
+            prompts[:TEL_SERVE_ENGINE_REQUESTS].astype(np.int32)), MAX_NEW)
+        eng.close()
+        del eng
         paths = tel.flush()
         with open(os.path.join(tdir, "requests_rank0.json")) as f:
             inflight = json.load(f)
         n_events, errors = telemetry.validate(
             os.path.join(tdir, "trace_rank0.json"))
+    except BaseException:
+        shutil.rmtree(tdir, ignore_errors=True)
+        raise
     finally:
         _quiet_telemetry(tel)
-        shutil.rmtree(tdir, ignore_errors=True)
     ticks = sum(r["replica"]["ticks"] for r in stats)
 
     # the replies against a telemetry-off decoder: each request alone up
@@ -8630,7 +8691,6 @@ def telemetry_serve(torch, seed, card):
     batch_on = decs[0].generate(prompts, MAX_NEW)
     batch_off = off.generate(prompts, MAX_NEW)
     text = m_body.decode()
-    snap = {s["name"]: s for s in tel.metrics.snapshot()}
     hops = {"http_request_ms": snap.get("http_request_ms", {}).get("count"),
             "router_latency_ms": snap.get("router_latency_ms",
                                           {}).get("count"),
@@ -8685,10 +8745,12 @@ def telemetry_serve(torch, seed, card):
             "max_new_tokens": MAX_NEW, "wall_s": wall,
             "tokens_per_s": n_req * MAX_NEW / wall,
             "latency_ms_p50": float(np.percentile(latency, 50)),
+            "engine_leg": engine_metrics,
             "checks": checks}
     if faults:
+        shutil.rmtree(tdir, ignore_errors=True)
         raise AssertionError(f"telemetry_serve: {faults}: {line}")
-    return line, launches
+    return line, launches, tdir
 
 
 def telemetry_worker(spec):
@@ -8734,19 +8796,27 @@ def telemetry_worker(spec):
 
 def telemetry_job(card, seed):
     """``telemetry_job``: a two-rank launcher job (``spmd: true``) of
-    telemetry_worker with ``--telemetry <dir>``, then the same job
-    without. Checks: ``trace_merged.json`` passes ``python -m
+    telemetry_worker with ``--telemetry <dir> --watch`` (the fleet plane
+    armed, no fault), then the same job without either. Checks:
+    ``trace_merged.json`` passes ``python -m
     hetu_tpu_torch.telemetry.check``; it holds spans of both pids, the
     channel's ``p2p_*`` and the pipeline's ``pp_*`` spans; both
     ``metrics_rank<r>.jsonl`` files exist, rank 1's with
-    ``pp_bubble_fraction``; every loss equals the untraced job's; each
-    rank launches K2-K4 once a layer and microbatch a step."""
+    ``pp_bubble_fraction``; both ranks flushed step timelines and the
+    monitor's ``fleet_report.json``, aligned, shows no fault-sized skew
+    (under TEL_JOB_MAX_SKEW of the median step wall, rank 0 never named:
+    with no fault the skew is the stages' imbalance, and rank 1 holds the
+    LM head); every loss equals the untraced job's (the fleet plane
+    changes no math); each rank
+    launches K2-K4 once a layer and microbatch a step. Returns (line,
+    the traced ranks' launch counts, the traced leg's telemetry dir: the
+    caller runs the doctor over it, then removes it)."""
     import shutil
     import tempfile
     from hetu_tpu_torch.ops import flash_attention as fa
     config = ("spmd: true\nnodes:\n  - host: localhost\n    workers: 2\n"
               "    chief: true\n")
-    runs = {}
+    runs, kept = {}, None
     for traced in (True, False):
         out_dir = tempfile.mkdtemp(prefix="telemetry_job_")
         tdir = os.path.join(out_dir, "telemetry")
@@ -8754,7 +8824,8 @@ def telemetry_job(card, seed):
             wall, _ = _launch_job(
                 "telemetry_job", config, "--telemetry-worker",
                 {"seed": seed, "out": out_dir}, TEL_JOB_TIMEOUT_S, False,
-                launcher_args=["--telemetry", tdir] if traced else [])
+                launcher_args=["--telemetry", tdir, "--watch"]
+                if traced else [])
             ranks = []
             for r in range(2):
                 with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
@@ -8786,9 +8857,22 @@ def telemetry_job(card, seed):
                               if "pp_bubble_fraction" in line]
                 rec["pp_bubble_fraction"] = bubble[0]["p50"] \
                     if bubble else None
+                with open(os.path.join(tdir, "fleet_report.json")) as f:
+                    report = json.load(f)
+                rec["fleet_report"] = {k: report[k] for k in (
+                    "step", "aligned", "straggler", "skew_ms", "victims",
+                    "ranks")}
+                rec["timelines"] = sorted(
+                    f for f in os.listdir(tdir) if f.startswith("timeline_"))
+                kept = out_dir
             runs["traced" if traced else "untraced"] = rec
+        except BaseException:
+            if kept is not None:
+                shutil.rmtree(kept, ignore_errors=True)
+            raise
         finally:
-            shutil.rmtree(out_dir, ignore_errors=True)
+            if kept != out_dir:
+                shutil.rmtree(out_dir, ignore_errors=True)
     steps = TEL_JOB_WARMUP + TEL_JOB_STEPS
     per_rank = TEL_JOB_LAYERS // 2 * PP_MICROBATCHES * steps
     want = {fa.K1: 0, fa.K2: per_rank, fa.K3: per_rank, fa.K4: per_rank}
@@ -8810,6 +8894,16 @@ def telemetry_job(card, seed):
     if [r["telemetry"] for r in tr["ranks"] + un["ranks"]] != \
             [True, True, False, False]:
         faults.append("telemetry on/off by the launcher flag")
+    report = tr["fleet_report"]
+    walls = [r["step_ms"] for r in report["ranks"].values()
+             if r["step_ms"] is not None]
+    tr["fleet_skew_bound_ms"] = TEL_JOB_MAX_SKEW * float(np.median(walls)) \
+        if walls else None
+    if tr["timelines"] != ["timeline_rank0.jsonl", "timeline_rank1.jsonl"] \
+            or not report["aligned"] or report["straggler"] == 0 or \
+            not walls or report["skew_ms"] >= tr["fleet_skew_bound_ms"]:
+        faults.append(f"fleet plane: timelines {tr['timelines']}, report "
+                      f"{report}")
     want.update({f"{k}.tc": per_rank for k in (fa.K2, fa.K3, fa.K4)})
     if any({k: r["launches"].get(k, 0) for k in want} != want
            for r in tr["ranks"] + un["ranks"]):
@@ -8822,8 +8916,318 @@ def telemetry_job(card, seed):
             "untraced_wall_s": un["wall_s"],
             "launches_per_rank": [r["launches"] for r in tr["ranks"]]}
     if faults:
+        shutil.rmtree(kept, ignore_errors=True)
         raise AssertionError(f"telemetry_job: {faults}: {line}")
-    return line, [r["launches"] for r in tr["ranks"]]
+    return line, [r["launches"] for r in tr["ranks"]], \
+        os.path.join(kept, "telemetry")
+
+# doctor_train, doctor_job, doctor_serve: the perf doctor
+# (hetu_tpu_torch/telemetry/doctor.py) over the directories telemetry_train,
+# telemetry_job and telemetry_serve wrote; fleet_job: the fleet plane
+# (telemetry/fleet.py) on GPT-2-small's 12 blocks in two GPipe processes
+# under the launcher's --watch, rank 1 slowed
+FLEET_WARMUP, FLEET_STEPS = 1, 4
+FLEET_SLOW_FRAC = 0.75      # the fault: this share of pp_fleet's GPipe p50
+FLEET_TIMEOUT_S = 300
+FLEET_HANG_TIMEOUT_S = 120
+DOCTOR_TOOLS = ("fleet", "blackbox", "doctor")   # fleet_job's CLIs
+
+
+def _doctor_windows(doctor, events):
+    """Each step window of one rank's trace attributed alone by the
+    doctor: (windows, conserved windows, largest conservation error)."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    wins = [e for e in spans if e["name"] in ("step", "step_block")]
+    rest = [e for e in spans if e["name"] not in ("step", "step_block")]
+    verdicts = [doctor.attribute_events([w] + rest) for w in wins]
+    return {"windows": len(wins),
+            "windows_conserved": sum(bool(a["conserved"])
+                                     for a in verdicts),
+            "max_conservation_error": max(
+                (a["conservation_error"] for a in verdicts), default=None)}
+
+
+def _doctor_timed(doctor, events, skip):
+    """The doctor over one rank's step windows past the first ``skip``
+    (the warm-up steps): buckets in ms a step, its step wall."""
+    spans = [e for e in events if e.get("ph") == "X"]
+    wins = sorted((e for e in spans if e["name"] in ("step", "step_block")),
+                  key=lambda e: e["ts"])
+    rest = [e for e in spans if e["name"] not in ("step", "step_block")]
+    a = doctor.attribute_events(wins[skip:] + rest)
+    return {"steps": a["steps"], "step_wall_ms": a["step_wall_ms"],
+            "ms_per_step": a["per_step_ms"], "conserved": a["conserved"]}
+
+
+def _doctor_ranks(doctor, tdir, skip=0):
+    """The doctor over one telemetry dir: per rank its steps, step wall,
+    buckets in ms a step, hidden ms, the measured bubble fraction and
+    every window's conservation, and with ``skip`` the same past the
+    first ``skip`` (warm-up) windows; and the diagnosis."""
+    t0 = time.perf_counter()
+    per = doctor.attribute_trace(tdir)
+    diag = doctor.diagnose(per)
+    traces = doctor.load_telemetry_dir(tdir)
+    windows = {label: _doctor_windows(doctor, events) for label, events
+               in traces.items() if label in per}
+    if skip:
+        for label in windows:
+            windows[label]["timed"] = _doctor_timed(doctor, traces[label],
+                                                    skip)
+    seconds = time.perf_counter() - t0
+    ranks = {label: {
+        "steps": a["steps"], "step_wall_ms": a["step_wall_ms"],
+        "ms_per_step": a["per_step_ms"], "hidden_ms": a["hidden_ms"],
+        "bubble_fraction": a["per_step_ms"]["bubble"]
+        / max(a["step_wall_ms"], 1e-9),
+        "conserved": a["conserved"],
+        "conservation_error": a["conservation_error"],
+        **windows[label]} for label, a in sorted(per.items())}
+    faults = [f"{label}: {w['windows_conserved']} of {w['windows']} "
+              f"windows conserved" for label, w in ranks.items()
+              if w["windows_conserved"] != w["windows"] or not w["windows"]
+              or not w["conserved"]]
+    return ranks, diag, seconds, faults
+
+
+def _diag_summary(diag):
+    return {k: diag.get(k) for k in (
+        "straggler", "steps", "step_wall_ms", "top_exposed_bucket",
+        "ranked_exposed", "bubble_fraction", "comm_compute_ratio",
+        "conserved")} if diag.get("ranks") else diag
+
+
+def doctor_train(tdir, tel_line):
+    """The doctor over telemetry_train's traced executor: its
+    TEL_WARMUP + TEL_STEPS windows, each conserved (the buckets sum to
+    the step wall within the doctor's 10%), the buckets in ms a step
+    beside the untraced step p50 and the profiled steps' device idle
+    share (spans time host work: a bucket is host time, and the idle
+    share says whether the device waited on it)."""
+    from hetu_tpu_torch.telemetry import doctor
+    ranks, diag, seconds, faults = _doctor_ranks(doctor, tdir,
+                                                 skip=TEL_WARMUP)
+    steps = TEL_WARMUP + TEL_STEPS
+    if set(ranks) != {"rank0"} or ranks["rank0"]["steps"] != steps:
+        faults.append(f"steps {ranks}, want {steps} on rank0")
+    line = {"source": "telemetry_train", "seconds": seconds,
+            "ranks": ranks, "diagnosis": _diag_summary(diag),
+            "step_ms_p50_traced": tel_line["step_ms_p50_traced"],
+            "step_ms_p50_untraced": tel_line["step_ms_p50_untraced"],
+            "profiled_device_idle_share":
+                tel_line["checks"]["profiled_device_idle_share"]}
+    if faults:
+        raise AssertionError(f"doctor_train: {faults}: {line}")
+    return line
+
+
+def doctor_job(tdir, job_line):
+    """The doctor over telemetry_job's traced leg (two GPipe processes):
+    each rank's windows conserved, its buckets in ms a step, and the
+    measured bubble fraction (``pp_stage_idle`` over the step wall)
+    beside the analytic ``pp_bubble_fraction`` the job reported."""
+    from hetu_tpu_torch.telemetry import doctor
+    ranks, diag, seconds, faults = _doctor_ranks(doctor, tdir,
+                                                 skip=TEL_JOB_WARMUP)
+    steps = TEL_JOB_WARMUP + TEL_JOB_STEPS
+    if set(ranks) != {"rank0", "rank1"} or any(
+            r["steps"] != steps for r in ranks.values()):
+        faults.append(f"steps {ranks}, want {steps} on each rank")
+    measured = {label: r["bubble_fraction"] for label, r in ranks.items()}
+    measured_timed = {label: r["timed"]["ms_per_step"]["bubble"]
+                      / max(r["timed"]["step_wall_ms"], 1e-9)
+                      for label, r in ranks.items()}
+    if not any(v > 0 for v in measured.values()):
+        faults.append("no measured bubble")
+    line = {"source": "telemetry_job", "seconds": seconds, "ranks": ranks,
+            "diagnosis": _diag_summary(diag),
+            "bubble_fraction_measured": measured,
+            "bubble_fraction_measured_timed": measured_timed,
+            "bubble_fraction_analytic":
+                job_line["traced"]["pp_bubble_fraction"]}
+    if faults:
+        raise AssertionError(f"doctor_job: {faults}: {line}")
+    return line
+
+
+def doctor_serve(tdir, serve_line):
+    """The serving doctor over telemetry_serve's trace: every request of
+    its engine leg retired, its timeline complete and conserved (the
+    buckets sum to its e2e within the doctor's 5%), TTFT p50 beside the
+    engine's own measure."""
+    from hetu_tpu_torch.telemetry import doctor
+    t0 = time.perf_counter()
+    diag = doctor.attribute_requests_dir(tdir)
+    seconds = time.perf_counter() - t0
+    line = {"source": "telemetry_serve", "seconds": seconds,
+            **{k: diag.get(k) for k in (
+                "requests", "conserved", "complete", "violations",
+                "incomplete", "e2e_p50_ms", "e2e_p99_ms",
+                "serve_ttft_p50_ms", "serve_ttft_p99_ms",
+                "serve_tpot_p50_ms", "serve_queue_wait_p99_ms",
+                "buckets_ms", "bucket_fraction", "preempted_requests",
+                "top_bucket")},
+            "engine_ttft_ms_p50": serve_line["engine_leg"]["ttft_ms_p50"]}
+    if diag.get("requests") != TEL_SERVE_ENGINE_REQUESTS or not (
+            diag.get("conserved") and diag.get("complete")):
+        raise AssertionError(f"doctor_serve: {line}")
+    return line
+
+
+def watch_worker(spec):
+    """One rank of ``fleet_job`` (``python chip_smoke.py --watch-worker
+    SPEC``): GPT-2-small's 12 blocks in two GPipe stages, one a rank
+    (``ht.rgpu("worker<r>", r)``, the one card), M=PP_MICROBATCHES of
+    PP_MICROBATCH rows, bf16, FLEET_WARMUP + FLEET_STEPS steps on train's
+    rows, under the launcher's ``--watch`` and the fault it was given.
+    Writes ``rank_<r>.json``: losses, step ms, launches, the fault's
+    seconds and whether the step timeline was armed."""
+    import torch
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.ops import _build
+    rank = int(os.environ["HETU_PROC_ID"])
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in _pp_batch(
+        spec["seed"], GPT2_SMALL["vocab_size"],
+        GPT2_SMALL["max_position_embeddings"]))
+    contexts = [ht.rgpu(f"worker{i}", i) for i in range(2)]
+    ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, contexts)
+    exe = ht.Executor([loss, train_op], dtype=torch.bfloat16,
+                      num_microbatches=PP_MICROBATCHES, gpipe=True)
+    _build.reset_launch_counts()                    # main path starts
+    losses, step_ms = [], []
+    for _ in range(FLEET_WARMUP + FLEET_STEPS):
+        t0 = time.perf_counter()
+        res = exe.run(feed_dict={ids: xt, labels: yt})
+        if res[0] is not None:
+            losses.append(float(res[0].asnumpy()))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    kernels = _k1_k4_launches(_build.launch_counts)  # main path ends
+    out = {"rank": rank, "losses": losses, "step_ms": step_ms,
+           "fault_slow_s": exe._fault_slow_s,
+           "timeline": exe._fleet_timeline is not None,
+           "launches": {k: v for k, v in _build.launch_counts.items()
+                        if k.split(".")[0] in kernels}}
+    exe.close()
+    with open(os.path.join(spec["out"], f"rank_{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def fleet_job(card, seed, pp_fleet_line):
+    """``fleet_job``: a two-rank launcher job (``spmd: true``) of
+    watch_worker under ``--telemetry <dir> --watch --hang-timeout 120``,
+    rank 1 slowed by ``HETU_FAULT_SLOW_RANK=1`` for FLEET_SLOW_FRAC of
+    pp_fleet's GPipe step p50 a step (the same model in two processes);
+    then the fleet CLI, the black box and the doctor over its directory,
+    each as ``python -m hetu_tpu_torch.telemetry.<tool> <dir> --json``.
+    Checks: the live monitor's ``fleet_report.json`` and the fleet CLI
+    name rank 1, the launcher printed its STRAGGLER line, the black box
+    names rank 1 as the straggler; both ranks flushed timelines; rank 1
+    carried the fault and its own work covers it (self ms at least the
+    fault's), rank 0 none; the doctor conserves every window; losses
+    finite; each rank launches K2-K4 once a layer and microbatch a step,
+    all ``tc``. Returns (line, each rank's launch counts)."""
+    import math
+    import shutil
+    import tempfile
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.telemetry import doctor
+    p50 = pp_fleet_line["schedules"]["gpipe"]["step_ms_p50"]
+    slow_ms = int(math.ceil(FLEET_SLOW_FRAC * p50))
+    config = ("spmd: true\nnodes:\n  - host: localhost\n    workers: 2\n"
+              "    chief: true\n")
+    out_dir = tempfile.mkdtemp(prefix="fleet_job_")
+    tdir = os.path.join(out_dir, "telemetry")
+    try:
+        wall, _ = _launch_job(
+            "fleet_job", config, "--watch-worker",
+            {"seed": seed, "out": out_dir}, FLEET_TIMEOUT_S, False,
+            launcher_args=["--telemetry", tdir, "--watch", "--hang-timeout",
+                           str(FLEET_HANG_TIMEOUT_S)],
+            env={"HETU_FAULT_SLOW_RANK": "1",
+                 "HETU_FAULT_SLOW_MS": str(slow_ms)})
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(out_dir, f"rank_{r}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(tdir, "fleet_report.json")) as f:
+            live = json.load(f)
+        with open(os.path.join(out_dir, "job.log")) as f:
+            printed = "straggler rank 1" in f.read()
+        timelines = sorted(f for f in os.listdir(tdir)
+                           if f.startswith("timeline_"))
+        cli, cli_s = {}, {}
+        for tool in DOCTOR_TOOLS:
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", f"hetu_tpu_torch.telemetry.{tool}",
+                 tdir, "--json"], cwd=ROOT, capture_output=True, text=True,
+                timeout=120)
+            cli_s[tool] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise AssertionError(f"fleet_job: {tool} CLI exit "
+                                     f"{proc.returncode}: {proc.stdout[-2000:]}"
+                                     f" {proc.stderr[-2000:]}")
+            cli[tool] = json.loads(proc.stdout)
+        dranks, diag, dseconds, faults = _doctor_ranks(doctor, tdir,
+                                                       skip=FLEET_WARMUP)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    steps = FLEET_WARMUP + FLEET_STEPS
+    per_rank = GPT2_SMALL["num_hidden_layers"] // 2 * PP_MICROBATCHES * steps
+    want = {fa.K1: 0, **{k: per_rank for k in (fa.K2, fa.K3, fa.K4)},
+            **{f"{k}.tc": per_rank for k in (fa.K2, fa.K3, fa.K4)}}
+    row1 = live["ranks"]["1"]
+    box = cli["blackbox"].get("fleet") or {}
+    if live["straggler"] != 1 or not printed or \
+            cli["fleet"]["straggler"] != 1 or box.get("straggler") != 1:
+        faults.append(f"straggler: live {live['straggler']} (printed "
+                      f"{printed}), CLI {cli['fleet']['straggler']}, black "
+                      f"box {box}")
+    if timelines != ["timeline_rank0.jsonl", "timeline_rank1.jsonl"] or \
+            not all(r["timeline"] for r in ranks):
+        faults.append(f"timelines {timelines}")
+    if [r["fault_slow_s"] for r in ranks] != [0.0, slow_ms / 1e3] or \
+            (row1["self_ms"] or 0.0) < slow_ms:
+        faults.append(f"the fault: {[r['fault_slow_s'] for r in ranks]}, "
+                      f"rank 1's self {row1['self_ms']} ms against "
+                      f"{slow_ms} ms")
+    losses = ranks[1]["losses"]
+    if ranks[0]["losses"] or len(losses) != steps or \
+            not all(np.isfinite(losses)):
+        faults.append(f"losses {[r['losses'] for r in ranks]}")
+    if any({k: r["launches"].get(k, 0) for k in want} != want
+           for r in ranks):
+        faults.append(f"launches, want {want}")
+    if not cli["doctor"].get("conserved"):
+        faults.append("doctor CLI conservation")
+    med_wall = float(np.median([v["step_ms"] for v in live["ranks"].values()
+                                if v["step_ms"] is not None]))
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "workers": 2, "stages": 2, "microbatches": PP_MICROBATCHES,
+            "microbatch_rows": PP_MICROBATCH, "schedule": "gpipe",
+            "dtype": "bfloat16", "steps": steps, "losses": losses,
+            "wall_s": wall, "pp_fleet_gpipe_step_ms_p50": p50,
+            "fault_slow_ms": slow_ms,
+            "step_ms": {str(r["rank"]): r["step_ms"] for r in ranks},
+            "live_report": {k: live[k] for k in (
+                "step", "aligned", "straggler", "skew_ms", "victims",
+                "ranks")},
+            "skew_ms": live["skew_ms"], "skew_threshold_ms": max(
+                2.0, 0.2 * med_wall),
+            "cli_straggler": cli["fleet"]["straggler"],
+            "cli_skew_ms": cli["fleet"]["skew_ms"],
+            "blackbox_fleet": box,
+            "blackbox_suspects": cli["blackbox"].get("suspect_ranks"),
+            "cli_seconds": cli_s, "doctor_seconds": dseconds,
+            "doctor": {"ranks": dranks, "diagnosis": _diag_summary(diag),
+                       "cli_conserved": cli["doctor"].get("conserved")},
+            "launches_per_rank": [r["launches"] for r in ranks]}
+    if faults:
+        raise AssertionError(f"fleet_job: {faults}: {line}")
+    return line, [r["launches"] for r in ranks]
 
 
 def ptxas_report(log_text):
@@ -8935,6 +9339,8 @@ def main(argv=None):
                     help=argparse.SUPPRESS)     # telemetry_job's ranks
     ap.add_argument("--health-worker", default=None, metavar="SPEC",
                     help=argparse.SUPPRESS)     # health_job's ranks
+    ap.add_argument("--watch-worker", default=None, metavar="SPEC",
+                    help=argparse.SUPPRESS)     # fleet_job's ranks
     args = ap.parse_args(argv)
     if not os.path.isfile(os.path.join(ROOT, "hetu_tpu_torch", "ops",
                                        "csrc", "flash_fwd.cu")):
@@ -8965,6 +9371,8 @@ def main(argv=None):
         return telemetry_worker(json.loads(args.telemetry_worker))
     if args.health_worker is not None:
         return health_worker(json.loads(args.health_worker))
+    if args.watch_worker is not None:
+        return watch_worker(json.loads(args.watch_worker))
     import torch
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is False: this smoke needs a GPU")
@@ -9157,27 +9565,56 @@ def main(argv=None):
     log(f"hybrid_fleet ({time.perf_counter() - t:.1f} s) "
         f"{ps_lines['hybrid_fleet']}")
 
+    import shutil
     tel_lines = {}
     t = time.perf_counter()
     (tel_lines["telemetry_train"], tel_train_launches,
-     tel_lines["health_train"], health_launches) = telemetry_train(
+     tel_lines["health_train"], health_launches, tdir) = telemetry_train(
         torch, args.seed, card)
     log(f"telemetry_train and health_train ({time.perf_counter() - t:.1f} "
         f"s) {tel_lines['telemetry_train']} {tel_lines['health_train']}")
     t = time.perf_counter()
-    tel_lines["telemetry_serve"], tel_serve_launches = telemetry_serve(
-        torch, args.seed, card)
+    try:
+        tel_lines["doctor_train"] = doctor_train(
+            tdir, tel_lines["telemetry_train"])
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    log(f"doctor_train ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['doctor_train']}")
+    t = time.perf_counter()
+    tel_lines["telemetry_serve"], tel_serve_launches, tdir = \
+        telemetry_serve(torch, args.seed, card)
     log(f"telemetry_serve ({time.perf_counter() - t:.1f} s) "
         f"{tel_lines['telemetry_serve']}")
     t = time.perf_counter()
-    tel_lines["telemetry_job"], tel_job_launches = telemetry_job(
+    try:
+        tel_lines["doctor_serve"] = doctor_serve(
+            tdir, tel_lines["telemetry_serve"])
+    finally:
+        shutil.rmtree(tdir, ignore_errors=True)
+    log(f"doctor_serve ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['doctor_serve']}")
+    t = time.perf_counter()
+    tel_lines["telemetry_job"], tel_job_launches, tdir = telemetry_job(
         card, args.seed)
     log(f"telemetry_job ({time.perf_counter() - t:.1f} s) "
         f"{tel_lines['telemetry_job']}")
     t = time.perf_counter()
+    try:
+        tel_lines["doctor_job"] = doctor_job(tdir, tel_lines["telemetry_job"])
+    finally:
+        shutil.rmtree(os.path.dirname(tdir), ignore_errors=True)
+    log(f"doctor_job ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['doctor_job']}")
+    t = time.perf_counter()
     tel_lines["health_job"] = health_job(card, args.seed)
     log(f"health_job ({time.perf_counter() - t:.1f} s) "
         f"{tel_lines['health_job']}")
+    t = time.perf_counter()
+    tel_lines["fleet_job"], fleet_launches = fleet_job(
+        card, args.seed, pp_lines["pp_fleet"])
+    log(f"fleet_job ({time.perf_counter() - t:.1f} s) "
+        f"{tel_lines['fleet_job']}")
 
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
@@ -9228,7 +9665,9 @@ def main(argv=None):
                    ("telemetry_train", tel_train_launches, TRAIN_REP),
                    ("health_train", health_launches, TRAIN_REP),
                    *((f"telemetry_job.rank{r}", c, PP_REP)
-                     for r, c in enumerate(tel_job_launches))]
+                     for r, c in enumerate(tel_job_launches)),
+                   *((f"fleet_job.rank{r}", c, PP_REP)
+                     for r, c in enumerate(fleet_launches))]
     kernels = {"kernels": [
         _kernel_row("flash_fwd", "fwd", pallas + "346", (fa.K1,),
                     fwd_paths, k1_rows,

@@ -51,11 +51,13 @@ What runs today:
   (:mod:`.parallel.local_ranks`), so the reference's scripts run
   unchanged;
 * the telemetry layer (span tracer, metrics, flight recorder, the
-  launcher's watchdog) and the training health monitor (sentinels on
+  launcher's watchdog), the training health monitor (sentinels on
   sampled steps, staleness and hot keys of the PS caches, the trip
-  ladder), with their file tools ``python -m
-  hetu_tpu_torch.telemetry.{check,health,blackbox,regress}``, which run
-  without torch;
+  ladder), the perf doctor and the fleet plane (per-rank step
+  timelines, the launcher's ``--watch`` naming a straggler), with their
+  file tools ``python -m
+  hetu_tpu_torch.telemetry.{check,health,blackbox,regress,doctor,fleet}``,
+  which run without torch;
 * GPT-2-shaped paged-KV serving through
   :class:`~hetu_tpu_torch.serving.ContinuousBatchingEngine`, prefill on
   K1.
@@ -72,7 +74,8 @@ import sys as _sys
 # ``python -m hetu_tpu_torch.telemetry.<tool>`` they skip the API below
 # and its torch import (seconds a start), so they run where no card is
 _TOOLS = tuple(f"hetu_tpu_torch.telemetry.{t}"
-               for t in ("check", "health", "blackbox", "regress"))
+               for t in ("check", "health", "blackbox", "regress",
+                         "doctor", "fleet"))
 
 
 def _runs_tool():

@@ -133,7 +133,11 @@ chain of stages as one tick loop over each stage's device and stream.
 ``run_batches``, the device-memory gauges, the flight recorder's step
 ring, the OOM report before an allocator failure re-raises, the
 watchdog's heartbeat (``HETU_WATCHDOG_DIR``), and ``close()`` flushing
-the per-rank files. No span synchronizes the device.
+the per-rank files. No span synchronizes the device. With the fleet
+plane armed (``HETU_FLEET``, the launcher's ``--watch``;
+:mod:`.telemetry.fleet`) each step window also goes into the rank's
+step timeline, its last step ms and top bucket into the heartbeat, and
+``/fleet`` is served on the rank's metrics port.
 **The health monitor** (``health_options=``, or ``HETU_HEALTH``, which
 the launcher's ``--health`` exports; :mod:`.telemetry.health`): on every
 ``every_n``-th training step the optimizers record each parameter's
@@ -176,6 +180,7 @@ from .ops.embedding import EmbeddingLookUp
 from .ops.variable import PlaceholderOp
 from . import telemetry as _telemetry
 from .telemetry import memory as _memory
+from .telemetry import fleet as _fleet
 from .telemetry import watchdog as _watchdog
 
 __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
@@ -238,7 +243,19 @@ def maybe_init_distributed(device=None):
     votes = {store.get(f"hetu_backend/{r}").decode() for r in range(world)}
     dist.init_process_group(backend="nccl" if votes == {"nccl"} else "gloo",
                             store=store, world_size=world, rank=rank)
+    # leave the group before the interpreter tears down: a group left to
+    # the teardown can abort the process ("terminate called without an
+    # active exception", a backend thread destroyed after the thread
+    # states are freed)
+    import atexit
+    atexit.register(_leave_job)
     return True
+
+
+def _leave_job():
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def wrapped_mpi_nccl_init(init_nccl=True, devices=None):
@@ -1250,6 +1267,17 @@ class Executor:
         # disabled path costs one `is None` check a step. Thread ranks
         # beat through the front session's (parallel/local_ranks.py)
         self._heartbeat = _watchdog.heartbeat_from_env()
+        # the fleet step timeline (telemetry/fleet.py), armed by the
+        # launcher's --watch (HETU_FLEET): None otherwise, so the
+        # disabled path stays one `is None` check a step. The injected
+        # straggler fault (HETU_FAULT_SLOW_RANK) rides the same plane.
+        # A front session of thread ranks holds none: each rank holds
+        # its own, named by its rank
+        self._fleet_timeline = None
+        self._fault_slow_s = 0.0
+        self._metrics_server = False
+        if config.local_ranks is None:
+            self._arm_fleet(config)
         # several devices of this process: one thread rank each, and this
         # session their front (parallel/local_ranks.py)
         self._threads = None
@@ -1361,6 +1389,57 @@ class Executor:
         """The thread ranks' executors (a one-process session: itself)."""
         return [self] if self._threads is None else self._threads.executors
 
+    def _arm_fleet(self, config):
+        """The fleet plane of this session (reference executor.py:1338-
+        1350): the step timeline and the straggler fault, by the thread
+        rank running this constructor where there is one
+        (``local_ranks.thread_rank``), else by the process's rank. With
+        ``HETU_METRICS_PORT`` (the launcher's ``--watch``) the registry
+        serves ``/metrics`` and ``/fleet`` on the port the launcher
+        claimed for this rank (``HETU_METRICS_LISTEN_FD``); a thread
+        session's rank 0 serves for the process."""
+        from .parallel.local_ranks import thread_rank
+        tel = config.telemetry
+        rank = thread_rank()
+        self._fleet_timeline = _fleet.timeline_from_env(tel, rank=rank)
+        self._fault_slow_s = _fleet.fault_slow_from_env(rank=rank)
+        port = os.environ.get("HETU_METRICS_PORT")
+        if not (port and tel.enabled and rank in (None, 0)):
+            return
+        reg = tel.metrics
+        if self._fleet_timeline is not None:
+            reg.fleet_source = self._fleet_timeline.fleet_json
+        if reg.serving:
+            return
+        fd = os.environ.pop("HETU_METRICS_LISTEN_FD", None)
+        if fd is not None:
+            import socket
+            tel.serve_metrics(int(port), sock=socket.socket(fileno=int(fd)))
+        else:
+            try:
+                tel.serve_metrics(int(port))
+            except OSError as e:
+                # a port given but not claimed (a multi-host job's base
+                # port) may be taken: the monitor reads the flushed
+                # timeline from disk instead
+                print(f"fleet: metrics port {port} not served ({e}); "
+                      f"the monitor reads this rank's timeline from disk",
+                      file=sys.stderr)
+                return
+        self._metrics_server = True
+
+    def _beat(self, step):
+        """The watchdog's heartbeat, with the fleet timeline's last step
+        ms and top bucket when the plane is armed (a thread session's:
+        rank 0's)."""
+        tl = self._fleet_timeline if self._threads is None \
+            else self._threads.executors[0]._fleet_timeline
+        if tl is not None:
+            ms, top = tl.summary()
+            self._heartbeat.beat(step, step_ms=ms, top_bucket=top)
+        else:
+            self._heartbeat.beat(step)
+
     def run(self, name="default", eval_node_list=None, feed_dict=None,
             convert_to_numpy_ret_vals=False):
         if isinstance(name, dict) and feed_dict is None:
@@ -1375,19 +1454,28 @@ class Executor:
             name = self._sub_name(name)
             sub = self.subexecutors[name]
             tel = self.config.telemetry
+            tl = self._fleet_timeline
             try:
                 if tel.enabled:
                     t0 = time.perf_counter()
+                    t0_ns = tel.clock() if tl is not None else 0
                     with tel.span("step", subgraph=name):
+                        if self._fault_slow_s:
+                            time.sleep(self._fault_slow_s)
                         out = sub.run(self, feed_dict,
                                       convert_to_numpy_ret_vals)
-                    tel.observe("step_wall_ms",
-                                (time.perf_counter() - t0) * 1000.0)
+                    wall_ms = (time.perf_counter() - t0) * 1000.0
+                    tel.observe("step_wall_ms", wall_ms)
+                    if tl is not None:
+                        tl.on_step(sub.step_count, t0_ns, tel.clock(),
+                                   wall_ms)
                     # black box: the step boundary into the flight ring,
                     # and the allocator's live/peak bytes (a host read)
                     tel.flight_step(sub.step_count)
                     _memory.observe_device_memory(tel)
                 else:
+                    if self._fault_slow_s:
+                        time.sleep(self._fault_slow_s)
                     out = sub.run(self, feed_dict,
                                   convert_to_numpy_ret_vals)
             except Exception as e:
@@ -1395,7 +1483,7 @@ class Executor:
                     self._report_oom(e)
                 raise
         if self._heartbeat is not None:
-            self._heartbeat.beat(self._sub(name).step_count)
+            self._beat(self._sub(name).step_count)
         if self.step_logger is not None:
             self.step_logger.end(self, subgraph=name)
         return out
@@ -1442,10 +1530,16 @@ class Executor:
                 "executors — the pipeline schedule already amortizes "
                 "dispatch over microbatches; call run() per step")
         tel = self.config.telemetry
+        # the fleet timeline's window is the block, weighted by its steps
+        tl = self._fleet_timeline if tel.enabled else None
+        if tl is not None:
+            t0, t0_ns = time.perf_counter(), tel.clock()
         try:
             with tel.span("step_block", steps=len(feed_dicts),
                           subgraph=self._sub_name(name)) \
                     if tel.enabled else _telemetry._NULL_SPAN:
+                if self._fault_slow_s:
+                    time.sleep(self._fault_slow_s * len(feed_dicts))
                 if sub.needs_ps:
                     out = self.ps_runtime.run_block(
                         sub, feed_dicts, convert_to_numpy_ret_vals)
@@ -1456,11 +1550,15 @@ class Executor:
             if _memory.is_oom(e):
                 self._report_oom(e)
             raise
+        if tl is not None:
+            tl.on_step(sub.step_count, t0_ns, tel.clock(),
+                       (time.perf_counter() - t0) * 1000.0,
+                       steps=len(feed_dicts))
         if tel.enabled:
             tel.flight_step(sub.step_count)
             _memory.observe_device_memory(tel)
         if self._heartbeat is not None:
-            self._heartbeat.beat(sub.step_count)
+            self._beat(sub.step_count)
         return out
 
     def run_batches_stream(self, blocks, name="default",
@@ -1532,14 +1630,20 @@ class Executor:
                                   fetch_dl(nxt), tag=i)
 
             tel = self.config.telemetry
+            tl = self._fleet_timeline if tel.enabled else None
             pre = rt.ingest_feeds(sub, cur, fetch_dl(cur))    # priming
             refill()
             while cur is not None:
+                steps = len(cur)
+                if tl is not None:
+                    t0, t0_ns = time.perf_counter(), tel.clock()
                 # the window covers the block AND the wait for the next
                 # block's ingest, so an exposed host stall lands in it
-                with tel.span("step_block", steps=len(cur),
+                with tel.span("step_block", steps=steps,
                               subgraph=self._sub_name(name)) \
                         if tel.enabled else _telemetry._NULL_SPAN:
+                    if self._fault_slow_s:
+                        time.sleep(self._fault_slow_s * steps)
                     out = rt.run_block(sub, cur, convert_to_numpy_ret_vals,
                                        pre_ingested=pre)
                     if pending:
@@ -1548,8 +1652,12 @@ class Executor:
                         refill()
                     else:
                         cur, pre = None, None
+                if tl is not None:
+                    tl.on_step(sub.step_count, t0_ns, tel.clock(),
+                               (time.perf_counter() - t0) * 1000.0,
+                               steps=steps)
                 if self._heartbeat is not None:
-                    self._heartbeat.beat(sub.step_count)
+                    self._beat(sub.step_count)
         return out
 
     def ingest_stats(self):
@@ -1805,6 +1913,11 @@ class Executor:
             self._heartbeat.done()
         if self.config.health_monitor is not None:
             self.config.health_monitor.close()
+        if self._fleet_timeline is not None:
+            self._fleet_timeline.close()
+        if self._metrics_server:
+            self.config.telemetry.metrics.shutdown()
+            self._metrics_server = False
         self.config.telemetry.flush()
 
 

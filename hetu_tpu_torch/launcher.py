@@ -69,10 +69,17 @@ dumped and killed, with exit code
 :data:`~.telemetry.watchdog.EXIT_WATCHDOG`. ``--health SPEC`` arms the
 training health monitor in every worker (``HETU_HEALTH``; records
 ``health_rank<r>.jsonl`` in the telemetry dir, a temporary one without
-``--telemetry``).
+``--telemetry``). ``--watch`` arms the fleet plane
+(``telemetry/fleet.py``): every worker records a step timeline
+(``HETU_FLEET``, flushed as ``timeline_rank<r>.jsonl``) and serves
+``/fleet`` on a metrics port claimed for its rank
+(``HETU_METRICS_PORT``, handed over as ``HETU_METRICS_LISTEN_FD``), and
+the launcher runs a :class:`~.telemetry.fleet.FleetMonitor` beside the
+wait that names a straggler and writes ``fleet_report.json`` and
+``trace_fleet.json`` (every ``HETU_WATCH_INTERVAL`` seconds, default 1).
+A monitor that fails makes the launcher exit non-zero.
 
-The options of modes still to port are refused, each naming its
-ROADMAP item: ``--watch`` (item 14c, the fleet plane) and
+The option of a mode still to port is refused, naming its ROADMAP item:
 ``--preflight`` (item 17).
 
 Config (the reference's shape):
@@ -102,8 +109,11 @@ PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_SERVER = os.path.join("hetu_tpu_torch", "ps", "run_server.py")
 
 # the options of modes the port does not have yet -> their ROADMAP item
-REFUSED = {"watch": ("--watch", "item 14c (telemetry/fleet.py)"),
-           "preflight": ("--preflight", "item 17")}
+REFUSED = {"preflight": ("--preflight", "item 17")}
+
+# the launcher's exit code where every worker succeeded but the fleet
+# monitor failed (--watch): the run's report is missing
+EXIT_MONITOR = 1
 
 # what the launcher sets on a fleet's servers and workers, or sets for
 # one fleet only: never inherited from the caller
@@ -115,7 +125,8 @@ FLEET_VARS = ("HETU_PS_HOSTS", "HETU_PS_PORTS", "HETU_PS_NWORKERS",
               "WORLD_SIZE", "LOCAL_RANK", "HETU_PIPE_HOSTS",
               "HETU_PIPE_BASE_PORT", "HETU_HOSTS", "HETU_MASTER_LISTEN_FD",
               "HETU_PIPE_LISTEN_FD", "HETU_WATCHDOG_DIR",
-              "HETU_HANG_TIMEOUT", "HETU_TELEMETRY_PORT")
+              "HETU_HANG_TIMEOUT", "HETU_TELEMETRY_PORT", "HETU_FLEET",
+              "HETU_METRICS_PORT", "HETU_METRICS_LISTEN_FD")
 
 _procs = []
 _claims = {}        # port -> the listening socket that claims it
@@ -432,13 +443,16 @@ def _exit_text(code):
            f"launcher)"
 
 
-def _wait_workers(workers):
+def _wait_workers(workers, tick=None):
     """Wait for every worker; on the first that exits non-zero say which
     rank and how on stderr, stop the rest (they would wait for it at a
-    barrier) and return its code."""
+    barrier) and return its code. ``tick`` (the fleet monitor's poll) is
+    called between checks."""
     rc = 0
     pending = list(workers)
     while pending:
+        if tick is not None:
+            tick()
         for p in list(pending):
             code = p.poll()
             if code is None:
@@ -494,7 +508,7 @@ def run_autoplan(cfg, command):
 
 
 def launch_command(cfg, command, identify=None, telemetry=None,
-                   hang_timeout=None, health=None):
+                   hang_timeout=None, health=None, watch=False):
     """Run ``command`` once per worker with the cluster env wired (the
     ``python -m hetu_tpu_torch.launcher -c conf.yml python train.py``
     path). Returns the first non-zero exit code of a worker, else 0.
@@ -521,11 +535,25 @@ def launch_command(cfg, command, identify=None, telemetry=None,
     ``health_rank<r>.jsonl`` into the telemetry dir and trips its action
     ladder on nonfinite values, gradient spikes and staleness
     violations (``telemetry/health.py``). It implies telemetry, as the
-    health doctor needs a directory to merge."""
+    health doctor needs a directory to merge.
+
+    ``watch`` (``--watch``) arms the fleet plane (reference
+    launcher.py:372-385, :429-445): workers record step timelines
+    (``HETU_FLEET``) and heartbeats (``HETU_WATCHDOG_DIR``, even without
+    ``--hang-timeout``) and serve ``/fleet`` on a metrics port a rank
+    (``HETU_METRICS_BASE_PORT`` + rank where it is set, else claimed on
+    one host and 18890 + rank across hosts), and a
+    :class:`~.telemetry.fleet.FleetMonitor` polls them while the fleet
+    runs, naming the straggler in
+    ``fleet_report.json``; its spans go to ``trace_fleet.json``. A
+    monitor that fails makes the launcher return :data:`EXIT_MONITOR`
+    where the workers succeeded. It implies telemetry."""
     tdir = None
-    if (hang_timeout or health) and not telemetry:
+    if (hang_timeout or health or watch) and not telemetry:
         import tempfile
         prefix, flag, what = (
+            ("fleet", "--watch", "timelines and the fleet report")
+            if watch else
             ("watchdog", "--hang-timeout", "black-box dumps") if hang_timeout
             else ("health", "--health", "health records"))
         telemetry = tempfile.mkdtemp(prefix=f"hetu-{prefix}-")
@@ -564,6 +592,21 @@ def launch_command(cfg, command, identify=None, telemetry=None,
         if health:
             # every worker's Executor resolves health_options from it
             ps_env["HETU_HEALTH"] = str(health)
+        metrics_ports = None
+        if watch:
+            ps_env["HETU_FLEET"] = "1"
+            # live skew signal needs heartbeats even without
+            # --hang-timeout (the watchdog itself fires only with it)
+            ps_env["HETU_WATCHDOG_DIR"] = tdir
+            # each rank's /fleet scrape: claimed on one host and handed
+            # to the rank at spawn (_hand_claims)
+            metrics_ports = dict(enumerate(_scrape_ports(
+                cfg, cfg.num_workers, "HETU_METRICS_BASE_PORT", 18890)))
+            if not cfg.single_host:
+                print("fleet: WARNING multi-host fleet — /fleet scrapes "
+                      "and flushed timelines cover launcher-local ranks "
+                      "only; remote ranks contribute heartbeat signal "
+                      "written on their own filesystem", flush=True)
         if hang_timeout:
             ps_env["HETU_WATCHDOG_DIR"] = tdir
             ps_env["HETU_HANG_TIMEOUT"] = str(float(hang_timeout))
@@ -581,6 +624,8 @@ def launch_command(cfg, command, identify=None, telemetry=None,
             for local_rank in range(n):
                 wenv = _worker_env(cfg, ps_env, rank, master, local_rank)
                 wenv["PYTHONPATH"] = pypath
+                if metrics_ports:
+                    wenv["HETU_METRICS_PORT"] = str(metrics_ports[rank])
                 if _is_local(host):
                     wenv.setdefault("OMP_NUM_THREADS", _omp_threads(n))
                     fds = _hand_claims(wenv, master, rank)
@@ -596,11 +641,16 @@ def launch_command(cfg, command, identify=None, telemetry=None,
                 workers.append(p)
                 _procs.append(p)
                 rank += 1
+        monitor = _FleetWatch(len(workers), tdir, metrics_ports) \
+            if watch else None
+        tick = monitor.tick if monitor is not None else None
         if hang_timeout:
             rc = _wait_with_watchdog(workers, tdir, float(hang_timeout),
-                                     servers, cfg)
+                                     servers, cfg, tick=tick)
         else:
-            rc = _wait_workers(workers)
+            rc = _wait_workers(workers, tick=tick)
+        if monitor is not None and not monitor.finish():
+            rc = rc or EXIT_MONITOR
     finally:
         _shutdown()
     if tdir:
@@ -611,7 +661,8 @@ def launch_command(cfg, command, identify=None, telemetry=None,
 def _hand_claims(wenv, master, rank):
     """The launcher's claimed ports that rank ``rank`` serves, set in its
     environment: the rendezvous for rank 0 (``HETU_MASTER_LISTEN_FD``,
-    its store's socket) and its channel port (``HETU_PIPE_LISTEN_FD``).
+    its store's socket), its channel port (``HETU_PIPE_LISTEN_FD``) and
+    its metrics port under ``--watch`` (``HETU_METRICS_LISTEN_FD``).
     Returns the file descriptors to pass."""
     fds = []
     if master and rank == 0 and master[1] in _claims:
@@ -622,15 +673,80 @@ def _hand_claims(wenv, master, rank):
     if pipe is not None:
         fds.append(pipe.fileno())
         wenv["HETU_PIPE_LISTEN_FD"] = str(fds[-1])
+    mport = wenv.get("HETU_METRICS_PORT")
+    msock = _claims.get(int(mport)) if mport else None
+    if msock is not None:
+        fds.append(msock.fileno())
+        wenv["HETU_METRICS_LISTEN_FD"] = str(fds[-1])
     return tuple(fds)
 
 
-def _scrape_ports(cfg, n):
-    """The PS servers' scrape ports: ``HETU_TELEMETRY_BASE_PORT`` + i
-    where it is set; else on one host a port claimed for each
-    (``_claims``, handed to its server at spawn, so fleets that share a
-    host keep apart), across hosts 18790 + i."""
-    base = os.environ.get("HETU_TELEMETRY_BASE_PORT")
+class _FleetWatch:
+    """The launcher's side of ``--watch`` (reference launcher.py:553-
+    577): a FleetMonitor over the job's telemetry dir, polled between the
+    wait's checks (throttled to its interval inside), its dashboard
+    printed a window. Its Telemetry has no out_dir on purpose, so the
+    launcher installs no crash handlers or atexit flushes; its
+    ``fleet_watch`` / ``drift`` spans go to ``trace_fleet.json`` at the
+    end. A poll that raises is remembered, polling stops, and
+    :meth:`finish` reports the failure."""
+
+    def __init__(self, nworkers, tdir, metrics_ports):
+        from .telemetry import Telemetry
+        from .telemetry.fleet import FleetMonitor
+        self.tdir = tdir
+        self.monitor = FleetMonitor(
+            tdir, num_workers=nworkers, metrics_ports=metrics_ports,
+            telemetry=Telemetry(enabled=True, rank=nworkers + 900,
+                                service="fleet-monitor"),
+            out_path=os.path.join(tdir, "fleet_report.json"))
+        self.error = None
+
+    def tick(self):
+        if self.error is not None:
+            return
+        from .telemetry.fleet import render_report
+        try:
+            rep = self.monitor.poll()       # None between windows
+        except Exception as e:             # noqa: BLE001 — reported
+            self.error = repr(e)
+            print(f"fleet: monitor FAILED: {self.error}", file=sys.stderr,
+                  flush=True)
+            return
+        if rep is not None:
+            print(render_report(rep), flush=True)
+
+    def finish(self):
+        """The last forced poll, its report and the monitor's trace, on
+        a normal exit and after the watchdog fired (the last window is
+        the one that matters). Returns False where the monitor failed,
+        now or before."""
+        from .telemetry.fleet import render_report
+        if self.error is None:
+            try:
+                print(render_report(self.monitor.poll(force=True)),
+                      flush=True)
+                self.monitor.tel.tracer.export(
+                    os.path.join(self.tdir, "trace_fleet.json"))
+                print(f"fleet: report -> {self.monitor.out_path}",
+                      flush=True)
+            except Exception as e:         # noqa: BLE001 — reported
+                self.error = repr(e)
+        if self.error is not None:
+            print(f"fleet: the monitor failed ({self.error}); the run has "
+                  f"no fleet report", file=sys.stderr, flush=True)
+            return False
+        return True
+
+
+def _scrape_ports(cfg, n, base_var="HETU_TELEMETRY_BASE_PORT",
+                  default_base=18790):
+    """``n`` scrape ports (the PS servers', or under ``--watch`` the
+    worker ranks' ``/fleet``): ``base_var``'s value + i where it is set;
+    else on one host a port claimed for each (``_claims``, handed to its
+    server or rank at spawn, so fleets that share a host keep apart),
+    across hosts ``default_base`` + i."""
+    base = os.environ.get(base_var)
     if base is None and cfg.single_host:
         from .ps.server import claim_port
         ports = []
@@ -639,12 +755,12 @@ def _scrape_ports(cfg, n):
             ports.append(sock.getsockname()[1])
             _claims[ports[-1]] = sock
         return ports
-    base = int(base or 18790)
+    base = int(base or default_base)
     return [base + i for i in range(n)]
 
 
 def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
-                        cfg=None):
+                        cfg=None, tick=None):
     """Wait for the workers under :class:`~.telemetry.watchdog.
     FleetWatchdog` (reference launcher.py:580-627, without the fleet
     monitor, which comes with ``--watch``): a stalled rank — hung, or
@@ -656,7 +772,8 @@ def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
     where the others then exit at once (a peer's broken channel); past
     the timeout with no stall, the first non-zero exit code. A dead PS
     server is survivable (replicated shards): it respawns instead of
-    failing the fleet."""
+    failing the fleet. ``tick`` (the fleet monitor's poll under
+    ``--watch``) is called between checks."""
     from .telemetry.watchdog import FleetWatchdog
     wd = FleetWatchdog(tdir, num_workers=len(workers),
                        timeout=hang_timeout)
@@ -675,6 +792,8 @@ def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
                 break   # a rank that never beat is not waited for
         if cfg is not None:
             _respawn_dead_servers(servers, cfg)
+        if tick is not None:
+            tick()
         stalled = wd.check(by_rank)
         if stalled:
             for rank, age, step in stalled:
@@ -696,14 +815,17 @@ def _wait_with_watchdog(workers, tdir, hang_timeout, servers=None,
 
 def _clear_stale_blackbox(tdir):
     """Drop a previous fleet's heartbeats, flight dumps, stack logs, OOM
-    reports and health records from a reused telemetry dir: a stale
+    reports, health records, step timelines and fleet report from a
+    reused telemetry dir: a stale
     ``hb_rank*.json`` with an old timestamp would false-fire the
     watchdog on the new fleet, stale dumps would pollute its
     post-mortem, and the health doctor would merge two runs' steps."""
     import glob as _glob
     for pat in ("hb_rank*.json", "flight_rank*.json", "stacks_*.log",
                 "oom_rank*.txt", "requests_rank*.json",
-                "health_rank*.jsonl", "health_lastgood_rank*.json"):
+                "health_rank*.jsonl", "health_lastgood_rank*.json",
+                "timeline_rank*.jsonl", "fleet_report.json",
+                "trace_fleet.json"):
         for path in _glob.glob(os.path.join(tdir, pat)):
             try:
                 os.remove(path)
@@ -842,11 +964,13 @@ def main(argv=None):
                              "'every_n=5,action=dump'): per-rank "
                              "health_rank<r>.jsonl records and the trip "
                              "ladder; implies telemetry")
-    # the reference's options of modes still to port: parsed so that
-    # they are refused by name, not taken for the command
     parser.add_argument("--watch", action="store_true",
-                        help="refused: the fleet plane waits for ROADMAP "
-                             "item 14c")
+                        help="arm the fleet plane: per-rank step "
+                             "timelines and /fleet scrapes, and a live "
+                             "monitor naming the straggler into "
+                             "fleet_report.json; implies telemetry")
+    # the reference's option of a mode still to port: parsed so that it
+    # is refused by name, not taken for the command
     parser.add_argument("--preflight", action="store_true",
                         help="refused: the analysis waits for ROADMAP "
                              "item 17")
@@ -878,7 +1002,7 @@ def main(argv=None):
     return launch_command(cfg, args.command, args.identify,
                           telemetry=args.telemetry,
                           hang_timeout=args.hang_timeout,
-                          health=args.health)
+                          health=args.health, watch=args.watch)
 
 
 if __name__ == "__main__":

@@ -42,6 +42,14 @@ all-gather and all-to-all take CUDA tensors (they copy them through the
 host themselves); its send and receive read a CUDA tensor's pointer as
 host memory, so on a gloo group a hop's CUDA tensors go through pinned
 host copies.
+
+With telemetry on, each collective of :class:`GroupComm` is a span with
+the bytes this rank put in and its stats kind: ``allreduce`` for an
+all_reduce (the means and row gathers are made of them),
+``collective_all_gather``, ``collective_all_to_all`` and
+``collective_ring``. The perf doctor's ``collective`` bucket reads them
+and the fleet timeline sums their bytes; the reference runs its
+collectives inside the compiled step and has no such span.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import time
 
 import torch
 
+from .. import telemetry as _telemetry
 from ..context import NodeStatus
 from ..graph.node import Op
 from ..ndarray import IndexedSlices
@@ -114,6 +123,13 @@ class GroupComm:
             torch.cuda.synchronize(tensor.device)
         return time.perf_counter()
 
+    @staticmethod
+    def _span(tel, name, c0, nbytes, kind):
+        # the collective's span (telemetry on only; the callers' disabled
+        # path reads tel.enabled and allocates nothing)
+        tel.complete(name, c0, tel.clock(), {"bytes": int(nbytes),
+                                              "kind": kind})
+
     def _count(self, kind, t0, nbytes, seconds=None):
         # a rank's comms are its own, but a caller may read or reset the
         # counters from another thread (thread ranks of one process)
@@ -138,6 +154,8 @@ class GroupComm:
             return out
         sends = [tensors[i].contiguous() for i in live]
         t0 = self._start(sends[0])
+        tel = _telemetry.get_telemetry()
+        c0 = tel.clock() if tel.enabled else 0
         staged = sends[0].is_cuda and self.backend == "gloo"
         if staged:
             sends = [torch.empty(t.shape, dtype=t.dtype,
@@ -159,6 +177,8 @@ class GroupComm:
             out[i] = r.to(tensors[i].device)
         nbytes = sum(t.numel() * t.element_size() for t in sends)
         self._count(kind, t0, nbytes)
+        if tel.enabled:
+            self._span(tel, "collective_ring", c0, nbytes, kind)
         if staged:
             self._count("staged", t1, nbytes,
                         copy_s + time.perf_counter() - t1)
@@ -173,10 +193,15 @@ class GroupComm:
             return value
         x = value.contiguous()
         t0 = self._start(x)
+        tel = _telemetry.get_telemetry()
+        c0 = tel.clock() if tel.enabled else 0
         out = torch.empty_like(x)
         self._pg().alltoall_base(out, x, [], [],
                                  dist.AllToAllOptions()).wait()
-        self._count(kind, t0, x.numel() * x.element_size())
+        nbytes = x.numel() * x.element_size()
+        self._count(kind, t0, nbytes)
+        if tel.enabled:
+            self._span(tel, "collective_all_to_all", c0, nbytes, kind)
         return out
 
     def all_gather(self, value, dim, kind="gather"):
@@ -190,10 +215,15 @@ class GroupComm:
         if x.dtype == torch.bool:
             x = x.to(torch.uint8)
         t0 = self._start(x)
+        tel = _telemetry.get_telemetry()
+        c0 = tel.clock() if tel.enabled else 0
         out = torch.empty((self.nrank,) + tuple(x.shape), dtype=x.dtype,
                           device=x.device)
         dist.all_gather(list(out.unbind(0)), x, group=self.group)
-        self._count(kind, t0, x.numel() * x.element_size())
+        nbytes = x.numel() * x.element_size()
+        self._count(kind, t0, nbytes)
+        if tel.enabled:
+            self._span(tel, "collective_all_gather", c0, nbytes, kind)
         out = out.reshape((-1,) + tuple(x.shape[1:])).to(value.dtype)
         return out.movedim(0, dim)
 
@@ -201,9 +231,14 @@ class GroupComm:
         """Reduce ``tensor`` in place over the group (SUM by default)."""
         import torch.distributed as dist
         t0 = self._start(tensor)
+        tel = _telemetry.get_telemetry()
+        c0 = tel.clock() if tel.enabled else 0
         dist.all_reduce(tensor, op=dist.ReduceOp.SUM if op is None else op,
                         group=self.group)
-        self._count(kind, t0, tensor.numel() * tensor.element_size())
+        nbytes = tensor.numel() * tensor.element_size()
+        self._count(kind, t0, nbytes)
+        if tel.enabled:
+            self._span(tel, "allreduce", c0, nbytes, kind)
         return tensor
 
     def mean(self, value, kind="dense"):

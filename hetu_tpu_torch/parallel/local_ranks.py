@@ -23,7 +23,9 @@ splices and the optimizer's scheduler are per rank), its own
 sub-executor, device, :class:`~.mesh.Job` of a :class:`~.mesh.LocalJob`
 (gloo groups over one in-memory store, a loopback pipe channel),
 parameters, drawn from the seed as every rank draws them, and, where the
-session arms it, health monitor (records in ``health_rank<i>.jsonl``). ``run`` hands
+session arms them, health monitor (records in ``health_rank<i>.jsonl``)
+and fleet step timeline (``timeline_rank<i>.jsonl``, the launcher's
+``--watch``; ``HETU_FAULT_SLOW_RANK`` names a thread rank). ``run`` hands
 every rank the same feeds and returns the fetched values once, each the
 first rank's that has it (the values every rank makes global; a
 pipeline's loss from the rank that owns it). Rank i runs on
@@ -44,7 +46,19 @@ import types
 import numpy as np
 import torch
 
-__all__ = ["LocalPlan", "LocalRanks", "clone_graph", "plan_local_ranks"]
+__all__ = ["LocalPlan", "LocalRanks", "clone_graph", "plan_local_ranks",
+           "thread_rank"]
+
+_thread = threading.local()
+
+
+def thread_rank():
+    """The thread rank this thread runs (set by :meth:`LocalRanks.on_ranks`
+    around its work), or None outside a session's thread ranks. The ranks
+    share one process and one ``os.environ``, so this, not
+    ``HETU_PROC_ID``, names them (the fleet plane's timelines and its
+    straggler fault)."""
+    return getattr(_thread, "rank", None)
 
 # seconds a call of the thread ranks may take before it fails
 DEFAULT_TIMEOUT_S = 900
@@ -279,6 +293,7 @@ class LocalRanks:
 
         def target(r):
             _build.set_rank(r)
+            _thread.rank = r
             try:
                 if self.devices[r].type == "cuda":
                     torch.cuda.set_device(self.devices[r])
@@ -287,6 +302,7 @@ class LocalRanks:
                 errors[r] = e
             finally:
                 _build.set_rank(None)
+                _thread.rank = None
                 with cv:
                     left[0] -= 1
                     cv.notify_all()

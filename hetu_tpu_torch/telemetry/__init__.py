@@ -14,6 +14,13 @@ Counterpart of ``hetu_tpu/telemetry/__init__.py``, with its surface:
   validator (check.py), including the typed span-attr schema.
 * the flight recorder (flight.py), the device-memory gauges and OOM
   report (memory.py), and the launcher's hang watchdog (watchdog.py).
+* ``python -m hetu_tpu_torch.telemetry.doctor <dir>`` — the perf
+  doctor: a step's wall attributed into buckets (bubble, p2p,
+  collective, ps, compute, ...) with a conservation check, and its
+  ``--serving`` mode per request (doctor.py).
+* the fleet plane (fleet.py): per-rank step timelines, the launcher's
+  ``--watch`` monitor naming a straggler, ``python -m
+  hetu_tpu_torch.telemetry.fleet <dir>`` after the run.
 
 Wiring: ``Executor(..., telemetry=...)`` threads an instance through
 the executor, the PS runtime and client, the p2p channel and every
@@ -159,10 +166,12 @@ class Telemetry:
         if self.enabled:
             self.flight.step(step_no)
 
-    def serve_metrics(self, port, host="127.0.0.1"):
+    def serve_metrics(self, port, host="127.0.0.1", sock=None):
+        """Serve the registry's ``/metrics`` (and ``/fleet``) on ``port``,
+        or on ``sock``, a listening socket claimed for it."""
         if not self.enabled:
             return None
-        return self.metrics.serve(port, host=host)
+        return self.metrics.serve(port, host=host, sock=sock)
 
     # -- export ----------------------------------------------------------
     def flush(self):
@@ -196,6 +205,16 @@ class Telemetry:
                 rpath = None
             if rpath:
                 self._flushed_paths.append(rpath)
+        # the fleet step timelines (same sys.modules discipline: a crash
+        # handler must not import the fleet plane if nothing armed it)
+        fleet = sys.modules.get("hetu_tpu_torch.telemetry.fleet")
+        if fleet is not None:
+            try:
+                tpath = fleet.dump_current(self.out_dir)
+            except Exception:   # noqa: BLE001 — never mask the crash
+                tpath = None
+            if tpath:
+                self._flushed_paths.append(tpath)
         return self._flushed_paths
 
 

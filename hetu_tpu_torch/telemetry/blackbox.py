@@ -44,10 +44,11 @@ Exit codes: 0 = report produced, 2 = nothing to analyze.
 Counterpart of ``hetu_tpu/telemetry/blackbox.py``, reading the files the
 port writes: ``flight_rank<r>.json`` (flight.py), ``hb_rank<r>.json``
 (watchdog.py), ``requests_rank<r>.json`` (``Telemetry.flush``) and
-``health_rank<r>.jsonl`` (health.py). The wire cross-reference and the
-``fleet`` section stay optional augmentations: ``analysis/wire.py`` and
-``telemetry/fleet.py`` are not ported yet (ROADMAP items 17 and 14c), so
-they find nothing. Imports no torch: the CLI runs where no card is.
+``health_rank<r>.jsonl`` (health.py), and the fleet plane's
+``timeline_rank<r>.jsonl`` (fleet.py: the STRAGGLER line). The wire
+cross-reference stays an optional augmentation: ``analysis/wire.py`` is
+not ported yet (ROADMAP item 17), so it finds nothing. Imports no torch:
+the CLI runs where no card is.
 """
 from __future__ import annotations
 

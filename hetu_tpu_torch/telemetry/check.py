@@ -91,6 +91,13 @@ SPAN_SCHEMA = {
     # p2p channel (parallel/p2p.py)
     "p2p_send": {"tag": _any(), "dst": _req(_INT), "bytes": _req(_INT)},
     "p2p_recv": {"tag": _any(), "bytes": _req(_INT)},
+    # GroupComm's host-side collectives (ops/comm.py): the port's own
+    # spans, one a call, its bytes and stats kind (the doctor's
+    # ``collective`` bucket)
+    "allreduce": {"bytes": _req(_INT), "kind": _req(_STR)},
+    "collective_all_gather": {"bytes": _req(_INT), "kind": _req(_STR)},
+    "collective_all_to_all": {"bytes": _req(_INT), "kind": _req(_STR)},
+    "collective_ring": {"bytes": _req(_INT), "kind": _req(_STR)},
     # collective pipeline (parallel/collective_pp.py)
     "cpp_build": {},
     "cpp_pack_feeds": {"bytes": _opt(_INT)},

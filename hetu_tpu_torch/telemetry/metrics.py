@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import json
 import re
+import sys
 import threading
 import time
 
@@ -254,12 +255,20 @@ class MetricsRegistry:
             def log_message(self, *a):                  # quiet
                 pass
 
+        class Server(http.server.ThreadingHTTPServer):
+            def handle_error(self, request, client_address):
+                # a scraper that gave up and closed its end (the fleet
+                # monitor's short timeout while a step holds the rank's
+                # interpreter) is no error of the server's
+                if isinstance(sys.exc_info()[1], ConnectionError):
+                    return
+                super().handle_error(request, client_address)
+
         if sock is None:
-            self._server = http.server.ThreadingHTTPServer((host, port),
-                                                           Handler)
+            self._server = Server((host, port), Handler)
         else:
-            self._server = http.server.ThreadingHTTPServer(
-                sock.getsockname(), Handler, bind_and_activate=False)
+            self._server = Server(sock.getsockname(), Handler,
+                                  bind_and_activate=False)
             self._server.socket.close()
             self._server.socket = sock
         self._server_thread = threading.Thread(

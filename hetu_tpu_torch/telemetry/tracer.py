@@ -151,7 +151,9 @@ class Tracer:
     def export(self, path):
         """Write one Perfetto-loadable Chrome trace JSON file."""
         doc = {"traceEvents": self.drain(), "displayTimeUnit": "ms"}
-        tmp = path + ".tmp"
+        # a temp file of the writer's own: thread ranks share one
+        # Telemetry and close (so flush) at once on their threads
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         with open(tmp, "w") as f:
             json.dump(doc, f)
         os.replace(tmp, path)

@@ -14,9 +14,7 @@ telemetry CLIs with ``import torch`` failing; thread ranks' monitors;
 and dropout masks that graphs built earlier do not move.
 
 No twin: ``test_bench_emit_stamps_loss_finite`` (``bench.py``'s emit
-waits for the port's benchmark, ROADMAP item 7),
-``test_blackbox_ingests_health_records``' fleet half (item 14c; its
-health half is held below), and
+waits for the port's benchmark, ROADMAP item 7) and
 ``test_overhead_guard_under_2pct_at_every_n_10``, a wall-clock bound
 that fails under load; its twin here is structural."""
 import gc
@@ -662,8 +660,10 @@ def test_doctor_healthy_run_and_cli(tmp_path):
 def test_blackbox_ingests_health_records(tmp_path):
     """The black box folds the health summary into its verdict: the
     first bad step and layer, and the tripped rank as the suspect where
-    no rank died or diverged (the reference's test less its fleet half,
-    item 14c)."""
+    no rank died or diverged. Its fleet half: no timelines, no fleet
+    line; with two ranks' flushed timelines (rank 1 slow) the STRAGGLER
+    line appears beside the health verdict, which still names the
+    suspect, as the reference's black box does on the same files."""
     from hetu_tpu_torch.telemetry import blackbox
     (tmp_path / "flight_rank0.json").write_text(json.dumps(
         {"rank": 0, "pid": 1, "nprocs": 1, "reason": "flush",
@@ -681,6 +681,21 @@ def test_blackbox_ingests_health_records(tmp_path):
     text = blackbox.format_report(rep)
     assert "HEALTH: first bad step 10" in text
     assert "python -m hetu_tpu_torch.telemetry.health" in text
+    assert rep["fleet"] is None and "STRAGGLER" not in text
+    from hetu_tpu.telemetry import blackbox as jblackbox
+    for r, self_ms in ((0, 10.0), (1, 30.0)):
+        _write_jsonl(tmp_path / f"timeline_rank{r}.jsonl", [
+            {"step": s, "t": float(s), "wall_ms": 32.0, "steps": 1,
+             "buckets": {"compute": self_ms, "p2p": 32.0 - self_ms}}
+            for s in (11, 12)])
+    rep = blackbox.analyze(str(tmp_path))
+    ref = jblackbox.analyze(str(tmp_path))
+    assert rep["fleet"] == ref["fleet"]
+    assert rep["fleet"]["straggler"] == 1 and rep["fleet"]["victims"] == [0]
+    assert rep["suspect_ranks"] == ref["suspect_ranks"] == [0]
+    text = blackbox.format_report(rep)
+    assert "STRAGGLER rank 1 at step 12" in text
+    assert "python -m hetu_tpu_torch.telemetry.fleet" in text
 
 
 # ---------------------------------------------------------------------------

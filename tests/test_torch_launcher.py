@@ -4,6 +4,7 @@ fleets of servers and workers on localhost, the parity of one BSP
 fleet's losses across the two packages, the refused options, the
 torch.distributed rendezvous, and the executor's side of a fleet (the
 role functions, its rank, the options it accepts, worker placement)."""
+import json
 import os
 import signal
 import sys
@@ -210,15 +211,25 @@ def test_bsp_fleet_matches_the_jax_packages_fleet(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--watch", "--preflight"])
 def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
+    """An option of a mode still to port (``--preflight``) is refused,
+    naming its ROADMAP item; a ported one (``--watch``, item 14c) runs the
+    job instead. Either way the launcher leaves no process or claim."""
     cfg_path = tmp_path / "cluster.yml"
     cfg_path.write_text(CONFIG)
-    rc = launcher.main(["-c", str(cfg_path), flag, sys.executable, "-c",
-                        "raise SystemExit(0)"])
-    assert rc != 0
     name = flag.split("=")[0]
-    item = launcher.REFUSED[name[2:].replace("-", "_")][1]
+    dest = name[2:].replace("-", "_")
+    argv = ["-c", str(cfg_path), flag]
+    if dest not in launcher.REFUSED:
+        argv += ["--telemetry", str(tmp_path / "tel")]
+    rc = launcher.main(argv + [sys.executable, "-c", "raise SystemExit(0)"])
     err = capsys.readouterr().err
-    assert name in err and f"ROADMAP {item}" in err
+    if dest in launcher.REFUSED:
+        item = launcher.REFUSED[dest][1]
+        assert rc != 0
+        assert name in err and f"ROADMAP {item}" in err
+    else:
+        assert rc == 0 and "not ported" not in err, err
+        assert (tmp_path / "tel" / "fleet_report.json").exists()
     assert not launcher._procs and not launcher._claims
 
 
@@ -327,6 +338,36 @@ def test_rendezvous_port_is_claimed_until_rank0_serves(monkeypatch):
     finally:
         launcher._shutdown()
     assert not launcher._claims
+
+
+LEAVE_WORKER = """
+import atexit, os
+import torch
+import torch.distributed as dist
+from hetu_tpu_torch.executor import maybe_init_distributed
+out = os.path.join(os.environ["HETU_TEST_OUT"],
+                   "left_" + os.environ["RANK"] + ".txt")
+# registered before the join, so it runs after the port's own exit hook
+atexit.register(lambda: open(out, "w").write(str(dist.is_initialized())))
+assert maybe_init_distributed()
+t = torch.ones(4)
+dist.all_reduce(t)
+assert t.tolist() == [2.0] * 4
+"""
+
+
+def test_ranks_leave_the_group_before_the_interpreter_tears_down(tmp_path):
+    """A rank that joined the job leaves its process group at exit, before
+    the interpreter's teardown (``executor._leave_job``, an exit hook): a
+    group left to the teardown aborted a rank now and then ("terminate
+    called without an active exception", launcher exit 250; ROADMAP §3).
+    Both ranks exit 0 with the group gone by the time later exit hooks
+    run."""
+    proc = run_fleet("hetu_tpu_torch", SPMD_CONFIG, LEAVE_WORKER, tmp_path,
+                     timeout=120)
+    assert proc.returncode == 0, proc.stdout
+    assert [(tmp_path / f"left_{r}.txt").read_text() for r in range(2)] \
+        == ["False", "False"]
 
 
 def test_scrape_ports_are_claimed_and_handed_to_their_servers(monkeypatch):
@@ -501,7 +542,7 @@ def test_executor_rank_comes_from_the_launcher(monkeypatch, env, rank):
     assert tht.HetuConfig([loss], ctx=tht.cpu(0)).rank == rank
 
 
-def test_reference_options_are_accepted(tmp_path):
+def test_reference_options_are_accepted(tmp_path, monkeypatch):
     """``dynamic_memory``, ``enable_lazy``, ``use_sparse_pull``,
     ``train_name`` and ``val_name`` are accepted and change nothing;
     ``overlap_options`` reaches ``config.overlap`` (``bucket_bytes``
@@ -547,6 +588,27 @@ def test_reference_options_are_accepted(tmp_path):
     # so is the collective pipeline (tests/test_torch_collective_pp.py)
     assert tht.HetuConfig([loss], ctx=tht.cpu(0),
                           pipeline_mode="collective").use_gpipe
+    # and the fleet plane (tests/test_torch_fleet.py): the launcher's
+    # --watch is no longer refused, and the HETU_FLEET it exports arms a
+    # step timeline in an executor with telemetry on, flushed at close
+    assert set(launcher.REFUSED) == {"preflight"}
+    monkeypatch.setenv("HETU_FLEET", "1")
+    tdir = tmp_path / "fleet"
+    x, loss, train = _graph()
+    exe = tht.Executor([loss, train], ctx=tht.cpu(0), telemetry=str(tdir))
+    try:
+        assert exe._fleet_timeline is not None
+        got = [exe.run(feed_dict={x: np.ones((4, 3), np.float32)})[0]
+               .asnumpy() for _ in range(3)]
+        exe.close()
+    finally:
+        import atexit
+        atexit.unregister(exe.config.telemetry.flush)
+        tht.telemetry._default = None
+    np.testing.assert_array_equal(got, want)
+    recs = [json.loads(line) for line in
+            (tdir / "timeline_rank0.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [1, 2, 3]
 
 
 def test_contexts_place_workers_as_the_reference_does(monkeypatch):

@@ -330,6 +330,60 @@ def gpt_feeds(step):
     return x, np.concatenate([x[:, 1:], np.full((8, 1), -1)], axis=1)
 
 
+def capture_updates(pipeline, name="gpt_wte"):
+    """Record every optimizer update this process makes of parameter
+    ``name`` (1F1B updates a stage once a microbatch), in order: its
+    gradient in (dense), its value and Adam slots out, and the step.
+    Patches ``PipelineSubExecutor._apply``; returns (records, undo)."""
+    log = []
+    orig = pipeline.PipelineSubExecutor._apply
+
+    def _apply(self, executor, st, grads):
+        hit = [p for p in grads if p.name == name]
+        grad = None
+        if hit:
+            g = grads[hit[0]]
+            g = g.to_dense() if hasattr(g, "to_dense") else g
+            grad = g.float().numpy().copy()
+        orig(self, executor, st, grads)
+        if hit:
+            p = hit[0]
+            slots = executor.opt_state.get(p.id, {})
+            log.append({"step": self.step_count, "grad": grad, **{
+                k: v.float().numpy().copy() for k, v in
+                (("value", executor.params[str(p.id)]),
+                 ("m", slots.get("m")), ("v", slots.get("v")))
+                if v is not None}})
+
+    pipeline.PipelineSubExecutor._apply = _apply
+    return log, lambda: setattr(pipeline.PipelineSubExecutor, "_apply",
+                                orig)
+
+
+def _stack_updates(log):
+    """capture_updates' records as arrays, one row an update."""
+    keys = ("grad", "value", "m", "v")
+    return {f"upd_{k}": np.stack([r[k] for r in log]) for k in keys
+            if log and all(k in r for r in log)} | {
+        "upd_step": np.array([r["step"] for r in log])}
+
+
+def _first_update_apart(fleet, mine):
+    """Where the fleet's and the in-process run's updates of one
+    parameter first differ: (update index, step, which of grad / value /
+    m / v, elements apart), or None when every update is bit-equal."""
+    n = min(len(fleet.get("upd_step", ())), len(mine.get("upd_step", ())))
+    for i in range(n):
+        for k in ("grad", "m", "v", "value"):
+            a, b = fleet.get(f"upd_{k}"), mine.get(f"upd_{k}")
+            if a is None or b is None:
+                continue
+            apart = int((a[i] != b[i]).sum())
+            if apart:
+                return i, int(mine["upd_step"][i]), k, apart
+    return None
+
+
 GPT_WORKER = """
 import os
 import numpy as np
@@ -337,8 +391,11 @@ import torch
 import hetu_tpu_torch as ht
 import hetu_tpu_torch.models as M
 """ + f"GPT_CFG = {GPT_CFG!r}\n" + inspect.getsource(gpt_contexts) \
-    + inspect.getsource(gpt_feeds) + """
+    + inspect.getsource(gpt_feeds) + inspect.getsource(capture_updates) \
+    + inspect.getsource(_stack_updates) + """
 rank = int(os.environ["HETU_PROC_ID"])
+from hetu_tpu_torch.parallel import pipeline
+updates, _ = capture_updates(pipeline)
 cfg = M.GPTConfig(**GPT_CFG)
 ids, labels, loss, _, train = M.staged_gpt(cfg, gpt_contexts(ht, True),
                                            1e-3)
@@ -359,14 +416,18 @@ np.savez(os.path.join(os.environ["HETU_TEST_OUT"], f"gpt_{rank}.npz"),
          losses=np.array(losses, dtype=object),
          threads=np.array([torch.get_num_threads(),
                            int(os.environ.get("OMP_NUM_THREADS") or -1)]),
+         **_stack_updates(updates),
          **{exe._param_nodes[sid].name: v.float().numpy()
             for sid, v in exe.params.items()})
 """
 
 # what each run's CPU products rounded under (ROADMAP §3 keeps a rare
 # weight mismatch of this test open): the intra-op thread count and
-# OMP_NUM_THREADS, -1 where unset
-_RUN_KEYS = ("losses", "threads")
+# OMP_NUM_THREADS, -1 where unset; and every update of gpt_wte (rank 0
+# owns its stage), kept beside the in-process run's in the test's
+# tmp_path on a mismatch
+_RUN_KEYS = ("losses", "threads", "upd_step", "upd_grad", "upd_value",
+             "upd_m", "upd_v")
 
 def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
         tmp_path):
@@ -385,15 +446,35 @@ def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
         os.environ.get("OMP_NUM_THREADS") or -1)]
     threads = f"threads (torch, OMP_NUM_THREADS) {threads}"
     cfg = TM.GPTConfig(**GPT_CFG)
-    ids, labels, loss, _, train = TM.staged_gpt(
-        cfg, gpt_contexts(tht, False), 1e-3)
-    exe = tht.Executor([loss, train], device="cpu", dtype=torch.bfloat16,
-                       pipedream=True, num_microbatches=4)
-    want = []
-    for step in range(3):
-        x, y = gpt_feeds(step)
-        want.append(float(exe.run(feed_dict={ids: x, labels: y})[0]
-                          .asnumpy().reshape(-1)[0]))
+    from hetu_tpu_torch.parallel import pipeline
+    updates, undo = capture_updates(pipeline)
+    try:
+        ids, labels, loss, _, train = TM.staged_gpt(
+            cfg, gpt_contexts(tht, False), 1e-3)
+        exe = tht.Executor([loss, train], device="cpu",
+                           dtype=torch.bfloat16, pipedream=True,
+                           num_microbatches=4)
+        want = []
+        for step in range(3):
+            x, y = gpt_feeds(step)
+            want.append(float(exe.run(feed_dict={ids: x, labels: y})[0]
+                              .asnumpy().reshape(-1)[0]))
+    finally:
+        undo()
+    mine_updates = _stack_updates(updates)
+    fleet_updates = {k: runs[0][k] for k in runs[0].files
+                     if k.startswith("upd_")}
+    assert len(fleet_updates["upd_step"]) == \
+        len(mine_updates["upd_step"]) == 3 * 4, \
+        (fleet_updates["upd_step"], mine_updates["upd_step"])
+    apart = _first_update_apart(fleet_updates, mine_updates)
+    if apart is not None:
+        # kept for the post-mortem: both sides' updates of gpt_wte
+        np.savez(tmp_path / "gpt_wte_updates_in_process.npz",
+                 **mine_updates)
+        threads += (f"; gpt_wte's update {apart[0]} (step {apart[1]}) "
+                    f"first differs in {apart[2]} ({apart[3]} elements), "
+                    f"both sides in {tmp_path}")
     assert list(runs[0]["losses"]) == []
     np.testing.assert_array_equal([float(v) for v in runs[1]["losses"]],
                                   want, err_msg=threads)

@@ -5,9 +5,9 @@ GPT and seed in both packages: minted request ids and the serving
 histograms, preemption episodes, the in-flight tables and ``stats()``,
 the router's union, the batcher's queue wait, the TTFT SLO window, the
 HTTP id echo and overload mapping, ``/v1/requests``, ``/stats`` and
-``/metrics``, the flushed in-flight table, and the disabled engine's
-zero allocations. ``test_request_timelines_conserve_end_to_end`` needs
-the serving doctor (``telemetry/doctor.py``, ROADMAP item 14)."""
+``/metrics``, the flushed in-flight table, the disabled engine's zero
+allocations, and each retired request's timeline conserved end to end
+by the serving doctor (``telemetry/doctor.py``)."""
 import gc
 import json
 import os
@@ -81,6 +81,43 @@ def _spans(tel, name):
 # ---------------------------------------------------------------------------
 # timelines on a live engine
 # ---------------------------------------------------------------------------
+
+def test_request_timelines_conserve_end_to_end(ckpt):
+    """Every retired request carries a complete timeline whose
+    queue / prefill / decode / replay / overhead buckets sum to its
+    measured e2e (the doctor's check, and within 6% or 0.5 ms request by
+    request, the reference test's bound), in both packages' engines on
+    the same requests; the ingress ids survive to the attribution, and
+    the same buckets hold time in both."""
+    from hetu_tpu.telemetry.doctor import attribute_request_events as jattr
+    from hetu_tpu_torch.telemetry.doctor import attribute_request_events
+    diags = []
+    for eng, attr in zip(_engines(ckpt), (attribute_request_events,
+                                          jattr)):
+        rng = np.random.RandomState(1)
+        futs = [eng.submit(rng.randint(0, VOCAB,
+                                       (int(rng.randint(2, 10)),)),
+                           int(g), request_id=f"obs-{i}")
+                for i, g in enumerate(rng.randint(1, 7, 6))]
+        _drive(eng, futs)
+        eng.close()
+        diag = attr(eng.telemetry.tracer.drain())
+        assert diag["requests"] == 6
+        assert diag["conserved"], f"violations: {diag['violations']}"
+        assert diag["complete"], f"incomplete: {diag['incomplete']}"
+        assert {r["request_id"] for r in diag["slowest_requests"]} <= \
+            {f"obs-{i}" for i in range(6)}
+        for r in diag["slowest_requests"]:
+            assert r["ttft_ms"] is not None and r["ttft_ms"] >= 0
+            assert all(v >= 0 for v in r["buckets_ms"].values())
+            assert sum(r["buckets_ms"].values()) == pytest.approx(
+                r["e2e_ms"], rel=0.06, abs=0.5)
+        assert diag["serve_ttft_p99_ms"] > 0
+        assert diag["top_bucket"]["remedy"]
+        diags.append(diag)
+    assert {b for b, v in diags[0]["buckets_ms"].items() if v > 0} == \
+        {b for b, v in diags[1]["buckets_ms"].items() if v > 0}
+
 
 def test_minted_ids_and_histograms(ckpt):
     """submit() without a request id mints one; each retired request is

@@ -143,12 +143,15 @@ def test_check_cli_gate(tmp_path):
 
 def test_span_schema_holds_the_reference_schema():
     """The port's schema is the reference's, every entry, plus the
-    spans only the port emits."""
+    spans only the port emits: the collective pipeline's tick and
+    ``GroupComm``'s collectives."""
     from hetu_tpu.telemetry.check import SPAN_SCHEMA as ref
     from hetu_tpu_torch.telemetry.check import SPAN_SCHEMA as mine
     for name, spec in ref.items():
         assert mine[name] == spec, name
-    assert set(mine) - set(ref) == {"cpp_tick"}
+    assert set(mine) - set(ref) == {
+        "cpp_tick", "allreduce", "collective_all_gather",
+        "collective_all_to_all", "collective_ring"}
 
 
 def test_ring_is_bounded():
