@@ -42,7 +42,9 @@ through its launcher and its BERT example; WDL's
 Hybrid mode across two workers; with telemetry on, the training
 step, the request-level plane and a two-process pipeline job; and with
 the training health monitor on, the training step and a two-worker job
-with a NaN injected — checks
+with a NaN injected; the training step under the preflight analysis
+(``validate="error"``) and the launcher's ``--preflight`` of a
+two-process pipeline job — checks
 every kernel
 against its plain PyTorch version on the card, and prints one JSON
 object per line (``--out`` also writes them to FILE):
@@ -381,6 +383,18 @@ object per line (``--out`` also writes them to FILE):
   both ranks' records at 5 and 10, their trips at 10 naming a layer, the
   last-good files, and ``first_bad_step`` 10 from ``python -m
   hetu_tpu_torch.telemetry.health`` and ``.blackbox``;
+* ``preflight_train`` the ``train`` model and rows under
+  ``Executor(validate="error")``: the report's codes (no error), the
+  host seconds of ``analyze``, 3 steps bit-equal to an unvalidated
+  executor's with K2/K3/K4 12 a step on ``tc``, the memory pass's HT402
+  breakdown beside the steps' peak memory, the budget read from the
+  card, HT401 raised before any weight reaches the card at a tenth of
+  that peak, and the graph's build time with and without the
+  construction-site frame walk;
+* ``preflight_job`` the launcher's ``--preflight`` over
+  ``telemetry_job``'s script: clean (exit 0, its JSON report), clean
+  with no card visible, and with a back edge (exit 121, HT302 naming
+  ranks 0 and 1); no worker spawned; each run's seconds;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -8761,21 +8775,29 @@ def telemetry_worker(spec):
     TEL_JOB_STEPS steps on train's rows; the executor's telemetry is the
     job's (``HETU_TELEMETRY`` when the launcher had ``--telemetry``).
     Writes ``rank_<r>.json``: losses, launches, whether telemetry was
-    on."""
+    on. The graph and its ``Executor`` come before anything touches the
+    card, so the launcher's ``--preflight`` runs this script unchanged
+    (``preflight_job``): the ``Executor`` exits there. ``back_edge``
+    adds a third block on worker0 after worker1's, a stage-0 node
+    reading stage 1's output: a schedule that would hang, which only a
+    preflight may be given."""
     import torch
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import models as M
     from hetu_tpu_torch.ops import _build
-    rank = int(os.environ["HETU_PROC_ID"])
+    rank = int(os.environ.get("HETU_PROC_ID", "0"))
     widths = dict(GPT2_SMALL, num_hidden_layers=TEL_JOB_LAYERS)
-    xt, yt = (torch.as_tensor(a, device="cuda") for a in _pp_batch(
-        spec["seed"], widths["vocab_size"],
-        widths["max_position_embeddings"]))
     contexts = [ht.rgpu(f"worker{i}", i) for i in range(2)]
+    if spec.get("back_edge"):
+        contexts.append(contexts[0])
+        widths["num_hidden_layers"] = len(contexts)
     ids, labels, loss, _, train_op, _ = _pp_graph(ht, M, contexts,
                                                   widths=widths)
     exe = ht.Executor([loss, train_op], dtype=torch.bfloat16,
                       num_microbatches=PP_MICROBATCHES, gpipe=True)
+    xt, yt = (torch.as_tensor(a, device="cuda") for a in _pp_batch(
+        spec["seed"], widths["vocab_size"],
+        widths["max_position_embeddings"]))
     _build.reset_launch_counts()
     losses = []
     for _ in range(TEL_JOB_WARMUP + TEL_JOB_STEPS):
@@ -9230,6 +9252,235 @@ def fleet_job(card, seed, pp_fleet_line):
     return line, [r["launches"] for r in ranks]
 
 
+# preflight_train: steps of the validated and the unvalidated executor,
+# graph builds timed with and without the construction-site frame walk
+PF_STEPS, PF_BUILD_REPS = 3, 3
+PF_JOB_TIMEOUT_S = 240
+
+
+def preflight_train(torch, seed, card):
+    """``preflight_train``: ``train``'s graph (GPT-2-small, B=8, S=1024,
+    bf16, Adam) under ``Executor(validate="error")`` on the card. The
+    report must hold no error; the host seconds ``analyze`` took; 3
+    steps whose losses equal an unvalidated executor's bit for bit (the
+    analysis adds no device work), with K2/K3/K4 12 a step on ``tc``
+    (counted from 0 just before the validated session's construction,
+    read just after its steps); the memory pass's HT402 breakdown with
+    the feeds' shapes beside the steps' ``max_memory_allocated``; the
+    budget resolved from the card. Then ``HETU_HBM_BUDGET`` at a tenth
+    of that peak: HT401 must raise ``GraphValidationError`` before any
+    parameter reaches the card (``memory_allocated`` unchanged). Also
+    the graph's build time with and without the construction-site frame
+    walk (``graph/node.py`` ``_construction_site``). Returns (line, the
+    validated session's launch counts)."""
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import analysis
+    from hetu_tpu_torch import models as M
+    from hetu_tpu_torch.analysis import memory as pf_memory
+    from hetu_tpu_torch.graph import node as gnode
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+
+    site = gnode._construction_site
+    # the last graph built, the one the sessions run, records its sites
+    build_ms = {"without_site": [], "with_site": []}
+    try:
+        for _ in range(PF_BUILD_REPS):
+            for key in build_ms:
+                gnode._construction_site = site if key == "with_site" \
+                    else (lambda: (None, None))
+                t0 = time.perf_counter()
+                ids, labels, lm, train_op = _gpt_graph(ht, M, GPT2_SMALL)
+                build_ms[key].append((time.perf_counter() - t0) * 1e3)
+    finally:
+        gnode._construction_site = site
+    nodes = [lm, train_op]
+    nops = len(find_topo_sort(nodes))
+    x, y = _gpt_rows(seed, TRAIN_BATCH)
+    feeds = {ids: torch.as_tensor(x, device="cuda"),
+             labels: torch.as_tensor(y, device="cuda")}
+
+    def steps(exe):
+        return [float(exe.run(feed_dict=feeds)[0].asnumpy())
+                for _ in range(PF_STEPS)]
+
+    plain = ht.Executor(nodes, dtype=torch.bfloat16)
+    unvalidated = steps(plain)
+    del plain
+    torch.cuda.empty_cache()
+
+    # the validated session: the main path of this phase
+    timed = analysis.analyze
+    analyze_s = []
+
+    def timed_analyze(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return timed(*a, **kw)
+        finally:
+            analyze_s.append(time.perf_counter() - t0)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    analysis.analyze = timed_analyze
+    _build.reset_launch_counts()                    # main path starts
+    try:
+        exe = ht.Executor(nodes, dtype=torch.bfloat16, validate="error")
+    finally:
+        analysis.analyze = timed
+    validated = steps(exe)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)           # main path ends
+    peak = torch.cuda.max_memory_allocated() - base
+    report = exe.config.analysis_report
+    codes = {}
+    for f in report.findings:
+        codes[f.code] = codes.get(f.code, 0) + 1
+    del exe
+    torch.cuda.empty_cache()
+
+    # the footprint estimate with the feeds' shapes (the construction's
+    # analysis had none: its activations are unshaped)
+    shaped = analysis.analyze(nodes, feed_shapes={
+        ids: ((TRAIN_BATCH, GPT2_SMALL["max_position_embeddings"]),
+              np.int64),
+        labels: ((TRAIN_BATCH, GPT2_SMALL["max_position_embeddings"]),
+                 np.int64)})
+    ht402 = {f.code: f.data for f in shaped.findings}.get("HT402", {})
+    ht402_unshaped = {f.code: f.data for f in report.findings}.get(
+        "HT402", {})
+    budget = pf_memory.resolve_budget()
+
+    # a budget of a tenth of the measured peak: HT401 before any weight
+    # reaches the card
+    before = torch.cuda.memory_allocated()
+    os.environ["HETU_HBM_BUDGET"] = str(peak // 10)
+    raised = None
+    try:
+        ht.Executor(nodes, dtype=torch.bfloat16, validate="error")
+    except analysis.GraphValidationError as e:
+        raised = sorted({f.code for f in e.report.errors})
+    finally:
+        del os.environ["HETU_HBM_BUDGET"]
+    after = torch.cuda.memory_allocated()
+
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                         GPT2_SMALL["num_hidden_layers"] * PF_STEPS)
+    got = {k: launches.get(k, 0) for k in want}
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "batch": TRAIN_BATCH, "dtype": "bfloat16", "optimizer": "Adam",
+            "seed": seed, "validate": "error", "steps": PF_STEPS,
+            "graph_ops": nops, "graph_build_ms": build_ms,
+            "analyze_s": analyze_s, "report_codes": codes,
+            "report_errors": len(report.errors),
+            "losses": validated, "unvalidated_losses": unvalidated,
+            "launches": got,
+            "ht402_with_feed_shapes": ht402,
+            "ht402_at_construction": ht402_unshaped,
+            "peak_memory_bytes": int(peak),
+            "estimate_over_peak": (ht402.get("total_bytes", 0) / peak
+                                   if peak else None),
+            "budget_from_card_bytes": budget,
+            "ht401_budget_bytes": int(peak // 10),
+            "ht401_raised": raised,
+            "memory_allocated_before_after": [int(before), int(after)]}
+    faults = []
+    if report.errors:
+        faults.append(f"errors in the report: {report.to_text()}")
+    if validated != unvalidated:
+        faults.append("validated losses differ from the unvalidated")
+    if got != want:
+        faults.append(f"launches {got}, want {want}")
+    if not all(np.isfinite(validated)):
+        faults.append("losses not finite")
+    if raised is None or "HT401" not in raised:
+        faults.append(f"HT401 not raised at a budget of {peak // 10} B")
+    if after != before:
+        faults.append("the rejected session put bytes on the card")
+    if budget is None or budget < peak:
+        faults.append(f"the card's budget {budget} B")
+    if faults:
+        raise AssertionError(f"preflight_train: {faults}: {line}")
+    return line, launches
+
+
+def preflight_job(card, seed):
+    """``preflight_job``: ``python -m hetu_tpu_torch.launcher -c <2
+    workers> --preflight`` over ``telemetry_job``'s script (two GPipe
+    stages of GPT-2-small, ``--telemetry-worker``): clean, it exits 0
+    with ``graph verified clean`` and its JSON report; clean again with
+    ``CUDA_VISIBLE_DEVICES=""`` (a preflight needs no card); with a back
+    edge (a third block on worker0 after worker1's) it exits 121 with
+    HT302 naming rank 0 and rank 1. No run spawns a worker: no rank's
+    record appears. The three run at once; each one's seconds."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    config = ("spmd: true\nnodes:\n  - host: localhost\n    workers: 2\n"
+              "    chief: true\n")
+    legs = {"clean": ({}, {}), "no_card": ({}, {"CUDA_VISIBLE_DEVICES": ""}),
+            "back_edge": ({"back_edge": True}, {})}
+
+    def run(name):
+        extra, env_add = legs[name]
+        out_dir = tempfile.mkdtemp(prefix=f"preflight_{name}_")
+        cfg = os.path.join(out_dir, "cluster.yml")
+        with open(cfg, "w") as f:
+            f.write(config)
+        spec = {"seed": seed, "out": out_dir, **extra}
+        env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep
+               + os.environ.get("PYTHONPATH", ""), **env_add}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hetu_tpu_torch.launcher", "-c", cfg,
+             "--preflight", sys.executable,
+             os.path.join(ROOT, "chip_smoke.py"), "--telemetry-worker",
+             json.dumps(spec)], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=PF_JOB_TIMEOUT_S, stdin=subprocess.DEVNULL)
+        wall = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        ranks = sorted(n for n in os.listdir(out_dir)
+                       if n.startswith("rank_"))
+        shutil.rmtree(out_dir, ignore_errors=True)
+        report = None
+        m = re.search(r"graph verified clean \(report: (\S+)\)", text)
+        if m:
+            with open(m.group(1)) as f:
+                report = json.load(f)
+            shutil.rmtree(os.path.dirname(m.group(1)), ignore_errors=True)
+        return {"rc": proc.returncode, "seconds": wall,
+                "worker_records": ranks,
+                "errors": None if report is None else report["errors"],
+                "codes": sorted(set(re.findall(r"\[(HT\d+)\] error", text))),
+                "ht302_names_both_ranks": bool(re.search(
+                    r"\[HT302\][^\n]*rank 0[^\n]*rank 1", text)),
+                "tail": text[-1500:]}
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(legs)) as pool:
+        runs = dict(zip(legs, pool.map(run, legs)))
+    wall = time.perf_counter() - t0
+    faults = []
+    for name in ("clean", "no_card"):
+        r = runs[name]
+        if r["rc"] != 0 or r["errors"] != 0:
+            faults.append(f"{name}: exit {r['rc']}, report {r['errors']}")
+    r = runs["back_edge"]
+    if r["rc"] != 121 or "HT302" not in r["codes"] or \
+            not r["ht302_names_both_ranks"]:
+        faults.append(f"back_edge: exit {r['rc']}, codes {r['codes']}")
+    if any(r["worker_records"] for r in runs.values()):
+        faults.append("a preflight spawned a worker")
+    line = {"card": card, "model": "gpt2-small",
+            "layers": TEL_JOB_LAYERS, "stages": 2, "wall_s": wall,
+            **{name: {k: v for k, v in r.items() if k != "tail"}
+               for name, r in runs.items()}}
+    if faults:
+        raise AssertionError(f"preflight_job: {faults}: {line} "
+                             f"{ {n: r['tail'] for n, r in runs.items()} }")
+    return line
+
+
 def ptxas_report(log_text):
     """Registers and spills of every kernel instantiation in one
     ``nvcc -Xptxas -v`` log, by ptxas's (mangled) entry name:
@@ -9616,6 +9867,18 @@ def main(argv=None):
     log(f"fleet_job ({time.perf_counter() - t:.1f} s) "
         f"{tel_lines['fleet_job']}")
 
+    pf_lines = {}
+    t = time.perf_counter()
+    pf_lines["preflight_train"], pf_launches = preflight_train(
+        torch, args.seed, card)
+    log(f"preflight_train ({time.perf_counter() - t:.1f} s) "
+        f"{pf_lines['preflight_train']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pf_lines["preflight_job"] = preflight_job(card, args.seed)
+    log(f"preflight_job ({time.perf_counter() - t:.1f} s) "
+        f"{pf_lines['preflight_job']}")
+
     t = time.perf_counter()
     k1_rows = check_flash_fwd(torch, args.seed)
     train_rows = check_flash_train_kernels(
@@ -9664,6 +9927,7 @@ def main(argv=None):
                     autoplan_launches["train_rep"]),
                    ("telemetry_train", tel_train_launches, TRAIN_REP),
                    ("health_train", health_launches, TRAIN_REP),
+                   ("preflight_train", pf_launches, TRAIN_REP),
                    *((f"telemetry_job.rank{r}", c, PP_REP)
                      for r, c in enumerate(tel_job_launches)),
                    *((f"fleet_job.rank{r}", c, PP_REP)
@@ -9713,6 +9977,7 @@ def main(argv=None):
              *({name: line} for name, line in gnn_lines.items()),
              *({name: line} for name, line in ps_lines.items()),
              *({name: line} for name, line in tel_lines.items()),
+             *({name: line} for name, line in pf_lines.items()),
              {"crossover": cross}, kernels,
              {"wall_s": time.perf_counter() - t_start}]
     texts = [json.dumps(line) for line in lines]

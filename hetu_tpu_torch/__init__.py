@@ -100,7 +100,7 @@ else:
                           get_current_context)
     from .dataloader import (Dataloader, DataloaderOp, GNNDataLoaderOp,
                              dataloader_op)
-    from .device import resolve_device
+    from .device import resolve_device, start_cpu_threads
     from .executor import (Executor, HetuConfig, SubExecutor,
                            get_worker_communicate, gradients,
                            new_group_comm, scheduler_finish, scheduler_init,
@@ -112,6 +112,8 @@ else:
                           is_tpu_ctx, rcpu, rgpu, rtpu, sparse_array, tpu)
     from .ops import *                                    # noqa: F401,F403
     from .ops import __all__ as _ops_all
+
+    start_cpu_threads()
 
     __all__ = ["resolve_device", "DLContext", "NDArray", "IndexedSlices",
                "cpu", "gpu", "tpu", "rcpu", "rgpu", "rtpu", "is_gpu_ctx",

@@ -1,22 +1,150 @@
-"""Graph analysis passes over ``hetu_tpu_torch`` graphs.
+"""Preflight graph analysis for ``hetu_tpu_torch`` define-then-run
+sessions.
 
-Counterpart of ``hetu_tpu/analysis/``. Ported so far:
+Counterpart of ``hetu_tpu/analysis/``. A session hands over the whole
+program — graph, partition statuses, pipeline schedule, placement —
+before a byte moves, so these static passes run over the topo-sorted
+graph between construction and the first dispatch, each emitting
+structured :class:`~.findings.Finding` objects with stable codes and
+the user's construction line (``Op.defined_at``):
 
-* ``findings`` — :class:`~.findings.Finding`, :class:`~.findings.Report`,
-  the collector stack (:func:`~.findings.collecting`,
-  :func:`~.findings.emit`) and the suppression-comment helpers;
-* ``shapes`` — the shape/dtype propagation pass (``shape_pass``, HT1xx)
-  and its graph lints (``lint_pass``, ``frozen_graph_pass``), which the
-  auto-planner's cost model reads;
-* ``zoo`` — the model zoo's training graphs with canonical feed shapes.
+1. **shapes** (HT1xx) — shape/dtype propagation through
+   ``Op.infer_shape``, and the dead-subgraph / unused-variable /
+   duplicate-parameter lint;
+2. **sharding** (HT2xx) — the planner's status propagation checked:
+   unmappable or conflicting statuses, implicit reshards with their
+   bytes, a plan wider than its job;
+3. **deadlock** (HT3xx) — the GPipe / 1F1B / interleaved / collective
+   schedules run symbolically rank by rank: unmatched sends and recvs
+   and cyclic waits become findings instead of hung fleets;
+4. **memory** (HT4xx) — a static footprint estimate against a
+   device-memory budget;
+5. **overlap** (HT5xx, advisory) — PS-backed sessions with the ingest
+   engine off, or driven by plain ``run()`` loops (the runtime half is
+   in ``executor.py``).
 
-The other passes (sharding, deadlock, memory, numerics, efficiency, ...)
-and the executor's ``validate=`` wait for ROADMAP item 17.
+The JAX package's numerics (HT8xx), efficiency (HT9xx) and PS-wire
+(HT7xx) passes, and its self-lints (jit purity, concurrency, protocol),
+are ROADMAP items 17b–17d: :func:`analyze` leaves them out until they
+are ported.
+
+Surfaces: ``Executor(validate="error"|"warn"|"off")`` (or
+``HETU_VALIDATE``), ``python -m hetu_tpu_torch.launcher ...
+--preflight`` (the ``HETU_PREFLIGHT`` contract: the script's first
+``Executor`` analyzes, prints, writes its JSON report and exits before
+any device, process group or server is touched), and ``python -m
+hetu_tpu_torch.analysis`` over the model zoo (:mod:`.zoo`).
 """
-from .findings import (Finding, GraphValidationError, Report, collecting,
-                       emit, provenance)
-from .shapes import frozen_graph_pass, lint_pass, shape_pass
+from __future__ import annotations
 
-__all__ = ["Finding", "GraphValidationError", "Report", "collecting",
-           "emit", "provenance", "shape_pass", "lint_pass",
-           "frozen_graph_pass"]
+import os
+import sys
+
+from .findings import (Finding, GraphValidationError, Report, collecting,
+                       emit, provenance, suppressed)
+from .shapes import frozen_graph_pass, lint_pass, shape_pass
+from .sharding import sharding_pass
+from .deadlock import deadlock_pass
+from .memory import memory_pass
+from .overlap import RunLoopAdvisor, overlap_pass
+
+__all__ = ["Finding", "Report", "GraphValidationError", "collecting",
+           "emit", "provenance", "suppressed", "analyze",
+           "finish_preflight", "shape_pass", "lint_pass",
+           "frozen_graph_pass", "sharding_pass", "deadlock_pass",
+           "memory_pass", "overlap_pass", "RunLoopAdvisor",
+           "EXIT_PREFLIGHT"]
+
+# the exit code of "preflight found errors" (cf. the watchdog's 117):
+# the launcher does not start the fleet when it sees it
+EXIT_PREFLIGHT = 121
+
+
+def _schedule_of(config):
+    if config is None:
+        return "gpipe"
+    if getattr(config, "pipeline_mode", None) == "collective":
+        return "collective"
+    if getattr(config, "use_pipedream", False):
+        v = (getattr(config, "pp_options", None) or {}).get(
+            "virtual_stages", 1) or 1
+        return "interleaved_1f1b" if int(v) > 1 else "1f1b"
+    return "gpipe"
+
+
+def analyze(eval_node_list, feed_shapes=None, config=None, schedule=None,
+            nprocs=None, num_microbatches=None, hbm_budget=None,
+            extra_roots=(), frozen=False, virtual_stages=None,
+            device=None):
+    """Run the static passes over a graph; returns a :class:`Report`.
+
+    ``config`` (a HetuConfig) refines the passes — the pipeline
+    schedule, the microbatch count, the overlap options — but is
+    optional: the passes derive staging and statuses from the graph
+    itself. ``device`` is the session's device, whose memory is the
+    budget where none is given. A pass that crashes becomes an HT001
+    warning, so one broken analyzer never blocks a launch the others
+    cleared.
+    """
+    from ..graph.autodiff import find_topo_sort
+
+    report = Report()
+    topo = find_topo_sort(list(eval_node_list))
+    if config is not None:
+        schedule = schedule or _schedule_of(config)
+        num_microbatches = (num_microbatches
+                            or getattr(config, "num_microbatches", None))
+        if virtual_stages is None:
+            virtual_stages = (getattr(config, "pp_options", None)
+                              or {}).get("virtual_stages")
+
+    def _guard(name, fn, *a, **kw):
+        try:
+            return fn(*a, **kw)
+        except Exception as e:  # noqa: BLE001 — analysis must not kill a launch
+            report.add("HT001", "warn",
+                       f"analysis pass {name!r} crashed "
+                       f"({type(e).__name__}: {e}) — its findings are "
+                       f"incomplete")
+            return None
+
+    shapes = _guard("shapes", shape_pass, topo, report,
+                    feed_shapes=feed_shapes) or {}
+    _guard("lint", lint_pass, topo, report,
+           eval_nodes=eval_node_list, extra_roots=extra_roots)
+    _guard("sharding", sharding_pass, topo, report, shapes=shapes)
+    _guard("deadlock", deadlock_pass, eval_node_list, report,
+           schedule=schedule or "gpipe", nprocs=nprocs,
+           num_microbatches=num_microbatches,
+           virtual_stages=virtual_stages)
+    _guard("memory", memory_pass, topo, shapes, report,
+           budget=hbm_budget, device=device)
+    _guard("overlap", overlap_pass, topo, report, config=config)
+    if frozen:
+        _guard("frozen", frozen_graph_pass, topo, report)
+    return report
+
+
+def finish_preflight(report, out_path=None):
+    """The end of a preflight (the ``HETU_PREFLIGHT`` contract): print
+    the report, write its JSON where ``out_path`` names a file, and exit
+    the process — 0 on a clean graph, :data:`EXIT_PREFLIGHT` where
+    errors exist — before any device, process group or server is
+    touched."""
+    text = report.to_text()
+    print(text, file=sys.stderr if report.errors else sys.stdout)
+    if out_path and out_path not in ("1", "true"):
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(out_path)),
+                        exist_ok=True)
+            with open(out_path, "w") as f:
+                f.write(report.to_json() + "\n")
+        except OSError as e:
+            print(f"preflight: could not write {out_path}: {e}",
+                  file=sys.stderr)
+    if report.errors:
+        print("preflight: FAILED — fix the errors above before "
+              "launching", file=sys.stderr)
+        raise SystemExit(EXIT_PREFLIGHT)
+    print("preflight: OK")
+    raise SystemExit(0)

@@ -2,14 +2,16 @@
 
 Counterpart of ``hetu_tpu/analysis/findings.py``, whole. A
 :class:`Finding` is one diagnostic with a stable code (HT1xx shapes,
-HT2xx sharding, ...), a severity, and — when the graph node that caused
-it is known — the node name and its construction site where the node
-records one (``defined_at``; the port's ``Op`` does not yet, ROADMAP
-item 17).
+HT2xx sharding, HT3xx deadlock, HT4xx memory, HT5xx overlap), a
+severity, and — when the graph node that caused it is known — the node
+name and the user's construction site (``file:line``, captured by
+``graph/node.py`` ``Op.__init__`` as ``defined_at``), so a finding deep
+in a graph names the model line that built it.
 
 The module also hosts the **collector stack**: runtime code that
-degrades gracefully with a ``logger.warning`` (e.g.
-``parallel/autoplan.py compile_rules``'s HT205) calls :func:`emit`;
+degrades gracefully with a ``logger.warning`` (``parallel/planner.py``'s
+HT201 / HT202, ``parallel/autoplan.py compile_rules``'s HT205) calls
+:func:`emit`;
 when an analysis pass is active (``with collecting(report):``) the
 diagnostic becomes a structured finding, otherwise ``emit`` returns
 False and the caller keeps its warning fallback.

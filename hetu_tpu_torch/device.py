@@ -5,7 +5,7 @@ import os
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "start_cpu_threads"]
 
 
 def resolve_device(device=None):
@@ -27,3 +27,21 @@ def resolve_device(device=None):
             "CUDA device requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run on the CPU")
     return dev
+
+
+def start_cpu_threads():
+    """Start PyTorch's intra-op CPU thread team on a value that is thrown
+    away; the package calls it once, when it is imported.
+
+    On a loaded host the first parallel region of a fresh OpenMP team
+    now and then returns a wrong vectorized ``exp`` for one thread's
+    chunk (relative errors near 1.5e-4, where every later region's stay
+    near 1e-7), with or without the port (ROADMAP §3,
+    ``omp_team_probe.py``). Started here, the team's first region is
+    this one, so no graph's first step is, and two processes of one job
+    compute as one does."""
+    n = torch.get_num_threads()
+    if n > 1:
+        # at least one grain (32768 elements) a thread: every thread runs
+        torch.exp(torch.zeros(32768 * n))
+

@@ -146,13 +146,23 @@ gradients theirs as ``ps:<name>``, beside the step's loss, all stacked
 into one float64 tensor that the monitor reads in one copy to the host;
 the other steps run as with the monitor off. The PS runtime feeds it the
 caches' staleness and the pulls' ids.
-TP on a parameter server and the preflight analysis are still to port;
-``HetuConfig`` refuses their options, each naming its ROADMAP item.
+**The preflight analysis** (``validate="off"|"warn"|"error"``, or
+``HETU_VALIDATE``; :mod:`.analysis`): ``HetuConfig`` analyzes the graph
+before it resolves the device, joins a job or reaches a server, keeps
+the report as ``analysis_report`` and, under ``"error"``, raises
+``GraphValidationError`` on error findings; the first dispatch of each
+new feed shape runs the shape pass on the real shapes. Under
+``HETU_PREFLIGHT`` (the launcher's ``--preflight``) the first
+``HetuConfig`` prints the report, writes its JSON and exits, 0 or
+``EXIT_PREFLIGHT`` (121). A PS-backed session driven by a long plain
+``run()`` loop logs the HT502 advisory once.
+TP on a parameter server is still to port (ROADMAP item 11b.5).
 """
 from __future__ import annotations
 
 import contextlib
 import glob
+import logging
 import os
 import pickle
 import sys
@@ -189,10 +199,10 @@ __all__ = ["Executor", "HetuConfig", "SubExecutor", "gradients",
            "get_worker_communicate", "maybe_init_distributed",
            "wrapped_mpi_nccl_init", "new_group_comm", "dp_backend"]
 
+logger = logging.getLogger(__name__)
+
 # the reference's options of modes still to port -> their ROADMAP item
-_REFUSED_OPTIONS = {
-    "validate": "item 17 (the preflight analysis)",
-}
+_REFUSED_OPTIONS = {}
 # HetuConfig's arguments that are not a thread rank's to copy: the rank
 # has its own graph, device and mesh (parallel/local_ranks.py)
 _NOT_RANK_OPTIONS = ("self", "eval_node_list", "device", "mesh", "options")
@@ -399,7 +409,11 @@ class HetuConfig:
     ``rank_options``, this call's arguments but the rank's ``device``
     and ``mesh``. The reference's ``train_name``,
     ``val_name``, ``use_sparse_pull``, ``enable_lazy`` and
-    ``dynamic_memory`` are accepted and, as there, change nothing."""
+    ``dynamic_memory`` are accepted and, as there, change nothing.
+
+    ``validate`` (None reads ``HETU_VALIDATE``, default ``"off"``) runs
+    the preflight analysis (:meth:`_analyze`) before anything touches a
+    device: ``analysis_report`` is its report."""
 
     def __init__(self, eval_node_list, train_name="default",
                  val_name="default", ctx=None, seed=0, dtype=None,
@@ -411,7 +425,7 @@ class HetuConfig:
                  num_microbatches=None, pp_options=None, mesh=None,
                  parallel=None, rules=None, autoplan_options=None,
                  pipeline_mode=None, telemetry=None, log_path=None,
-                 health_options=None, **options):
+                 health_options=None, validate=None, **options):
         # what a thread rank makes its own config from: every argument
         # but the graph and the rank's own device and mesh
         rank_options = {k: v for k, v in locals().items()
@@ -444,6 +458,17 @@ class HetuConfig:
             raise ValueError(
                 f"unknown parallel={parallel!r}; expected 'auto' (the "
                 f"cost-model planner, parallel/autoplan.py) or None")
+        # the static preflight (analysis/): "error" rejects a graph with
+        # error findings at construction, "warn" logs them, "off" (the
+        # default) changes nothing
+        if validate is None:
+            validate = os.environ.get("HETU_VALIDATE", "off")
+        if validate not in ("off", "warn", "error"):
+            raise ValueError(
+                f"unknown validate={validate!r}; expected 'off', "
+                "'warn' or 'error'")
+        self.validate = validate
+        self.analysis_report = None
         self.eval_node_list = eval_node_list
         # dropout draws key by an op's id less this (graph/node.py
         # generator_for): graphs built before this one do not move them,
@@ -465,7 +490,10 @@ class HetuConfig:
         self.idle = self.alone = False
         if parallel == "auto" or \
                 os.environ.get("HETU_AUTOPLAN_REPORT") is not None:
-            device = resolve_device(device)
+            # a preflight plans where it runs, with no card: as the
+            # reference's plans over the launcher machine's devices
+            device = torch.device(device or "cpu") \
+                if "HETU_PREFLIGHT" in os.environ else resolve_device(device)
             planned = self._autoplan(eval_node_list, device, rules,
                                      num_microbatches, autoplan_options,
                                      train_name)
@@ -500,7 +528,32 @@ class HetuConfig:
         self.num_microbatches = num_microbatches
         self.pp_options = dict(pp_options or {})
         pipeline = self.use_gpipe or self.use_pipedream
-        self.rank_options = dict(rank_options, ctx=self.context)
+        # the front session analyzes the graph once; its thread ranks
+        # do not again
+        self.rank_options = dict(rank_options, ctx=self.context,
+                                 validate="off")
+        self.overlap = OverlapOptions.resolve(overlap_options)
+        # the communication mode, from the argument or the contexts
+        self.comm_mode = comm_mode
+        launch_mpi, launch_ps, self.node_strategy, _ = \
+            get_launch_config_by_traverse_nodes(eval_node_list,
+                                                self.context)
+        if self.comm_mode is None:
+            if launch_ps and launch_mpi:
+                self.comm_mode = "Hybrid"
+            elif launch_ps:
+                self.comm_mode = "PS"
+            elif launch_mpi:
+                self.comm_mode = "AllReduce"
+        # explicit pipeline send/recv markers splice before the analysis
+        # and before parameters materialize (reference
+        # executor.py:312-316)
+        if pipeline:
+            from .parallel.pipeline import splice_send_recv
+            splice_send_recv(eval_node_list)
+        # the preflight, before any device, process group or server is
+        # touched: under HETU_PREFLIGHT it exits here
+        self._analyze(eval_node_list, device)
         if device is None and pipeline:
             device = _first_stage_device(eval_node_list)
         self.device = resolve_device(device)
@@ -520,7 +573,6 @@ class HetuConfig:
         from .telemetry import health as _health
         self.health = _health.HealthOptions.resolve(health_options)
         self.health_monitor = None
-        self.overlap = OverlapOptions.resolve(overlap_options)
         # accepted as the reference accepts them: dynamic_memory and
         # enable_lazy are no-ops there too (the allocator and the eager
         # walk's views subsume them), use_sparse_pull and val_name are
@@ -535,23 +587,12 @@ class HetuConfig:
             self._idle_session()
             return
 
-        self.comm_mode = comm_mode
         self.bsp = bsp
         self.prefetch = prefetch
         self.cstable_policy = cstable_policy
         self.cache_bound = cache_bound
         self.cache_capacity = cache_capacity
         self.drain_compress = drain_compress
-        launch_mpi, launch_ps, self.node_strategy, _ = \
-            get_launch_config_by_traverse_nodes(eval_node_list,
-                                                self.context)
-        if self.comm_mode is None:
-            if launch_ps and launch_mpi:
-                self.comm_mode = "Hybrid"
-            elif launch_ps:
-                self.comm_mode = "PS"
-            elif launch_mpi:
-                self.comm_mode = "AllReduce"
         # data parallel: one process a rank, over the mesh's dp axis or
         # the joined job (reference executor.py:276-283, :307-310)
         self.mesh = mesh
@@ -638,11 +679,6 @@ class HetuConfig:
                 self.comm_mode in ("PS", "Hybrid"):
             self._rewrite_device_cache(eval_node_list)
             self.cstable_policy = None
-        # explicit pipeline send/recv markers splice before parameters
-        # materialize (reference executor.py:312-316)
-        if pipeline:
-            from .parallel.pipeline import splice_send_recv
-            splice_send_recv(eval_node_list)
         # the graph pass: splice the comm ops, then bind contexts and
         # process groups (reference executor.py:314, topo_sort_with_hook)
         for node in reversed(find_topo_sort(eval_node_list)):
@@ -660,6 +696,30 @@ class HetuConfig:
         if self.comm_mode in ("PS", "Hybrid") or self.ps_nodes:
             from .ps.client import get_default_client
             self.ps_comm = get_default_client()
+
+    def _analyze(self, eval_node_list, device):
+        """The static preflight (reference executor.py:330-348):
+        under ``HETU_PREFLIGHT`` (the launcher's ``--preflight``) analyze
+        the graph, print the findings, write the JSON report there and
+        exit (:func:`~.analysis.finish_preflight`); under
+        ``validate="error"`` raise :class:`~.analysis.GraphValidationError`
+        on error findings, under ``"warn"`` log them. The report is
+        ``analysis_report``. Called before the device is resolved, the
+        job joined or a server reached, so a preflight needs no card."""
+        preflight_path = os.environ.get("HETU_PREFLIGHT")
+        if preflight_path is None and self.validate == "off":
+            return
+        from . import analysis
+        report = analysis.analyze(eval_node_list, config=self,
+                                  device=device)
+        self.analysis_report = report
+        if preflight_path is not None:
+            analysis.finish_preflight(report, preflight_path)
+        if self.validate == "error" and report.errors:
+            raise analysis.GraphValidationError(report)
+        if self.validate == "warn":
+            for f in report.errors + report.warnings:
+                logger.warning("preflight: %s", f)
 
     def _autoplan(self, eval_node_list, device, rules, num_microbatches,
                   options, train_name):
@@ -981,6 +1041,8 @@ class SubExecutor:
         """Set ``inferred_shape`` on every node (gradient ops read their
         forward's input shapes from it), as the reference does once per
         feed-shape signature."""
+        if self.config.validate != "off":
+            self._validate_shapes(feed_map)
         for node in self.topo_order:
             if node in feed_map:
                 shape = tuple(feed_map[node].shape)
@@ -990,6 +1052,37 @@ class SubExecutor:
                 shape = node.infer_shape(
                     [inp.inferred_shape for inp in node.inputs])
             node.inferred_shape = shape
+
+    def _validate_shapes(self, feed_map):
+        """The first dispatch's half of the preflight (reference
+        executor.py:593-627): with the real feed shapes known, run the
+        analysis shape pass, so a mismatch raises a
+        ``GraphValidationError`` naming the user's line instead of an
+        op's assertion inside ``infer_shape``. Under
+        ``Executor(validate=...)`` only, once a new feed-shape key."""
+        from . import analysis
+        feed_shapes = {}
+        for node, v in feed_map.items():
+            dtype = getattr(v, "dtype", None)
+            feed_shapes[node] = (tuple(v.shape), dtype
+                                 if isinstance(dtype, torch.dtype) else None)
+        report = analysis.Report()
+        analysis.shape_pass(self.topo_order, report,
+                            feed_shapes=feed_shapes)
+        session = self.config.analysis_report
+        if session is not None:
+            # one report a session: a new feed-shape key adds no finding
+            # it holds already
+            seen = {(f.code, f.node, f.where, f.message)
+                    for f in session.findings}
+            session.extend(f for f in report.findings
+                           if (f.code, f.node, f.where, f.message)
+                           not in seen)
+        if report.errors:
+            if self.config.validate == "error":
+                raise analysis.GraphValidationError(report)
+            for f in report.errors + report.warnings:
+                logger.warning("preflight: %s", f)
 
     def _ensure_state(self, executor):
         """Create the state of this subgraph's stateful ops that the
@@ -1292,7 +1385,7 @@ class Executor:
             self._stateful_ops = []
             self.subexecutors = {name: _IdleSubExecutor(name, nodes)
                                  for name, nodes in eval_node_dict.items()}
-            self.ps_runtime = None
+            self.ps_runtime = self._run_loop_advisor = None
             self._ingest_stats = new_stats()
             return
 
@@ -1375,6 +1468,13 @@ class Executor:
             from .ps.runtime import PSRuntime
             self.ps_runtime = PSRuntime(self, config)
         self._ingest_stats = new_stats()
+        # the HT502 advisory (analysis/overlap.py): a PS-backed session
+        # driven by a long plain run() loop never reaches the ingest
+        # engine. None off the PS, so a step costs one `is None` check
+        self._run_loop_advisor = None
+        if self.ps_runtime is not None:
+            from .analysis.overlap import RunLoopAdvisor
+            self._run_loop_advisor = RunLoopAdvisor(config)
 
     def __getattr__(self, name):
         # a session of thread ranks reads its first rank's state
@@ -1453,6 +1553,8 @@ class Executor:
         else:
             name = self._sub_name(name)
             sub = self.subexecutors[name]
+            if self._run_loop_advisor is not None:
+                self._run_loop_advisor.on_run_step()
             tel = self.config.telemetry
             tl = self._fleet_timeline
             try:
@@ -1524,6 +1626,8 @@ class Executor:
         sub = self._sub(name)
         if isinstance(sub, _IdleSubExecutor):
             return [sub.run(self) for _ in feed_dicts]
+        if self._run_loop_advisor is not None:
+            self._run_loop_advisor.on_stream()
         if not isinstance(sub, SubExecutor):
             raise ValueError(
                 "run_batches is not supported for gpipe/pipedream "
@@ -1581,6 +1685,8 @@ class Executor:
         if lookahead < 1:
             raise ValueError(f"lookahead must be >= 1, got {lookahead}")
         sub = self._sub(name)
+        if self._run_loop_advisor is not None:
+            self._run_loop_advisor.on_stream()
         if not isinstance(sub, SubExecutor):
             raise ValueError(
                 "run_batches_stream is not supported for pipeline "

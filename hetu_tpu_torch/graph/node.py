@@ -5,13 +5,17 @@ with inputs, a device context, operator-overloading sugar and the
 ``compute(input_vals, ectx)`` / ``gradient(output_grad)`` /
 ``infer_shape(input_shapes)`` protocol users write against, and
 ``deduce_states``, the tensor-parallel planner's partition rule
-(:mod:`~hetu_tpu_torch.parallel.planner`). ``compute``
+(:mod:`~hetu_tpu_torch.parallel.planner`). Each op records where it
+was built (``defined_at``, ``composed_at``), the line the analysis
+findings name (:mod:`~hetu_tpu_torch.analysis`). ``compute``
 takes and returns torch tensors (or an
 :class:`~hetu_tpu_torch.ndarray.IndexedSlices`, or a tuple for packed
 gradients); the executor calls it eagerly in topological order.
 """
 from __future__ import annotations
 
+import os
+import sys
 import threading
 
 import torch
@@ -23,6 +27,58 @@ __all__ = ["Op", "ExecContext"]
 G_NODE_ID = 0
 # thread ranks of one process build their comm and gradient ops at once
 _ID_LOCK = threading.Lock()
+
+# the package's root: the first stack frame outside it is the user's
+# line that built an op (the trailing separator keeps a sibling such as
+# .../hetu_tpu_torch_models.py out)
+_PKG_DIR = os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__))) + os.sep
+# co_filename is the path a module was imported under (a sys.path entry
+# such as "tests/../examples/.." stays in it), so paths are normalized
+# before the prefix check; the set of names on any stack is small
+_NORM_CACHE = {}
+# the op, initializer and optimizer plumbing is never the site that
+# composed an op: where the package builds a graph itself (the zoo, the
+# spliced comm ops), the site is the first frame outside these, the
+# models/ (or parallel/) line that composed it
+_INTERNAL_PREFIXES = tuple(
+    os.path.join(_PKG_DIR, p) for p in ("graph", "ops")) + tuple(
+    os.path.join(_PKG_DIR, p) for p in ("initializers.py",
+                                        "optimizer.py"))
+
+
+def _norm(fn):
+    n = _NORM_CACHE.get(fn)
+    if n is None:
+        n = fn if fn.startswith("<") else os.path.normpath(
+            os.path.abspath(fn))
+        _NORM_CACHE[fn] = n
+    return n
+
+
+def _construction_site():
+    """((filename, lineno) or None, (filename, lineno) or None): the
+    nearest caller outside the package (the user's line that built the
+    op, which the analysis findings name) and the nearest frame outside
+    the op and initializer plumbing (the line that composed it: a
+    ``models/`` line where the package built its own graph). One frame
+    walk an op; either may be None."""
+    try:
+        f = sys._getframe(2)
+    except ValueError:
+        return None, None
+    composed = None
+    while f is not None:
+        fn = _norm(f.f_code.co_filename)
+        if not fn.startswith(_PKG_DIR) and not fn.startswith("<frozen") \
+                and not fn.endswith(os.sep + "runpy.py"):
+            # runpy is `python -m`'s launcher, not a construction site
+            return (fn, f.f_lineno), composed
+        if composed is None and fn.startswith(_PKG_DIR) \
+                and not fn.startswith(_INTERNAL_PREFIXES):
+            composed = (fn, f.f_lineno)
+        f = f.f_back
+    return composed, composed
 
 
 class ExecContext:
@@ -106,6 +162,9 @@ class Op:
         with _ID_LOCK:
             self.id = G_NODE_ID
             G_NODE_ID += 1
+        # defined_at: the user's line (the analysis findings name it);
+        # composed_at: the package's model line that composed the op
+        self.defined_at, self.composed_at = _construction_site()
         self.name = self.op_type + str(self.id)
         self.desc = self.name + "(" + ", ".join(
             inp.name for inp in self.inputs) + ")"

@@ -79,8 +79,14 @@ wait that names a straggler and writes ``fleet_report.json`` and
 ``trace_fleet.json`` (every ``HETU_WATCH_INTERVAL`` seconds, default 1).
 A monitor that fails makes the launcher exit non-zero.
 
-The option of a mode still to port is refused, naming its ROADMAP item:
-``--preflight`` (item 17).
+``--preflight`` is the static gate (:func:`run_preflight`): the command
+runs once, in a plain process, with ``HETU_PREFLIGHT`` set; its first
+``Executor`` analyzes the graph (:mod:`hetu_tpu_torch.analysis`),
+prints the findings, writes the JSON report and exits before it
+touches a device, a process group or a server. No worker, server or
+store starts: the exit code is 0 on a clean graph,
+:data:`~hetu_tpu_torch.analysis.EXIT_PREFLIGHT` (121) on error
+findings, else the script's own.
 
 Config (the reference's shape):
 
@@ -103,13 +109,13 @@ import sys
 import time
 
 __all__ = ["ClusterConfig", "parse_config", "launch", "launch_command",
-           "run_autoplan", "main"]
+           "run_autoplan", "run_preflight", "main"]
 
 PKG_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RUN_SERVER = os.path.join("hetu_tpu_torch", "ps", "run_server.py")
 
 # the options of modes the port does not have yet -> their ROADMAP item
-REFUSED = {"preflight": ("--preflight", "item 17")}
+REFUSED = {}
 
 # the launcher's exit code where every worker succeeded but the fleet
 # monitor failed (--watch): the run's report is missing
@@ -469,6 +475,56 @@ def _wait_workers(workers, tick=None):
     return rc
 
 
+def _plain_run_env(cfg, var, path):
+    """The environment of a command run once outside the fleet
+    (``--preflight``, ``--autoplan``): the caller's without the fleet's
+    variables, ``var`` set to ``path``, and the job's size
+    (``HETU_NUM_PROCS``) and hosts in rank order (``HETU_HOSTS``), so
+    stage hostnames map to the ranks the real launch would use."""
+    hosts_in_order = []
+    for host, n in cfg.worker_hosts():
+        hosts_in_order.extend([host] * n)
+    env = {**_inherited_env(),
+           "PYTHONPATH": PKG_ROOT + os.pathsep
+           + os.environ.get("PYTHONPATH", ""),
+           var: path,
+           "HETU_NUM_PROCS": str(max(1, cfg.num_workers))}
+    if hosts_in_order:
+        env["HETU_HOSTS"] = ",".join(hosts_in_order)
+    return env
+
+
+def run_preflight(cfg, command):
+    """The static preflight gate (``--preflight``; reference
+    launcher.py:257-297): run ``command`` ONCE in a plain subprocess
+    with ``HETU_PREFLIGHT`` set. The script's ``HetuConfig`` analyzes
+    the graph it builds, prints the findings, writes the JSON report and
+    exits before it resolves a device, joins a process group or reaches
+    a server; no fleet variable reaches it, so a multi-host script
+    preflights on the launcher's machine, without a card. Returns the
+    subprocess's exit code: 0 = a clean graph,
+    ``analysis.EXIT_PREFLIGHT`` (121) = findings rejected it, anything
+    else = the script failed before the analysis ran (as much a reason
+    not to start the fleet)."""
+    import tempfile
+    report_path = os.path.join(tempfile.mkdtemp(prefix="hetu-preflight-"),
+                               "preflight.json")
+    env = _plain_run_env(cfg, "HETU_PREFLIGHT", report_path)
+    env.pop("HETU_AUTOPLAN_REPORT", None)
+    p = subprocess.run(command, env=env)
+    if p.returncode == 0:
+        if os.path.exists(report_path):
+            print(f"preflight: graph verified clean "
+                  f"(report: {report_path})", flush=True)
+        else:
+            # exit 0 and no report: the script never built an Executor,
+            # so nothing was verified
+            print("preflight: WARNING script exited 0 but never built a "
+                  "graph (no Executor constructed); nothing was "
+                  "verified", flush=True)
+    return p.returncode
+
+
 def run_autoplan(cfg, command):
     """Cost-model plan preview (``--autoplan``; reference launcher.py:300):
     run ``command`` ONCE in a plain subprocess with
@@ -482,18 +538,9 @@ def run_autoplan(cfg, command):
     would. Returns the subprocess's exit code: 0 = plan printed;
     anything else = the script failed before an Executor was built."""
     import tempfile
-    hosts_in_order = []
-    for host, n in cfg.worker_hosts():
-        hosts_in_order.extend([host] * n)
     report_path = os.path.join(tempfile.mkdtemp(prefix="hetu-autoplan-"),
                                "autoplan.json")
-    env = {**_inherited_env(),
-           "PYTHONPATH": PKG_ROOT + os.pathsep
-           + os.environ.get("PYTHONPATH", ""),
-           "HETU_AUTOPLAN_REPORT": report_path,
-           "HETU_NUM_PROCS": str(max(1, cfg.num_workers))}
-    if hosts_in_order:
-        env["HETU_HOSTS"] = ",".join(hosts_in_order)
+    env = _plain_run_env(cfg, "HETU_AUTOPLAN_REPORT", report_path)
     env.pop("HETU_PREFLIGHT", None)
     p = subprocess.run(command, env=env)
     if p.returncode == 0:
@@ -969,11 +1016,13 @@ def main(argv=None):
                              "timelines and /fleet scrapes, and a live "
                              "monitor naming the straggler into "
                              "fleet_report.json; implies telemetry")
-    # the reference's option of a mode still to port: parsed so that it
-    # is refused by name, not taken for the command
     parser.add_argument("--preflight", action="store_true",
-                        help="refused: the analysis waits for ROADMAP "
-                             "item 17")
+                        help="static gate: run the command once with "
+                             "the preflight analysis armed "
+                             "(HETU_PREFLIGHT), print its findings and "
+                             "exit WITHOUT spawning the fleet: 0 on a "
+                             "clean graph, 121 on error findings (the "
+                             "passes of ROADMAP item 17a)")
     parser.add_argument("--autoplan", action="store_true",
                         help="cost-model plan preview: run the command "
                              "once with the auto-parallelism planner "
@@ -997,6 +1046,8 @@ def main(argv=None):
           f"workers({cfg.num_workers})={cfg.workers}", flush=True)
     signal.signal(signal.SIGINT, _on_signal)
     signal.signal(signal.SIGTERM, _on_signal)
+    if args.preflight:
+        return run_preflight(cfg, args.command)
     if args.autoplan:
         return run_autoplan(cfg, args.command)
     return launch_command(cfg, args.command, args.identify,

@@ -16,9 +16,10 @@ or moves values between layouts with ``torch.distributed``
 collectives. A status the planner cannot map is replicated, which is
 exact: it only forfeits the split.
 
-The JAX package's HT201 / HT202 analysis findings are ``logging``
-warnings here, with the same text (the analysis passes are ROADMAP
-item 17).
+An unmappable status (HT201) and a ``deduce_states`` rule that raises
+(HT202) become analysis findings under an active collector
+(:func:`~hetu_tpu_torch.analysis.findings.emit`), with the node's
+construction site; without one they stay ``logging`` warnings.
 """
 from __future__ import annotations
 
@@ -67,13 +68,16 @@ def spec_for_status(status, model_axes, node=None):
             cand = next((n for n, s in avail.items()
                          if s == p and n not in take), None)
             if cand is None:
-                logger.warning(
-                    "TP constraint unmappable: %s wants status %s but the "
-                    "%d-way split has no free mesh axis of size %d in %s — "
-                    "the node would run unconstrained (replicated layout, "
-                    "no memory/compute split)",
-                    node if node is not None else "<node>", status, parts,
-                    p, dict(model_axes))
+                from ..analysis.findings import emit
+                msg = (f"TP constraint unmappable: "
+                       f"{node if node is not None else '<node>'} "
+                       f"wants status {status} but the {parts}-way "
+                       f"split has no free mesh axis of size {p} in "
+                       f"{dict(model_axes)} — the node would run "
+                       f"unconstrained (replicated layout, no "
+                       f"memory/compute split)")
+                if not emit("HT201", "error", msg, node=node):
+                    logger.warning("%s", msg)
                 return None
             take.append(cand)
         for n in take:
@@ -127,11 +131,14 @@ def propagate_statuses(topo, sweeps=3):
                      for s in in_sts], st, False)
             except Exception as e:
                 # the node stays replicated (exact), but a broken rule
-                # must not be silent
-                logger.warning(
-                    "deduce_states failed for %s (%s: %s) — conflicting or "
-                    "malformed input partition statuses; the node runs "
-                    "unconstrained", node, type(e).__name__, e)
+                # must not be silent: HT202 under an analysis pass
+                from ..analysis.findings import emit
+                msg = (f"deduce_states failed for {node} "
+                       f"({type(e).__name__}: {e}) — conflicting or "
+                       f"malformed input partition statuses; the node "
+                       f"runs unconstrained")
+                if not emit("HT202", "error", msg, node=node):
+                    logger.warning("%s", msg)
                 continue
             if st.state is None:
                 continue

@@ -223,12 +223,17 @@ def test_executor_defaults_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tht.Executor(nodes)
     # the PS mode defaults to CUDA too (the device resolves before the
-    # parameter server is reached); options of modes still to port are
-    # refused naming ROADMAP.md
+    # parameter server is reached), and so does a validated session: the
+    # analysis runs first and needs no card, but the run still does
     with pytest.raises(RuntimeError, match="CUDA"):
         tht.Executor(nodes, comm_mode="PS")
-    with pytest.raises(TypeError, match="ROADMAP"):
-        tht.Executor(nodes, ctx=tht.cpu(0), validate="warn")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tht.Executor(nodes, validate="warn")
+    # a preflight needs no card: it exits before the device resolves
+    monkeypatch.setenv("HETU_PREFLIGHT", "1")
+    with pytest.raises(SystemExit) as exited:
+        tht.Executor(nodes)
+    assert exited.value.code == 0
 
 
 @pytest.mark.parametrize("sp", ["ring", "ulysses"])

@@ -211,9 +211,11 @@ def test_bsp_fleet_matches_the_jax_packages_fleet(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--watch", "--preflight"])
 def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
-    """An option of a mode still to port (``--preflight``) is refused,
-    naming its ROADMAP item; a ported one (``--watch``, item 14c) runs the
-    job instead. Either way the launcher leaves no process or claim."""
+    """An option of a mode still to port would be refused, naming its
+    ROADMAP item (none is left: ``REFUSED`` is empty); a ported one runs
+    instead: ``--watch`` (item 14c) the job, ``--preflight`` (item 17a)
+    the command once outside any fleet, so no worker writes a fleet
+    report. Either way the launcher leaves no process or claim."""
     cfg_path = tmp_path / "cluster.yml"
     cfg_path.write_text(CONFIG)
     name = flag.split("=")[0]
@@ -222,11 +224,16 @@ def test_options_of_modes_still_to_port_are_refused(tmp_path, capsys, flag):
     if dest not in launcher.REFUSED:
         argv += ["--telemetry", str(tmp_path / "tel")]
     rc = launcher.main(argv + [sys.executable, "-c", "raise SystemExit(0)"])
-    err = capsys.readouterr().err
+    out, err = capsys.readouterr()
     if dest in launcher.REFUSED:
         item = launcher.REFUSED[dest][1]
         assert rc != 0
         assert name in err and f"ROADMAP {item}" in err
+    elif name == "--preflight":
+        # the command built no Executor: nothing verified, said so
+        assert rc == 0 and "not ported" not in err, err
+        assert "never built a graph" in out, out
+        assert not (tmp_path / "tel" / "fleet_report.json").exists()
     else:
         assert rc == 0 and "not ported" not in err, err
         assert (tmp_path / "tel" / "fleet_report.json").exists()
@@ -573,8 +580,11 @@ def test_reference_options_are_accepted(tmp_path, monkeypatch):
     cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), mesh=None,
                          overlap_options={"bucket_bytes": 1 << 20})
     assert cfg.overlap.bucket_bytes == 1 << 20 and cfg.mesh is None
-    with pytest.raises(TypeError, match="ROADMAP"):
-        tht.HetuConfig([loss], ctx=tht.cpu(0), validate="warn")
+    # the preflight analysis is ported (tests/test_torch_analysis.py):
+    # validate= keeps a report, and no option is refused any more
+    cfg = tht.HetuConfig([loss], ctx=tht.cpu(0), validate="warn")
+    assert cfg.validate == "warn" and cfg.analysis_report.ok
+    assert not tht.executor._REFUSED_OPTIONS
     # the health monitor is ported (tests/test_torch_health.py)
     assert tht.HetuConfig([loss], ctx=tht.cpu(0),
                           health_options=None).health_monitor is None
@@ -591,7 +601,7 @@ def test_reference_options_are_accepted(tmp_path, monkeypatch):
     # and the fleet plane (tests/test_torch_fleet.py): the launcher's
     # --watch is no longer refused, and the HETU_FLEET it exports arms a
     # step timeline in an executor with telemetry on, flushed at close
-    assert set(launcher.REFUSED) == {"preflight"}
+    assert set(launcher.REFUSED) == set()
     monkeypatch.setenv("HETU_FLEET", "1")
     tdir = tmp_path / "fleet"
     x, loss, train = _graph()

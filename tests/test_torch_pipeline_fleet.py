@@ -485,3 +485,59 @@ def test_two_process_bf16_gpt_with_virtual_stages_equals_in_process(
     for name, value in mine.items():
         np.testing.assert_array_equal(fleet[name], value,
                                       err_msg=f"{name}; {threads}")
+
+
+# the fault this file's bf16 GPT fleet showed (ROADMAP §3): on a loaded
+# host the first parallel region of a fresh OpenMP thread team now and
+# then returns a wrong vectorized exp for one thread's chunk
+# (omp_team_probe.py); the first plain K2 of a worker was such a region.
+# The port starts the team when it is imported (device.start_cpu_threads)
+
+_TEAM = """
+import os
+import torch
+before = len(os.listdir("/proc/self/task"))
+import hetu_tpu_torch
+print(before, len(os.listdir("/proc/self/task")), torch.get_num_threads())
+"""
+
+
+def test_importing_the_port_starts_the_cpu_thread_team():
+    """A process that imports the port has its intra-op thread team
+    running before it builds a graph: one native thread a thread of
+    ``OMP_NUM_THREADS`` beside the main one, started by the import."""
+    import subprocess
+    import sys
+    env = dict(os.environ, OMP_NUM_THREADS="3")
+    out = subprocess.run([sys.executable, "-c", _TEAM], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.returncode == 0, out.stderr
+    before, after, threads = map(int, out.stdout.split())
+    assert threads == 3 and after - before >= threads - 1, out.stdout
+
+
+def test_plain_k2_is_the_same_at_every_thread_count():
+    """The plain K2 the fleet's first attention runs
+    (``flash_attention_with_lse_plain``) at the GPT's stage shape gives
+    the same bits at 1 to 4 intra-op threads and from a fresh thread
+    team: the thread count the launcher gives a worker is not what set
+    the two sides apart."""
+    from hetu_tpu_torch.ops.flash_attention import \
+        flash_attention_with_lse_plain as k2
+    rng = np.random.RandomState(5)
+    q, k, v = (torch.from_numpy(rng.randn(2, 2, 32, 16).astype("f"))
+               .to(torch.bfloat16) for _ in range(3))
+    threads = torch.get_num_threads()
+    outs = []
+    try:
+        for n in (1, 2, 3, 4):
+            torch.set_num_threads(n)
+            out, lse = k2(q, k, v, None, 0.25, True)
+            outs.append((out.float().numpy(), lse.numpy()))
+    finally:
+        torch.set_num_threads(threads)
+    for out, lse in outs[1:]:
+        np.testing.assert_array_equal(out, outs[0][0])
+        np.testing.assert_array_equal(lse, outs[0][1])
