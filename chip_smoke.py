@@ -391,6 +391,15 @@ object per line (``--out`` also writes them to FILE):
   card, HT401 raised before any weight reaches the card at a tenth of
   that peak, and the graph's build time with and without the
   construction-site frame walk;
+* ``numerics_train`` ``preflight_train``'s graph, rows and unvalidated
+  losses under the numerics verifier: ``analyze`` with HT8xx (codes,
+  seconds, no error), a ``RangeRecorder`` at every_n=1 over 3 steps
+  bit-equal to the unvalidated losses with K2/K3/K4 12 a step on
+  ``tc``, ``soundness_pass`` with no HT810 and every
+  ``FlashAttentionOp`` checked against the hull of v, the recorded and
+  unrecorded step ms and ``sample()``'s ms; ``python -m
+  hetu_tpu_torch.analysis.rangecheck mlp wdl_adult`` in process on the
+  card (exit 0) and ``check_zoo`` clean;
 * ``preflight_job`` the launcher's ``--preflight`` over
   ``telemetry_job``'s script: clean (exit 0, its JSON report), clean
   with no card visible, and with a back edge (exit 121, HT302 naming
@@ -420,7 +429,9 @@ import contextlib
 import dataclasses
 import gc
 import http.client
+import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -9272,7 +9283,8 @@ def preflight_train(torch, seed, card):
     parameter reaches the card (``memory_allocated`` unchanged). Also
     the graph's build time with and without the construction-site frame
     walk (``graph/node.py`` ``_construction_site``). Returns (line, the
-    validated session's launch counts)."""
+    validated session's launch counts, what ``numerics_train`` reuses:
+    the graph, its feeds and the unvalidated losses)."""
     import hetu_tpu_torch as ht
     from hetu_tpu_torch import analysis
     from hetu_tpu_torch import models as M
@@ -9401,6 +9413,186 @@ def preflight_train(torch, seed, card):
         faults.append(f"the card's budget {budget} B")
     if faults:
         raise AssertionError(f"preflight_train: {faults}: {line}")
+    return line, launches, {"nodes": nodes, "ids": ids, "labels": labels,
+                            "feeds": feeds, "unvalidated": unvalidated}
+
+
+# numerics_train: steps of the recorded executor, then unrecorded steps
+# of the same executor (timed only), and the rangecheck CLI's steps
+NT_STEPS, NT_PLAIN_STEPS, NT_CLI_STEPS = 3, 2, 3
+
+
+def numerics_train(torch, card, shared):
+    """``numerics_train``: ``preflight_train``'s graph, rows and
+    unvalidated losses (GPT-2-small, B=8, S=1024, bf16, Adam) under the
+    numerics verifier and its measured-range twin. A fresh executor with
+    ``validate="error"``: ``analyze`` with HT8xx (codes by count, its
+    host seconds, no error); a ``RangeRecorder`` at every_n=1 over 3
+    steps whose losses equal the unvalidated executor's bit for bit (the
+    recorder only reads), K2/K3/K4 12 a step on ``tc`` (counted from 0
+    just before the session's construction, read just after its recorded
+    steps); ``soundness_pass`` over the measured ranges against the
+    static intervals of the session's topo order: no HT810, and every
+    ``FlashAttentionOp`` among the checked nodes (its bound is the hull
+    of v, which K2 writes). Reported, not gated: the recorded and the
+    unrecorded step ms (2 more steps, detached), ``sample()``'s wall ms,
+    and one more step each way under torch.profiler. Then ``rangecheck.main`` over mlp and wdl_adult on the card
+    (exit 0) and ``numerics.check_zoo()`` (no finding). Returns (line,
+    the recorded session's launch counts)."""
+    import shutil
+    import tempfile
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import analysis
+    from hetu_tpu_torch.analysis import numerics, rangecheck
+    from hetu_tpu_torch.analysis.shapes import shape_pass
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+
+    nodes, feeds = shared["nodes"], shared["feeds"]
+
+    def sync_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    timed = analysis.analyze
+    analyze_s = []
+
+    def timed_analyze(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return timed(*a, **kw)
+        finally:
+            analyze_s.append(time.perf_counter() - t0)
+    analysis.analyze = timed_analyze
+    _build.reset_launch_counts()                    # main path starts
+    try:
+        exe = ht.Executor(nodes, dtype=torch.bfloat16, validate="error")
+    finally:
+        analysis.analyze = timed
+    report = exe.config.analysis_report
+    rec = rangecheck.RangeRecorder(exe, every_n=1).attach()
+    losses, step_ms, sample_ms = [], [], []
+    for _ in range(NT_STEPS):
+        out, ms = sync_ms(lambda: exe.run(feed_dict=feeds)[0])
+        losses.append(float(out.asnumpy()))
+        step_ms.append(ms)
+        t0 = time.perf_counter()
+        rec.sample()
+        sample_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    launches = dict(_build.launch_counts)           # main path ends
+    # one more step each way under torch.profiler: where the recorded
+    # step's added time goes (device kernels or the host's issue)
+    profiles = {"recorded": profile_train_step(torch, exe, feeds)}
+    rec.sample()
+    rec.detach()
+    profiles["unrecorded"] = profile_train_step(torch, exe, feeds)
+    plain_ms = [sync_ms(lambda: exe.run(feed_dict=feeds))[1]
+                for _ in range(NT_PLAIN_STEPS)]
+    measured = rec.by_stable_key()
+    nan_nodes = sorted(k for k, (lo, hi) in measured.items()
+                       if math.isnan(lo) or math.isnan(hi))
+
+    # the static side over the session's topo order, with the feeds'
+    # shapes and the session's config
+    topo = exe.subexecutors["default"].topo_order
+    seq = GPT2_SMALL["max_position_embeddings"]
+    dtypes = {}
+    shapes = shape_pass(topo, analysis.Report(), feed_shapes={
+        shared["ids"]: ((TRAIN_BATCH, seq), np.int64),
+        shared["labels"]: ((TRAIN_BATCH, seq), np.int64)},
+        dtypes_out=dtypes)
+    t0 = time.perf_counter()
+    static = numerics.numerics_pass(topo, analysis.Report(), shapes=shapes,
+                                    dtypes=dtypes, config=exe.config)
+    pass_s = time.perf_counter() - t0
+    sound, checked = rangecheck.soundness_pass(topo, static, measured)
+    keys = numerics.stable_keys(topo)
+    fa_keys = [k for k, n in zip(keys, topo)
+               if n.op_type == "FlashAttentionOp"]
+    fa_checked = [k for k in fa_keys
+                  if k in measured and static[topo[keys.index(k)]]
+                  is not None]
+    fa_rows = {k: {"measured": measured.get(k),
+                   "static": static[topo[keys.index(k)]]}
+               for k in fa_keys[:2]}
+    del exe, rec
+    torch.cuda.empty_cache()
+
+    # the CLI on the card, and the zoo
+    tmp = tempfile.mkdtemp(prefix="rangedb_")
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as cli_out:
+            cli_rc = rangecheck.main(["mlp", "wdl_adult", "--steps",
+                                      str(NT_CLI_STEPS), "--db",
+                                      os.path.join(tmp, "ranges.json")])
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "ranges.json")) as f:
+            db_models = sorted(json.load(f)["models"])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t0 = time.perf_counter()
+    zoo = numerics.check_zoo()
+    zoo_s = time.perf_counter() - t0
+    zoo_findings = {n: [str(f) for f in r.findings]
+                    for n, r in zoo.items() if len(r)}
+
+    codes = {}
+    for f in report.findings:
+        codes[f.code] = codes.get(f.code, 0) + 1
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,),
+                         GPT2_SMALL["num_hidden_layers"] * NT_STEPS)
+    got = {k: launches.get(k, 0) for k in want}
+    line = {"card": card, "model": "gpt2-small", **GPT2_SMALL,
+            "batch": TRAIN_BATCH, "dtype": "bfloat16", "optimizer": "Adam",
+            "validate": "error", "every_n": 1, "steps": NT_STEPS,
+            "analyze_s": analyze_s, "report_codes": codes,
+            "report_errors": len(report.errors),
+            "losses": losses, "unvalidated_losses": shared["unvalidated"],
+            "launches": got, "graph_ops": len(topo),
+            "measured_nodes": len(measured), "checked": checked,
+            "ht810": len(sound.errors),
+            "ht810_findings": [str(f) for f in sound.errors[:5]],
+            "nan_nodes": nan_nodes,
+            "flash_attention_nodes": len(fa_keys),
+            "flash_attention_checked": len(fa_checked),
+            "flash_attention_ranges": fa_rows,
+            "numerics_pass_s": pass_s,
+            "recorded_step_ms": step_ms, "unrecorded_step_ms": plain_ms,
+            "sample_ms": sample_ms,
+            "profiles": {k: {f: p[f] for f in (
+                "wall_ms", "device_busy_ms", "device_idle_share",
+                "by_category", "top_kernels")}
+                for k, p in profiles.items()},
+            "rangecheck_cli": {"rc": cli_rc, "seconds": cli_s,
+                               "db_models": db_models,
+                               "out": cli_out.getvalue()[-600:]},
+            "check_zoo": {"models": len(zoo), "findings": zoo_findings,
+                          "seconds": zoo_s}}
+    faults = []
+    if report.errors:
+        faults.append(f"errors in the report: {report.to_text()}")
+    if losses != shared["unvalidated"]:
+        faults.append("recorded losses differ from the unvalidated")
+    if not all(np.isfinite(losses)):
+        faults.append("losses not finite")
+    if got != want:
+        faults.append(f"launches {got}, want {want}")
+    if sound.errors or nan_nodes:
+        faults.append(f"{len(sound.errors)} HT810, NaN at {nan_nodes}")
+    if checked == 0 or not fa_keys or len(fa_checked) != len(fa_keys):
+        faults.append(f"checked {checked}; FlashAttentionOp checked "
+                      f"{len(fa_checked)} of {len(fa_keys)}")
+    if cli_rc != 0 or db_models != ["mlp", "wdl_adult"]:
+        faults.append(f"rangecheck CLI exit {cli_rc}, DB {db_models}")
+    if len(zoo) != 14 or zoo_findings:
+        faults.append(f"check_zoo over {len(zoo)}: {zoo_findings}")
+    if faults:
+        raise AssertionError(f"numerics_train: {faults}: {line}")
     return line, launches
 
 
@@ -9869,10 +10061,17 @@ def main(argv=None):
 
     pf_lines = {}
     t = time.perf_counter()
-    pf_lines["preflight_train"], pf_launches = preflight_train(
+    pf_lines["preflight_train"], pf_launches, pf_shared = preflight_train(
         torch, args.seed, card)
     log(f"preflight_train ({time.perf_counter() - t:.1f} s) "
         f"{pf_lines['preflight_train']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pf_lines["numerics_train"], nt_launches = numerics_train(
+        torch, card, pf_shared)
+    del pf_shared
+    log(f"numerics_train ({time.perf_counter() - t:.1f} s) "
+        f"{pf_lines['numerics_train']}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
     pf_lines["preflight_job"] = preflight_job(card, args.seed)
@@ -9928,6 +10127,7 @@ def main(argv=None):
                    ("telemetry_train", tel_train_launches, TRAIN_REP),
                    ("health_train", health_launches, TRAIN_REP),
                    ("preflight_train", pf_launches, TRAIN_REP),
+                   ("numerics_train", nt_launches, TRAIN_REP),
                    *((f"telemetry_job.rank{r}", c, PP_REP)
                      for r, c in enumerate(tel_job_launches)),
                    *((f"fleet_job.rank{r}", c, PP_REP)

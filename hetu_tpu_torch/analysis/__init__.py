@@ -21,12 +21,20 @@ the user's construction line (``Op.defined_at``):
    device-memory budget;
 5. **overlap** (HT5xx, advisory) — PS-backed sessions with the ingest
    engine off, or driven by plain ``run()`` loops (the runtime half is
-   in ``executor.py``).
+   in ``executor.py``);
+6. **numerics** (HT8xx) — interval and dtype abstract interpretation:
+   per-node value intervals seeded from initializer distributions and
+   op semantics, precision classes riding the dtype propagation;
+   overflow-prone low-precision ops, unguarded div/log/rsqrt domains,
+   integer-exactness cliffs on the id paths, low-precision
+   accumulation, boundary and underflow risks, PRNG stream reuse
+   (:mod:`.numerics`), with :mod:`.rangecheck` as its measured-range
+   twin (the HT810 soundness gate and a range DB that tightens
+   re-analysis).
 
-The JAX package's numerics (HT8xx), efficiency (HT9xx) and PS-wire
-(HT7xx) passes, and its self-lints (jit purity, concurrency, protocol),
-are ROADMAP items 17b–17d: :func:`analyze` leaves them out until they
-are ported.
+The JAX package's efficiency (HT9xx) and PS-wire (HT7xx) passes, and
+its self-lints (jit purity, concurrency, protocol), are ROADMAP items
+17c–17d: :func:`analyze` leaves them out until they are ported.
 
 Surfaces: ``Executor(validate="error"|"warn"|"off")`` (or
 ``HETU_VALIDATE``), ``python -m hetu_tpu_torch.launcher ...
@@ -47,13 +55,14 @@ from .sharding import sharding_pass
 from .deadlock import deadlock_pass
 from .memory import memory_pass
 from .overlap import RunLoopAdvisor, overlap_pass
+from .numerics import numerics_pass
 
 __all__ = ["Finding", "Report", "GraphValidationError", "collecting",
            "emit", "provenance", "suppressed", "analyze",
            "finish_preflight", "shape_pass", "lint_pass",
            "frozen_graph_pass", "sharding_pass", "deadlock_pass",
-           "memory_pass", "overlap_pass", "RunLoopAdvisor",
-           "EXIT_PREFLIGHT"]
+           "memory_pass", "overlap_pass", "numerics_pass",
+           "RunLoopAdvisor", "EXIT_PREFLIGHT"]
 
 # the exit code of "preflight found errors" (cf. the watchdog's 117):
 # the launcher does not start the fleet when it sees it
@@ -108,11 +117,14 @@ def analyze(eval_node_list, feed_shapes=None, config=None, schedule=None,
                        f"incomplete")
             return None
 
+    dtypes = {}
     shapes = _guard("shapes", shape_pass, topo, report,
-                    feed_shapes=feed_shapes) or {}
+                    feed_shapes=feed_shapes, dtypes_out=dtypes) or {}
     _guard("lint", lint_pass, topo, report,
            eval_nodes=eval_node_list, extra_roots=extra_roots)
     _guard("sharding", sharding_pass, topo, report, shapes=shapes)
+    _guard("numerics", numerics_pass, topo, report, shapes=shapes,
+           dtypes=dtypes, feed_shapes=feed_shapes, config=config)
     _guard("deadlock", deadlock_pass, eval_node_list, report,
            schedule=schedule or "gpipe", nprocs=nprocs,
            num_microbatches=num_microbatches,

@@ -156,6 +156,11 @@ new feed shape runs the shape pass on the real shapes. Under
 ``HetuConfig`` prints the report, writes its JSON and exits, 0 or
 ``EXIT_PREFLIGHT`` (121). A PS-backed session driven by a long plain
 ``run()`` loop logs the HT502 advisory once.
+**The range capture** (a ``RangeRecorder`` of
+:mod:`.analysis.rangecheck` attached): on the recorder's cadence steps
+the walk reduces each floating-point value to its (min, max) on the
+device as it makes it, one device tensor the recorder reads in one copy;
+the other steps run as with no recorder.
 TP on a parameter server is still to port (ROADMAP item 11b.5).
 """
 from __future__ import annotations
@@ -1005,6 +1010,10 @@ class SubExecutor:
         # and the name of the eval output it took for the loss
         self._last_health = None
         self._health_loss_name = None
+        # an attached RangeRecorder's capture (analysis/rangecheck.py):
+        # None, or the object the walk hands each value of a captured
+        # step to
+        self._range_capture = None
         # data parallel over the session's ranks: the feeds' row shards
         # in, the fetched values made global out
         self.dp = None
@@ -1215,6 +1224,11 @@ class SubExecutor:
         env.update(params)
         host_ops = self._host_ops
         tel = config.telemetry
+        # the range capture reduces each value as the walk makes it, on
+        # the recorder's cadence only: off it, the walk is unchanged
+        cap = self._range_capture
+        if cap is not None and not cap.wants(self.step_count + 1):
+            cap = None
         with _EXACT_F32_CONVS if config.dtype in (None, torch.float32) \
                 else contextlib.nullcontext(), \
                 tel.span("device_dispatch", subgraph=self.name) \
@@ -1227,8 +1241,12 @@ class SubExecutor:
                     env[node] = None if node in host_ops \
                         else node.compute(vals, ectx) if tp is None \
                         else tp.compute(node, vals, ectx)
+                if cap is not None:
+                    cap.observe(i, env[node])
                 for dead in self._free_after[i]:
                     env.pop(dead, None)
+            if cap is not None:
+                cap.end_step()
 
         if self.training:
             for node, value in ectx.new_params.items():

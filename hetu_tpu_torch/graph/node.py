@@ -3,7 +3,8 @@
 Counterpart of ``hetu_tpu/graph/node.py``. An :class:`Op` is a DAG node
 with inputs, a device context, operator-overloading sugar and the
 ``compute(input_vals, ectx)`` / ``gradient(output_grad)`` /
-``infer_shape(input_shapes)`` protocol users write against, and
+``infer_shape(input_shapes)`` protocol users write against, the
+numerics verifier's ``infer_range(input_ranges, input_shapes)``, and
 ``deduce_states``, the tensor-parallel planner's partition rule
 (:mod:`~hetu_tpu_torch.parallel.planner`). Each op records where it
 was built (``defined_at``, ``composed_at``), the line the analysis
@@ -180,6 +181,16 @@ class Op:
 
     def infer_shape(self, input_shapes):
         raise NotImplementedError
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        """Interval semantics for the HT8xx numerics verifier
+        (:mod:`~hetu_tpu_torch.analysis.numerics`): given per-input
+        ``(lo, hi)`` bounds (None = unknown), a ``(lo, hi)`` bounding
+        every element of the output, or None for no claim. Ops with
+        known value semantics override it (``ops/*.py``); the
+        shape-aware cases (matmul, conv, reductions) are the pass's
+        own."""
+        return None
 
     def backward_hook(self, config):
         """The session's graph pass over this node, run in reverse

@@ -6,8 +6,8 @@ by ``seed + crc32(name)`` (``PlaceholderOp.initial_value``), so a graph
 built in this package and the same graph built in ``hetu_tpu`` start
 from bit-identical weights. ``dist_spec`` describes the draw to the
 parameter server, which initializes a PS table itself, so a table the
-size of Criteo's never materializes on the worker. The analysis
-``interval`` waits for the analysis port.
+size of Criteo's never materializes on the worker. ``interval`` bounds
+the draw for the numerics verifier (``analysis/numerics.py``).
 """
 from __future__ import annotations
 
@@ -48,6 +48,27 @@ class BaseInit:
         initializers.py:43-60; the server mirrors PSFHandle.h:277-342):
         0 = constant(a), 1 = uniform(a, b), 2 = normal(mean a, std b),
         3 = truncated normal. None when the server cannot draw it."""
+        return None
+
+    def interval(self):
+        """Static (lo, hi) bound on the initial draw: the numerics
+        verifier's interval seed (``analysis/numerics.py``). Constants
+        and uniforms are exact; normals are bounded at mean ± 4σ (a draw
+        escapes with probability < 1e-4 an element, and the verifier
+        widens a trainable's seed for training drift anyway), truncated
+        normals at their ± 2σ clip. None where unknown."""
+        spec = self.dist_spec()
+        if spec is None:
+            return None
+        kind, a, b = spec
+        if kind == 0:
+            return (a, a)
+        if kind == 1:
+            return (a, b)
+        if kind == 2:
+            return (a - 4.0 * b, a + 4.0 * b)
+        if kind == 3:
+            return (a - 2.0 * b, a + 2.0 * b)
         return None
 
     def __call__(self, name, trainable=True, dtype=np.float32, ctx=None):

@@ -7,20 +7,50 @@ Dropout draws its mask from the step's per-op generator
 (``ExecContext.generator_for``), and its gradient op draws it again
 from the forward op's generator, so both apply one mask without keeping
 it between the two. The numbers differ from ``jax.random``'s: tests
-check dropout by its properties, and the parity twins run without it."""
+check dropout by its properties, and the parity twins run without it.
+
+Each op also defines ``infer_range``, its interval rule for the numerics
+verifier (``analysis/numerics.py``; the protocol is in ``basic.py``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..graph.node import Op
-from .basic import addbyconst_op, mul_op, opposite_op
+from .basic import _iv_exp, addbyconst_op, mul_op, opposite_op
 
 __all__ = ["relu_op", "relu_gradient_op", "leaky_relu_op",
            "leaky_relu_gradient_op", "sigmoid_op", "tanh_op", "gelu_op",
            "gelu_gradient_op", "sign_op", "softmax_func", "softmax_op",
            "softmax_gradient_op", "dropout_op", "dropout_gradient_op",
            "dropout2d_op", "dropout2d_gradient_op"]
+
+# saturating activations (sigmoid, tanh, erf) ROUND to their asymptote in
+# finite precision long before float64 math reaches it: a bound within
+# this slack of the asymptote is clamped onto it, else the interval
+# would exclude the saturated value (hiding HT804's log- or div-of-zero
+# and tripping the HT810 soundness gate on correct runs). 5e-4 covers
+# fp16's eps/2, the widest of the supported dtypes.
+_SATURATE_SLACK = 5e-4
+
+
+def _saturate(lo, hi, floor, ceil):
+    if lo - floor < _SATURATE_SLACK:
+        lo = floor
+    if ceil - hi < _SATURATE_SLACK:
+        hi = ceil
+    return (lo, hi)
+
+
+def _dropout_range(input_ranges, keep_prob):
+    """Mask entries are 0 or 1/keep_prob: the hull of 0 and
+    x/keep_prob."""
+    a = input_ranges[0]
+    if a is None or keep_prob <= 0:
+        return None
+    return (min(a[0] / keep_prob, 0.0), max(a[1] / keep_prob, 0.0))
 
 
 class ReluOp(Op):
@@ -36,6 +66,10 @@ class ReluOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        return None if a is None else (max(a[0], 0.0), max(a[1], 0.0))
 
 
 class ReluGradientOp(Op):
@@ -58,6 +92,10 @@ class ReluGradientOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        g = input_ranges[1]
+        return None if g is None else (min(g[0], 0.0), max(g[1], 0.0))
+
 
 class LeakyReluOp(Op):
     def __init__(self, node_A, alpha, ctx=None):
@@ -74,6 +112,14 @@ class LeakyReluOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            return None
+        pts = (max(a[0], 0.0), max(a[1], 0.0),
+               self.alpha * min(a[0], 0.0), self.alpha * min(a[1], 0.0))
+        return (min(pts), max(pts))
 
 
 class LeakyReluGradientOp(Op):
@@ -108,6 +154,9 @@ class SignOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        return (-1.0, 1.0)
+
 
 class SigmoidOp(Op):
     def __init__(self, node_A, ctx=None):
@@ -125,6 +174,16 @@ class SigmoidOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            # sigmoid rounds to exactly 0.0 or 1.0 in finite precision:
+            # the closed interval is the honest bound (log(sigmoid(x)) of
+            # a very negative x is -inf, and HT804 says so)
+            return (0.0, 1.0)
+        return _saturate(1.0 / (1.0 + _iv_exp(-a[0])),
+                         1.0 / (1.0 + _iv_exp(-a[1])), 0.0, 1.0)
+
 
 class TanhOp(Op):
     def __init__(self, node_A, ctx=None):
@@ -139,6 +198,12 @@ class TanhOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            return (-1.0, 1.0)
+        return _saturate(math.tanh(a[0]), math.tanh(a[1]), -1.0, 1.0)
 
 
 class GeluOp(Op):
@@ -156,6 +221,16 @@ class GeluOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        # gelu(x) in [-0.171, max(x, 0)]: the tanh approximation dips to
+        # -0.17004 near x = -0.75, so the bound sits below that; relu(x)
+        # bounds it above
+        a = input_ranges[0]
+        if a is None:
+            return None
+        lo = -0.171 if a[0] < 0.0 else 0.0
+        return (lo, max(a[1], 0.0))
 
 
 class GeluGradientOp(Op):
@@ -191,6 +266,9 @@ class SoftmaxOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        return (0.0, 1.0)
+
 
 class SoftmaxGradientOp(Op):
     """dx = y * (dy - sum(dy * y, -1, keepdims)) from the forward's output
@@ -208,6 +286,15 @@ class SoftmaxGradientOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        # |y (dy - sum(dy y))| <= |dy| + max|dy| <= 2 max|dy|, y a
+        # probability row (sum 1, entries in [0, 1])
+        g = input_ranges[1]
+        if g is None:
+            return None
+        m = 2.0 * max(abs(g[0]), abs(g[1]))
+        return (-m, m)
 
 
 def _dropout_mask(ectx, op, keep_prob, shape, dtype, per_channel=False):
@@ -247,6 +334,9 @@ class DropoutOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        return _dropout_range(input_ranges, self.keep_prob)
+
 
 class Dropout2dOp(DropoutOp):
     """Dropout of whole (N, C) planes."""
@@ -276,6 +366,9 @@ class DropoutGradientOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        return _dropout_range(input_ranges, self.keep_prob)
 
 
 class Dropout2dGradientOp(DropoutGradientOp):

@@ -9,8 +9,13 @@ is the reference's graph of ops.
 
 ``where_op`` treats any nonzero condition as true, as JAX does: the
 Transformer passes integer token ids as the condition.
+
+Each op with known value semantics also defines ``infer_range``, its
+interval rule for the numerics verifier (``analysis/numerics.py``).
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -35,6 +40,46 @@ def _elementwise_shape(what, a, b):
     if tuple(a) != tuple(b):
         raise ValueError(f"{what} shape mismatch {a} vs {b}")
     return a
+
+
+# ---------------------------------------------------------------------------
+# interval semantics (the HT8xx numerics verifier's transfer protocol)
+# ---------------------------------------------------------------------------
+# ``infer_range(input_ranges, input_shapes=None)`` returns a (lo, hi)
+# float pair bounding every element of the output given per-input
+# (lo, hi) bounds (None = unknown), beside ``infer_shape``.
+# analysis/numerics.py walks the topo order through it; ops without it
+# fall back to the shape-aware table there (matmul, conv, reductions).
+
+def _iv_sorted(lo, hi):
+    return (min(lo, hi), max(lo, hi))
+
+
+def _mul_ep(x, y):
+    """Endpoint product with interval arithmetic's 0 * inf := 0: a plain
+    product gives NaN there, and a (nan, nan) interval would disarm
+    every check downstream (a one-sided clip makes half-bounded
+    intervals in ordinary graphs)."""
+    if x == 0.0 or y == 0.0:
+        return 0.0
+    return x * y
+
+
+def _iv_mul(a, b):
+    if any(v != v for v in (*a, *b)):   # a NaN endpoint: no claim
+        return None
+    ps = (_mul_ep(a[0], b[0]), _mul_ep(a[0], b[1]),
+          _mul_ep(a[1], b[0]), _mul_ep(a[1], b[1]))
+    return (min(ps), max(ps))
+
+
+def _iv_exp(x):
+    if x >= 709.0:                  # float64 exp's overflow knee
+        return float("inf")
+    try:
+        return math.exp(x)
+    except OverflowError:
+        return float("inf")
 
 
 class AddOp(Op):
@@ -62,6 +107,12 @@ class AddOp(Op):
     def infer_shape(self, input_shapes):
         return _elementwise_shape("add", *input_shapes)
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a, b = input_ranges
+        if a is None or b is None:
+            return None
+        return (a[0] + b[0], a[1] + b[1])
+
 
 class AddByConstOp(Op):
     def __init__(self, node_A, const_val, ctx=None):
@@ -77,6 +128,14 @@ class AddByConstOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        try:
+            c = float(self.const_attr)
+        except (TypeError, ValueError):
+            return None
+        return None if a is None else (a[0] + c, a[1] + c)
+
 
 class MulOp(Op):
     def __init__(self, node_A, node_B, ctx=None):
@@ -91,6 +150,19 @@ class MulOp(Op):
 
     def infer_shape(self, input_shapes):
         return _elementwise_shape("mul", *input_shapes)
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a, b = input_ranges
+        if a is None or b is None:
+            return None
+        if self.inputs[0] is self.inputs[1]:
+            # x * x is a square, not a product of two intervals: the
+            # correlation-blind product would reach below 0 and hide
+            # every "square + eps" guard HT804 looks for
+            lo = 0.0 if a[0] <= 0.0 <= a[1] else min(a[0] * a[0],
+                                                     a[1] * a[1])
+            return (lo, max(a[0] * a[0], a[1] * a[1]))
+        return _iv_mul(a, b)
 
 
 class MulByConstOp(Op):
@@ -108,6 +180,14 @@ class MulByConstOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        try:
+            c = float(self.const_attr)
+        except (TypeError, ValueError):
+            return None
+        return None if a is None else _iv_sorted(a[0] * c, a[1] * c)
+
 
 class OppositeOp(Op):
     def __init__(self, node_A, ctx=None):
@@ -121,6 +201,10 @@ class OppositeOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        return None if a is None else (-a[1], -a[0])
 
 
 class DivOp(Op):
@@ -142,6 +226,12 @@ class DivOp(Op):
     def infer_shape(self, input_shapes):
         return _elementwise_shape("div", *input_shapes)
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a, b = input_ranges
+        if a is None or b is None or (b[0] <= 0.0 <= b[1]):
+            return None           # a zero-crossing denominator: HT804's
+        return _iv_mul(a, (1.0 / b[1], 1.0 / b[0]))
+
 
 class DivConstOp(Op):
     """const / node (reference Division.py DivConstOp)."""
@@ -161,6 +251,16 @@ class DivConstOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        try:
+            c = float(self.const_attr)
+        except (TypeError, ValueError):
+            return None
+        if a is None or (a[0] <= 0.0 <= a[1]):
+            return None
+        return _iv_sorted(c / a[1], c / a[0])
 
 
 class DivHandleZeroOp(Op):
@@ -207,6 +307,14 @@ class SqrtOp(_UnaryOp):
                        mul_byconst_op(rsqrt_op(self.inputs[0]), 0.5),
                        ctx=self.raw_ctx)]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            return None
+        # bound over the defined (x >= 0) region; a negative lo is
+        # HT804's finding, not this bound's
+        return (math.sqrt(max(a[0], 0.0)), math.sqrt(max(a[1], 0.0)))
+
 
 class ReciprocalSqrtOp(_UnaryOp):
     # 1 / sqrt(x), rounded as the reference's reciprocal(sqrt(x))
@@ -217,6 +325,12 @@ class ReciprocalSqrtOp(_UnaryOp):
         x = self.inputs[0]
         g = mul_byconst_op(div_op(rsqrt_op(x), x), -0.5)
         return [mul_op(output_grad, g, ctx=self.raw_ctx)]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None or a[0] <= 0.0:
+            return None           # a zero or negative operand: HT804's
+        return (1.0 / math.sqrt(a[1]), 1.0 / math.sqrt(a[0]))
 
 
 class ErfOp(_UnaryOp):
@@ -231,6 +345,13 @@ class ErfOp(_UnaryOp):
                            2.0 / np.sqrt(np.pi))
         return [mul_op(output_grad, g, ctx=self.raw_ctx)]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        from .activations import _saturate
+        a = input_ranges[0]
+        if a is None:
+            return (-1.0, 1.0)
+        return _saturate(math.erf(a[0]), math.erf(a[1]), -1.0, 1.0)
+
 
 class ExpOp(_UnaryOp):
     fn = torch.exp
@@ -238,12 +359,26 @@ class ExpOp(_UnaryOp):
     def gradient(self, output_grad):
         return [mul_op(output_grad, self, ctx=self.raw_ctx)]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            return None
+        # an inf upper bound is what HT801 looks for in an unshifted exp
+        # whose operand reaches the overflow knee
+        return (_iv_exp(a[0]), _iv_exp(a[1]))
+
 
 class LogOp(_UnaryOp):
     fn = torch.log
 
     def gradient(self, output_grad):
         return [div_op(output_grad, self.inputs[0], ctx=self.raw_ctx)]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None or a[0] <= 0.0:
+            return None           # a zero-reaching operand: HT804's
+        return (math.log(a[0]), math.log(a[1]))
 
 
 class AbsOp(_UnaryOp):
@@ -253,6 +388,13 @@ class AbsOp(_UnaryOp):
         from .activations import sign_op
         return [mul_op(output_grad, sign_op(self.inputs[0]),
                        ctx=self.raw_ctx)]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        if a is None:
+            return None
+        lo = 0.0 if a[0] <= 0.0 <= a[1] else min(abs(a[0]), abs(a[1]))
+        return (lo, max(abs(a[0]), abs(a[1])))
 
 
 class PowerOp(Op):
@@ -271,6 +413,21 @@ class PowerOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a = input_ranges[0]
+        p = self.p
+        if a is None or p != int(p) or p < 0:
+            return None           # a negative p over 0: HT804's
+        p = int(p)
+        try:
+            vals = (a[0] ** p, a[1] ** p)
+        except OverflowError:
+            return (0.0 if p % 2 == 0 else -float("inf"), float("inf"))
+        if p % 2 == 0:
+            lo = 0.0 if a[0] <= 0.0 <= a[1] else min(vals)
+            return (lo, max(vals))
+        return _iv_sorted(*vals)
 
 
 class WhereOp(Op):
@@ -294,6 +451,12 @@ class WhereOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[1]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        _, a, b = input_ranges
+        if a is None or b is None:
+            return None
+        return (min(a[0], b[0]), max(a[1], b[1]))
+
 
 class OneHotOp(Op):
     """f32 one-hot rows; an id outside ``[0, num_classes)`` gives a row
@@ -315,6 +478,9 @@ class OneHotOp(Op):
     def infer_shape(self, input_shapes):
         return tuple(input_shapes[0]) + (self.num_classes,)
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        return (0.0, 1.0)
+
 
 class MatrixDotOp(Op):
     """The reference's MatrixDot: the elementwise product (``axes`` is
@@ -333,6 +499,12 @@ class MatrixDotOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        a, b = input_ranges
+        if a is None or b is None:
+            return None
+        return _iv_mul(a, b)
 
 
 def _torch_dtype(dtype):
@@ -362,6 +534,12 @@ class CastOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        # the interval survives the cast unchanged: whether the target
+        # dtype holds it is HT801's check, which reads this op's
+        # unclamped interval against self.dtype's max
+        return input_ranges[0]
+
 
 class ClipOp(Op):
     """Clamp to [min_val, max_val], either bound None for none; the
@@ -386,6 +564,21 @@ class ClipOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        # a half-bounded result (e.g. [1e-12, inf) from a one-sided clip
+        # of an unknown operand) still carries the zero-exclusion guard
+        # HT804 looks for
+        a = input_ranges[0]
+        lo = -float("inf") if a is None else a[0]
+        hi = float("inf") if a is None else a[1]
+        if self.min_val is not None:
+            lo = max(lo, float(self.min_val))
+            hi = max(hi, float(self.min_val))
+        if self.max_val is not None:
+            hi = min(hi, float(self.max_val))
+            lo = min(lo, float(self.max_val))
+        return (lo, hi)
+
 
 class ClipMaskOp(Op):
     def __init__(self, node_A, min_val, max_val, ctx=None):
@@ -407,6 +600,9 @@ class ClipMaskOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        return (0.0, 1.0)
 
 
 def add_op(node_A, node_B, ctx=None):

@@ -57,6 +57,10 @@ class EmbeddingLookUp(Op):
         emb_shape, idx_shape = input_shapes
         return tuple(idx_shape) + (emb_shape[-1],)
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        # the gathered rows are a subset of the table
+        return input_ranges[0]
+
     def deduce_states(self, input_statuses, status, deduce_order):
         """Output [*idx_dims, D]: index splits pass through the leading
         dims; a table column split (dim 1) splits the feature dim; a table

@@ -11,8 +11,12 @@ reference.
 
 Binary cross-entropy and ``crossentropy_op`` take probabilities, which
 both directions clip to ``[_PROB_EPS, 1 - _PROB_EPS]`` (CE: from below
-only) before any log or division, as the reference does."""
+only) before any log or division, as the reference does. Each loss
+also defines ``infer_range``, its interval rule for the numerics
+verifier (``analysis/numerics.py``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -24,6 +28,26 @@ __all__ = ["softmaxcrossentropy_op", "softmaxcrossentropy_gradient_op",
            "binarycrossentropy_gradient_op", "crossentropy_op"]
 
 _PROB_EPS = 1e-12
+
+
+def _label_on_simplex(label_range):
+    """The CE bounds assume labels form a distribution (entries in
+    [0, 1]); a KNOWN label interval outside that is off contract, and
+    the rule makes no claim rather than an unsound one."""
+    return label_range is None or (label_range[0] >= 0.0
+                                   and label_range[1] <= 1.0)
+
+
+def _ce_range(logit_range, input_shapes, label_range=None):
+    """[0, 2 max|logit| + ln C]: max_j l_j - min_j l_j + ln C bounds
+    logsumexp(l) - l_label for any label distribution on the simplex."""
+    if logit_range is None or not _label_on_simplex(label_range):
+        return None
+    c = None
+    if input_shapes and input_shapes[0]:
+        c = input_shapes[0][-1]
+    m = max(abs(logit_range[0]), abs(logit_range[1]))
+    return (0.0, 2.0 * m + math.log(float(c if c else 2)))
 
 
 class SoftmaxCrossEntropyOp(Op):
@@ -47,6 +71,10 @@ class SoftmaxCrossEntropyOp(Op):
         shape = tuple(input_shapes[0][:-1])
         return shape if shape else (1,)
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        return _ce_range(input_ranges[0], input_shapes,
+                         label_range=input_ranges[1])
+
 
 class SoftmaxCrossEntropyGradientOp(Op):
     def __init__(self, node_A, node_B, grad_node, ctx=None):
@@ -62,6 +90,15 @@ class SoftmaxCrossEntropyGradientOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        _, labels, grad = input_ranges
+        if grad is None:
+            return None
+        lm = 1.0 if labels is None else max(1.0, abs(labels[0]),
+                                            abs(labels[1]))
+        m = (1.0 + lm) * max(abs(grad[0]), abs(grad[1]))
+        return (-m, m)
 
 
 def _clipped(labels, nclass):
@@ -88,6 +125,9 @@ class SoftmaxCrossEntropySparseOp(Op):
     def infer_shape(self, input_shapes):
         shape = tuple(input_shapes[0][:-1])
         return shape if shape else (1,)
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        return _ce_range(input_ranges[0], input_shapes)
 
 
 class SoftmaxCrossEntropySparseGradientOp(Op):
@@ -116,6 +156,14 @@ class SoftmaxCrossEntropySparseGradientOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        grad = input_ranges[2]
+        if grad is None:
+            return None
+        # |softmax - onehot| <= 1 entry by entry
+        m = max(abs(grad[0]), abs(grad[1]))
+        return (-m, m)
+
 
 class BinaryCrossEntropyOp(Op):
     """Elementwise BCE of predictions (node_A, already in (0, 1)) against
@@ -137,6 +185,11 @@ class BinaryCrossEntropyOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        if not _label_on_simplex(input_ranges[1]):
+            return None     # labels off [0, 1] make BCE go negative
+        return (0.0, 2.0 * -math.log(_PROB_EPS))
+
 
 class BinaryCrossEntropyGradientOp(Op):
     def __init__(self, node_A, node_B, node_C, ctx=None):
@@ -153,6 +206,18 @@ class BinaryCrossEntropyGradientOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        grad = input_ranges[2]
+        if grad is None:
+            return None
+        # |pred - label| / (pred (1 - pred)) <= (1 + |label|) / eps, pred
+        # clipped to [eps, 1 - eps]
+        label = input_ranges[1]
+        lm = 1.0 if label is None else max(1.0, abs(label[0]),
+                                           abs(label[1]))
+        m = max(abs(grad[0]), abs(grad[1])) * (1.0 + lm) / _PROB_EPS
+        return (-m, m)
 
 
 class CrossEntropyOp(Op):
@@ -180,6 +245,14 @@ class CrossEntropyOp(Op):
     def infer_shape(self, input_shapes):
         shape = tuple(input_shapes[0][:-1])
         return shape if shape else (1,)
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        if not _label_on_simplex(input_ranges[1]):
+            return None     # negative labels flip the sum's sign
+        c = 2
+        if input_shapes and input_shapes[0]:
+            c = input_shapes[0][-1]
+        return (0.0, float(c) * -math.log(_PROB_EPS))
 
 
 def softmaxcrossentropy_op(node_A, node_B, use_cudnn=True, ctx=None):

@@ -14,8 +14,12 @@ opposite of ``torch.nn.BatchNorm2d``'s ``momentum``); in inference it
 normalizes with the running statistics ``ectx.get_state`` gives it.
 The executor initializes them to mean 0 and variance 1 and threads them
 between steps. ``eps`` is 0.01 unless given, and scale and bias may be
-shaped ``(C,)`` or ``(1, C, 1, 1)``."""
+shaped ``(C,)`` or ``(1, C, 1, 1)``. The three forward ops define
+``infer_range``, their interval rule for the numerics verifier
+(``analysis/numerics.py``)."""
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -44,6 +48,21 @@ def _bcast_c(v):
 
 def _inv_std(var, eps):
     return torch.reciprocal(torch.sqrt(var + eps))
+
+
+def _norm_range(n, scale_range, bias_range):
+    """A value standardized over ``n`` samples has |x - mean| / std <=
+    sqrt(n - 1), so the affine output is bounded by sqrt(n) * |scale| +
+    |bias| whatever the input's range (eps > 0 keeps the rsqrt finite;
+    eps <= 0 is HT804's)."""
+    if scale_range is None:
+        return None
+    k = math.sqrt(float(max(n, 1)))
+    sm = max(abs(scale_range[0]), abs(scale_range[1]))
+    bm = 0.0 if bias_range is None else max(abs(bias_range[0]),
+                                            abs(bias_range[1]))
+    m = k * sm + bm
+    return (-m, m)
 
 
 def _normalize(x, eps):
@@ -102,6 +121,13 @@ class BatchNormalizationOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        n = 1
+        if input_shapes and input_shapes[0] and len(input_shapes[0]) == 4:
+            s = input_shapes[0]
+            n = s[0] * s[2] * s[3]
+        return _norm_range(n, input_ranges[1], input_ranges[2])
+
 
 class BatchNormalizationGradientOp(Op):
     """Packed ``(dx, dscale, dbias)``: the closed-form backward over the
@@ -152,6 +178,12 @@ class InstanceNormalization2dOp(Op):
     def infer_shape(self, input_shapes):
         return input_shapes[0]
 
+    def infer_range(self, input_ranges, input_shapes=None):
+        n = 1
+        if input_shapes and input_shapes[0] and len(input_shapes[0]) == 4:
+            n = input_shapes[0][2] * input_shapes[0][3]
+        return _norm_range(n, (1.0, 1.0), None)
+
 
 class InstanceNormalization2dGradientOp(Op):
     def __init__(self, out_gradient, in_node, forward_node, ctx=None):
@@ -201,6 +233,12 @@ class LayerNormalizationOp(Op):
 
     def infer_shape(self, input_shapes):
         return input_shapes[0]
+
+    def infer_range(self, input_ranges, input_shapes=None):
+        n = 1
+        if input_shapes and input_shapes[0]:
+            n = input_shapes[0][-1]
+        return _norm_range(n, input_ranges[1], input_ranges[2])
 
 
 class LayerNormalizationGradientOp(Op):

@@ -9,8 +9,9 @@ packages' ``analyze`` (or pass), and compares what the findings say:
 code, severity, ``where``, the node's name up to the graph's id offset
 (a name carries its package's node counter, which other graphs built in
 the process have moved), and the data fields (HT402's bytes exactly).
-The JAX package's numerics, efficiency and wire passes (HT7xx–HT9xx)
-are ROADMAP items 17b–17d and stay out of the comparison.
+The numerics findings (HT8xx) are compared too; the JAX package's
+efficiency and wire passes (HT7xx, HT9xx) are ROADMAP items 17c–17d and
+stay out of the comparison.
 """
 import logging
 import re
@@ -30,8 +31,8 @@ from hetu_tpu_torch.graph.autodiff import find_topo_sort as ttopo
 
 PKGS = {"jax": (jht, janalysis, jtopo, jdead),
         "torch": (tht, tanalysis, ttopo, tdead)}
-# the passes still to port (ROADMAP 17b–17d)
-LATER = ("HT7", "HT8", "HT9")
+# the passes still to port (ROADMAP 17c–17d)
+LATER = ("HT7", "HT9")
 
 
 def _renumber(text, base):
@@ -45,7 +46,7 @@ def _renumber(text, base):
 def view(report, nodes, topo, messages=False):
     """What ``report`` says, comparable across the packages: sorted
     (code, severity, where, node, data[, message]) of every finding
-    outside HT7xx–HT9xx, node ids less the graph's smallest."""
+    outside HT7xx and HT9xx, node ids less the graph's smallest."""
     order = topo(list(nodes)) if nodes else []
     base = min((n.id for n in order), default=0)
     out = []

@@ -4,6 +4,7 @@ starts so —, its entry points default to CUDA and raise without it, the
 telemetry facade resolves as the reference's (disabled by default,
 enabled by a path, True or ``HETU_TELEMETRY``), and its copy of the
 parameter server's C++ sources stays byte-identical to hetu_tpu's."""
+import importlib
 import os
 import socket
 import subprocess
@@ -288,6 +289,29 @@ def test_reference_top_level_names_of_ported_modules_are_exported():
     assert not missing, missing
     # every waiting name is still one the reference exports
     assert set(WAITING) <= {n for _, n in ported}
+    # the ported analysis modules export the reference's __all__
+    for module in PORTED_ALL:
+        want = _reference_all(module)
+        assert want, module
+        port = importlib.import_module(f"hetu_tpu_torch.{module}")
+        missing = [n for n in want
+                   if n not in port.__all__ or not hasattr(port, n)]
+        assert not missing, (module, missing)
+
+
+# ported modules whose whole ``__all__`` the reference's names must be in
+PORTED_ALL = ("analysis.numerics", "analysis.rangecheck")
+
+
+def _reference_all(module):
+    """The ``__all__`` list of a reference module, read with ast."""
+    import ast
+    path = (ROOT / "hetu_tpu" / module.replace(".", "/")).with_suffix(".py")
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return ast.literal_eval(node.value)
+    return None
 
 
 def test_sequence_parallel_op_builders_are_exported():
