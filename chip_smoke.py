@@ -400,10 +400,23 @@ object per line (``--out`` also writes them to FILE):
   unrecorded step ms and ``sample()``'s ms; ``python -m
   hetu_tpu_torch.analysis.rangecheck mlp wdl_adult`` in process on the
   card (exit 0) and ``check_zoo`` clean;
+* ``efficiency_train`` the same graph, rows and unvalidated losses
+  under the efficiency lint and perfcheck: a CostDB measured on the card
+  (the comm sweep, ``profile_ops``), the HT902 card-model sweep (GEMM
+  times, granules, rates, bf16's misalignment share, the copy rate), a
+  ``validate="error"`` session with telemetry traced 8 steps
+  (``analyze`` with HT9xx, no error; losses bit-equal; K2/K3/K4 12 a
+  step on ``tc``), its topo order priced against the measured step and
+  held to the doctor's buckets (no HT910) by
+  ``perfcheck.perfcheck_session``, an f32 and a bf16 HT902 fixture held
+  likewise and against what aligning their GEMM measurably saves, the
+  HT904 A/B between two thread ranks within ``AB_TOLERANCE``, and both
+  CLIs in process (exit 0);
 * ``preflight_job`` the launcher's ``--preflight`` over
   ``telemetry_job``'s script: clean (exit 0, its JSON report), clean
   with no card visible, and with a back edge (exit 121, HT302 naming
-  ranks 0 and 1); no worker spawned; each run's seconds;
+  ranks 0 and 1); no worker spawned, no preflight process initialized
+  CUDA; each run's seconds;
 * ``crossover`` per sequence length, the fused training attention
   (K2 + K3 + K4) against K1 + the composed autograd backward, and one
   row at BERT-base's shape (masked, non-causal);
@@ -8797,6 +8810,15 @@ def telemetry_worker(spec):
     from hetu_tpu_torch import models as M
     from hetu_tpu_torch.ops import _build
     rank = int(os.environ.get("HETU_PROC_ID", "0"))
+    if "HETU_PREFLIGHT" in os.environ:
+        # what the preflight's exit leaves behind: whether CUDA started
+        import atexit
+
+        def touched():
+            with open(os.path.join(spec["out"],
+                                   f"preflight_{os.getpid()}.json"), "w") as f:
+                json.dump({"cuda": torch.cuda.is_initialized()}, f)
+        atexit.register(touched)
     widths = dict(GPT2_SMALL, num_hidden_layers=TEL_JOB_LAYERS)
     contexts = [ht.rgpu(f"worker{i}", i) for i in range(2)]
     if spec.get("back_edge"):
@@ -9596,6 +9618,345 @@ def numerics_train(torch, card, shared):
     return line, launches
 
 
+# efficiency_train: perfcheck's traced steps of the GPT-2-small session and
+# of one HT902 fixture a dtype — (M, K, N) GEMMs the card's model flags:
+# f32 N=72, compute-bound, padded to the 64-wide N granule; bf16 N=260,
+# whose rows are not whole 16-byte vectors. A flagged GEMM's priced share
+# of its time may be at most perfcheck.SOUND_FACTOR times the share that
+# aligning its dims measurably saves (efficiency.measure_padding_share)
+EF_STEPS = 8
+EF_FIXTURES = {"float32": (8192, 4096, 72), "bfloat16": (8192, 4096, 260)}
+
+
+def _ht902_fixture(ht, dtype):
+    """A training graph whose forward GEMM the card's model flags."""
+    m, k, n = EF_FIXTURES[dtype]
+    a = ht.init.random_normal((m, k), name=f"ef_a_{dtype}")
+    b = ht.init.random_normal((k, n), name=f"ef_b_{dtype}")
+    loss = ht.reduce_mean_op(ht.matmul_op(a, b), [0, 1])
+    return [loss, ht.optim.SGDOptimizer(1e-3).minimize(loss)]
+
+
+def _codes(findings):
+    out = {}
+    for f in findings:
+        out[f.code] = out.get(f.code, 0) + 1
+    return out
+
+
+def _traced(torch, ht, nodes, tdir, device, **kw):
+    """An executor of ``nodes`` tracing into ``tdir``, each run's loss and
+    host ms (the readback ends the step) kept on it. Close it with
+    ``_untrace``."""
+    from hetu_tpu_torch.telemetry import Telemetry
+    exe = ht.Executor(nodes, telemetry=Telemetry(
+        enabled=True, out_dir=tdir, rank=0), device=device, **kw)
+    exe.losses, exe.step_ms = [], []
+    run = exe.run
+
+    def recorded(*a, **k):
+        t0 = time.perf_counter()
+        out = run(*a, **k)
+        exe.losses.append(float(out[0].asnumpy()))
+        exe.step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+    exe.run = recorded
+    return exe
+
+
+def _untrace(exe):
+    """Close a ``_traced`` executor; its telemetry, flushed, writes no more
+    (the trace dir goes with the phase's temp dir)."""
+    exe.close()
+    exe.config.telemetry.out_dir = None
+
+
+def _session_dtype(torch, name):
+    """An Executor's ``dtype=`` for a dtype name: None (the default) for
+    f32."""
+    return None if name == "float32" else getattr(torch, name)
+
+
+def _ht910(report):
+    return [f for f in report.findings if f.code == "HT910"]
+
+
+def efficiency_train(torch, card, shared, device="cuda"):
+    """``efficiency_train``: ``preflight_train``'s graph, rows and
+    unvalidated losses (GPT-2-small, B=8, S=1024, bf16, Adam) under the
+    efficiency lint and perfcheck:
+
+    1. a CostDB measured on the card in a temp dir (``HETU_COSTDB`` for
+       the phase): the comm sweep (h2d, d2h; allreduce and p2p between
+       two thread ranks, autoplan's sizes), then ``profile_ops`` over the
+       session's forward ops and each HT902 fixture's, each twice: the
+       cold pass's total reported, the warm pass's ops into the DB;
+    2. the card model sweep (``measure_card_model``): every GEMM time,
+       the granules fitted, the GEMM rates and the copy rate, beside the
+       module's constants (reported, not gated: the cuda test holds them);
+    3. a fresh ``validate="error"`` executor with telemetry (``analyze``
+       with HT9xx: codes, seconds, no error), held to its measured steps
+       by ``perfcheck.perfcheck_session``: EF_STEPS traced steps whose
+       first losses equal the unvalidated executor's bit for bit, K2/K3/K4
+       12 a step on ``tc`` (counted from 0 just before the construction,
+       read just after the steps and the pricing, which launches
+       nothing); its topo order priced in bf16 by the DB: findings by
+       code, the predicted step against the measured p50, the waste, the
+       coverage; no HT910 against the doctor's buckets; the constant-feed
+       check (reported);
+    4. each HT902 fixture (f32 and bf16) through ``perfcheck_session``
+       likewise: its claims fire and are checked against its measured
+       ``compute`` bucket, no HT910; and its forward GEMM's priced share
+       against the share aligning its dims measurably saves
+       (``measure_padding_share``): at most ``SOUND_FACTOR`` times it;
+    5. ``ab_bucketed_allreduce`` between two thread ranks on the card:
+       predicted and measured within ``AB_TOLERANCE`` (a second try with
+       more reps, as the test does);
+    6. ``python -m hetu_tpu_torch.analysis.efficiency --costdb <db>`` over
+       the zoo and ``python -m hetu_tpu_torch.analysis.perfcheck``, in
+       process: both exit 0.
+
+    Returns (line, the traced session's launch counts). ``device``
+    rehearses the phase on the CPU at small widths (its launch checks
+    then fail: the plain versions count nothing)."""
+    import shutil
+    import tempfile
+    import hetu_tpu_torch as ht
+    from hetu_tpu_torch import analysis
+    from hetu_tpu_torch.analysis import efficiency, perfcheck
+    from hetu_tpu_torch.graph.autodiff import find_topo_sort
+    from hetu_tpu_torch.ops import _build
+    from hetu_tpu_torch.ops import flash_attention as fa
+    from hetu_tpu_torch.profiler import profile_ops
+    from hetu_tpu_torch.telemetry import costdb
+
+    t_phase = time.perf_counter()
+    nodes, feeds = shared["nodes"], shared["feeds"]
+    ids, labels = shared["ids"], shared["labels"]
+    batch, seq = tuple(feeds[ids].shape)
+    feed_shapes = {ids: ((batch, seq), np.int64),
+                   labels: ((batch, seq), np.int64)}
+    layers = sum(n.op_type == "FlashAttentionOp"
+                 for n in find_topo_sort(nodes))
+    tmp = tempfile.mkdtemp(prefix="efficiency_")
+    db_path = os.path.join(tmp, "costdb.json")
+    saved = os.environ.get("HETU_COSTDB")
+    os.environ["HETU_COSTDB"] = db_path
+    timing, faults = {}, []
+    try:
+        # 1. the CostDB, measured here
+        db = costdb.CostDB(db_path)
+        t = time.perf_counter()
+        swept = costdb.comm_microbench(db, sizes=AUTOPLAN_SIZES, reps=3,
+                                       device=device, ranks=AUTOPLAN_RANKS)
+        timing["comm_microbench_s"] = time.perf_counter() - t
+        # each graph profiled twice, the second (warm) pass into the DB:
+        # an op's first call in the process pays its kernels' module
+        # load and cuBLAS's heuristics, which no step after it pays
+        t = time.perf_counter()
+        fixtures = {dt: _ht902_fixture(ht, dt) for dt in EF_FIXTURES}
+        profiled = {}
+        for name, graph, dtype, graph_feeds in (
+                ("session", nodes, "bfloat16", feeds),
+                *((f"fixture_{dt}", g, dt, {})
+                  for dt, g in fixtures.items())):
+            exe = ht.Executor(graph, device=device,
+                              dtype=_session_dtype(torch, dtype))
+            cold = profile_ops(exe, graph_feeds, printout=False)
+            warm = profile_ops(exe, graph_feeds, costdb=db, printout=False)
+            profiled[name] = {"ops": len(warm),
+                              "cold_ms": sum(ms for _, ms in cold),
+                              "warm_ms": sum(ms for _, ms in warm)}
+            exe.close()
+            del exe
+        _release(torch)
+        timing["profile_ops_s"] = time.perf_counter() - t
+
+        # 2. the card model, measured again
+        t = time.perf_counter()
+        model = efficiency.measure_card_model(device)
+        timing["card_model_s"] = time.perf_counter() - t
+
+        # 3. the session, validated, traced, priced and held to the doctor
+        timed = analysis.analyze
+        analyze_s = []
+
+        def timed_analyze(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return timed(*a, **kw)
+            finally:
+                analyze_s.append(time.perf_counter() - t0)
+        t = time.perf_counter()
+        analysis.analyze = timed_analyze
+        _build.reset_launch_counts()                # main path starts
+        try:
+            exe = _traced(torch, ht, nodes, os.path.join(tmp, "trace"),
+                          device, dtype=torch.bfloat16, validate="error")
+        finally:
+            analysis.analyze = timed
+        got = perfcheck.perfcheck_session(
+            exe, nodes, lambda i: feeds, feed_shapes=feed_shapes,
+            steps=EF_STEPS, costdb=db)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        launches = dict(_build.launch_counts)       # main path ends
+        timing["session_s"] = time.perf_counter() - t
+        report = exe.config.analysis_report
+        losses, step_ms = exe.losses, exe.step_ms
+        _untrace(exe)
+        del exe
+        _release(torch)
+        static, buckets = got["static"], got["buckets"]
+        sound = _ht910(got["report"])
+        dynamic = [f for f in got["report"].findings if f.code != "HT910"]
+        step_p50 = float(np.median(step_ms[1:]))
+        total_ms = sum(got["op_ms"].values())
+        waste_ms = sum(f.data.get("estimated_ms_per_step", 0.0)
+                       for f in static.findings if f.code != "HT908")
+        coverage = {s: sum(v == s for v in got["sources"].values())
+                    for s in ("measured", "flops_scaled", "cold_start")}
+
+        # 4. the HT902 fixtures: claims the card's model makes, held to the
+        # measured compute bucket and to the measured saving of aligning
+        fixture_lines = {}
+        for dt, graph in fixtures.items():
+            t = time.perf_counter()
+            exe = _traced(torch, ht, graph, os.path.join(tmp, dt), device,
+                          dtype=_session_dtype(torch, dt))
+            f_got = perfcheck.perfcheck_session(exe, graph, lambda i: {},
+                                                steps=EF_STEPS, costdb=db)
+            _untrace(exe)
+            del exe
+            _release(torch)
+            m, k, n = EF_FIXTURES[dt]
+            share = efficiency.measure_padding_share(
+                m, k, n, getattr(torch, dt), device)
+            fixture_lines[dt] = {
+                "widths": EF_FIXTURES[dt], "checked": f_got["checked"],
+                "claims": [{"node": f.node,
+                            "waste_frac": f.data["waste_frac"],
+                            "estimated_ms_per_step":
+                                f.data["estimated_ms_per_step"],
+                            "source": f.data["source"]}
+                           for f in f_got["static"].findings
+                           if f.code == "HT902"],
+                "buckets_ms_per_step": f_got["buckets"],
+                "ht910": [str(f) for f in _ht910(f_got["report"])],
+                "padding_share": share,
+                "seconds": time.perf_counter() - t}
+        timing["fixtures_s"] = sum(v["seconds"]
+                                   for v in fixture_lines.values())
+
+        # 5. the HT904 A/B between two thread ranks
+        t = time.perf_counter()
+        ab_tries = []
+        for reps in (8, 12):
+            ab = perfcheck.ab_bucketed_allreduce(reps=reps, device=device)
+            ratio = (ab["measured_ms"] / ab["predicted_ms"]
+                     if ab["predicted_ms"] > 0 else None)
+            ab_tries.append(dict(ab, ratio=ratio))
+            if ratio is not None and ab["measured_ms"] > 0 and \
+                    1 / perfcheck.AB_TOLERANCE <= ratio \
+                    <= perfcheck.AB_TOLERANCE:
+                break
+        timing["ab_s"] = time.perf_counter() - t
+
+        # 6. both CLIs, in process
+        clis = {}
+        for name, main, argv in (
+                ("efficiency", efficiency.main, ["--costdb", db_path]),
+                ("perfcheck", perfcheck.main,
+                 [] if device != "cpu" else ["--device", "cpu"])):
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()) as out, \
+                    contextlib.redirect_stderr(io.StringIO()):
+                rc = main(argv)
+            clis[name] = {"rc": rc, "seconds": time.perf_counter() - t,
+                          "out": out.getvalue()[-600:]}
+    finally:
+        if saved is None:
+            os.environ.pop("HETU_COSTDB", None)
+        else:
+            os.environ["HETU_COSTDB"] = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    n_ref = len(shared["unvalidated"])
+    want = _route_counts((fa.K2, fa.K3, fa.K4), (fa.K1,), layers * EF_STEPS)
+    got_launches = {k: launches.get(k, 0) for k in want}
+    ab = ab_tries[-1]
+    line = {"card": card, "model": "gpt2-small", "batch": batch,
+            "seq": seq, "dtype": "bfloat16", "optimizer": "Adam",
+            "validate": "error", "steps": EF_STEPS,
+            "wall_s": time.perf_counter() - t_phase, "timing_s": timing,
+            "costdb": {"swept": swept, "entries": len(db),
+                       "profiled": profiled,
+                       "curves": {k: db.curve(k) for k in ("h2d", "d2h",
+                                                           "allreduce")}},
+            "card_model": {"granule": model["granule"],
+                           "module_granule": efficiency._GRANULE,
+                           "tflops": model["tflops"],
+                           "module_tflops": efficiency._GEMM_TFLOPS,
+                           "copy": model["copy"],
+                           "module_dram_gbps": efficiency._DRAM_GBPS,
+                           "matmul_ms": model["matmul_ms"]},
+            "analyze_s": analyze_s, "report_codes": _codes(report.findings),
+            "report_errors": len(report.errors),
+            "losses": losses, "unvalidated_losses": shared["unvalidated"],
+            "launches": got_launches, "step_ms": step_ms,
+            "step_ms_p50": step_p50,
+            "static": {"codes": _codes(static.findings),
+                       "findings": [str(f) for f in static.findings[:8]],
+                       "total_predicted_ms": total_ms,
+                       "predicted_over_measured": total_ms / step_p50,
+                       "predicted_waste_ms": waste_ms,
+                       "coverage": coverage,
+                       "priced_ops": len(got["op_ms"])},
+            "buckets_ms_per_step": buckets,
+            "doctor_step_wall_ms": (got["attribution"] or {}).get(
+                "step_wall_ms"),
+            "claims_checked": got["checked"], "ht910": len(sound),
+            "ht910_findings": [str(f) for f in sound[:5]],
+            "dynamic": [str(f) for f in dynamic],
+            "fixtures": fixture_lines, "ab": ab_tries, "clis": clis}
+    if report.errors:
+        faults.append(f"errors in the report: {report.to_text()}")
+    if losses[:n_ref] != shared["unvalidated"]:
+        faults.append("traced losses differ from the unvalidated")
+    if not all(np.isfinite(losses)):
+        faults.append("losses not finite")
+    if got_launches != want:
+        faults.append(f"launches {got_launches}, want {want}")
+    if sound:
+        faults.append(f"HT910: {len(sound)} on the session")
+    if not buckets:
+        faults.append("the doctor measured no bucket")
+    for dt, f in fixture_lines.items():
+        share = f["padding_share"]
+        if f["ht910"] or not f["claims"] or f["checked"] == 0:
+            faults.append(f"the {dt} fixture: {len(f['claims'])} HT902 "
+                          f"claims, {f['checked']} checked, HT910 "
+                          f"{f['ht910']}")
+        if share["priced_share"] > perfcheck.SOUND_FACTOR * \
+                share["measured_share"]:
+            faults.append(f"the {dt} fixture prices "
+                          f"{share['priced_share']:.3f} of its GEMM's time, "
+                          f"aligning it saves "
+                          f"{share['measured_share']:.3f}")
+    ratio = ab["ratio"]
+    if not (ab["predicted_ms"] > 0 and ab["measured_ms"] > 0
+            and ratio is not None
+            and 1 / perfcheck.AB_TOLERANCE <= ratio
+            <= perfcheck.AB_TOLERANCE):
+        faults.append(f"A/B outside {perfcheck.AB_TOLERANCE}x: {ab_tries}")
+    bad = {k: v["rc"] for k, v in clis.items() if v["rc"] != 0}
+    if bad:
+        faults.append(f"CLI exit codes {bad}")
+    if faults:
+        raise AssertionError(f"efficiency_train: {faults}: {line}")
+    return line, launches
+
+
 def preflight_job(card, seed):
     """``preflight_job``: ``python -m hetu_tpu_torch.launcher -c <2
     workers> --preflight`` over ``telemetry_job``'s script (two GPipe
@@ -9604,7 +9965,9 @@ def preflight_job(card, seed):
     ``CUDA_VISIBLE_DEVICES=""`` (a preflight needs no card); with a back
     edge (a third block on worker0 after worker1's) it exits 121 with
     HT302 naming rank 0 and rank 1. No run spawns a worker: no rank's
-    record appears. The three run at once; each one's seconds."""
+    record appears; and the one preflight process of each leg exits
+    with CUDA not initialized. The three run at once; each one's
+    seconds."""
     import shutil
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -9633,6 +9996,11 @@ def preflight_job(card, seed):
         text = proc.stdout + proc.stderr
         ranks = sorted(n for n in os.listdir(out_dir)
                        if n.startswith("rank_"))
+        cuda = []
+        for n in sorted(os.listdir(out_dir)):
+            if n.startswith("preflight_"):
+                with open(os.path.join(out_dir, n)) as f:
+                    cuda.append(json.load(f)["cuda"])
         shutil.rmtree(out_dir, ignore_errors=True)
         report = None
         m = re.search(r"graph verified clean \(report: (\S+)\)", text)
@@ -9641,7 +10009,7 @@ def preflight_job(card, seed):
                 report = json.load(f)
             shutil.rmtree(os.path.dirname(m.group(1)), ignore_errors=True)
         return {"rc": proc.returncode, "seconds": wall,
-                "worker_records": ranks,
+                "worker_records": ranks, "cuda_initialized": cuda,
                 "errors": None if report is None else report["errors"],
                 "codes": sorted(set(re.findall(r"\[(HT\d+)\] error", text))),
                 "ht302_names_both_ranks": bool(re.search(
@@ -9663,6 +10031,8 @@ def preflight_job(card, seed):
         faults.append(f"back_edge: exit {r['rc']}, codes {r['codes']}")
     if any(r["worker_records"] for r in runs.values()):
         faults.append("a preflight spawned a worker")
+    if any(r["cuda_initialized"] != [False] for r in runs.values()):
+        faults.append("a preflight initialized CUDA (or left no record)")
     line = {"card": card, "model": "gpt2-small",
             "layers": TEL_JOB_LAYERS, "stages": 2, "wall_s": wall,
             **{name: {k: v for k, v in r.items() if k != "tail"}
@@ -10069,9 +10439,15 @@ def main(argv=None):
     t = time.perf_counter()
     pf_lines["numerics_train"], nt_launches = numerics_train(
         torch, card, pf_shared)
-    del pf_shared
     log(f"numerics_train ({time.perf_counter() - t:.1f} s) "
         f"{pf_lines['numerics_train']}")
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    pf_lines["efficiency_train"], ef_launches = efficiency_train(
+        torch, card, pf_shared)
+    del pf_shared
+    log(f"efficiency_train ({time.perf_counter() - t:.1f} s) "
+        f"{pf_lines['efficiency_train']}")
     torch.cuda.empty_cache()
     t = time.perf_counter()
     pf_lines["preflight_job"] = preflight_job(card, args.seed)
@@ -10128,6 +10504,7 @@ def main(argv=None):
                    ("health_train", health_launches, TRAIN_REP),
                    ("preflight_train", pf_launches, TRAIN_REP),
                    ("numerics_train", nt_launches, TRAIN_REP),
+                   ("efficiency_train", ef_launches, TRAIN_REP),
                    *((f"telemetry_job.rank{r}", c, PP_REP)
                      for r, c in enumerate(tel_job_launches)),
                    *((f"fleet_job.rank{r}", c, PP_REP)

@@ -30,11 +30,19 @@ the user's construction line (``Op.defined_at``):
    accumulation, boundary and underflow risks, PRNG stream reuse
    (:mod:`.numerics`), with :mod:`.rangecheck` as its measured-range
    twin (the HT810 soundness gate and a range DB that tightens
-   re-analysis).
+   re-analysis);
+7. **efficiency** (HT9xx) — the CostDB-priced static performance lint:
+   recompile hazards, GEMM padding waste on the card's measured
+   granule, hot-path host syncs, fragmented collectives, redundant
+   reshards, cost-weighted dead compute, untuned kernels, coverage-gap
+   advisories, every finding priced in predicted ms/step
+   (:mod:`.efficiency`), with :mod:`.perfcheck` as its doctor-validated
+   soundness twin (HT910). Its findings are warnings or advisories:
+   they never block a launch.
 
-The JAX package's efficiency (HT9xx) and PS-wire (HT7xx) passes, and
-its self-lints (jit purity, concurrency, protocol), are ROADMAP items
-17c–17d: :func:`analyze` leaves them out until they are ported.
+The JAX package's PS-wire pass (HT7xx) and its self-lints (jit purity,
+concurrency, protocol) are ROADMAP item 17d: :func:`analyze` leaves them
+out until they are ported.
 
 Surfaces: ``Executor(validate="error"|"warn"|"off")`` (or
 ``HETU_VALIDATE``), ``python -m hetu_tpu_torch.launcher ...
@@ -56,13 +64,15 @@ from .deadlock import deadlock_pass
 from .memory import memory_pass
 from .overlap import RunLoopAdvisor, overlap_pass
 from .numerics import numerics_pass
+from .efficiency import efficiency_pass
+from ..tune.autotune import UNNAMED_CARD, platform_scope
 
 __all__ = ["Finding", "Report", "GraphValidationError", "collecting",
            "emit", "provenance", "suppressed", "analyze",
            "finish_preflight", "shape_pass", "lint_pass",
            "frozen_graph_pass", "sharding_pass", "deadlock_pass",
            "memory_pass", "overlap_pass", "numerics_pass",
-           "RunLoopAdvisor", "EXIT_PREFLIGHT"]
+           "efficiency_pass", "RunLoopAdvisor", "EXIT_PREFLIGHT"]
 
 # the exit code of "preflight found errors" (cf. the watchdog's 117):
 # the launcher does not start the fleet when it sees it
@@ -81,6 +91,23 @@ def _schedule_of(config):
     return "gpipe"
 
 
+def _pricing_platform(device):
+    """The CostDB partition the efficiency pass prices under: the
+    session's device where one is named and this is no preflight; else
+    the CPU's for a CPU session or a host with no card and, for a card,
+    a partition that names none (asking a card its name initializes
+    CUDA, and a preflight's host need not hold the fleet's cards — so a
+    preflight prices a card's ops from FLOPs, as ``memory_pass`` there
+    takes no budget)."""
+    import torch
+    if device is not None and "HETU_PREFLIGHT" not in os.environ:
+        return {"device": device}
+    if (device is not None and torch.device(device).type == "cpu") \
+            or not torch.cuda.is_available():
+        return {"tag": "cpu"}
+    return {"tag": UNNAMED_CARD}
+
+
 def analyze(eval_node_list, feed_shapes=None, config=None, schedule=None,
             nprocs=None, num_microbatches=None, hbm_budget=None,
             extra_roots=(), frozen=False, virtual_stages=None,
@@ -91,7 +118,10 @@ def analyze(eval_node_list, feed_shapes=None, config=None, schedule=None,
     schedule, the microbatch count, the overlap options — but is
     optional: the passes derive staging and statuses from the graph
     itself. ``device`` is the session's device, whose memory is the
-    budget where none is given. A pass that crashes becomes an HT001
+    budget where none is given and whose CostDB entries price the
+    efficiency pass (:func:`_pricing_platform`: never a card's name
+    under ``HETU_PREFLIGHT`` or with no device named, so a preflight
+    initializes no CUDA). A pass that crashes becomes an HT001
     warning, so one broken analyzer never blocks a launch the others
     cleared.
     """
@@ -132,6 +162,13 @@ def analyze(eval_node_list, feed_shapes=None, config=None, schedule=None,
     _guard("memory", memory_pass, topo, shapes, report,
            budget=hbm_budget, device=device)
     _guard("overlap", overlap_pass, topo, report, config=config)
+    # the priced performance lint (HT9xx): warn above the ms threshold,
+    # info below, never error — slow is advisory at launch time; the zoo
+    # CLI (python -m hetu_tpu_torch.analysis.efficiency) owns the gate
+    with platform_scope(**_pricing_platform(device)):
+        _guard("efficiency", efficiency_pass, topo, report, shapes=shapes,
+               dtypes=dtypes, config=config, eval_nodes=eval_node_list,
+               extra_roots=extra_roots)
     if frozen:
         _guard("frozen", frozen_graph_pass, topo, report)
     return report

@@ -8,9 +8,10 @@ model's findings. Exit status 1 when any model has errors.
 
 The JAX package's ``--all`` (the zoo with every self-lint, numerics
 and efficiency in one report) and ``--jit-purity`` need passes that
-are ROADMAP items 17c–17d; both are refused, naming them, with exit
-status 2. The numerics pass runs inside :func:`analyze`, and alone as
-``python -m hetu_tpu_torch.analysis.numerics``.
+are ROADMAP item 17d; both are refused, naming it, with exit status 2.
+The numerics and efficiency passes run inside :func:`analyze`, and
+alone as ``python -m hetu_tpu_torch.analysis.numerics`` and ``python -m
+hetu_tpu_torch.analysis.efficiency``.
 """
 from __future__ import annotations
 
@@ -18,8 +19,8 @@ import argparse
 import sys
 
 # the reference's options whose passes are still to port -> their item
-REFUSED = {"all": ("--all", "items 17c–17d (efficiency, the PS wire "
-                            "check and the self-lints)"),
+REFUSED = {"all": ("--all", "item 17d (the PS wire check and the "
+                            "self-lints)"),
            "jit_purity": ("--jit-purity", "item 17d (the self-lints)")}
 
 
@@ -62,7 +63,7 @@ def main(argv=None):
                              "item 17d")
     parser.add_argument("--all", action="store_true",
                         help="refused: the aggregate report needs "
-                             "ROADMAP items 17c-17d")
+                             "ROADMAP item 17d")
     args = parser.parse_args(argv)
     for dest, (flag, item) in REFUSED.items():
         if getattr(args, dest):

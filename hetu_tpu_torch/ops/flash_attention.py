@@ -83,6 +83,25 @@ def _block_sizes(seq_len, head_dim):
     return max(bq, 8), max(bk, 8)
 
 
+def _candidates(s, d, dtype):
+    """The block configurations a sweep could pick among for the
+    kernels at one shape (the efficiency lint's HT907 reads it): each
+    route compiles its tiles in (``tc`` 64-row q tiles, ``simt`` 32-row
+    in K1/K2), so a shape has its route's one configuration until
+    ROADMAP item 13 makes them tunable."""
+    return [_fwd_route(dtype, d)]
+
+
+def tune_key(kind, s, d, dtype, causal, has_mask):
+    """(name, key) under which a flash kernel's block choice would be
+    cached (the reference's key; ``kind`` is ``fwd`` / ``fwd_lse`` /
+    ``bwd``)."""
+    key = (f"S{s}", f"D{d}", str(dtype).split(".")[-1],
+           "causal" if causal else "full",
+           "mask" if has_mask else "nomask")
+    return f"flash_{kind}", key
+
+
 def _supported(s, d, block_q, block_k):
     return not (s < 8 or d % 8 or s % block_q or s % block_k)
 

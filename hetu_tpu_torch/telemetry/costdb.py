@@ -553,9 +553,19 @@ def comm_microbench(db, sizes=None, reps=3, save=True, device=None,
 
 
 def _local_points(n, device, sizes, reps):
-    """:func:`_collective_points` over ``n`` thread ranks of this process
-    (a LocalJob: gloo groups over one store, a loopback pipe channel
-    each); rank 0's points."""
+    """:func:`_collective_points` over ``n`` thread ranks of this process;
+    rank 0's points."""
+    return on_thread_ranks(n, device, lambda r, dev, comm, job:
+                           _collective_points(r, dev, comm, job.channel(),
+                                              n, sizes, reps))[0]
+
+
+def on_thread_ranks(n, device, body):
+    """``body(rank, device, comm, job)`` on ``n`` thread ranks of this
+    process (a LocalJob: gloo groups over one store, a loopback pipe
+    channel each; ``comm`` a ``GroupComm`` over all ``n``), rank ``r``
+    on ``cuda:(r mod cards)`` where ``device`` is a card. Returns each
+    rank's result; a rank's exception is raised again here."""
     import torch
     from ..ops.comm import GroupComm
     from ..parallel.local_ranks import DEFAULT_TIMEOUT_S
@@ -572,8 +582,7 @@ def _local_points(n, device, sizes, reps):
                 dev = torch.device("cuda", r % torch.cuda.device_count())
                 torch.cuda.set_device(dev)
             group = job.new_group(list(range(n)))
-            results[r] = _collective_points(r, dev, GroupComm(group),
-                                            job.channel(), n, sizes, reps)
+            results[r] = body(r, dev, GroupComm(group), job)
         except BaseException as e:      # raised again on the caller
             errors.append(e)
 
@@ -590,9 +599,9 @@ def _local_points(n, device, sizes, reps):
     if errors:
         raise errors[0]
     if any(t.is_alive() for t in threads):
-        raise TimeoutError(f"comm_microbench: a thread rank of {n} did not "
-                           f"finish within {DEFAULT_TIMEOUT_S} s")
-    return results[0]
+        raise TimeoutError(f"a thread rank of {n} did not finish within "
+                           f"{DEFAULT_TIMEOUT_S} s")
+    return results
 
 
 def ps_microbench(db, client, tid=900_001, width=64, sizes=None,

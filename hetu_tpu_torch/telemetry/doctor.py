@@ -620,10 +620,10 @@ def render_serving_text(diag):
 # -- diagnosis --------------------------------------------------------------
 
 # the static-verifier code that lints each bucket's pattern before a
-# launch (the reference's analysis/efficiency.py, DOCTOR_BUCKET
-# inverted): remediation lines cite it so the measured view and the
-# priced static report cross-reference once the port's efficiency pass
-# lands (ROADMAP item 17)
+# launch (analysis/efficiency.py, DOCTOR_BUCKET inverted): remediation
+# lines cite it so the measured view and the priced static report
+# cross-reference — `python -m hetu_tpu_torch.analysis.efficiency`
+# predicts what this diagnosis measures
 _REMEDY_CODE = {
     "h2d_ingest": "HT905", "collective": "HT904", "jit": "HT901/HT907",
     "unaccounted": "HT903", "compute": "HT902/HT906",
@@ -662,7 +662,8 @@ def _remedy(bucket):
     text = _REMEDY.get(bucket, "")
     code = _REMEDY_CODE.get(bucket)
     if text and code:
-        text += f" [static twin: {code}, ROADMAP item 17's efficiency pass]"
+        text += (f" [static twin: {code} — "
+                 f"python -m hetu_tpu_torch.analysis.efficiency]")
     return text
 
 

@@ -59,8 +59,8 @@ Counterpart of ``hetu_tpu/telemetry/fleet.py``. Where the port differs:
   this rank's hidden work), and ``HETU_FAULT_SLOW_RANK`` names a thread
   rank there. :func:`dump_current` flushes every live timeline.
 * **The drift bound** is perfcheck's (``SOUND_FACTOR``,
-  ``SOUND_SLACK_MS``), copied here: the port's ``analysis/perfcheck.py``
-  waits for ROADMAP item 17. A kind the CostDB holds no entry of is not
+  ``SOUND_SLACK_MS``), copied here: importing ``analysis/perfcheck.py``
+  imports torch, which the launcher's monitor runs without. A kind the CostDB holds no entry of is not
   looked up at all, so the CLI and the launcher's monitor read the DB
   without torch until it holds a measurement to compare against (a
   lookup keys by the platform, which asks torch for the card).
@@ -84,10 +84,12 @@ import time
 
 from .doctor import _PRIORITY, _merge, _subtract, _total, classify
 
-# perfcheck's HT910 soundness bound (the reference's
-# analysis/perfcheck.py SOUND_FACTOR / SOUND_SLACK_MS), kept here until
-# ROADMAP item 17 ports perfcheck: a measured comm time over
-# SOUND_FACTOR x predicted + SOUND_SLACK_MS is an exceeded window
+# the HT910 soundness bound, defined here because the launcher runs this
+# module without torch; analysis/perfcheck.py imports it from here. A
+# priced claim over SOUND_FACTOR x its measured bucket + SOUND_SLACK_MS is
+# unsound (the cold-start model must rank, not predict walls; the slack
+# absorbs sub-threshold buckets on fast steps), and a measured comm time
+# over SOUND_FACTOR x predicted + SOUND_SLACK_MS is an exceeded window
 SOUND_FACTOR = 3.0
 SOUND_SLACK_MS = 0.5
 

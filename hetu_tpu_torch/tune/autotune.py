@@ -88,12 +88,20 @@ def _device_tag(device):
     return tag
 
 
+# the partition of a card that is not named: asking a card for its name
+# initializes CUDA, which a preflight must not do (analysis.analyze)
+UNNAMED_CARD = "cuda-unnamed"
+
+
 def platform_tag(device=None):
     """Cache partition for where the work runs: ``cpu`` for CPU tensors,
     ``cuda-<card name>`` for a card. ``device`` names it; else the
     innermost :func:`platform_scope` of this thread; else the card when
     CUDA is there, the CPU otherwise."""
     if device is None:
+        tag = getattr(_scope, "tag", None)
+        if tag is not None:
+            return tag
         device = getattr(_scope, "device", None)
     if device is None:
         import torch
@@ -102,16 +110,20 @@ def platform_tag(device=None):
 
 
 @contextlib.contextmanager
-def platform_scope(device):
+def platform_scope(device=None, tag=None):
     """Key this thread's lookups (and CostDB entries) by ``device``'s
-    platform for the duration; ``None`` leaves the current one."""
-    prev = getattr(_scope, "device", None)
-    if device is not None:
-        _scope.device = device
+    platform for the duration, or by the partition ``tag`` itself (which
+    asks no device for its name); ``None`` for both leaves the current
+    one."""
+    prev = (getattr(_scope, "device", None), getattr(_scope, "tag", None))
+    if tag is not None:
+        _scope.device, _scope.tag = None, tag
+    elif device is not None:
+        _scope.device, _scope.tag = device, None
     try:
         yield
     finally:
-        _scope.device = prev
+        _scope.device, _scope.tag = prev
 
 
 def _key_string(name, key):

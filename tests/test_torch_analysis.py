@@ -9,9 +9,10 @@ packages' ``analyze`` (or pass), and compares what the findings say:
 code, severity, ``where``, the node's name up to the graph's id offset
 (a name carries its package's node counter, which other graphs built in
 the process have moved), and the data fields (HT402's bytes exactly).
-The numerics findings (HT8xx) are compared too; the JAX package's
-efficiency and wire passes (HT7xx, HT9xx) are ROADMAP items 17c–17d and
-stay out of the comparison.
+The numerics (HT8xx) and efficiency (HT9xx) findings are compared too;
+HT902 prices the card's GEMM granule where the JAX package prices the
+TPU's lanes, and no twin graph here pads either. The JAX package's wire
+pass (HT7xx) is ROADMAP item 17d and stays out of the comparison.
 """
 import logging
 import re
@@ -31,8 +32,8 @@ from hetu_tpu_torch.graph.autodiff import find_topo_sort as ttopo
 
 PKGS = {"jax": (jht, janalysis, jtopo, jdead),
         "torch": (tht, tanalysis, ttopo, tdead)}
-# the passes still to port (ROADMAP 17c–17d)
-LATER = ("HT7", "HT9")
+# the pass still to port (ROADMAP 17d)
+LATER = ("HT7",)
 
 
 def _renumber(text, base):
@@ -46,7 +47,7 @@ def _renumber(text, base):
 def view(report, nodes, topo, messages=False):
     """What ``report`` says, comparable across the packages: sorted
     (code, severity, where, node, data[, message]) of every finding
-    outside HT7xx and HT9xx, node ids less the graph's smallest."""
+    outside HT7xx, node ids less the graph's smallest."""
     order = topo(list(nodes)) if nodes else []
     base = min((n.id for n in order), default=0)
     out = []

@@ -147,7 +147,7 @@ def test_analysis_cli_zoo_subset():
         timeout=120, cwd=REPO)
     # --all is refused naming its items; without it the subset runs
     assert proc.returncode == 2
-    assert "ROADMAP items 17c–17d" in proc.stderr
+    assert "ROADMAP item 17d" in proc.stderr
     proc = subprocess.run(
         [sys.executable, "-m", "hetu_tpu_torch.analysis", "mlp", "logreg"],
         env=clean_fleet_env(), capture_output=True, text=True,

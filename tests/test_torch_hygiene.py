@@ -62,6 +62,8 @@ def test_imports_without_jax_or_hetu_tpu():
         "import hetu_tpu_torch.stream, hetu_tpu_torch.lr_scheduler\n"
         "import hetu_tpu_torch.examples.gcn_main\n"
         "import hetu_tpu_torch.examples.sampled_sage\n"
+        "import hetu_tpu_torch.analysis.efficiency\n"
+        "import hetu_tpu_torch.analysis.perfcheck\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'hetu_tpu') and sys.modules[m]]\n"
         "assert not bad, bad\n")
@@ -294,13 +296,24 @@ def test_reference_top_level_names_of_ported_modules_are_exported():
         want = _reference_all(module)
         assert want, module
         port = importlib.import_module(f"hetu_tpu_torch.{module}")
-        missing = [n for n in want
-                   if n not in port.__all__ or not hasattr(port, n)]
+        left_out = LEFT_OUT.get(module, {})
+        missing = [n for n in want if n not in left_out
+                   and (n not in port.__all__ or not hasattr(port, n))]
         assert not missing, (module, missing)
+        # a name left out is one the reference exports and the port lacks
+        assert set(left_out) <= set(want), module
+        assert not [n for n in left_out if hasattr(port, n)], module
 
 
 # ported modules whose whole ``__all__`` the reference's names must be in
-PORTED_ALL = ("analysis.numerics", "analysis.rangecheck")
+PORTED_ALL = ("analysis.numerics", "analysis.rangecheck",
+              "analysis.efficiency", "analysis.perfcheck")
+
+# reference names a ported module leaves out, and why
+LEFT_OUT = {"analysis.efficiency": {
+    "advise_recompiles": "the reference's executor calls it from "
+                         "SubExecutor._note_compile; the port's eager walk "
+                         "compiles nothing, so it has no caller (ROADMAP §3)"}}
 
 
 def _reference_all(module):
